@@ -29,42 +29,23 @@
 // cudaGetLastError(), because a refused launch never runs and a later
 // synchronize would not report it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "common.cuh"
 
 namespace {
+
+using colxlip::align16;
+using colxlip::from_f;
+using colxlip::to_f;
+using colxlip::warp_max;
+using colxlip::warp_sum;
 
 constexpr int kWarps = 8;
 constexpr int kRowsPerBlock = 64;
 constexpr int kMaxN = 256;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // K row stride in elements: an odd number of 32-bit words.
 template <typename T, int D>
-__host__ __device__ constexpr int k_stride() { return sizeof(T) == 2 ? D + 2 : D + 1; }
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
+__host__ __device__ constexpr int k_stride() { return colxlip::odd_word_stride<T, D>(); }
 
 template <typename T, int D>
 __host__ __device__ inline size_t kv_bytes(int n) {

@@ -32,90 +32,30 @@
 // shuffles, and one warp reduces the masked mean. The similarity tile never
 // leaves registers; nothing of size [M, K, Lt, Li] exists anywhere.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "maxsim_tile.cuh"
 
 namespace {
 
-constexpr int kTX = 16;              // threads along image tokens
-constexpr int kTY = 16;              // threads along text tokens
-constexpr int kRPT = 5;              // text rows per thread
-constexpr int kRows = kTY * kRPT;    // 80 >= Lt = 77
-constexpr int kDC = 32;              // feature chunk staged in shared memory
-constexpr float kEps = 1e-8f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+using namespace colxlip::maxsim_tile;
 
 template <typename T, int CPT>
-__global__ void __launch_bounds__(kTX * kTY)
+__global__ void __launch_bounds__(kThreads)
 maxsim_fwd_kernel(const T* __restrict__ text, const T* __restrict__ image,
                   const float* __restrict__ text_mask, float* __restrict__ out,
                   int num_k, int lt, int li, int d, int mask_mode) {
-  constexpr int kCols = kTX * CPT;
-  __shared__ float ts[kDC][kRows + 1];
-  __shared__ float is[kDC][kCols + 1];
-  __shared__ float rowmax[kRows];
-
+  __shared__ Smem<CPT> sm;
   const int m = blockIdx.x / num_k;
   const int k = blockIdx.x - m * num_k;
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const T* tm = text + size_t(m) * lt * d;
-  const T* ik = image + size_t(k) * li * d;
-
   float acc[kRPT][CPT];
-#pragma unroll
-  for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
-
-  for (int d0 = 0; d0 < d; d0 += kDC) {
-    for (int idx = threadIdx.x; idx < kRows * kDC; idx += blockDim.x) {
-      const int row = idx / kDC, dd = idx - row * kDC;
-      ts[dd][row] = (row < lt && d0 + dd < d) ? to_f(tm[size_t(row) * d + d0 + dd]) : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < kCols * kDC; idx += blockDim.x) {
-      const int col = idx / kDC, dd = idx - col * kDC;
-      is[dd][col] = (col < li && d0 + dd < d) ? to_f(ik[size_t(col) * d + d0 + dd]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int dd = 0; dd < kDC; ++dd) {
-      float a[kRPT], bv[CPT];
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r) a[r] = ts[dd][ty + kTY * r];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) bv[c] = is[dd][tx + kTX * c];
-#pragma unroll
-      for (int r = 0; r < kRPT; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(a[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRPT; ++r) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      if (tx + kTX * c < li) mx = fmaxf(mx, acc[r][c]);
-    // the 16 tx lanes of one ty sit in one half-warp
-#pragma unroll
-    for (int o = kTX / 2; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    if (tx == 0) rowmax[ty + kTY * r] = mx;
-  }
-  __syncthreads();
+  sim_tile<T, CPT>(text + size_t(m) * lt * d, image + size_t(k) * li * d, lt, li, d, sm, acc);
 
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
+    const float* mask_row = text_mask + size_t(m) * lt;
     float s = 0.f, w = 0.f;
     for (int n = lane; n < lt; n += 32) {
-      const float v = rowmax[n];
-      const float wn = mask_mode == 0 ? (v != 0.f ? 1.f : 0.f)
-                     : mask_mode == 1 ? 1.f
-                                      : text_mask[size_t(m) * lt + n];
+      const float v = sm.rowmax[n];
+      const float wn = token_weight(mask_mode, v, mask_row, n);
       s += v * wn;
       w += wn;
     }
@@ -131,7 +71,7 @@ maxsim_fwd_kernel(const T* __restrict__ text, const T* __restrict__ image,
 template <typename T, int CPT>
 cudaError_t launch(const void* text, const void* image, const void* mask, void* out, int m,
                    int k, int lt, int li, int d, int mask_mode, cudaStream_t stream) {
-  maxsim_fwd_kernel<T, CPT><<<unsigned(m) * unsigned(k), kTX * kTY, 0, stream>>>(
+  maxsim_fwd_kernel<T, CPT><<<unsigned(m) * unsigned(k), kThreads, 0, stream>>>(
       static_cast<const T*>(text), static_cast<const T*>(image),
       static_cast<const float*>(mask), static_cast<float*>(out), k, lt, li, d, mask_mode);
   return cudaGetLastError();
@@ -153,7 +93,7 @@ cudaError_t dispatch(const void* text, const void* image, const void* mask, void
 extern "C" int colxlip_maxsim_fwd(const void* text, const void* image, const void* mask,
                                   void* out, int m, int k, int lt, int li, int d,
                                   int mask_mode, int dtype, void* stream) {
-  if (m < 1 || k < 1 || lt < 1 || lt > kRows || li < 1 || li > 16 * kTX || d < 1 ||
+  if (m < 1 || k < 1 || lt < 1 || lt > kRows || li < 1 || li > kMaxCols || d < 1 ||
       mask_mode < 0 || mask_mode > 2 || (mask_mode == 2 && mask == nullptr) ||
       (long long)m * k > 0x7fffffffLL)
     return cudaErrorInvalidValue;

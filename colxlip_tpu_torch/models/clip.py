@@ -5,10 +5,15 @@
 (``vision_token_layer``, ``text_token_layer``); its ``encode_text`` zeroes the
 ln_final token features at and after the EOT position BEFORE the token head,
 and both encoders return (pooled, token features).
+
+``forward(image, text)`` returns the dict of the JAX ``__call__``:
+``logit_scale`` (= exp of the parameter), the l2-normalised pooled features
+(and, for ColXLIP, the normalised token features), and ``logit_bias`` when
+the model has one. It is what the train step and the losses read.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -65,6 +70,23 @@ class CLIP(nn.Module):
         pooled, _ = encode_text_tower(self, text, self.dtype)
         return l2_normalize(pooled) if normalize else pooled
 
+    def _scalars(self) -> Dict[str, torch.Tensor]:
+        out = {"logit_scale": self.logit_scale.exp()}
+        if hasattr(self, "logit_bias"):
+            out["logit_bias"] = self.logit_bias
+        return out
+
+    def forward(self, image: Optional[torch.Tensor] = None,
+                text: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """colxlip_tpu/models/clip.py ``CLIP.__call__``: normalised pooled
+        features of the towers given, plus ``logit_scale`` / ``logit_bias``."""
+        out = self._scalars()
+        if image is not None:
+            out["image_features"] = self.encode_image(image, normalize=True)
+        if text is not None:
+            out["text_features"] = self.encode_text(text, normalize=True)
+        return out
+
 
 class ColXLIP(CLIP):
     """CLIP + ColBERT-style token heads."""
@@ -96,3 +118,16 @@ class ColXLIP(CLIP):
         if normalize:
             pooled, tokens = l2_normalize(pooled), l2_normalize(tokens)
         return pooled, tokens
+
+    def forward(self, image: Optional[torch.Tensor] = None,
+                text: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """colxlip_tpu/models/clip.py ``ColXLIP.__call__``: the four
+        normalised feature tensors plus ``logit_scale`` / ``logit_bias``."""
+        out = self._scalars()
+        if image is not None:
+            out["image_features"], out["token_image_features"] = (
+                self.encode_image(image, normalize=True))
+        if text is not None:
+            out["text_features"], out["token_text_features"] = (
+                self.encode_text(text, normalize=True))
+        return out

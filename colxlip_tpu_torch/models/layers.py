@@ -11,8 +11,8 @@ Parameter names follow the OpenCLIP state-dict keys that
 (``ln_1``, ``attn.in_proj_weight``, ``attn.out_proj``, ``ln_2``, ``mlp.c_fc``,
 ``mlp.c_proj``), so ``load_state_dict(strict=True)`` proves the layout.
 
-Not ported (no config on the serving path uses them): LayerScale,
-PatchDropout (train only), cross-attention and the attentional pooler.
+Not ported (no shipped config uses them): LayerScale, PatchDropout (the
+vision tower refuses it), cross-attention and the attentional pooler.
 """
 from __future__ import annotations
 

@@ -24,6 +24,10 @@ def check_supported(cfg: CLIPVisionCfg) -> None:
         "ls_init_value": cfg.ls_init_value is not None,
         "pos_embed_type": cfg.pos_embed_type != "learnable",
         "pool_type": cfg.pool_type != "tok",
+        # PatchDropout: the JAX tower drops patch tokens when training
+        # (colxlip_tpu/models/vision.py:112-115); a train step here would
+        # silently differ, so the option is refused until it is ported
+        "patch_dropout (PatchDropout)": cfg.patch_dropout > 0,
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

@@ -1,12 +1,16 @@
 """Build and load the port's CUDA kernels (``colxlip_tpu_torch/csrc/*.cu``).
 
 The kernels have a plain C interface and no PyTorch headers, so they build
-in seconds with ``nvcc`` into one shared library, loaded with ``ctypes``:
+in seconds with ``nvcc``: one ``nvcc -c`` per source, all started together,
+then one link into a shared library, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o colxlip_tpu_torch/build/libcolxlip_kernels-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -c csrc/<name>.cu -o <name>.o                       # each source at once
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o \\
+         colxlip_tpu_torch/build/libcolxlip_kernels-<hash>.so *.o
 
-The build runs at first use, keyed on a hash of the sources (and the flags),
+The build runs at first use, keyed on a hash of the sources and headers
+(``csrc/*.cu``, ``csrc/*.cuh``) and the flags,
 into ``colxlip_tpu_torch/build/`` (listed in ``.gitignore``). A missing
 ``nvcc`` or a failed build raises ``RuntimeError``: there is no fallback, so a
 CUDA tensor either runs the hand-written kernel or the call fails.
@@ -23,20 +27,26 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = pathlib.Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # qkv, out, B, N, H, D, causal, dtype, scale, stream
     "colxlip_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # qkv, dout, dqkv, stats, B, N, H, D, causal, dtype, scale, stream
+    "colxlip_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # text, image, mask, out, M, K, Lt, Li, D, mask_mode, dtype, stream
     "colxlip_maxsim_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # text, image, mask, g, coef, ties, dtext, dimage, M, K, Lt, Li, D,
+    # mask_mode, dtype, stream
+    "colxlip_maxsim_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -83,10 +93,17 @@ def _sources():
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcolxlip_kernels-{h.hexdigest()[:16]}.so"
+
+
+def _run(cmd) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
 
 
 def build() -> pathlib.Path:
@@ -97,21 +114,17 @@ def build() -> pathlib.Path:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # objects and the library under a temporary directory, then rename:
+    # concurrent builders never load a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        with ThreadPoolExecutor(len(objs)) as pool:
+            for fut in [pool.submit(_run, [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj])
+                        for src, obj in zip(_sources(), objs)]:
+                fut.result()
+        out = os.path.join(tmp, lib.name)
+        _run([nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs])
+        os.replace(out, lib)
     return lib
 
 

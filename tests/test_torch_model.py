@@ -233,6 +233,7 @@ def test_create_model_is_seeded():
 def test_port_never_imports_jax():
     code = ("import sys; import colxlip_tpu_torch.serving.server; "
             "import colxlip_tpu_torch.convert; "
+            "import colxlip_tpu_torch.parallel.train_step; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'colxlip_tpu')); "
             "print(bad); sys.exit(1 if bad else 0)")
