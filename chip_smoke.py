@@ -12,14 +12,23 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
   3. kernels: each forward kernel against its plain PyTorch version at the
      serving shapes, and each backward kernel against its plain version at
      the training shapes (batch 256) in fp32 and bf16, with the tolerances
-     below.
+     below; the three streaming-CE kernels (forward, dA + dscale, dB) in
+     fp32 and bf16 at M = N = 256 and 4096 (D = 512), M = 33, N = 129
+     (D = 64), and in bf16 at M = N = 32768, where the dense fp32 logits
+     would be 4 GiB: the kernel path's peak memory there is printed and
+     bounded, and two runs of the backward must agree bit for bit.
   4. serving slice: ColXLIPService (ViT-B-16-colxlip, full width, random
      init from seed 0, bf16 compute) behind make_server on an ephemeral
      port, driven over HTTP; checks finite unit-norm embeddings, that both
      forward kernels were launched by the requests, and the /v1/score
      matrices against a plain-path recomputation on the same device.
   5. timings (CUDA events, after warm-up): each kernel against its plain
-     version, encode throughput at batch 64, request latency.
+     version, and against the one PyTorch call that computes the same
+     function where there is one (scaled_dot_product_attention, forward and
+     backward; for the streaming CE the pair torch.matmul + F.cross_entropy
+     over the dense logits is timed beside it); encode throughput at batch
+     64, request latency. The library calls are timed only: the port never
+     calls them.
   6. train slice: make_train_step on ViT-B-16-colxlip (full width and depth,
      seed 0, fp32 parameters, bf16 compute), colclip loss (alpha 0.5, mask
      'nonzero'), AdamW with a cosine schedule, batch 256 of seeded synthetic
@@ -30,10 +39,26 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      times the step (ms, img/s), reads the peak device memory, and prints
      the device time of one more step by kernel (torch.profiler) with the
      device's idle share of that step.
+  7. training entry point: colxlip_tpu_torch.main.main([...]) in process,
+     ViT-B-16 (full width and depth, clip loss) with --dataset-type
+     synthetic --batch-size 256 --precision bf16 --ce-impl fused, 2 epochs
+     of 6 steps with fresh batches from the prefetch threads, a checkpoint
+     per epoch; checks the return code, that every logged loss is finite and
+     the first is near ln 256, that epoch_1, epoch_2, params.txt, out.log and
+     metrics.jsonl exist, and that the steps launched the three CE kernels
+     (two each a step) and the attention kernels; then --epochs 3 --resume
+     latest must go on from epoch_2 and write epoch_3. Prints the step's ms
+     and samples/s, data_time, the peak device memory and the device's idle
+     share over three profiled steps.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi name and power limit, and before that one JSON object with the
-per-kernel results.
+per-kernel results: for each kernel its launches on its path (counters set
+to 0 just before the path is driven), its largest error against the plain
+version, its time beside the plain version's, the library call's (or null)
+and the bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the card's peak for the input type (989 TFLOP/s bf16, 67
+TFLOP/s fp32; NVIDIA's H100 SXM data sheet).
 """
 from __future__ import annotations
 
@@ -43,9 +68,12 @@ import copy
 import io
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -68,8 +96,28 @@ SCORE_TOL_PER_UNIT_SCALE = 2e-2
 #         attention backward rounds dz and p to bf16 on the way, where the
 #         two versions may land one step apart: 2^-7 (two bf16 steps).
 BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# streaming-CE kernels vs their plain versions:
+#   loss rows and lse: |got - want| / (1 + |want|) <= 1e-5 (fp32 sums of the
+#     products in another order; a bf16 x bf16 product is exact in fp32);
+#   dA, dB, dscale: 1e-4 of the largest |grad| (expf against torch.exp at
+#     1e-7 relative, summed over up to 32768 terms at logits up to 100).
+CE_FWD_TOL = 1e-5
+CE_BWD_TOL = 1e-4
+CE_CASES = [
+    # M, N, D, logit scale, dtypes
+    (256, 256, 512, 1 / 0.07, ("float32", "bfloat16")),     # one step of phase 7
+    (33, 129, 64, 30.0, ("float32", "bfloat16")),
+    (4096, 4096, 512, 100.0, ("float32", "bfloat16")),
+    (32768, 32768, 512, 100.0, ("bfloat16",)),              # dense logits: 4 GiB
+]
+CE_PEAK_LIMIT_GIB = 1.0     # kernel path at 32768, above its inputs
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TRAIN_BATCH = 256
 TRAIN_STEPS = 10
+MAIN_MODEL = "ViT-B-16"
+MAIN_STEPS_PER_EPOCH = 6
 COMPARE_BATCH = 64
 # the train step through the kernels vs through the plain versions (batch
 # 64, same weights and inputs), per gradient tensor: (min cosine, max
@@ -162,6 +210,191 @@ def max_rel_err(got, want) -> float:
     """max |got - want| over the largest |want| (both read as fp32)."""
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def bound_ms(bytes_moved: float, flops: float, dtype: str):
+    """(least ms the card could take, 'bytes' or 'operations'): each input
+    read once and each output written once at the memory rate, against the
+    operations at the peak rate for the input type."""
+    by_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce):
+    """bound_ms of every kernel at the shape its ``ms`` is timed at, from the
+    tensors themselves: attention (packed QKV [B, N, 3 H D]; 4 B H N^2 D
+    flops forward, 10 backward: five products), MaxSim (text [M, Lt, D],
+    image [K, Li, D]; the similarities are 2 M K Lt Li D flops, the backward
+    adds dT and dI at 2 M K Lt D each), CE (a [M, D], b [N, D]; 2 M N D
+    forward, 4 M N D in dA and in dB)."""
+    def name(t):
+        return str(t.dtype).split(".")[-1]
+
+    out = {}
+    for key, qkv, passes, flop_factor in (("fused_attention_fwd", qkv_fwd, 4, 4),
+                                          ("fused_attention_bwd", qkv_bwd, 7, 10)):
+        b, n, width = qkv.shape
+        hd = width // 3
+        out[key] = bound_ms(b * n * hd * passes * qkv.element_size(),
+                            flop_factor * b * n * n * hd, name(qkv))
+    for key, (text, image), backward in (("maxsim_fwd", maxsim_fwd, False),
+                                         ("maxsim_bwd", maxsim_bwd, True)):
+        (m, lt, d), (k, li, _) = text.shape, image.shape
+        feats = (m * lt + k * li) * d * text.element_size()
+        flops = 2 * m * k * lt * li * d + (4 * m * k * lt * d if backward else 0)
+        out[key] = bound_ms(feats * (2 if backward else 1) + m * k * 4, flops, name(text))
+    a, b = ce
+    (m, d), n = a.shape, b.shape[0]
+    feats = (m + n) * d * a.element_size()
+    out["fused_ce_fwd"] = bound_ms(feats + 3 * m * 4, 2 * m * n * d, name(a))
+    out["fused_ce_bwd_da"] = bound_ms(feats + 4 * m * 4 + m * d * 4, 4 * m * n * d, name(a))
+    out["fused_ce_bwd_db"] = bound_ms(feats + 3 * m * 4 + n * d * 4, 4 * m * n * d, name(a))
+    return out
+
+
+def ce_inputs(m, n, d, scale, dtype, dev, gen):
+    import torch
+
+    a, b = (torch.nn.functional.normalize(torch.randn(rows, d, generator=gen), dim=-1)
+            .to(dev, dtype) for rows in (m, n))
+    labels = torch.randint(0, n, (m,), generator=gen, dtype=torch.int32).to(dev)
+    g = (torch.rand(m, generator=gen) / m).to(dev)
+    return a, b, labels, torch.tensor(scale, device=dev), g
+
+
+def check_ce_kernels(dev, gen):
+    """Phase 3c: the three streaming-CE kernels against their plain versions.
+    Returns (max errors per kernel, bf16 inputs by M for the timings)."""
+    import torch
+
+    from colxlip_tpu_torch.ops import fused_ce
+
+    def unit_err(got, want):
+        return ((got - want).abs() / (1 + want.abs())).max().item()
+
+    errs = {"fused_ce_fwd": 0.0, "fused_ce_bwd_da": 0.0, "fused_ce_bwd_db": 0.0}
+    inputs = {}
+    for m, n, d, scale, dtypes in CE_CASES:
+        for name in dtypes:
+            a, b, labels, s, g = ce_inputs(m, n, d, scale, getattr(torch, name), dev, gen)
+            loss, lse = fused_ce._launch_fwd(a, b, labels, s)
+            da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+            db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
+            again = (*fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+                     fused_ce._launch_bwd_db(a, b, labels, s, lse, g))
+            want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+            # the plain backward starts from the plain lse: only the kernels differ
+            want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
+            want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
+            torch.cuda.synchronize()
+            err = {"fused_ce_fwd": max(unit_err(loss, want_loss), unit_err(lse, want_lse)),
+                   "fused_ce_bwd_da": max(max_rel_err(da, want_da), max_rel_err(ds, want_ds)),
+                   "fused_ce_bwd_db": max_rel_err(db, want_db)}
+            log(f"[3 kernels] fused CE M={m} N={n} D={d} scale={scale:.4g} {name}: fwd "
+                f"|err| / (1 + |loss|) {err['fused_ce_fwd']:.3g} (tol {CE_FWD_TOL}); "
+                f"max_abs_err / max|grad| dA+dscale {err['fused_ce_bwd_da']:.3g}, dB "
+                f"{err['fused_ce_bwd_db']:.3g} (tol {CE_BWD_TOL}); loss mean "
+                f"{loss.mean().item():.5f}")
+            if not (err["fused_ce_fwd"] <= CE_FWD_TOL and torch.isfinite(loss).all()
+                    and err["fused_ce_bwd_da"] <= CE_BWD_TOL
+                    and err["fused_ce_bwd_db"] <= CE_BWD_TOL):
+                raise RuntimeError(f"fused CE M={m} N={n} {name}: {err}")
+            if not all(torch.equal(x, y) for x, y in zip((da, ds, db), again)):
+                raise RuntimeError(f"fused CE M={m} N={n} {name}: two runs of the backward "
+                                   "kernels differ (they use no atomics)")
+            errs = {k: max(v, err[k]) for k, v in errs.items()}
+            if name == "bfloat16":
+                inputs[m] = (a, b, labels, s, lse, g)
+            del loss, da, ds, db, again, want_loss, want_lse, want_da, want_ds, want_db
+
+    # no [M, N] tensor on the kernel path: forward and backward under autograd
+    a, b, labels, s, _, _ = inputs[32768]
+    a_, b_, s_ = a.clone().requires_grad_(), b.clone().requires_grad_(), \
+        s.clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fused_ce.fused_contrastive_ce(a_, b_, labels, s_).backward()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    dense = a.shape[0] * b.shape[0] * 4 / 2**30
+    log(f"[3 kernels] fused CE M=N=32768 bf16 forward + backward under autograd: peak device "
+        f"memory {peak:.3f} GiB above the inputs (limit {CE_PEAK_LIMIT_GIB}; dense fp32 "
+        f"logits alone would be {dense:.0f} GiB); two backward runs bit-equal at every shape")
+    if not (peak <= CE_PEAK_LIMIT_GIB and torch.isfinite(a_.grad).all()
+            and torch.isfinite(b_.grad).all() and torch.isfinite(s_.grad)):
+        raise RuntimeError(f"fused CE at 32768: peak {peak} GiB or non-finite gradients")
+    return errs, inputs
+
+
+def time_ce_kernels(inputs, card: str):
+    """Phase 5: each CE kernel, its plain version and the dense pair
+    (fp32 torch.matmul + F.cross_entropy, forward and forward + backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from colxlip_tpu_torch.ops import fused_ce
+
+    timing = {}
+    for m, (a, b, labels, s, lse, g) in inputs.items():
+        iters, warm = (50, 3) if m <= 256 else (10, 2) if m <= 4096 else (2, 1)
+        row = {
+            "fwd": (cuda_ms(lambda: fused_ce._launch_fwd(a, b, labels, s), iters, warm),
+                    cuda_ms(lambda: fused_ce.fused_ce_fwd_plain(a, b, labels, s), iters, warm)),
+            "bwd_da": (
+                cuda_ms(lambda: fused_ce._launch_bwd_da(a, b, labels, s, lse, g), iters, warm),
+                cuda_ms(lambda: fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, lse, g),
+                        iters, warm)),
+            "bwd_db": (
+                cuda_ms(lambda: fused_ce._launch_bwd_db(a, b, labels, s, lse, g), iters, warm),
+                cuda_ms(lambda: fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, lse, g),
+                        iters, warm)),
+        }
+        long_labels = labels.long()
+        a_, b_, s_ = a.clone().requires_grad_(), b.clone().requires_grad_(), \
+            s.clone().requires_grad_()
+
+        def dense():
+            return F.cross_entropy(s_ * torch.matmul(a_.float(), b_.float().T), long_labels)
+
+        def dense_fwd():
+            with torch.no_grad():
+                dense()
+
+        dense_ms = (cuda_ms(dense_fwd, iters, warm),
+                    cuda_ms(lambda: torch.autograd.grad(dense(), (a_, b_, s_)), iters, warm))
+        for key, (ker, plain) in row.items():
+            timing[f"fused_ce_{key}/{m}"] = (ker, plain)
+            log(f"[5 timing] fused_ce_{key} M=N={m} D={a.shape[1]} bf16: kernel {ker:.4f} ms, "
+                f"plain {plain:.4f} ms ({card})")
+        log(f"[5 timing] dense pair M=N={m} (fp32 torch.matmul + F.cross_entropy, holds "
+            f"[M, N]): forward {dense_ms[0]:.4f} ms, forward + backward {dense_ms[1]:.4f} ms; "
+            f"the three kernels together {sum(k for k, _ in row.values()):.4f} ms ({card})")
+        timing[f"dense_ce/{m}"] = dense_ms
+        del a_, b_, s_
+        torch.cuda.empty_cache()
+    return timing
+
+
+def time_library_attention(qkv, dout, heads: int, causal: bool):
+    """(forward ms, backward ms) of F.scaled_dot_product_attention on the
+    same packed QKV (timed only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, width = qkv.shape
+    d = width // (3 * heads)
+    q, k, v = (t.contiguous().requires_grad_()
+               for t in qkv.view(b, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 10)
+    if dout is None:
+        return fwd, None
+    grad = dout.view(b, n, heads, d).permute(0, 2, 1, 3).contiguous()
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True), 10)
+    return fwd, bwd
 
 
 def check_backward_kernels(dev, gen):
@@ -375,6 +608,128 @@ def train_phase(dev, card: str):
             "losses": losses}
 
 
+def main_phase(dev, card: str):
+    """Phase 7: train ViT-B-16 through the port's training entry point."""
+    import torch
+
+    from colxlip_tpu_torch import main as entry
+    from colxlip_tpu_torch.ops import attention, fused_ce
+    from colxlip_tpu_torch.training.logging_utils import setup_logging
+
+    counters = {"fused_attention_fwd": attention.LAUNCHES,
+                "fused_attention_bwd": attention.BWD_LAUNCHES,
+                "fused_ce_fwd": fused_ce.FWD_LAUNCHES,
+                "fused_ce_bwd_da": fused_ce.BWD_DA_LAUNCHES,
+                "fused_ce_bwd_db": fused_ce.BWD_DB_LAUNCHES}
+    steps = 2 * MAIN_STEPS_PER_EPOCH
+    with tempfile.TemporaryDirectory() as logs:
+        argv = ["--model", MAIN_MODEL, "--dataset-type", "synthetic", "--batch-size",
+                str(TRAIN_BATCH), "--precision", "bf16", "--ce-impl", "fused", "--epochs", "2",
+                "--steps-per-epoch", str(MAIN_STEPS_PER_EPOCH), "--log-every-n-steps", "1",
+                "--save-frequency", "1", "--workers", "0", "--seed", "0", "--logs", logs,
+                "--name", "smoke"]
+        log(f"[7 main] python -m colxlip_tpu_torch.main {' '.join(argv)}")
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        try:
+            rc = entry.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {name: c.value for name, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            if rc != 0:
+                raise RuntimeError(f"main returned {rc}")
+            base = os.path.join(logs, "smoke")
+            for rel in ("checkpoints/epoch_1/state.pt", "checkpoints/epoch_2/state.pt",
+                        "params.txt", "out.log", "metrics.jsonl"):
+                if not os.path.exists(os.path.join(base, rel)):
+                    raise RuntimeError(f"main wrote no {rel}")
+
+            def records():
+                with open(os.path.join(base, "metrics.jsonl")) as f:
+                    return [json.loads(line) for line in f]
+
+            recs = records()
+            losses = [r["total_loss"] for r in recs]
+            if [r["step"] for r in recs] != list(range(1, steps + 1)) or not all(
+                    math.isfinite(x) for x in losses):
+                raise RuntimeError(f"main logged {[(r['step'], r['total_loss']) for r in recs]}")
+            if abs(losses[0] - math.log(TRAIN_BATCH)) > 0.5:
+                raise RuntimeError(f"loss at step 1 is {losses[0]}, not near ln {TRAIN_BATCH}")
+            layers = 24   # 12 blocks in each tower
+            want = {"fused_attention_fwd": layers * steps, "fused_attention_bwd": layers * steps,
+                    "fused_ce_fwd": 2 * steps, "fused_ce_bwd_da": 2 * steps,
+                    "fused_ce_bwd_db": 2 * steps}
+            log(f"[7 main] rc 0 in {secs:.1f} s; kernel launches over {steps} steps: {launches}")
+            if launches != want:
+                raise RuntimeError(f"launches {launches}, expected {want}")
+            steady = recs[2:]
+            step_ms = statistics.median(r["batch_time"] for r in steady) * 1e3
+            data_ms = statistics.median(r["data_time"] for r in steady) * 1e3
+            log(f"[7 main] {MAIN_MODEL} clip loss, --ce-impl fused, batch {TRAIN_BATCH}, bf16: "
+                f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; step median {step_ms:.2f} ms = "
+                f"{TRAIN_BATCH / step_ms * 1e3:.1f} samples/s over steps 3..{steps} (metrics "
+                f"read every step); data_time median {data_ms:.2f} ms; peak device memory "
+                f"{peak:.2f} GiB ({card})")
+
+            resume = [*argv, "--resume", "latest", "--profile-dir", os.path.join(logs, "trace")]
+            resume[resume.index("--epochs") + 1] = "3"
+            rc = entry.main(resume)
+            torch.cuda.synchronize()
+            with open(os.path.join(base, "out.log")) as f:
+                out_log = f.read()
+            recs = records()
+            if rc != 0 or not os.path.exists(os.path.join(base, "checkpoints/epoch_3/state.pt")):
+                raise RuntimeError(f"--resume latest: rc {rc}, or no epoch_3")
+            if ("epoch_2' (epoch 2)" not in out_log
+                    or [r["step"] for r in recs] != list(range(1, steps + 7))):
+                raise RuntimeError("--resume latest did not go on from epoch_2 at step 13")
+            idle = re.findall(r"profiled steps: .*", out_log)
+            if not idle:
+                raise RuntimeError("the profiled steps logged no device time")
+            log(f"[7 main] --epochs 3 --resume latest: went on from epoch_2 at step "
+                f"{steps + 1}, wrote epoch_3; loss {recs[-1]['total_loss']:.5f}; {idle[-1]} "
+                f"({card})")
+        finally:
+            setup_logging(None)   # drop the handler on the log file that is going away
+    torch.cuda.empty_cache()
+    feed_ms = time_host_feed(dev)
+    log(f"[7 main] host feed for one batch of {TRAIN_BATCH}: the synthetic generator "
+        f"{feed_ms[0]:.1f} ms (one thread), pinned staging + copy to the card "
+        f"{feed_ms[1]:.1f} ms the first time, {feed_ms[2]:.1f} ms after ({card})")
+    return {"launches": launches, "step_ms": step_ms, "data_ms": data_ms, "peak_gib": peak,
+            "device_idle": idle[-1], "feed_ms": feed_ms}
+
+
+def time_host_feed(dev):
+    """Host ms to (generate one synthetic batch, ship it cold, ship it warm)
+    at phase 7's size, each stage alone on an idle machine."""
+    import torch
+
+    from colxlip_tpu_torch.data.synthetic import SyntheticConfig, SyntheticDataset
+    from colxlip_tpu_torch.training.train import _PrefetchIterator
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    data = iter(SyntheticDataset(SyntheticConfig(
+        batch_size=TRAIN_BATCH, num_sampled_captions=8, seed=0, num_samples=2 * TRAIN_BATCH)))
+    batch, gen_ms = ms(lambda: next(data))
+    feed = _PrefetchIterator([], device=dev)
+    try:
+        prepared = feed._prep(*batch)
+        _, cold = ms(lambda: feed._ship(*prepared))
+        _, warm = ms(lambda: feed._ship(*prepared))
+    finally:
+        feed.close()
+    return gen_ms, cold, warm
+
+
 def main() -> int:
     import torch
 
@@ -385,7 +740,7 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from colxlip_tpu_torch.ops import attention, build, maxsim
+    from colxlip_tpu_torch.ops import attention, build, fused_ce, maxsim
     from colxlip_tpu_torch.serving.server import (
         ColXLIPService, disable_tf32, make_server)
 
@@ -447,6 +802,7 @@ def main() -> int:
                 raise RuntimeError(f"maxsim {mode}: {err} > {MAXSIM_TOL}")
             maxsim_err = max(maxsim_err, err)
     bwd_err, bwd_inputs = check_backward_kernels(dev, gen)
+    ce_err, ce_inputs_by_m = check_ce_kernels(dev, gen)
 
     # ---- phase 4: the serving slice over HTTP ------------------------------
     t0 = time.perf_counter()
@@ -571,6 +927,20 @@ def main() -> int:
         for key, (ker, plain) in timing.items():
             log(f"[5 timing] {key}: kernel {ker:.4f} ms, plain {plain:.4f} ms "
                 f"({card})")
+        timing.update(time_ce_kernels(ce_inputs_by_m, card))
+        qkv, h, causal = attn_inputs["vision"]
+        sdpa_fwd, _ = time_library_attention(qkv, None, h, causal)
+        sdpa_train = time_library_attention(*bwd_inputs["attention_bwd/vision"])
+        log(f"[5 timing] F.scaled_dot_product_attention, vision shape: forward B=64 "
+            f"{sdpa_fwd:.4f} ms; B={TRAIN_BATCH} forward {sdpa_train[0]:.4f} ms, backward "
+            f"{sdpa_train[1]:.4f} ms ({card})")
+
+        bounds = kernel_bounds(attn_inputs["vision"][0], bwd_inputs["attention_bwd/vision"][0],
+                               attn_inputs["vision"][1], (t, img), (tt, ii),
+                               ce_inputs_by_m[TRAIN_BATCH][:2])
+        for name, (ms, by) in bounds.items():
+            log(f"[5 timing] bound {name}: {ms:.5f} ms, by {by} (H100 SXM: 3.35 TB/s, "
+                f"989 TFLOP/s bf16, 67 TFLOP/s fp32)")
 
         img_batch = svc.decode_images(wide_images)
         txt_batch = svc.tokenize(wide_texts)
@@ -594,41 +964,54 @@ def main() -> int:
         httpd.shutdown()
         svc.stop()
         server.join(timeout=30)
-    del svc, bwd_inputs
+    del svc, bwd_inputs, ce_inputs_by_m
     torch.cuda.empty_cache()
 
     # ---- phase 6: the train slice -----------------------------------------
     train = train_phase(dev, card)
 
-    tl = train["launches"]
+    # ---- phase 7: the training entry point ----------------------------------
+    trainer = main_phase(dev, card)
+
+    tl, ml = train["launches"], trainer["launches"]
+    ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
+    rows = [
+        ("fused_attention_fwd", "colxlip_tpu_torch/csrc/fused_attention.cu",
+         "colxlip_tpu/ops/fused_attention.py:103", tl["fused_attention_fwd"], attn_err,
+         timing["attention/vision"], bounds["fused_attention_fwd"], sdpa_fwd),
+        ("fused_attention_bwd", "colxlip_tpu_torch/csrc/fused_attention_bwd.cu",
+         "colxlip_tpu/ops/fused_attention.py:115", tl["fused_attention_bwd"],
+         bwd_err["attention_bwd"], timing["attention_bwd/vision"],
+         bounds["fused_attention_bwd"], sdpa_train[1]),
+        ("maxsim_fwd", "colxlip_tpu_torch/csrc/maxsim.cu",
+         "colxlip_tpu/ops/maxsim_pallas.py:86", tl["maxsim_fwd"], maxsim_err,
+         timing["maxsim/nonzero"], bounds["maxsim_fwd"], None),
+        ("maxsim_bwd", "colxlip_tpu_torch/csrc/maxsim_bwd.cu",
+         "colxlip_tpu/ops/maxsim_pallas.py:244", tl["maxsim_bwd"], bwd_err["maxsim_bwd"],
+         timing["maxsim_bwd/nonzero"], bounds["maxsim_bwd"], None),
+        ("fused_ce_fwd", "colxlip_tpu_torch/csrc/fused_ce.cu",
+         "colxlip_tpu/ops/fused_ce.py:45", ml["fused_ce_fwd"], ce_err["fused_ce_fwd"],
+         ce_ms["fwd"], bounds["fused_ce_fwd"], None),
+        ("fused_ce_bwd_da", "colxlip_tpu_torch/csrc/fused_ce.cu",
+         "colxlip_tpu/ops/fused_ce.py:122", ml["fused_ce_bwd_da"], ce_err["fused_ce_bwd_da"],
+         ce_ms["bwd_da"], bounds["fused_ce_bwd_da"], None),
+        ("fused_ce_bwd_db", "colxlip_tpu_torch/csrc/fused_ce.cu",
+         "colxlip_tpu/ops/fused_ce.py:152", ml["fused_ce_bwd_db"], ce_err["fused_ce_bwd_db"],
+         ce_ms["bwd_db"], bounds["fused_ce_bwd_db"], None),
+    ]
     print(json.dumps({"kernels": [
-        {"name": "fused_attention_fwd", "route": "cuda",
-         "source": "colxlip_tpu_torch/csrc/fused_attention.cu",
-         "replaces": "colxlip_tpu/ops/fused_attention.py:103",
-         "launches": tl["fused_attention_fwd"], "launches_serving": launches["fused_attention"],
-         "max_abs_err": attn_err, "ms": timing["attention/vision"][0],
-         "plain_ms": timing["attention/vision"][1]},
-        {"name": "fused_attention_bwd", "route": "cuda",
-         "source": "colxlip_tpu_torch/csrc/fused_attention_bwd.cu",
-         "replaces": "colxlip_tpu/ops/fused_attention.py:115",
-         "launches": tl["fused_attention_bwd"], "max_abs_err": bwd_err["attention_bwd"],
-         "ms": timing["attention_bwd/vision"][0],
-         "plain_ms": timing["attention_bwd/vision"][1]},
-        {"name": "maxsim_fwd", "route": "cuda",
-         "source": "colxlip_tpu_torch/csrc/maxsim.cu",
-         "replaces": "colxlip_tpu/ops/maxsim_pallas.py:86",
-         "launches": tl["maxsim_fwd"], "launches_serving": launches["maxsim"],
-         "max_abs_err": maxsim_err, "ms": timing["maxsim/nonzero"][0],
-         "plain_ms": timing["maxsim/nonzero"][1]},
-        {"name": "maxsim_bwd", "route": "cuda",
-         "source": "colxlip_tpu_torch/csrc/maxsim_bwd.cu",
-         "replaces": "colxlip_tpu/ops/maxsim_pallas.py:244",
-         "launches": tl["maxsim_bwd"], "max_abs_err": bwd_err["maxsim_bwd"],
-         "ms": timing["maxsim_bwd/nonzero"][0],
-         "plain_ms": timing["maxsim_bwd/nonzero"][1]},
-    ], "train_step": {"batch": TRAIN_BATCH, "ms": train["step_ms"],
-                      "img_per_s": TRAIN_BATCH / train["step_ms"] * 1e3,
-                      "peak_gib": train["peak_gib"]}}), flush=True)
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+        for name, source, replaces, n_launches, err, (ms, plain_ms), bound, library_ms in rows],
+        "launches_serving": launches, "launches_main": ml,
+        "train_step": {"batch": TRAIN_BATCH, "ms": train["step_ms"],
+                       "img_per_s": TRAIN_BATCH / train["step_ms"] * 1e3,
+                       "peak_gib": train["peak_gib"]},
+        "main": {"model": MAIN_MODEL, "batch": TRAIN_BATCH, "step_ms": trainer["step_ms"],
+                 "samples_per_s": TRAIN_BATCH / trainer["step_ms"] * 1e3,
+                 "data_ms": trainer["data_ms"], "peak_gib": trainer["peak_gib"],
+                 "feed_ms": trainer["feed_ms"]}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

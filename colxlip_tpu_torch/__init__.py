@@ -7,11 +7,14 @@ each counterpart is easy to find. It imports ``torch`` and never ``jax``:
 needs (configs, tokenizer, transforms) are ported here rather than imported.
 
 Ported so far, on one GPU: the serving path (``serving/server.py``: both
-towers and the ``/v1/score`` MaxSim) and the train step
+towers and the ``/v1/score`` MaxSim), the train step
 (``parallel/train_step.py``: both towers forward and backward, the
-``colclip`` / ``clip`` losses, AdamW). The TPU kernels on those paths are
+``colclip`` / ``clip`` losses, AdamW) and the training entry point
+(``python -m colxlip_tpu_torch.main``: flags, synthetic data, the epoch loop,
+checkpoints, resume, preemption). The TPU kernels on those paths are
 hand-written CUDA kernels (``csrc/``): packed-QKV attention and MaxSim,
-forward and backward, under ``torch.autograd.Function``s.
+forward and backward, and the streaming contrastive CE (forward, dA, dB)
+behind ``--ce-impl fused``, all under ``torch.autograd.Function``s.
 """
 
 __version__ = "0.1.0"

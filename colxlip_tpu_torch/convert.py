@@ -8,12 +8,16 @@ flat text tower, packed ``in_proj_weight``, conv-layout ``conv1``, the token
 heads as a Sequential. ``.pt`` is the exchange format in both directions.
 
 ``load_pt_state_dict`` reads an OpenCLIP-layout ``.pt`` checkpoint (the
-``--checkpoint`` of the server).
+``--checkpoint`` of the server, the ``--pretrained`` of the trainer).
+
+``load_optax_adamw_state`` carries an optax AdamW state (``mu``, ``nu`` and
+the step count, as numpy) into a ``torch.optim.AdamW``, so that both
+packages can go on from one train state.
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -145,3 +149,31 @@ def load_pt_state_dict(path: str) -> Dict[str, torch.Tensor]:
         raise ValueError(f"{path}: not a state-dict checkpoint")
     return {k[len("module."):] if k.startswith("module.") else k: v
             for k, v in sd.items()}
+
+
+def load_optax_adamw_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                           mu: Mapping, nu: Mapping, count: Union[int, np.ndarray]) -> int:
+    """Load optax ``scale_by_adam`` moments into ``optimizer``.
+
+    ``mu`` and ``nu`` are trees shaped like the JAX params (numpy leaves);
+    they go through ``state_dict_from_jax_params``, so each moment lands on
+    the parameter its weight would, transposed alike. Every parameter the
+    optimizer holds gets ``exp_avg``, ``exp_avg_sq`` and ``step = count``.
+    Returns ``count``, the number of updates made (the train step's
+    ``step``)."""
+    first, second = state_dict_from_jax_params(mu), state_dict_from_jax_params(nu)
+    names = {p: name for name, p in model.named_parameters()}
+    count = int(count)
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[p]
+            # np.array(order="C"), not ascontiguousarray: that one turns the
+            # 0-d logit_scale into shape (1,)
+            m, v = (torch.from_numpy(np.array(sd[name], order="C")).to(p.device, p.dtype)
+                    for sd in (first, second))
+            if m.shape != p.shape:
+                raise ValueError(f"{name}: moment {tuple(m.shape)} for a parameter "
+                                 f"{tuple(p.shape)}")
+            optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": m,
+                                  "exp_avg_sq": v}
+    return count

@@ -1,11 +1,12 @@
-"""Model factory: port of ``create_model`` / ``load_weights`` from
-``colxlip_tpu/factory.py``.
+"""Model factory: port of ``colxlip_tpu/factory.py``.
 
 ``create_model(name, device, dtype)`` builds ``ColXLIP`` when "colxlip" is in
 the name, else ``CLIP``, with fp32 parameters and ``dtype`` compute (the JAX
 service's bf16 policy by default), initialised from a seeded
 ``torch.Generator`` on the CPU (the same weights whatever the device), then
-moved to ``device``.
+moved to ``device``. ``create_model_and_transforms``, ``get_tokenizer`` and
+``create_loss`` are what the training entry point (``main.py``) builds from
+its flags.
 """
 from __future__ import annotations
 
@@ -16,12 +17,32 @@ import torch
 from torch import nn
 
 from .convert import load_pt_state_dict
+from .data.tokenizer import SimpleTokenizer
+from .data.transforms import EvalTransform, image_transform
 from .models import CLIP, CLIPCfg, ColXLIP, get_model_config, list_models
 from .models.layers import Linear, MultiHeadAttention
 from .models.vision import PatchEmbed
 
 
-def model_config(model_name: str, quick_gelu: Optional[bool] = None) -> CLIPCfg:
+PRECISION_DTYPES = {"fp32": torch.float32, "amp": torch.float32,
+                    "bf16": torch.bfloat16, "amp_bf16": torch.bfloat16}
+
+
+def compute_dtype(precision: str) -> torch.dtype:
+    """The JAX ``PrecisionPolicy``: fp32 parameters always; 'fp32' / 'amp'
+    compute in fp32, 'bf16' / 'amp_bf16' in bf16. 'pure_bf16' (bf16
+    parameters) is not ported."""
+    if precision == "pure_bf16":
+        raise NotImplementedError("precision 'pure_bf16' (bf16 parameters) is not yet "
+                                  "ported in colxlip_tpu_torch")
+    if precision not in PRECISION_DTYPES:
+        raise ValueError(f"unsupported precision: {precision!r}")
+    return PRECISION_DTYPES[precision]
+
+
+def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
+                 force_image_size: Optional[int] = None, alpha: Optional[float] = None,
+                 gelu_approximate: Optional[bool] = None) -> CLIPCfg:
     cfg_dict = get_model_config(model_name)
     if cfg_dict is None:
         raise RuntimeError(f"Model config for {model_name} not found; "
@@ -32,6 +53,12 @@ def model_config(model_name: str, quick_gelu: Optional[bool] = None) -> CLIPCfg:
     cfg = CLIPCfg.from_dict(cfg_dict)
     if quick_gelu is not None:
         cfg = dataclasses.replace(cfg, quick_gelu=quick_gelu)
+    if force_image_size is not None:
+        cfg.vision_cfg.image_size = force_image_size
+    if alpha is not None:
+        cfg = dataclasses.replace(cfg, alpha=alpha)
+    if gelu_approximate is not None:
+        cfg = dataclasses.replace(cfg, gelu_approximate=gelu_approximate)
     return cfg
 
 
@@ -71,11 +98,16 @@ def init_weights(model: CLIP, generator: torch.Generator) -> None:
 
 def create_model(model_name: str, device: Union[str, torch.device],
                  dtype: torch.dtype = torch.bfloat16, *, seed: int = 0,
-                 quick_gelu: Optional[bool] = None) -> Tuple[CLIP, CLIPCfg]:
-    """(model on ``device`` in eval mode, its config), seeded random init."""
-    cfg = model_config(model_name, quick_gelu)
+                 quick_gelu: Optional[bool] = None,
+                 force_image_size: Optional[int] = None, alpha: Optional[float] = None,
+                 gelu_approximate: Optional[bool] = None,
+                 grad_checkpointing: bool = False) -> Tuple[CLIP, CLIPCfg]:
+    """(model on ``device`` in eval mode, its config), seeded random init.
+    ``grad_checkpointing`` recomputes each residual block in the backward."""
+    cfg = model_config(model_name, quick_gelu, force_image_size=force_image_size,
+                       alpha=alpha, gelu_approximate=gelu_approximate)
     cls = ColXLIP if "colxlip" in model_name.lower() else CLIP
-    model = cls(cfg, dtype=dtype)
+    model = cls(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
     init_weights(model, torch.Generator(device="cpu").manual_seed(seed))
     return model.to(device).eval(), cfg
 
@@ -91,3 +123,79 @@ def load_weights(model: CLIP, checkpoint_path: str) -> None:
     if missing or unexpected:
         raise RuntimeError(f"{checkpoint_path}: missing keys {missing[:8]}, "
                            f"unexpected keys {unexpected[:8]}")
+
+
+def create_model_and_transforms(
+        model_name: str, pretrained: Optional[str] = None, *,
+        device: Union[str, torch.device], precision: str = "bf16",
+        quick_gelu: Optional[bool] = None, force_image_size: Optional[int] = None,
+        grad_checkpointing: bool = False, alpha: float = 0.5,
+        gelu_approximate: bool = False, seed: int = 0
+) -> Tuple[CLIP, CLIPCfg, EvalTransform]:
+    """(model in train mode on ``device``, cfg, preprocess_val): the part of
+    the JAX ``create_model_and_transforms`` the training entry point needs.
+    The parameters live in the model; ``pretrained`` is a local OpenCLIP-layout
+    ``.pt`` loaded through ``load_weights``. The train-time transform waits
+    for the tar pipeline."""
+    model, cfg = create_model(
+        model_name, device, compute_dtype(precision), seed=seed, quick_gelu=quick_gelu,
+        force_image_size=force_image_size, alpha=alpha,
+        gelu_approximate=gelu_approximate, grad_checkpointing=grad_checkpointing)
+    if pretrained:
+        load_weights(model, pretrained)
+    preprocess_val = image_transform(
+        cfg.vision_cfg.image_size, is_train=False, mean=tuple(cfg.vision_cfg.image_mean),
+        std=tuple(cfg.vision_cfg.image_std))
+    return model.train(), cfg, preprocess_val
+
+
+def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,
+                  require_merges: bool = False) -> SimpleTokenizer:
+    """Tokenizer at a registered model's context length.
+    ``require_merges=True`` raises when the real CLIP BPE merge table is
+    absent: pass it whenever pretrained weights are in play, because the
+    zero-merges fallback silently breaks text parity with the checkpoint."""
+    if context_length is None:
+        cfg_dict = get_model_config(model_name) if model_name else None
+        context_length = (cfg_dict or {}).get("text_cfg", {}).get("context_length", 77)
+    tokenizer = SimpleTokenizer(context_length=context_length)
+    if require_merges and not tokenizer.has_merges:
+        raise RuntimeError("the CLIP BPE merge table is missing and pretrained weights "
+                           "need it (set $COLXLIP_BPE_PATH, or pass "
+                           "--allow-degraded-tokenizer to accept wrong text parity)")
+    return tokenizer
+
+
+def create_loss(args):
+    """Map the entry point's flags to the train step's loss config: 'coca' in
+    the model name -> coca; a distill pair -> distill; --siglip -> siglip;
+    'colxlip' in the name -> colclip; else clip (the only contrastive loss
+    that honours ``ce_impl``)."""
+    from .parallel.train_step import TrainStepConfig
+
+    model_name = getattr(args, "model", "")
+    if "coca" in model_name.lower():
+        loss_type = "coca"
+    elif getattr(args, "distill_model", None) and getattr(args, "distill_pretrained", None):
+        loss_type = "distill"
+    elif getattr(args, "siglip", False):
+        loss_type = "siglip"
+    elif "colxlip" in model_name.lower():
+        loss_type = "colclip"
+    else:
+        loss_type = "clip"
+    return TrainStepConfig(
+        loss_type=loss_type,
+        alpha=getattr(args, "alpha", 0.5),
+        local_loss=getattr(args, "local_loss", False),
+        gather_with_grad=getattr(args, "gather_with_grad", False),
+        accum_freq=getattr(args, "accum_freq", 1),
+        maxsim_impl=getattr(args, "maxsim_impl", "auto"),
+        ce_impl=getattr(args, "ce_impl", "dense"),
+        token_dist=getattr(args, "token_dist", "gather"),
+        token_neighborhood=getattr(args, "token_neighborhood", 0),
+        mask_mode=getattr(args, "token_mask_mode", "nonzero"),
+        dist_impl=getattr(args, "dist_impl", None) or "bidir",
+        coca_caption_loss_weight=getattr(args, "coca_caption_loss_weight", 2.0),
+        coca_contrastive_loss_weight=getattr(args, "coca_contrastive_loss_weight", 1.0),
+    )

@@ -1,15 +1,18 @@
 """Global-batch InfoNCE (CLIP) loss: port of ``colxlip_tpu/losses/clip.py``.
 
 Single device only: every ``axis_name`` (the JAX package's gather over the
-data mesh axis) and ``ce_impl='fused'`` (the Pallas streaming-logsumexp
-kernels #11-13, ``ops/fused_ce.py``) raise ``NotImplementedError``. The
-cross-entropy runs in fp32 via logsumexp whatever the feature dtype.
+data mesh axis) raises ``NotImplementedError``. The cross-entropy runs in
+fp32 via logsumexp whatever the feature dtype. ``ce_impl='fused'`` streams
+both directions through ``ops/fused_ce.py`` (the CUDA kernels on the card),
+so no [N, N] logit matrix is ever held.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+
+from ..ops.fused_ce import fused_contrastive_ce
 
 
 def _single_device(axis_name: Optional[str], what: str) -> None:
@@ -61,10 +64,20 @@ def clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
               logit_bias: Optional[torch.Tensor] = None, ce_impl: str = "dense",
               output_dict: bool = False
               ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Symmetric InfoNCE over the dense logit matrix."""
+    """Symmetric InfoNCE: over the dense logit matrix, or with
+    ``ce_impl='fused'`` as two streaming passes (rows image / columns text,
+    and the reverse) that never hold it. The fused path takes no
+    ``logit_bias``."""
     if ce_impl == "fused":
-        raise NotImplementedError("clip_loss: ce_impl='fused' (the streaming "
-                                  "CE kernels) is not yet ported")
+        if logit_bias is not None:
+            raise ValueError("fused CE path does not support logit_bias; "
+                             "use the dense path for biased logits")
+        _single_device(axis_name, "clip_loss")
+        labels = contrastive_labels(image_features.shape[0],
+                                    device=image_features.device)
+        total = (fused_contrastive_ce(image_features, text_features, labels, logit_scale)
+                 + fused_contrastive_ce(text_features, image_features, labels, logit_scale)) / 2
+        return {"total_loss": total} if output_dict else total
     if ce_impl != "dense":
         raise ValueError(f"unknown ce_impl: {ce_impl!r}")
     logits_per_image, logits_per_text = clip_logits(

@@ -1,0 +1,307 @@
+"""The training entry point: ``python -m colxlip_tpu_torch.main``, port of
+``colxlip_tpu/main.py`` on one device.
+
+Experiment naming, the log directory with ``params.txt`` and ``out.log``,
+``--resume latest|<path>``, model / optimizer / schedule construction, the
+synthetic dataset, the epoch loop with numbered and most-recent checkpoint
+saves and rotation, and ``--preempt-save``. It runs on ``--device``
+(``cuda:0`` unless told otherwise) and raises when that device is missing.
+
+What the port cannot do yet is refused, never ignored: each such flag logs
+an error and ``main`` returns 1 before any model work (``unsupported_flags``
+lists them with the module each waits for).
+"""
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+import signal
+import sys
+import threading
+import time
+from datetime import datetime
+from typing import Callable, List, Optional
+
+import torch
+
+from .data.synthetic import SyntheticConfig, SyntheticDataset
+from .factory import create_loss, create_model_and_transforms, get_tokenizer
+from .parallel.train_step import make_train_step
+from .params import parse_args
+from .training.checkpoint import (
+    get_latest_checkpoint, load_native_checkpoint, read_step_in_epoch, restore_train_state,
+    rotate_checkpoints, save_checkpoint, train_state)
+from .training.logging_utils import MetricsWriter, dump_params, setup_logging
+from .training.optim import create_optimizer
+from .training.schedules import const_lr, const_lr_cooldown, cosine_lr
+from .training.train import train_one_epoch
+
+logger = logging.getLogger(__name__)
+
+
+def copy_codebase(args) -> None:
+    """Snapshot the package source into the experiment directory."""
+    new_code_path = os.path.join(args.logs, args.name, "code")
+    if os.path.exists(new_code_path):
+        logger.error("Error: experiment code dir %s already exists", new_code_path)
+        return
+    logger.info("Copying codebase to %s", new_code_path)
+    current_code_path = os.path.dirname(os.path.realpath(__file__))
+    shutil.copytree(
+        current_code_path, os.path.join(new_code_path, "colxlip_tpu_torch"),
+        ignore=shutil.ignore_patterns("__pycache__", "*.pyc", "logs", "wandb", "build"))
+
+
+def generate_name(args) -> str:
+    """Automatic experiment name: date, model, lr, batch, precision."""
+    date_str = datetime.now().strftime("%Y_%m_%d-%H_%M_%S")
+    model_name_safe = args.model.replace("/", "-")
+    return "-".join([
+        date_str,
+        f"model_{model_name_safe}",
+        f"lr_{args.lr}",
+        f"b_{args.batch_size}",
+        f"p_{args.precision}",
+    ])
+
+
+def build_lr_schedule(args, total_steps: int) -> Callable[[int], float]:
+    if args.lr_scheduler == "cosine":
+        return cosine_lr(args.lr, args.warmup, total_steps)
+    if args.lr_scheduler == "const":
+        return const_lr(args.lr, args.warmup)
+    if args.lr_scheduler == "const-cooldown":
+        cooldown_steps = (args.epochs_cooldown or 0) * max(
+            total_steps // max(args.epochs, 1), 1)
+        return const_lr_cooldown(args.lr, args.warmup, total_steps, cooldown_steps,
+                                 args.lr_cooldown_power, args.lr_cooldown_end)
+    raise ValueError(f"Unknown scheduler {args.lr_scheduler}")
+
+
+_RETRIEVAL_FLAGS = ("retrieval_coco", "retrieval_flickr", "retrieval_docci",
+                    "retrieval_urban_1k", "retrieval_iiw", "retrieval_dci",
+                    "retrieval_sharegpt4v")
+
+
+def unsupported_flags(args) -> List[str]:
+    """One message per flag of ``args`` whose feature is not ported yet, each
+    naming the module it waits for."""
+    checks = [
+        (bool(args.train_data),
+         "--train-data: the tar pipeline (data/wds.py and the train transforms) is not "
+         "yet ported; use --dataset-type synthetic"),
+        (any(getattr(args, f) for f in _RETRIEVAL_FLAGS),
+         "--retrieval-*: the retrieval eval suites (data/retrieval.py, "
+         "training/evaluate.py) are not yet ported"),
+        (bool(args.imagenet_val),
+         "--imagenet-val: zero-shot eval (training/zero_shot.py) is not yet ported"),
+        (bool(args.remote_sync),
+         "--remote-sync: remote sync (utils/file_utils.py) is not yet ported"),
+        (args.model_parallel > 1,
+         "--model-parallel > 1: tensor parallelism (parallel/gspmd.py) is not yet ported"),
+        (args.fsdp, "--fsdp: sharded state (parallel/gspmd.py) is not yet ported"),
+        (args.packed_feed,
+         "--packed-feed: the packed feed (parallel/data_feed.py) is not yet ported"),
+        (args.normalize_on_device,
+         "--normalize-on-device: the uint8 image feed (models/vision.py) is not yet ported"),
+        (args.ship_format == "yuv420",
+         "--ship-format yuv420: the YUV420 feed (ops/yuv420.py) is not yet ported"),
+        (args.pipeline == "grain",
+         "--pipeline grain: the grain pipeline (data/grain_pipeline.py) is not yet ported"),
+        (any(v is not None for v in (args.dist_coordinator, args.dist_num_processes,
+                                     args.dist_process_id, args.dist_impl)),
+         "--dist-*: multi-process training (parallel/mesh.py, parallel/collectives.py) "
+         "is not yet ported"),
+        (bool(args.distill_model or args.distill_pretrained),
+         "--distill-model / --distill-pretrained: distillation (losses/distill.py) is "
+         "not yet ported"),
+        (args.siglip, "--siglip: the SigLIP loss (losses/siglip.py) is not yet ported"),
+        ("coca" in args.model.lower(),
+         f"--model {args.model}: CoCa models (models/coca.py, losses/coca.py) are not "
+         "yet ported"),
+        (args.force_patch_dropout is not None,
+         "--force-patch-dropout: PatchDropout (models/vision.py) is not yet ported"),
+        (args.async_checkpoint,
+         "--async-checkpoint: background saves (training/checkpoint.py) are not yet "
+         "ported"),
+        (args.precision == "pure_bf16",
+         "--precision pure_bf16: bf16 parameters (models/configs.py PrecisionPolicy) "
+         "are not yet ported"),
+        (args.token_dist == "ring" or args.token_neighborhood > 0,
+         "--token-dist ring / --token-neighborhood: the ring token exchange "
+         "(losses/colclip.py) is not yet ported"),
+        (args.maxsim_impl == "streaming_int8",
+         "--maxsim-impl streaming_int8: the int8 MaxSim (ops/maxsim.py) is not yet ported"),
+    ]
+    return [msg for bad, msg in checks if bad]
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device is available "
+                           "(pass --device cpu to run the plain versions on the CPU)")
+
+    if args.name is None:
+        args.name = generate_name(args)
+    log_base = os.path.join(args.logs, args.name)
+    checkpoint_dir = os.path.join(log_base, "checkpoints")
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    setup_logging(os.path.join(log_base, "out.log"),
+                  logging.DEBUG if args.debug else logging.INFO)
+    dump_params(args, os.path.join(log_base, "params.txt"))
+    if args.copy_codebase:
+        copy_codebase(args)
+
+    refused = unsupported_flags(args)
+    for msg in refused:
+        logger.error("%s", msg)
+    if refused:
+        return 1
+    if args.dataset_type != "synthetic":
+        # the JAX entry point falls into its eval-only mode here
+        logger.error("eval-only mode but no retrieval suites configured (training "
+                     "needs --dataset-type synthetic until the tar pipeline is ported)")
+        return 1
+    logger.info("Running on %s.", device)
+
+    resume_from: Optional[str] = None
+    if args.resume == "latest":
+        resume_from = get_latest_checkpoint(checkpoint_dir)
+        if resume_from:
+            logger.info("Found latest checkpoint: %s", resume_from)
+    elif args.resume:
+        resume_from = args.resume
+
+    # Pretrained weights demand bit-compatible BPE tokenization: without the
+    # merge table this is an error before any model work (escape hatch:
+    # --allow-degraded-tokenizer).
+    needs_parity_tokenizer = bool(args.pretrained) or bool(
+        resume_from and resume_from.endswith(".pt"))
+    tokenizer = get_tokenizer(
+        args.model,
+        require_merges=needs_parity_tokenizer and not args.allow_degraded_tokenizer)
+    # --text-ctx: train-time data-side context override (the text tower
+    # slices its positional embedding to the input length)
+    train_ctx = args.text_ctx or 0
+    if train_ctx:
+        if not 3 <= train_ctx <= tokenizer.context_length:
+            logger.error("--text-ctx %d must be in [3, %d] (the model's context)",
+                         train_ctx, tokenizer.context_length)
+            return 1
+        logger.info("Train text context: %d (eval keeps %d)", train_ctx,
+                    tokenizer.context_length)
+
+    model, cfg, _ = create_model_and_transforms(
+        args.model,
+        pretrained=args.pretrained or None,
+        device=device,
+        precision=args.precision,
+        quick_gelu=True if args.force_quick_gelu else None,
+        force_image_size=args.force_image_size,
+        grad_checkpointing=args.grad_checkpointing,
+        alpha=args.alpha,
+        gelu_approximate=args.gelu_approx,
+        seed=args.seed,
+    )
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info("Model: %s (%.1fM params)", args.model, n_params / 1e6)
+
+    global_batch = args.batch_size
+    num_samples = args.train_num_samples or global_batch * 100
+    size = cfg.vision_cfg.image_size
+    size = size if isinstance(size, int) else size[0]
+    train_data = SyntheticDataset(SyntheticConfig(
+        batch_size=global_batch, image_size=(size, size),
+        context_length=train_ctx or cfg.text_cfg.context_length,
+        num_sampled_captions=args.num_sampled_captions,
+        seed=args.seed, num_samples=num_samples))
+    steps_per_epoch = args.steps_per_epoch or len(train_data)
+    total_steps = steps_per_epoch * args.epochs
+
+    lr_schedule = build_lr_schedule(args, total_steps)
+    optimizer = create_optimizer(
+        model, args.lr if args.skip_scheduler else lr_schedule,
+        beta1=args.beta1, beta2=args.beta2, eps=args.eps, weight_decay=args.wd,
+        grad_clip_norm=args.grad_clip_norm, lock_image=args.lock_image,
+        lock_text=args.lock_text)
+    step_fn = make_train_step(model, optimizer,
+                              None if args.skip_scheduler else lr_schedule,
+                              create_loss(args))
+
+    start_epoch = 0
+    resume_step_in_epoch = 0
+    if resume_from:
+        restored = load_native_checkpoint(resume_from)
+        start_epoch = int(restored["epoch"])
+        resume_step_in_epoch = read_step_in_epoch(resume_from)
+        step_fn.step = restore_train_state(restored["state"], model, optimizer)
+        logger.info("=> resuming checkpoint '%s' (epoch %d%s)", resume_from, start_epoch,
+                    f", step {resume_step_in_epoch}" if resume_step_in_epoch else "")
+
+    writer = MetricsWriter(
+        log_base, args.report_to, wandb_project=args.wandb_project_name,
+        wandb_notes=args.wandb_notes, run_name=args.name,
+        resume=resume_from is not None, config=vars(args))
+
+    # preemption hook: the scheduler's warning signal sets a flag; the epoch
+    # loop stops at a step boundary, main saves a mid-epoch epoch_latest and
+    # returns 0
+    stop_event = None
+    if args.preempt_save:
+        stop_event = threading.Event()
+
+        def _on_preempt(signum, frame):  # noqa: ARG001 - the signal API's shape
+            logger.warning("received signal %d: will checkpoint and exit at the "
+                           "next step boundary", signum)
+            stop_event.set()
+
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            signal.signal(sig, _on_preempt)
+
+    for epoch in range(start_epoch, args.epochs):
+        logger.info("Start epoch %d", epoch)
+        skip = resume_step_in_epoch if epoch == start_epoch else 0
+        t0 = time.perf_counter()
+        steps, stopped = train_one_epoch(
+            step_fn, train_data, device=device, epoch=epoch,
+            global_batch_size=global_batch, num_devices=1,
+            log_every_n_steps=args.log_every_n_steps, writer=writer,
+            steps_per_epoch=steps_per_epoch, lr_schedule=lr_schedule,
+            profiler_dir=args.profile_dir if epoch == start_epoch else None,
+            skip_steps=skip, stop_flag=stop_event,
+            stop_check_every=args.preempt_check_every,
+            prefetch_depth=args.prefetch_depth)
+        if stopped:
+            step_done = skip + steps
+            logger.info("Preempted in epoch %d after step %d/%d: saving mid-epoch "
+                        "checkpoint", epoch, step_done, steps_per_epoch)
+            save_checkpoint(checkpoint_dir, train_state(model, optimizer, step_fn.step),
+                            epoch=epoch, name=args.name, most_recent=True,
+                            step_in_epoch=step_done)
+            break
+        logger.info("Epoch %d done: %d steps in %.1fs", epoch, steps,
+                    time.perf_counter() - t0)
+        completed_epoch = epoch + 1
+
+        do_numbered = args.save_frequency > 0 and (
+            completed_epoch % args.save_frequency == 0 or completed_epoch == args.epochs)
+        if do_numbered or args.save_most_recent:
+            state = train_state(model, optimizer, step_fn.step)
+            if do_numbered:
+                save_checkpoint(checkpoint_dir, state, epoch=completed_epoch,
+                                name=args.name)
+                if args.delete_previous_checkpoint:
+                    rotate_checkpoints(checkpoint_dir, completed_epoch)
+            if args.save_most_recent:
+                save_checkpoint(checkpoint_dir, state, epoch=completed_epoch,
+                                name=args.name, most_recent=True)
+
+    writer.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -48,16 +48,19 @@ def token_projection_head(width: int, embed_dim: int, *,
 
 class CLIP(nn.Module):
     """Dual-tower contrastive model; ``dtype`` is the compute dtype
-    (parameters stay fp32)."""
+    (parameters stay fp32). ``grad_checkpointing`` recomputes each residual
+    block of both towers in the backward."""
 
-    def __init__(self, cfg: CLIPCfg, *, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg: CLIPCfg, *, dtype: torch.dtype = torch.bfloat16,
+                 grad_checkpointing: bool = False):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
         act = _select_act(cfg)
-        self.visual = VisionTransformer(cfg.vision_cfg, cfg.embed_dim, act,
-                                        dtype=dtype)
-        add_text_tower(self, cfg.text_cfg, cfg.embed_dim, act, dtype=dtype)
+        self.visual = VisionTransformer(cfg.vision_cfg, cfg.embed_dim, act, dtype=dtype,
+                                        grad_checkpointing=grad_checkpointing)
+        add_text_tower(self, cfg.text_cfg, cfg.embed_dim, act, dtype=dtype,
+                       grad_checkpointing=grad_checkpointing)
         self.logit_scale = nn.Parameter(torch.tensor(cfg.init_logit_scale))
         if cfg.init_logit_bias is not None:
             self.logit_bias = nn.Parameter(torch.tensor(float(cfg.init_logit_bias)))
@@ -91,8 +94,9 @@ class CLIP(nn.Module):
 class ColXLIP(CLIP):
     """CLIP + ColBERT-style token heads."""
 
-    def __init__(self, cfg: CLIPCfg, *, dtype: torch.dtype = torch.bfloat16):
-        super().__init__(cfg, dtype=dtype)
+    def __init__(self, cfg: CLIPCfg, *, dtype: torch.dtype = torch.bfloat16,
+                 grad_checkpointing: bool = False):
+        super().__init__(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
         self.vision_token_layer = token_projection_head(
             cfg.vision_cfg.width, cfg.embed_dim, dtype=dtype)
         self.text_token_layer = token_projection_head(

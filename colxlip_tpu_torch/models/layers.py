@@ -20,6 +20,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops import attention as attention_ops
@@ -135,16 +136,25 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Stack of residual blocks (``resblocks.{i}``)."""
+    """Stack of residual blocks (``resblocks.{i}``). ``grad_checkpointing``
+    is the JAX package's remat knob: when gradients are on, each block keeps
+    only its input and is recomputed in the backward
+    (``torch.utils.checkpoint``), for the same loss and gradients."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float,
-                 act: Callable, *, dtype: torch.dtype):
+                 act: Callable, *, dtype: torch.dtype, grad_checkpointing: bool = False):
         super().__init__()
+        self.grad_checkpointing = grad_checkpointing
         self.resblocks = nn.ModuleList([
             ResidualAttentionBlock(width, heads, mlp_ratio, act, dtype=dtype)
             for _ in range(layers)])
 
     def forward(self, x: torch.Tensor, is_causal: bool = False) -> torch.Tensor:
+        remat = self.grad_checkpointing and torch.is_grad_enabled()
         for block in self.resblocks:
-            x = block(x, is_causal)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(block, x, is_causal,
+                                                      use_reentrant=False)
+            else:
+                x = block(x, is_causal)
         return x

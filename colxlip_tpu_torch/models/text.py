@@ -38,14 +38,15 @@ def check_supported(cfg: CLIPTextCfg) -> None:
 
 
 def add_text_tower(model: nn.Module, cfg: CLIPTextCfg, embed_dim: int,
-                   act: Callable, *, dtype: torch.dtype) -> None:
+                   act: Callable, *, dtype: torch.dtype,
+                   grad_checkpointing: bool = False) -> None:
     """Register the text tower's modules and parameters on ``model``."""
     check_supported(cfg)
     model.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
     model.positional_embedding = nn.Parameter(
         torch.empty(cfg.context_length, cfg.width))
-    model.transformer = Transformer(cfg.width, cfg.layers, cfg.heads,
-                                    cfg.mlp_ratio, act, dtype=dtype)
+    model.transformer = Transformer(cfg.width, cfg.layers, cfg.heads, cfg.mlp_ratio, act,
+                                    dtype=dtype, grad_checkpointing=grad_checkpointing)
     model.ln_final = LayerNorm(cfg.width)
     model.text_projection = nn.Parameter(torch.empty(cfg.width, embed_dim))
 

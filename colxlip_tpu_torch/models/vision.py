@@ -59,7 +59,7 @@ class PatchEmbed(nn.Module):
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: CLIPVisionCfg, embed_dim: int, act: Callable, *,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, grad_checkpointing: bool = False):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -70,8 +70,8 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty(cfg.num_patches + 1, width))
         self.ln_pre = LayerNorm(width)
-        self.transformer = Transformer(width, cfg.layers, cfg.heads,
-                                       cfg.mlp_ratio, act, dtype=dtype)
+        self.transformer = Transformer(width, cfg.layers, cfg.heads, cfg.mlp_ratio, act,
+                                       dtype=dtype, grad_checkpointing=grad_checkpointing)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
 

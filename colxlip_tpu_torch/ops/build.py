@@ -47,6 +47,12 @@ _SIGNATURES = {
     # text, image, mask, g, coef, ties, dtext, dimage, M, K, Lt, Li, D,
     # mask_mode, dtype, stream
     "colxlip_maxsim_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, labels, scale, loss, lse, M, N, D, dtype, stream
+    "colxlip_fused_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, labels, scale, lse, g, da, dscale, M, N, D, dtype, stream
+    "colxlip_fused_ce_bwd_da": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, labels, scale, lse, g, db, M, N, D, dtype, stream
+    "colxlip_fused_ce_bwd_db": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -9,7 +9,11 @@ Tolerances: fp32 outputs 1e-5 (summation order only); bf16 attention 4e-3
 (one bf16 rounding step of an output below 1 in magnitude); bf16 gradients
 2^-7 of the largest |grad| (each gradient is summed in fp32 and rounded to
 bf16 once, and the attention backward also rounds dz and p to bf16, where
-the kernel and the plain version may land one step apart).
+the kernel and the plain version may land one step apart). Streaming CE:
+loss rows and lse 1e-5 relative + 1e-5 absolute (fp32 sums of exact
+products in another order, at logits up to 100); dA, dB and dscale 1e-4 of
+the largest |grad| (the kernel's expf against torch's exp at 1e-7 relative,
+times up to N terms).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import pytest
 import torch
 
 from colxlip_tpu_torch.factory import create_model
-from colxlip_tpu_torch.ops import attention, maxsim
+from colxlip_tpu_torch.ops import attention, fused_ce, maxsim
 from colxlip_tpu_torch.parallel.train_step import TrainStepConfig, make_train_step
 from colxlip_tpu_torch.serving.server import InferenceEngine
 from colxlip_tpu_torch.training.optim import create_optimizer
@@ -279,3 +283,106 @@ def test_tiny_train_step_kernels_match_plain_path(dev, monkeypatch):
         torch.testing.assert_close(m_k[key], m_p[key], rtol=1e-5, atol=0)
     for key, w in g_p.items():
         torch.testing.assert_close(g_k[key], w, rtol=0, atol=1e-4 * w.abs().max().item())
+
+
+CE_SHAPES = [
+    # (m, n, d, scale)
+    (256, 256, 512, 14.3),      # one train step at batch 256
+    (33, 129, 64, 30.0),        # ragged, M != N
+    (100, 70, 40, 100.0),       # D not a multiple of 32, the scale at its clamp
+    (65, 1000, 768, 50.0),      # the widest D the kernels take
+]
+
+
+def _ce_inputs(m, n, d, scale, dev, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(_l2(rng.standard_normal((m, d))).astype(np.float32)).to(dev, dtype)
+    b = torch.from_numpy(_l2(rng.standard_normal((n, d))).astype(np.float32)).to(dev, dtype)
+    labels = torch.from_numpy(rng.integers(0, n, m).astype(np.int32)).to(dev)
+    g = torch.from_numpy(rng.random(m).astype(np.float32) / m).to(dev)
+    return a, b, labels, torch.tensor(scale, device=dev), g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,d,scale", CE_SHAPES)
+def test_fused_ce_kernels_match_plain(dev, m, n, d, scale, dtype):
+    a, b, labels, s, g = _ce_inputs(m, n, d, scale, dev, dtype)
+    before = (fused_ce.FWD_LAUNCHES.value, fused_ce.BWD_DA_LAUNCHES.value,
+              fused_ce.BWD_DB_LAUNCHES.value)
+    loss, lse = fused_ce._launch_fwd(a, b, labels, s)
+    da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+    db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
+    torch.cuda.synchronize()
+    assert (fused_ce.FWD_LAUNCHES.value, fused_ce.BWD_DA_LAUNCHES.value,
+            fused_ce.BWD_DB_LAUNCHES.value) == tuple(x + 1 for x in before)
+    want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(loss).all()
+    # both backwards from the plain lse, so only the kernels under test differ
+    want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
+    want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
+    for got, want in ((da, want_da), (db, want_db), (ds, want_ds)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+
+
+def test_fused_ce_autograd_launches_three_kernels_and_repeats_bit_for_bit(dev):
+    a, b, labels, s, _ = _ce_inputs(300, 200, 512, 20.0, dev, torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        a_, b_, s_ = a.clone().requires_grad_(), b.clone().requires_grad_(), \
+            s.clone().requires_grad_()
+        before = (fused_ce.FWD_LAUNCHES.value, fused_ce.BWD_DA_LAUNCHES.value,
+                  fused_ce.BWD_DB_LAUNCHES.value)
+        loss = fused_ce.fused_contrastive_ce(a_, b_, labels, s_)
+        grads = torch.autograd.grad(loss, (a_, b_, s_))
+        assert (fused_ce.FWD_LAUNCHES.value, fused_ce.BWD_DA_LAUNCHES.value,
+                fused_ce.BWD_DB_LAUNCHES.value) == tuple(x + 1 for x in before)
+        assert grads[0].dtype == torch.bfloat16 and grads[2].shape == s.shape
+        runs.append((loss.detach(), *grads))
+    for first, second in zip(*runs):     # no atomics: the same bits twice
+        assert torch.equal(first, second)
+    want = torch.nn.functional.cross_entropy(s * a.float() @ b.float().T, labels.long())
+    torch.testing.assert_close(runs[0][0], want, rtol=1e-5, atol=0)
+
+
+def test_fused_ce_at_32768_holds_no_logit_matrix(dev):
+    """M = N = 32768, D = 512, bf16: dense fp32 logits would be 4 GiB; the
+    kernel path's peak stays under 0.5 GiB above its inputs."""
+    m = 32768
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    a = torch.nn.functional.normalize(torch.randn(m, 512, generator=gen), dim=-1).to(
+        dev, torch.bfloat16).requires_grad_()
+    b = torch.nn.functional.normalize(torch.randn(m, 512, generator=gen), dim=-1).to(
+        dev, torch.bfloat16).requires_grad_()
+    labels = torch.arange(m, device=dev)
+    s = torch.tensor(100.0, device=dev, requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    loss = fused_ce.fused_contrastive_ce(a, b, labels, s)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert peak < 0.5 * 2**30, peak
+    assert torch.isfinite(loss) and torch.isfinite(a.grad).all() and torch.isfinite(s.grad)
+    want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a.detach(), b.detach(), labels, s.detach())
+    torch.testing.assert_close(loss.detach(), want_loss.mean(), rtol=1e-5, atol=0)
+
+
+def test_fused_ce_refuses_what_it_does_not_take(dev):
+    a, b, labels, s, g = _ce_inputs(8, 9, 16, 10.0, dev, torch.float32)
+    with pytest.raises(ValueError, match="D=776"):
+        fused_ce.fused_contrastive_ce(torch.zeros(4, 776, device=dev),
+                                      torch.zeros(5, 776, device=dev), labels[:4], s)
+    with pytest.raises(ValueError, match="dtypes"):
+        fused_ce.fused_contrastive_ce(a, b.bfloat16(), labels, s)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ce.fused_contrastive_ce(torch.zeros(16, 8, device=dev).T, b, labels, s)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_ce.fused_contrastive_ce(a, b.cpu(), labels, s)
+    with pytest.raises(ValueError, match="labels must be"):
+        fused_ce.fused_contrastive_ce(a, b, labels[:3], s)
+    with pytest.raises(ValueError, match="lse must be"):
+        fused_ce._launch_bwd_da(a, b, labels, s, g[:3], g)

@@ -154,7 +154,8 @@ def test_library_path_keys_on_sources():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libcolxlip_kernels-") and path.suffix == ".so"
     assert {p.name for p in build._sources()} == {
-        "fused_attention.cu", "fused_attention_bwd.cu", "maxsim.cu", "maxsim_bwd.cu"}
+        "fused_attention.cu", "fused_attention_bwd.cu", "fused_ce.cu", "maxsim.cu",
+        "maxsim_bwd.cu"}
 
 
 # ---- backward ---------------------------------------------------------------

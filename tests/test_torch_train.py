@@ -286,8 +286,8 @@ def test_decay_mask_maps_one_to_one(jax_model):
 def test_unported_options_raise(jax_model):
     feats = [torch.from_numpy(f) for f in _features()]
     scale = torch.tensor(10.0)
-    with pytest.raises(NotImplementedError, match="fused"):
-        clip_loss(feats[0], feats[1], scale, ce_impl="fused")
+    with pytest.raises(ValueError, match="fused CE path does not support logit_bias"):
+        clip_loss(feats[0], feats[1], scale, ce_impl="fused", logit_bias=torch.tensor(-1.0))
     with pytest.raises(NotImplementedError, match="axis_name"):
         clip_loss(feats[0], feats[1], scale, axis_name="data")
     with pytest.raises(NotImplementedError, match="distributed"):
