@@ -16,7 +16,12 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      fp32 and bf16 at M = N = 256 and 4096 (D = 512), M = 33, N = 129
      (D = 64), and in bf16 at M = N = 32768, where the dense fp32 logits
      would be 4 GiB: the kernel path's peak memory there is printed and
-     bounded, and two runs of the backward must agree bit for bit.
+     bounded, and two runs of the backward must agree bit for bit. The
+     LayerNorm and MLP kernels (forward and backward each) in fp32 and bf16
+     at the training shapes (batch 256, vision and text), the token-head
+     LayerNorm shape and one ragged shape each; two runs of each backward
+     must agree bit for bit, and at the vision shape neither direction of
+     the MLP may hold as much as one [B, N, H] tensor above its inputs.
   4. serving slice: ColXLIPService (ViT-B-16-colxlip, full width, random
      init from seed 0, bf16 compute) behind make_server on an ephemeral
      port, driven over HTTP; checks finite unit-norm embeddings, that both
@@ -26,9 +31,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      version, and against the one PyTorch call that computes the same
      function where there is one (scaled_dot_product_attention, forward and
      backward; for the streaming CE the pair torch.matmul + F.cross_entropy
-     over the dense logits is timed beside it); encode throughput at batch
-     64, request latency. The library calls are timed only: the port never
-     calls them.
+     over the dense logits is timed beside it; F.layer_norm forward and
+     backward beside the LayerNorm kernels; the three calls F.linear,
+     F.gelu, F.linear and their autograd backward beside the MLP kernels);
+     encode throughput at batch 64, request latency. The library calls are
+     timed only: on the paths timed here the port never calls them.
   6. train slice: make_train_step on ViT-B-16-colxlip (full width and depth,
      seed 0, fp32 parameters, bf16 compute), colclip loss (alpha 0.5, mask
      'nonzero'), AdamW with a cosine schedule, batch 256 of seeded synthetic
@@ -50,6 +57,19 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      latest must go on from epoch_2 and write epoch_3. Prints the step's ms
      and samples/s, data_time, the peak device memory and the device's idle
      share over three profiled steps.
+  8. the towers through the LayerNorm and MLP kernels: with
+     COLXLIP_LN_IMPL=fused and COLXLIP_MLP_IMPL=fused set before the model
+     is built, ViT-B-16-colxlip (full width and depth, seed 0, bf16):
+     encode_image / encode_text at batch 64 against the same weights through
+     the default path, a uint8 batch against the same batch normalised on
+     the host, FUSED_STEPS colclip train steps at batch 256 on one fixed
+     batch (finite falling losses, the launch counts of all eight kernels on
+     the path exact), the batch-64 step through the kernels against the same
+     step through the plain versions in fp32 and bf16, and the step's ms,
+     img/s and peak device memory beside phase 6's: the peak must fall by
+     the hidden tensors the default path keeps for autograd.
+  Phases 4, 6 and 7 run the default path and must launch none of the
+  LayerNorm and MLP kernels.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi name and power limit, and before that one JSON object with the
@@ -90,6 +110,16 @@ MAXSIM_TOL = 1e-5          # fp32 scores in [-1, 1], summation order only
 # bf16, so the kernels' and the plain versions' roundings differ at 2^-8
 # relative per step through 12 layers; bound the cosine-level drift at 2e-2
 SCORE_TOL_PER_UNIT_SCALE = 2e-2
+# encode_image / encode_text through the LayerNorm and MLP kernels vs the
+# default path on the same weights, bf16: the compared elements are unit-norm
+# 512-d features, typically 1/sqrt(512) = 0.044 and at most a few tenths, so
+# the score's bar would be half a typical value. The two paths differ by bf16
+# roundings through 12 layers, which read 5e-3 on the largest elements; a
+# LayerNorm or MLP wrong by a tenth in one layer moves whole rows by more.
+# Two bars: 1e-2 on any element, and 1e-3 on 1 - cosine of any unit-norm row
+# (a row whose every element is off by 5e-3 / sqrt(512) rms has 2.5e-5).
+ENCODE_TOL = 1e-2
+ENCODE_COSINE_TOL = 1e-3
 # backward kernels vs their plain versions, relative to the largest |grad|:
 #   fp32: summation order only (1e-5);
 #   bf16: each gradient is summed in fp32 and rounded to bf16 once, and the
@@ -111,6 +141,38 @@ CE_CASES = [
     (32768, 32768, 512, 100.0, ("bfloat16",)),              # dense logits: 4 GiB
 ]
 CE_PEAK_LIMIT_GIB = 1.0     # kernel path at 32768, above its inputs
+# LayerNorm and MLP kernels vs their plain versions:
+#   forward, of max(1, largest |out|): fp32 1e-5 (the sums run in another
+#     order, 3072 terms deep in the MLP, and rsqrtf / expf / tanhf stand
+#     against torch's); bf16 2^-7 (the output is rounded to bf16 once: one
+#     step of the largest value);
+#   backward, of the largest |grad|: fp32 1e-4 (dscale, dbias, dW and db sum
+#     50,432 rows in another order); bf16 2^-7 (dx is rounded to bf16 once,
+#     and a dh or a that lands one bf16 step apart moves a weight gradient by
+#     far less).
+FUSED_FWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+FUSED_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+LN_CASES = [
+    # name, leading shape, D
+    ("vision", (256, 197), 768),
+    ("text", (256, 77), 512),
+    ("token-head", (256, 196), 512),
+    ("ragged", (197 * 3,), 512),
+]
+MLP_CASES = [
+    # name, B, N, D, H, the GELU branches checked
+    ("vision", 256, 197, 768, 3072, (False,)),
+    ("text", 256, 77, 512, 2048, (False,)),
+    ("ragged", 3, 77, 512, 2048, (False, True)),
+]
+FUSED_STEPS = 4
+# launches of one colclip train step of ViT-B-16-colxlip through the kernels:
+# LayerNorm: vision ln_pre + 12 x (ln_1, ln_2) + ln_post + 2 in its token
+# head = 28, text 12 x 2 + ln_final + 2 in its head = 27; one MLP and one
+# attention call a block, 12 blocks a tower; one MaxSim. Forward and backward
+# alike.
+STEP_LAUNCHES = {"fused_ln": 55, "fused_mlp": 24, "fused_attention": 24, "maxsim": 1}
+ENCODE_LN_LAUNCHES = {"image": 28, "text": 27}
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -189,9 +251,10 @@ def http(port: int, path: str, body=None):
 def plain_versions():
     """Route CUDA tensors through the kernels' plain versions, forward and
     backward (for the plain-path recomputations only)."""
-    from colxlip_tpu_torch.ops import attention, maxsim
+    from colxlip_tpu_torch.ops import attention, fused_ln, fused_mlp, maxsim
 
-    saved = [(mod, name, getattr(mod, name)) for mod in (attention, maxsim)
+    mods = (attention, maxsim, fused_ln, fused_mlp)
+    saved = [(mod, name, getattr(mod, name)) for mod in mods
              for name in ("_launch_fwd", "_launch_bwd")]
     attention._launch_fwd = attention.fused_mha_plain
     attention._launch_bwd = attention.fused_mha_bwd_plain
@@ -199,6 +262,10 @@ def plain_versions():
         t, i, mask_mode=mode, text_mask=mask)
     maxsim._launch_bwd = lambda t, i, g, mode, mask: maxsim.maxsim_bwd_plain(
         t, i, g, mask_mode=mode, text_mask=mask)
+    fused_ln._launch_fwd = fused_ln.layernorm_plain
+    fused_ln._launch_bwd = fused_ln.layernorm_bwd_plain
+    fused_mlp._launch_fwd = fused_mlp.fused_mlp_plain
+    fused_mlp._launch_bwd = fused_mlp.fused_mlp_bwd_plain
     try:
         yield
     finally:
@@ -206,10 +273,42 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def max_rel_err(got, want) -> float:
-    """max |got - want| over the largest |want| (both read as fp32)."""
+@contextlib.contextmanager
+def fused_towers():
+    """COLXLIP_LN_IMPL=fused and COLXLIP_MLP_IMPL=fused while models are built
+    (the modules read them once, in their constructors)."""
+    names = ("COLXLIP_LN_IMPL", "COLXLIP_MLP_IMPL")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update({k: "fused" for k in names})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fused_counters():
+    """The launch counters of the LayerNorm and MLP kernels, by kernel name."""
+    from colxlip_tpu_torch.ops import fused_ln, fused_mlp
+
+    return {"fused_ln_fwd": fused_ln.FWD_LAUNCHES, "fused_ln_bwd": fused_ln.BWD_LAUNCHES,
+            "fused_mlp_fwd": fused_mlp.FWD_LAUNCHES, "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES}
+
+
+def check_default_path(counters, phase: str) -> None:
+    """The default path (neither variable set) launches none of them."""
+    got = {name: c.value for name, c in counters.items()}
+    if any(got.values()):
+        raise RuntimeError(f"{phase}: the default path launched LayerNorm / MLP kernels: {got}")
+
+
+def max_rel_err(got, want, floor: float = 1e-30) -> float:
+    """max |got - want| over max(floor, largest |want|), both read as fp32."""
     got, want = got.float(), want.float()
-    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(floor)).item()
 
 
 def bound_ms(bytes_moved: float, flops: float, dtype: str):
@@ -221,13 +320,19 @@ def bound_ms(bytes_moved: float, flops: float, dtype: str):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce):
+def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce, ln_x, mlp_x, mlp_w1):
     """bound_ms of every kernel at the shape its ``ms`` is timed at, from the
     tensors themselves: attention (packed QKV [B, N, 3 H D]; 4 B H N^2 D
     flops forward, 10 backward: five products), MaxSim (text [M, Lt, D],
     image [K, Li, D]; the similarities are 2 M K Lt Li D flops, the backward
     adds dT and dI at 2 M K Lt D each), CE (a [M, D], b [N, D]; 2 M N D
-    forward, 4 M N D in dA and in dB)."""
+    forward, 4 M N D in dA and in dB), LayerNorm (x [R, D]: 2 R D elements
+    forward and 3 R D backward, 8 and 16 operations an element, the counts
+    the TPU kernels declare), MLP (x [B, N, D], w1 [H, D]: 4 B N D H flops
+    forward, two products; 10 backward, the five products the function
+    needs: h recomputed from x, dW2, da, dW1 and dx, where the TPU kernel's
+    declared 12 counts one too many; over 2 B N D + 2 D H and
+    3 B N D + 6 D H elements)."""
     def name(t):
         return str(t.dtype).split(".")[-1]
 
@@ -250,6 +355,13 @@ def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce):
     out["fused_ce_fwd"] = bound_ms(feats + 3 * m * 4, 2 * m * n * d, name(a))
     out["fused_ce_bwd_da"] = bound_ms(feats + 4 * m * 4 + m * d * 4, 4 * m * n * d, name(a))
     out["fused_ce_bwd_db"] = bound_ms(feats + 3 * m * 4 + n * d * 4, 4 * m * n * d, name(a))
+    r, d = ln_x.numel() // ln_x.shape[-1], ln_x.shape[-1]
+    out["fused_ln_fwd"] = bound_ms(2 * r * d * ln_x.element_size(), 8 * r * d, name(ln_x))
+    out["fused_ln_bwd"] = bound_ms(3 * r * d * ln_x.element_size(), 16 * r * d, name(ln_x))
+    (h, d), r = mlp_w1.shape, mlp_x.numel() // mlp_x.shape[-1]
+    size = mlp_x.element_size()
+    out["fused_mlp_fwd"] = bound_ms((2 * r * d + 2 * d * h) * size, 4 * r * d * h, name(mlp_x))
+    out["fused_mlp_bwd"] = bound_ms((3 * r * d + 6 * d * h) * size, 10 * r * d * h, name(mlp_x))
     return out
 
 
@@ -377,6 +489,163 @@ def time_ce_kernels(inputs, card: str):
     return timing
 
 
+def mlp_inputs(b, n, d, h, dtype, dev, gen):
+    """x, w1 [H, D], b1, w2 [H, D], b2, dy at the scales of a tower at init:
+    unit-variance rows (a LayerNorm's output), lecun-normal weights."""
+    import torch
+
+    def t(shape, std):
+        return (torch.randn(shape, generator=gen) * std).to(dev, dtype)
+
+    return (t((b, n, d), 1.0), t((h, d), d ** -0.5), t((h,), 0.1), t((h, d), h ** -0.5),
+            t((d,), 0.1), t((b, n, d), 1.0))
+
+
+def check_fused_kernels(dev, gen):
+    """Phase 3d: the LayerNorm and MLP kernels against their plain versions.
+    Returns (max errors per kernel, bf16 inputs by case name for the timings)."""
+    import torch
+
+    from colxlip_tpu_torch.ops import fused_ln, fused_mlp
+
+    errs = {"fused_ln_fwd": 0.0, "fused_ln_bwd": 0.0, "fused_mlp_fwd": 0.0, "fused_mlp_bwd": 0.0}
+    inputs = {}
+
+    def settle(kind, label, name, fwd_err, bwd_err, got, again):
+        f_tol, b_tol = FUSED_FWD_TOL[name], FUSED_BWD_TOL[name]
+        log(f"[3 kernels] {label} {name}: forward max_abs_err / max(1, max|out|) "
+            f"{fwd_err:.3g} (tol {f_tol:.3g}); backward max_abs_err / max|grad| "
+            f"{bwd_err:.3g} (tol {b_tol:.3g})")
+        if not (fwd_err <= f_tol and bwd_err <= b_tol):
+            raise RuntimeError(f"{label} {name}: forward {fwd_err} > {f_tol} or backward "
+                               f"{bwd_err} > {b_tol}")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"{label} {name}: two runs of the backward kernel differ "
+                               "(it uses no atomics)")
+        errs[f"{kind}_fwd"] = max(errs[f"{kind}_fwd"], fwd_err)
+        errs[f"{kind}_bwd"] = max(errs[f"{kind}_bwd"], bwd_err)
+
+    for case, lead, d in LN_CASES:
+        x32 = torch.randn(*lead, d, generator=gen) * 2 + 0.5
+        dy32 = torch.randn(*lead, d, generator=gen)
+        scale = (1 + 0.1 * torch.randn(d, generator=gen)).to(dev)
+        bias = (0.1 * torch.randn(d, generator=gen)).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x, dy = x32.to(dev, dtype), dy32.to(dev, dtype)
+            y = fused_ln._launch_fwd(x, scale, bias, 1e-5)
+            got = fused_ln._launch_bwd(x, scale, dy, 1e-5)
+            again = fused_ln._launch_bwd(x, scale, dy, 1e-5)
+            want_y = fused_ln.layernorm_plain(x, scale, bias, 1e-5)
+            want = fused_ln.layernorm_bwd_plain(x, scale, dy, 1e-5)
+            torch.cuda.synchronize()
+            settle("fused_ln", f"layernorm {case} {tuple(x.shape)}", name,
+                   max_rel_err(y, want_y, 1.0), max(max_rel_err(g, w) for g, w in zip(got, want)),
+                   got, again)
+            if dtype == torch.bfloat16:
+                inputs[f"ln/{case}"] = (x, scale, bias, dy)
+            del y, got, again, want_y, want
+
+    for case, b, n, d, h, branches in MLP_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x, w1, b1, w2, b2, dy = mlp_inputs(b, n, d, h, dtype, dev, gen)
+            for approximate in branches:
+                out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
+                got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
+                again = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
+                want_out = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate)
+                want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, approximate)
+                torch.cuda.synchronize()
+                settle("fused_mlp", f"mlp {case} B={b} N={n} D={d} H={h} "
+                       f"gelu={'tanh' if approximate else 'erf polynomial'}", name,
+                       max_rel_err(out, want_out, 1.0),
+                       max(max_rel_err(g, w) for g, w in zip(got, want)), got, again)
+                del out, got, again, want_out, want
+            if dtype == torch.bfloat16:
+                inputs[f"mlp/{case}"] = (x, w1, b1, w2, b2, dy)
+
+    # no [B, N, H] tensor on the kernel path, either direction, under autograd
+    x, w1, b1, w2, b2, dy = inputs["mlp/vision"]
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    hidden = x.numel() // x.shape[-1] * w1.shape[0] * x.element_size() / 2**20
+    peaks = []
+    out = None
+    for direction in ("forward", "backward"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        if direction == "forward":
+            out = fused_mlp.fused_mlp(*leaves)
+        else:
+            out.backward(dy)
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated(dev) - base) / 2**20)
+    log(f"[3 kernels] mlp vision bf16 under autograd: peak device memory above what was held "
+        f"before, forward {peaks[0]:.1f} MiB, backward {peaks[1]:.1f} MiB; one [B, N, H] "
+        f"tensor would be {hidden:.1f} MiB; two backward runs bit-equal at every shape")
+    if not (max(peaks) < hidden and all(torch.isfinite(t.grad).all() for t in leaves)):
+        raise RuntimeError(f"fused MLP: peaks {peaks} MiB reach one hidden tensor ({hidden} "
+                           "MiB), or a gradient is not finite")
+    return errs, inputs
+
+
+def time_fused_kernels(inputs, card: str):
+    """Phase 5: the LayerNorm and MLP kernels, their plain versions, and the
+    library beside them (F.layer_norm forward and backward; F.linear, F.gelu,
+    F.linear and their autograd backward), bf16 at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from colxlip_tpu_torch.ops import fused_ln, fused_mlp
+
+    timing = {}
+    for case in ("vision", "text", "token-head"):
+        x, scale, bias, dy = inputs[f"ln/{case}"]
+        d = x.shape[-1]
+        w, b = scale.to(x.dtype), bias.to(x.dtype)
+        x_ = x.clone().requires_grad_()
+        w_, b_ = w.clone().requires_grad_(), b.clone().requires_grad_()
+        y_ = F.layer_norm(x_, (d,), w_, b_, 1e-5)
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-5), 20)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(y_, (x_, w_, b_), dy, retain_graph=True), 20)
+        timing[f"fused_ln_fwd/{case}"] = (
+            cuda_ms(lambda: fused_ln._launch_fwd(x, scale, bias, 1e-5), 20),
+            cuda_ms(lambda: fused_ln.layernorm_plain(x, scale, bias, 1e-5), 20), lib_fwd)
+        timing[f"fused_ln_bwd/{case}"] = (
+            cuda_ms(lambda: fused_ln._launch_bwd(x, scale, dy, 1e-5), 20),
+            cuda_ms(lambda: fused_ln.layernorm_bwd_plain(x, scale, dy, 1e-5), 20), lib_bwd)
+        del x_, w_, b_, y_
+    for case in ("vision", "text"):
+        x, w1, b1, w2, b2, dy = inputs[f"mlp/{case}"]
+        w2_out_in = w2.t().contiguous()          # [D, H], the layout F.linear takes
+        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2_out_in, b2)]
+
+        def three_calls(x, w1, b1, w2, b2):
+            return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: three_calls(x, w1, b1, w2_out_in, b2), 5, 2)
+        lib_both = cuda_ms(lambda: torch.autograd.grad(three_calls(*leaves), leaves, dy), 5, 2)
+        timing[f"fused_mlp_fwd/{case}"] = (
+            cuda_ms(lambda: fused_mlp._launch_fwd(x, w1, b1, w2, b2, False), 3, 1),
+            cuda_ms(lambda: fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False), 3, 1), lib_fwd)
+        timing[f"fused_mlp_bwd/{case}"] = (
+            cuda_ms(lambda: fused_mlp._launch_bwd(x, w1, b1, w2, dy, False), 3, 1),
+            cuda_ms(lambda: fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False), 3, 1),
+            lib_both - lib_fwd)
+        del leaves
+    for key, (ker, plain, lib) in timing.items():
+        what = ("F.layer_norm" if key.startswith("fused_ln") else
+                "F.linear, F.gelu, F.linear" + (" (autograd backward: forward + backward less "
+                                                "forward)" if "bwd" in key else ""))
+        log(f"[5 timing] {key} bf16 batch {TRAIN_BATCH}: kernel {ker:.4f} ms, plain "
+            f"{plain:.4f} ms, {what} {lib:.4f} ms ({card})")
+    torch.cuda.empty_cache()
+    return timing
+
+
 def time_library_attention(qkv, dout, heads: int, causal: bool):
     """(forward ms, backward ms) of F.scaled_dot_product_attention on the
     same packed QKV (timed only: the port never calls it)."""
@@ -469,7 +738,7 @@ def synthetic_batch(n: int, image_size: int, ctx: int, seed: int):
     return images, texts
 
 
-def compare_step(dev, dtype, ref_state, step_cfg, images, texts) -> None:
+def compare_step(dev, dtype, ref_state, step_cfg, images, texts, tag: str = "[6 train]") -> None:
     """One train step (learning rate 0) through the kernels and through the
     plain versions on the same weights and inputs; raises on disagreement."""
     import torch
@@ -503,7 +772,7 @@ def compare_step(dev, dtype, ref_state, step_cfg, images, texts) -> None:
         cosines[name] = (g * w).sum().item() / max(nw * ng, 1e-30)
         norm_err = max(norm_err, abs(ng - nw) / max(nw, 1e-30))
     worst = sorted(cosines, key=cosines.get)[:3]
-    log(f"[6 train] batch {images.shape[0]} step in {dtype}, kernels vs plain versions: "
+    log(f"{tag} batch {images.shape[0]} step in {dtype}, kernels vs plain versions: "
         + " ".join(f"{k} {m_k[k]:.5f}/{m_p[k]:.5f}" for k in m_p)
         + f"; max rel loss diff {loss_err:.3g} (tol {loss_tol}); lowest per-tensor grad "
         f"cosines " + ", ".join(f"{n} {cosines[n]:.5f}" for n in worst)
@@ -566,7 +835,8 @@ def train_phase(dev, card: str):
     counters = {"fused_attention_fwd": attention.LAUNCHES, "fused_attention_bwd":
                 attention.BWD_LAUNCHES, "maxsim_fwd": maxsim.LAUNCHES,
                 "maxsim_bwd": maxsim.BWD_LAUNCHES}
-    for c in counters.values():
+    unused = fused_counters()
+    for c in (*counters.values(), *unused.values()):
         c.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, secs = [], []
@@ -585,6 +855,7 @@ def train_phase(dev, card: str):
     launches = {name: c.value for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"[6 train] kernel launches over {TRAIN_STEPS} steps: {launches}")
+    check_default_path(unused, "phase 6")
     if min(launches.values()) < 1:
         raise RuntimeError(f"a kernel of the train step was never launched: {launches}")
     if not losses[-1] < losses[0]:
@@ -608,6 +879,139 @@ def train_phase(dev, card: str):
             "losses": losses}
 
 
+def fused_phase(dev, card: str, train):
+    """Phase 8: both towers through the LayerNorm and MLP kernels, serving
+    and training, at full ViT-B-16-colxlip width and depth."""
+    import numpy as np
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.ops import attention, maxsim
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig, make_train_step
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    default_model, cfg = create_model(MODEL, dev, torch.bfloat16, seed=0)
+    with fused_towers():
+        model, _ = create_model(MODEL, dev, torch.bfloat16, seed=0)
+    ref_state = copy.deepcopy(model.state_dict())
+    size, ctx = cfg.vision_cfg.image_size, cfg.text_cfg.context_length
+    images, texts = synthetic_batch(TRAIN_BATCH, size, ctx, seed=0)
+    images = torch.from_numpy(images).to(dev)
+    texts = torch.from_numpy(texts).to(dev)
+    new = fused_counters()
+    counters = {**new, "fused_attention_fwd": attention.LAUNCHES,
+                "fused_attention_bwd": attention.BWD_LAUNCHES, "maxsim_fwd": maxsim.LAUNCHES,
+                "maxsim_bwd": maxsim.BWD_LAUNCHES}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    # (a) serving: the same weights through the kernels and the default path
+    with torch.inference_mode():
+        for kind, batch in (("image", images[:MAX_BATCH]), ("text", texts[:MAX_BATCH])):
+            encode = "encode_image" if kind == "image" else "encode_text"
+            reset()
+            got = getattr(model, encode)(batch, normalize=True)
+            torch.cuda.synchronize()
+            launches = {name: c.value for name, c in new.items()}
+            want_launches = {"fused_ln_fwd": ENCODE_LN_LAUNCHES[kind], "fused_ln_bwd": 0,
+                             "fused_mlp_fwd": 12, "fused_mlp_bwd": 0}
+            want = getattr(default_model, encode)(batch, normalize=True)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            # text tokens at and after EOT are zero rows on both paths: they
+            # have no direction and are held by the element bar alone
+            off = max(((1.0 - torch.nn.functional.cosine_similarity(
+                g.float(), w.float(), dim=-1)) * (w.float().norm(dim=-1) > 0.5)).max().item()
+                for g, w in zip(got, want))
+            log(f"[8 fused] {encode} batch {MAX_BATCH} through the kernels vs the default "
+                f"path, unit-norm pooled and token features: max_abs_err {err:.3g} (tol "
+                f"{ENCODE_TOL}), largest 1 - cosine of a row {off:.3g} (tol "
+                f"{ENCODE_COSINE_TOL}); launches {launches}")
+            if launches != want_launches:
+                raise RuntimeError(f"{encode}: launches {launches}, expected {want_launches}")
+            if not (err <= ENCODE_TOL and off <= ENCODE_COSINE_TOL
+                    and all(torch.isfinite(g).all() for g in got)):
+                raise RuntimeError(f"{encode} through the kernels: max_abs_err {err} (tol "
+                                   f"{ENCODE_TOL}), 1 - cosine {off} (tol {ENCODE_COSINE_TOL})")
+        # the uint8 feed: normalised on the device against normalised on the host
+        rng = np.random.default_rng(1)
+        raw = rng.integers(0, 256, (MAX_BATCH, size, size, 3), dtype=np.uint8)
+        mean = np.asarray(cfg.vision_cfg.image_mean, np.float32)
+        std = np.asarray(cfg.vision_cfg.image_std, np.float32)
+        host = (raw.astype(np.float32) / np.float32(255.0) - mean) / std
+        got = model.encode_image(torch.from_numpy(raw).to(dev), normalize=True)
+        want = model.encode_image(torch.from_numpy(host).to(dev), normalize=True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        log(f"[8 fused] encode_image on a uint8 batch of {MAX_BATCH} (normalised on the "
+            f"device in fp32) vs the same batch normalised on the host: "
+            f"{'equal bit for bit' if same else 'NOT equal'}")
+        if not same:
+            raise RuntimeError("the uint8 feed disagrees with the host-normalised batch")
+    del default_model
+    torch.cuda.empty_cache()
+
+    # (b) training: FUSED_STEPS colclip steps at batch 256 on one fixed batch
+    model.train()
+    step_cfg = TrainStepConfig(loss_type="colclip", alpha=0.5, mask_mode="nonzero")
+    schedule = const_lr(1e-4, 0)
+    step = make_train_step(model, create_optimizer(model, schedule), schedule, step_cfg)
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    for i in range(FUSED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = step(images, texts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        vals = {k: float(v) for k, v in metrics.items()}
+        losses.append(vals["total_loss"])
+        log(f"[8 fused] step {i}: " + " ".join(f"{k} {v:.5f}" for k, v in vals.items())
+            + f" | {secs[-1] * 1e3:.1f} ms")
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"step {i}: non-finite metrics {vals}")
+    launches = {name: c.value for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    want_launches = {name: FUSED_STEPS * STEP_LAUNCHES[name.rsplit("_", 1)[0]]
+                     for name in counters}
+    log(f"[8 fused] kernel launches over {FUSED_STEPS} steps: {launches}")
+    if launches != want_launches:
+        raise RuntimeError(f"launches {launches}, expected {want_launches}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"the loss did not fall over {FUSED_STEPS} steps: {losses}")
+    step_ms = statistics.median(secs[1:]) * 1e3
+    # autograd on the default path keeps two [B, N, H] tensors an MLP (the
+    # pre-activation for GELU's backward, the activation for c_proj's); the
+    # kernels keep none, so the peak must fall by (at least 90% of) their bytes
+    vis, txt = cfg.vision_cfg, cfg.text_cfg
+    hidden_elements = TRAIN_BATCH * (
+        vis.layers * (vis.num_patches + 1) * int(vis.width * vis.mlp_ratio)
+        + txt.layers * ctx * int(txt.width * txt.mlp_ratio))
+    hidden_gib = 2 * 2 * hidden_elements / 2**30        # two tensors an MLP, bf16
+    limit = train["peak_gib"] - 0.9 * hidden_gib
+    log(f"[8 fused] loss {losses[0]:.5f} -> {losses[-1]:.5f}; step at batch {TRAIN_BATCH}: "
+        f"median {step_ms:.2f} ms over steps 1..{FUSED_STEPS - 1} = "
+        f"{TRAIN_BATCH / step_ms * 1e3:.1f} img/s (default path, phase 6: "
+        f"{train['step_ms']:.2f} ms); peak device memory {peak:.2f} GiB against "
+        f"{train['peak_gib']:.2f} GiB in phase 6, whose 48 hidden tensors are {hidden_gib:.2f} "
+        f"GiB (limit {limit:.2f} GiB) ({card})")
+    if not peak <= limit:
+        raise RuntimeError(f"peak {peak} GiB with the fused MLP is above {limit} GiB: a "
+                           "[B, N, H] tensor was held")
+    del step, model
+    torch.cuda.empty_cache()
+
+    # (c) the batch-64 step through the kernels and through the plain versions
+    with fused_towers():
+        for dtype in (torch.float32, torch.bfloat16):
+            compare_step(dev, dtype, ref_state, step_cfg, images[:COMPARE_BATCH],
+                         texts[:COMPARE_BATCH], tag="[8 fused]")
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak, "losses": losses}
+
+
 def main_phase(dev, card: str):
     """Phase 7: train ViT-B-16 through the port's training entry point."""
     import torch
@@ -629,7 +1033,8 @@ def main_phase(dev, card: str):
                 "--save-frequency", "1", "--workers", "0", "--seed", "0", "--logs", logs,
                 "--name", "smoke"]
         log(f"[7 main] python -m colxlip_tpu_torch.main {' '.join(argv)}")
-        for c in counters.values():
+        unused = fused_counters()
+        for c in (*counters.values(), *unused.values()):
             c.reset()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -665,6 +1070,7 @@ def main_phase(dev, card: str):
             log(f"[7 main] rc 0 in {secs:.1f} s; kernel launches over {steps} steps: {launches}")
             if launches != want:
                 raise RuntimeError(f"launches {launches}, expected {want}")
+            check_default_path(unused, "phase 7")
             steady = recs[2:]
             step_ms = statistics.median(r["batch_time"] for r in steady) * 1e3
             data_ms = statistics.median(r["data_time"] for r in steady) * 1e3
@@ -803,6 +1209,7 @@ def main() -> int:
             maxsim_err = max(maxsim_err, err)
     bwd_err, bwd_inputs = check_backward_kernels(dev, gen)
     ce_err, ce_inputs_by_m = check_ce_kernels(dev, gen)
+    fused_err_by_kernel, fused_inputs = check_fused_kernels(dev, gen)
 
     # ---- phase 4: the serving slice over HTTP ------------------------------
     t0 = time.perf_counter()
@@ -831,11 +1238,13 @@ def main() -> int:
                        "scoring": "maxsim"}),
     ]
     try:
+        unused = fused_counters()
         for counter in (attention.LAUNCHES, attention.BWD_LAUNCHES, maxsim.LAUNCHES,
-                        maxsim.BWD_LAUNCHES):
+                        maxsim.BWD_LAUNCHES, *unused.values()):
             counter.reset()
         results = [http(port, path, body) for path, body in requests]
         torch.cuda.synchronize()
+        check_default_path(unused, "phase 4")
         launches = {"fused_attention": attention.LAUNCHES.value,
                     "maxsim": maxsim.LAUNCHES.value}
         log(f"[4 slice] {len(requests)} requests: "
@@ -928,6 +1337,7 @@ def main() -> int:
             log(f"[5 timing] {key}: kernel {ker:.4f} ms, plain {plain:.4f} ms "
                 f"({card})")
         timing.update(time_ce_kernels(ce_inputs_by_m, card))
+        timing.update(time_fused_kernels(fused_inputs, card))
         qkv, h, causal = attn_inputs["vision"]
         sdpa_fwd, _ = time_library_attention(qkv, None, h, causal)
         sdpa_train = time_library_attention(*bwd_inputs["attention_bwd/vision"])
@@ -937,7 +1347,8 @@ def main() -> int:
 
         bounds = kernel_bounds(attn_inputs["vision"][0], bwd_inputs["attention_bwd/vision"][0],
                                attn_inputs["vision"][1], (t, img), (tt, ii),
-                               ce_inputs_by_m[TRAIN_BATCH][:2])
+                               ce_inputs_by_m[TRAIN_BATCH][:2], fused_inputs["ln/vision"][0],
+                               *fused_inputs["mlp/vision"][:2])
         for name, (ms, by) in bounds.items():
             log(f"[5 timing] bound {name}: {ms:.5f} ms, by {by} (H100 SXM: 3.35 TB/s, "
                 f"989 TFLOP/s bf16, 67 TFLOP/s fp32)")
@@ -964,7 +1375,7 @@ def main() -> int:
         httpd.shutdown()
         svc.stop()
         server.join(timeout=30)
-    del svc, bwd_inputs, ce_inputs_by_m
+    del svc, bwd_inputs, ce_inputs_by_m, fused_inputs
     torch.cuda.empty_cache()
 
     # ---- phase 6: the train slice -----------------------------------------
@@ -973,16 +1384,26 @@ def main() -> int:
     # ---- phase 7: the training entry point ----------------------------------
     trainer = main_phase(dev, card)
 
-    tl, ml = train["launches"], trainer["launches"]
+    # ---- phase 8: the towers through the LayerNorm and MLP kernels ----------
+    fused = fused_phase(dev, card, train)
+
+    tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
+    attn_fwd = (tl["fused_attention_fwd"], attn_err, timing["attention/vision"],
+                bounds["fused_attention_fwd"], sdpa_fwd)
+    attn_bwd = (tl["fused_attention_bwd"], bwd_err["attention_bwd"],
+                timing["attention_bwd/vision"], bounds["fused_attention_bwd"], sdpa_train[1])
     rows = [
         ("fused_attention_fwd", "colxlip_tpu_torch/csrc/fused_attention.cu",
-         "colxlip_tpu/ops/fused_attention.py:103", tl["fused_attention_fwd"], attn_err,
-         timing["attention/vision"], bounds["fused_attention_fwd"], sdpa_fwd),
+         "colxlip_tpu/ops/fused_attention.py:103", *attn_fwd),
         ("fused_attention_bwd", "colxlip_tpu_torch/csrc/fused_attention_bwd.cu",
-         "colxlip_tpu/ops/fused_attention.py:115", tl["fused_attention_bwd"],
-         bwd_err["attention_bwd"], timing["attention_bwd/vision"],
-         bounds["fused_attention_bwd"], sdpa_train[1]),
+         "colxlip_tpu/ops/fused_attention.py:115", *attn_bwd),
+        # the TPU's head-pair grid variants are the same functions: the CUDA
+        # kernels grid over heads already and serve them too
+        ("fused_attention_fwd_heads", "colxlip_tpu_torch/csrc/fused_attention.cu",
+         "colxlip_tpu/ops/fused_attention.py:193", *attn_fwd),
+        ("fused_attention_bwd_heads", "colxlip_tpu_torch/csrc/fused_attention_bwd.cu",
+         "colxlip_tpu/ops/fused_attention.py:222", *attn_bwd),
         ("maxsim_fwd", "colxlip_tpu_torch/csrc/maxsim.cu",
          "colxlip_tpu/ops/maxsim_pallas.py:86", tl["maxsim_fwd"], maxsim_err,
          timing["maxsim/nonzero"], bounds["maxsim_fwd"], None),
@@ -999,12 +1420,28 @@ def main() -> int:
          "colxlip_tpu/ops/fused_ce.py:152", ml["fused_ce_bwd_db"], ce_err["fused_ce_bwd_db"],
          ce_ms["bwd_db"], bounds["fused_ce_bwd_db"], None),
     ]
+    # the LayerNorm kernels stand beside F.layer_norm; the MLP has no one call
+    # (its three-call path is under "mlp_three_calls_ms")
+    for name, source, replaces, has_library in (
+            ("fused_ln_fwd", "fused_ln.cu", "fused_ln.py:58", True),
+            ("fused_ln_bwd", "fused_ln.cu", "fused_ln.py:68", True),
+            ("fused_mlp_fwd", "fused_mlp.cu", "fused_mlp.py:182", False),
+            ("fused_mlp_bwd", "fused_mlp.cu", "fused_mlp.py:198", False)):
+        ker, plain, lib = timing[f"{name}/vision"]
+        rows.append((name, f"colxlip_tpu_torch/csrc/{source}", f"colxlip_tpu/ops/{replaces}",
+                     fl[name], fused_err_by_kernel[name], (ker, plain), bounds[name],
+                     lib if has_library else None))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
         for name, source, replaces, n_launches, err, (ms, plain_ms), bound, library_ms in rows],
-        "launches_serving": launches, "launches_main": ml,
+        "launches_serving": launches, "launches_main": ml, "launches_fused": fl,
+        "mlp_three_calls_ms": {"fwd": timing["fused_mlp_fwd/vision"][2],
+                               "bwd": timing["fused_mlp_bwd/vision"][2]},
+        "fused_train_step": {"batch": TRAIN_BATCH, "steps": FUSED_STEPS, "ms": fused["step_ms"],
+                             "img_per_s": TRAIN_BATCH / fused["step_ms"] * 1e3,
+                             "peak_gib": fused["peak_gib"]},
         "train_step": {"batch": TRAIN_BATCH, "ms": train["step_ms"],
                        "img_per_s": TRAIN_BATCH / train["step_ms"] * 1e3,
                        "peak_gib": train["peak_gib"]},

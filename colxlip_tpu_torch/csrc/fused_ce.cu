@@ -35,90 +35,22 @@
 // version runs every product as fp32 FMAs on the CUDA cores: a 16 x 16
 // thread block holds the [rows, cols] tile of raw dots in registers, fed
 // from shared-memory chunks of 32 features stored feature-major with odd row
-// strides (conflict-free stores, broadcast loads), as csrc/maxsim_tile.cuh
-// does. The backward kernels put dz for the tile in shared memory and then
-// each warp adds dz times the streamed matrix's rows (read through L1/L2,
+// strides (conflict-free stores, broadcast loads): csrc/stream_tile.cuh,
+// shared with csrc/fused_mlp.cu. The backward kernels put dz for the tile
+// in shared memory and then each warp adds dz times the streamed matrix's rows (read through L1/L2,
 // lanes on consecutive features) into its 4 owned rows of the fp32 output,
 // all D features of them in registers. Moving the products onto the tensor
 // cores (bf16 mma.sync / wgmma for the dots, TF32 or split-bf16 for the
 // fp32 second product) is the next step.
 
-#include "common.cuh"
+#include "stream_tile.cuh"
 
 namespace {
 
 using colxlip::to_f;
+using namespace colxlip::stream_tile;
 
-constexpr int kTX = 16;            // threads along tile columns (rows of b)
-constexpr int kTY = 16;            // threads along tile rows (rows of a)
-constexpr int kThreads = kTX * kTY;
-constexpr int kWarps = kThreads / 32;
-constexpr int kKC = 32;            // feature chunk staged in shared memory
-constexpr int kOwn = 32;           // rows of dA (or dB) a backward block owns
-constexpr int kStream = 64;        // rows of the streamed matrix per tile
-constexpr int kOwnPerWarp = kOwn / kWarps;
-constexpr int kMaxD = 768;
 constexpr float kNeg = -1e30f;
-
-template <int RPT, int CPT>
-struct Stage {
-  float as[kKC][kTY * RPT + 1];
-  float bs[kKC][kTX * CPT + 1];
-};
-
-// acc[r][c] = <a[i0 + ty + 16 r], b[j0 + tx + 16 c]> in fp32, 0 where the row
-// or the column lies outside [0, m) x [0, n). Ends with __syncthreads().
-template <typename T, int RPT, int CPT>
-__device__ __forceinline__ void raw_tile(const T* __restrict__ a, const T* __restrict__ b, int i0,
-                                         int j0, int m, int n, int d, Stage<RPT, CPT>& st,
-                                         float (&acc)[RPT][CPT]) {
-  constexpr int BM = kTY * RPT, BN = kTX * CPT;
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = 0.f;
-
-  for (int d0 = 0; d0 < d; d0 += kKC) {
-    for (int idx = threadIdx.x; idx < BM * kKC; idx += kThreads) {
-      const int row = idx / kKC, dd = idx - row * kKC;
-      st.as[dd][row] =
-          (i0 + row < m && d0 + dd < d) ? to_f(a[size_t(i0 + row) * d + d0 + dd]) : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < BN * kKC; idx += kThreads) {
-      const int col = idx / kKC, dd = idx - col * kKC;
-      st.bs[dd][col] =
-          (j0 + col < n && d0 + dd < d) ? to_f(b[size_t(j0 + col) * d + d0 + dd]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int dd = 0; dd < kKC; ++dd) {
-      float av[RPT], bv[CPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) av[r] = st.as[dd][ty + kTY * r];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) bv[c] = st.bs[dd][tx + kTX * c];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-}
-
-// The 16 tx lanes that share a tile row sit in one half-warp.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = kTX / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = kTX / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // ---------------------------------------------------------------------------
 // forward: one block per tile of 64 rows of a, looping over tiles of 64 rows
@@ -187,49 +119,6 @@ ce_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __res
 // backward
 // ---------------------------------------------------------------------------
 
-// out[r][c] += sum over the tile's `count` streamed rows s of
-// dz[4 warp + r][s] * rows[s, lane + 32 c]: each warp owns 4 output rows and
-// all D of their features, and reads dz as a warp-wide broadcast.
-template <typename T, int DPT>
-__device__ __forceinline__ void accumulate(const float (&dz)[kOwn][kStream + 1],
-                                           const T* __restrict__ rows, int count, int d,
-                                           float (&out)[kOwnPerWarp][DPT]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int s = 0; s < count; ++s) {
-    float z[kOwnPerWarp];
-#pragma unroll
-    for (int r = 0; r < kOwnPerWarp; ++r) z[r] = dz[kOwnPerWarp * warp + r][s];
-    const T* row = rows + size_t(s) * d;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) {
-        const float v = to_f(row[col]);
-#pragma unroll
-        for (int r = 0; r < kOwnPerWarp; ++r) out[r][c] = fmaf(z[r], v, out[r][c]);
-      }
-    }
-  }
-}
-
-// scale * out -> dst[first + 4 warp + r, :] for the owned rows below `limit`.
-template <int DPT>
-__device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT],
-                                            float* __restrict__ dst, int first, int limit, int d,
-                                            float scale) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < kOwnPerWarp; ++r) {
-    const int row = first + kOwnPerWarp * warp + r;
-    if (row >= limit) continue;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) dst[size_t(row) * d + col] = scale * out[r][c];
-    }
-  }
-}
-
 // dA and per-row dscale: one block per tile of 32 rows of a, looping over
 // tiles of 64 rows of b.
 template <typename T, int DPT>
@@ -257,10 +146,7 @@ ce_bwd_da_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
     ds[r] = 0.f;
   }
   float out[kOwnPerWarp][DPT];
-#pragma unroll
-  for (int r = 0; r < kOwnPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) out[r][c] = 0.f;
+  zero_owned<DPT>(out);
 
   for (int j0 = 0; j0 < n; j0 += kStream) {
     float acc[RPT][CPT];
@@ -308,10 +194,7 @@ ce_bwd_db_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
   const float scale = *scale_ptr;
 
   float out[kOwnPerWarp][DPT];
-#pragma unroll
-  for (int r = 0; r < kOwnPerWarp; ++r)
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) out[r][c] = 0.f;
+  zero_owned<DPT>(out);
 
   for (int i0 = 0; i0 < m; i0 += kStream) {
     float acc[RPT][CPT];

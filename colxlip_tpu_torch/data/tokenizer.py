@@ -44,8 +44,8 @@ CONTEXT_LENGTH = 77
 SOT_TOKEN = 49406
 EOT_TOKEN = 49407
 DEFAULT_BPE_ENV = "COLXLIP_BPE_PATH"
-# the JAX package's asset location, read by path (never imported)
-_JAX_DATA_DIR = pathlib.Path(__file__).resolve().parents[2] / "colxlip_tpu" / "data"
+# the port's own asset location: the BPE file goes beside this module
+_DATA_DIR = pathlib.Path(__file__).resolve().parent
 _BPE_NAME = "bpe_simple_vocab_16e6.txt.gz"
 
 
@@ -87,7 +87,7 @@ def _find_default_bpe() -> Optional[str]:
     p = os.environ.get(DEFAULT_BPE_ENV)
     if p and os.path.exists(p):
         return p
-    here = _JAX_DATA_DIR / _BPE_NAME
+    here = _DATA_DIR / _BPE_NAME
     return str(here) if here.exists() else None
 
 

@@ -11,8 +11,10 @@ its flags.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import logging
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -21,7 +23,10 @@ from .data.tokenizer import SimpleTokenizer
 from .data.transforms import EvalTransform, image_transform
 from .models import CLIP, CLIPCfg, ColXLIP, get_model_config, list_models
 from .models.layers import Linear, MultiHeadAttention
+from .models.pos_embed import get_2d_sincos_pos_embed, interpolate_pos_embed
 from .models.vision import PatchEmbed
+
+logger = logging.getLogger(__name__)
 
 
 PRECISION_DTYPES = {"fp32": torch.float32, "amp": torch.float32,
@@ -42,7 +47,8 @@ def compute_dtype(precision: str) -> torch.dtype:
 
 def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
                  force_image_size: Optional[int] = None, alpha: Optional[float] = None,
-                 gelu_approximate: Optional[bool] = None) -> CLIPCfg:
+                 gelu_approximate: Optional[bool] = None,
+                 force_patch_dropout: Optional[float] = None) -> CLIPCfg:
     cfg_dict = get_model_config(model_name)
     if cfg_dict is None:
         raise RuntimeError(f"Model config for {model_name} not found; "
@@ -55,6 +61,8 @@ def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
         cfg = dataclasses.replace(cfg, quick_gelu=quick_gelu)
     if force_image_size is not None:
         cfg.vision_cfg.image_size = force_image_size
+    if force_patch_dropout is not None:
+        cfg.vision_cfg.patch_dropout = force_patch_dropout
     if alpha is not None:
         cfg = dataclasses.replace(cfg, alpha=alpha)
     if gelu_approximate is not None:
@@ -65,7 +73,9 @@ def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
 @torch.no_grad()
 def init_weights(model: CLIP, generator: torch.Generator) -> None:
     """Random init at the JAX package's scales (lecun-normal dense kernels
-    and zero biases; the text tower's depth-scaled block normals)."""
+    and zero biases; the text tower's depth-scaled block normals; the 2-D
+    sin-cos table where the config asks for it). LayerNorm and LayerScale
+    parameters keep their constructors' constants."""
     def normal_(p: torch.Tensor, std: float) -> None:
         p.normal_(0.0, std, generator=generator)
 
@@ -84,6 +94,9 @@ def init_weights(model: CLIP, generator: torch.Generator) -> None:
     width = cfg.vision_cfg.width
     for p in (vis.class_embedding, vis.positional_embedding, vis.proj):
         normal_(p, width ** -0.5)
+    if cfg.vision_cfg.pos_embed_type == "sin_cos_2d":
+        vis.positional_embedding.copy_(torch.from_numpy(get_2d_sincos_pos_embed(
+            width, cfg.vision_cfg.grid_size[0], cls_token=True)))
     tw, tl = cfg.text_cfg.width, cfg.text_cfg.layers
     normal_(model.positional_embedding, 0.01)
     normal_(model.text_projection, tw ** -0.5)
@@ -101,22 +114,42 @@ def create_model(model_name: str, device: Union[str, torch.device],
                  quick_gelu: Optional[bool] = None,
                  force_image_size: Optional[int] = None, alpha: Optional[float] = None,
                  gelu_approximate: Optional[bool] = None,
-                 grad_checkpointing: bool = False) -> Tuple[CLIP, CLIPCfg]:
+                 grad_checkpointing: bool = False,
+                 force_patch_dropout: Optional[float] = None) -> Tuple[CLIP, CLIPCfg]:
     """(model on ``device`` in eval mode, its config), seeded random init.
     ``grad_checkpointing`` recomputes each residual block in the backward."""
     cfg = model_config(model_name, quick_gelu, force_image_size=force_image_size,
-                       alpha=alpha, gelu_approximate=gelu_approximate)
+                       alpha=alpha, gelu_approximate=gelu_approximate,
+                       force_patch_dropout=force_patch_dropout)
     cls = ColXLIP if "colxlip" in model_name.lower() else CLIP
     model = cls(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
     init_weights(model, torch.Generator(device="cpu").manual_seed(seed))
     return model.to(device).eval(), cfg
 
 
+def resize_vision_pos_embed(sd: Dict[str, torch.Tensor], new_grid: Tuple[int, int]
+                            ) -> Dict[str, torch.Tensor]:
+    """Bicubic-resample ``visual.positional_embedding`` of a state dict (a
+    class row plus a square grid) to ``new_grid``, as the JAX loader does when
+    a checkpoint meets another image size."""
+    pe = sd["visual.positional_embedding"]
+    old = int(round((pe.shape[0] - 1) ** 0.5))
+    if (old, old) == tuple(new_grid):
+        return sd
+    logger.info("resizing vision pos embed %dx%d -> %dx%d", old, old, *new_grid)
+    resized = interpolate_pos_embed(pe.float().numpy(), tuple(new_grid), (old, old))
+    return {**sd, "visual.positional_embedding": torch.from_numpy(np.ascontiguousarray(resized))}
+
+
 def load_weights(model: CLIP, checkpoint_path: str) -> None:
     """Load an OpenCLIP-layout .pt checkpoint into ``model``. Every key must
     match, except that a plain-CLIP checkpoint may leave a ColXLIP model's
-    token heads at their init (the JAX package's tag-strip reuse)."""
+    token heads at their init (the JAX package's tag-strip reuse). A vision
+    positional embedding trained at another image size is resized to the
+    model's patch grid (``--pretrained`` with ``--force-image-size``)."""
     sd = load_pt_state_dict(checkpoint_path)
+    if "visual.positional_embedding" in sd:
+        sd = resize_vision_pos_embed(sd, model.cfg.vision_cfg.grid_size)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     heads = ("vision_token_layer.", "text_token_layer.")
     missing = [k for k in missing if not k.startswith(heads)]
@@ -130,7 +163,8 @@ def create_model_and_transforms(
         device: Union[str, torch.device], precision: str = "bf16",
         quick_gelu: Optional[bool] = None, force_image_size: Optional[int] = None,
         grad_checkpointing: bool = False, alpha: float = 0.5,
-        gelu_approximate: bool = False, seed: int = 0
+        gelu_approximate: bool = False, seed: int = 0,
+        force_patch_dropout: Optional[float] = None
 ) -> Tuple[CLIP, CLIPCfg, EvalTransform]:
     """(model in train mode on ``device``, cfg, preprocess_val): the part of
     the JAX ``create_model_and_transforms`` the training entry point needs.
@@ -140,7 +174,8 @@ def create_model_and_transforms(
     model, cfg = create_model(
         model_name, device, compute_dtype(precision), seed=seed, quick_gelu=quick_gelu,
         force_image_size=force_image_size, alpha=alpha,
-        gelu_approximate=gelu_approximate, grad_checkpointing=grad_checkpointing)
+        gelu_approximate=gelu_approximate, grad_checkpointing=grad_checkpointing,
+        force_patch_dropout=force_patch_dropout)
     if pretrained:
         load_weights(model, pretrained)
     preprocess_val = image_transform(

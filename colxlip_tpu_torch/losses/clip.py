@@ -30,10 +30,12 @@ def cross_entropy_with_integer_labels(logits: torch.Tensor,
     return (lse - true_logit).mean()
 
 
-def contrastive_labels(num_logits: int, *, axis_name: Optional[str] = None,
-                       local_loss: bool = False,
-                       device: Union[str, torch.device, None] = None) -> torch.Tensor:
-    """arange labels (the rank offset of local-loss mode is not ported)."""
+def contrastive_labels(num_logits: int, *, device: Union[str, torch.device],
+                       axis_name: Optional[str] = None,
+                       local_loss: bool = False) -> torch.Tensor:
+    """arange labels on ``device``, which the caller names (the logits'
+    device; there is no default). The rank offset of local-loss mode is not
+    ported."""
     _single_device(axis_name, "contrastive_labels")
     return torch.arange(num_logits, device=device)
 

@@ -104,7 +104,9 @@ def unsupported_flags(args) -> List[str]:
         (args.packed_feed,
          "--packed-feed: the packed feed (parallel/data_feed.py) is not yet ported"),
         (args.normalize_on_device,
-         "--normalize-on-device: the uint8 image feed (models/vision.py) is not yet ported"),
+         "--normalize-on-device: the flag only changes the tar pipeline's train transform "
+         "(data/wds.py, not yet ported); the vision tower takes uint8 images already, and "
+         "the synthetic stream stays float32"),
         (args.ship_format == "yuv420",
          "--ship-format yuv420: the YUV420 feed (ops/yuv420.py) is not yet ported"),
         (args.pipeline == "grain",
@@ -121,7 +123,10 @@ def unsupported_flags(args) -> List[str]:
          f"--model {args.model}: CoCa models (models/coca.py, losses/coca.py) are not "
          "yet ported"),
         (args.force_patch_dropout is not None,
-         "--force-patch-dropout: PatchDropout (models/vision.py) is not yet ported"),
+         "--force-patch-dropout: the train step has no generator for PatchDropout's draw. "
+         "The JAX step passes no 'patch_dropout' rng either and raises flax "
+         "InvalidRngError with this flag, so the port refuses it too (the module and the "
+         "tower option are ported: models/layers.py PatchDropout)"),
         (args.async_checkpoint,
          "--async-checkpoint: background saves (training/checkpoint.py) are not yet "
          "ported"),

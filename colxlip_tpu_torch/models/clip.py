@@ -112,12 +112,15 @@ class ColXLIP(CLIP):
 
     def encode_text(self, text: torch.Tensor, normalize: bool = False):
         """(pooled [B, E], projected tokens [B, n, E]); token features at and
-        after EOT (argmax id) are zeroed before the token head."""
+        after EOT (argmax id) are zeroed before the token head. The zeroing
+        is guarded on argmax pooling, as in the JAX model: under the other
+        pool types the argmax of the ids is not taken for the EOT position."""
         pooled, tokens = encode_text_tower(self, text, self.dtype)
-        eot = text.argmax(dim=-1)
-        positions = torch.arange(text.shape[1], device=text.device)
-        keep = positions[None, :] < eot[:, None]
-        tokens = tokens.masked_fill(~keep[:, :, None], 0.0)
+        if self.cfg.text_cfg.pool_type == "argmax":
+            eot = text.argmax(dim=-1)
+            positions = torch.arange(text.shape[1], device=text.device)
+            keep = positions[None, :] < eot[:, None]
+            tokens = tokens.masked_fill(~keep[:, :, None], 0.0)
         tokens = self.text_token_layer(tokens)
         if normalize:
             pooled, tokens = l2_normalize(pooled), l2_normalize(tokens)

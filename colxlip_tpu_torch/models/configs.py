@@ -4,8 +4,9 @@ Port of ``colxlip_tpu/models/configs.py`` without its ``PrecisionPolicy``
 (which imports ``jax.numpy``): the port passes the compute dtype as a
 ``torch.dtype`` to ``factory.create_model`` instead.
 
-The registry reads ``colxlip_tpu/model_configs/*.json`` as data, by file
-path — the JSON files are shared with the JAX package, never copied.
+The registry reads the port's own ``colxlip_tpu_torch/model_configs/*.json``,
+byte-for-byte copies of the JAX package's files (a test holds them equal, so
+the two registries cannot drift).
 """
 from __future__ import annotations
 
@@ -121,11 +122,10 @@ def _to_2tuple(x):
 
 
 # ---------------------------------------------------------------------------
-# JSON architecture registry (read from the JAX package's model_configs/)
+# JSON architecture registry (colxlip_tpu_torch/model_configs/)
 # ---------------------------------------------------------------------------
 
-MODEL_CONFIG_DIR = (pathlib.Path(__file__).resolve().parents[2]
-                    / "colxlip_tpu" / "model_configs")
+MODEL_CONFIG_DIR = pathlib.Path(__file__).resolve().parents[1] / "model_configs"
 
 
 def _natural_key(s: str):

@@ -11,12 +11,20 @@ Parameter names follow the OpenCLIP state-dict keys that
 (``ln_1``, ``attn.in_proj_weight``, ``attn.out_proj``, ``ln_2``, ``mlp.c_fc``,
 ``mlp.c_proj``), so ``load_state_dict(strict=True)`` proves the layout.
 
-Not ported (no shipped config uses them): LayerScale, PatchDropout (the
-vision tower refuses it), cross-attention and the attentional pooler.
+``LayerNorm`` and ``MLP`` have two paths each, as in the JAX package: the
+library path (``F.layer_norm``; two ``Linear``s around the activation) and
+the hand-written kernels (``ops/fused_ln.py``, ``ops/fused_mlp.py``). The
+environment variables ``COLXLIP_LN_IMPL`` and ``COLXLIP_MLP_IMPL`` choose
+(``fused`` or ``xla``, the JAX spelling of "the library path"; default
+``xla``; anything else raises). They are read once, when the module is
+built, not on every call; an explicit ``impl`` argument beats them. The
+parameters are the same under either setting, so checkpoints load under both.
+
+Not ported: cross-attention and the attentional pooler.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +32,8 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops import attention as attention_ops
+from ..ops.fused_ln import fused_layernorm, resolve_ln_impl
+from ..ops.fused_mlp import fused_mlp, resolve_mlp_impl
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -48,15 +58,24 @@ class Linear(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm computed in fp32, output cast back to the input's dtype."""
+    """LayerNorm computed in fp32, output cast back to the input's dtype.
+    ``impl``: 'fused' takes ``ops/fused_ln.py`` for every input (its kernels
+    on the card, which raise on a shape or dtype outside their range; its
+    plain version on the CPU), 'xla' ``F.layer_norm``, 'auto'
+    ``COLXLIP_LN_IMPL`` as it is when the module is built. The JAX module
+    gives way to the library for an unsupported shape; this one does not,
+    so a run that asked for the kernels is never timed on the library."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, impl: str = "auto"):
         super().__init__()
         self.eps = eps
+        self.impl = resolve_ln_impl(impl)
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "fused":
+            return fused_layernorm(x, self.weight, self.bias, self.eps)
         y = F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(x.dtype)
@@ -84,18 +103,92 @@ class GELU(nn.Module):
 
 
 class MLP(nn.Module):
-    """c_fc -> act -> c_proj, both matmuls in the compute dtype."""
+    """c_fc -> act -> c_proj, both matmuls in the compute dtype. ``impl``:
+    'fused' sends a 3-D input through the one kernel of ``ops/fused_mlp.py``
+    when ``act`` is ``gelu`` or ``gelu_tanh`` (``quick_gelu`` and 2-D inputs
+    keep the two ``Linear``s), 'xla' never, 'auto' ``COLXLIP_MLP_IMPL`` as
+    it is when the module is built. The kernel's exact GELU is the
+    Abramowitz-Stegun erf polynomial, 1.5e-7 from ``gelu``'s erf."""
 
     def __init__(self, dim: int, mlp_ratio: float, act: Callable, *,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, impl: str = "auto"):
         super().__init__()
         hidden = int(dim * mlp_ratio)
         self.act = act
+        self.dtype = dtype
+        self.approximate = {gelu: False, gelu_tanh: True}.get(act)
+        self.fused = resolve_mlp_impl(impl) == "fused" and self.approximate is not None
         self.c_fc = Linear(dim, hidden, dtype=dtype)
         self.c_proj = Linear(hidden, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused and x.ndim == 3:
+            dt = self.dtype
+            # the casts and the one transpose (c_proj.weight [D, H] -> the
+            # kernel's hidden-major [H, D]) stay outside the kernel's
+            # autograd.Function, so the gradients pass back through them
+            return fused_mlp(x.to(dt), self.c_fc.weight.to(dt), self.c_fc.bias.to(dt),
+                             self.c_proj.weight.to(dt).t().contiguous(),
+                             self.c_proj.bias.to(dt), self.approximate)
         return self.c_proj(self.act(self.c_fc(x)))
+
+
+class LayerScale(nn.Module):
+    """Per-channel learnable scaling of a residual branch (``gamma``)."""
+
+    def __init__(self, dim: int, init_values: float = 1e-5):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
+
+
+def patch_dropout_select(x: torch.Tensor, scores: torch.Tensor, prob: float,
+                         exclude_first_token: bool = True) -> torch.Tensor:
+    """Keep ``max(1, int(n * (1 - prob)))`` of each sample's n patch tokens:
+    those with the highest ``scores`` [B, n], in descending order of score
+    (a per-sample top-k), after the class token when it is excluded from the
+    draw. Pure: the same scores select the same tokens."""
+    first = 1 if exclude_first_token else 0
+    cls_tok, tokens = x[:, :first], x[:, first:]
+    n = tokens.shape[1]
+    if scores.shape != tokens.shape[:2]:
+        raise ValueError(f"patch_dropout_select: scores {tuple(scores.shape)} for tokens "
+                         f"{tuple(tokens.shape[:2])}")
+    num_keep = max(1, int(n * (1.0 - prob)))
+    keep_idx = scores.topk(num_keep, dim=1).indices
+    kept = tokens.gather(1, keep_idx[:, :, None].expand(-1, -1, tokens.shape[2]))
+    return torch.cat([cls_tok, kept], dim=1)
+
+
+class PatchDropout(nn.Module):
+    """Randomly keep a subset of patch tokens while training; the identity
+    in eval mode or at ``prob`` 0. The normal scores are drawn from
+    ``generator`` (a ``torch.Generator``, on its own device, so a seed gives
+    the same tokens on the CPU and on the card); training without one
+    raises, as the JAX module does without its 'patch_dropout' rng."""
+
+    def __init__(self, prob: float = 0.5, exclude_first_token: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if not 0.0 <= prob < 1.0:
+            raise ValueError(f"PatchDropout prob must be in [0, 1); got {prob}")
+        self.prob = prob
+        self.exclude_first_token = exclude_first_token
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.prob == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("PatchDropout in training mode needs a torch.Generator "
+                               "(set module.generator): its draw is never implicit")
+        n = x.shape[1] - (1 if self.exclude_first_token else 0)
+        scores = torch.randn((x.shape[0], n), generator=self.generator,
+                             device=self.generator.device)
+        return patch_dropout_select(x, scores.to(x.device), self.prob,
+                                    self.exclude_first_token)
 
 
 class MultiHeadAttention(nn.Module):
@@ -120,19 +213,26 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN block: x + attn(ln_1(x)), then x + mlp(ln_2(x))."""
+    """Pre-LN block: x + ls_1(attn(ln_1(x))), then x + ls_2(mlp(ln_2(x)));
+    the LayerScales exist only when ``ls_init_value`` is given."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float, act: Callable,
-                 *, dtype: torch.dtype):
+                 *, dtype: torch.dtype, ls_init_value: Optional[float] = None):
         super().__init__()
         self.ln_1 = LayerNorm(dim)
         self.attn = MultiHeadAttention(dim, heads, dtype=dtype)
         self.ln_2 = LayerNorm(dim)
         self.mlp = MLP(dim, mlp_ratio, act, dtype=dtype)
+        if ls_init_value is not None:
+            self.ls_1 = LayerScale(dim, ls_init_value)
+            self.ls_2 = LayerScale(dim, ls_init_value)
+        self.scaled = ls_init_value is not None
 
     def forward(self, x: torch.Tensor, is_causal: bool = False) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x), is_causal)
-        return x + self.mlp(self.ln_2(x))
+        attn_out = self.attn(self.ln_1(x), is_causal)
+        x = x + (self.ls_1(attn_out) if self.scaled else attn_out)
+        mlp_out = self.mlp(self.ln_2(x))
+        return x + (self.ls_2(mlp_out) if self.scaled else mlp_out)
 
 
 class Transformer(nn.Module):
@@ -142,11 +242,13 @@ class Transformer(nn.Module):
     (``torch.utils.checkpoint``), for the same loss and gradients."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float,
-                 act: Callable, *, dtype: torch.dtype, grad_checkpointing: bool = False):
+                 act: Callable, *, dtype: torch.dtype, grad_checkpointing: bool = False,
+                 ls_init_value: Optional[float] = None):
         super().__init__()
         self.grad_checkpointing = grad_checkpointing
         self.resblocks = nn.ModuleList([
-            ResidualAttentionBlock(width, heads, mlp_ratio, act, dtype=dtype)
+            ResidualAttentionBlock(width, heads, mlp_ratio, act, dtype=dtype,
+                                   ls_init_value=ls_init_value)
             for _ in range(layers)])
 
     def forward(self, x: torch.Tensor, is_causal: bool = False) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Causal text transformer tower: port of ``colxlip_tpu/models/text.py``.
 
 token embedding + positional_embedding[:n] (so a shorter input runs a
-shorter context: the serving ``--text-buckets`` lever) -> causal blocks ->
-ln_final -> argmax(EOT) pooling -> @ text_projection.
+shorter context: the serving ``--text-buckets`` lever) -> blocks (causal
+unless ``no_causal_mask``) -> ln_final -> pooling (``pool_type``: 'argmax',
+the EOT position; 'first'; 'last'; anything else none) -> @ text_projection.
+``embed_cls``, ``proj_type`` other than 'linear' and ``proj_bias`` are not
+ported and raise ``NotImplementedError``.
 
 OpenCLIP keeps the text tower's parameters flat on the CLIP module
 (``token_embedding.weight``, ``positional_embedding``, ``transformer.*``,
@@ -25,9 +28,6 @@ from .layers import LayerNorm, Transformer
 def check_supported(cfg: CLIPTextCfg) -> None:
     unported = {
         "embed_cls": cfg.embed_cls,
-        "no_causal_mask": cfg.no_causal_mask,
-        "ls_init_value": cfg.ls_init_value is not None,
-        "pool_type": cfg.pool_type != "argmax",
         "proj_type": cfg.proj_type != "linear",
         "proj_bias": cfg.proj_bias,
     }
@@ -46,14 +46,23 @@ def add_text_tower(model: nn.Module, cfg: CLIPTextCfg, embed_dim: int,
     model.positional_embedding = nn.Parameter(
         torch.empty(cfg.context_length, cfg.width))
     model.transformer = Transformer(cfg.width, cfg.layers, cfg.heads, cfg.mlp_ratio, act,
-                                    dtype=dtype, grad_checkpointing=grad_checkpointing)
+                                    dtype=dtype, grad_checkpointing=grad_checkpointing,
+                                    ls_init_value=cfg.ls_init_value)
     model.ln_final = LayerNorm(cfg.width)
     model.text_projection = nn.Parameter(torch.empty(cfg.width, embed_dim))
 
 
-def text_global_pool(x: torch.Tensor, text: torch.Tensor) -> torch.Tensor:
-    """The feature at the highest token id (EOT, 49407) of each row."""
-    return x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
+def text_global_pool(x: torch.Tensor, text: torch.Tensor,
+                     pool_type: str = "argmax") -> torch.Tensor:
+    """'argmax': the feature at the highest token id (EOT, 49407) of each
+    row; 'first' / 'last': that position; anything else: no pooling."""
+    if pool_type == "first":
+        return x[:, 0]
+    if pool_type == "last":
+        return x[:, -1]
+    if pool_type == "argmax":
+        return x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
+    return x
 
 
 def encode_text_tower(model: nn.Module, text: torch.Tensor,
@@ -63,7 +72,8 @@ def encode_text_tower(model: nn.Module, text: torch.Tensor,
     n = text.shape[1]
     x = F.embedding(text, model.token_embedding.weight).to(dtype)
     x = x + model.positional_embedding[:n].to(dtype)
-    x = model.transformer(x, is_causal=True)
+    cfg = model.cfg.text_cfg
+    x = model.transformer(x, is_causal=not cfg.no_causal_mask)
     x = model.ln_final(x)
-    pooled = text_global_pool(x, text)
+    pooled = text_global_pool(x, text, cfg.pool_type)
     return torch.matmul(pooled, model.text_projection.to(pooled.dtype)), x

@@ -1,9 +1,16 @@
 """Vision transformer tower: port of ``colxlip_tpu/models/vision.py``.
 
-patchify-as-matmul (``conv1``) -> + class token and positional embedding in
-the compute dtype -> ln_pre -> blocks -> ln_post on all tokens -> pooled =
-token 0 @ proj, tokens = x[:, 1:]. Takes NHWC float images [B, H, W, 3], the
-JAX layout. The uint8 and YUV420 feeds (normalize on device) are not ported.
+patchify-as-matmul (``conv1``) -> + class token and positional embedding
+(learned, or the fixed 2-D sin-cos table as its initial value) in the compute
+dtype -> PatchDropout when training -> ln_pre (unless ``no_ln_pre``) -> blocks
+-> ln_post on all tokens then pooling, or pooling then ln_post on the pooled
+vector (``final_ln_after_pool``) -> pooled @ proj. ``pool_type``: 'tok' (the
+class token), 'avg' (the mean of the patch tokens), anything else no pooling.
+
+Takes NHWC images [B, H, W, 3], the JAX layout: floats already normalised, or
+integers (the uint8 feed), which are normalised here, on the tensor's device,
+in fp32 with the config's mean and std. The planar YUV420 feed (3-D input)
+and ``attentional_pool`` are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -13,26 +20,23 @@ import torch
 from torch import nn
 
 from .configs import CLIPVisionCfg
-from .layers import LayerNorm, Transformer
+from .layers import LayerNorm, PatchDropout, Transformer
+
+POS_EMBED_TYPES = ("learnable", "sin_cos_2d")
 
 
 def check_supported(cfg: CLIPVisionCfg) -> None:
-    unported = {
-        "attentional_pool": cfg.attentional_pool,
-        "final_ln_after_pool": cfg.final_ln_after_pool,
-        "no_ln_pre": cfg.no_ln_pre,
-        "ls_init_value": cfg.ls_init_value is not None,
-        "pos_embed_type": cfg.pos_embed_type != "learnable",
-        "pool_type": cfg.pool_type != "tok",
-        # PatchDropout: the JAX tower drops patch tokens when training
-        # (colxlip_tpu/models/vision.py:112-115); a train step here would
-        # silently differ, so the option is refused until it is ported
-        "patch_dropout (PatchDropout)": cfg.patch_dropout > 0,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    if cfg.attentional_pool:
         raise NotImplementedError(
-            f"vision_cfg options {bad} are not yet ported in colxlip_tpu_torch")
+            "vision_cfg option 'attentional_pool' (cross-attention) is not yet ported in "
+            "colxlip_tpu_torch")
+    if cfg.pos_embed_type not in POS_EMBED_TYPES:
+        raise ValueError(f"pos_embed_type {cfg.pos_embed_type!r}: expected one of "
+                         f"{POS_EMBED_TYPES}")
+    if cfg.pos_embed_type == "sin_cos_2d" and cfg.grid_size[0] != cfg.grid_size[1]:
+        # the table is built over a square grid: fail when the tower is built
+        raise ValueError("pos_embed_type='sin_cos_2d' needs a square patch grid; "
+                         f"got {cfg.grid_size}")
 
 
 class PatchEmbed(nn.Module):
@@ -57,6 +61,15 @@ class PatchEmbed(nn.Module):
         return torch.matmul(x, kernel.to(self.dtype))
 
 
+def global_pool(x: torch.Tensor, pool_type: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pooled, tokens) of x [B, 1 + P, W]."""
+    if pool_type == "avg":
+        return x[:, 1:].mean(dim=1), x[:, 1:]
+    if pool_type == "tok":
+        return x[:, 0], x[:, 1:]
+    return x, x
+
+
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: CLIPVisionCfg, embed_dim: int, act: Callable, *,
                  dtype: torch.dtype, grad_checkpointing: bool = False):
@@ -69,25 +82,45 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(
             torch.empty(cfg.num_patches + 1, width))
-        self.ln_pre = LayerNorm(width)
+        if cfg.patch_dropout > 0.0:
+            self.patch_dropout = PatchDropout(cfg.patch_dropout)
+        if not cfg.no_ln_pre:
+            self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, cfg.layers, cfg.heads, cfg.mlp_ratio, act,
-                                       dtype=dtype, grad_checkpointing=grad_checkpointing)
+                                       dtype=dtype, grad_checkpointing=grad_checkpointing,
+                                       ls_init_value=cfg.ls_init_value)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
+        # for the integer feed; not part of the state dict
+        self.register_buffer("image_mean", torch.tensor(cfg.image_mean), persistent=False)
+        self.register_buffer("image_std", torch.tensor(cfg.image_std), persistent=False)
 
     def forward(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """image [B, H, W, 3] float (NHWC) -> (pooled [B, E], tokens [B, P, W])."""
-        if image.ndim != 4 or image.shape[-1] != 3 or not image.is_floating_point():
-            raise ValueError("encode_image takes normalized float NHWC images "
-                             f"[B, H, W, 3]; got {image.dtype} "
-                             f"{tuple(image.shape)} (uint8/YUV420 feeds are "
-                             "not yet ported in colxlip_tpu_torch)")
+        """image [B, H, W, 3] (NHWC; float, or integer 0..255) -> (pooled
+        [B, E], tokens [B, P, W])."""
+        if image.ndim == 3:
+            raise NotImplementedError("the planar YUV420 feed [B, H*3//2, W] is not yet "
+                                      "ported in colxlip_tpu_torch")
+        if image.ndim != 4 or image.shape[-1] != 3:
+            raise ValueError("encode_image takes NHWC images [B, H, W, 3], float "
+                             f"(normalized) or integer; got {image.dtype} {tuple(image.shape)}")
+        if not image.is_floating_point():
+            # the host ships raw RGB bytes and the device normalises in fp32:
+            # the same numbers as the host float32 transform
+            image = (image.float() / 255.0 - self.image_mean) / self.image_std
+        cfg = self.cfg
         x = self.conv1(image)
         cls = self.class_embedding.to(self.dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding.to(self.dtype)
-        x = self.ln_pre(x)
+        if cfg.patch_dropout > 0.0:
+            x = self.patch_dropout(x)
+        if not cfg.no_ln_pre:
+            x = self.ln_pre(x)
         x = self.transformer(x)
-        x = self.ln_post(x)
-        pooled, tokens = x[:, 0], x[:, 1:]
+        if cfg.final_ln_after_pool:
+            pooled, tokens = global_pool(x, cfg.pool_type)
+            pooled = self.ln_post(pooled)
+        else:
+            pooled, tokens = global_pool(self.ln_post(x), cfg.pool_type)
         return torch.matmul(pooled, self.proj.to(pooled.dtype)), tokens

@@ -53,6 +53,16 @@ _SIGNATURES = {
     "colxlip_fused_ce_bwd_da": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, b, labels, scale, lse, g, db, M, N, D, dtype, stream
     "colxlip_fused_ce_bwd_db": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, gamma, beta, y, rows, D, eps, dtype, stream
+    "colxlip_fused_ln_fwd": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+    # x, gamma, dy, dx, partials, dgb, rows, D, eps, blocks, dtype, stream
+    "colxlip_fused_ln_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
+    # x, w1, b1, w2, b2, out, rows, D, H, approximate, dtype, stream
+    "colxlip_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2, scratch, rows, D, H, approximate,
+    # splits, colsum_blocks, dtype, stream
+    "colxlip_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

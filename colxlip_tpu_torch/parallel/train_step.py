@@ -16,7 +16,8 @@ splicing (the JAX ``microbatched_loss_fn``): pass 1 encodes every
 microbatch under ``no_grad``; pass 2 re-encodes each microbatch with
 gradients, splices it into the cached bank, takes the loss over the whole
 accumulation and adds its gradients. A device mesh, the packed feed and
-distillation teachers are not ported and raise ``NotImplementedError``.
+distillation teachers are not ported and raise ``NotImplementedError``, and
+so does a model with ``patch_dropout > 0`` (the JAX step cannot run one).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from ..losses import clip_loss, colclip_loss
+from ..models.layers import PatchDropout
 from ..training.optim import global_norm
 
 MAX_LOGIT_SCALE = math.log(100.0)
@@ -177,4 +179,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     for name, value in (("mesh", mesh), ("packed_feed", packed_feed), ("teacher", teacher)):
         if value is not None:
             raise NotImplementedError(f"make_train_step: {name} is not yet ported")
+    if any(isinstance(m, PatchDropout) and m.prob > 0 for m in model.modules()):
+        # the JAX step applies the model with train=True and no rngs, so its
+        # PatchDropout raises flax InvalidRngError: the step has no draw to port
+        raise NotImplementedError(
+            "make_train_step: vision_cfg.patch_dropout > 0 is refused: the JAX train step "
+            "passes no 'patch_dropout' rng and raises InvalidRngError, so there is no "
+            "seeded draw to reproduce (PatchDropout itself is ported: models/layers.py)")
     return TrainStep(model, optimizer, schedule, cfg)

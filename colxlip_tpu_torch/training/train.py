@@ -53,8 +53,9 @@ class _PrefetchIterator:
     and copies it with ``non_blocking=True`` on a stream of its own; it
     waits for the copy itself (never the training thread), and marks the
     device tensors as used by the consumer's stream so the allocator does
-    not hand their memory out again while a step still reads it. With no
-    device, or the CPU, batches pass through as CPU tensors.
+    not hand their memory out again while a step still reads it. With the
+    CPU as ``device`` batches pass through as CPU tensors. The device is
+    always named by the caller: there is no default to fall to.
 
     Exceptions from either stage re-raise in the consumer. ``close()`` stops
     both threads promptly when the consumer exits early.
@@ -62,12 +63,12 @@ class _PrefetchIterator:
 
     _DONE = object()
 
-    def __init__(self, dataloader: Iterable, device: Union[str, torch.device, None] = None,
+    def __init__(self, dataloader: Iterable, device: Union[str, torch.device],
                  depth: int = 2, trunc_meter: Optional[AverageMeter] = None):
         self._host_q: queue.Queue = queue.Queue(maxsize=depth)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
-        self._device = torch.device(device) if device is not None else torch.device("cpu")
+        self._device = torch.device(device)
         self._trunc_meter = trunc_meter
         self._it = iter(dataloader)
         self._copy_stream = self._consumer_stream = None
@@ -233,7 +234,7 @@ def train_one_epoch(
     steps_per_epoch: Optional[int] = None,
     lr_schedule=None,
     profiler_dir: Optional[str] = None,
-    device: Union[str, torch.device, None] = None,
+    device: Union[str, torch.device],
     prefetch_depth: int = 2,
     skip_steps: int = 0,
     stop_flag=None,
@@ -243,7 +244,8 @@ def train_one_epoch(
 
     ``step_fn(images, texts) -> metrics`` is the train step
     (``parallel.train_step.TrainStep``): it owns the model and the optimizer,
-    and ``step_fn.step`` counts the updates made so far.
+    and ``step_fn.step`` counts the updates made so far. ``device`` is where
+    the batches are shipped (the step's device); it has no default.
 
     skip_steps: consume (and discard) this many leading batches before
     training, the mid-epoch resume fast-forward. A deterministic pipeline
@@ -257,7 +259,7 @@ def train_one_epoch(
     batch_time_m = AverageMeter()
     data_time_m = AverageMeter()
     trunc_m = AverageMeter()
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = torch.device(device)
 
     raw_it = iter(dataloader)
     for _ in range(skip_steps):

@@ -13,7 +13,11 @@ the kernel and the plain version may land one step apart). Streaming CE:
 loss rows and lse 1e-5 relative + 1e-5 absolute (fp32 sums of exact
 products in another order, at logits up to 100); dA, dB and dscale 1e-4 of
 the largest |grad| (the kernel's expf against torch's exp at 1e-7 relative,
-times up to N terms).
+times up to N terms). LayerNorm and MLP kernels: forward, of max(1, largest
+|out|), 1e-5 in fp32 (summation order, 3072 terms deep in the MLP, and
+rsqrtf / expf against torch's) and one bf16 rounding step (2^-7) in bf16;
+gradients 1e-4 of the largest |grad| in fp32 (dscale, dbias and dW sum over
+every row), 2^-7 of it in bf16.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import pytest
 import torch
 
 from colxlip_tpu_torch.factory import create_model
-from colxlip_tpu_torch.ops import attention, fused_ce, maxsim
+from colxlip_tpu_torch.ops import attention, fused_ce, fused_ln, fused_mlp, maxsim
 from colxlip_tpu_torch.parallel.train_step import TrainStepConfig, make_train_step
 from colxlip_tpu_torch.serving.server import InferenceEngine
 from colxlip_tpu_torch.training.optim import create_optimizer
@@ -253,6 +257,10 @@ def _plain_kernels(monkeypatch):
         t, i, mask_mode=mode, text_mask=mask))
     monkeypatch.setattr(maxsim, "_launch_bwd", lambda t, i, g, mode, mask: maxsim.maxsim_bwd_plain(
         t, i, g, mask_mode=mode, text_mask=mask))
+    monkeypatch.setattr(fused_ln, "_launch_fwd", fused_ln.layernorm_plain)
+    monkeypatch.setattr(fused_ln, "_launch_bwd", fused_ln.layernorm_bwd_plain)
+    monkeypatch.setattr(fused_mlp, "_launch_fwd", fused_mlp.fused_mlp_plain)
+    monkeypatch.setattr(fused_mlp, "_launch_bwd", fused_mlp.fused_mlp_bwd_plain)
 
 
 def test_tiny_train_step_kernels_match_plain_path(dev, monkeypatch):
@@ -386,3 +394,208 @@ def test_fused_ce_refuses_what_it_does_not_take(dev):
         fused_ce.fused_contrastive_ce(a, b, labels[:3], s)
     with pytest.raises(ValueError, match="lse must be"):
         fused_ce._launch_bwd_da(a, b, labels, s, g[:3], g)
+
+
+LN_SHAPES = [
+    # leading shape, D
+    ((4, 197), 768),      # vision tower
+    ((4, 77), 512),       # text tower and the token heads
+    ((197 * 3,), 512),    # a row count that no block size divides
+    ((5, 3), 40),         # D not a multiple of 32
+    ((9,), 1024),         # the widest row the kernels take
+]
+
+
+def _ln_inputs(lead, d, dev, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((*lead, d)) * 2 + 0.5).astype(np.float32)
+    dy = rng.standard_normal((*lead, d)).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    return (torch.from_numpy(x).to(dev, dtype), torch.from_numpy(scale).to(dev),
+            torch.from_numpy(bias).to(dev), torch.from_numpy(dy).to(dev, dtype))
+
+
+def _fwd_tol(want: torch.Tensor, dtype) -> float:
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    return rel * max(1.0, want.abs().max().item())
+
+
+def _grad_tol(want: torch.Tensor, dtype) -> float:
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    return rel * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,d", LN_SHAPES)
+def test_layernorm_kernels_match_plain(dev, lead, d, dtype):
+    x, scale, bias, dy = _ln_inputs(lead, d, dev, dtype)
+    before = (fused_ln.FWD_LAUNCHES.value, fused_ln.BWD_LAUNCHES.value)
+    y = fused_ln._launch_fwd(x, scale, bias, 1e-5)
+    got = fused_ln._launch_bwd(x, scale, dy, 1e-5)
+    again = fused_ln._launch_bwd(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert (fused_ln.FWD_LAUNCHES.value, fused_ln.BWD_LAUNCHES.value) == (
+        before[0] + 1, before[1] + 2)
+    want_y = fused_ln.layernorm_plain(x, scale, bias, 1e-5)
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=0,
+                               atol=_fwd_tol(want_y.float(), dtype))
+    want = fused_ln.layernorm_bwd_plain(x, scale, dy, 1e-5)
+    for g, w, dt in zip(got, want, (dtype, torch.float32, torch.float32)):
+        assert g.dtype == dt and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_grad_tol(w.float(), dtype))
+    for first, second in zip(got, again):     # no atomics: the same bits twice
+        assert torch.equal(first, second)
+
+
+def test_layernorm_autograd_launches_both_kernels(dev):
+    x, scale, bias, dy = _ln_inputs((3, 77), 512, dev, torch.bfloat16)
+    x.requires_grad_(), scale.requires_grad_(), bias.requires_grad_()
+    before = (fused_ln.FWD_LAUNCHES.value, fused_ln.BWD_LAUNCHES.value)
+    tokens = fused_ln.fused_layernorm(x[:, 1:], scale, bias)      # a view, as the token head's
+    got = torch.autograd.grad(tokens, (x, scale, bias), dy[:, 1:])
+    assert (fused_ln.FWD_LAUNCHES.value, fused_ln.BWD_LAUNCHES.value) == (
+        before[0] + 1, before[1] + 1)
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    want = fused_ln._launch_bwd(x.detach()[:, 1:].contiguous(), scale.detach(),
+                                dy[:, 1:].contiguous(), 1e-5)
+    assert torch.equal(got[0][:, 1:], want[0]) and not got[0][:, 0].any()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_layernorm_refuses_what_it_does_not_take(dev):
+    x, scale, bias, dy = _ln_inputs((4,), 64, dev, torch.float32)
+    assert not fused_ln.fused_ln_supported((4, 1025), torch.float32)
+    assert not fused_ln.fused_ln_supported((4, 64), torch.float16)
+    assert fused_ln.fused_ln_supported((4, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        fused_ln.fused_layernorm(torch.zeros(4, 1025, device=dev), torch.ones(1025, device=dev),
+                                 torch.zeros(1025, device=dev))
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        fused_ln.fused_layernorm(x.half(), scale, bias)
+    # the module under 'fused' raises too: it never gives way to F.layer_norm
+    from colxlip_tpu_torch.models import layers
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        layers.LayerNorm(1025, impl="fused").to(dev)(torch.zeros(4, 1025, device=dev))
+    with pytest.raises(ValueError, match="outside the kernels' range"):
+        layers.LayerNorm(64, impl="fused").to(dev)(x.half())
+    with pytest.raises(ValueError, match="scale and bias must be"):
+        fused_ln.fused_layernorm(x, scale.bfloat16(), bias)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        fused_ln.fused_layernorm(x, scale.cpu(), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ln._launch_fwd(torch.zeros(64, 4, device=dev).T, scale, bias, 1e-5)
+    with pytest.raises(ValueError, match="dy must be"):
+        fused_ln._launch_bwd(x, scale, dy.bfloat16(), 1e-5)
+
+
+MLP_SHAPES = [
+    # (b, n, d, h)
+    (2, 197, 768, 3072),    # vision tower
+    (3, 77, 512, 2048),     # text tower, a row count that no tile divides
+    (2, 17, 128, 512),      # the tiny config
+    (1, 70, 40, 100),       # D and H that no tile divides
+    (1, 300, 64, 96),       # several row ranges in the dW passes
+]
+
+
+def _mlp_inputs(b, n, d, h, dev, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def t(shape, std):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(
+            dev, dtype)
+
+    return (t((b, n, d), 1.0), t((h, d), d ** -0.5), t((h,), 0.1), t((h, d), h ** -0.5),
+            t((d,), 0.1), t((b, n, d), 1.0))
+
+
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,d,h", MLP_SHAPES)
+def test_mlp_kernels_match_plain(dev, b, n, d, h, dtype, approximate):
+    x, w1, b1, w2, b2, dy = _mlp_inputs(b, n, d, h, dev, dtype)
+    before = (fused_mlp.FWD_LAUNCHES.value, fused_mlp.BWD_LAUNCHES.value)
+    out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
+    got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
+    again = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
+    torch.cuda.synchronize()
+    assert (fused_mlp.FWD_LAUNCHES.value, fused_mlp.BWD_LAUNCHES.value) == (
+        before[0] + 1, before[1] + 2)
+    want_out = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate)
+    assert out.dtype == dtype and out.shape == x.shape
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0,
+                               atol=_fwd_tol(want_out.float(), dtype))
+    want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, approximate)
+    for g, w, dt in zip(got, want, (dtype,) + (torch.float32,) * 4):
+        assert g.dtype == dt and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_grad_tol(w.float(), dtype))
+    for first, second in zip(got, again):     # no atomics: the same bits twice
+        assert torch.equal(first, second)
+
+
+def test_mlp_autograd_launches_both_kernels(dev):
+    tensors = _mlp_inputs(2, 77, 512, 2048, dev, torch.bfloat16)
+    x, w1, b1, w2, b2 = (t.requires_grad_() for t in tensors[:5])
+    before = (fused_mlp.FWD_LAUNCHES.value, fused_mlp.BWD_LAUNCHES.value)
+    out = fused_mlp.fused_mlp(x, w1, b1, w2, b2)
+    got = torch.autograd.grad(out, (x, w1, b1, w2, b2), tensors[5])
+    assert (fused_mlp.FWD_LAUNCHES.value, fused_mlp.BWD_LAUNCHES.value) == (
+        before[0] + 1, before[1] + 1)
+    want = fused_mlp._launch_bwd(*(t.detach() for t in (x, w1, b1, w2)), tensors[5], False)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+def test_mlp_refuses_what_it_does_not_take(dev):
+    x, w1, b1, w2, b2, dy = _mlp_inputs(1, 8, 32, 64, dev, torch.float32)
+    with pytest.raises(ValueError, match="D=800"):
+        fused_mlp.fused_mlp(torch.zeros(1, 8, 800, device=dev), torch.zeros(64, 800, device=dev),
+                            b1, torch.zeros(64, 800, device=dev), torch.zeros(800, device=dev))
+    with pytest.raises(ValueError, match="share the compute dtype"):
+        fused_mlp.fused_mlp(x, w1.bfloat16(), b1, w2, b2)
+    with pytest.raises(ValueError, match="not supported"):
+        fused_mlp.fused_mlp(*(t.half() for t in (x, w1, b1, w2, b2)))
+    with pytest.raises(ValueError, match="hidden-major"):
+        fused_mlp.fused_mlp(x, w1, b1, w2.T.contiguous(), b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mlp.fused_mlp(x, w1, b1, torch.zeros(32, 64, device=dev).T, b2)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        fused_mlp.fused_mlp(x, w1.cpu(), b1, w2, b2)
+    with pytest.raises(ValueError, match="dy must be"):
+        fused_mlp._launch_bwd(x, w1, b1, w2, dy.bfloat16(), False)
+
+
+def test_tiny_train_step_through_fused_towers_matches_plain_path(dev, monkeypatch):
+    """One colclip step of the tiny config in fp32 with COLXLIP_LN_IMPL=fused
+    COLXLIP_MLP_IMPL=fused: every LayerNorm and MLP launches its kernels, and
+    the losses and gradients equal those through the plain versions."""
+    monkeypatch.setenv("COLXLIP_LN_IMPL", "fused")
+    monkeypatch.setenv("COLXLIP_MLP_IMPL", "fused")
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.standard_normal((6, 64, 64, 3)).astype(np.float32)).to(dev)
+    txts = np.zeros((6, 32), np.int64)
+    txts[:, 0], txts[:, 1:9], txts[:, 9] = 49406, rng.integers(1, 49000, (6, 8)), 49407
+    txts = torch.from_numpy(txts).to(dev)
+    counters = (fused_ln.FWD_LAUNCHES, fused_ln.BWD_LAUNCHES, fused_mlp.FWD_LAUNCHES,
+                fused_mlp.BWD_LAUNCHES)
+    results = []
+    for plain in (False, True):
+        if plain:
+            _plain_kernels(monkeypatch)
+        model, _ = create_model("ViT-S-16-test-colxlip", dev, torch.float32, seed=0)
+        step = make_train_step(model.train(), create_optimizer(model, 1e-3), None,
+                               TrainStepConfig(loss_type="colclip"))
+        before = [c.value for c in counters]
+        metrics = step(imgs, txts)
+        launched = [c.value - b for c, b in zip(counters, before)]
+        # vision ln_pre + 2 x 2 + ln_post + 2 in the head, text 2 x 2 + ln_final + 2
+        assert launched == ([0, 0, 0, 0] if plain else [15, 15, 4, 4])
+        results.append((metrics, {k: p.grad.clone() for k, p in model.named_parameters()}))
+    (m_k, g_k), (m_p, g_p) = results
+    for key in m_p:
+        torch.testing.assert_close(m_k[key], m_p[key], rtol=1e-5, atol=0)
+    for key, w in g_p.items():
+        torch.testing.assert_close(g_k[key], w, rtol=0, atol=1e-4 * w.abs().max().item())

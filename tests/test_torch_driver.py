@@ -211,7 +211,7 @@ def _batches(n, dtype, ctx=16):
 
 def test_prefetch_selects_caption0_and_keeps_uint8():
     assert select_caption0(np.zeros((4, 16))).shape == (4, 16)
-    it = _PrefetchIterator(_batches(3, np.uint8))
+    it = _PrefetchIterator(_batches(3, np.uint8), device="cpu")
     imgs, texts = next(it)
     assert isinstance(imgs, torch.Tensor) and imgs.dtype == torch.uint8
     assert texts.shape == (4, 16) and texts.dtype == torch.int32
@@ -234,7 +234,7 @@ def test_prefetch_truncation_meter_counts_an_exact_fit():
         yield np.zeros((4, 8, 8, 3), np.float32), texts
 
     meter = AverageMeter()
-    it = _PrefetchIterator(batches(), trunc_meter=meter)
+    it = _PrefetchIterator(batches(), device="cpu", trunc_meter=meter)
     next(it)
     with pytest.raises(StopIteration):
         next(it)
@@ -247,7 +247,7 @@ def test_prefetch_propagates_exception():
         yield next(_batches(1, np.float32))
         raise RuntimeError("decode failed")
 
-    it = _PrefetchIterator(bad())
+    it = _PrefetchIterator(bad(), device="cpu")
     next(it)
     with pytest.raises(RuntimeError, match="decode failed"):
         next(it)
@@ -279,7 +279,8 @@ def test_train_one_epoch_counts_cuts_and_logs_at_boundaries():
     step, writer = _FakeStep(5), _Collect()
     steps, stopped = train_one_epoch(
         step, _batches(10, np.float32), epoch=0, global_batch_size=4, steps_per_epoch=4,
-        log_every_n_steps=2, writer=writer, lr_schedule=schedules.const_lr(1e-3, 0))
+        log_every_n_steps=2, writer=writer, lr_schedule=schedules.const_lr(1e-3, 0),
+        device="cpu")
     assert (steps, stopped, step.step, step.calls) == (4, False, 9, [0, 1, 2, 3])
     # metrics are read at i = 0, 2 and at the last step only
     assert [s for s, _ in writer.records] == [6, 8, 9]
@@ -292,7 +293,7 @@ def test_train_one_epoch_skip_steps():
     step = _FakeStep(3)
     steps, stopped = train_one_epoch(
         step, _batches(10, np.float32), epoch=0, global_batch_size=4, steps_per_epoch=8,
-        log_every_n_steps=100, skip_steps=3)
+        log_every_n_steps=100, skip_steps=3, device="cpu")
     assert (steps, stopped, step.step, step.calls) == (5, False, 8, [3, 4, 5, 6, 7])
 
 
@@ -301,7 +302,7 @@ def test_train_one_epoch_stop_flag():
     step = _FakeStep(0, on_step=lambda s: flag.set() if s.step == 2 else None)
     steps, stopped = train_one_epoch(
         step, _batches(50, np.float32), epoch=0, global_batch_size=4,
-        log_every_n_steps=100, stop_flag=flag, stop_check_every=2)
+        log_every_n_steps=100, stop_flag=flag, stop_check_every=2, device="cpu")
     # set during step i = 2; checks run after i = 0, 2, 4: stops at i = 2
     assert (steps, stopped, step.step) == (3, True, 3)
 

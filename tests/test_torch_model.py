@@ -4,7 +4,11 @@ package, on the same seeded numpy inputs and the same weights (JAX init ->
 
 Tolerances: tower features 2e-4 in fp32 (the bar of tests/test_pt_export.py;
 the JAX GELU is a degree-9 tanh-structured erf, 3.4e-6 from the port's exact
-erf), scores 2e-4 * logit_scale.
+erf, and the fused MLP's erf polynomial is 1.5e-7 from it), scores 2e-4 *
+logit_scale. The tower options (LayerScale, sin-cos positions, ``no_ln_pre``,
+``final_ln_after_pool``, the pool types, the uint8 feed, the text tower's
+``no_causal_mask``) are held to the JAX towers at the same bar on converted
+weights.
 """
 from __future__ import annotations
 
@@ -24,12 +28,16 @@ from colxlip_tpu.data.tokenizer import get_tokenizer_cached as jax_tokenizer
 from colxlip_tpu.data.transforms import image_transform as jax_image_transform
 from colxlip_tpu.factory import create_model as jax_create_model
 from colxlip_tpu.models import configs as jax_configs
-from colxlip_tpu.training.checkpoint import export_pt_state_dict
+from colxlip_tpu.models import pos_embed as jax_pos_embed
+from colxlip_tpu.models.clip import ColXLIP as JaxColXLIP
+from colxlip_tpu.training.checkpoint import export_pt_state_dict, load_pt_checkpoint
 from colxlip_tpu.training.evaluate import score_similarity as jax_score_similarity
 from colxlip_tpu_torch import convert, factory
 from colxlip_tpu_torch.data.tokenizer import get_tokenizer_cached
 from colxlip_tpu_torch.data.transforms import image_transform
 from colxlip_tpu_torch.models import ColXLIP, configs
+from colxlip_tpu_torch.models import layers as port_layers
+from colxlip_tpu_torch.training.checkpoint import save_pt_checkpoint
 from colxlip_tpu_torch.training.evaluate import score_similarity
 
 TINY = "ViT-S-16-test-colxlip"
@@ -228,6 +236,193 @@ def test_create_model_is_seeded():
     assert not torch.equal(sa["visual.proj"], sc["visual.proj"])
     assert float(sa["logit_scale"]) == pytest.approx(cfg.init_logit_scale)
     assert all(v.dtype == torch.float32 for v in sa.values())
+
+
+def _load_converted(model, params):
+    sd = convert.state_dict_from_jax_params(jax.tree.map(np.asarray, params))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
+    return model.eval()
+
+
+@pytest.mark.parametrize("tower", ["image", "text"])
+def test_tower_features_match_jax_through_fused_kernels(jax_model, monkeypatch, tower):
+    """Both towers with COLXLIP_LN_IMPL=fused COLXLIP_MLP_IMPL=fused (on the
+    CPU: the kernels' plain versions) against the JAX model's features."""
+    monkeypatch.setenv("COLXLIP_LN_IMPL", "fused")
+    monkeypatch.setenv("COLXLIP_MLP_IMPL", "fused")
+    model = _load_converted(ColXLIP(factory.model_config(TINY), dtype=torch.float32),
+                            jax_model[1])
+    assert all(m.fused for m in model.modules() if isinstance(m, port_layers.MLP))
+    assert all(m.impl == "fused" for m in model.modules()
+               if isinstance(m, port_layers.LayerNorm))
+    # the JAX package reads the same two variables (and its kernels need a
+    # TPU): unset them for its side; the port's modules read them when built
+    monkeypatch.delenv("COLXLIP_LN_IMPL")
+    monkeypatch.delenv("COLXLIP_MLP_IMPL")
+    imgs, txts = _inputs(seed=5)
+    (j_img, j_txt), (p_img, p_txt) = _encode_both(jax_model, model, imgs, txts)
+    want, got = (j_img, p_img) if tower == "image" else (j_txt, p_txt)
+    for w, g in zip(want, got):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
+
+
+def _option_pair(vision=None, text=None):
+    """A JAX ColXLIP and the port's on the tiny config with ``vision_cfg`` /
+    ``text_cfg`` fields overridden, on the same (JAX-initialised) weights."""
+    jcfg = jax_configs.CLIPCfg.from_dict(jax_configs.get_model_config(TINY))
+    pcfg = factory.model_config(TINY)
+    for cfgs, overrides in (((jcfg.vision_cfg, pcfg.vision_cfg), vision or {}),
+                            ((jcfg.text_cfg, pcfg.text_cfg), text or {})):
+        for cfg in cfgs:
+            for k, v in overrides.items():
+                assert hasattr(cfg, k), k
+                setattr(cfg, k, v)
+    jmodel = JaxColXLIP(jcfg, dtype=jnp.float32)
+    imgs = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    txts = jnp.zeros((1, 32), jnp.int32).at[:, 0].set(49406).at[:, 1].set(49407)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(4), imgs, txts)
+    return (jmodel, params), _load_converted(ColXLIP(pcfg, dtype=torch.float32), params)
+
+
+VISION_OPTIONS = {
+    "layer-scale": {"ls_init_value": 0.5},
+    "sin-cos-positions": {"pos_embed_type": "sin_cos_2d"},
+    "no-ln-pre": {"no_ln_pre": True},
+    "final-ln-after-pool": {"final_ln_after_pool": True},
+    "pool-avg": {"pool_type": "avg"},
+    "pool-avg-ln-after": {"pool_type": "avg", "final_ln_after_pool": True},
+    "pool-none": {"pool_type": "none"},
+    "patch-dropout-in-eval": {"patch_dropout": 0.5},
+}
+
+
+@pytest.mark.parametrize("option", list(VISION_OPTIONS))
+def test_vision_tower_options_match_jax(option):
+    jax_pair, port = _option_pair(vision=VISION_OPTIONS[option])
+    imgs, txts = _inputs(seed=6)
+    (j_img, _), (p_img, _) = _encode_both(jax_pair, port, imgs, txts)
+    for w, g in zip(j_img, p_img):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
+    keys = set(port.state_dict())
+    assert ("visual.ln_pre.weight" in keys) == (option != "no-ln-pre")
+    assert ("visual.transformer.resblocks.0.ls_1.gamma" in keys) == (option == "layer-scale")
+
+
+def test_uint8_images_are_normalised_on_the_device_as_jax_does(jax_model, port_model):
+    model, params = jax_model
+    raw = np.random.default_rng(7).integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)
+    want = jax.jit(lambda p, x: model.apply(
+        p, x, method=lambda m, x: m.encode_image(x, normalize=True)))(params, jnp.asarray(raw))
+    cfg = port_model.cfg.vision_cfg
+    host = (raw.astype(np.float32) / np.float32(255.0)
+            - np.asarray(cfg.image_mean, np.float32)) / np.asarray(cfg.image_std, np.float32)
+    with torch.no_grad():
+        got = port_model.encode_image(torch.from_numpy(raw), normalize=True)
+        from_host = port_model.encode_image(torch.from_numpy(host), normalize=True)
+    for w, g, h in zip(want, got, from_host):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
+        assert torch.equal(g, h)              # the host float32 transform, bit for bit
+    with pytest.raises(NotImplementedError, match="YUV420"):
+        port_model.encode_image(torch.zeros(2, 96, 64, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="NHWC"):
+        port_model.encode_image(torch.zeros(2, 3, 64, 64))
+
+
+def test_sincos_tower_init_and_grid_check():
+    model, cfg = factory.create_model(TINY, "cpu", torch.float32, seed=0)
+    cfg.vision_cfg.pos_embed_type = "sin_cos_2d"
+    model = ColXLIP(cfg, dtype=torch.float32)
+    factory.init_weights(model, torch.Generator().manual_seed(0))
+    want = jax_pos_embed.get_2d_sincos_pos_embed(cfg.vision_cfg.width, 4, cls_token=True)
+    np.testing.assert_array_equal(model.visual.positional_embedding.detach().numpy(), want)
+    cfg.vision_cfg.image_size = (64, 32)
+    with pytest.raises(ValueError, match="square patch grid"):
+        ColXLIP(cfg, dtype=torch.float32)
+    cfg.vision_cfg.pos_embed_type = "rope"
+    with pytest.raises(ValueError, match="pos_embed_type"):
+        ColXLIP(cfg, dtype=torch.float32)
+
+
+TEXT_OPTIONS = {
+    "layer-scale": {"ls_init_value": 0.5},
+    "no-causal-mask": {"no_causal_mask": True},
+    "pool-first": {"pool_type": "first"},
+    "pool-last": {"pool_type": "last"},
+    "pool-none": {"pool_type": "none"},
+}
+
+
+@pytest.mark.parametrize("option", list(TEXT_OPTIONS))
+def test_text_tower_options_match_jax(option):
+    jax_pair, port = _option_pair(text=TEXT_OPTIONS[option])
+    imgs, txts = _inputs(seed=8)
+    (_, j_txt), (_, p_txt) = _encode_both(jax_pair, port, imgs, txts)
+    for w, g in zip(j_txt, p_txt):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
+
+
+def test_layer_scale_keys_convert_in_both_directions(tmp_path):
+    """JAX params -> the port (strict load, in _option_pair) -> a .pt the JAX
+    loader reads back to the same tree, ls_*.gamma included."""
+    (_, params), port = _option_pair(vision={"ls_init_value": 0.5},
+                                     text={"ls_init_value": 0.25})
+    sd = port.state_dict()
+    assert float(sd["visual.transformer.resblocks.1.ls_2.gamma"][0]) == 0.5
+    assert float(sd["transformer.resblocks.0.ls_1.gamma"][0]) == 0.25
+    path = save_pt_checkpoint(str(tmp_path / "ls.pt"), port)
+    back = load_pt_checkpoint(path)
+    want = jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, params))
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert len(got) == len(want)
+    for key, w in want:
+        np.testing.assert_array_equal(np.asarray(got[key]), w, err_msg=str(key))
+
+
+def test_load_weights_resizes_the_positional_embedding(port_model, tmp_path):
+    """--pretrained at 64 px into --force-image-size 112: the 4 x 4 position
+    grid is resampled to 7 x 7 as the JAX loader does; nothing else moves."""
+    path = save_pt_checkpoint(str(tmp_path / "w.pt"), port_model)
+    model, cfg, _ = factory.create_model_and_transforms(
+        TINY, path, device="cpu", precision="fp32", force_image_size=112, seed=1)
+    assert cfg.vision_cfg.grid_size == (7, 7)
+    old = port_model.state_dict()
+    want = jax_pos_embed.interpolate_pos_embed(
+        jnp.asarray(old["visual.positional_embedding"].numpy()), (7, 7), (4, 4))
+    new = model.state_dict()
+    np.testing.assert_allclose(new["visual.positional_embedding"].numpy(), np.asarray(want),
+                               rtol=0, atol=1e-6)
+    for k, v in old.items():
+        if k != "visual.positional_embedding":
+            assert torch.equal(new[k], v), k
+    with torch.no_grad():
+        pooled, tokens = model.encode_image(torch.zeros(2, 112, 112, 3))
+    assert pooled.shape == (2, 128) and tokens.shape == (2, 49, 128)
+
+
+def test_force_patch_dropout_reaches_the_vision_config():
+    assert factory.model_config(TINY, force_patch_dropout=0.25).vision_cfg.patch_dropout == 0.25
+    model, cfg = factory.create_model(TINY, "cpu", torch.float32, force_patch_dropout=0.25)
+    assert cfg.vision_cfg.patch_dropout == 0.25
+    assert isinstance(model.visual.patch_dropout, port_layers.PatchDropout)
+    assert model.visual.patch_dropout.prob == 0.25
+    plain, _ = factory.create_model(TINY, "cpu", torch.float32)
+    assert not hasattr(plain.visual, "patch_dropout")
+    assert list(model.state_dict()) == list(plain.state_dict())   # it holds no parameter
+
+
+def test_unported_tower_options_still_raise():
+    cfg = factory.model_config(TINY)
+    cfg.vision_cfg.attentional_pool = True
+    with pytest.raises(NotImplementedError, match="attentional_pool"):
+        ColXLIP(cfg, dtype=torch.float32)
+    for field, value in (("embed_cls", True), ("proj_type", "mlp"), ("proj_bias", True)):
+        cfg = factory.model_config(TINY)
+        setattr(cfg.text_cfg, field, value)
+        with pytest.raises(NotImplementedError, match=field):
+            ColXLIP(cfg, dtype=torch.float32)
 
 
 def test_port_never_imports_jax():

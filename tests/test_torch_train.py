@@ -33,9 +33,10 @@ from colxlip_tpu.training import schedules as jax_schedules
 from colxlip_tpu_torch import convert, factory
 from colxlip_tpu_torch.losses import clip_loss, colclip_loss
 from colxlip_tpu_torch.models import ColXLIP
+from colxlip_tpu_torch.models import layers as layers_mod
 from colxlip_tpu_torch.models.configs import CLIPVisionCfg
 from colxlip_tpu_torch.models.vision import VisionTransformer
-from colxlip_tpu_torch.models.layers import gelu
+from colxlip_tpu_torch.models.layers import PatchDropout, gelu, patch_dropout_select
 from colxlip_tpu_torch.parallel.train_step import (
     MAX_LOGIT_SCALE, TrainStepConfig, clamp_logit_scale, make_train_step)
 from colxlip_tpu_torch.training import optim, schedules
@@ -114,11 +115,84 @@ def _assert_step_matches(want_m, want_g, got_m, got_g):
         np.testing.assert_allclose(got_g[k], w, rtol=0, atol=tol, err_msg=k)
 
 
-def test_patch_dropout_is_refused():
-    with pytest.raises(NotImplementedError, match="PatchDropout"):
-        VisionTransformer(CLIPVisionCfg(layers=1, width=64, head_width=32,
-                                        image_size=32, patch_dropout=0.5),
-                          64, gelu, dtype=torch.float32)
+def _dropout_tower(prob=0.5, generator=None) -> VisionTransformer:
+    tower = VisionTransformer(CLIPVisionCfg(layers=1, width=64, head_width=32, image_size=64,
+                                            patch_dropout=prob), 64, gelu, dtype=torch.float32)
+    for p in tower.parameters():
+        torch.nn.init.normal_(p, std=0.05, generator=torch.Generator().manual_seed(0))
+    tower.patch_dropout.generator = generator
+    return tower
+
+
+def test_patch_dropout_keeps_top_k_tokens_when_training():
+    """The module: identity in eval mode, max(1, int(n * (1 - p))) patch
+    tokens by per-sample top-k of seeded normal scores when training, the
+    class token always first."""
+    x = torch.arange(2 * 17 * 4, dtype=torch.float32).reshape(2, 17, 4)
+    drop = PatchDropout(0.75, generator=torch.Generator().manual_seed(5))
+    assert drop.eval()(x) is x
+    got = drop.train()(x)
+    scores = torch.randn((2, 16), generator=torch.Generator().manual_seed(5))
+    assert got.shape == (2, 1 + 4, 4) and torch.equal(got[:, 0], x[:, 0])
+    assert torch.equal(got, patch_dropout_select(x, scores, 0.75))
+    for b in range(2):           # the kept rows are patch tokens of that sample, no repeats
+        rows = {tuple(r.tolist()) for r in got[b, 1:]}
+        assert len(rows) == 4 and rows <= {tuple(r.tolist()) for r in x[b, 1:]}
+    assert patch_dropout_select(x, scores, 0.999).shape == (2, 2, 4)      # never fewer than one
+    assert PatchDropout(0.0).train()(x) is x
+    with pytest.raises(ValueError, match="prob"):
+        PatchDropout(1.0)
+    with pytest.raises(ValueError, match="scores"):
+        patch_dropout_select(x, scores[:, :5], 0.5)
+
+
+def test_patch_dropout_in_the_vision_tower():
+    """Before ln_pre, only when training: 16 patch tokens become 8; the same
+    seed drops the same tokens; eval mode sees all 16."""
+    images = torch.randn(3, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    tower = _dropout_tower(generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        pooled_eval, tokens_eval = tower.eval()(images)
+        pooled, tokens = tower.train()(images)
+        tower.patch_dropout.generator = torch.Generator().manual_seed(2)
+        again = tower(images)
+    assert tokens_eval.shape == (3, 16, 64) and tokens.shape == (3, 8, 64)
+    assert torch.equal(again[0], pooled) and torch.equal(again[1], tokens)
+    assert not torch.allclose(pooled, pooled_eval)
+    # a gradient reaches the parameters through the kept tokens
+    tower(images)[1].square().sum().backward()
+    assert tower.conv1.weight.grad.abs().sum() > 0
+
+
+def test_patch_dropout_needs_a_generator_and_the_step_refuses_it_as_jax_does(monkeypatch):
+    """What the JAX step does with patch_dropout > 0, pinned beside the
+    port's answer: it applies the model with train=True and no rngs, so
+    flax raises InvalidRngError for the 'patch_dropout' stream. The port's
+    module raises without a generator, and make_train_step refuses the model."""
+    import flax
+
+    monkeypatch.setenv("COLXLIP_GELU_IMPL", "stock")
+    from colxlip_tpu.factory import create_model as create
+
+    jmodel, jcfg = create(TINY, precision="fp32", force_patch_dropout=0.5)
+    imgs, txts = _batch(seed=5)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(imgs), jnp.asarray(txts))
+    tx = _grads_recorder()
+    state = jax_ts.TrainState(jnp.zeros((), jnp.int32), params, tx.init(params))
+    step = jax_ts.make_train_step(jmodel, tx, jax_ts.TrainStepConfig(loss_type="colclip"),
+                                  donate=False)
+    with pytest.raises(flax.errors.InvalidRngError, match="patch_dropout"):
+        step(state, jnp.asarray(imgs), jnp.asarray(txts))
+
+    with pytest.raises(RuntimeError, match="needs a torch.Generator"):
+        _dropout_tower().train()(torch.from_numpy(imgs))
+    model, cfg = factory.create_model(TINY, "cpu", torch.float32, force_patch_dropout=0.5)
+    assert cfg.vision_cfg.patch_dropout == jcfg.vision_cfg.patch_dropout == 0.5
+    with pytest.raises(NotImplementedError, match="InvalidRngError"):
+        make_train_step(model.train(), optim.create_optimizer(model, 1e-3), None,
+                        TrainStepConfig(loss_type="colclip"))
+    with torch.no_grad():         # serving such a model is fine: eval mode drops nothing
+        assert model.eval().encode_image(torch.from_numpy(imgs))[1].shape == (B, 16, 128)
 
 
 def test_forward_dict_matches_jax(jax_model, monkeypatch):
@@ -188,6 +262,26 @@ def test_train_step_matches_jax(jax_model, monkeypatch, loss_type, mask_mode):
     imgs, txts = _batch(seed=2)
     want = _jax_step_grads(jax_model, jcfg, imgs, txts, monkeypatch)
     _assert_step_matches(*want, *_port_step(jax_model[1], cfg, imgs, txts))
+
+
+@pytest.mark.parametrize("loss_type", ["colclip", "clip"])
+def test_train_step_through_fused_kernels_matches_jax(jax_model, monkeypatch, loss_type):
+    """The whole slice with COLXLIP_LN_IMPL=fused COLXLIP_MLP_IMPL=fused on
+    the port's side (on the CPU: the kernels' plain versions, their erf
+    polynomial 1.5e-7 from erf) against the JAX step's losses and gradients."""
+    cfg = TrainStepConfig(loss_type=loss_type, maxsim_impl="streaming")
+    jcfg = jax_ts.TrainStepConfig(loss_type=loss_type, maxsim_impl="streaming")
+    imgs, txts = _batch(seed=6)
+    want = _jax_step_grads(jax_model, jcfg, imgs, txts, monkeypatch)
+    # set after the JAX step ran: the JAX package reads the same variables
+    monkeypatch.setenv("COLXLIP_LN_IMPL", "fused")
+    monkeypatch.setenv("COLXLIP_MLP_IMPL", "fused")
+    calls = []
+    real = layers_mod.fused_mlp
+    monkeypatch.setattr(layers_mod, "fused_mlp",
+                        lambda *a, **k: calls.append("mlp") or real(*a, **k))
+    _assert_step_matches(*want, *_port_step(jax_model[1], cfg, imgs, txts))
+    assert len(calls) == 4        # one a block, two blocks a tower
 
 
 def test_accum_freq_2_matches_jax(jax_model, monkeypatch):
