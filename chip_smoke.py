@@ -22,6 +22,12 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      LayerNorm shape and one ragged shape each; two runs of each backward
      must agree bit for bit, and at the vision shape neither direction of
      the MLP may hold as much as one [B, N, H] tensor above its inputs.
+     The stochastic-rounding int8 quantizer (3e) at every Dense shape of the
+     model, one ragged shape and one with an all-zero column and a column
+     whose extremes sit at +-absmax, fp32 and bf16, seeds 0 and 1: values and
+     scales equal to the plain version's bit for bit, one seed twice equal,
+     two seeds different, scales equal to round-to-nearest's and values
+     within one step of it, and unbiased over 64 seeds.
   4. serving slice: ColXLIPService (ViT-B-16-colxlip, full width, random
      init from seed 0, bf16 compute) behind make_server on an ephemeral
      port, driven over HTTP; checks finite unit-norm embeddings, that both
@@ -68,6 +74,20 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      step through the plain versions in fp32 and bf16, and the step's ms,
      img/s and peak device memory beside phase 6's: the peak must fall by
      the hidden tensors the default path keeps for autograd.
+  9. the int8 slice, full width and depth, seed 0: (a) every Dense weight of
+     both towers through the quantizer kernel (99 launches) and through
+     round-to-nearest (quantize_vision_params / quantize_text_params);
+     (b) vision_encode_int8 / text_encode_int8 at batch 64 with either set of
+     weights against the bf16 model (cosine of every row above 0.99, 12
+     attention launches an encode, a uint8 batch finite and unit-norm), img/s
+     and txt/s beside the bf16 model's; (c) maxsim(impl='streaming_int8') on
+     the model's token features at 64 x 64 and 256 x 256 against the default
+     forward, zero rows, its backward against the default backward, and one
+     colclip train step at batch 256 with maxsim_impl='streaming_int8'
+     against the default step; (d) /v1/search over HTTP on an index of 2,048
+     seeded images built with build_image_index: ids and scores against a
+     recomputation with score_similarity, shortlist 2,048 against brute
+     force, launch counts, latency and build img/s.
   Phases 4, 6 and 7 run the default path and must launch none of the
   LayerNorm and MLP kernels.
 
@@ -194,6 +214,25 @@ COMPARE_BATCH = 64
 #     vision_token_layer.0.bias in the first run on the H100). So: cosine
 #     >= 0.98, norms 5e-2, losses 1e-2.
 STEP_TOL = {"float32": (0.9999, 1e-3, 1e-3), "bfloat16": (0.98, 5e-2, 1e-2)}
+
+
+# the quantizer kernel: every distinct Dense shape of ViT-B-16-colxlip as
+# [K, N] = [in, out], and one ragged shape (N not a multiple of 4)
+QUANT_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 512), (512, 1536),
+                (512, 512), (512, 2048), (2048, 512), (197, 129)]
+QUANT_SEEDS = 64            # launches of the unbiasedness check
+# Dense weights of the two towers: conv1, proj and 12 x 4 in the vision tower,
+# the projection and 12 x 4 in the text tower
+QUANT_LAUNCHES = {"vision": 50, "text": 49}
+INT8_COSINE_MIN = 0.99      # int8 encoders vs the bf16 model, every row (the JAX tests' bar)
+# maxsim(impl='streaming_int8') vs the default forward on unit-norm tokens:
+# per-token symmetric int8 carries about 1e-2 absolute error a similarity
+INT8_MAXSIM_TOL = 2e-2
+INT8_STEP_LOSS_TOL = 5e-2   # a colclip step with the int8 forward vs the default step
+TOWER_LAYERS = 12           # blocks in each tower: one attention launch each an encode
+INDEX_ITEMS = 2048
+INDEX_BATCH = 256
+SEARCH_K, SEARCH_SHORTLIST = 10, 100
 
 
 def log(*parts) -> None:
@@ -1136,6 +1175,457 @@ def time_host_feed(dev):
     return gen_ms, cold, warm
 
 
+def check_quantizer(dev, gen):
+    """Phase 3e: the int8 quantizer kernel against its plain version, bit for
+    bit. Returns (largest |difference| in int8 steps or in a scale: 0.0, the
+    inputs for the timings)."""
+    import torch
+
+    from colxlip_tpu_torch.ops import quantization as q
+
+    cases = [(f"{k}x{n}", k, n, False) for k, n in QUANT_SHAPES]
+    cases.append(("512x512 zero column, +-absmax column", 512, 512, True))
+    worst, inputs = 0.0, {}
+    for label, k, n, special in cases:
+        base = (torch.randn(k, n, generator=gen) * k ** -0.5).to(dev)   # a Dense layer's scale
+        if special:
+            base[:, 0] = 0.0
+            base[:, 1] = base[:, 1].clamp(-0.09, 0.09)
+            base[3, 1], base[7, 1] = 0.09, -0.09         # +-absmax: +-127 after scaling
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            w = base.to(dtype)
+            runs = {seed: q._launch(w, seed) for seed in (0, 1)}
+            again = q._launch(w, 0)
+            rtn_values, rtn_scales = q.quantize_int8_rtn(w)
+            mismatched = 0
+            for seed, (values, scales) in runs.items():
+                want_values, want_scales = q.quantize_int8_plain(w, seed)
+                torch.cuda.synchronize()
+                mismatched += int((values != want_values).sum()) + int(
+                    (scales != want_scales).sum())
+                worst = max(worst, (values.int() - want_values.int()).abs().max().item(),
+                            (scales - want_scales).abs().max().item())
+                step = (values.int() - rtn_values.int()).abs().max().item()
+                if not (torch.equal(scales, rtn_scales) and step <= 1):
+                    raise RuntimeError(f"quantize_int8 {label} {name} seed {seed}: scales "
+                                       f"differ from round-to-nearest's, or {step} steps from it")
+            differ = (runs[0][0] != runs[1][0]).float().mean().item()
+            log(f"[3 kernels] quantize_int8 {label} {name}: seeds 0 and 1 against the plain "
+                f"version: {mismatched} values or scales differ (must be 0); one seed twice "
+                f"equal; {differ:.1%} of the values differ between the seeds; scales equal to "
+                f"round-to-nearest's, values within 1 step")
+            if mismatched or not torch.equal(runs[0][0], again[0]) or differ == 0:
+                raise RuntimeError(f"quantize_int8 {label} {name}: {mismatched} mismatches, or "
+                                   "one seed not repeatable, or two seeds equal")
+            if special:
+                values = runs[0][0]
+                if not ((values[:, 0] == 0).all() and values[3, 1] == 127
+                        and values[7, 1] in (-127, -126) and runs[0][1][0, 0] == 1e-8):
+                    raise RuntimeError(f"quantize_int8 {label} {name}: the zero column or "
+                                       "the +-absmax elements are wrong")
+            if (k, n) in ((768, 3072), (3072, 768)):
+                inputs[f"{k}x{n}/{name}"] = w
+
+    # unbiasedness on the card. T = sum over seeds and elements of (value - x),
+    # x = w / scale, has mean 0 and variance S * sum f (1 - f), f = frac(x)
+    # (a draw is floor(x) + Bernoulli(f)): |T| <= 4 sqrt(that). Per element the
+    # mean over S seeds has standard error sqrt(f (1 - f) / S). About 3e-4 of
+    # an unbiased rounding's elements leave 4 of them (at f near 0 or 1 a
+    # binomial over 64 draws has heavier tails than a normal: one rare draw is
+    # 1 / 64), so at most 1e-3 may; a biased rounding puts most of them outside.
+    w = inputs["768x3072/float32"]
+    scale = q.quantize_int8_rtn(w)[1]
+    x = (w / scale).double()
+    total = torch.zeros_like(x)
+    for seed in range(QUANT_SEEDS):
+        total += q._launch(w, seed)[0].double()
+    f = x - torch.floor(x)
+    var = f * (1 - f)
+    t_stat = (total - QUANT_SEEDS * x).sum().abs().item()
+    t_bar = 4 * (QUANT_SEEDS * var.sum()).sqrt().item()
+    se = (var / QUANT_SEEDS).sqrt().clamp_min(1e-6)
+    outside = ((total / QUANT_SEEDS - x).abs() > 4 * se).double().mean().item()
+    worst_w = ((total / QUANT_SEEDS * scale - w).abs() / scale).max().item()
+    log(f"[3 kernels] quantize_int8 768x3072 fp32 over {QUANT_SEEDS} seeds: |sum of (value - "
+        f"w / scale)| {t_stat:.1f} (4 standard deviations: {t_bar:.1f}); {outside:.2e} of the "
+        f"elements' means lie outside 4 standard errors (limit 1e-3); the mean of value * scale "
+        f"is within {worst_w:.3f} steps of w everywhere")
+    if not (t_stat <= t_bar and outside <= 1e-3):
+        raise RuntimeError("quantize_int8 is biased")
+    return worst, inputs
+
+
+def time_quantizer(inputs, card: str):
+    """Phase 5: the quantizer kernel, its plain version and round-to-nearest
+    from five PyTorch calls (amax, div, round, clamp, to; plus the scale's own
+    division and clamp), with the bound by bytes."""
+    import torch
+
+    from colxlip_tpu_torch.ops import quantization as q
+
+    def five_calls(w):
+        x = w.float()
+        scale = (x.abs().amax(dim=0, keepdim=True) / 127.0).clamp_min(1e-8)
+        return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
+
+    timing, bounds = {}, {}
+    for key, w in inputs.items():
+        k, n = w.shape
+        timing[f"quantize_int8/{key}"] = (
+            cuda_ms(lambda: q._launch(w, 0), 50), cuda_ms(lambda: q.quantize_int8_plain(w, 0), 5, 1),
+            cuda_ms(lambda: five_calls(w), 20))
+        # read the weight once, write K N int8 and N scales; a division, an
+        # add, a floor and two clips an element, and the absmax
+        bounds[key] = bound_ms(k * n * w.element_size() + k * n + 4 * n, 6 * k * n,
+                               "float32")
+        ker, plain, lib = timing[f"quantize_int8/{key}"]
+        log(f"[5 timing] quantize_int8 {key}: kernel {ker:.4f} ms, plain {plain:.4f} ms, "
+            f"round-to-nearest from five PyTorch calls {lib:.4f} ms; bound {bounds[key][0]:.5f} "
+            f"ms by {bounds[key][1]} ({card})")
+    # the wrapper's host work (three allocations, one ctypes call) paces that
+    # loop; the device's own time a launch, by kernel, from the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    w = inputs["768x3072/float32"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            q._launch(w, 0)
+        torch.cuda.synchronize()
+    device_us = {next((n for n in ("absmax_kernel", "quantize_kernel", "Memset")
+                       if n in e.key), e.key[:40]): e.self_device_time_total / 20
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+    log("[5 timing] quantize_int8 768x3072/float32 device time a launch (torch.profiler, 20 "
+        "launches): " + (", ".join(f"{k} {v:.2f} us" for k, v in device_us.items())
+                         or "not measured (the profiler saw no device events)")
+        + f"; together {sum(device_us.values()) / 1e3:.4f} ms ({card})")
+    timing["quantize_int8_device_ms"] = sum(device_us.values()) / 1e3 if device_us else None
+    return timing, bounds
+
+
+def stochastic_tree(model, tree, tower: str):
+    """``tree`` (quantize_vision_params / quantize_text_params of ``model``)
+    with every Dense weight quantized anew by the quantizer kernel, seed =
+    the layer's index: the kernel takes [in, out], the tree holds [out, in]."""
+    from colxlip_tpu_torch.ops.quantization import quantize_int8
+
+    sd = model.state_dict()
+    seeds = iter(range(1000))
+
+    def requant(node, weight_out_in):
+        values, scales = quantize_int8(weight_out_in.detach().float().t().contiguous(),
+                                       seed=next(seeds))
+        return {**node, "q": values.t().contiguous(), "scale": scales[0]}
+
+    out = dict(tree)
+    if tower == "vision":
+        conv = sd["visual.conv1.weight"]
+        out["conv1"] = requant(tree["conv1"], conv.permute(0, 2, 3, 1).reshape(conv.shape[0], -1))
+        out["proj"] = requant(tree["proj"], sd["visual.proj"].t())
+        prefix = "visual.transformer.resblocks."
+    else:
+        out["text_projection"] = requant(tree["text_projection"], sd["text_projection"].t())
+        prefix = "transformer.resblocks."
+    names = {"in_proj": "attn.in_proj_weight", "out_proj": "attn.out_proj.weight",
+             "c_fc": "mlp.c_fc.weight", "c_proj": "mlp.c_proj.weight"}
+    out["blocks"] = [{**blk, **{name: requant(blk[name], sd[f"{prefix}{i}.{key}"])
+                                for name, key in names.items()}}
+                     for i, blk in enumerate(tree["blocks"])]
+    return out
+
+
+def int8_phase(dev, card: str, train, encode_ms):
+    """Phase 9: the int8 slice and /v1/search at full width and depth."""
+    import numpy as np
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.ops import attention, maxsim
+    from colxlip_tpu_torch.ops import quantization as q
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig, make_train_step
+    from colxlip_tpu_torch.serving import (
+        quantize_text_params, quantize_vision_params, text_encode_int8, vision_encode_int8)
+    from colxlip_tpu_torch.serving.index import RetrievalIndex, build_image_index
+    from colxlip_tpu_torch.serving.server import ColXLIPService, make_server
+    from colxlip_tpu_torch.training.evaluate import score_similarity
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    model, cfg = create_model(MODEL, dev, torch.bfloat16, seed=0)
+    model.eval()
+    size, ctx = cfg.vision_cfg.image_size, cfg.text_cfg.context_length
+    images, texts = synthetic_batch(TRAIN_BATCH, size, ctx, seed=0)
+    images = torch.from_numpy(images).to(dev)
+    texts = torch.from_numpy(texts).to(dev)
+
+    # (a) every Dense weight through the quantizer kernel, and round-to-nearest
+    rtn = {"vision": quantize_vision_params(model), "text": quantize_text_params(model)}
+    q.LAUNCHES.reset()
+    stochastic, quant_launches = {}, {}
+    for tower in ("vision", "text"):
+        before = q.LAUNCHES.value
+        stochastic[tower] = stochastic_tree(model, rtn[tower], tower)
+        quant_launches[tower] = q.LAUNCHES.value - before
+    torch.cuda.synchronize()
+    steps = max((a["q"].int() - b["q"].int()).abs().max().item()
+                for tower in rtn for a, b in (
+                    [(x[name], y[name]) for x, y in zip(stochastic[tower]["blocks"],
+                                                        rtn[tower]["blocks"])
+                     for name in ("in_proj", "out_proj", "c_fc", "c_proj")]))
+    log(f"[9 int8] {MODEL} (seed 0): {q.LAUNCHES.value} Dense weights through the quantizer "
+        f"kernel {quant_launches}; its values are within {steps} step of round-to-nearest's")
+    if quant_launches != QUANT_LAUNCHES or steps > 1:
+        raise RuntimeError(f"quantizer launches {quant_launches}, expected {QUANT_LAUNCHES}; "
+                           f"or {steps} steps from round-to-nearest")
+
+    # (b) both int8 encoders against the bf16 model on the same fp32 weights
+    rates = {}
+    with torch.inference_mode():
+        batches = {"vision": images[:MAX_BATCH], "text": texts[:MAX_BATCH]}
+        encoders = {"vision": (vision_encode_int8, lambda x: model.encode_image(x, normalize=True)),
+                    "text": (text_encode_int8, lambda x: model.encode_text(x, normalize=True))}
+        for tower, (encode_int8, encode) in encoders.items():
+            batch = batches[tower]
+            ref = encode(batch)[0].float()
+            cosines = {}
+            for label, tree in (("round-to-nearest", rtn[tower]), ("quantizer kernel",
+                                                                   stochastic[tower])):
+                attention.LAUNCHES.reset()
+                got = encode_int8(cfg, tree, batch)
+                torch.cuda.synchronize()
+                launched = attention.LAUNCHES.value
+                norm_err = (got.norm(dim=-1) - 1).abs().max().item()
+                cosines[label] = (ref * got).sum(dim=-1).min().item()
+                if launched != TOWER_LAYERS or got.dtype != torch.float32 or got.shape != ref.shape \
+                        or not torch.isfinite(got).all() or norm_err > 1e-4:
+                    raise RuntimeError(f"{tower} int8 encode ({label}): {launched} attention "
+                                       f"launches (expected {TOWER_LAYERS}), or bad features")
+            ms = cuda_ms(lambda: encode_int8(cfg, rtn[tower], batch), 5, 2)
+            model_ms = cuda_ms(lambda: encode(batch), 5, 2)
+            unit = "img/s" if tower == "vision" else "txt/s"
+            rates[tower] = {"int8_ms": ms, "bf16_ms": model_ms, "cosine_rtn":
+                            cosines["round-to-nearest"], "cosine_kernel":
+                            cosines["quantizer kernel"]}
+            log(f"[9 int8] {tower}_encode_int8 batch {MAX_BATCH} vs the bf16 model on the same "
+                f"fp32 weights: lowest cosine of a row {cosines['round-to-nearest']:.5f} with "
+                f"round-to-nearest weights, {cosines['quantizer kernel']:.5f} with the quantizer "
+                f"kernel's (min {INT8_COSINE_MIN}); {TOWER_LAYERS} attention launches an encode; "
+                f"{ms:.2f} ms = {MAX_BATCH / ms * 1e3:.1f} {unit}, the bf16 model {model_ms:.2f} "
+                f"ms = {MAX_BATCH / model_ms * 1e3:.1f} {unit} on a batch already on the card "
+                f"(phase 5, from a host batch: {encode_ms[tower]:.2f} ms) ({card})")
+            if min(cosines.values()) <= INT8_COSINE_MIN:
+                raise RuntimeError(f"{tower} int8 encode: cosine {cosines} <= {INT8_COSINE_MIN}")
+        raw = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 256, (MAX_BATCH, size, size, 3), dtype=np.uint8)).to(dev)
+        got = vision_encode_int8(cfg, rtn["vision"], raw)
+        if not (torch.isfinite(got).all() and (got.norm(dim=-1) - 1).abs().max() < 1e-4):
+            raise RuntimeError("vision_encode_int8 on a uint8 batch: not finite unit-norm rows")
+        log(f"[9 int8] vision_encode_int8 on a uint8 batch of {MAX_BATCH}: finite unit-norm rows")
+
+        # (c) the int8 MaxSim forward on the model's token features
+        tok_i = model.encode_image(images, normalize=True)[1].contiguous()
+        tok_t = model.encode_text(texts, normalize=True)[1].contiguous()
+        zero_rows = tok_t.float().abs().amax(dim=-1) == 0               # at and after EOT
+        qt, _ = maxsim.quant_tokens_int8(tok_t)
+        if not (zero_rows.any() and (qt[zero_rows] == 0).all()):
+            raise RuntimeError("zero text rows do not quantize to exact zeros")
+        int8_err = {}
+        for n in (MAX_BATCH, TRAIN_BATCH):
+            t, i = tok_t[:n].contiguous(), tok_i[:n].contiguous()
+            maxsim.LAUNCHES.reset()
+            got = maxsim.maxsim(t, i, impl="streaming_int8")
+            launched = maxsim.LAUNCHES.value
+            want = maxsim.maxsim(t, i)
+            # a zero row scores exactly 0, so 'nonzero' leaves out what a mask
+            # over the non-zero rows leaves out. It also leaves out a live token
+            # whose largest int32 sum over an image's tokens is exactly 0, which
+            # an integer sum can be (a few scores in 1e5 at a random init): those
+            # scores differ, by one token in the mean. Were zero rows counted,
+            # every score would differ.
+            masked = maxsim.maxsim(t, i, mask_mode="valid", impl="streaming_int8",
+                                   text_mask=(~zero_rows[:n]).float())
+            torch.cuda.synchronize()
+            int8_err[n] = (got - want).abs().max().item()
+            dropped = ((got - masked).abs() > 1e-6).float().mean().item()
+            log(f"[9 int8] maxsim(impl='streaming_int8') {n} x {n} on the model's bf16 token "
+                f"features vs the default forward: max_abs_err {int8_err[n]:.3g} (tol "
+                f"{INT8_MAXSIM_TOL}); 'nonzero' vs a mask over the non-zero rows: "
+                f"{dropped:.2e} of the scores differ (limit 1e-3: live tokens whose largest "
+                f"integer sum is 0); forward-kernel launches {launched}")
+            if not (0 < int8_err[n] <= INT8_MAXSIM_TOL and dropped <= 1e-3 and launched == 0):
+                raise RuntimeError(f"int8 maxsim {n} x {n}: {int8_err[n]} > {INT8_MAXSIM_TOL}, "
+                                   "or zero rows were counted")
+        int8_ms = cuda_ms(lambda: maxsim.maxsim(tok_t, tok_i, impl="streaming_int8"), 3, 1)
+        kernel_ms = cuda_ms(lambda: maxsim.maxsim(tok_t, tok_i), 3, 1)
+        log(f"[9 int8] maxsim forward {TRAIN_BATCH} x {TRAIN_BATCH} bf16: int8 (library "
+            f"products) {int8_ms:.3f} ms, the forward kernel {kernel_ms:.3f} ms ({card})")
+
+    # its backward is the default backward on the same inputs: dT equal bit for
+    # bit; dI is summed with shared-memory float atomics in an order that changes
+    # from run to run, so it is held to that order's bar, 1e-5 of the largest
+    g = torch.randn(MAX_BATCH, MAX_BATCH, generator=torch.Generator().manual_seed(9)).to(dev)
+    grads = []
+    for impl in ("streaming_int8", "auto"):
+        t = tok_t[:MAX_BATCH].float().clone().requires_grad_()
+        i = tok_i[:MAX_BATCH].float().clone().requires_grad_()
+        maxsim.BWD_LAUNCHES.reset()
+        grads.append(torch.autograd.grad(maxsim.maxsim(t, i, impl=impl), (t, i), g))
+        if maxsim.BWD_LAUNCHES.value != 1:
+            raise RuntimeError(f"maxsim impl={impl!r}: the backward kernel was not launched")
+    torch.cuda.synchronize()
+    (dt_a, di_a), (dt_b, di_b) = grads
+    di_err = max_rel_err(di_a, di_b)
+    log(f"[9 int8] maxsim(impl='streaming_int8') backward vs the default backward, same fp32 "
+        f"inputs and cotangent: dT {'equal bit for bit' if torch.equal(dt_a, dt_b) else 'NOT equal'}"
+        f", dI max_abs_err / max|grad| {di_err:.3g} (tol 1e-5: float atomics)")
+    if not (torch.equal(dt_a, dt_b) and di_err <= 1e-5):
+        raise RuntimeError("the int8 MaxSim's backward is not the default backward")
+    del tok_i, tok_t, grads, g
+
+    # one colclip train step at batch 256 with the int8 forward, learning rate
+    # 0 (AdamW then changes nothing), against the default step on the same weights
+    model.train()
+    zero = const_lr(0.0, 0)
+    losses, step_ms = {}, {}
+    for impl in ("streaming_int8", "auto"):
+        step = make_train_step(model, create_optimizer(model, zero), zero, TrainStepConfig(
+            loss_type="colclip", alpha=0.5, mask_mode="nonzero", maxsim_impl=impl))
+        for c in (maxsim.LAUNCHES, maxsim.BWD_LAUNCHES):
+            c.reset()
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = step(images, texts)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        losses[impl] = {k: float(v) for k, v in metrics.items()}
+        step_ms[impl] = min(secs[1:]) * 1e3
+        want = (0, 3) if impl == "streaming_int8" else (3, 3)
+        if (maxsim.LAUNCHES.value, maxsim.BWD_LAUNCHES.value) != want:
+            raise RuntimeError(f"maxsim_impl={impl!r}: MaxSim launches "
+                               f"{(maxsim.LAUNCHES.value, maxsim.BWD_LAUNCHES.value)} != {want}")
+        del step
+    loss_err = abs(losses["streaming_int8"]["total_loss"] - losses["auto"]["total_loss"])
+    log(f"[9 int8] colclip step at batch {TRAIN_BATCH}, maxsim_impl='streaming_int8' vs the "
+        f"default: total_loss {losses['streaming_int8']['total_loss']:.5f} / "
+        f"{losses['auto']['total_loss']:.5f} (|difference| {loss_err:.3g}, tol "
+        f"{INT8_STEP_LOSS_TOL}); step {step_ms['streaming_int8']:.2f} / {step_ms['auto']:.2f} ms "
+        f"(the faster of steps 1-2; phase 6: {train['step_ms']:.2f} ms) ({card})")
+    if not (all(math.isfinite(v) for v in losses["streaming_int8"].values())
+            and loss_err <= INT8_STEP_LOSS_TOL):
+        raise RuntimeError(f"the int8 step's loss is {loss_err} from the default step's")
+    model.eval()
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    # (d) /v1/search over HTTP on an index built through the same model
+    corpus = np.random.default_rng(2).integers(0, 256, (INDEX_ITEMS, size, size, 3),
+                                               dtype=np.uint8)
+    queries = ["a photo of a cat sleeping on a red sofa",
+               "two dogs running on the beach at sunset", "a bowl of ramen with an egg"]
+    with tempfile.TemporaryDirectory() as index_dir:
+        t0 = time.perf_counter()
+        build_image_index(model, iter(corpus), index_dir, device=dev, batch_size=INDEX_BATCH,
+                          ids=[f"img{i:04d}" for i in range(INDEX_ITEMS)], model_name=MODEL)
+        build_s = time.perf_counter() - t0
+        on_disk = sum(os.path.getsize(os.path.join(index_dir, f)) for f in os.listdir(index_dir))
+        del corpus
+        svc = ColXLIPService(MODEL, device=dev, max_batch=MAX_BATCH, model=model, cfg=cfg,
+                             index_dir=index_dir)
+        httpd = make_server(svc, host="127.0.0.1", port=0)
+        port = httpd.server_address[1]
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        log(f"[9 int8] index of {INDEX_ITEMS} seeded uint8 images built in {build_s:.2f} s = "
+            f"{INDEX_ITEMS / build_s:.1f} img/s (batches of {INDEX_BATCH}; {on_disk / 2**20:.0f} "
+            f"MiB on disk); serving it on port {port} ({card})")
+        try:
+            health = http(port, "/healthz")[0]
+            if health["index_items"] != INDEX_ITEMS:
+                raise RuntimeError(f"/healthz: {health}")
+            bodies = [{"texts": queries, "k": SEARCH_K, "shortlist": SEARCH_SHORTLIST,
+                       "scoring": scoring} for scoring in ("global", "maxsim", "mixed")]
+            bodies.append({"texts": queries, "k": SEARCH_K, "shortlist": INDEX_ITEMS,
+                           "scoring": "maxsim"})
+            for c in (attention.LAUNCHES, maxsim.LAUNCHES):
+                c.reset()
+            answers = [http(port, "/v1/search", body) for body in bodies]
+            torch.cuda.synchronize()
+            search_launches = {"fused_attention_fwd": attention.LAUNCHES.value,
+                               "maxsim_fwd": maxsim.LAUNCHES.value}
+            # one text wave through the tower's layers a request; one MaxSim launch a query of
+            # the three reranking requests
+            if search_launches != {"fused_attention_fwd": TOWER_LAYERS * len(bodies),
+                                   "maxsim_fwd": 9}:
+                raise RuntimeError(f"/v1/search launches {search_launches}")
+
+            # the recomputation: the same text features, stage 1 on the host,
+            # score_similarity on the shortlist's stored features
+            index = RetrievalIndex(index_dir, device=dev)
+            with torch.inference_mode():
+                txt_pooled, txt_tokens = svc.engine.run("text", svc.tokenize(queries))
+                all_pooled = torch.from_numpy(np.asarray(index.pooled, np.float32)).to(dev)
+                all_tokens = torch.from_numpy(np.asarray(index.tokens, np.float32)).to(dev)
+                stage1 = svc.logit_scale * (txt_pooled.float() @ all_pooled.T)        # [3, N]
+                search_err = 0.0
+                for body, (resp, _) in zip(bodies, answers):
+                    idx = np.asarray(resp["indices"])
+                    scores = np.asarray(resp["scores"], np.float32)
+                    if idx.shape != (3, SEARCH_K) or not np.isfinite(scores).all() or \
+                            resp["ids"] != [[f"img{i:04d}" for i in row] for row in idx]:
+                        raise RuntimeError(f"/v1/search {body['scoring']}: malformed answer")
+                    for m in range(len(queries)):
+                        short = stage1[m].topk(body["shortlist"]).indices
+                        if body["scoring"] == "global":
+                            short = torch.arange(INDEX_ITEMS, device=dev)
+                        sim = score_similarity(
+                            all_pooled[short], txt_pooled[m:m + 1], all_tokens[short],
+                            txt_tokens[m:m + 1].float(), svc.logit_scale,
+                            scoring=body["scoring"], alpha=svc.alpha)[:, 0]      # [shortlist]
+                        top = sim.topk(SEARCH_K)
+                        want_idx = short[top.indices].cpu().numpy()
+                        err = float(np.abs(scores[m] - top.values.cpu().numpy()).max())
+                        search_err = max(search_err, err)
+                        # the same items, but for ties closer than the fp32 sums resolve
+                        if not (set(idx[m]) == set(want_idx) or err <= 1e-4):
+                            raise RuntimeError(f"/v1/search {body['scoring']} shortlist "
+                                               f"{body['shortlist']} query {m}: items {idx[m]} "
+                                               f"!= {want_idx}")
+                    what = ("brute force over all items" if body["shortlist"] == INDEX_ITEMS
+                            else "score_similarity on the stage-1 shortlist")
+                    log(f"[9 int8] /v1/search {body['scoring']} k {SEARCH_K} shortlist "
+                        f"{body['shortlist']}: the items of {what}; scores max_abs_err so far "
+                        f"{search_err:.3g}")
+                tol = SCORE_TOL_PER_UNIT_SCALE * svc.logit_scale
+                if not search_err <= tol:
+                    raise RuntimeError(f"/v1/search scores: {search_err} > {tol}")
+                del all_pooled, all_tokens
+            lat = {}
+            for body in bodies:
+                key = f"{body['scoring']} shortlist {body['shortlist']}"
+                reps = 5 if body["shortlist"] == SEARCH_SHORTLIST else 2
+                lat[key] = statistics.median(http(port, "/v1/search", body)[1]
+                                             for _ in range(reps)) * 1e3
+            log(f"[9 int8] /v1/search 3 texts, k {SEARCH_K}: "
+                + ", ".join(f"{k} median {v:.1f} ms" for k, v in lat.items())
+                + f"; scores vs the recomputation max_abs_err {search_err:.3g} (tol {tol:.3g}); "
+                f"kernel launches of the four checked requests {search_launches} ({card})")
+        finally:
+            httpd.shutdown()
+            svc.stop()
+            server.join(timeout=30)
+    del model
+    torch.cuda.empty_cache()
+    return {"quant_launches": sum(quant_launches.values()), "encode": rates,
+            "maxsim_int8_err": int8_err[TRAIN_BATCH], "maxsim_int8_ms": int8_ms,
+            "maxsim_kernel_ms": kernel_ms, "step_ms": step_ms, "loss_err": loss_err,
+            "index_img_per_s": INDEX_ITEMS / build_s, "search_ms": lat,
+            "search_err": search_err, "search_launches": search_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1210,6 +1700,7 @@ def main() -> int:
     bwd_err, bwd_inputs = check_backward_kernels(dev, gen)
     ce_err, ce_inputs_by_m = check_ce_kernels(dev, gen)
     fused_err_by_kernel, fused_inputs = check_fused_kernels(dev, gen)
+    quant_err, quant_inputs = check_quantizer(dev, gen)
 
     # ---- phase 4: the serving slice over HTTP ------------------------------
     t0 = time.perf_counter()
@@ -1338,6 +1829,8 @@ def main() -> int:
                 f"({card})")
         timing.update(time_ce_kernels(ce_inputs_by_m, card))
         timing.update(time_fused_kernels(fused_inputs, card))
+        quant_timing, quant_bounds = time_quantizer(quant_inputs, card)
+        timing.update(quant_timing)
         qkv, h, causal = attn_inputs["vision"]
         sdpa_fwd, _ = time_library_attention(qkv, None, h, causal)
         sdpa_train = time_library_attention(*bwd_inputs["attention_bwd/vision"])
@@ -1355,8 +1848,10 @@ def main() -> int:
 
         img_batch = svc.decode_images(wide_images)
         txt_batch = svc.tokenize(wide_texts)
+        encode_ms = {}
         for kind, batch in (("image", img_batch), ("text", txt_batch)):
             ms = cuda_ms(lambda: svc.engine.run(kind, batch), 10)
+            encode_ms["vision" if kind == "image" else "text"] = ms
             unit = "img/s" if kind == "image" else "txt/s"
             log(f"[5 timing] encode {kind} batch {MAX_BATCH} (host batch -> "
                 f"normalized features on device): {ms:.3f} ms = "
@@ -1386,6 +1881,9 @@ def main() -> int:
 
     # ---- phase 8: the towers through the LayerNorm and MLP kernels ----------
     fused = fused_phase(dev, card, train)
+
+    # ---- phase 9: the int8 slice and /v1/search ------------------------------
+    int8 = int8_phase(dev, card, train, encode_ms)
 
     tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
@@ -1431,12 +1929,22 @@ def main() -> int:
         rows.append((name, f"colxlip_tpu_torch/csrc/{source}", f"colxlip_tpu/ops/{replaces}",
                      fl[name], fused_err_by_kernel[name], (ker, plain), bounds[name],
                      lib if has_library else None))
+    quant_key = "768x3072/float32"
+    rows.append(("quantize_int8", "colxlip_tpu_torch/csrc/quantize_int8.cu",
+                 "colxlip_tpu/ops/quantization.py:52", int8["quant_launches"], quant_err,
+                 timing[f"quantize_int8/{quant_key}"][:2], quant_bounds[quant_key], None))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
         for name, source, replaces, n_launches, err, (ms, plain_ms), bound, library_ms in rows],
         "launches_serving": launches, "launches_main": ml, "launches_fused": fl,
+        "launches_search": int8["search_launches"],
+        "quantize_rtn_five_calls_ms": timing[f"quantize_int8/{quant_key}"][2],
+        "quantize_int8_device_ms": timing["quantize_int8_device_ms"],
+        "int8": {k: int8[k] for k in ("encode", "maxsim_int8_err", "maxsim_int8_ms",
+                                      "maxsim_kernel_ms", "step_ms", "loss_err",
+                                      "index_img_per_s", "search_ms", "search_err")},
         "mlp_three_calls_ms": {"fwd": timing["fused_mlp_fwd/vision"][2],
                                "bwd": timing["fused_mlp_bwd/vision"][2]},
         "fused_train_step": {"batch": TRAIN_BATCH, "steps": FUSED_STEPS, "ms": fused["step_ms"],

@@ -10,6 +10,10 @@ heads as a Sequential. ``.pt`` is the exchange format in both directions.
 ``load_pt_state_dict`` reads an OpenCLIP-layout ``.pt`` checkpoint (the
 ``--checkpoint`` of the server, the ``--pretrained`` of the trainer).
 
+``int8_params_from_jax`` turns the int8 trees of the JAX
+``serving.int8.quantize_vision_params`` / ``quantize_text_params`` into the
+port's, so both encoders can run on identical int8 weights.
+
 ``load_optax_adamw_state`` carries an optax AdamW state (``mu``, ``nu`` and
 the step count, as numpy) into a ``torch.optim.AdamW``, so that both
 packages can go on from one train state.
@@ -138,6 +142,35 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
         raise ValueError(f"params with no .pt mapping: {unmapped[:8]}"
                          + ("..." if len(unmapped) > 8 else ""))
     return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def int8_params_from_jax(tree: Mapping, device: Union[str, torch.device] = "cpu") -> dict:
+    """A JAX int8 tree (``colxlip_tpu.serving.int8.quantize_vision_params`` or
+    ``quantize_text_params``, leaves readable by numpy) -> the port's
+    (``colxlip_tpu_torch.serving.int8``): every quantized weight ``q``
+    [in, out] is transposed to [out, in] (the channel moves from axis 1 to
+    axis 0, ``scale`` stays [out]), LayerNorm ``scale`` becomes ``weight``,
+    every other leaf is copied."""
+    def tensor(v) -> torch.Tensor:
+        return torch.from_numpy(np.array(v, order="C")).to(device)
+
+    def convert(node):
+        if node is None:
+            return None
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        if not isinstance(node, Mapping):
+            return tensor(node)
+        if "q" in node:
+            out = {"q": tensor(np.asarray(node["q"]).T), "scale": tensor(node["scale"])}
+            if "bias" in node:
+                out["bias"] = tensor(node["bias"])
+            return out
+        if set(node) == {"scale", "bias"}:                       # a LayerNorm
+            return {"weight": tensor(node["scale"]), "bias": tensor(node["bias"])}
+        return {k: convert(v) for k, v in node.items()}
+
+    return convert(tree)
 
 
 def load_pt_state_dict(path: str) -> Dict[str, torch.Tensor]:

@@ -3,7 +3,8 @@
     total = alpha * CE(global logits) + (1 - alpha) * CE(token MaxSim logits)
 
 The token logits are ``logit_scale * maxsim(T, I)`` through ``ops.maxsim``
-(the MaxSim kernels on the card, forward and backward); ``logit_bias``
+(the MaxSim kernels on the card, forward and backward; ``maxsim_impl``
+'streaming_int8' takes the int8 forward with the same backward); ``logit_bias``
 applies to the global logits only. The distributed branches of the JAX
 function (full gather, local loss, the token ring and its neighbourhood cap)
 raise ``NotImplementedError``.
@@ -16,11 +17,6 @@ import torch
 
 from ..ops.maxsim import maxsim
 from .clip import contrastive_labels, cross_entropy_with_integer_labels, matmul_t
-
-# the JAX package's MaxSim implementations; they compute the same scores, and
-# the port's one implementation routes gradients at ties as 'streaming' does
-# (every tied token), which the TPU main path runs
-MAXSIM_IMPLS = ("auto", "xla", "streaming", "chunked", "pallas")
 
 
 def colclip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
@@ -37,13 +33,10 @@ def colclip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
         raise NotImplementedError(
             "colclip_loss: the distributed branches (axis_name, local_loss, "
             "token_dist='ring', token_neighborhood) are not yet ported")
-    if maxsim_impl not in MAXSIM_IMPLS:
-        raise NotImplementedError(f"colclip_loss: maxsim_impl={maxsim_impl!r} "
-                                  f"is not ported (one of {MAXSIM_IMPLS})")
     logits_per_image = logit_scale * matmul_t(image_features, text_features)
     logits_per_text = logits_per_image.T
     s = maxsim(token_text_features, token_image_features, mask_mode=mask_mode,
-               text_mask=text_mask)
+               text_mask=text_mask, impl=maxsim_impl)
     logits_per_text_token = logit_scale * s
     logits_per_image_token = logits_per_text_token.T
     if logit_bias is not None:

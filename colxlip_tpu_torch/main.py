@@ -136,8 +136,6 @@ def unsupported_flags(args) -> List[str]:
         (args.token_dist == "ring" or args.token_neighborhood > 0,
          "--token-dist ring / --token-neighborhood: the ring token exchange "
          "(losses/colclip.py) is not yet ported"),
-        (args.maxsim_impl == "streaming_int8",
-         "--maxsim-impl streaming_int8: the int8 MaxSim (ops/maxsim.py) is not yet ported"),
     ]
     return [msg for bad, msg in checks if bad]
 

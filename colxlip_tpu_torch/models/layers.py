@@ -19,11 +19,16 @@ environment variables ``COLXLIP_LN_IMPL`` and ``COLXLIP_MLP_IMPL`` choose
 ``xla``; anything else raises). They are read once, when the module is
 built, not on every call; an explicit ``impl`` argument beats them. The
 parameters are the same under either setting, so checkpoints load under both.
+``COLXLIP_MLP_INT8=fwd``, read at the same moment, sends both matmuls of
+every ``MLP`` through ``ops.quantization.int8_st_linear`` (int8 forward,
+straight-through backward) on the same parameters; it takes precedence over
+``COLXLIP_MLP_IMPL``, as in the JAX package.
 
 Not ported: cross-attention and the attentional pooler.
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import torch
@@ -34,6 +39,7 @@ from torch import nn
 from ..ops import attention as attention_ops
 from ..ops.fused_ln import fused_layernorm, resolve_ln_impl
 from ..ops.fused_mlp import fused_mlp, resolve_mlp_impl
+from ..ops.quantization import int8_st_linear
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -108,7 +114,10 @@ class MLP(nn.Module):
     when ``act`` is ``gelu`` or ``gelu_tanh`` (``quick_gelu`` and 2-D inputs
     keep the two ``Linear``s), 'xla' never, 'auto' ``COLXLIP_MLP_IMPL`` as
     it is when the module is built. The kernel's exact GELU is the
-    Abramowitz-Stegun erf polynomial, 1.5e-7 from ``gelu``'s erf."""
+    Abramowitz-Stegun erf polynomial, 1.5e-7 from ``gelu``'s erf.
+    ``COLXLIP_MLP_INT8=fwd`` in the environment when the module is built
+    beats ``impl``: both matmuls run int8 x int8 -> int32 with a
+    straight-through backward (``int8_st_linear``), any ``act``, any rank."""
 
     def __init__(self, dim: int, mlp_ratio: float, act: Callable, *,
                  dtype: torch.dtype, impl: str = "auto"):
@@ -118,10 +127,14 @@ class MLP(nn.Module):
         self.dtype = dtype
         self.approximate = {gelu: False, gelu_tanh: True}.get(act)
         self.fused = resolve_mlp_impl(impl) == "fused" and self.approximate is not None
+        self.int8_fwd = os.environ.get("COLXLIP_MLP_INT8", "") == "fwd"
         self.c_fc = Linear(dim, hidden, dtype=dtype)
         self.c_proj = Linear(hidden, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_fwd:
+            h = int8_st_linear(x.to(self.dtype), self.c_fc.weight, self.c_fc.bias)
+            return int8_st_linear(self.act(h), self.c_proj.weight, self.c_proj.bias)
         if self.fused and x.ndim == 3:
             dt = self.dtype
             # the casts and the one transpose (c_proj.weight [D, H] -> the

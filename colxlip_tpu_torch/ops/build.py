@@ -63,6 +63,8 @@ _SIGNATURES = {
     # splits, colsum_blocks, dtype, stream
     "colxlip_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _P],
+    # w, values, scales, amax scratch, K, N, seed low word, seed high word, dtype, stream
+    "colxlip_quantize_int8": [_P, _P, _P, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I, _P],
 }
 
 

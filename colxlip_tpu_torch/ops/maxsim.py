@@ -16,6 +16,16 @@ and ``maxsim_bwd_plain`` (chunked over M, so their temporaries stay
 bounded); CUDA tensors launch ``csrc/maxsim.cu`` and ``csrc/maxsim_bwd.cu``
 or raise. There is no fallback.
 
+``impl='streaming_int8'`` (``maxsim_int8_forward``, the JAX
+``_mknq_max_tiles_int8``) quantizes every token row to int8 with its own
+scale, takes the similarities as int8 x int8 -> int32 products
+(``ops.quantization.int8_mm``, a library product as in the JAX package,
+tiled over 16 texts so no [M, K, Lt, Li] tensor exists) and rescales in
+fp32: forward noise of about 1e-2 on unit-norm tokens. Its backward is
+straight-through: the default backward on the full-precision inputs (the
+backward kernel on the card). Every other name of ``MAXSIM_IMPLS`` computes
+the same scores through the one default forward.
+
 Gradient at ties: every image token that attains the max receives the full
 cotangent, as in the streaming custom VJP the TPU main path runs
 (``colxlip_tpu/ops/maxsim.py`` ``_maxsim_streaming_bwd``). The JAX package's
@@ -30,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from .build import LaunchCounter, load_kernels
+from .quantization import absmax_scale, int8_mm
 
 # kernel launches (plain-version calls do not count): forward, backward
 LAUNCHES = LaunchCounter()
@@ -40,6 +51,10 @@ MAX_TEXT_TOKENS = 80
 MAX_IMAGE_TOKENS = 256
 MAX_FEATURES = 4096
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the JAX package's implementations; all but 'streaming_int8' compute the same
+# scores, and the port's one default implementation routes gradients at ties
+# as 'streaming' does (every tied token), which the TPU main path runs
+MAXSIM_IMPLS = ("auto", "xla", "streaming", "streaming_int8", "chunked", "pallas")
 
 
 def _check_args(token_text, token_image, mask_mode, text_mask):
@@ -86,6 +101,45 @@ def maxsim_plain(token_text: torch.Tensor, token_image: torch.Tensor, *,
         t = token_text[i:i + m_chunk].float()
         sim = torch.matmul(t.reshape(-1, d), image.T).reshape(-1, lt, k, li)
         max_sim = sim.amax(dim=-1).permute(0, 2, 1)              # [mc, K, Lt]
+        mask = None if text_mask is None else text_mask[i:i + m_chunk]
+        rows.append(masked_mean_from_maxsim(max_sim, mask_mode, mask))
+    return torch.cat(rows)
+
+
+def quant_tokens_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token symmetric int8 over the feature axis (round to nearest):
+    [..., L, D] -> (int8 values, fp32 scales [..., L]). A zero token row (the
+    EOT-zeroed text tail the 'nonzero' mask keys on) quantizes to exact
+    zeros, so its similarities stay exactly 0."""
+    xf = x.float()
+    scale = absmax_scale(xf.abs().amax(dim=-1, keepdim=True), 1e-12)
+    return torch.round(xf / scale).to(torch.int8), scale[..., 0]
+
+
+def maxsim_int8_forward(token_text: torch.Tensor, token_image: torch.Tensor, *,
+                        mask_mode: str = "nonzero",
+                        text_mask: Optional[torch.Tensor] = None,
+                        m_chunk: int = 16) -> torch.Tensor:
+    """The int8 forward: [M, Lt, D] x [K, Li, D] -> [M, K] fp32. The int32
+    sums of a tile are [m_chunk * Lt, K * Li]: 247 MB for 16 texts against 256
+    images of 196 tokens, where all 256 texts at once would be 3.9 GB.
+
+    Under 'nonzero', as in the JAX function, a live text token whose largest
+    int32 sum over an image's tokens is exactly 0 drops out of that score's
+    mean beside the zero rows: an integer sum can be exactly 0, where a float
+    one practically never is."""
+    _check_args(token_text, token_image, mask_mode, text_mask)
+    _device_type(token_text, token_image)
+    m, lt, d = token_text.shape
+    k, li, _ = token_image.shape
+    tq, ts = quant_tokens_int8(token_text)
+    iq, is_ = quant_tokens_int8(token_image)
+    iq = iq.reshape(k * li, d)
+    rows = []
+    for i in range(0, m, m_chunk):
+        acc = int8_mm(tq[i:i + m_chunk].reshape(-1, d), iq)          # [mc*Lt, K*Li] int32
+        sim = acc.float().reshape(-1, lt, k, li) * ts[i:i + m_chunk, :, None, None] * is_
+        max_sim = sim.amax(dim=-1).permute(0, 2, 1)                  # [mc, K, Lt]
         mask = None if text_mask is None else text_mask[i:i + m_chunk]
         rows.append(masked_mean_from_maxsim(max_sim, mask_mode, mask))
     return torch.cat(rows)
@@ -208,7 +262,11 @@ def _device_type(token_text, token_image) -> str:
     return "cuda"
 
 
-def _forward(token_text, token_image, mask_mode, text_mask) -> torch.Tensor:
+def _forward(token_text, token_image, mask_mode, text_mask,
+             impl: str = "auto") -> torch.Tensor:
+    if impl == "streaming_int8":
+        return maxsim_int8_forward(token_text, token_image, mask_mode=mask_mode,
+                                   text_mask=text_mask)
     if _device_type(token_text, token_image) == "cpu":
         return maxsim_plain(token_text, token_image, mask_mode=mask_mode,
                             text_mask=text_mask)
@@ -224,31 +282,36 @@ def _backward(token_text, token_image, g, mask_mode, text_mask):
 
 class _MaxSim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, token_text, token_image, text_mask, mask_mode):
+    def forward(ctx, token_text, token_image, text_mask, mask_mode, impl):
         ctx.save_for_backward(token_text, token_image, text_mask)
         ctx.mask_mode = mask_mode
-        return _forward(token_text, token_image, mask_mode, text_mask)
+        return _forward(token_text, token_image, mask_mode, text_mask, impl)
 
     @staticmethod
     def backward(ctx, g):
         token_text, token_image, text_mask = ctx.saved_tensors
         dt, di = _backward(token_text, token_image, g, ctx.mask_mode, text_mask)
-        return dt, di, None, None
+        return dt, di, None, None, None
 
 
 def maxsim(token_text: torch.Tensor, token_image: torch.Tensor, *,
            mask_mode: str = "nonzero",
-           text_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+           text_mask: Optional[torch.Tensor] = None,
+           impl: str = "auto") -> torch.Tensor:
     """[M, Lt, D] x [K, Li, D] -> [M, K] float32 MaxSim scores, differentiable
     in both token tensors (never in ``text_mask``).
 
-    CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (Lt <= 80, Li <= 256, float32 or bfloat16, contiguous; D <= 4096 for the
-    backward) or raise."""
+    ``impl``: a name of ``MAXSIM_IMPLS``. 'streaming_int8' takes the int8
+    forward with the default backward (straight-through); every other name
+    the default forward. CPU tensors take the plain versions; CUDA tensors
+    launch the kernels (Lt <= 80, Li <= 256, float32 or bfloat16, contiguous;
+    D <= 4096 for the backward) or raise."""
+    if impl not in MAXSIM_IMPLS:
+        raise ValueError(f"unknown impl: {impl!r} (one of {MAXSIM_IMPLS})")
     _check_args(token_text, token_image, mask_mode, text_mask)
     if mask_mode != "valid":
         text_mask = None
     if torch.is_grad_enabled() and (token_text.requires_grad
                                     or token_image.requires_grad):
-        return _MaxSim.apply(token_text, token_image, text_mask, mask_mode)
-    return _forward(token_text, token_image, mask_mode, text_mask)
+        return _MaxSim.apply(token_text, token_image, text_mask, mask_mode, impl)
+    return _forward(token_text, token_image, mask_mode, text_mask, impl)

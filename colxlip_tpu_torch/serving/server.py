@@ -25,8 +25,11 @@ Endpoints (JSON), as in the JAX server:
   POST /v1/score        {"texts": [...], "images_b64": [...],
                          "scoring": "global"|"maxsim"|"mixed", "alpha": 0.5}
                         -> {"similarity": [[image x text]], "scoring": ...}
-  POST /v1/search, /v1/caption -> 400: not yet ported (need
-                        serving/index.py and the CoCa decoder).
+  POST /v1/search       {"texts": [...], "k": 10, "shortlist": 100,
+                         "scoring": "maxsim"}   (needs --index <dir>)
+                        -> {"indices": [[...]], "scores": [[...]], "ids"?}
+                        two-stage text -> corpus search (serving/index.py)
+  POST /v1/caption -> 400: not yet ported (needs the CoCa decoder).
 
 Run: ``python -m colxlip_tpu_torch.serving.server --model ViT-B-16-colxlip``.
 """
@@ -53,6 +56,7 @@ from ..data.tokenizer import EOT_TOKEN, SOT_TOKEN, get_tokenizer_cached
 from ..data.transforms import image_transform
 from ..factory import create_model, load_weights
 from ..training.evaluate import score_similarity
+from .index import RetrievalIndex
 
 logger = logging.getLogger(__name__)
 
@@ -260,6 +264,7 @@ class ColXLIPService:
                  alpha: float = 0.5, mask_mode: str = "nonzero",
                  quick_gelu: Optional[bool] = None,
                  text_ctx_buckets: Tuple[int, ...] = (),
+                 index_dir: Optional[str] = None,
                  model=None, cfg=None, seed: int = 0):
         disable_tf32()
         self.device = torch.device(device)
@@ -295,6 +300,10 @@ class ColXLIPService:
             for kind in ("text", "image")
         }
         self.logit_scale = float(model.logit_scale.detach().float().exp())
+        self.index: Optional[RetrievalIndex] = None
+        if index_dir:
+            self.index = RetrievalIndex(index_dir, device=self.device)
+            logger.info("retrieval index: %d items from %s", len(self.index), index_dir)
 
     # ---- request paths (called from HTTP threads) ----
 
@@ -337,6 +346,28 @@ class ColXLIPService:
                 mask_mode=self.mask_mode, text_mask=text_mask)
             return sim.cpu().numpy()
 
+    def search(self, texts: List[str], *, k: int = 10, shortlist: int = 100,
+               scoring: Optional[str] = None, alpha: Optional[float] = None):
+        """Text -> corpus-image search against the loaded retrieval index:
+        (indices [M, k], scores [M, k], ids [M][k] or None)."""
+        if self.index is None:
+            raise ValueError("no retrieval index loaded (start the server "
+                             "with --index <dir>)")
+        tokens = self.tokenize(texts)
+        out = self._batchers["text"].submit(tokens).result(timeout=120)
+        pooled = out[0].float().cpu().numpy()
+        q_tokens = out[1].float().cpu().numpy() if len(out) > 1 else None
+        scoring = scoring or ("maxsim" if q_tokens is not None else "global")
+        text_mask = None
+        if self.mask_mode == "valid" and scoring in ("maxsim", "mixed"):
+            eot = tokens.argmax(axis=-1)
+            text_mask = (np.arange(tokens.shape[1])[None, :]
+                         < eot[:, None]).astype(np.float32)
+        return self.index.search(
+            pooled, q_tokens, k=k, shortlist=shortlist, scoring=scoring,
+            alpha=self.alpha if alpha is None else alpha,
+            mask_mode=self.mask_mode, text_mask=text_mask)
+
     def record(self, path: str, seconds: float) -> None:
         with self._metrics_lock:
             self.request_counts[path] = self.request_counts.get(path, 0) + 1
@@ -350,6 +381,7 @@ class ColXLIPService:
             "requests": counts,
             "request_seconds_total": seconds,
             "batcher": {k: dict(b.stats) for k, b in self._batchers.items()},
+            "index_items": len(self.index) if self.index is not None else None,
         }
 
     def stop(self) -> None:
@@ -395,6 +427,7 @@ class _Handler(BaseHTTPRequestHandler):
             "context_length": svc.cfg.text_cfg.context_length,
             "scoring": svc.scoring,
             "device": str(svc.device),
+            "index_items": len(svc.index) if svc.index is not None else None,
         })
 
     def do_POST(self):  # noqa: N802 — http.server API
@@ -432,8 +465,14 @@ class _Handler(BaseHTTPRequestHandler):
                     "scoring": req.get("scoring") or self.service.scoring,
                 })
             if self.path == "/v1/search":
-                raise ValueError(f"/v1/search is {NOT_PORTED} "
-                                 "(needs serving/index.py)")
+                idx, scores, ids = self.service.search(
+                    req["texts"], k=int(req.get("k", 10)),
+                    shortlist=int(req.get("shortlist", 100)),
+                    scoring=req.get("scoring"), alpha=req.get("alpha"))
+                resp = {"indices": idx.tolist(), "scores": scores.tolist()}
+                if ids is not None:
+                    resp["ids"] = ids
+                return self._send(200, resp)
             if self.path == "/v1/caption":
                 raise ValueError(f"/v1/caption is {NOT_PORTED} "
                                  "(needs the CoCa decoder)")
@@ -472,6 +511,9 @@ def main(argv=None):
     p.add_argument("--warmup", action="store_true",
                    help="run the whole power-of-two bucket ladder for both "
                         "towers (and build the kernels) before serving")
+    p.add_argument("--index", default=None,
+                   help="retrieval-index dir (serving/index.py) to enable "
+                        "POST /v1/search")
     p.add_argument("--text-buckets", type=int, nargs="*", default=[],
                    help="short text-context buckets (e.g. 32): a wave whose "
                         "longest caption fits encodes [n, bucket] instead of "
@@ -485,6 +527,7 @@ def main(argv=None):
         scoring=args.scoring, alpha=args.alpha, mask_mode=args.mask_mode,
         quick_gelu=True if args.force_quick_gelu else None,
         text_ctx_buckets=tuple(args.text_buckets),
+        index_dir=args.index,
     )
     if args.warmup:
         s = svc.cfg.vision_cfg.image_size

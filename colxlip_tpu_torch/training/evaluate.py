@@ -20,10 +20,12 @@ def score_similarity(img_feats: torch.Tensor, txt_feats: torch.Tensor,
                      txt_tokens: Optional[torch.Tensor], logit_scale: float,
                      scoring: str = "global", alpha: float = 0.5,
                      mask_mode: str = "nonzero",
-                     text_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     text_mask: Optional[torch.Tensor] = None,
+                     maxsim_impl: str = "auto") -> torch.Tensor:
     """[num_images, num_texts] float32 similarity: 'global' (scaled cosine of
-    the pooled features), 'maxsim' (scaled MaxSim of the token features) or
-    'mixed' (alpha * global + (1 - alpha) * maxsim)."""
+    the pooled features), 'maxsim' (scaled MaxSim of the token features,
+    through ``maxsim_impl``) or 'mixed' (alpha * global + (1 - alpha) *
+    maxsim)."""
     if scoring not in ("global", "maxsim", "mixed"):
         raise ValueError(f"unknown scoring: {scoring!r}")
     if scoring in ("global", "mixed"):
@@ -33,7 +35,8 @@ def score_similarity(img_feats: torch.Tensor, txt_feats: torch.Tensor,
     if img_tokens is None or txt_tokens is None:
         raise ValueError(f"scoring={scoring!r} needs token features")
     s_t2i = maxsim(txt_tokens.float().contiguous(), img_tokens.float().contiguous(),
-                   mask_mode=mask_mode, text_mask=text_mask)  # [n_txt, n_img]
+                   mask_mode=mask_mode, text_mask=text_mask,
+                   impl=maxsim_impl)  # [n_txt, n_img]
     token_sim = logit_scale * s_t2i.T
     if scoring == "maxsim":
         return token_sim

@@ -17,7 +17,11 @@ times up to N terms). LayerNorm and MLP kernels: forward, of max(1, largest
 |out|), 1e-5 in fp32 (summation order, 3072 terms deep in the MLP, and
 rsqrtf / expf against torch's) and one bf16 rounding step (2^-7) in bf16;
 gradients 1e-4 of the largest |grad| in fp32 (dscale, dbias and dW sum over
-every row), 2^-7 of it in bf16.
+every row), 2^-7 of it in bf16. The int8 quantizer: values and scales equal
+to the plain version's bit for bit (both compute the same Philox words and
+the same IEEE divisions). int8 x int8 -> int32 products: equal to the CPU's
+(integer sums are exact). The int8 MaxSim forward: 1e-6 from the CPU's (equal
+integers, fp32 rescale).
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import pytest
 import torch
 
 from colxlip_tpu_torch.factory import create_model
-from colxlip_tpu_torch.ops import attention, fused_ce, fused_ln, fused_mlp, maxsim
+from colxlip_tpu_torch.ops import (
+    attention, fused_ce, fused_ln, fused_mlp, maxsim, quantization)
 from colxlip_tpu_torch.parallel.train_step import TrainStepConfig, make_train_step
 from colxlip_tpu_torch.serving.server import InferenceEngine
 from colxlip_tpu_torch.training.optim import create_optimizer
@@ -599,3 +604,142 @@ def test_tiny_train_step_through_fused_towers_matches_plain_path(dev, monkeypatc
         torch.testing.assert_close(m_k[key], m_p[key], rtol=1e-5, atol=0)
     for key, w in g_p.items():
         torch.testing.assert_close(g_k[key], w, rtol=0, atol=1e-4 * w.abs().max().item())
+
+
+QUANT_SHAPES = [
+    # every distinct Dense shape of ViT-B-16-colxlip, as [K, N] = [in, out]
+    (768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 512),
+    (512, 1536), (512, 512), (512, 2048), (2048, 512),
+    (197, 129),                 # ragged: N not a multiple of 4, scalar loads
+    (1, 5), (65, 4),
+]
+
+
+def _quant_weight(k, n, seed=0):
+    w = np.random.default_rng(seed).standard_normal((k, n)).astype(np.float32) * 0.05
+    if n > 4:
+        w[:, 1] = 0.0                                   # an all-zero column
+        w[:, 2] = np.round(w[:, 2] / np.abs(w[:, 2]).max() * 127)    # integers, absmax 127
+    return w
+
+
+@pytest.mark.parametrize("seed", [0, 1, (1 << 64) - 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", QUANT_SHAPES)
+def test_quantize_int8_kernel_equals_plain_bit_for_bit(dev, k, n, dtype, seed):
+    w = torch.from_numpy(_quant_weight(k, n)).to(dev, dtype)
+    before = quantization.LAUNCHES.value
+    values, scales = quantization.quantize_int8(w, seed=seed)
+    assert quantization.LAUNCHES.value == before + 1
+    want_values, want_scales = quantization.quantize_int8_plain(w, seed)
+    torch.cuda.synchronize()
+    assert values.dtype == torch.int8 and values.shape == (k, n)
+    assert scales.dtype == torch.float32 and scales.shape == (1, n)
+    assert torch.equal(scales, want_scales)
+    assert torch.equal(values, want_values), (values != want_values).sum().item()
+    # the CPU's plain version computes the same numbers
+    cpu_values, cpu_scales = quantization.quantize_int8(w.cpu(), seed=seed)
+    assert torch.equal(values.cpu(), cpu_values) and torch.equal(scales.cpu(), cpu_scales)
+    rtn_values, rtn_scales = quantization.quantize_int8_rtn(w)
+    assert torch.equal(scales, rtn_scales)
+    assert (values.int() - rtn_values.int()).abs().max() <= 1
+
+
+def test_quantize_int8_kernel_seeds_and_views(dev):
+    w = torch.from_numpy(_quant_weight(768, 512)).to(dev)
+    a, b, c = (quantization.quantize_int8(w, seed=s)[0] for s in (3, 3, 4))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # a contiguous view at an odd offset is not 16-byte aligned: the scalar path
+    flat = torch.zeros(768 * 512 + 1, device=dev)
+    flat[1:] = w.reshape(-1)
+    view = flat[1:].view(768, 512)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    assert torch.equal(quantization.quantize_int8(view, seed=3)[0], a)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d, e = (quantization.quantize_int8(w, generator=gen)[0] for _ in range(2))
+    assert not torch.equal(d, e)
+
+
+def test_quantize_int8_refuses_what_it_does_not_take(dev):
+    w = torch.randn(64, 32, device=dev)
+    before = quantization.LAUNCHES.value
+    for bad, match in ((w.t(), "not contiguous"), (w[:, ::2], "not contiguous"),
+                       (w.reshape(4, 16, 32), "contiguous, non-empty"),
+                       (w.half(), "float16"), (w.double(), "float64"),
+                       (w[:0], "non-empty")):
+        with pytest.raises(ValueError, match=match):
+            quantization.quantize_int8(bad)
+    assert quantization.LAUNCHES.value == before
+
+
+@pytest.mark.parametrize("r,k,n", [(3, 512, 512), (3, 768, 512), (1, 24, 40), (5, 13, 7),
+                                   (77, 512, 588), (64 * 197, 768, 2304)])
+def test_int8_mm_on_the_card_equals_the_cpu(dev, r, k, n):
+    """torch._int_mm refuses fewer than 17 rows and ragged K or N: int8_mm
+    pads, and the int32 sums equal the CPU's bit for bit."""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(-127, 128, (r, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8))
+    got = quantization.int8_mm(a.to(dev), w.to(dev))
+    assert got.dtype == torch.int32 and got.shape == (r, n)
+    assert torch.equal(got.cpu(), quantization.int8_mm(a, w))
+    if r <= 16:
+        with pytest.raises(RuntimeError):
+            torch._int_mm(a.to(dev), w.to(dev).t())
+
+
+@pytest.mark.parametrize("mask_mode", ["nonzero", "plain", "valid"])
+def test_maxsim_int8_forward_on_the_card_equals_the_cpu(dev, mask_mode):
+    rng = np.random.default_rng(1)
+    m, k, lt, li, d = 19, 3, 77, 196, 512            # K * Li = 588: not a multiple of 8
+    text = _l2(rng.standard_normal((m, lt, d))).astype(np.float32)
+    text[:, 40:] = 0.0
+    image = _l2(rng.standard_normal((k, li, d))).astype(np.float32)
+    mask = (np.arange(lt)[None, :] < 40).astype(np.float32).repeat(m, 0)
+    t, i, tm = (torch.from_numpy(x) for x in (text, image, mask))
+    before = maxsim.LAUNCHES.value
+    got = maxsim.maxsim(t.to(dev), i.to(dev), mask_mode=mask_mode, text_mask=tm.to(dev),
+                        impl="streaming_int8")
+    assert maxsim.LAUNCHES.value == before           # a library product, not the kernel
+    want = maxsim.maxsim(t, i, mask_mode=mask_mode, text_mask=tm, impl="streaming_int8")
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    default = maxsim.maxsim(t.to(dev), i.to(dev), mask_mode=mask_mode, text_mask=tm.to(dev))
+    assert 0 < (got - default).abs().max() < 2e-2
+    # straight-through: the backward kernel on the same inputs as the default's.
+    # dT equal bit for bit; dI is summed with shared-memory float atomics whose
+    # order changes from run to run, so it is held to the order's bar (1e-5 of
+    # the largest |gradient|), as two runs of the default backward would be
+    grads = []
+    for impl in ("streaming_int8", "auto"):
+        tt, ii = t.to(dev).requires_grad_(), i.to(dev).requires_grad_()
+        launched = maxsim.BWD_LAUNCHES.value
+        out = maxsim.maxsim(tt, ii, mask_mode=mask_mode, text_mask=tm.to(dev), impl=impl)
+        grads.append(torch.autograd.grad(out.sum(), (tt, ii)))
+        assert maxsim.BWD_LAUNCHES.value == launched + 1
+    (dt_a, di_a), (dt_b, di_b) = grads
+    assert torch.equal(dt_a, dt_b)
+    torch.testing.assert_close(di_a, di_b, rtol=0, atol=1e-5 * di_b.abs().max().item())
+
+
+def test_int8_encoders_on_the_card(dev):
+    """Both int8 encoders of the tiny model on the card: cosine above 0.99
+    against the fp32 model (the JAX tests' bar), through the attention kernel."""
+    from colxlip_tpu_torch.serving import (
+        quantize_text_params, quantize_vision_params, text_encode_int8, vision_encode_int8)
+
+    model, cfg = create_model("ViT-S-16-test", dev, torch.float32, seed=0)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.standard_normal((3, 64, 64, 3)).astype(np.float32)).to(dev)
+    texts = np.zeros((3, 32), np.int64)
+    texts[:, 0], texts[:, 1:9], texts[:, 9] = 49406, rng.integers(1, 49000, (3, 8)), 49407
+    texts = torch.from_numpy(texts).to(dev)
+    before = attention.LAUNCHES.value
+    with torch.no_grad():
+        pairs = [(model.encode_image(images, normalize=True),
+                  vision_encode_int8(cfg, quantize_vision_params(model), images)),
+                 (model.encode_text(texts, normalize=True),
+                  text_encode_int8(cfg, quantize_text_params(model), texts))]
+    assert attention.LAUNCHES.value == before + 8    # 2 blocks x 2 towers x 2 models
+    for ref, got in pairs:
+        assert got.dtype == torch.float32 and torch.isfinite(got).all()
+        assert (ref.float() * got).sum(dim=-1).min() > 0.99

@@ -1,0 +1,710 @@
+"""colxlip_tpu_torch int8 paths against the JAX package, on the CPU: the tiny
+config ``ViT-S-16-test`` in fp32, inputs from a numpy seed, weights from a JAX
+init converted with ``state_dict_from_jax_params``.
+
+  - ``ops/quantization.py``: the round-to-nearest functions, ``int8_matmul``,
+    ``int8_st_linear`` (forward and the three gradients) and
+    ``quantize_params_int8`` against the JAX functions;
+  - the stochastic-rounding quantizer's plain version. The JAX kernel needs
+    the TPU's own generator and cannot run here, so the plain version is held
+    against round-to-nearest (same scales, values within one step), against a
+    numpy Philox4x32-10 written here from the published constants and known
+    answers, and statistically;
+  - ``COLXLIP_MLP_INT8=fwd`` in the MLP against the JAX MLP under the same
+    variable;
+  - ``serving/int8.py``: the quantized trees and both int8 encoders against
+    the JAX functions on the same int8 weights, plus the JAX tests' own bars;
+  - the int8 MaxSim forward and its straight-through gradients against
+    ``colxlip_tpu.ops.maxsim.maxsim(impl='streaming_int8')``.
+
+Each tolerance is stated where it is used.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from colxlip_tpu.models import CLIP as JaxCLIP
+from colxlip_tpu.models import CLIPCfg as JaxCLIPCfg
+from colxlip_tpu.models import get_model_config as jax_model_config
+from colxlip_tpu.models import layers as jax_layers
+from colxlip_tpu.ops import maxsim as jax_maxsim
+from colxlip_tpu.ops import quantization as jax_q
+from colxlip_tpu.serving import int8 as jax_int8
+from colxlip_tpu.training.evaluate import score_similarity as jax_score_similarity
+from colxlip_tpu_torch import convert, factory
+from colxlip_tpu_torch.models import CLIP
+from colxlip_tpu_torch.models import layers as port_layers
+from colxlip_tpu_torch.ops import maxsim as port_maxsim
+from colxlip_tpu_torch.ops import quantization as q
+from colxlip_tpu_torch.serving import (
+    quantize_text_params, quantize_vision_params, text_encode_int8, vision_encode_int8)
+from colxlip_tpu_torch.training.evaluate import score_similarity
+
+TINY = "ViT-S-16-test"
+SCALE_RTOL = 1e-7      # one fp32 step: the two packages may divide by 127 differently
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, order="C"))
+
+
+# ---------------------------------------------------------------------------
+# ops/quantization.py: the round-to-nearest functions
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("shape", [(64, 48), (7, 129)])
+def test_quantize_int8_rtn_matches_jax(shape, axis):
+    w = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    w[:, 3] = 0.0
+    want_v, want_s = jax_q.quantize_int8_xla(jnp.asarray(w), axis=axis)
+    got_v, got_s = q.quantize_int8_rtn(_t(w), axis=axis)
+    assert got_v.dtype == torch.int8 and got_s.dtype == torch.float32
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=SCALE_RTOL)
+
+
+def test_dequantize_and_int8_matmul_match_jax():
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal((96, 40)).astype(np.float32)
+    x = rng.standard_normal((3, 5, 96)).astype(np.float32)
+    bias = rng.standard_normal(40).astype(np.float32)
+    jv, js = jax_q.quantize_int8_xla(jnp.asarray(w))
+    v, s = q.quantize_int8_rtn(_t(w))
+    # bf16 output of an fp32 product of equal inputs: equal
+    np.testing.assert_array_equal(
+        q.dequantize_int8(v, s).float().numpy(),
+        np.asarray(jax_q.dequantize_int8(jv, js).astype(jnp.float32)))
+    assert q.dequantize_int8(v, s, torch.float32).dtype == torch.float32
+    for b in (None, bias):
+        want = jax_q.int8_matmul(jnp.asarray(x), jv, js, None if b is None else jnp.asarray(b))
+        got = q.int8_matmul(_t(x), v, s, None if b is None else _t(b))
+        # fp32 sums of 96 exact bf16 x bf16 products in another order
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_quantize_params_int8_matches_jax():
+    rng = np.random.default_rng(2)
+    tree = {"big": rng.standard_normal((300, 256)).astype(np.float32),
+            "nested": {"small": rng.standard_normal((8, 8)).astype(np.float32),
+                       "vector": rng.standard_normal(70000).astype(np.float32),
+                       "wide": rng.standard_normal((2, 40000)).astype(np.float32)}}
+    want = jax_q.quantize_params_int8(jax.tree.map(jnp.asarray, tree))
+    got = q.quantize_params_int8(jax.tree.map(_t, tree))
+    for name, sub in (("big", got), ("wide", got["nested"])):
+        w = want[name] if name == "big" else want["nested"][name]
+        np.testing.assert_array_equal(sub[name]["int8"].numpy(), np.asarray(w["int8"]))
+        np.testing.assert_allclose(sub[name]["scale"].numpy(), np.asarray(w["scale"]),
+                                   rtol=SCALE_RTOL)
+    assert torch.equal(got["nested"]["small"], _t(tree["nested"]["small"]))
+    assert torch.equal(got["nested"]["vector"], _t(tree["nested"]["vector"]))
+    # a torch-layout [out, in] weight: the channel is axis 0, the absmax over axis 1
+    flipped = q.quantize_params_int8({"w": _t(tree["big"].T)}, axis=1)["w"]
+    assert torch.equal(flipped["int8"], got["big"]["int8"].T)
+    assert q.quantize_params_int8({"w": _t(tree["big"])}, min_size=1 << 20)["w"].dtype \
+        == torch.float32
+
+
+def _linear_case(seed=3, lead=(2, 5), d=48, n=24):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((*lead, d)).astype(np.float32)
+    x[0, 1] = 0.0                                   # a zero row: its scale is the floor
+    kernel = (rng.standard_normal((d, n)) * d ** -0.5).astype(np.float32)   # JAX [in, out]
+    bias = rng.standard_normal(n).astype(np.float32)
+    g = rng.standard_normal((*lead, n)).astype(np.float32)
+    return x, kernel, bias, g
+
+
+def test_int8_st_linear_forward_matches_jax():
+    x, kernel, bias, _ = _linear_case()
+    want = jax_q.int8_st_linear(jnp.asarray(x), jnp.asarray(kernel), jnp.asarray(bias))
+    got, acc = q._int8_linear_forward(_t(x), _t(kernel.T), _t(bias))
+    # the int32 sums are exact: equal to the JAX int8 x int8 -> int32 product
+    x2 = jnp.asarray(x).reshape(-1, x.shape[-1])
+    xs = jnp.maximum(jnp.max(jnp.abs(x2), axis=1, keepdims=True) / 127.0, 1e-8)
+    xq = jnp.clip(jnp.round(x2 / xs), -127, 127).astype(jnp.int8)
+    wq, _ = jax_q.quantize_int8_xla(jnp.asarray(kernel))
+    want_acc = jax.lax.dot_general(xq, wq, (((1,), (0,)), ((), ())),
+                                   preferred_element_type=jnp.int32)
+    assert acc.dtype == torch.int32
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(want_acc))
+    # equal sums times scales that may sit one fp32 step apart, |y| < 10
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
+    np.testing.assert_array_equal(
+        q.int8_st_linear(_t(x), _t(kernel.T), _t(bias)).numpy(), got.numpy())
+    # forward noise only: within a few int8 steps of the float layer
+    np.testing.assert_allclose(got.numpy(), x @ kernel + bias, atol=0.1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_st_linear_gradients_match_jax_vjp(dtype):
+    """The straight-through backward: the three gradients of one cotangent
+    against the JAX custom VJP, 1e-5 of the largest |gradient| in fp32; with a
+    bf16 input and cotangent dx is one bf16 product (2^-7 of the largest)."""
+    x, kernel, bias, g = _linear_case(seed=4)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jx, jg = jnp.asarray(x).astype(jdt), jnp.asarray(g).astype(jdt)
+    _, vjp = jax.vjp(jax_q.int8_st_linear, jx, jnp.asarray(kernel), jnp.asarray(bias))
+    want = vjp(jg)
+    tx = _t(x).to(tdt).requires_grad_()
+    tw, tb = _t(kernel.T).requires_grad_(), _t(bias).requires_grad_()
+    out = q.int8_st_linear(tx, tw, tb)
+    assert out.dtype == tdt
+    got = torch.autograd.grad(out, (tx, tw, tb), _t(g).to(tdt))
+    assert got[0].dtype == tdt and got[1].dtype == got[2].dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for name, a, w in zip(("dx", "dw", "db"), (got[0], got[1].T, got[2]), want):
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_allclose(a.float().numpy(), w, rtol=0, atol=tol * np.abs(w).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("r,k,n", [(3, 24, 40), (5, 13, 7), (17, 16, 8), (40, 9, 588)])
+def test_int8_mm_is_exact_and_pads_to_what_the_card_takes(r, k, n):
+    rng = np.random.default_rng(5)
+    a = _t(rng.integers(-127, 128, (r, k)).astype(np.int8))
+    w = _t(rng.integers(-127, 128, (n, k)).astype(np.int8))
+    want = a.int() @ w.int().T
+    got = q.int8_mm(a, w)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    pa, pw = q.pad_for_int_mm(a, w)
+    assert pa.shape[0] > 16 and pa.shape[1] % 8 == 0 and pw.shape[0] % 8 == 0
+    assert pa.shape[1] == pw.shape[1] and pa.shape[0] - r < 17 and pw.shape[0] - n < 8
+    assert torch.equal(torch._int_mm(pa, pw.t())[:r, :n], want)
+    with pytest.raises(ValueError, match="int8"):
+        q.int8_mm(a.float(), w)
+
+
+# ---------------------------------------------------------------------------
+# the stochastic-rounding quantizer's plain version
+# ---------------------------------------------------------------------------
+
+_M0, _M1, _W0, _W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
+
+
+def _np_philox4x32_10(counter, key):
+    """Philox4x32-10 from the published constants (Salmon, Moraes, Dror, Shaw:
+    "Parallel random numbers: as easy as 1, 2, 3", SC 2011), in uint64 numpy
+    arithmetic, which wraps as unsigned integers do."""
+    c = [np.asarray(x, np.uint64) for x in counter]
+    k = [np.uint64(x) for x in key]
+    mask, shift = np.uint64(0xFFFFFFFF), np.uint64(32)
+    for _ in range(10):
+        p0, p1 = np.uint64(_M0) * c[0], np.uint64(_M1) * c[2]
+        c = [(p1 >> shift) ^ c[1] ^ k[0], p1 & mask, (p0 >> shift) ^ c[3] ^ k[1], p0 & mask]
+        k = [(k[0] + np.uint64(_W0)) & mask, (k[1] + np.uint64(_W1)) & mask]
+    return c
+
+
+def test_numpy_philox_gives_the_published_answers():
+    """The known-answer vectors of the reference implementation."""
+    cases = [((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+             ((0xffffffff,) * 4, (0xffffffff,) * 2,
+              (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+             ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344), (0xa4093822, 0x299f31d0),
+              (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1))]
+    for counter, key, want in cases:
+        assert tuple(int(x) for x in _np_philox4x32_10(counter, key)) == want
+
+
+@pytest.mark.parametrize("seed", [0, 1, 0xdeadbeefcafef00d, (1 << 64) - 1])
+def test_port_philox_words_equal_the_numpy_ones(seed):
+    rows = np.array([0, 1, 2, 767, 3071, 2**31, 2**32 - 1])[:, None]
+    groups = np.array([0, 1, 5, 767, 2**20, 2**32 - 1])[None, :]
+    got = q.philox4x32_10(_t(rows), _t(groups), seed)
+    zeros = np.zeros((rows.size, groups.size), np.uint64)
+    want = _np_philox4x32_10((rows + zeros, groups + zeros, zeros, zeros),
+                             (seed & 0xFFFFFFFF, seed >> 32))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy().astype(np.uint64), w)
+
+
+def test_rounding_noise_is_the_top_24_bits_of_the_elements_word():
+    k, n, seed = 5, 11, 9
+    u = q.rounding_noise(k, n, seed, "cpu").numpy()
+    rows, cols = np.meshgrid(np.arange(k), np.arange(n), indexing="ij")
+    zeros = np.zeros_like(rows)
+    words = np.stack(_np_philox4x32_10((rows, cols // 4, zeros, zeros), (seed, 0)), axis=-1)
+    word = np.take_along_axis(words, (cols % 4)[..., None], axis=-1)[..., 0]
+    want = (word >> np.uint64(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    np.testing.assert_array_equal(u, want)
+    assert u.dtype == np.float32 and 0 <= u.min() and u.max() < 1
+
+
+def _weight(k=32, n=48, seed=6):
+    return np.random.default_rng(seed).standard_normal((k, n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 48), (197, 129), (1, 1)])
+def test_plain_quantizer_against_round_to_nearest(shape, dtype):
+    """Same scales bit for bit; floor(x + u) is within one step of round(x);
+    the result is the arithmetic of the docstring on the noise."""
+    w = _t(_weight(*shape)).to(dtype)
+    values, scales = q.quantize_int8(w, seed=2)
+    rtn_values, rtn_scales = q.quantize_int8_rtn(w)
+    assert values.dtype == torch.int8 and values.shape == w.shape
+    assert scales.dtype == torch.float32 and scales.shape == (1, shape[1])
+    assert torch.equal(scales, rtn_scales)
+    assert (values.int() - rtn_values.int()).abs().max() <= 1
+    u = q.rounding_noise(*shape, 2, "cpu")
+    want = torch.floor(w.float() / scales + u).clamp(-127, 127)
+    assert torch.equal(values.float(), want)
+    assert torch.equal(values, q.quantize_int8_plain(w, 2)[0])
+
+
+def test_plain_quantizer_is_unbiased_over_seeds():
+    """Over S = 256 seeds the sum of (value - w / scale) over all draws has
+    mean 0 and variance S * sum f (1 - f), f the fractional part of w / scale:
+    held within 4 standard deviations. Per element the mean over seeds is
+    within 4 standard errors sqrt(f (1 - f) / S) (floored at one fp32 step)
+    for all but 1e-3 of the elements: a binomial mean leaves that band with
+    probability of a few 1e-4 (its tails at f near 0 or 1 are heavier than a
+    normal's), a biased rounding (floor alone, or u on half the range) leaves
+    it everywhere."""
+    w = _t(_weight(24, 40, seed=7))
+    scale = q.quantize_int8_rtn(w)[1]
+    x = (w / scale).double()
+    seeds = 256
+    total = torch.zeros_like(x)
+    for seed in range(seeds):
+        total += q.quantize_int8(w, seed=seed)[0].double()
+    f = x - torch.floor(x)
+    var = f * (1 - f)
+    assert abs((total - seeds * x).sum()) <= 4 * (seeds * var.sum()).sqrt()
+    se = (var / seeds).sqrt().clamp_min(1e-6)
+    outside = ((total / seeds - x).abs() > 4 * se).double().mean()
+    assert outside <= 1e-3
+    # and against w itself, in steps of the scale
+    assert ((total / seeds * scale - w).abs() <= 0.25 * scale).all()
+
+
+def test_plain_quantizer_fixed_points_clip_and_seeds():
+    # zeros stay 0 under every seed (0 + u < 1), an all-zero column too
+    w = _t(_weight(16, 12, seed=8))
+    w[:, 2] = 0.0
+    w[3] = 0.0
+    for seed in range(32):
+        values, scales = q.quantize_int8(w, seed=seed)
+        assert (values[:, 2] == 0).all() and (values[3] == 0).all()
+        assert scales[0, 2] == pytest.approx(1e-8)
+    # integers: a column whose absmax is 127 has scale 1, and an integer n stays
+    # n unless fp32 rounds n + u up to n + 1 (at most 2^-18 of the draws)
+    ints = torch.randint(-126, 127, (64, 64), generator=torch.Generator().manual_seed(0)).float()
+    ints[0] = 127.0
+    ints[1] = -127.0
+    moved, draws = 0, 0
+    for seed in range(64):
+        values, scales = q.quantize_int8(ints, seed=seed)
+        assert (scales == 1).all()
+        diff = values.float() - ints
+        assert ((diff == 0) | (diff == 1)).all()
+        assert (values[0] == 127).all() and (values[1] >= -127).all()      # the clip
+        moved += int((diff != 0).sum())
+        draws += ints.numel()
+    assert moved <= draws * 1e-4
+    # an element at exactly +-absmax lands on +-127 whatever the noise
+    w = _t(_weight(8, 5, seed=9))
+    w[2, 1], w[4, 3] = 9.0, -9.0
+    for seed in range(32):
+        values = q.quantize_int8(w, seed=seed)[0]
+        assert values[2, 1] == 127 and values[4, 3] in (-127, -126)
+    # same seed same output, another seed another, a generator draws its own
+    w = _t(_weight())
+    a, b, c = (q.quantize_int8(w, seed=s)[0] for s in (5, 5, 6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    gen = torch.Generator().manual_seed(1)
+    d, e = q.quantize_int8(w, generator=gen)[0], q.quantize_int8(w, generator=gen)[0]
+    assert not torch.equal(d, e)
+    assert torch.equal(d, q.quantize_int8(w, generator=torch.Generator().manual_seed(1))[0])
+
+
+def test_plain_quantizer_noise_does_not_depend_on_the_width():
+    """Element (i, j) draws the same noise when the weight gains columns or
+    rows: no pattern repeats from one column block to the next, and none
+    depends on how the matrix is cut."""
+    narrow, wide = q.rounding_noise(9, 10, 4, "cpu"), q.rounding_noise(20, 1100, 4, "cpu")
+    assert torch.equal(narrow, wide[:9, :10])
+    assert not torch.equal(wide[:, :512], wide[:, 512:1024])
+    w = _t(_weight(9, 1100, seed=10))
+    w[0, :] = 3.0                     # every column's absmax, so the scales survive the cut
+    assert torch.equal(q.quantize_int8(w, seed=4)[0][:, :10],
+                       q.quantize_int8(w[:, :10].contiguous(), seed=4)[0])
+
+
+def test_quantize_int8_refusals():
+    with pytest.raises(ValueError, match=r"\[K, N\]"):
+        q.quantize_int8(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError, match="seed"):
+        q.quantize_int8(torch.zeros(2, 3), seed=-1)
+    with pytest.raises(ValueError, match="seed"):
+        q.quantize_int8(torch.zeros(2, 3), seed=1 << 64)
+    with pytest.raises(ValueError, match="unsupported device"):
+        q.quantize_int8(torch.zeros(2, 3, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# COLXLIP_MLP_INT8=fwd
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+def test_mlp_int8_forward_env_matches_jax_mlp(monkeypatch, act):
+    """The MLP under COLXLIP_MLP_INT8=fwd against the JAX MLP under the same
+    variable, on converted weights: output 1e-5 (int32 sums equal; the JAX
+    GELU is 3.4e-6 from exact erf), gradients 1e-5 of the largest."""
+    monkeypatch.setenv("COLXLIP_MLP_INT8", "fwd")
+    monkeypatch.setenv("COLXLIP_MLP_IMPL", "fused")       # int8 takes precedence on both sides
+    monkeypatch.setenv("COLXLIP_GELU_IMPL", "stock")
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 7, 32)).astype(np.float32)
+    g = rng.standard_normal((2, 7, 32)).astype(np.float32)
+    jmlp = jax_layers.MLP(dim=32, mlp_ratio=4.0, act=getattr(jax_layers, act),
+                          dtype=jnp.float32)
+    params = jmlp.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jax.tree.map(lambda p: p + 0.05 * jnp.asarray(
+        rng.standard_normal(p.shape), jnp.float32), params)          # non-zero biases
+    want, vjp = jax.vjp(lambda p, v: jmlp.apply(p, v), params, jnp.asarray(x))
+    want_dp, want_dx = vjp(jnp.asarray(g))
+
+    mlp = port_layers.MLP(32, 4.0, getattr(port_layers, act), dtype=torch.float32)
+    assert mlp.int8_fwd and sorted(mlp.state_dict()) == [
+        "c_fc.bias", "c_fc.weight", "c_proj.bias", "c_proj.weight"]
+    p = params["params"]
+    mlp.load_state_dict({"c_fc.weight": _t(np.asarray(p["c_fc"]["kernel"]).T),
+                         "c_fc.bias": _t(p["c_fc"]["bias"]),
+                         "c_proj.weight": _t(np.asarray(p["c_proj"]["kernel"]).T),
+                         "c_proj.bias": _t(p["c_proj"]["bias"])}, strict=True)
+    tx = _t(x).requires_grad_()
+    got = mlp(tx)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5)
+    got.backward(_t(g))
+    pairs = [(tx.grad, want_dx), (mlp.c_fc.weight.grad.T, want_dp["params"]["c_fc"]["kernel"]),
+             (mlp.c_fc.bias.grad, want_dp["params"]["c_fc"]["bias"]),
+             (mlp.c_proj.weight.grad.T, want_dp["params"]["c_proj"]["kernel"]),
+             (mlp.c_proj.bias.grad, want_dp["params"]["c_proj"]["bias"])]
+    for a, w in pairs:
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+
+    # the variable is read when the module is built, and the forward is int8 noise
+    monkeypatch.delenv("COLXLIP_MLP_INT8")
+    monkeypatch.delenv("COLXLIP_MLP_IMPL")
+    plain = port_layers.MLP(32, 4.0, getattr(port_layers, act), dtype=torch.float32)
+    plain.load_state_dict(mlp.state_dict())
+    assert not plain.int8_fwd and mlp.int8_fwd
+    with torch.no_grad():
+        ref = plain(_t(x))
+    diff = (got.detach() - ref).abs().max().item()
+    assert 0 < diff < 0.1
+
+
+def test_mlp_int8_only_for_the_value_fwd(monkeypatch):
+    monkeypatch.setenv("COLXLIP_MLP_INT8", "1")
+    assert not port_layers.MLP(8, 2.0, port_layers.gelu, dtype=torch.float32).int8_fwd
+
+
+# ---------------------------------------------------------------------------
+# serving/int8.py
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def towers():
+    jcfg = JaxCLIPCfg.from_dict(jax_model_config(TINY))
+    jmodel = JaxCLIP(jcfg, dtype=jnp.float32)
+    size, ctx = jcfg.vision_cfg.image_size, jcfg.text_cfg.context_length
+    rng = np.random.default_rng(0)
+    imgs = rng.standard_normal((3, size, size, 3)).astype(np.float32)
+    txts = np.zeros((4, ctx), np.int32)
+    txts[:, 0] = 49406
+    for r in range(4):
+        ln = rng.integers(3, ctx - 1)
+        txts[r, 1:ln] = rng.integers(1, 49000, ln - 1)
+        txts[r, ln] = 49407
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(imgs), jnp.asarray(txts))
+    params = jax.tree.map(np.asarray, params)
+    model = CLIP(factory.model_config(TINY), dtype=torch.float32)
+    sd = convert.state_dict_from_jax_params(params)
+    model.load_state_dict({k: _t(v) for k, v in sd.items()}, strict=True)
+    return jcfg, jmodel, params, model.eval(), imgs, txts
+
+
+def _assert_trees_match(got, want, path=""):
+    """The port's int8 tree against the JAX tree: int8 values equal ([out, in]
+    against [in, out] transposed), scales to one fp32 step, the rest equal."""
+    if want is None:
+        assert got is None, path
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_trees_match(g, w, f"{path}[{i}]")
+    elif isinstance(want, dict) and "q" in want:
+        assert got["q"].dtype == torch.int8 and got["q"].is_contiguous(), path
+        np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]).T, err_msg=path)
+        assert got["scale"].shape == (got["q"].shape[0],), path          # axis 0 is the channel
+        np.testing.assert_allclose(got["scale"].numpy(), np.asarray(want["scale"]),
+                                   rtol=SCALE_RTOL, err_msg=path)
+        assert ("bias" in got) == ("bias" in want), path
+        if "bias" in want:
+            np.testing.assert_array_equal(got["bias"].numpy(), np.asarray(want["bias"]))
+    elif isinstance(want, dict) and set(want) == {"scale", "bias"}:
+        np.testing.assert_array_equal(got["weight"].numpy(), np.asarray(want["scale"]))
+        np.testing.assert_array_equal(got["bias"].numpy(), np.asarray(want["bias"]))
+    elif isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _assert_trees_match(got[k], want[k], f"{path}.{k}")
+    else:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=path)
+
+
+@pytest.mark.parametrize("tower", ["vision", "text"])
+def test_quantized_tower_params_match_the_jax_trees(towers, tower):
+    _, _, params, model, _, _ = towers
+    jfn, fn = {"vision": (jax_int8.quantize_vision_params, quantize_vision_params),
+               "text": (jax_int8.quantize_text_params, quantize_text_params)}[tower]
+    want = jfn(params)
+    _assert_trees_match(fn(model), want)
+    _assert_trees_match(fn(model.state_dict()), want)          # a state dict works too
+    _assert_trees_match(convert.int8_params_from_jax(want), want)
+    assert len(fn(model)["blocks"]) == 2
+
+
+def _encode_pair(towers, tower, cfg_changes=None):
+    """(port features, JAX features, fraction of elements more than 1e-4
+    apart) for one tower on the same int8 weights (the JAX tree, converted)."""
+    jcfg, _, params, model, imgs, txts = towers
+    cfg = model.cfg
+    if cfg_changes:
+        jcfg, cfg = dataclasses.replace(jcfg, **cfg_changes), dataclasses.replace(
+            cfg, **cfg_changes)
+    if tower == "vision":
+        jq = jax_int8.quantize_vision_params(params)
+        want = jax_int8.vision_encode_int8(jcfg, jq, jnp.asarray(imgs))
+        got = vision_encode_int8(cfg, convert.int8_params_from_jax(jq), _t(imgs))
+    else:
+        jq = jax_int8.quantize_text_params(params)
+        want = jax_int8.text_encode_int8(jcfg, jq, jnp.asarray(txts))
+        got = text_encode_int8(cfg, convert.int8_params_from_jax(jq), _t(txts))
+    got, want = got.numpy(), np.asarray(want)
+    return got, want, float((np.abs(got - want) > 1e-4).mean())
+
+
+@pytest.mark.parametrize("tower", ["vision", "text"])
+@pytest.mark.parametrize("branch", ["erf", "quick_gelu", "gelu_approximate"])
+def test_int8_encoders_match_jax_on_the_same_int8_weights(towers, tower, branch):
+    """Unit-norm 128-d features (elements about 0.09): every element within
+    1e-2 and 1 - cosine of every row under 1e-3; measured 7e-3 and 3.3e-4.
+    Bit equality is not promised, and the first layer shows why. Up to the
+    first attention the two packages agree bit for bit (embedding, LayerNorm,
+    the int8 QKV product). Then they round to bf16 at different places: off
+    the TPU the JAX module takes ``fused_mha_reference``, which rounds the
+    normalised probabilities, where the port's plain attention has the TPU
+    kernel's numerics and rounds the unnormalised exponentials (36% of its
+    outputs sit one bf16 step apart), and ``jax.nn.gelu`` evaluates in bf16
+    operation by operation where ``F.gelu`` rounds once (30% one step apart).
+    After that, row-quantized activations land on other int8 steps. The
+    message says how many elements moved by more than 1e-4. At this size a
+    wrong GELU branch would hide under that bar (the branches differ by 2e-3
+    at a random init), so ``test_the_gelu_branches_differ`` checks which
+    activation each configuration calls."""
+    changes = None if branch == "erf" else {branch: True}
+    got, want, moved = _encode_pair(towers, tower, changes)
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=1e-2,
+                               err_msg=f"{moved:.1%} of the elements differ by more than 1e-4")
+    assert (1 - (got * want).sum(axis=-1)).max() < 1e-3
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+
+
+def test_the_gelu_branches_differ(towers, monkeypatch):
+    """quick_gelu never calls GELU; the other two call it once a block with
+    their own ``approximate``; the three give different features."""
+    import torch.nn.functional as F
+
+    calls = []
+    real = F.gelu
+    monkeypatch.setattr(F, "gelu", lambda x, approximate="none": (
+        calls.append(approximate), real(x, approximate=approximate))[1])
+    feats = {}
+    for branch, want in ((None, ["none", "none"]), ("quick_gelu", []),
+                         ("gelu_approximate", ["tanh", "tanh"])):
+        calls.clear()
+        feats[branch] = _encode_pair(towers, "vision", {branch: True} if branch else None)[0]
+        assert calls == want, branch
+    assert np.abs(feats[None] - feats["quick_gelu"]).max() > 1e-4
+    assert np.abs(feats[None] - feats["gelu_approximate"]).max() > 0
+
+
+@pytest.mark.parametrize("tower", ["vision", "text"])
+def test_int8_features_close_to_the_fp32_model(towers, tower):
+    """The JAX tests' own bar: cosine above 0.99 against the fp32 model, from
+    the port's own quantization of the port's model."""
+    _, _, _, model, imgs, txts = towers
+    with torch.no_grad():
+        if tower == "vision":
+            ref = model.encode_image(_t(imgs), normalize=True)
+            got = vision_encode_int8(model.cfg, quantize_vision_params(model), _t(imgs))
+        else:
+            ref = model.encode_text(_t(txts), normalize=True)
+            got = text_encode_int8(model.cfg, quantize_text_params(model), _t(txts))
+    cos = (ref.float() * got).sum(dim=-1)
+    assert got.dtype == torch.float32 and cos.min() > 0.99, cos
+    raw = (vision_encode_int8(model.cfg, quantize_vision_params(model), _t(imgs),
+                              normalize=False) if tower == "vision" else
+           text_encode_int8(model.cfg, quantize_text_params(model), _t(txts), normalize=False))
+    np.testing.assert_allclose((raw / raw.norm(dim=-1, keepdim=True)).numpy(), got.numpy(),
+                               atol=1e-6)
+
+
+def test_int8_uint8_input(towers):
+    jcfg, _, params, model, imgs, _ = towers
+    qp = quantize_vision_params(model)
+    u8 = np.clip((imgs * 0.2 + 0.5) * 255, 0, 255).astype(np.uint8)
+    out = vision_encode_int8(model.cfg, qp, _t(u8))
+    assert out.shape == (3, model.cfg.embed_dim) and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.norm(dim=-1).numpy(), 1.0, atol=1e-5)
+    want = jax_int8.vision_encode_int8(jcfg, jax_int8.quantize_vision_params(params),
+                                       jnp.asarray(u8))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-2)   # as above
+
+
+def test_int8_encoders_refuse_nonstandard_configs(towers):
+    _, _, _, model, imgs, txts = towers
+    cfg = model.cfg
+    vq, tq = quantize_vision_params(model), quantize_text_params(model)
+    for change in ({"pool_type": "avg"}, {"ls_init_value": 1e-5}, {"final_ln_after_pool": True},
+                   {"pos_embed_type": "sin_cos_2d"}, {"attentional_pool": True}):
+        bad = dataclasses.replace(cfg, vision_cfg=dataclasses.replace(cfg.vision_cfg, **change))
+        with pytest.raises(NotImplementedError, match="standard ViT serving config"):
+            vision_encode_int8(bad, vq, _t(imgs))
+    for change in ({"pool_type": "last"}, {"no_causal_mask": True}):
+        bad = dataclasses.replace(cfg, text_cfg=dataclasses.replace(cfg.text_cfg, **change))
+        with pytest.raises(NotImplementedError, match="causal/argmax"):
+            text_encode_int8(bad, tq, _t(txts))
+
+
+def test_int8_weight_roundtrip():
+    from colxlip_tpu_torch.serving.int8 import _quant_weight
+
+    w = _t(_weight(32, 64, seed=1))                       # [out, in]
+    qw = _quant_weight(w)
+    deq = qw["q"].float() * qw["scale"][:, None]
+    # per-channel symmetric int8: the worst error is half a step of the channel
+    assert ((deq - w).abs() <= qw["scale"][:, None] * 0.5 + 1e-6).all()
+    jq = jax_int8._quant_weight(jnp.asarray(w.numpy().T))
+    np.testing.assert_array_equal(qw["q"].numpy(), np.asarray(jq["q"]).T)
+
+
+# ---------------------------------------------------------------------------
+# the int8 MaxSim
+# ---------------------------------------------------------------------------
+
+def _tokens(seed=0, m=5, k=4, lt=9, li=11, d=16):
+    rng = np.random.default_rng(seed)
+
+    def unit(*s):
+        x = rng.standard_normal(s)
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+    text, image = unit(m, lt, d), unit(k, li, d)
+    text[0, 5:] = 0.0                               # the EOT-zeroed tail
+    text[2] = 0.0                                   # a whole zero text
+    mask = (np.arange(lt)[None, :] < np.array([5, 9, 3, 7, 8])[:m, None]).astype(np.float32)
+    return text, image, mask
+
+
+def test_quant_tokens_int8_matches_jax():
+    text, _, _ = _tokens(seed=1)
+    want_q, want_s = jax_maxsim._quant_tokens_int8(jnp.asarray(text))
+    got_q, got_s = port_maxsim.quant_tokens_int8(_t(text))
+    assert got_q.dtype == torch.int8 and got_s.shape == text.shape[:2]
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=SCALE_RTOL)
+    assert (got_q[0, 5:] == 0).all() and (got_q[2] == 0).all()
+
+
+@pytest.mark.parametrize("mode", ["nonzero", "plain", "valid"])
+@pytest.mark.parametrize("m", [5, 37])
+def test_maxsim_int8_matches_jax(mode, m):
+    """Scores in [-1, 1] within 1e-5 of the JAX int8 forward (equal int32 sums,
+    fp32 rescale); a zero text row scores exactly 0 and the 'nonzero' mask
+    leaves it out; within 2e-2 of the default forward (the int8 noise)."""
+    text, image, mask = _tokens(seed=2, m=5)
+    if m > 5:                                        # more than one tile of 16 texts
+        text = np.concatenate([text] * 8)[:m]
+        mask = np.concatenate([mask] * 8)[:m]
+    jmask = jnp.asarray(mask) if mode == "valid" else None
+    want = jax_maxsim.maxsim(jnp.asarray(text), jnp.asarray(image), mask_mode=mode,
+                             text_mask=jmask, impl="streaming_int8")
+    tmask = _t(mask) if mode == "valid" else None
+    got = port_maxsim.maxsim(_t(text), _t(image), mask_mode=mode, text_mask=tmask,
+                             impl="streaming_int8")
+    assert got.dtype == torch.float32 and got.shape == (m, 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    assert (got[2] == 0).all()
+    default = port_maxsim.maxsim(_t(text), _t(image), mask_mode=mode, text_mask=tmask)
+    assert 0 < (got - default).abs().max() < 2e-2
+    if mode == "nonzero":
+        # row 0 keeps 5 tokens: the mean is over those, not over all 9
+        live = port_maxsim.maxsim(_t(text[:1, :5]), _t(image), mask_mode="plain",
+                                  impl="streaming_int8")
+        np.testing.assert_allclose(got[:1].numpy(), live.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["nonzero", "valid"])
+def test_maxsim_int8_gradients_match_jax(mode):
+    """Straight-through: the gradients of the default backward on the
+    full-precision inputs, against the JAX custom VJP (1e-5 of the largest)."""
+    text, image, mask = _tokens(seed=3)
+    g = np.random.default_rng(4).standard_normal((5, 4)).astype(np.float32)
+    jmask = jnp.asarray(mask) if mode == "valid" else None
+
+    def jfn(t, i):
+        return jnp.sum(jax_maxsim.maxsim(t, i, mask_mode=mode, text_mask=jmask,
+                                         impl="streaming_int8") * jnp.asarray(g))
+
+    want = jax.grad(jfn, argnums=(0, 1))(jnp.asarray(text), jnp.asarray(image))
+    tt, ti = _t(text).requires_grad_(), _t(image).requires_grad_()
+    tmask = _t(mask) if mode == "valid" else None
+    out = port_maxsim.maxsim(tt, ti, mask_mode=mode, text_mask=tmask, impl="streaming_int8")
+    got = torch.autograd.grad(out, (tt, ti), _t(g))
+    for a, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(a.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max())
+    # and equal bit for bit to the default implementation's own backward
+    t2, i2 = _t(text).requires_grad_(), _t(image).requires_grad_()
+    ref = torch.autograd.grad(port_maxsim.maxsim(t2, i2, mask_mode=mode, text_mask=tmask),
+                              (t2, i2), _t(g))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_maxsim_impl_names():
+    text, image, _ = _tokens(seed=5)
+    base = port_maxsim.maxsim(_t(text), _t(image))
+    for impl in ("auto", "xla", "streaming", "chunked", "pallas"):
+        assert torch.equal(port_maxsim.maxsim(_t(text), _t(image), impl=impl), base)
+    assert set(port_maxsim.MAXSIM_IMPLS) == {"auto", "xla", "streaming", "streaming_int8",
+                                             "chunked", "pallas"}
+    with pytest.raises(ValueError, match="unknown impl"):
+        port_maxsim.maxsim(_t(text), _t(image), impl="int8")
+
+
+@pytest.mark.parametrize("scoring", ["maxsim", "mixed"])
+def test_score_similarity_takes_maxsim_impl(scoring):
+    text, image, _ = _tokens(seed=6)
+    rng = np.random.default_rng(7)
+    img_f, txt_f = (rng.standard_normal((n, 16)).astype(np.float32) for n in (4, 5))
+    want = jax_score_similarity(img_f, txt_f, image, text, 20.0, scoring=scoring, alpha=0.3,
+                                maxsim_impl="streaming_int8")
+    got = score_similarity(_t(img_f), _t(txt_f), _t(image), _t(text), 20.0, scoring=scoring,
+                           alpha=0.3, maxsim_impl="streaming_int8")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4)
+    default = score_similarity(_t(img_f), _t(txt_f), _t(image), _t(text), 20.0,
+                               scoring=scoring, alpha=0.3)
+    assert not torch.equal(got, default)

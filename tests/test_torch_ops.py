@@ -155,7 +155,7 @@ def test_library_path_keys_on_sources():
     assert path.name.startswith("libcolxlip_kernels-") and path.suffix == ".so"
     assert {p.name for p in build._sources()} == {
         "fused_attention.cu", "fused_attention_bwd.cu", "fused_ce.cu", "fused_ln.cu",
-        "fused_mlp.cu", "maxsim.cu", "maxsim_bwd.cu"}
+        "fused_mlp.cu", "maxsim.cu", "maxsim_bwd.cu", "quantize_int8.cu"}
     # every entry point the loader binds is defined in one of them
     sources = "".join(p.read_text() for p in build._sources())
     for name in build._SIGNATURES:

@@ -1,7 +1,9 @@
 """colxlip_tpu_torch serving: the real ThreadingHTTPServer on an ephemeral
 port, the tiny colxlip config in fp32 on the CPU, weights from a JAX init, so
 that /v1/score can be held against the JAX package's ``score_similarity`` of
-the JAX model on the same weights (within 2e-4 * logit_scale).
+the JAX model on the same weights (within 2e-4 * logit_scale), and
+/v1/search against the JAX ``RetrievalIndex.search`` on the JAX model's text
+features over the same index.
 
 Also: ``chip_smoke.py`` refuses to run (non-zero exit, no result) without a
 GPU, or in a directory without the package.
@@ -27,9 +29,12 @@ import torch
 from PIL import Image
 
 from colxlip_tpu.factory import create_model as jax_create_model
+from colxlip_tpu.serving.index import RetrievalIndex as JaxRetrievalIndex
 from colxlip_tpu.training.evaluate import score_similarity as jax_score_similarity
 from colxlip_tpu_torch import convert, factory
 from colxlip_tpu_torch.models import ColXLIP
+from colxlip_tpu_torch.serving import server as server_mod
+from colxlip_tpu_torch.serving.index import build_image_index
 from colxlip_tpu_torch.serving.server import (
     ColXLIPService, DynamicBatcher, InferenceEngine, make_server, next_bucket,
 )
@@ -173,13 +178,144 @@ def test_score_matches_jax_model(server, jax_model, scoring):
 
 
 @pytest.mark.parametrize("path,body", [
-    ("/v1/search", {"texts": ["x"], "k": 3}),
-    ("/v1/caption", {"images_b64": ["aGk="]}),
+    pytest.param("/v1/caption", {"images_b64": ["aGk="]}, id="/v1/caption-body1"),
 ])
 def test_unported_endpoints_answer_400(server, path, body):
     _, port = server
     resp = _post(port, path, body, expect=400)
     assert "not yet ported in colxlip_tpu_torch" in resp["error"]
+
+
+def test_search_without_an_index_answers_400(server):
+    svc, port = server
+    resp = _post(port, "/v1/search", {"texts": ["x"], "k": 3}, expect=400)
+    assert "--index" in resp["error"] and svc.index is None
+    assert _get(port, "/healthz")["index_items"] is None
+    assert _get(port, "/metrics")["index_items"] is None
+
+
+N_CORPUS = 24
+SEARCH_TEXTS = ["a red square", "the night sky over the sea", "ok"]
+
+
+@pytest.fixture(scope="module")
+def index_dir(jax_model, tmp_path_factory):
+    """24 seeded images through the port's model, with string ids."""
+    rng = np.random.default_rng(5)
+    images = rng.standard_normal((N_CORPUS, 64, 64, 3)).astype(np.float32)
+    return build_image_index(
+        _port_model(jax_model[0]), iter(images), str(tmp_path_factory.mktemp("index")),
+        device="cpu", ids=[f"img{i:02d}" for i in range(N_CORPUS)], batch_size=8,
+        model_name=TINY)
+
+
+@pytest.fixture(scope="module", params=["nonzero", "valid"])
+def search_server(request, jax_model, index_dir):
+    svc = ColXLIPService(TINY, device="cpu", dtype=torch.float32, max_batch=8,
+                         max_wait_ms=2.0, model=_port_model(jax_model[0]),
+                         cfg=factory.model_config(TINY), index_dir=index_dir,
+                         mask_mode=request.param)
+    httpd = make_server(svc, host="127.0.0.1", port=0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    yield svc, httpd.server_address[1]
+    httpd.shutdown()
+    svc.stop()
+    t.join(timeout=10)
+    assert not t.is_alive()
+
+
+def _jax_search(svc, jax_model, index_dir, texts, **kwargs):
+    """The JAX index's search on the JAX model's features of the same texts,
+    with the 'valid' mask the JAX service builds."""
+    params, encode = jax_model
+    tokens = svc.tokenize(texts)
+    pooled, q_tokens = (np.asarray(x) for x in encode["text"](params, jnp.asarray(tokens)))
+    mask = None
+    if svc.mask_mode == "valid":
+        mask = (np.arange(tokens.shape[1])[None, :]
+                < tokens.argmax(axis=-1)[:, None]).astype(np.float32)
+    return JaxRetrievalIndex(index_dir).search(pooled, q_tokens, mask_mode=svc.mask_mode,
+                                               text_mask=mask, **kwargs)
+
+
+@pytest.mark.parametrize("scoring", ["global", "maxsim", "mixed"])
+@pytest.mark.parametrize("shortlist", [6, N_CORPUS])
+def test_search_matches_the_jax_index(search_server, jax_model, index_dir, scoring, shortlist):
+    """/v1/search over HTTP against the JAX search: the same scores within
+    2e-4 * logit_scale (the bar of /v1/score), and the same items wherever
+    the JAX scores are further apart than that."""
+    svc, port = search_server
+    resp = _post(port, "/v1/search", {"texts": SEARCH_TEXTS, "k": 4, "shortlist": shortlist,
+                                      "scoring": scoring, "alpha": 0.25})
+    idx, scores = np.asarray(resp["indices"]), np.asarray(resp["scores"], np.float32)
+    want_idx, want_scores, want_ids = _jax_search(
+        svc, jax_model, index_dir, SEARCH_TEXTS, k=4, shortlist=shortlist, scoring=scoring,
+        alpha=0.25)
+    tol = 2e-4 * svc.logit_scale
+    assert idx.shape == scores.shape == (3, 4)
+    np.testing.assert_allclose(scores, want_scores, atol=tol)
+    clear = np.abs(np.diff(want_scores, axis=1)).min(axis=1) > 2 * tol
+    assert clear.any()
+    np.testing.assert_array_equal(idx[clear], want_idx[clear])
+    assert resp["ids"] == [[f"img{i:02d}" for i in row] for row in idx]
+    assert (np.diff(scores, axis=1) <= 0).all()
+
+
+def test_search_defaults_and_index_items(search_server, jax_model, index_dir):
+    svc, port = search_server
+    assert _get(port, "/healthz")["index_items"] == N_CORPUS
+    resp = _post(port, "/v1/search", {"texts": SEARCH_TEXTS[:1]})
+    # defaults: k 10, shortlist 100 (cut to the corpus), maxsim for a token model
+    want = _jax_search(svc, jax_model, index_dir, SEARCH_TEXTS[:1], k=10, shortlist=100,
+                       scoring="maxsim")
+    assert np.asarray(resp["indices"]).shape == (1, 10)
+    np.testing.assert_allclose(np.asarray(resp["scores"], np.float32), want[1],
+                               atol=2e-4 * svc.logit_scale)
+    m = _get(port, "/metrics")
+    assert m["index_items"] == N_CORPUS and m["requests"]["/v1/search"] >= 1
+    assert "error" in _post(port, "/v1/search", {"texts": ["a"], "scoring": "best"}, expect=400)
+    assert "error" in _post(port, "/v1/search", {"k": 3}, expect=400)
+
+
+def test_valid_mask_changes_the_search_scores(jax_model, index_dir):
+    """The 'valid' text mask reaches the rerank: positions from the EOT on are
+    left out of the mean, which the 'nonzero' rule keeps when they are not 0."""
+    model = _port_model(jax_model[0])
+    scores = {}
+    for mode in ("nonzero", "valid", "plain"):
+        svc = ColXLIPService(TINY, device="cpu", dtype=torch.float32, max_batch=8, model=model,
+                             cfg=model.cfg, index_dir=index_dir, mask_mode=mode)
+        try:
+            scores[mode] = svc.search(SEARCH_TEXTS, k=N_CORPUS, shortlist=N_CORPUS)[1]
+        finally:
+            svc.stop()
+    assert not np.allclose(scores["valid"], scores["plain"])
+    assert all(np.isfinite(s).all() for s in scores.values())
+
+
+def test_server_main_passes_the_index_on(monkeypatch, index_dir):
+    """``--index <dir>`` reaches the service; main serves until interrupted."""
+    seen = {}
+
+    class FakeService:
+        def __init__(self, *args, **kwargs):
+            seen.update(kwargs)
+
+        def stop(self):
+            seen["stopped"] = True
+
+    class FakeServer:
+        server_address = ("127.0.0.1", 1)
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+    monkeypatch.setattr(server_mod, "ColXLIPService", FakeService)
+    monkeypatch.setattr(server_mod, "make_server", lambda *a, **k: FakeServer())
+    with pytest.raises(KeyboardInterrupt):
+        server_mod.main(["--model", TINY, "--device", "cpu", "--index", index_dir])
+    assert seen["index_dir"] == index_dir and seen["stopped"]
 
 
 def test_errors(server):

@@ -217,12 +217,16 @@ def _features(seed=0, b=5, lt=9, li=11, d=16):
     return [unit(b, d), unit(b, d), unit(b, li, d), tok_t]
 
 
-@pytest.mark.parametrize("loss", ["clip", "colclip-nonzero", "colclip-valid"])
+@pytest.mark.parametrize("loss", ["clip", "colclip-nonzero", "colclip-valid",
+                                  "colclip-nonzero-int8", "colclip-valid-int8"])
 @pytest.mark.parametrize("bias", [None, -1.5])
 def test_losses_match_jax(loss, bias):
     feats = _features()
     mask = (np.arange(9)[None, :] < np.array([5, 9, 3, 7, 8])[:, None]).astype(np.float32)
     scale = np.float32(11.0)
+    # the int8 forward on the same features quantizes the same rows to the same
+    # integers on both sides, so the bars of the default forward hold
+    impl = "streaming_int8" if loss.endswith("-int8") else "streaming"
 
     def jax_fn(img, txt, tok_i, tok_t, s):
         b = None if bias is None else jnp.float32(bias)
@@ -230,7 +234,7 @@ def test_losses_match_jax(loss, bias):
             return jax_clip_loss(img, txt, s, logit_bias=b)
         mode = loss.split("-")[1]
         return jax_colclip_loss(img, txt, tok_i, tok_t, s, alpha=0.3, logit_bias=b,
-                                maxsim_impl="streaming", mask_mode=mode,
+                                maxsim_impl=impl, mask_mode=mode,
                                 text_mask=jnp.asarray(mask) if mode == "valid" else None,
                                 output_dict=False)
 
@@ -243,7 +247,7 @@ def test_losses_match_jax(loss, bias):
         got = clip_loss(targs[0], targs[1], targs[4], logit_bias=tb)
     else:
         mode = loss.split("-")[1]
-        got = colclip_loss(*targs, alpha=0.3, logit_bias=tb, mask_mode=mode,
+        got = colclip_loss(*targs, alpha=0.3, logit_bias=tb, mask_mode=mode, maxsim_impl=impl,
                            text_mask=torch.from_numpy(mask) if mode == "valid" else None,
                            output_dict=False)
     np.testing.assert_allclose(got.item(), float(want), rtol=LOSS_RTOL)
@@ -262,6 +266,19 @@ def test_train_step_matches_jax(jax_model, monkeypatch, loss_type, mask_mode):
     imgs, txts = _batch(seed=2)
     want = _jax_step_grads(jax_model, jcfg, imgs, txts, monkeypatch)
     _assert_step_matches(*want, *_port_step(jax_model[1], cfg, imgs, txts))
+
+
+def test_train_step_with_streaming_int8_matches_jax(jax_model, monkeypatch):
+    """maxsim_impl='streaming_int8' trains a step: the int8 MaxSim forward and
+    the straight-through backward against the JAX step under the same flag."""
+    cfg = TrainStepConfig(loss_type="colclip", maxsim_impl="streaming_int8")
+    jcfg = jax_ts.TrainStepConfig(loss_type="colclip", maxsim_impl="streaming_int8")
+    imgs, txts = _batch(seed=7)
+    want = _jax_step_grads(jax_model, jcfg, imgs, txts, monkeypatch)
+    got = _port_step(jax_model[1], cfg, imgs, txts)
+    _assert_step_matches(*want, *got)
+    default = _port_step(jax_model[1], TrainStepConfig(loss_type="colclip"), imgs, txts)
+    assert got[0]["token_contrastive_loss"] != default[0]["token_contrastive_loss"]
 
 
 @pytest.mark.parametrize("loss_type", ["colclip", "clip"])
@@ -386,8 +403,8 @@ def test_unported_options_raise(jax_model):
         clip_loss(feats[0], feats[1], scale, axis_name="data")
     with pytest.raises(NotImplementedError, match="distributed"):
         colclip_loss(*feats, scale, token_dist="ring")
-    with pytest.raises(NotImplementedError, match="int8"):
-        colclip_loss(*feats, scale, maxsim_impl="streaming_int8")
+    with pytest.raises(ValueError, match="unknown impl"):
+        colclip_loss(*feats, scale, maxsim_impl="int8")
     model = _port_model(jax_model[1])
     opt = optim.create_optimizer(model, 1e-3)
     with pytest.raises(NotImplementedError, match="mesh"):
