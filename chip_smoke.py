@@ -8,11 +8,18 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
   1. device: requires torch.cuda.is_available(); prints the card's name and
      power limit (nvidia-smi).
   2. build: compiles colxlip_tpu_torch/csrc/*.cu with nvcc for sm_90a (one
-     nvcc per source, all at once).
-  3. kernels: each forward kernel against its plain PyTorch version at the
-     serving shapes, and each backward kernel against its plain version at
-     the training shapes (batch 256) in fp32 and bf16, with the tolerances
-     below; the three streaming-CE kernels (forward, dA + dscale, dB) in
+     nvcc per source, all at once); meanwhile a second nvcc -Xptxas -v of the
+     attention sources reads each kernel's registers and spills (printed in
+     phase 5).
+  3. kernels: first a bare 64 x 64 x 64 product through the tensor-core tile
+     code (csrc/mma_tile.cuh) against torch.matmul; then each forward kernel
+     against its plain PyTorch version at the serving shapes, and each
+     backward kernel against its plain version at the training shapes (batch
+     256) in fp32 and bf16, with the tolerances below; the attention kernels
+     also at ViT-L/14's 257 tokens (bf16 and fp32), at 1024 tokens under the
+     causal mask and at a ragged head_dim-32 shape, and two runs of the
+     attention backward at the vision shape must agree bit for bit; the
+     three streaming-CE kernels (forward, dA + dscale, dB) in
      fp32 and bf16 at M = N = 256 and 4096 (D = 512), M = 33, N = 129
      (D = 64), and in bf16 at M = N = 32768, where the dense fp32 logits
      would be 4 GiB: the kernel path's peak memory there is printed and
@@ -36,7 +43,7 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
   5. timings (CUDA events, after warm-up): each kernel against its plain
      version, and against the one PyTorch call that computes the same
      function where there is one (scaled_dot_product_attention, forward and
-     backward; for the streaming CE the pair torch.matmul + F.cross_entropy
+     backward, at the vision shape and at ViT-L/14's; for the streaming CE the pair torch.matmul + F.cross_entropy
      over the dense logits is timed beside it; F.layer_norm forward and
      backward beside the LayerNorm kernels; the three calls F.linear,
      F.gelu, F.linear and their autograd backward beside the MLP kernels);
@@ -52,6 +59,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      times the step (ms, img/s), reads the peak device memory, and prints
      the device time of one more step by kernel (torch.profiler) with the
      device's idle share of that step.
+     Then (6b) ViT-L-14-colxlip at full width and depth (24 + 12 blocks, 257
+     image tokens, seed 0, bf16): encode_image / encode_text at batch 16
+     against the same weights through the plain attention, and 2 colclip
+     train steps at batch 16 (finite falling loss, one attention launch a
+     block forward and backward, one MaxSim launch each way).
   7. training entry point: colxlip_tpu_torch.main.main([...]) in process,
      ViT-B-16 (full width and depth, clip loss) with --dataset-type
      synthetic --batch-size 256 --precision bf16 --ce-impl fused, 2 epochs
@@ -201,6 +213,21 @@ TRAIN_STEPS = 10
 MAIN_MODEL = "ViT-B-16"
 MAIN_STEPS_PER_EPOCH = 6
 COMPARE_BATCH = 64
+# phase 6b: the model whose 257 image tokens the first attention kernels refused
+VIT_L_MODEL = "ViT-L-14-colxlip"
+VIT_L_BATCH = 16
+VIT_L_STEPS = 2
+# attention cases beyond the two towers' shapes: name, B, N, H, D, causal, dtypes
+ATTN_EXTRA_CASES = [
+    ("vit-l", 8, 257, 16, 64, False, ("bfloat16",)),        # one live key in the fifth tile
+    ("vit-l-fp32", 2, 257, 16, 64, False, ("float32",)),
+    ("long-causal", 2, 1024, 4, 64, True, ("bfloat16",)),   # 16 key tiles, most skipped
+    ("ragged-d32", 3, 65, 4, 32, True, ("bfloat16",)),
+]
+# the bare tile product against torch.matmul: fp32 sums of exact bf16 products
+# in another order (values up to about 30); the second product reads the first
+# rounded to bf16, where the two may land one step apart (2^-8 relative a term)
+MMA_TILE_TOL = (1e-4, 2.0 ** -6)
 # the train step through the kernels vs through the plain versions (batch
 # 64, same weights and inputs), per gradient tensor: (min cosine, max
 # relative norm difference) and the max relative difference of the losses.
@@ -359,6 +386,21 @@ def bound_ms(bytes_moved: float, flops: float, dtype: str):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
+def attention_bounds(qkv_fwd, qkv_bwd):
+    """bound_ms of the two attention kernels on packed QKV [B, N, 3 H D]: the
+    forward reads qkv and writes out (4 B N H D elements) for 4 B H N^2 D
+    flops; the backward also reads dout and writes dqkv (7) for 10 (the five
+    products the function needs)."""
+    out = {}
+    for key, qkv, passes, flop_factor in (("fused_attention_fwd", qkv_fwd, 4, 4),
+                                          ("fused_attention_bwd", qkv_bwd, 7, 10)):
+        b, n, width = qkv.shape
+        hd = width // 3
+        out[key] = bound_ms(b * n * hd * passes * qkv.element_size(),
+                            flop_factor * b * n * n * hd, str(qkv.dtype).split(".")[-1])
+    return out
+
+
 def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce, ln_x, mlp_x, mlp_w1):
     """bound_ms of every kernel at the shape its ``ms`` is timed at, from the
     tensors themselves: attention (packed QKV [B, N, 3 H D]; 4 B H N^2 D
@@ -375,13 +417,7 @@ def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce, ln_x, mlp
     def name(t):
         return str(t.dtype).split(".")[-1]
 
-    out = {}
-    for key, qkv, passes, flop_factor in (("fused_attention_fwd", qkv_fwd, 4, 4),
-                                          ("fused_attention_bwd", qkv_bwd, 7, 10)):
-        b, n, width = qkv.shape
-        hd = width // 3
-        out[key] = bound_ms(b * n * hd * passes * qkv.element_size(),
-                            flop_factor * b * n * n * hd, name(qkv))
+    out = attention_bounds(qkv_fwd, qkv_bwd)
     for key, (text, image), backward in (("maxsim_fwd", maxsim_fwd, False),
                                          ("maxsim_bwd", maxsim_bwd, True)):
         (m, lt, d), (k, li, _) = text.shape, image.shape
@@ -714,12 +750,14 @@ def check_backward_kernels(dev, gen):
 
     errs = {"attention_bwd": 0.0, "maxsim_bwd": 0.0}
     inputs = {}
-    for name, b, n, h, d, causal in (("vision", TRAIN_BATCH, 197, 12, 64, False),
-                                     ("text", TRAIN_BATCH, 77, 8, 64, True),
-                                     ("tiny-d32", 8, 32, 4, 32, True)):
+    both = ("float32", "bfloat16")
+    for name, b, n, h, d, causal, dtypes in (("vision", TRAIN_BATCH, 197, 12, 64, False, both),
+                                             ("text", TRAIN_BATCH, 77, 8, 64, True, both),
+                                             ("tiny-d32", 8, 32, 4, 32, True, both),
+                                             *ATTN_EXTRA_CASES):
         qkv = torch.randn(b, n, 3 * h * d, generator=gen)
         dout = torch.randn(b, n, h * d, generator=gen)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, t) for t in dtypes):
             q, g = qkv.to(dev, dtype), dout.to(dev, dtype)
             got = attention._launch_bwd(q, g, h, causal)
             want = attention.fused_mha_bwd_plain(q, g, h, causal)
@@ -730,8 +768,15 @@ def check_backward_kernels(dev, gen):
             if not err <= tol:
                 raise RuntimeError(f"attention bwd {name} {dtype}: {err} > {tol}")
             errs["attention_bwd"] = max(errs["attention_bwd"], err)
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and name in ("vision", "text", "tiny-d32"):
                 inputs[f"attention_bwd/{name}"] = (q, g, h, causal)
+            if dtype == torch.bfloat16 and name == "vision":
+                # no atomics in either pass: a second run gives the same bits
+                same = torch.equal(got, attention._launch_bwd(q, g, h, causal))
+                log(f"[3 kernels] attention bwd {name} {dtype}: two runs "
+                    f"{'equal bit for bit' if same else 'DIFFER'}")
+                if not same:
+                    raise RuntimeError("two runs of the attention backward differ")
             del got, want
 
     m = k = TRAIN_BATCH
@@ -916,6 +961,98 @@ def train_phase(dev, card: str):
                      texts[:COMPARE_BATCH])
     return {"launches": launches, "step_ms": step_ms, "peak_gib": peak,
             "losses": losses}
+
+
+def vit_l_phase(dev, card: str):
+    """Phase 6b: ViT-L-14-colxlip (257 image tokens) encodes and trains."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.ops import attention, maxsim
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig, make_train_step
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    t0 = time.perf_counter()
+    model, cfg = create_model(VIT_L_MODEL, dev, torch.bfloat16, seed=0)
+    vis, txt = cfg.vision_cfg, cfg.text_cfg
+    images, texts = synthetic_batch(VIT_L_BATCH, vis.image_size, txt.context_length, seed=2)
+    images = torch.from_numpy(images).to(dev)
+    texts = torch.from_numpy(texts).to(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[6b vit-l] {VIT_L_MODEL} random init (seed 0) on {dev}: {n_params / 1e6:.1f} M fp32 "
+        f"params, bf16 compute, {vis.layers} + {txt.layers} blocks, {vis.num_patches + 1} image "
+        f"tokens, batch {VIT_L_BATCH}; built in {time.perf_counter() - t0:.1f} s")
+    counters = {"fused_attention_fwd": attention.LAUNCHES, "fused_attention_bwd":
+                attention.BWD_LAUNCHES, "maxsim_fwd": maxsim.LAUNCHES,
+                "maxsim_bwd": maxsim.BWD_LAUNCHES}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    # (a) the encoders through the attention kernel and through its plain version
+    model.eval()
+    with torch.inference_mode():
+        for encode, batch, layers in (("encode_image", images, vis.layers),
+                                      ("encode_text", texts, txt.layers)):
+            reset()
+            got = getattr(model, encode)(batch, normalize=True)
+            torch.cuda.synchronize()
+            launched = attention.LAUNCHES.value
+            with plain_versions():
+                want = getattr(model, encode)(batch, normalize=True)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            off = max(((1.0 - torch.nn.functional.cosine_similarity(
+                g.float(), w.float(), dim=-1)) * (w.float().norm(dim=-1) > 0.5)).max().item()
+                for g, w in zip(got, want))
+            log(f"[6b vit-l] {encode} batch {VIT_L_BATCH} vs the plain attention, unit-norm "
+                f"pooled and token features {[tuple(g.shape) for g in got]}: max_abs_err "
+                f"{err:.3g} (tol {ENCODE_TOL}), largest 1 - cosine of a row {off:.3g} (tol "
+                f"{ENCODE_COSINE_TOL}); {launched} attention launches")
+            if launched != layers:
+                raise RuntimeError(f"{encode}: {launched} attention launches, expected {layers}")
+            if not (err <= ENCODE_TOL and off <= ENCODE_COSINE_TOL
+                    and all(torch.isfinite(g).all() for g in got)):
+                raise RuntimeError(f"{VIT_L_MODEL} {encode}: max_abs_err {err}, 1 - cosine {off}")
+
+    # (b) colclip train steps on one fixed batch
+    model.train()
+    step_cfg = TrainStepConfig(loss_type="colclip", alpha=0.5, mask_mode="nonzero")
+    schedule = const_lr(1e-4, 0)
+    step = make_train_step(model, create_optimizer(model, schedule), schedule, step_cfg)
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    for i in range(VIT_L_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = step(images, texts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        vals = {k: float(v) for k, v in metrics.items()}
+        losses.append(vals["total_loss"])
+        log(f"[6b vit-l] step {i}: " + " ".join(f"{k} {v:.5f}" for k, v in vals.items())
+            + f" | {secs[-1] * 1e3:.1f} ms")
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"{VIT_L_MODEL} step {i}: non-finite metrics {vals}")
+    launches = {name: c.value for name, c in counters.items()}
+    blocks = vis.layers + txt.layers
+    want_launches = {"fused_attention_fwd": VIT_L_STEPS * blocks,
+                     "fused_attention_bwd": VIT_L_STEPS * blocks,
+                     "maxsim_fwd": VIT_L_STEPS, "maxsim_bwd": VIT_L_STEPS}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[6b vit-l] loss {losses[0]:.5f} -> {losses[-1]:.5f} over {VIT_L_STEPS} steps at batch "
+        f"{VIT_L_BATCH} (last step {secs[-1] * 1e3:.1f} ms, peak device memory {peak:.2f} GiB); "
+        f"kernel launches {launches} ({card})")
+    if launches != want_launches:
+        raise RuntimeError(f"{VIT_L_MODEL}: launches {launches}, expected {want_launches}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{VIT_L_MODEL}: the loss did not fall: {losses}")
+    del step, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_ms": secs[-1] * 1e3,
+            "peak_gib": peak}
 
 
 def fused_phase(dev, card: str, train):
@@ -1648,18 +1785,40 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     # ---- phase 2: build --------------------------------------------------
+    usage = {}
+    usage_thread = threading.Thread(
+        target=lambda: usage.update(build.resource_usage(
+            ["fused_attention", "fused_attention_bwd"])), daemon=True)
+    usage_thread.start()
     kernels = build.load_kernels()
     log(f"[2 build] {kernels.build_seconds:.1f} s nvcc {' '.join(build.NVCC_FLAGS)}"
         f" -> {kernels.path.relative_to(build.PKG_DIR.parent)}")
 
     # ---- phase 3: each kernel against its plain version -------------------
     gen = torch.Generator(device="cpu").manual_seed(0)
+    for rows in (64, 5):
+        a, b = (torch.randn(64, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+        got_abt, got_pb = attention.mma_tile_check(a, b, rows)
+        torch.cuda.synchronize()
+        a32, b32 = a.float(), b.float()
+        a32[rows:], b32[rows:] = 0, 0
+        want_abt = a32 @ b32.T
+        want_pb = want_abt.bfloat16().float() @ b32
+        errs = ((got_abt - want_abt).abs().max().item(),
+                ((got_pb - want_pb).abs().max() / want_pb.abs().max()).item())
+        log(f"[3 kernels] mma tile 64 x 64 x 64 ({rows} live rows) vs torch.matmul: A.B^T "
+            f"max_abs_err {errs[0]:.3g} (tol {MMA_TILE_TOL[0]}); bf16(A.B^T).B max_abs_err / "
+            f"max|.| {errs[1]:.3g} (tol {MMA_TILE_TOL[1]})")
+        if not (errs[0] <= MMA_TILE_TOL[0] and errs[1] <= MMA_TILE_TOL[1]):
+            raise RuntimeError(f"the tensor-core tile code disagrees with torch.matmul: {errs}")
     attn_cases = [
         # name, B, N, H, D, causal, dtype
         ("vision", 64, 197, 12, 64, False, torch.bfloat16),
         ("text", 64, 77, 8, 64, True, torch.bfloat16),
         ("tiny-d32", 8, 32, 4, 32, True, torch.bfloat16),
         ("vision-fp32", 64, 197, 12, 64, False, torch.float32),
+        *((name, b, n, h, d, causal, getattr(torch, dtypes[0]))
+          for name, b, n, h, d, causal, dtypes in ATTN_EXTRA_CASES),
     ]
     attn_inputs, attn_err = {}, 0.0
     with torch.inference_mode():
@@ -1675,7 +1834,8 @@ def main() -> int:
             if not err <= tol:
                 raise RuntimeError(f"attention {name}: {err} > {tol}")
             attn_err = max(attn_err, err)
-            attn_inputs[name] = (qkv, h, causal)
+            if name in ("vision", "text", "tiny-d32", "vision-fp32"):
+                attn_inputs[name] = (qkv, h, causal)
 
         m = k = 64
         lt, li, d = 77, 196, 512
@@ -1838,6 +1998,29 @@ def main() -> int:
             f"{sdpa_fwd:.4f} ms; B={TRAIN_BATCH} forward {sdpa_train[0]:.4f} ms, backward "
             f"{sdpa_train[1]:.4f} ms ({card})")
 
+        # the same two kernels at ViT-L/14's shape (257 tokens, 16 heads), batch 64
+        qkv_l = torch.randn(MAX_BATCH, 257, 3 * 16 * 64, generator=gen).to(dev, torch.bfloat16)
+        dout_l = torch.randn(MAX_BATCH, 257, 16 * 64, generator=gen).to(dev, torch.bfloat16)
+        with torch.inference_mode():
+            vit_l_fwd = (cuda_ms(lambda: attention.fused_mha_packed(qkv_l, 16, False), 10),
+                         cuda_ms(lambda: attention.fused_mha_plain(qkv_l, 16, False), 10))
+        vit_l_bwd = (cuda_ms(lambda: attention._launch_bwd(qkv_l, dout_l, 16, False), 10),
+                     cuda_ms(lambda: attention.fused_mha_bwd_plain(qkv_l, dout_l, 16, False), 10))
+        sdpa_l = time_library_attention(qkv_l, dout_l, 16, False)
+        vit_l_bounds = attention_bounds(qkv_l, qkv_l)
+        log(f"[5 timing] attention at the ViT-L/14 shape B={MAX_BATCH} N=257 H=16 D=64 bf16: "
+            f"forward kernel {vit_l_fwd[0]:.4f} ms, plain {vit_l_fwd[1]:.4f} ms, SDPA "
+            f"{sdpa_l[0]:.4f} ms, bound {vit_l_bounds['fused_attention_fwd'][0]:.5f} ms; backward "
+            f"kernel {vit_l_bwd[0]:.4f} ms, plain {vit_l_bwd[1]:.4f} ms, SDPA {sdpa_l[1]:.4f} ms, "
+            f"bound {vit_l_bounds['fused_attention_bwd'][0]:.5f} ms ({card})")
+        del qkv_l, dout_l
+        usage_thread.join(timeout=300)
+        for name, (regs, stack, stores, loads) in sorted(usage.items()):
+            log(f"[5 timing] ptxas {name}: {regs} registers, {stack} bytes stack, spills "
+                f"{stores} bytes stored / {loads} loaded")
+        if not usage:
+            raise RuntimeError("nvcc -Xptxas -v reported no kernel of the attention sources")
+
         bounds = kernel_bounds(attn_inputs["vision"][0], bwd_inputs["attention_bwd/vision"][0],
                                attn_inputs["vision"][1], (t, img), (tt, ii),
                                ce_inputs_by_m[TRAIN_BATCH][:2], fused_inputs["ln/vision"][0],
@@ -1875,6 +2058,7 @@ def main() -> int:
 
     # ---- phase 6: the train slice -----------------------------------------
     train = train_phase(dev, card)
+    vit_l = vit_l_phase(dev, card)
 
     # ---- phase 7: the training entry point ----------------------------------
     trainer = main_phase(dev, card)
@@ -1939,6 +2123,16 @@ def main() -> int:
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
         for name, source, replaces, n_launches, err, (ms, plain_ms), bound, library_ms in rows],
         "launches_serving": launches, "launches_main": ml, "launches_fused": fl,
+        "attention_train_fwd_ms": dict(zip(("kernel", "plain", "sdpa"),
+                                           (*timing["attention/vision-train"], sdpa_train[0]))),
+        "attention_vit_l": {
+            "batch": MAX_BATCH, "fwd_ms": vit_l_fwd[0], "fwd_plain_ms": vit_l_fwd[1],
+            "fwd_sdpa_ms": sdpa_l[0], "fwd_bound_ms": vit_l_bounds["fused_attention_fwd"][0],
+            "bwd_ms": vit_l_bwd[0], "bwd_plain_ms": vit_l_bwd[1], "bwd_sdpa_ms": sdpa_l[1],
+            "bwd_bound_ms": vit_l_bounds["fused_attention_bwd"][0]},
+        "attention_registers": {k: v[0] for k, v in usage.items()},
+        "vit_l_train": {"model": VIT_L_MODEL, "batch": VIT_L_BATCH, "step_ms": vit_l["step_ms"],
+                        "launches": vit_l["launches"], "losses": vit_l["losses"]},
         "launches_search": int8["search_launches"],
         "quantize_rtn_five_calls_ms": timing[f"quantize_int8/{quant_key}"][2],
         "quantize_int8_device_ms": timing["quantize_int8_device_ms"],

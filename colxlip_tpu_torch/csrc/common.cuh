@@ -39,6 +39,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
+// Shared memory one block may have on sm_90 (227 KB), above 48 KB as dynamic
+// shared memory after cudaFuncSetAttribute.
+constexpr size_t kMaxSharedBytes = 232448;
+
 // Shared-memory row stride, in elements, for rows of D values read by 32
 // lanes at 32 different rows and the same column: an odd number of 32-bit
 // words puts the 32 reads on 32 banks.

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,7 +48,13 @@ def compute_dtype(precision: str) -> torch.dtype:
 def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
                  force_image_size: Optional[int] = None, alpha: Optional[float] = None,
                  gelu_approximate: Optional[bool] = None,
-                 force_patch_dropout: Optional[float] = None) -> CLIPCfg:
+                 force_patch_dropout: Optional[float] = None,
+                 image_mean: Optional[Sequence[float]] = None,
+                 image_std: Optional[Sequence[float]] = None) -> CLIPCfg:
+    """The registered config with the caller's overrides. ``image_mean`` /
+    ``image_std`` replace the config's statistics, which both the vision
+    tower's uint8 normalisation and the eval transform read, so the two
+    always agree."""
     cfg_dict = get_model_config(model_name)
     if cfg_dict is None:
         raise RuntimeError(f"Model config for {model_name} not found; "
@@ -63,6 +69,11 @@ def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
         cfg.vision_cfg.image_size = force_image_size
     if force_patch_dropout is not None:
         cfg.vision_cfg.patch_dropout = force_patch_dropout
+    for name, stat in (("image_mean", image_mean), ("image_std", image_std)):
+        if stat is not None:
+            if len(stat) != 3:
+                raise ValueError(f"{name} takes one value a channel (3); got {list(stat)}")
+            setattr(cfg.vision_cfg, name, tuple(float(x) for x in stat))
     if alpha is not None:
         cfg = dataclasses.replace(cfg, alpha=alpha)
     if gelu_approximate is not None:
@@ -115,12 +126,15 @@ def create_model(model_name: str, device: Union[str, torch.device],
                  force_image_size: Optional[int] = None, alpha: Optional[float] = None,
                  gelu_approximate: Optional[bool] = None,
                  grad_checkpointing: bool = False,
-                 force_patch_dropout: Optional[float] = None) -> Tuple[CLIP, CLIPCfg]:
+                 force_patch_dropout: Optional[float] = None,
+                 image_mean: Optional[Sequence[float]] = None,
+                 image_std: Optional[Sequence[float]] = None) -> Tuple[CLIP, CLIPCfg]:
     """(model on ``device`` in eval mode, its config), seeded random init.
     ``grad_checkpointing`` recomputes each residual block in the backward."""
     cfg = model_config(model_name, quick_gelu, force_image_size=force_image_size,
                        alpha=alpha, gelu_approximate=gelu_approximate,
-                       force_patch_dropout=force_patch_dropout)
+                       force_patch_dropout=force_patch_dropout,
+                       image_mean=image_mean, image_std=image_std)
     cls = ColXLIP if "colxlip" in model_name.lower() else CLIP
     model = cls(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
     init_weights(model, torch.Generator(device="cpu").manual_seed(seed))
@@ -164,18 +178,23 @@ def create_model_and_transforms(
         quick_gelu: Optional[bool] = None, force_image_size: Optional[int] = None,
         grad_checkpointing: bool = False, alpha: float = 0.5,
         gelu_approximate: bool = False, seed: int = 0,
-        force_patch_dropout: Optional[float] = None
+        force_patch_dropout: Optional[float] = None,
+        image_mean: Optional[Sequence[float]] = None,
+        image_std: Optional[Sequence[float]] = None
 ) -> Tuple[CLIP, CLIPCfg, EvalTransform]:
     """(model in train mode on ``device``, cfg, preprocess_val): the part of
     the JAX ``create_model_and_transforms`` the training entry point needs.
     The parameters live in the model; ``pretrained`` is a local OpenCLIP-layout
-    ``.pt`` loaded through ``load_weights``. The train-time transform waits
-    for the tar pipeline."""
+    ``.pt`` loaded through ``load_weights``. ``image_mean`` / ``image_std``
+    default to the model config's and, when given, override both the tower's
+    normalisation of uint8 images and ``preprocess_val``. The train-time
+    transform waits for the tar pipeline."""
     model, cfg = create_model(
         model_name, device, compute_dtype(precision), seed=seed, quick_gelu=quick_gelu,
         force_image_size=force_image_size, alpha=alpha,
         gelu_approximate=gelu_approximate, grad_checkpointing=grad_checkpointing,
-        force_patch_dropout=force_patch_dropout)
+        force_patch_dropout=force_patch_dropout, image_mean=image_mean,
+        image_std=image_std)
     if pretrained:
         load_weights(model, pretrained)
     preprocess_val = image_transform(

@@ -107,6 +107,12 @@ def unsupported_flags(args) -> List[str]:
          "--normalize-on-device: the flag only changes the tar pipeline's train transform "
          "(data/wds.py, not yet ported); the vision tower takes uint8 images already, and "
          "the synthetic stream stays float32"),
+        (bool(args.aug_cfg),
+         "--aug-cfg: the train transforms (data/transforms.py AugmentationCfg, "
+         "data/wds.py) are not yet ported; the synthetic stream has no augmentation"),
+        (args.raw_aug != "rrc",
+         "--raw-aug: augmentation on packed raw-uint8 shards (data/pack.py) is not yet "
+         "ported"),
         (args.ship_format == "yuv420",
          "--ship-format yuv420: the YUV420 feed (ops/yuv420.py) is not yet ported"),
         (args.pipeline == "grain",
@@ -208,6 +214,8 @@ def main(argv=None) -> int:
         alpha=args.alpha,
         gelu_approximate=args.gelu_approx,
         seed=args.seed,
+        image_mean=tuple(args.image_mean) if args.image_mean else None,
+        image_std=tuple(args.image_std) if args.image_std else None,
     )
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model: %s (%.1fM params)", args.model, n_params / 1e6)

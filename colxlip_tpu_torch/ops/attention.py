@@ -10,10 +10,14 @@ Forward and backward each dispatch on the tensor's device:
     functions in plain PyTorch.
   - CUDA tensor: the hand-written kernels ``csrc/fused_attention.cu`` and
     ``csrc/fused_attention_bwd.cu``, or an exception. There is no fallback
-    to the plain versions.
+    to the plain versions. bfloat16 runs on the tensor cores (``mma.sync``
+    tiles over key tiles of 64) at any sequence length; float32 keeps the
+    CUDA-core kernels, which hold a head's whole K and V in shared memory and
+    so take a sequence only up to ``fp32_max_seq``.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -24,8 +28,37 @@ from .build import LaunchCounter, load_kernels
 LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
 HEAD_DIMS = (32, 64)
-MAX_SEQ = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# shared memory a block may have on the H100 (227 KB; csrc/common.cuh
+# kMaxSharedBytes), which bounds the float32 kernels' sequence length
+MAX_SHARED_BYTES = 232448
+_FP32_WARPS = 8
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def fp32_shared_bytes(n: int, d: int, backward: bool) -> int:
+    """Dynamic shared memory of the float32 kernels at sequence length ``n``,
+    as their launchers compute it (``smem_bytes`` in csrc/fused_attention.cu;
+    the larger of ``smem_dq`` and ``smem_dkv`` in csrc/fused_attention_bwd.cu):
+    a head's K and V (or Q and dO) in rows padded by one word, plus per-warp
+    rows of D and of N floats."""
+    if not backward:
+        return _align16(n * (d + 1) * 4 + n * d * 4) + _FP32_WARPS * (d + n) * 4
+    return (_align16(2 * n * (d + 1) * 4) + 3 * n * 4
+            + _FP32_WARPS * (2 * d + 2 * n) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_max_seq(d: int, backward: bool) -> int:
+    """The longest sequence the float32 kernels take at head_dim ``d``: 420
+    forward and 383 backward at 64, 792 and 677 at 32."""
+    n = MAX_SHARED_BYTES // (4 * (2 * d + 1))
+    while fp32_shared_bytes(n, d, backward) > MAX_SHARED_BYTES:
+        n -= 1
+    return n
 
 
 def _split_dims(qkv: torch.Tensor, heads: int):
@@ -94,17 +127,30 @@ def fused_mha_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
     return dqkv.permute(1, 3, 0, 2, 4).reshape(b, n, 3 * hd)
 
 
-def _check_cuda(qkv: torch.Tensor, heads: int, name: str):
+def _check_aligned(t: torch.Tensor, name: str, what: str) -> None:
+    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must start at a 16-byte aligned "
+                         "address (the bfloat16 kernels copy 16 bytes at a time)")
+
+
+def _check_cuda(qkv: torch.Tensor, heads: int, name: str, backward: bool = False):
     b, n, hd, d = _split_dims(qkv, heads)
     if qkv.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {qkv.dtype} not supported "
                          "(float32, bfloat16)")
-    if d not in HEAD_DIMS or n > MAX_SEQ:
-        raise ValueError(f"{name}: head_dim {d} / seq {n} outside the "
-                         f"kernel's range (head_dim in {HEAD_DIMS}, "
-                         f"seq <= {MAX_SEQ})")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} outside the kernel's range "
+                         f"(head_dim in {HEAD_DIMS})")
+    if n < 1 or b < 1:
+        raise ValueError(f"{name}: empty qkv {tuple(qkv.shape)}")
+    if qkv.dtype == torch.float32 and n > fp32_max_seq(d, backward):
+        raise ValueError(
+            f"{name}: seq {n} too long for the float32 kernel at head_dim {d} "
+            f"(seq <= {fp32_max_seq(d, backward)}: a head's K and V must fit in "
+            f"{MAX_SHARED_BYTES} bytes of shared memory; bfloat16 has no limit)")
     if not qkv.is_contiguous():
         raise ValueError(f"{name}: qkv must be contiguous")
+    _check_aligned(qkv, name, "qkv")
     return b, n, hd, d
 
 
@@ -125,12 +171,13 @@ def _launch_fwd(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
 def _launch_bwd(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                 causal: bool) -> torch.Tensor:
     """The backward kernels on CUDA tensors (checks shapes, never falls back)."""
-    b, n, hd, d = _check_cuda(qkv, heads, "fused_mha_packed backward")
+    b, n, hd, d = _check_cuda(qkv, heads, "fused_mha_packed backward", backward=True)
     if dout.shape != (b, n, hd) or dout.dtype != qkv.dtype or dout.device != qkv.device:
         raise ValueError(f"fused_mha_packed backward: dout must be {qkv.dtype} "
                          f"{(b, n, hd)} on {qkv.device}; got {dout.dtype} "
                          f"{tuple(dout.shape)} on {dout.device}")
     dout = dout.contiguous()
+    _check_aligned(dout, "fused_mha_packed backward", "dout")
     kernels = load_kernels()
     dqkv = torch.empty_like(qkv)
     stats = torch.empty((3, b, heads, n), dtype=torch.float32, device=qkv.device)
@@ -183,8 +230,29 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int,
     """[B, N, 3*H*D] packed QKV -> [B, N, H*D] attention output, differentiable.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (D in {32, 64}, N <= 256, float32 or bfloat16, contiguous) or raise."""
+    (D in {32, 64}, contiguous; bfloat16 at any N from a 16-byte aligned
+    address, float32 at N <= ``fp32_max_seq``) or raise."""
     _split_dims(qkv, heads)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedMHA.apply(qkv, heads, causal)
     return _forward(qkv, heads, causal)
+
+
+def mma_tile_check(a: torch.Tensor, b: torch.Tensor, rows: int = 64):
+    """The building blocks of csrc/mma_tile.cuh on one bare tile: from
+    bfloat16 ``a`` and ``b`` [64, 64] on the card returns (a . b^T,
+    bf16(a . b^T) . b) in float32, with the rows at and past ``rows`` of
+    both read as zeros. For tests of the fragment layouts; no path calls it."""
+    for t in (a, b):
+        if t.shape != (64, 64) or t.dtype != torch.bfloat16 or not t.is_cuda \
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("mma_tile_check: contiguous aligned bfloat16 [64, 64] "
+                             "CUDA tensors")
+    kernels = load_kernels()
+    c_abt = torch.empty((64, 64), dtype=torch.float32, device=a.device)
+    c_pb = torch.empty_like(c_abt)
+    err = kernels.colxlip_mma_tile_check(
+        a.data_ptr(), b.data_ptr(), c_abt.data_ptr(), c_pb.data_ptr(), rows,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    kernels.check(err, "colxlip_mma_tile_check")
+    return c_abt, c_pb

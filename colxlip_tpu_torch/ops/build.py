@@ -22,6 +22,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,6 +43,8 @@ _SIGNATURES = {
     "colxlip_attention_fwd": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # qkv, dout, dqkv, stats, B, N, H, D, causal, dtype, scale, stream
     "colxlip_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # a, b, c_abt, c_pb, rows, stream
+    "colxlip_mma_tile_check": [_P, _P, _P, _P, _I, _P],
     # text, image, mask, out, M, K, Lt, Li, D, mask_mode, dtype, stream
     "colxlip_maxsim_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # text, image, mask, g, coef, ties, dtext, dimage, M, K, Lt, Li, D,
@@ -144,6 +147,34 @@ def build() -> pathlib.Path:
         _run([nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs])
         os.replace(out, lib)
     return lib
+
+
+def resource_usage(stems) -> dict:
+    """Registers and spills of every kernel in ``csrc/<stem>.cu``, as ``nvcc
+    -Xptxas -v`` reports them: {kernel<template arguments>: (registers, stack
+    bytes, spill-store bytes, spill-load bytes)}. Compiles into a temporary
+    directory and keeps nothing; for reports only, no path needs it."""
+    nvcc = find_nvcc()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for stem in stems:
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC_DIR / f"{stem}.cu"),
+                 "-o", os.path.join(tmp, f"{stem}.o")], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+            text = proc.stderr
+            if shutil.which("c++filt"):     # readable names; mangled ones otherwise
+                text = subprocess.run(["c++filt"], input=text, capture_output=True,
+                                      text=True, check=True).stdout
+            # three lines a kernel: the entry's name, its stack frame and spills,
+            # its registers
+            for name, stack, stores, loads, regs in re.findall(
+                    r"Compiling entry function '(?:void )?(?:\(anonymous namespace\)::)?"
+                    r"(\w+(?:<[^>]*>)?)[^']*'.*?(\d+) bytes stack frame, (\d+) bytes spill "
+                    r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", text, flags=re.S):
+                out[name] = (int(regs), int(stack), int(stores), int(loads))
+    return out
 
 
 class Kernels:

@@ -1,0 +1,116 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels on one NVIDIA GPU, beside
+F.scaled_dot_product_attention on the same packed QKV.
+
+    python3 scripts/torch_attention_bench.py [--plain] [--iters 20]
+
+For each shape (the two towers of ViT-B-16 at batch 64 and 256, ViT-L/14's
+vision tower at batch 64, a long causal sequence) it first holds the forward
+and the backward kernel against their plain versions at batch 2 (the
+tolerances of chip_smoke.py), then times kernel and library call with CUDA
+events after a warm-up, in turns (kernel, library, library, kernel), and
+prints one line a shape plus the card's name and power limit. ``--plain``
+also times the plain versions (slow: they hold [B, H, N, N] in fp32).
+The library call is a yardstick only: the port never calls it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from colxlip_tpu_torch.ops import attention  # noqa: E402
+
+SHAPES = [
+    # name, B, N, H, D, causal
+    ("vision-b64", 64, 197, 12, 64, False),
+    ("vision-b256", 256, 197, 12, 64, False),
+    ("text-b256", 256, 77, 8, 64, True),
+    ("vit-l-b64", 64, 257, 16, 64, False),
+    ("long-causal", 8, 1024, 12, 64, True),
+]
+ATTN_TOL, BWD_TOL = 4e-3, 2.0 ** -7
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    gen = torch.Generator().manual_seed(0)
+    for name, b, n, h, d, causal in SHAPES:
+        qkv = torch.randn(b, n, 3 * h * d, generator=gen).to(dev, torch.bfloat16)
+        dout = torch.randn(b, n, h * d, generator=gen).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            small, gsmall = qkv[:2].contiguous(), dout[:2].contiguous()
+            err_f = (attention.fused_mha_packed(small, h, causal).float()
+                     - attention.fused_mha_plain(small, h, causal).float()).abs().max().item()
+            want = attention.fused_mha_bwd_plain(small, gsmall, h, causal).float()
+            err_b = ((attention._launch_bwd(small, gsmall, h, causal).float() - want).abs().max()
+                     / want.abs().max()).item()
+        if not (err_f <= ATTN_TOL and err_b <= BWD_TOL):
+            raise RuntimeError(f"{name}: forward error {err_f}, backward error {err_b}")
+        q, k, v = (t.contiguous().requires_grad_()
+                   for t in qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
+        grad = dout.view(b, n, h, d).permute(0, 2, 1, 3).contiguous()
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        def fwd():
+            with torch.no_grad():
+                attention.fused_mha_packed(qkv, h, causal)
+
+        def lib_fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+        def bwd():
+            attention._launch_bwd(qkv, dout, h, causal)
+
+        def lib_bwd():
+            torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
+
+        row = {"shape": name, "B": b, "N": n, "H": h, "D": d, "causal": causal,
+               "fwd_err": err_f, "bwd_err": err_b}
+        for key, ker, lib in (("fwd", fwd, lib_fwd), ("bwd", bwd, lib_bwd)):
+            t = [cuda_ms(f, args.iters) for f in (ker, lib, lib, ker)]
+            row[f"{key}_ms"], row[f"{key}_sdpa_ms"] = min(t[0], t[3]), min(t[1], t[2])
+        if args.plain:
+            with torch.no_grad():
+                row["fwd_plain_ms"] = cuda_ms(
+                    lambda: attention.fused_mha_plain(qkv, h, causal), 5)
+                row["bwd_plain_ms"] = cuda_ms(
+                    lambda: attention.fused_mha_bwd_plain(qkv, dout, h, causal), 5)
+        print(json.dumps(row), flush=True)
+        del qkv, dout, q, k, v, grad, out
+    print(card, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

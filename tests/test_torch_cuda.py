@@ -43,8 +43,13 @@ ATTN_SHAPES = [
     (2, 197, 12, 768, False),   # vision tower
     (2, 77, 8, 512, True),      # text tower, causal
     (3, 16, 4, 128, True),      # odd batch, head_dim 32
-    (1, 256, 2, 128, False),    # the longest sequence the kernel takes
+    (1, 256, 2, 128, False),    # four full key tiles
+    (1, 257, 16, 1024, False),  # ViT-L/14: one live key in the fifth tile
+    (2, 1024, 2, 128, True),    # long causal: 16 key tiles, tile skipping
+    (3, 65, 4, 128, True),      # ragged, head_dim 32
 ]
+# float32 holds a head's K and V in shared memory: 1024 keys do not fit
+FP32_TOO_LONG = 1024
 
 
 @pytest.fixture
@@ -68,6 +73,10 @@ def _l2(x):
                                         (torch.bfloat16, 4e-3)])
 @pytest.mark.parametrize("b,n,heads,hd,causal", ATTN_SHAPES)
 def test_attention_kernel_matches_plain(dev, b, n, heads, hd, causal, dtype, atol):
+    if dtype == torch.float32 and n >= FP32_TOO_LONG:
+        with pytest.raises(ValueError, match="float32 kernel"):
+            attention.fused_mha_packed(torch.zeros(b, n, 3 * hd, device=dev), heads, causal)
+        return
     qkv = torch.from_numpy(_qkv(b, n, hd)).to(dev, dtype)
     before = attention.LAUNCHES.value
     with torch.inference_mode():
@@ -82,8 +91,8 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
     qkv = torch.zeros(2, 8, 3 * 96, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         attention.fused_mha_packed(qkv, 2)                    # D = 48
-    with pytest.raises(ValueError, match="seq"):
-        attention.fused_mha_packed(torch.zeros(1, 257, 192, device=dev), 2)
+    out = attention.fused_mha_packed(torch.zeros(1, 257, 192, device=dev), 2)   # 257 runs
+    assert out.shape == (1, 257, 64) and not out.any()
     with pytest.raises(ValueError, match="dtype"):
         attention.fused_mha_packed(qkv.half(), 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -95,6 +104,64 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="dout"):
         attention._launch_bwd(qkv, torch.zeros(2, 8, 64, device=dev, dtype=torch.bfloat16), 2,
                               False)
+    # bfloat16 from an address that is not a multiple of 16 bytes
+    flat = torch.zeros(2 * 8 * 192 + 8, device=dev, dtype=torch.bfloat16)
+    odd = flat[1:1 + 2 * 8 * 192].view(2, 8, 192)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention.fused_mha_packed(odd, 1)
+    good = flat[:2 * 8 * 192].view(2, 8, 192)
+    with pytest.raises(ValueError, match="dout must start at a 16-byte"):
+        attention._launch_bwd(good, flat[1:1 + 2 * 8 * 64].view(2, 8, 64), 1, False)
+    # float32 past what its shared memory holds, forward and backward
+    for backward in (False, True):
+        limit = attention.fp32_max_seq(64, backward)
+        long = torch.zeros(1, limit + 1, 192, device=dev)
+        with pytest.raises(ValueError, match=f"seq <= {limit}"):
+            if backward:
+                attention._launch_bwd(long, long[..., :64].contiguous(), 1, False)
+            else:
+                attention.fused_mha_packed(long, 1)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("d", [32, 64])
+def test_attention_fp32_kernel_runs_at_its_limit(dev, d, backward):
+    """The longest float32 sequence the wrapper admits launches and agrees."""
+    n = attention.fp32_max_seq(d, backward)
+    qkv = torch.from_numpy(_qkv(1, n, 2 * d, seed=3)).to(dev)
+    if backward:
+        dout = torch.from_numpy(_qkv(1, n, 2 * d, seed=4)[..., :2 * d].copy()).to(dev)
+        got = attention._launch_bwd(qkv, dout, 2, True)
+        want = attention.fused_mha_bwd_plain(qkv, dout, 2, True)
+    else:
+        got = attention.fused_mha_packed(qkv, 2, True)
+        want = attention.fused_mha_plain(qkv, 2, True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [64, 5, 1])
+def test_mma_tile_layouts_match_matmul(dev, rows):
+    """A bare 64 x 64 x 64 product through csrc/mma_tile.cuh (cp.async with
+    zero fill, ldmatrix, mma.sync, the accumulator reused as an A operand)
+    against torch.matmul: products of bf16 values summed in fp32, so the
+    first product differs by summation order only (1e-4 of values up to 30)
+    and the second by bf16 roundings of the first that land one step apart
+    (2^-8 relative, summed over 64 terms)."""
+    rng = np.random.default_rng(rows)
+    a = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).to(dev)
+    b = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).to(dev)
+    a, b = a.bfloat16(), b.bfloat16()
+    got_abt, got_pb = attention.mma_tile_check(a, b, rows)
+    torch.cuda.synchronize()
+    a32, b32 = a.float(), b.float()
+    a32[rows:], b32[rows:] = 0, 0
+    want_abt = a32 @ b32.T
+    torch.testing.assert_close(got_abt, want_abt, rtol=0, atol=1e-4)
+    want_pb = want_abt.bfloat16().float() @ b32
+    torch.testing.assert_close(got_pb, want_pb, rtol=0,
+                               atol=2.0 ** -6 * want_pb.abs().max().item())
 
 
 @pytest.mark.parametrize("mask_mode", ["nonzero", "plain", "valid"])
@@ -159,6 +226,11 @@ def _bf16_tol(want: torch.Tensor, dtype) -> float:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,heads,hd,causal", ATTN_SHAPES)
 def test_attention_bwd_kernel_matches_plain(dev, b, n, heads, hd, causal, dtype):
+    if dtype == torch.float32 and n >= FP32_TOO_LONG:
+        with pytest.raises(ValueError, match="float32 kernel"):
+            attention._launch_bwd(torch.zeros(b, n, 3 * hd, device=dev),
+                                  torch.zeros(b, n, hd, device=dev), heads, causal)
+        return
     qkv = torch.from_numpy(_qkv(b, n, hd)).to(dev, dtype)
     dout = torch.from_numpy(np.random.default_rng(1).standard_normal((b, n, hd))
                             .astype(np.float32)).to(dev, dtype)
@@ -170,6 +242,15 @@ def test_attention_bwd_kernel_matches_plain(dev, b, n, heads, hd, causal, dtype)
     assert got.dtype == dtype and got.shape == qkv.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=_bf16_tol(want.float(), dtype))
+
+
+def test_attention_bwd_kernel_is_deterministic(dev):
+    """No atomics: two runs of the backward give the same bits."""
+    qkv = torch.from_numpy(_qkv(4, 197, 768)).to(dev, torch.bfloat16)
+    dout = torch.from_numpy(_qkv(4, 197, 256, seed=2)).to(dev, torch.bfloat16)
+    first = attention._launch_bwd(qkv, dout, 12, False)
+    second = attention._launch_bwd(qkv, dout, 12, False)
+    assert torch.equal(first, second)
 
 
 def test_attention_autograd_launches_both_kernels(dev):

@@ -415,6 +415,8 @@ REFUSED = [
     (["--precision", "pure_bf16"], "pure_bf16"),
     (["--token-dist", "ring"], "--token-dist ring"),
     (["--dataset-type", "auto"], "eval-only mode"),
+    (["--aug-cfg", "scale=(0.4,1.0)"], "--aug-cfg"),
+    (["--raw-aug", "crop"], "--raw-aug"),
 ]
 
 
@@ -428,6 +430,46 @@ def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, message):
     with open(tmp_path / "refused" / "out.log") as f:
         log = f.read()
     assert "ERROR" in log and message in log
+
+
+def test_image_mean_and_std_reach_the_model_and_the_transform(tmp_path, monkeypatch):
+    """--image-mean / --image-std override the config's statistics in the
+    vision tower's uint8 normalisation and in preprocess_val alike, as in the
+    JAX factory; without them both keep the config's."""
+    mean, std = (0.5, 0.4, 0.3), (0.25, 0.2, 0.15)
+    seen = {}
+    real = main_mod.create_model_and_transforms
+
+    def spy(*a, **k):
+        seen["out"] = real(*a, **k)
+        return seen["out"]
+
+    monkeypatch.setattr(main_mod, "create_model_and_transforms", spy)
+    flags = ["--image-mean", *map(str, mean), "--image-std", *map(str, std)]
+    assert main_mod.main(_argv(str(tmp_path), "stats", *flags, epochs=1)) == 0
+    model, cfg, preprocess_val = seen["out"]
+    assert cfg.vision_cfg.image_mean == mean and cfg.vision_cfg.image_std == std
+    np.testing.assert_allclose(model.visual.image_mean.cpu().numpy(), mean, rtol=1e-7)
+    np.testing.assert_allclose(model.visual.image_std.cpu().numpy(), std, rtol=1e-7)
+    # a constant image: the transform's output is (value / 255 - mean) / std
+    from PIL import Image
+    size = cfg.vision_cfg.image_size
+    out = np.asarray(preprocess_val(Image.new("RGB", (size, size), (51, 102, 153))))
+    want = (np.array([51, 102, 153], np.float32) / 255 - np.array(mean)) / np.array(std)
+    np.testing.assert_allclose(out.reshape(-1, 3).mean(0), want, rtol=1e-5, atol=1e-5)
+    # the tower normalises a uint8 batch with the same statistics
+    raw = np.full((1, size, size, 3), (51, 102, 153), np.uint8)
+    host = np.broadcast_to(want.astype(np.float32), raw.shape).copy()
+    with torch.no_grad():
+        a = model.encode_image(torch.from_numpy(raw), normalize=True)
+        b = model.encode_image(torch.from_numpy(host), normalize=True)
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5)
+
+    _, default_cfg, _ = factory.create_model_and_transforms(TINY, device="cpu", precision="fp32")
+    assert default_cfg.vision_cfg.image_mean == pytest.approx((0.48145466, 0.4578275, 0.40821073))
+    with pytest.raises(ValueError, match="image_mean takes one value a channel"):
+        factory.create_model_and_transforms(TINY, device="cpu", image_mean=(0.5,))
 
 
 def test_main_trains_with_maxsim_impl_streaming_int8(tmp_path):

@@ -279,7 +279,8 @@ def _option_pair(vision=None, text=None):
                 assert hasattr(cfg, k), k
                 setattr(cfg, k, v)
     jmodel = JaxColXLIP(jcfg, dtype=jnp.float32)
-    imgs = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    size = jcfg.vision_cfg.image_size
+    imgs = jnp.zeros((1, size, size, 3), jnp.float32)
     txts = jnp.zeros((1, 32), jnp.int32).at[:, 0].set(49406).at[:, 1].set(49407)
     params = jax.jit(jmodel.init)(jax.random.PRNGKey(4), imgs, txts)
     return (jmodel, params), _load_converted(ColXLIP(pcfg, dtype=torch.float32), params)
@@ -295,6 +296,25 @@ VISION_OPTIONS = {
     "pool-none": {"pool_type": "none"},
     "patch-dropout-in-eval": {"patch_dropout": 0.5},
 }
+
+
+def test_vit_l_14_shaped_vision_tower_matches_jax():
+    """ViT-L/14's token count on a narrow tower: 224 px in patches of 14 is a
+    16 x 16 grid, 257 tokens with the class token, one more than four key
+    tiles of 64 (the sequence the first attention kernels refused). Two layers,
+    width 128 in heads of 64; the same JAX-initialised weights on both sides,
+    fp32, the bar of the other tower tests."""
+    shape = {"image_size": 224, "patch_size": 14, "width": 128, "head_width": 64, "layers": 2}
+    jax_pair, port = _option_pair(vision=shape)
+    assert port.visual.positional_embedding.shape == (257, 128)
+    rng = np.random.default_rng(8)
+    imgs = rng.standard_normal((2, 224, 224, 3)).astype(np.float32)
+    _, txts = _inputs(seed=8, b=2)
+    (j_img, _), (p_img, _) = _encode_both(jax_pair, port, imgs, txts)
+    assert p_img[1].shape == (2, 256, 128)          # one token feature a patch
+    for w, g in zip(j_img, p_img):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
 
 
 @pytest.mark.parametrize("option", list(VISION_OPTIONS))

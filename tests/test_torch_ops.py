@@ -26,6 +26,7 @@ ATTN_SHAPES = [
     (2, 197, 12, 768, False),   # vision tower
     (2, 77, 8, 512, True),      # text tower, causal
     (3, 16, 4, 128, True),      # odd batch, head_dim 32
+    (1, 257, 2, 128, False),    # ViT-L/14's 257 tokens, heads of 64
 ]
 ATTN_ATOL = 2e-5                # fp32; the same bar as tests/test_fused_attention.py
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -155,7 +156,11 @@ def test_library_path_keys_on_sources():
     assert path.name.startswith("libcolxlip_kernels-") and path.suffix == ".so"
     assert {p.name for p in build._sources()} == {
         "fused_attention.cu", "fused_attention_bwd.cu", "fused_ce.cu", "fused_ln.cu",
-        "fused_mlp.cu", "maxsim.cu", "maxsim_bwd.cu", "quantize_int8.cu"}
+        "fused_mlp.cu", "maxsim.cu", "maxsim_bwd.cu", "mma_tile_check.cu",
+        "quantize_int8.cu"}
+    # the shared headers key the library too (a change to one rebuilds it)
+    assert {p.name for p in build.CSRC_DIR.glob("*.cuh")} >= {
+        "common.cuh", "mma_tile.cuh", "attention_tile.cuh"}
     # every entry point the loader binds is defined in one of them
     sources = "".join(p.read_text() for p in build._sources())
     for name in build._SIGNATURES:
