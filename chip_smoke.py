@@ -19,6 +19,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      also at ViT-L/14's 257 tokens (bf16 and fp32), at 1024 tokens under the
      causal mask and at a ragged head_dim-32 shape, and two runs of the
      attention backward at the vision shape must agree bit for bit; the
+     MaxSim forward in fp32 at the serving shape (64 x 64) and in fp32 and
+     bf16 at the training shape (256 x 256, the main path's) and at 100 text
+     against 577 image tokens (ViT-L/14 at 336 px), the MaxSim backward at
+     both shapes, two of its runs bit for bit; the
      three streaming-CE kernels (forward, dA + dscale, dB) in
      fp32 and bf16 at M = N = 256 and 4096 (D = 512), M = 33, N = 129
      (D = 64), and in bf16 at M = N = 32768, where the dense fp32 logits
@@ -41,13 +45,15 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      forward kernels were launched by the requests, and the /v1/score
      matrices against a plain-path recomputation on the same device.
   5. timings (CUDA events, after warm-up): each kernel against its plain
-     version, and against the one PyTorch call that computes the same
+     version (the MaxSim kernels also pass by pass, torch.profiler), and
+     against the one PyTorch call that computes the same
      function where there is one (scaled_dot_product_attention, forward and
      backward, at the vision shape and at ViT-L/14's; for the streaming CE the pair torch.matmul + F.cross_entropy
      over the dense logits is timed beside it; F.layer_norm forward and
      backward beside the LayerNorm kernels; the three calls F.linear,
      F.gelu, F.linear and their autograd backward beside the MLP kernels);
-     encode throughput at batch 64, request latency. The library calls are
+     encode throughput at batch 64, request latency; the attention bounds
+     at the text shape as well. The library calls are
      timed only: on the paths timed here the port never calls them.
   6. train slice: make_train_step on ViT-B-16-colxlip (full width and depth,
      seed 0, fp32 parameters, bf16 compute), colclip loss (alpha 0.5, mask
@@ -137,7 +143,13 @@ MAX_BATCH = 64
 #   bf16: the output is rounded to bf16 (2^-8 relative), so one rounding
 #         step apart on |out| < 1 is < 4e-3.
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 4e-3}
-MAXSIM_TOL = 1e-5          # fp32 scores in [-1, 1], summation order only
+# MaxSim scores of unit-norm tokens, in [-1, 1], fp32 and bf16 inputs alike: a
+# bf16 product is exact in fp32, and fp32 inputs take fp32 products, so only
+# the summation order differs
+MAXSIM_TOL = 1e-5
+# MaxSim token counts the first kernels refused: ViT-L/14 at 336 px with its
+# CLS token (577 image tokens), 100 text tokens, ViT-L's width; M = K = 16
+MAXSIM_LONG = (16, 100, 577, 768)
 # /v1/score (kernels) vs a plain-path recomputation: both run the model in
 # bf16, so the kernels' and the plain versions' roundings differ at 2^-8
 # relative per step through 12 layers; bound the cosine-level drift at 2e-2
@@ -386,19 +398,33 @@ def bound_ms(bytes_moved: float, flops: float, dtype: str):
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
-def attention_bounds(qkv_fwd, qkv_bwd):
+def attention_bounds(qkv_fwd, qkv_bwd, causal: bool = False):
     """bound_ms of the two attention kernels on packed QKV [B, N, 3 H D]: the
     forward reads qkv and writes out (4 B N H D elements) for 4 B H N^2 D
     flops; the backward also reads dout and writes dqkv (7) for 10 (the five
-    products the function needs)."""
+    products the function needs). Under the causal mask a query meets only
+    the keys up to itself: N (N + 1) / 2 pairs instead of N^2."""
     out = {}
     for key, qkv, passes, flop_factor in (("fused_attention_fwd", qkv_fwd, 4, 4),
                                           ("fused_attention_bwd", qkv_bwd, 7, 10)):
         b, n, width = qkv.shape
         hd = width // 3
+        pairs = n * (n + 1) / 2 if causal else n * n
         out[key] = bound_ms(b * n * hd * passes * qkv.element_size(),
-                            flop_factor * b * n * n * hd, str(qkv.dtype).split(".")[-1])
+                            flop_factor * b * pairs * hd, str(qkv.dtype).split(".")[-1])
     return out
+
+
+def maxsim_bound(text, image, backward: bool):
+    """bound_ms of a MaxSim kernel on text [M, Lt, D] and image [K, Li, D]:
+    the similarities are 2 M K Lt Li D flops, the backward adds dT and dI at
+    2 M K Lt D each; the features are read once (and their gradients written
+    once, backward) and the [M, K] scores (or their cotangent) move once."""
+    (m, lt, d), (k, li, _) = text.shape, image.shape
+    feats = (m * lt + k * li) * d * text.element_size()
+    flops = 2 * m * k * lt * li * d + (4 * m * k * lt * d if backward else 0)
+    return bound_ms(feats * (2 if backward else 1) + m * k * 4, flops,
+                    str(text.dtype).split(".")[-1])
 
 
 def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce, ln_x, mlp_x, mlp_w1):
@@ -418,12 +444,8 @@ def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce, ln_x, mlp
         return str(t.dtype).split(".")[-1]
 
     out = attention_bounds(qkv_fwd, qkv_bwd)
-    for key, (text, image), backward in (("maxsim_fwd", maxsim_fwd, False),
-                                         ("maxsim_bwd", maxsim_bwd, True)):
-        (m, lt, d), (k, li, _) = text.shape, image.shape
-        feats = (m * lt + k * li) * d * text.element_size()
-        flops = 2 * m * k * lt * li * d + (4 * m * k * lt * d if backward else 0)
-        out[key] = bound_ms(feats * (2 if backward else 1) + m * k * 4, flops, name(text))
+    out["maxsim_fwd"] = maxsim_bound(*maxsim_fwd, False)
+    out["maxsim_bwd"] = maxsim_bound(*maxsim_bwd, True)
     a, b = ce
     (m, d), n = a.shape, b.shape[0]
     feats = (m + n) * d * a.element_size()
@@ -788,10 +810,13 @@ def check_backward_kernels(dev, gen):
     img = torch.nn.functional.normalize(torch.randn(k, li, d, generator=gen), dim=-1)
     gs = torch.randn(m, k, generator=gen) / m
     text_mask = keep.float().to(dev)
+    errs["maxsim_fwd"] = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         tt, ii, g = t.to(dev, dtype), img.to(dev, dtype), gs.to(dev)
         modes = ("nonzero", "plain", "valid") if dtype == torch.bfloat16 else ("nonzero",)
         for mode in modes:
+            errs["maxsim_fwd"] = max(errs["maxsim_fwd"],
+                                     check_maxsim_forward(tt, ii, mode, text_mask, "main path"))
             got = maxsim._launch_bwd(tt, ii, g, mode, text_mask)
             want = maxsim.maxsim_bwd_plain(tt, ii, g, mask_mode=mode, text_mask=text_mask)
             torch.cuda.synchronize()
@@ -802,10 +827,83 @@ def check_backward_kernels(dev, gen):
             if not err <= tol:
                 raise RuntimeError(f"maxsim bwd {mode} {dtype}: {err} > {tol}")
             errs["maxsim_bwd"] = max(errs["maxsim_bwd"], err)
+            if mode == "nonzero":
+                # dI adds in one fixed order, no float atomics: the same bits twice
+                again = maxsim._launch_bwd(tt, ii, g, mode, text_mask)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                log(f"[3 kernels] maxsim bwd {mode} {dtype}: two runs "
+                    f"{'equal bit for bit' if same else 'DIFFER'} (dT, dI)")
+                if not same:
+                    raise RuntimeError("two runs of the maxsim backward differ")
+                del again
             del got, want
         if dtype == torch.bfloat16:
             inputs["maxsim_bwd"] = (tt, ii, g, text_mask)
+
+    # token counts the first kernels refused: three column groups, 19 tie words
+    mk, lt, li, d = MAXSIM_LONG
+    t = torch.nn.functional.normalize(torch.randn(mk, lt, d, generator=gen), dim=-1)
+    t[:, lt // 2:] = 0
+    img = torch.nn.functional.normalize(torch.randn(mk, li, d, generator=gen), dim=-1)
+    gs = torch.randn(mk, mk, generator=gen) / mk
+    for dtype in (torch.float32, torch.bfloat16):
+        tt, ii, g = t.to(dev, dtype), img.to(dev, dtype), gs.to(dev)
+        errs["maxsim_fwd"] = max(errs["maxsim_fwd"],
+                                 check_maxsim_forward(tt, ii, "nonzero", None, "long"))
+        got = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
+        want = maxsim.maxsim_bwd_plain(tt, ii, g)
+        torch.cuda.synchronize()
+        err = max(max_rel_err(a, w) for a, w in zip(got, want))
+        tol = BWD_TOL[str(dtype).split(".")[-1]]
+        log(f"[3 kernels] maxsim bwd long M=K={mk} Lt={lt} Li={li} D={d} {dtype}: "
+            f"max_abs_err / max|grad| {err:.3g} (tol {tol}) (dT, dI)")
+        if not err <= tol:
+            raise RuntimeError(f"maxsim bwd Lt={lt} Li={li} {dtype}: {err} > {tol}")
+        errs["maxsim_bwd"] = max(errs["maxsim_bwd"], err)
+        del got, want
     return errs, inputs
+
+
+def check_maxsim_forward(text, image, mode, text_mask, label: str) -> float:
+    """The MaxSim forward kernel against its plain version; returns the error."""
+    import torch
+
+    from colxlip_tpu_torch.ops import maxsim
+
+    got = maxsim._launch_fwd(text, image, mode, text_mask)
+    want = maxsim.maxsim_plain(text, image, mask_mode=mode, text_mask=text_mask)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    (m, lt, d), (k, li, _) = text.shape, image.shape
+    log(f"[3 kernels] maxsim {label} {mode} M={m} K={k} Lt={lt} Li={li} D={d} "
+        f"{str(text.dtype).split('.')[-1]}: max_abs_err {err:.3g} (tol {MAXSIM_TOL})")
+    if not (err <= MAXSIM_TOL and torch.isfinite(got).all()):
+        raise RuntimeError(f"maxsim {label} {mode} {text.dtype}: {err} > {MAXSIM_TOL}")
+    return err
+
+
+def maxsim_pass_ms(tt, ii, g, calls: int = 3):
+    """Device ms a call of each kernel of the MaxSim forward (max, mean) and
+    backward (route, coef, dT, dI) at the training shape (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from colxlip_tpu_torch.ops import maxsim
+
+    out = {}
+    for fn in (lambda: maxsim._launch_fwd(tt, ii, "nonzero", None),
+               lambda: maxsim._launch_bwd(tt, ii, g, "nonzero", None)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            found = re.search(r"maxsim_(?:bwd_)?(\w+?)_kernel", e.key)
+            if e.device_type == torch.autograd.DeviceType.CUDA and found:
+                out[found.group(1)] = e.self_device_time_total / 1e3 / calls
+    return out
 
 
 def synthetic_batch(n: int, image_size: int, ctx: int, seed: int):
@@ -1598,9 +1696,8 @@ def int8_phase(dev, card: str, train, encode_ms):
         log(f"[9 int8] maxsim forward {TRAIN_BATCH} x {TRAIN_BATCH} bf16: int8 (library "
             f"products) {int8_ms:.3f} ms, the forward kernel {kernel_ms:.3f} ms ({card})")
 
-    # its backward is the default backward on the same inputs: dT equal bit for
-    # bit; dI is summed with shared-memory float atomics in an order that changes
-    # from run to run, so it is held to that order's bar, 1e-5 of the largest
+    # its backward is the default backward on the same inputs, which adds in one
+    # fixed order (no float atomics): dT and dI equal bit for bit
     g = torch.randn(MAX_BATCH, MAX_BATCH, generator=torch.Generator().manual_seed(9)).to(dev)
     grads = []
     for impl in ("streaming_int8", "auto"):
@@ -1611,12 +1708,10 @@ def int8_phase(dev, card: str, train, encode_ms):
         if maxsim.BWD_LAUNCHES.value != 1:
             raise RuntimeError(f"maxsim impl={impl!r}: the backward kernel was not launched")
     torch.cuda.synchronize()
-    (dt_a, di_a), (dt_b, di_b) = grads
-    di_err = max_rel_err(di_a, di_b)
+    same = all(torch.equal(a, b) for a, b in zip(*grads))
     log(f"[9 int8] maxsim(impl='streaming_int8') backward vs the default backward, same fp32 "
-        f"inputs and cotangent: dT {'equal bit for bit' if torch.equal(dt_a, dt_b) else 'NOT equal'}"
-        f", dI max_abs_err / max|grad| {di_err:.3g} (tol 1e-5: float atomics)")
-    if not (torch.equal(dt_a, dt_b) and di_err <= 1e-5):
+        f"inputs and cotangent: dT and dI {'equal bit for bit' if same else 'NOT equal'}")
+    if not same:
         raise RuntimeError("the int8 MaxSim's backward is not the default backward")
     del tok_i, tok_t, grads, g
 
@@ -1788,7 +1883,7 @@ def main() -> int:
     usage = {}
     usage_thread = threading.Thread(
         target=lambda: usage.update(build.resource_usage(
-            ["fused_attention", "fused_attention_bwd"])), daemon=True)
+            ["fused_attention", "fused_attention_bwd", "maxsim", "maxsim_bwd"])), daemon=True)
     usage_thread.start()
     kernels = build.load_kernels()
     log(f"[2 build] {kernels.build_seconds:.1f} s nvcc {' '.join(build.NVCC_FLAGS)}"
@@ -1846,17 +1941,10 @@ def main() -> int:
         img = torch.nn.functional.normalize(
             torch.randn(k, li, d, generator=gen), dim=-1).to(dev)
         text_mask = keep.float().to(dev)
-        maxsim_err = 0.0
-        for mode in ("nonzero", "plain", "valid"):
-            got = maxsim.maxsim(t, img, mask_mode=mode, text_mask=text_mask)
-            want = maxsim.maxsim_plain(t, img, mask_mode=mode, text_mask=text_mask)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            log(f"[3 kernels] maxsim {mode} M={m} K={k} Lt={lt} Li={li} D={d} "
-                f"fp32: max_abs_err {err:.3g} (tol {MAXSIM_TOL})")
-            if not err <= MAXSIM_TOL:
-                raise RuntimeError(f"maxsim {mode}: {err} > {MAXSIM_TOL}")
-            maxsim_err = max(maxsim_err, err)
+        # the serving shape in fp32 (/v1/score); bf16 at the main path's shape
+        # and the long token counts follow in phase 3b
+        serving_err = max(check_maxsim_forward(t, img, mode, text_mask, "serving")
+                          for mode in ("nonzero", "plain", "valid"))
     bwd_err, bwd_inputs = check_backward_kernels(dev, gen)
     ce_err, ce_inputs_by_m = check_ce_kernels(dev, gen)
     fused_err_by_kernel, fused_inputs = check_fused_kernels(dev, gen)
@@ -1987,6 +2075,10 @@ def main() -> int:
         for key, (ker, plain) in timing.items():
             log(f"[5 timing] {key}: kernel {ker:.4f} ms, plain {plain:.4f} ms "
                 f"({card})")
+        maxsim_passes = maxsim_pass_ms(tt, ii, g)
+        log(f"[5 timing] maxsim passes, bf16 {TRAIN_BATCH} x {TRAIN_BATCH} (device ms a call, "
+            f"torch.profiler): " + ", ".join(f"{k} {v:.4f}" for k, v in maxsim_passes.items())
+            + f" ({card})")
         timing.update(time_ce_kernels(ce_inputs_by_m, card))
         timing.update(time_fused_kernels(fused_inputs, card))
         quant_timing, quant_bounds = time_quantizer(quant_inputs, card)
@@ -2022,9 +2114,13 @@ def main() -> int:
             raise RuntimeError("nvcc -Xptxas -v reported no kernel of the attention sources")
 
         bounds = kernel_bounds(attn_inputs["vision"][0], bwd_inputs["attention_bwd/vision"][0],
-                               attn_inputs["vision"][1], (t, img), (tt, ii),
+                               attn_inputs["vision"][1], (tt, ii), (tt, ii),
                                ce_inputs_by_m[TRAIN_BATCH][:2], fused_inputs["ln/vision"][0],
                                *fused_inputs["mlp/vision"][:2])
+        bounds["maxsim_fwd/serving"] = maxsim_bound(t, img, False)
+        text_qkv = bwd_inputs["attention_bwd/text"][0]
+        text_bounds = attention_bounds(text_qkv, text_qkv, causal=True)
+        bounds.update({f"{k}/text": v for k, v in text_bounds.items()})
         for name, (ms, by) in bounds.items():
             log(f"[5 timing] bound {name}: {ms:.5f} ms, by {by} (H100 SXM: 3.35 TB/s, "
                 f"989 TFLOP/s bf16, 67 TFLOP/s fp32)")
@@ -2086,9 +2182,11 @@ def main() -> int:
          "colxlip_tpu/ops/fused_attention.py:193", *attn_fwd),
         ("fused_attention_bwd_heads", "colxlip_tpu_torch/csrc/fused_attention_bwd.cu",
          "colxlip_tpu/ops/fused_attention.py:222", *attn_bwd),
+        # the main path's shape: bf16, 256 x 256 (the serving reading is below)
         ("maxsim_fwd", "colxlip_tpu_torch/csrc/maxsim.cu",
-         "colxlip_tpu/ops/maxsim_pallas.py:86", tl["maxsim_fwd"], maxsim_err,
-         timing["maxsim/nonzero"], bounds["maxsim_fwd"], None),
+         "colxlip_tpu/ops/maxsim_pallas.py:112", tl["maxsim_fwd"],
+         max(serving_err, bwd_err["maxsim_fwd"]), timing["maxsim/nonzero-train"],
+         bounds["maxsim_fwd"], None),
         ("maxsim_bwd", "colxlip_tpu_torch/csrc/maxsim_bwd.cu",
          "colxlip_tpu/ops/maxsim_pallas.py:244", tl["maxsim_bwd"], bwd_err["maxsim_bwd"],
          timing["maxsim_bwd/nonzero"], bounds["maxsim_bwd"], None),
@@ -2123,6 +2221,16 @@ def main() -> int:
          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
         for name, source, replaces, n_launches, err, (ms, plain_ms), bound, library_ms in rows],
         "launches_serving": launches, "launches_main": ml, "launches_fused": fl,
+        "maxsim_serving_fp32": {
+            "m": 64, "k": 64, "ms": timing["maxsim/nonzero"][0],
+            "plain_ms": timing["maxsim/nonzero"][1], "max_abs_err": serving_err,
+            "bound_ms": bounds["maxsim_fwd/serving"][0]},
+        "maxsim_passes_ms": maxsim_passes,
+        "attention_text": {
+            "batch": TRAIN_BATCH, "fwd_ms": timing["attention/text-train"][0],
+            "bwd_ms": timing["attention_bwd/text"][0],
+            "fwd_bound_ms": bounds["fused_attention_fwd/text"][0],
+            "bwd_bound_ms": bounds["fused_attention_bwd/text"][0]},
         "attention_train_fwd_ms": dict(zip(("kernel", "plain", "sdpa"),
                                            (*timing["attention/vision-train"], sdpa_train[0]))),
         "attention_vit_l": {

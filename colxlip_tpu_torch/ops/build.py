@@ -45,11 +45,12 @@ _SIGNATURES = {
     "colxlip_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # a, b, c_abt, c_pb, rows, stream
     "colxlip_mma_tile_check": [_P, _P, _P, _P, _I, _P],
-    # text, image, mask, out, M, K, Lt, Li, D, mask_mode, dtype, stream
-    "colxlip_maxsim_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # text, image, mask, g, coef, ties, dtext, dimage, M, K, Lt, Li, D,
-    # mask_mode, dtype, stream
-    "colxlip_maxsim_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # text, image, mask, max_sim, out, M, K, Lt, Li, D, mask_mode, dtype, stream
+    "colxlip_maxsim_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # text, image, mask, g, max_sim, coef, ties, route_q, dtext, dimage, M, K, Lt,
+    # Li, D, mask_mode, dtype, stream
+    "colxlip_maxsim_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b, labels, scale, loss, lse, M, N, D, dtype, stream
     "colxlip_fused_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a, b, labels, scale, lse, g, da, dscale, M, N, D, dtype, stream

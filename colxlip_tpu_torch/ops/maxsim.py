@@ -47,9 +47,7 @@ LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
 _EPS = 1e-8
 MASK_MODES = {"nonzero": 0, "plain": 1, "valid": 2}
-MAX_TEXT_TOKENS = 80
-MAX_IMAGE_TOKENS = 256
-MAX_FEATURES = 4096
+MAX_FEATURES = 4096              # the backward's dT rows: 8 x D fp32 in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the JAX package's implementations; all but 'streaming_int8' compute the same
 # scores, and the port's one default implementation routes gradients at ties
@@ -190,11 +188,13 @@ def _launch_fwd(token_text, token_image, mask_mode, text_mask) -> torch.Tensor:
     m, lt, d = token_text.shape
     k, li, _ = token_image.shape
     kernels = load_kernels()
-    out = torch.empty((m, k), dtype=torch.float32, device=token_text.device)
-    stream = torch.cuda.current_stream(token_text.device).cuda_stream
+    dev = token_text.device
+    max_sim = torch.empty((m, k, lt), dtype=torch.float32, device=dev)
+    out = torch.empty((m, k), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels.colxlip_maxsim_fwd(
         token_text.data_ptr(), token_image.data_ptr(), _mask_ptr(mask_mode, text_mask),
-        out.data_ptr(), m, k, lt, li, d, MASK_MODES[mask_mode],
+        max_sim.data_ptr(), out.data_ptr(), m, k, lt, li, d, MASK_MODES[mask_mode],
         _DTYPE_CODES[token_text.dtype], stream)
     kernels.check(err, "colxlip_maxsim_fwd")
     LAUNCHES.add()
@@ -215,14 +215,18 @@ def _launch_bwd(token_text, token_image, g, mask_mode, text_mask):
                          f"(D <= {MAX_FEATURES})")
     g = g.float().contiguous()
     kernels = load_kernels()
-    coef = torch.empty((m, k, lt), dtype=torch.float32, device=dev)
-    ties = torch.empty((m, k, lt, MAX_IMAGE_TOKENS // 32), dtype=torch.int32, device=dev)
+    # scratch between the passes: the route pass's max, tie words and single
+    # tied token; the coefficients
+    max_sim, coef = (torch.empty((m, k, lt), dtype=torch.float32, device=dev) for _ in range(2))
+    ties = torch.empty((m, k, lt, -(-li // 32)), dtype=torch.int32, device=dev)
+    route_q = torch.empty((m, k, lt), dtype=torch.int32, device=dev)
     dt = torch.empty_like(token_text)
     di = torch.empty_like(token_image)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels.colxlip_maxsim_bwd(
         token_text.data_ptr(), token_image.data_ptr(), _mask_ptr(mask_mode, text_mask),
-        g.data_ptr(), coef.data_ptr(), ties.data_ptr(), dt.data_ptr(), di.data_ptr(),
+        g.data_ptr(), max_sim.data_ptr(), coef.data_ptr(), ties.data_ptr(),
+        route_q.data_ptr(), dt.data_ptr(), di.data_ptr(),
         m, k, lt, li, d, MASK_MODES[mask_mode], _DTYPE_CODES[token_text.dtype], stream)
     kernels.check(err, "colxlip_maxsim_bwd")
     BWD_LAUNCHES.add()
@@ -234,10 +238,6 @@ def _check_cuda(token_text, token_image, mask_mode, text_mask) -> None:
     if token_text.dtype != token_image.dtype or token_text.dtype not in _DTYPE_CODES:
         raise ValueError(f"maxsim: dtypes {token_text.dtype}/{token_image.dtype}"
                          " not supported (both float32 or both bfloat16)")
-    lt, li = token_text.shape[1], token_image.shape[1]
-    if lt > MAX_TEXT_TOKENS or li > MAX_IMAGE_TOKENS:
-        raise ValueError(f"maxsim: Lt={lt} / Li={li} outside the kernel's range "
-                         f"(Lt <= {MAX_TEXT_TOKENS}, Li <= {MAX_IMAGE_TOKENS})")
     if not (token_text.is_contiguous() and token_image.is_contiguous()):
         raise ValueError("maxsim: text and image tokens must be contiguous")
     if mask_mode == "valid" and (text_mask.device != dev
@@ -304,7 +304,7 @@ def maxsim(token_text: torch.Tensor, token_image: torch.Tensor, *,
     ``impl``: a name of ``MAXSIM_IMPLS``. 'streaming_int8' takes the int8
     forward with the default backward (straight-through); every other name
     the default forward. CPU tensors take the plain versions; CUDA tensors
-    launch the kernels (Lt <= 80, Li <= 256, float32 or bfloat16, contiguous;
+    launch the kernels (any Lt and Li, float32 or bfloat16, contiguous;
     D <= 4096 for the backward) or raise."""
     if impl not in MAXSIM_IMPLS:
         raise ValueError(f"unknown impl: {impl!r} (one of {MAXSIM_IMPLS})")

@@ -50,6 +50,15 @@ ATTN_SHAPES = [
 ]
 # float32 holds a head's K and V in shared memory: 1024 keys do not fit
 FP32_TOO_LONG = 1024
+MAXSIM_SHAPES = [
+    # (m, k, lt, li, d)
+    (6, 130, 77, 196, 512),     # training widths, K not a multiple of anything
+    (3, 5, 80, 256, 40),        # one full 256-column group, D not a multiple of 32
+    (4, 7, 32, 16, 128),        # the tiny config's token shapes
+    (3, 4, 100, 257, 64),       # two column groups, one live column in the second
+    (2, 3, 100, 577, 64),       # ViT-L/14 at 336 px with its CLS token: three groups
+    (2, 3, 12, 20, 20),         # rows of 40 bytes: bf16 staged without cp.async
+]
 
 
 @pytest.fixture
@@ -165,11 +174,7 @@ def test_mma_tile_layouts_match_matmul(dev, rows):
 
 
 @pytest.mark.parametrize("mask_mode", ["nonzero", "plain", "valid"])
-@pytest.mark.parametrize("m,k,lt,li,d", [
-    (6, 130, 77, 196, 512),     # serving widths, K not a multiple of anything
-    (3, 5, 80, 256, 40),        # largest Lt/Li, D not a multiple of 32
-    (4, 7, 32, 16, 128),        # the tiny config's token shapes
-])
+@pytest.mark.parametrize("m,k,lt,li,d", MAXSIM_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_maxsim_kernel_matches_plain(dev, mask_mode, m, k, lt, li, d, dtype):
     rng = np.random.default_rng(0)
@@ -188,16 +193,31 @@ def test_maxsim_kernel_matches_plain(dev, mask_mode, m, k, lt, li, d, dtype):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_maxsim_kernel_refuses_what_it_does_not_take(dev):
+@pytest.mark.parametrize("case", ["device", "mask_dtype", "dtype_pair", "float16",
+                                  "contiguous"])
+def test_maxsim_kernel_refuses_what_it_does_not_take(dev, case):
+    """What the kernels do not take raises, forward and backward; no token
+    count is refused any more (Lt = 81 runs)."""
     t = torch.zeros(2, 81, 16, device=dev)
     i = torch.zeros(3, 9, 16, device=dev)
-    with pytest.raises(ValueError, match="Lt=81"):
-        maxsim.maxsim(t, i)
-    with pytest.raises(ValueError, match="both must be on one CUDA device"):
-        maxsim.maxsim(t[:, :8], i.cpu())
-    with pytest.raises(ValueError, match="text_mask must be"):
-        maxsim.maxsim(t[:, :8].contiguous(), i, mask_mode="valid",
-                      text_mask=torch.ones(2, 8, device=dev, dtype=torch.float64))
+    g = torch.zeros(2, 3, device=dev)
+    assert maxsim.maxsim(t, i).shape == (2, 3)
+    mask, mode = None, "nonzero"
+    if case == "device":
+        i, match = i.cpu(), "both must be on one CUDA device"
+    elif case == "mask_dtype":
+        mask, mode = torch.ones(2, 81, device=dev, dtype=torch.float64), "valid"
+        match = "text_mask must be"
+    elif case == "dtype_pair":
+        i, match = i.bfloat16(), "dtypes"
+    elif case == "float16":
+        t, i, match = t.half(), i.half(), "dtypes"
+    else:
+        t, match = torch.zeros(81, 2, 16, device=dev).transpose(0, 1), "contiguous"
+    with pytest.raises(ValueError, match=match):
+        maxsim.maxsim(t, i, mask_mode=mode, text_mask=mask)
+    with pytest.raises(ValueError, match=match):
+        maxsim._backward(t, i, g, mode, mask)
 
 
 def test_tiny_model_kernels_match_plain_path(dev, monkeypatch):
@@ -277,11 +297,7 @@ def _maxsim_inputs(m, k, lt, li, d, dev, dtype, seed=0):
 
 
 @pytest.mark.parametrize("mask_mode", ["nonzero", "plain", "valid"])
-@pytest.mark.parametrize("m,k,lt,li,d", [
-    (6, 130, 77, 196, 512),     # training widths, K not a multiple of anything
-    (3, 5, 80, 256, 40),        # largest Lt/Li, D not a multiple of 32
-    (4, 7, 32, 16, 128),        # the tiny config's token shapes
-])
+@pytest.mark.parametrize("m,k,lt,li,d", MAXSIM_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_maxsim_bwd_kernel_matches_plain(dev, mask_mode, m, k, lt, li, d, dtype):
     t, i, tmask, g = _maxsim_inputs(m, k, lt, li, d, dev, dtype)
@@ -310,6 +326,50 @@ def test_maxsim_bwd_kernel_routes_every_tie(dev):
     assert di[1, 7].abs().max() > 1e-3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxsim_bwd_kernel_settles_near_ties(dev, dtype):
+    """Image token 9 differs from tokens 3 and 7 (equal) in one feature of
+    about 0.02 by two percent: for the text tokens equal to token 3 it comes
+    within the route pass's margin under the max (8e-6 below it), and the
+    settle pass must leave it out, as the plain version does, and keep both
+    exact ties."""
+    t, i, _, g = _maxsim_inputs(4, 3, 12, 20, 64, dev, torch.float32, seed=1)
+    i[:, 7] = i[:, 3]
+    i[:, 9] = i[:, 3]
+    j = (i[1, 9].abs() - 0.02).abs().argmin()
+    i[:, 9, j] *= 0.98
+    t[1, :4] = i[1, 3]
+    t, i = t.to(dtype), i.to(dtype)
+    dt, di = maxsim._launch_bwd(t, i, g, "nonzero", None)
+    want = maxsim.maxsim_bwd_plain(t, i, g)
+    for a, w in ((dt, want[0]), (di, want[1])):
+        torch.testing.assert_close(a.float(), w.float(), rtol=0, atol=_bf16_tol(w.float(), dtype))
+    assert torch.equal(di[1, 3], di[1, 7]) and di[1, 3].abs().max() > 1e-3
+    torch.testing.assert_close(di[1, 9].float(), want[1][1, 9].float(), rtol=0,
+                               atol=_bf16_tol(want[1].float(), dtype))
+
+
+def test_maxsim_bwd_kernel_one_token_collects_every_tie(dev):
+    """Every text token near one direction and image token 5 of every image
+    on it, as one token collects the max at random init: dI's owning warp
+    adds every text row into one token; against the plain version, and two
+    runs bit for bit."""
+    t, i, _, g = _maxsim_inputs(6, 9, 77, 196, 256, dev, torch.float32, seed=2)
+    u = torch.nn.functional.normalize(torch.randn(256, device=dev), dim=0)
+    t = torch.nn.functional.normalize(u + 0.5 * t, dim=-1).contiguous()
+    i[:, 5] = u
+    for dtype in (torch.float32, torch.bfloat16):
+        tt, ii = t.to(dtype), i.to(dtype)
+        got = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
+        again = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
+        want = maxsim.maxsim_bwd_plain(tt, ii, g)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                       atol=_bf16_tol(w.float(), dtype))
+        assert got[1][:, 5].abs().amax() > 10 * got[1][:, 6:].abs().amax()
+
+
 def test_maxsim_autograd_launches_both_kernels(dev):
     t, i, _, g = _maxsim_inputs(5, 9, 77, 196, 64, dev, torch.bfloat16)
     t.requires_grad_(), i.requires_grad_()
@@ -317,11 +377,43 @@ def test_maxsim_autograd_launches_both_kernels(dev):
     s = maxsim.maxsim(t, i)
     got = torch.autograd.grad(s, (t, i), g)
     assert (maxsim.LAUNCHES.value, maxsim.BWD_LAUNCHES.value) == (before[0] + 1, before[1] + 1)
-    # a second launch: dI's float atomics may sum in another order
+    # a second launch: no atomics anywhere, so the same bits
     want = maxsim._launch_bwd(t.detach(), i.detach(), g, "nonzero", None)
     for a, w in zip(got, want):
+        assert torch.equal(a, w)
+
+
+def test_maxsim_bwd_kernel_is_deterministic(dev):
+    """dI adds in one fixed order (no float atomics): two runs of the
+    backward at the training widths give the same bits, dT and dI."""
+    t, i, _, g = _maxsim_inputs(6, 130, 77, 196, 512, dev, torch.bfloat16)
+    first = maxsim._launch_bwd(t, i, g, "nonzero", None)
+    second = maxsim._launch_bwd(t, i, g, "nonzero", None)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("li", [20, 196])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxsim_kernels_on_rows_whose_similarities_are_all_negative(dev, li, dtype):
+    """Image tokens with positive entries only, text tokens with negative
+    ones: every similarity is negative, so a zero-filled padding column that
+    took part in the max would give 0. Both kernels against the plain ones."""
+    rng = np.random.default_rng(5)
+    t = -_l2(np.abs(rng.standard_normal((3, 12, 64)))).astype(np.float32)
+    i = _l2(np.abs(rng.standard_normal((4, li, 64)))).astype(np.float32)
+    g = rng.standard_normal((3, 4)).astype(np.float32)
+    t, i = torch.from_numpy(t).to(dev, dtype), torch.from_numpy(i).to(dev, dtype)
+    g = torch.from_numpy(g).to(dev)
+    with torch.inference_mode():
+        got = maxsim.maxsim(t, i)
+        want = maxsim.maxsim_plain(t, i)
+    assert (want < 0).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    got_b = maxsim._launch_bwd(t, i, g, "nonzero", None)
+    want_b = maxsim.maxsim_bwd_plain(t, i, g)
+    for a, w in zip(got_b, want_b):
         torch.testing.assert_close(a.float(), w.float(), rtol=0,
-                                   atol=_bf16_tol(w.float(), torch.bfloat16))
+                                   atol=_bf16_tol(w.float(), dtype))
 
 
 def test_maxsim_bwd_refuses_what_it_does_not_take(dev):
