@@ -9,10 +9,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      power limit (nvidia-smi).
   2. build: compiles colxlip_tpu_torch/csrc/*.cu with nvcc for sm_90a (one
      nvcc per source, all at once); meanwhile a second nvcc -Xptxas -v of the
-     attention sources reads each kernel's registers and spills (printed in
-     phase 5).
+     attention, MaxSim and MLP sources reads each kernel's registers and
+     spills (printed in phase 5).
   3. kernels: first a bare 64 x 64 x 64 product through the tensor-core tile
-     code (csrc/mma_tile.cuh) against torch.matmul; then each forward kernel
+     code (csrc/mma_tile.cuh) against torch.matmul, A . B^T, its rounded
+     result times B, and A^T . B from k-major tiles; then each forward kernel
      against its plain PyTorch version at the serving shapes, and each
      backward kernel against its plain version at the training shapes (batch
      256) in fp32 and bf16, with the tolerances below; the attention kernels
@@ -30,9 +31,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      bounded, and two runs of the backward must agree bit for bit. The
      LayerNorm and MLP kernels (forward and backward each) in fp32 and bf16
      at the training shapes (batch 256, vision and text), the token-head
-     LayerNorm shape and one ragged shape each; two runs of each backward
-     must agree bit for bit, and at the vision shape neither direction of
-     the MLP may hold as much as one [B, N, H] tensor above its inputs.
+     LayerNorm shape and one ragged shape each, and the MLP in bf16 at
+     ViT-L/14's width (D 1024, H 4096, 16 x 257 rows); two runs of each
+     backward must agree bit for bit, and at the vision shape neither
+     direction of the MLP may hold as much as one [B, N, H] tensor above its
+     inputs.
      The stochastic-rounding int8 quantizer (3e) at every Dense shape of the
      model, one ragged shape and one with an all-zero column and a column
      whose extremes sit at +-absmax, fp32 and bf16, seeds 0 and 1: values and
@@ -51,7 +54,8 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      backward, at the vision shape and at ViT-L/14's; for the streaming CE the pair torch.matmul + F.cross_entropy
      over the dense logits is timed beside it; F.layer_norm forward and
      backward beside the LayerNorm kernels; the three calls F.linear,
-     F.gelu, F.linear and their autograd backward beside the MLP kernels);
+     F.gelu, F.linear and their autograd backward beside the MLP kernels, at
+     every MLP case, each with its bound);
      encode throughput at batch 64, request latency; the attention bounds
      at the text shape as well. The library calls are
      timed only: on the paths timed here the port never calls them.
@@ -91,7 +95,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      the path exact), the batch-64 step through the kernels against the same
      step through the plain versions in fp32 and bf16, and the step's ms,
      img/s and peak device memory beside phase 6's: the peak must fall by
-     the hidden tensors the default path keeps for autograd.
+     the hidden tensors the default path keeps for autograd, and the step
+     may take at most FUSED_STEP_RATIO_MAX times phase 6's; then the device
+     time of one more step by kernel and the device's idle share
+     (torch.profiler).
   9. the int8 slice, full width and depth, seed 0: (a) every Dense weight of
      both towers through the quantizer kernel (99 launches) and through
      round-to-nearest (quantize_vision_params / quantize_text_params);
@@ -204,11 +211,15 @@ LN_CASES = [
     ("ragged", (197 * 3,), 512),
 ]
 MLP_CASES = [
-    # name, B, N, D, H, the GELU branches checked
-    ("vision", 256, 197, 768, 3072, (False,)),
-    ("text", 256, 77, 512, 2048, (False,)),
-    ("ragged", 3, 77, 512, 2048, (False, True)),
+    # name, B, N, D, H, the GELU branches checked, dtypes (float32 takes D <= 768)
+    ("vision", 256, 197, 768, 3072, (False,), ("float32", "bfloat16")),
+    ("text", 256, 77, 512, 2048, (False,), ("float32", "bfloat16")),
+    ("ragged", 3, 77, 512, 2048, (False, True), ("float32", "bfloat16")),
+    ("vit-l", 16, 257, 1024, 4096, (False,), ("bfloat16",)),
 ]
+# the fused-towers step (phase 8) against the default step (phase 6): at most
+# this many times its time (the bf16 MLP kernels on the tensor cores)
+FUSED_STEP_RATIO_MAX = 2.0
 FUSED_STEPS = 4
 # launches of one colclip train step of ViT-B-16-colxlip through the kernels:
 # LayerNorm: vision ln_pre + 12 x (ln_1, ln_2) + ln_post + 2 in its token
@@ -427,6 +438,27 @@ def maxsim_bound(text, image, backward: bool):
                     str(text.dtype).split(".")[-1])
 
 
+def mlp_bounds(x, w1):
+    """bound_ms of the two MLP kernels on x [B, N, D], w1 [H, D]: 4 R D H
+    flops forward (two products) over 2 R D + 2 D H elements, 10 R D H
+    backward (five products) over 3 R D + 6 D H."""
+    (h, d), r = w1.shape, x.numel() // x.shape[-1]
+    size, dtype = x.element_size(), str(x.dtype).split(".")[-1]
+    return {"fused_mlp_fwd": bound_ms((2 * r * d + 2 * d * h) * size, 4 * r * d * h, dtype),
+            "fused_mlp_bwd": bound_ms((3 * r * d + 6 * d * h) * size, 10 * r * d * h, dtype)}
+
+
+def ce_bounds(a, b):
+    """bound_ms of the three CE kernels on a [M, D], b [N, D]: 2 M N D flops
+    forward, 4 M N D in dA and in dB; the features read once, the per-row
+    values (and dA or dB) written once."""
+    (m, d), n = a.shape, b.shape[0]
+    feats, dtype = (m + n) * d * a.element_size(), str(a.dtype).split(".")[-1]
+    return {"fused_ce_fwd": bound_ms(feats + 3 * m * 4, 2 * m * n * d, dtype),
+            "fused_ce_bwd_da": bound_ms(feats + 4 * m * 4 + m * d * 4, 4 * m * n * d, dtype),
+            "fused_ce_bwd_db": bound_ms(feats + 3 * m * 4 + n * d * 4, 4 * m * n * d, dtype)}
+
+
 def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce, ln_x, mlp_x, mlp_w1):
     """bound_ms of every kernel at the shape its ``ms`` is timed at, from the
     tensors themselves: attention (packed QKV [B, N, 3 H D]; 4 B H N^2 D
@@ -446,19 +478,11 @@ def kernel_bounds(qkv_fwd, qkv_bwd, heads, maxsim_fwd, maxsim_bwd, ce, ln_x, mlp
     out = attention_bounds(qkv_fwd, qkv_bwd)
     out["maxsim_fwd"] = maxsim_bound(*maxsim_fwd, False)
     out["maxsim_bwd"] = maxsim_bound(*maxsim_bwd, True)
-    a, b = ce
-    (m, d), n = a.shape, b.shape[0]
-    feats = (m + n) * d * a.element_size()
-    out["fused_ce_fwd"] = bound_ms(feats + 3 * m * 4, 2 * m * n * d, name(a))
-    out["fused_ce_bwd_da"] = bound_ms(feats + 4 * m * 4 + m * d * 4, 4 * m * n * d, name(a))
-    out["fused_ce_bwd_db"] = bound_ms(feats + 3 * m * 4 + n * d * 4, 4 * m * n * d, name(a))
+    out.update(ce_bounds(*ce))
     r, d = ln_x.numel() // ln_x.shape[-1], ln_x.shape[-1]
     out["fused_ln_fwd"] = bound_ms(2 * r * d * ln_x.element_size(), 8 * r * d, name(ln_x))
     out["fused_ln_bwd"] = bound_ms(3 * r * d * ln_x.element_size(), 16 * r * d, name(ln_x))
-    (h, d), r = mlp_w1.shape, mlp_x.numel() // mlp_x.shape[-1]
-    size = mlp_x.element_size()
-    out["fused_mlp_fwd"] = bound_ms((2 * r * d + 2 * d * h) * size, 4 * r * d * h, name(mlp_x))
-    out["fused_mlp_bwd"] = bound_ms((3 * r * d + 6 * d * h) * size, 10 * r * d * h, name(mlp_x))
+    out.update(mlp_bounds(mlp_x, mlp_w1))
     return out
 
 
@@ -573,10 +597,12 @@ def time_ce_kernels(inputs, card: str):
 
         dense_ms = (cuda_ms(dense_fwd, iters, warm),
                     cuda_ms(lambda: torch.autograd.grad(dense(), (a_, b_, s_)), iters, warm))
+        bounds = ce_bounds(a, b)
         for key, (ker, plain) in row.items():
             timing[f"fused_ce_{key}/{m}"] = (ker, plain)
+            bound, by = bounds[f"fused_ce_{key}"]
             log(f"[5 timing] fused_ce_{key} M=N={m} D={a.shape[1]} bf16: kernel {ker:.4f} ms, "
-                f"plain {plain:.4f} ms ({card})")
+                f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}) ({card})")
         log(f"[5 timing] dense pair M=N={m} (fp32 torch.matmul + F.cross_entropy, holds "
             f"[M, N]): forward {dense_ms[0]:.4f} ms, forward + backward {dense_ms[1]:.4f} ms; "
             f"the three kernels together {sum(k for k, _ in row.values()):.4f} ms ({card})")
@@ -643,9 +669,9 @@ def check_fused_kernels(dev, gen):
                 inputs[f"ln/{case}"] = (x, scale, bias, dy)
             del y, got, again, want_y, want
 
-    for case, b, n, d, h, branches in MLP_CASES:
-        for dtype in (torch.float32, torch.bfloat16):
-            name = str(dtype).split(".")[-1]
+    for case, b, n, d, h, branches, dtypes in MLP_CASES:
+        for name in dtypes:
+            dtype = getattr(torch, name)
             x, w1, b1, w2, b2, dy = mlp_inputs(b, n, d, h, dtype, dev, gen)
             for approximate in branches:
                 out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
@@ -714,7 +740,7 @@ def time_fused_kernels(inputs, card: str):
             cuda_ms(lambda: fused_ln._launch_bwd(x, scale, dy, 1e-5), 20),
             cuda_ms(lambda: fused_ln.layernorm_bwd_plain(x, scale, dy, 1e-5), 20), lib_bwd)
         del x_, w_, b_, y_
-    for case in ("vision", "text"):
+    for case, *_ in MLP_CASES:
         x, w1, b1, w2, b2, dy = inputs[f"mlp/{case}"]
         w2_out_in = w2.t().contiguous()          # [D, H], the layout F.linear takes
         leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2_out_in, b2)]
@@ -726,18 +752,25 @@ def time_fused_kernels(inputs, card: str):
             lib_fwd = cuda_ms(lambda: three_calls(x, w1, b1, w2_out_in, b2), 5, 2)
         lib_both = cuda_ms(lambda: torch.autograd.grad(three_calls(*leaves), leaves, dy), 5, 2)
         timing[f"fused_mlp_fwd/{case}"] = (
-            cuda_ms(lambda: fused_mlp._launch_fwd(x, w1, b1, w2, b2, False), 3, 1),
+            cuda_ms(lambda: fused_mlp._launch_fwd(x, w1, b1, w2, b2, False), 10, 2),
             cuda_ms(lambda: fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False), 3, 1), lib_fwd)
         timing[f"fused_mlp_bwd/{case}"] = (
-            cuda_ms(lambda: fused_mlp._launch_bwd(x, w1, b1, w2, dy, False), 3, 1),
+            cuda_ms(lambda: fused_mlp._launch_bwd(x, w1, b1, w2, dy, False), 10, 2),
             cuda_ms(lambda: fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False), 3, 1),
             lib_both - lib_fwd)
+        bounds = mlp_bounds(x, w1)
+        for key in ("fused_mlp_fwd", "fused_mlp_bwd"):
+            ker = timing[f"{key}/{case}"][0]
+            log(f"[5 timing] {key}/{case} B={x.shape[0]} N={x.shape[1]} D={x.shape[2]} "
+                f"H={w1.shape[0]} bf16: kernel {ker:.4f} ms against its bound "
+                f"{bounds[key][0]:.5f} ms ({bounds[key][1]}) = {bounds[key][0] / ker:.1%} of "
+                f"it ({card})")
         del leaves
     for key, (ker, plain, lib) in timing.items():
         what = ("F.layer_norm" if key.startswith("fused_ln") else
                 "F.linear, F.gelu, F.linear" + (" (autograd backward: forward + backward less "
                                                 "forward)" if "bwd" in key else ""))
-        log(f"[5 timing] {key} bf16 batch {TRAIN_BATCH}: kernel {ker:.4f} ms, plain "
+        log(f"[5 timing] {key} bf16: kernel {ker:.4f} ms, plain "
             f"{plain:.4f} ms, {what} {lib:.4f} ms ({card})")
     torch.cuda.empty_cache()
     return timing
@@ -965,7 +998,7 @@ def compare_step(dev, dtype, ref_state, step_cfg, images, texts, tag: str = "[6 
                            "the plain versions")
 
 
-def profile_step(step, images, texts, card: str) -> None:
+def profile_step(step, images, texts, card: str, tag: str = "[6 train]") -> None:
     """Device time of one step by kernel, and the device's idle share of it
     (torch.profiler; the step's wall time includes the profiler's cost)."""
     import torch
@@ -979,10 +1012,10 @@ def profile_step(step, images, texts, card: str) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[6 train] profiled step: {device_ms:.1f} ms of kernels in {wall_ms:.1f} ms "
+    log(f"{tag} profiled step: {device_ms:.1f} ms of kernels in {wall_ms:.1f} ms "
         f"(device idle {max(0.0, 1 - device_ms / wall_ms):.1%}) ({card})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"[6 train]   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  "
+        log(f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms  {e.count:4d} x  "
             f"{e.key[:90]}")
 
 
@@ -1191,7 +1224,7 @@ def fused_phase(dev, card: str, train):
             torch.cuda.synchronize()
             launches = {name: c.value for name, c in new.items()}
             want_launches = {"fused_ln_fwd": ENCODE_LN_LAUNCHES[kind], "fused_ln_bwd": 0,
-                             "fused_mlp_fwd": 12, "fused_mlp_bwd": 0}
+                             "fused_mlp_fwd": TOWER_LAYERS, "fused_mlp_bwd": 0}
             want = getattr(default_model, encode)(batch, normalize=True)
             err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
             # text tokens at and after EOT are zero rows on both paths: they
@@ -1275,6 +1308,13 @@ def fused_phase(dev, card: str, train):
     if not peak <= limit:
         raise RuntimeError(f"peak {peak} GiB with the fused MLP is above {limit} GiB: a "
                            "[B, N, H] tensor was held")
+    ratio = step_ms / train["step_ms"]
+    log(f"[8 fused] the fused-towers step is {ratio:.3f} x the default step (at most "
+        f"{FUSED_STEP_RATIO_MAX})")
+    if not ratio <= FUSED_STEP_RATIO_MAX:
+        raise RuntimeError(f"the fused-towers step {step_ms:.2f} ms is {ratio:.3f} x the default "
+                           f"step {train['step_ms']:.2f} ms (at most {FUSED_STEP_RATIO_MAX})")
+    profile_step(step, images, texts, card, tag="[8 fused]")
     del step, model
     torch.cuda.empty_cache()
 
@@ -1883,7 +1923,8 @@ def main() -> int:
     usage = {}
     usage_thread = threading.Thread(
         target=lambda: usage.update(build.resource_usage(
-            ["fused_attention", "fused_attention_bwd", "maxsim", "maxsim_bwd"])), daemon=True)
+            ["fused_attention", "fused_attention_bwd", "maxsim", "maxsim_bwd", "fused_mlp"])),
+        daemon=True)
     usage_thread.start()
     kernels = build.load_kernels()
     log(f"[2 build] {kernels.build_seconds:.1f} s nvcc {' '.join(build.NVCC_FLAGS)}"
@@ -1893,18 +1934,21 @@ def main() -> int:
     gen = torch.Generator(device="cpu").manual_seed(0)
     for rows in (64, 5):
         a, b = (torch.randn(64, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
-        got_abt, got_pb = attention.mma_tile_check(a, b, rows)
+        got_abt, got_pb, got_tn = attention.mma_tile_check(a, b, rows)
         torch.cuda.synchronize()
         a32, b32 = a.float(), b.float()
         a32[rows:], b32[rows:] = 0, 0
         want_abt = a32 @ b32.T
         want_pb = want_abt.bfloat16().float() @ b32
         errs = ((got_abt - want_abt).abs().max().item(),
-                ((got_pb - want_pb).abs().max() / want_pb.abs().max()).item())
+                ((got_pb - want_pb).abs().max() / want_pb.abs().max()).item(),
+                (got_tn - a32.T @ b32).abs().max().item())
         log(f"[3 kernels] mma tile 64 x 64 x 64 ({rows} live rows) vs torch.matmul: A.B^T "
             f"max_abs_err {errs[0]:.3g} (tol {MMA_TILE_TOL[0]}); bf16(A.B^T).B max_abs_err / "
-            f"max|.| {errs[1]:.3g} (tol {MMA_TILE_TOL[1]})")
-        if not (errs[0] <= MMA_TILE_TOL[0] and errs[1] <= MMA_TILE_TOL[1]):
+            f"max|.| {errs[1]:.3g} (tol {MMA_TILE_TOL[1]}); A^T.B (k-major tiles) max_abs_err "
+            f"{errs[2]:.3g} (tol {MMA_TILE_TOL[0]})")
+        if not (errs[0] <= MMA_TILE_TOL[0] and errs[1] <= MMA_TILE_TOL[1]
+                and errs[2] <= MMA_TILE_TOL[0]):
             raise RuntimeError(f"the tensor-core tile code disagrees with torch.matmul: {errs}")
     attn_cases = [
         # name, B, N, H, D, causal, dtype
@@ -2081,6 +2125,8 @@ def main() -> int:
             + f" ({card})")
         timing.update(time_ce_kernels(ce_inputs_by_m, card))
         timing.update(time_fused_kernels(fused_inputs, card))
+        mlp_case_bounds = {case: mlp_bounds(*fused_inputs[f"mlp/{case}"][:2])
+                           for case, *_ in MLP_CASES}
         quant_timing, quant_bounds = time_quantizer(quant_inputs, card)
         timing.update(quant_timing)
         qkv, h, causal = attn_inputs["vision"]
@@ -2249,9 +2295,17 @@ def main() -> int:
                                       "index_img_per_s", "search_ms", "search_err")},
         "mlp_three_calls_ms": {"fwd": timing["fused_mlp_fwd/vision"][2],
                                "bwd": timing["fused_mlp_bwd/vision"][2]},
+        "mlp_cases": {case: {
+            f"{key}_{what}": value
+            for key in ("fwd", "bwd")
+            for what, value in zip(("ms", "plain_ms", "three_calls_ms", "bound_ms"),
+                                   (*timing[f"fused_mlp_{key}/{case}"],
+                                    mlp_case_bounds[case][f"fused_mlp_{key}"][0]))}
+            for case, *_ in MLP_CASES},
         "fused_train_step": {"batch": TRAIN_BATCH, "steps": FUSED_STEPS, "ms": fused["step_ms"],
                              "img_per_s": TRAIN_BATCH / fused["step_ms"] * 1e3,
-                             "peak_gib": fused["peak_gib"]},
+                             "peak_gib": fused["peak_gib"],
+                             "over_default": fused["step_ms"] / train["step_ms"]},
         "train_step": {"batch": TRAIN_BATCH, "ms": train["step_ms"],
                        "img_per_s": TRAIN_BATCH / train["step_ms"] * 1e3,
                        "peak_gib": train["peak_gib"]},

@@ -1,6 +1,6 @@
-// Transformer MLP c_fc -> GELU -> c_proj in one kernel, with a recompute
-// backward, for Hopper (sm_90a): no [rows, H] tensor ever reaches device
-// memory, forward or backward.
+// Transformer MLP c_fc -> GELU -> c_proj with a recompute backward, for
+// Hopper (sm_90a): no [rows, H] tensor reaches device memory, forward or
+// backward. In bf16 only an L2-sized [R_c, H] chunk of it does.
 //
 // Replaces: colxlip_tpu/ops/fused_mlp.py `_fwd_call` (:244, body
 // `_fwd_kernel` :182) and `_bwd_call` (:278, body `_bwd_kernel` :198). Same
@@ -20,13 +20,55 @@
 //
 // Layout: both weights arrive hidden-major, W1 as [H, D] (the c_fc.weight
 // of the port's Linear as it is) and W2 as [H, D] (c_proj.weight
-// transposed, which is the TPU kernel's own W2 layout), so that every
-// product reads contiguous rows; dW1 and dW2 leave in the same layout.
+// transposed, which is the TPU kernel's own W2 layout); dW1 and dW2 leave in
+// the same layout.
 //
-// Where the TPU design cannot be carried over: it keeps W1 and W2 resident
-// in VMEM and walks batch rows on a sequential grid, summing dW across grid
-// steps. An SM has 227 KB of shared memory, so the weights are streamed, and
-// a CUDA grid has no order, so nothing is summed across blocks in place:
+// What bounds it on the H100: operations. The forward is two products, 4 R D
+// H flops; the backward five, 10 R D H (h recomputed once, da, dW2, dW1,
+// dx), over (2 R D + 2 D H) and (3 R D + 6 D H) elements: at the vision shape
+// (R = 50,432, D = 768, H = 3072, bf16) 0.48 ms forward and 1.20 ms backward
+// at 989 TFLOP/s.
+//
+// bf16: the tensor cores. The TPU design keeps W1, W2 and a [rows, H] block
+// in VMEM and chains the two products in one kernel. On Hopper the [rows, D]
+// output of such a chain would sit in registers (192 fp32 a thread at 64
+// rows and D = 768), so the products run one at a time instead, each as one
+// hand-written mma.sync GEMM tile (mlp_gemm.cuh) with its epilogue, over the
+// rows in chunks of R_c (chosen by the wrapper so that the chunk's hidden
+// tiles stay in the 50 MB L2: 2048 rows at H = 3072 backward, 12 MiB a tile,
+// and 4096 forward, where one tile is live):
+//
+//   forward, per chunk                     epilogue
+//     x W1^T   kNT  -> ws [R_c, H]         a = T(gelu(T(T(acc) + b1))); settle
+//     a W2     kNN  -> out rows            T(T(acc) + b2); settle
+//   backward: db2 = column sums of dy (colsum + reduce, once); per chunk
+//     x W1^T   kNT  -> ws [R_c, H]         h = T(T(acc) + b1)
+//     dy W2^T  kNT  -> dh [R_c, H]         acc is da, fp32: reads h, writes
+//                                          dh = T(gelu'(h) da), a over h, and
+//                                          each warp's column sums of dh
+//     a^T dy   kTN  -> dW2                 the first chunk stores, later add
+//     dh^T x   kTN  -> dW1                 the same
+//     dh W1    kNN  -> dx rows             T(acc)
+//   then db1 = the warps' column sums added in a fixed order.
+//
+// That is the function's own 4 and 10 R D H: h is computed once a chunk and
+// da once. The weight-gradient products bound K at the chunk's real rows.
+// Every sum is taken in one fixed order (K in steps of 64 inside a tile,
+// chunks in order on one stream, partial sums reduced in index order), with
+// no atomics, so two runs agree bit for bit.
+//
+// Near-ties (the forward). A tile sums K in another order than the plain
+// version's fp32 sgemm, which sums in k order. Where a sum lies near a
+// midpoint between two bf16 values the two round apart, and the bias added
+// after that rounding can make one step two (a sum just above a power of
+// two, the output just below it): at the vision shape on the H100 a
+// tile-only forward put 32,321 outputs more than one step from the plain
+// version's. So x W1^T and a W2 list the elements near a midpoint and
+// settle_kernel sums those again in k order (below). The backward's outputs
+// round once (dx, dh) or not at all (dW, db), and are held to 2^-7 of the
+// largest gradient: it keeps the tile's sums.
+//
+// fp32: the CUDA cores (stream_tile.cuh), D <= 768, as first ported:
 //
 //   forward   a block owns 32 rows of x and walks the hidden dimension in
 //             slices of 64: the slice of h comes from a register tile
@@ -43,17 +85,13 @@
 // The row walk of dW1 / dW2 is cut into `splits` ranges so that H / 32
 // blocks times splits fill the card; each range writes its partial sums to
 // scratch and a second kernel adds them in range order (reduce_partials), as
-// db1 and db2 do: no atomics, so two runs agree bit for bit.
-//
-// What bounds it on the H100: operations. Forward 4 R D H flops; the backward
-// needs 10 R D H (five products: h recomputed once, dW2, da, dW1, dx) and
-// does 16 here (h is recomputed three times and da twice, once in each
-// pass) over (2 R D + 2 D H) and (3 R D + 6 D H) elements: at the
-// vision shape (R = 50,432, D = 768, H = 3072, bf16) 0.48 ms forward at 989
-// TFLOP/s. This first version runs every product as fp32 FMAs on the CUDA
-// cores, so it is some 70 times off that bound; bf16 mma.sync / wgmma tiles
-// are the next step.
+// db1 and db2 do. This path computes 16 R D H (h three times, da twice) as
+// fp32 FMAs: a split-bf16 product on the tensor cores would not keep fp32's
+// sums (maxsim_tile.cuh says why).
 
+#include <algorithm>
+
+#include "mlp_gemm.cuh"
 #include "stream_tile.cuh"
 
 namespace {
@@ -390,31 +428,479 @@ cudaError_t dispatch_bwd(const Args& a, const BwdOut& o) {
   return launch_bwd<T, 24>(a, o);
 }
 
-bool bad_shape(int rows, int d, int h, int dtype) {
-  return rows < 1 || d < 1 || d > kMaxD || h < 1 || (dtype != 0 && dtype != 1);
+// ---------------------------------------------------------------------------
+// bf16: the products on the tensor cores (mlp_gemm.cuh), one epilogue each
+// ---------------------------------------------------------------------------
+
+namespace gemm = colxlip::mlp_gemm;
+using colxlip::mma::bf16;
+
+enum Epilogue {
+  kEpiGelu = 0,    // forward x W1^T: a = T(gelu(T(T(acc) + b1))) -> out
+  kEpiPre = 1,     // backward x W1^T: h = T(T(acc) + b1) -> out
+  kEpiDh = 2,      // dy W2^T (acc = da): h in out -> a in out, dh, db1 sums
+  kEpiBias = 3,    // a W2: T(T(acc) + b2) -> out
+  kEpiRound = 4,   // dh W1: T(acc) -> out
+  kEpiAcc = 5,     // a^T dy, dh^T x: fp32 out = acc (first chunk) or out + acc
+};
+
+__device__ __forceinline__ __nv_bfloat162* bf16_pair(void* base, size_t off) {
+  return reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(base) + off);
+}
+
+// The GELU value and derivative of two elements, (value 0, value 1,
+// derivative 0, derivative 1), called rather than inlined: 32 inlined copies
+// a thread of both branches of both functions overflow the instruction cache
+// (the dy W2^T product took 3.40 ms inlined and 1.91 called at the vision
+// shape on the H100). The forward's value alone stays inlined (1.41 against
+// 1.48 ms called).
+__device__ __noinline__ float4 gelu_grad_pair(float x0, float x1, int approximate) {
+  return make_float4(gelu_value(x0, approximate), gelu_value(x1, approximate),
+                     gelu_grad(x0, approximate), gelu_grad(x1, approximate));
+}
+
+struct EpiArgs {
+  void* out;          // [m, ldo]: bf16, or fp32 for kEpiAcc
+  int ldo;
+  const bf16* bias;   // by column: b1 (kEpiGelu, kEpiPre), b2 (kEpiBias)
+  bf16* dh;           // kEpiDh: [m, ldo]
+  float* db1_part;    // kEpiDh: [2 m / 128][n], one row a warp's 64 rows
+  int first;          // kEpiAcc, kEpiDh: store, where later chunks add
+  int approximate;
+  const bf16* bt;     // kEpiGelu, kEpiBias: B as [n, k] rows (the settle's reads)
+  int* ties;          // kEpiGelu, kEpiBias: the warps' near-tie lists (below)
+  int tie_warps;      // warps of the grid: counts ties[0 ..), lists after them
+};
+
+// The forward's settle. Where an fp32 sum lies near a midpoint between two
+// bf16 values, another summation order may round it to the other one, and the
+// bias added after the rounding can turn that one step into two of the output
+// (the sum just above 4, the output just below).
+// The plain version sums in fp32 in k order (cuBLAS's sgemm, as the first
+// CUDA-core kernels did), so every such element of x W1^T and a W2 is summed
+// again that way: the tile's epilogue writes its value and lists it (up to
+// kTieCap a warp, in a fixed order, no atomics; past that it settles inline),
+// and settle_kernel recomputes the listed elements, one lane each. The
+// window covers the sequential sum's own error and the tile's drift: 128
+// fp32 steps of the value's binade (2^-16 of it) where the tile adds each
+// mma's products by round-to-nearest (a W2, RN), and where the mma
+// accumulates in place and truncates to the sum's last bit, up to a step a
+// k-step of 16, max(128, K / 8) (x W1^T, K = D). About 0.4% of the elements
+// are listed; each re-reads two rows of K and sums them in a chain of K fmas,
+// so the window's width is the settle's cost (1.60 ms of the vision shape's
+// forward on the H100).
+constexpr int kTieCap = 64;   // listed elements a warp
+
+__device__ __forceinline__ unsigned tie_ulps(int k, bool rn) {
+  return rn ? 128 : max(128, k / 8);
+}
+
+__device__ __forceinline__ bool near_tie(float v, unsigned ulps) {
+  const unsigned low = __float_as_uint(v) & 0xFFFFu;   // the bits bf16 rounds away
+  return (low > 0x8000u ? low - 0x8000u : 0x8000u - low) <= ulps;
+}
+
+// Eight products of a sequential sum, in order.
+__device__ __forceinline__ float fma8(float s, const uint4& va, const uint4& vb) {
+  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&va);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&vb);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    s = fmaf(__low2float(pa[j]), __low2float(pb[j]), s);
+    s = fmaf(__high2float(pa[j]), __high2float(pb[j]), s);
+  }
+  return s;
+}
+
+// sum over i < k of a[i] b[i] as an fp32 fma chain in i order (the first
+// product exact, one rounding a step); k a multiple of 8, both rows on 16
+// bytes. The 16 loads of 64 elements are in flight before their 64 fmas, so
+// that a lane waits on the L2 once a group, not once every 8 elements (the
+// settle took 4.24 ms of the vision forward on the H100 loading 8 at a time,
+// 1.60 this way).
+__device__ __forceinline__ float sequential_dot(const bf16* __restrict__ a,
+                                                const bf16* __restrict__ b, int k) {
+  constexpr int kV = 8;   // 16-byte loads a group of 64 elements
+  float s = 0.f;
+  for (int i = 0; i < k; i += 8 * kV) {
+    uint4 va[kV], vb[kV];
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      const bool live = i + 8 * v < k;   // zeros past k add +0 and change no rounding
+      va[v] = live ? *reinterpret_cast<const uint4*>(a + i + 8 * v) : make_uint4(0, 0, 0, 0);
+      vb[v] = live ? *reinterpret_cast<const uint4*>(b + i + 8 * v) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int v = 0; v < kV; ++v) s = fma8(s, va[v], vb[v]);
+  }
+  return s;
+}
+
+// The same sum called, not inlined, by the tile for a warp whose list is
+// full, so that it adds no registers to the GEMM kernel.
+__device__ __noinline__ float sequential_dot_called(const bf16* __restrict__ a,
+                                                    const bf16* __restrict__ b, int k) {
+  return sequential_dot(a, b, k);
+}
+
+// Element (row, col) of kEpiGelu's or kEpiBias's output from its sequential
+// sum v.
+template <int E>
+__device__ __forceinline__ void settle_store(const EpiArgs& e, int row, int col, float v) {
+  const float bias = to_f(e.bias[col]);
+  bf16* dst = static_cast<bf16*>(e.out) + size_t(row) * e.ldo + col;
+  if constexpr (E == kEpiGelu)
+    *dst = from_f<bf16>(gelu_value(pre_activation<bf16>(v, bias), e.approximate));
+  else
+    *dst = from_f<bf16>(round_to<bf16>(v) + bias);
+}
+
+// The lists of one GEMM launch, on the same grid: warp w's lanes settle its
+// listed elements.
+template <int E>
+__global__ void __launch_bounds__(gemm::kThreads)
+settle_kernel(const gemm::Operands p, const EpiArgs e) {
+  const int w = (blockIdx.y * gridDim.x + blockIdx.x) * gemm::kWarps + (threadIdx.x >> 5);
+  const int count = min(e.ties[w], kTieCap);
+  for (int i = threadIdx.x & 31; i < count; i += 32) {
+    const int id = e.ties[e.tie_warps + w * kTieCap + i];
+    const int row = id / p.n, col = id - row * p.n;
+    settle_store<E>(e, row, col,
+                    sequential_dot(p.a + size_t(row) * p.lda, e.bt + size_t(col) * p.k, p.k));
+  }
+}
+
+// One C tile of one product and its epilogue. A thread holds, of each m16 x
+// n8 accumulator tile, rows g and g + 8 at columns 2t and 2t + 1 (as
+// mma_tile.cuh lays it out) and writes them as bf16 or fp32 pairs. Rows at
+// or past m and columns at or past n (n is a multiple of 8) are never
+// written. The epilogues that read device memory (h for kEpiDh, the running
+// dW for kEpiAcc) load one m16 row of tiles at a time, every load before any
+// store: a store may alias a later load as far as the compiler knows, so
+// loads and stores taken in turn would wait out the L2 latency once a pair.
+template <int L, int BN, int E>
+__global__ void __launch_bounds__(gemm::kThreads, 2)
+mlp_gemm_kernel(const gemm::Operands p0, const EpiArgs e0, const gemm::Operands p1,
+                const EpiArgs e1) {
+  using Tl = gemm::Tile<L, BN>;
+  // blockIdx.z picks one of two products of one shape (the two dW share a
+  // launch, so that their tiles fill the card's waves together); field by
+  // field, so that nothing is copied to local memory
+  const bool z = blockIdx.z != 0;
+  const gemm::Operands p{z ? p1.a : p0.a, z ? p1.b : p0.b, z ? p1.lda : p0.lda,
+                         z ? p1.ldb : p0.ldb, z ? p1.m : p0.m, z ? p1.n : p0.n,
+                         z ? p1.k : p0.k};
+  const EpiArgs e{z ? e1.out : e0.out,           z ? e1.ldo : e0.ldo,
+                  z ? e1.bias : e0.bias,         z ? e1.dh : e0.dh,
+                  z ? e1.db1_part : e0.db1_part, z ? e1.first : e0.first,
+                  z ? e1.approximate : e0.approximate, z ? e1.bt : e0.bt,
+                  z ? e1.ties : e0.ties,         z ? e1.tie_warps : e0.tie_warps};
+  constexpr int MI = Tl::kMI, NI = Tl::kNI;
+  constexpr bool kSettle = E == kEpiGelu || E == kEpiBias;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.y * gemm::kBM, n0 = blockIdx.x * BN;
+  float acc[MI][NI][4];
+  gemm::mainloop<L, BN, E == kEpiBias>(acc, reinterpret_cast<bf16*>(smem_raw), p, m0, n0);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / Tl::kWarpsN, wn = warp % Tl::kWarpsN;
+  const int row0 = m0 + wm * Tl::kWM + (lane >> 2);
+  const int col0 = n0 + wn * gemm::kWarpN + 2 * (lane & 3);
+  float bias[NI][2];
+  float sums[NI][2];   // kEpiDh: this thread's column sums of dh
+  uint64_t tie_bits = 0;   // kSettle: element ((mi NI + ni) 2 + half) 2 + j is near a tie
+  const unsigned ulps = tie_ulps(p.k, E == kEpiBias);
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni) {
+    const int col = col0 + 8 * ni;
+    sums[ni][0] = sums[ni][1] = bias[ni][0] = bias[ni][1] = 0.f;
+    if constexpr (E == kEpiGelu || E == kEpiPre || E == kEpiBias) {
+      if (col < p.n) {
+        bias[ni][0] = to_f(e.bias[col]);
+        bias[ni][1] = to_f(e.bias[col + 1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+    // what this row of tiles reads: h (kEpiDh) or the running dW (kEpiAcc)
+    __nv_bfloat162 hv[NI][2];
+    float2 old[NI][2];
+    if constexpr (E == kEpiDh || E == kEpiAcc) {
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row0 + 16 * mi + 8 * half, col = col0 + 8 * ni;
+          if (row >= p.m || col >= p.n) continue;
+          const size_t off = size_t(row) * e.ldo + col;
+          if constexpr (E == kEpiDh)
+            hv[ni][half] = *bf16_pair(e.out, off);
+          else if (!e.first)
+            old[ni][half] = *reinterpret_cast<const float2*>(static_cast<float*>(e.out) + off);
+        }
+    }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + 16 * mi + 8 * half, col = col0 + 8 * ni;
+        if (row >= p.m || col >= p.n) continue;
+        const float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
+        const float bias0 = bias[ni][0], bias1 = bias[ni][1];
+        const size_t off = size_t(row) * e.ldo + col;
+        if constexpr (kSettle) {
+          const int bit = ((mi * NI + ni) * 2 + half) * 2;
+          tie_bits |= uint64_t(near_tie(v0, ulps)) << bit | uint64_t(near_tie(v1, ulps))
+                                                               << (bit + 1);
+        }
+        if constexpr (E == kEpiGelu) {
+          *bf16_pair(e.out, off) = __floats2bfloat162_rn(
+              gelu_value(pre_activation<bf16>(v0, bias0), e.approximate),
+              gelu_value(pre_activation<bf16>(v1, bias1), e.approximate));
+        } else if constexpr (E == kEpiPre) {
+          *bf16_pair(e.out, off) = __floats2bfloat162_rn(pre_activation<bf16>(v0, bias0),
+                                                         pre_activation<bf16>(v1, bias1));
+        } else if constexpr (E == kEpiDh) {
+          const float4 ag = gelu_grad_pair(__low2float(hv[ni][half]),
+                                           __high2float(hv[ni][half]), e.approximate);
+          const float d0 = round_to<bf16>(ag.z * v0), d1 = round_to<bf16>(ag.w * v1);
+          *bf16_pair(e.out, off) = __floats2bfloat162_rn(ag.x, ag.y);
+          *reinterpret_cast<__nv_bfloat162*>(e.dh + off) = __floats2bfloat162_rn(d0, d1);
+          sums[ni][0] += d0;
+          sums[ni][1] += d1;
+        } else if constexpr (E == kEpiBias) {
+          *bf16_pair(e.out, off) =
+              __floats2bfloat162_rn(round_to<bf16>(v0) + bias0, round_to<bf16>(v1) + bias1);
+        } else if constexpr (E == kEpiRound) {
+          *bf16_pair(e.out, off) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          auto* dst = reinterpret_cast<float2*>(static_cast<float*>(e.out) + off);
+          *dst = e.first ? make_float2(v0, v1)
+                         : make_float2(old[ni][half].x + v0, old[ni][half].y + v1);
+        }
+      }
+    }
+  }
+  if constexpr (kSettle) {
+    // the warp's list: lane l's elements after those of lanes 0 .. l - 1, each
+    // lane's in bit order
+    const int mine = __popcll(tie_bits);
+    int upto = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int other = __shfl_up_sync(0xffffffffu, upto, o);
+      if (lane >= o) upto += other;
+    }
+    const int w = (blockIdx.y * gridDim.x + blockIdx.x) * gemm::kWarps + warp;
+    int pos = upto - mine;
+    for (uint64_t bits = tie_bits; bits; bits &= bits - 1, ++pos) {
+      const int t = __ffsll(static_cast<long long>(bits)) - 1;
+      const int row = row0 + 16 * ((t >> 2) / NI) + 8 * ((t >> 1) & 1);
+      const int col = col0 + 8 * ((t >> 2) % NI) + (t & 1);
+      if (pos < kTieCap)
+        e.ties[e.tie_warps + w * kTieCap + pos] = row * p.n + col;
+      else
+        settle_store<E>(e, row, col,
+                        sequential_dot_called(p.a + size_t(row) * p.lda,
+                                              e.bt + size_t(col) * p.k, p.k));
+    }
+    if (lane == 31) e.ties[w] = upto;
+  }
+  if constexpr (E == kEpiDh) {
+    // the warp's kWM rows of each column: the eight lanes of one column
+    // (same lane % 4) add theirs, and lane (lane % 4) stores the sum
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          sums[ni][j] += __shfl_xor_sync(0xffffffffu, sums[ni][j], o);
+    if (lane < 4) {
+      float* part = e.db1_part + size_t(blockIdx.y * Tl::kWarpsM + wm) * p.n;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        const int col = col0 + 8 * ni;
+        if (col >= p.n) continue;
+        auto* dst = reinterpret_cast<float2*>(part + col);
+        const float2 old = e.first ? make_float2(0.f, 0.f) : *dst;
+        *dst = make_float2(old.x + sums[ni][0], old.y + sums[ni][1]);
+      }
+    }
+  }
+}
+
+#define COLXLIP_TRY(call)                          \
+  do {                                             \
+    const cudaError_t err_ = (call);               \
+    if (err_ != cudaSuccess) return err_;          \
+  } while (0)
+
+// One product (`count` 1), or two of the same shape in one grid (`count` 2:
+// p1, e1 are the second).
+template <int L, int BN, int E>
+cudaError_t launch_gemm(const gemm::Operands& p, const EpiArgs& e, cudaStream_t stream,
+                        int count = 1, const gemm::Operands* p1 = nullptr,
+                        const EpiArgs* e1 = nullptr) {
+  using Tl = gemm::Tile<L, BN>;
+  // above 48 KB a block: set once per kernel (a failure is returned on every call)
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(mlp_gemm_kernel<L, BN, E>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tl::kBytes));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((p.n + BN - 1) / BN, (p.m + gemm::kBM - 1) / gemm::kBM, count);
+  EpiArgs es = e;   // the settle's lists follow one count a warp of this grid
+  es.tie_warps = int(grid.x * grid.y) * gemm::kWarps;
+  mlp_gemm_kernel<L, BN, E><<<grid, gemm::kThreads, Tl::kBytes, stream>>>(
+      p, es, count > 1 ? *p1 : p, count > 1 ? *e1 : es);
+  if constexpr (E == kEpiGelu || E == kEpiBias) {
+    COLXLIP_TRY(cudaGetLastError());
+    settle_kernel<E><<<grid, gemm::kThreads, 0, stream>>>(p, es);
+  }
+  return cudaGetLastError();
+}
+
+// Products whose C has D columns (a W2, dh W1, the two dW) take 128 x 64
+// tiles where 128 x 128 ones would not give every multiprocessor two blocks.
+// The choice changes no sum: every element adds K in the same order.
+template <int L, int E>
+cudaError_t launch_d_columns(const gemm::Operands& p, const EpiArgs& e, int sms,
+                             cudaStream_t stream, int count = 1,
+                             const gemm::Operands* p1 = nullptr, const EpiArgs* e1 = nullptr) {
+  const long long wide =
+      (long long)count * ((p.m + gemm::kBM - 1) / gemm::kBM) * ((p.n + 127) / 128);
+  return wide >= 2LL * sms ? launch_gemm<L, 128, E>(p, e, stream, count, p1, e1)
+                           : launch_gemm<L, 64, E>(p, e, stream, count, p1, e1);
+}
+
+int multiprocessors() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return sms;
+}
+
+// ws: [min(rows, chunk), h] bf16 (the forward's chunk holds twice the
+// backward's rows: one tile where the backward has two), then W2^T [d, h]
+// (the settle's rows of a W2, filled by the caller); ties: the near-tie lists
+// of one launch, (1 + kTieCap) ints a warp.
+cudaError_t bf16_fwd(const Args& a, const void* b2, void* out, bf16* ws, int* ties, int chunk) {
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* w1 = static_cast<const bf16*>(a.w1);
+  const bf16* w2t = ws + size_t(std::min(chunk, a.rows)) * a.h;
+  const int sms = multiprocessors();
+  for (int r0 = 0; r0 < a.rows; r0 += chunk) {
+    const int rc = std::min(chunk, a.rows - r0);
+    const gemm::Operands up{x + size_t(r0) * a.d, w1, a.d, a.d, rc, a.h, a.d};
+    const EpiArgs eu{ws,      a.h,           static_cast<const bf16*>(a.b1), nullptr, nullptr,
+                     0,       a.approximate, w1,                             ties};
+    COLXLIP_TRY((launch_gemm<gemm::kNT, 128, kEpiGelu>(up, eu, a.stream)));
+    const gemm::Operands down{ws, static_cast<const bf16*>(a.w2), a.h, a.d, rc, a.d, a.h};
+    const EpiArgs ed{static_cast<bf16*>(out) + size_t(r0) * a.d,
+                     a.d,
+                     static_cast<const bf16*>(b2),
+                     nullptr,
+                     nullptr,
+                     0,
+                     a.approximate,
+                     w2t,
+                     ties};
+    COLXLIP_TRY((launch_d_columns<gemm::kNN, kEpiBias>(down, ed, sms, a.stream)));
+  }
+  return cudaSuccess;
+}
+
+// ws: 2 [min(rows, chunk), h] bf16 (h, then a; dh); o.scratch: chunk / 64 * h
+// (db1 sums, one row a warp) + colsum_blocks * d (db2 partials, as float32's) fp32.
+cudaError_t bf16_bwd(const Args& a, const BwdOut& o, bf16* ws, int chunk) {
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* w1 = static_cast<const bf16*>(a.w1);
+  const bf16* w2 = static_cast<const bf16*>(a.w2);
+  const bf16* dy = static_cast<const bf16*>(o.dy);
+  const int cap = std::min(chunk, a.rows);
+  bf16* hid = ws;                          // h, then a
+  bf16* dh = ws + size_t(cap) * a.h;
+  float* db1_part = o.scratch;
+  float* db2_part = db1_part + size_t(chunk / 64) * a.h;
+  const int sms = multiprocessors();
+
+  // float32's partition of the rows, with a thread for every column (up to
+  // 1024) where float32 loops 256 threads over them: the same sums, and a
+  // thread's loads no longer wait on another column's (0.23 ms at 256 threads
+  // at the vision shape on the H100)
+  const int colsum_threads = std::min(1024, (a.d + 31) / 32 * 32);
+  colsum_kernel<bf16><<<o.colsum_blocks, colsum_threads, 0, a.stream>>>(dy, db2_part, a.rows,
+                                                                       a.d);
+  COLXLIP_TRY(cudaGetLastError());
+  COLXLIP_TRY(reduce_partials(db2_part, o.db2, o.colsum_blocks, a.d, a.stream));
+
+  for (int r0 = 0; r0 < a.rows; r0 += chunk) {
+    const int rc = std::min(chunk, a.rows - r0), first = r0 == 0;
+    const bf16* xc = x + size_t(r0) * a.d;
+    const bf16* dyc = dy + size_t(r0) * a.d;
+    const gemm::Operands up{xc, w1, a.d, a.d, rc, a.h, a.d};
+    const EpiArgs e_pre{hid, a.h, static_cast<const bf16*>(a.b1), nullptr, nullptr, 0,
+                        a.approximate};
+    COLXLIP_TRY((launch_gemm<gemm::kNT, 128, kEpiPre>(up, e_pre, a.stream)));
+    const gemm::Operands da{dyc, w2, a.d, a.d, rc, a.h, a.d};
+    const EpiArgs e_dh{hid, a.h, nullptr, dh, db1_part, first, a.approximate};
+    COLXLIP_TRY((launch_gemm<gemm::kNT, 128, kEpiDh>(da, e_dh, a.stream)));
+    // dW2 += a^T dy and dW1 += dh^T x: K is the chunk's rows
+    const gemm::Operands gw2{hid, dyc, a.h, a.d, a.h, a.d, rc};
+    const EpiArgs e_w2{o.dw2, a.d, nullptr, nullptr, nullptr, first, a.approximate};
+    const gemm::Operands gw1{dh, xc, a.h, a.d, a.h, a.d, rc};
+    const EpiArgs e_w1{o.dw1, a.d, nullptr, nullptr, nullptr, first, a.approximate};
+    COLXLIP_TRY((launch_d_columns<gemm::kTN, kEpiAcc>(gw2, e_w2, sms, a.stream, 2, &gw1, &e_w1)));
+    const gemm::Operands gx{dh, w1, a.h, a.d, rc, a.d, a.h};
+    const EpiArgs e_dx{static_cast<bf16*>(o.dx) + size_t(r0) * a.d, a.d, nullptr, nullptr,
+                       nullptr, 0, a.approximate};
+    COLXLIP_TRY((launch_d_columns<gemm::kNN, kEpiRound>(gx, e_dx, sms, a.stream)));
+  }
+  // the first chunk wrote every warp's row of sums that a later chunk adds to
+  return reduce_partials(db1_part, o.db1, 2 * ((cap + gemm::kBM - 1) / gemm::kBM), a.h,
+                         a.stream);
+}
+
+bool bad_shape(int rows, int d, int h, int dtype, const void* ws, int chunk) {
+  if (rows < 1 || d < 1 || h < 1) return true;
+  if (dtype == 0) return d > kMaxD;
+  return dtype != 1 || d % 8 || h % 8 || ws == nullptr || chunk < gemm::kBM ||
+         chunk % gemm::kBM;
 }
 
 }  // namespace
 
 // x, out [rows, d]; w1, w2 [h, d]; b1 [h]; b2 [d], all of one dtype (0 =
-// float32, 1 = bfloat16). Returns a cudaError_t (0 = launched).
+// float32, 1 = bfloat16). bf16: d and h multiples of 8, x, w1, w2 16-byte
+// aligned, chunk_rows a multiple of 128, workspace [min(rows, chunk_rows) + d,
+// h] bf16 whose last d rows hold W2^T, ties 8 (1 + 64) ceil(min(rows,
+// chunk_rows) / 128) max(ceil(h / 128), ceil(d / 64)) ints; float32: d <= 768,
+// workspace, ties and chunk_rows unused. Returns a cudaError_t (0 = launched).
 extern "C" int colxlip_fused_mlp_fwd(const void* x, const void* w1, const void* b1,
-                                     const void* w2, const void* b2, void* out, int rows, int d,
-                                     int h, int approximate, int dtype, void* stream) {
-  if (bad_shape(rows, d, h, dtype)) return cudaErrorInvalidValue;
+                                     const void* w2, const void* b2, void* out, void* workspace,
+                                     void* ties, int rows, int d, int h, int approximate,
+                                     int chunk_rows, int dtype, void* stream) {
+  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows) || (dtype == 1 && ties == nullptr))
+    return cudaErrorInvalidValue;
   const Args a{x, w1, b1, w2, rows, d, h, approximate, static_cast<cudaStream_t>(stream)};
-  return dtype == 0 ? dispatch_fwd<float>(a, b2, out) : dispatch_fwd<__nv_bfloat16>(a, b2, out);
+  if (dtype == 0) return dispatch_fwd<float>(a, b2, out);
+  return bf16_fwd(a, b2, out, static_cast<bf16*>(workspace), static_cast<int*>(ties),
+                  chunk_rows);
 }
 
 // As the forward, plus dy, dx [rows, d] in the same dtype; out dw1, dw2 [h, d],
-// db1 [h], db2 [d] float32; scratch: splits * h * d + splits * h +
-// colsum_blocks * d float32.
+// db1 [h], db2 [d] float32. float32: scratch splits * h * d + splits * h +
+// colsum_blocks * d float32. bf16: scratch chunk_rows / 64 * h + colsum_blocks
+// * d float32, workspace 2 [min(rows, chunk_rows), h] bf16, splits unused.
 extern "C" int colxlip_fused_mlp_bwd(const void* x, const void* w1, const void* b1,
                                      const void* w2, const void* dy, void* dx, void* dw1,
-                                     void* db1, void* dw2, void* db2, void* scratch, int rows,
-                                     int d, int h, int approximate, int splits,
-                                     int colsum_blocks, int dtype, void* stream) {
-  if (bad_shape(rows, d, h, dtype) || splits < 1 || colsum_blocks < 1)
+                                     void* db1, void* dw2, void* db2, void* scratch,
+                                     void* workspace, int rows, int d, int h, int approximate,
+                                     int splits, int colsum_blocks, int chunk_rows, int dtype,
+                                     void* stream) {
+  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows) || splits < 1 || colsum_blocks < 1)
     return cudaErrorInvalidValue;
   const Args a{x, w1, b1, w2, rows, d, h, approximate, static_cast<cudaStream_t>(stream)};
   const BwdOut o{dy,
@@ -426,5 +912,6 @@ extern "C" int colxlip_fused_mlp_bwd(const void* x, const void* w1, const void* 
                  static_cast<float*>(scratch),
                  splits,
                  colsum_blocks};
-  return dtype == 0 ? dispatch_bwd<float>(a, o) : dispatch_bwd<__nv_bfloat16>(a, o);
+  if (dtype == 0) return dispatch_bwd<float>(a, o);
+  return bf16_bwd(a, o, static_cast<bf16*>(workspace), chunk_rows);
 }

@@ -46,6 +46,16 @@
 //     matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15,
 //     n 8-15) give b0, b1 of two n-tiles: lane address row l % 16, column
 //     8 * (l / 16).
+//   A from a k-major tile (A[m][k] = tile[k][m], m contiguous, .trans): with
+//     .trans register j holds tile rows 2t, 2t+1 of column g of matrix j,
+//     which is A[g][2t, 2t+1] of that matrix. So matrices (k 0-7, m 0-7),
+//     (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15, m 8-15) give a0 .. a3: lane
+//     address row (k) l % 8 + 8 * (l / 16), column (m) 8 * ((l / 8) % 2),
+//     the address pattern of B of mma_abt on the transposed tile.
+//
+// The four loaders below (ldm_a, ldm_a_trans, ldm_b, ldm_b_trans) take any
+// row stride and are what the MLP GEMM tile (mlp_gemm.cuh) uses;
+// mma_tile_check.cu holds each against torch.matmul.
 #pragma once
 
 #include <stdint.h>
@@ -116,6 +126,47 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment loaders with a row stride `rs` (elements; rows 16-byte aligned).
+// A of one 16 x 16 step from a row-major tile: `p` at (m0, k0).
+__device__ __forceinline__ void ldm_a(uint32_t (&a)[4], const bf16* p, int rs, int lane) {
+  ldmatrix_x4(a, p + (lane & 15) * rs + (lane >> 4) * 8);
+}
+
+// A of one 16 x 16 step from a k-major tile (tile[k][m]): `p` at (k0, m0).
+__device__ __forceinline__ void ldm_a_trans(uint32_t (&a)[4], const bf16* p, int rs, int lane) {
+  ldmatrix_x4_trans(a, p + ((lane & 7) + ((lane >> 4) << 3)) * rs + ((lane >> 3) & 1) * 8);
+}
+
+// B of two n-tiles (16 columns) of one k-step from an n-major tile
+// (tile[n][k], k contiguous): `p` at (n0, k0); b[0], b[1] are n-tile 0's
+// b0, b1 and b[2], b[3] n-tile 1's.
+__device__ __forceinline__ void ldm_b(uint32_t (&b)[4], const bf16* p, int rs, int lane) {
+  ldmatrix_x4(b, p + ((lane & 7) + ((lane >> 4) << 3)) * rs + ((lane >> 3) & 1) * 8);
+}
+
+// The same from a k-major tile (tile[k][n], n contiguous): `p` at (k0, n0).
+__device__ __forceinline__ void ldm_b_trans(uint32_t (&b)[4], const bf16* p, int rs, int lane) {
+  ldmatrix_x4_trans(b, p + (lane & 15) * rs + (lane >> 4) * 8);
+}
+
+// c += a . b, with a . b taken by one mma from a zero accumulator and added
+// by fp32 adds that round to nearest. An mma that accumulates into c truncates
+// the products to c's last bit, so over a long K its sums drift from an IEEE
+// fp32 sum's by up to a step of c a k-step; taken from zero, the products
+// lose bits only against each other. On the H100 this cut the MLP outputs
+// that differ from an fp32 sgemm's 3.5 times (a W2 at the vision shape).
+__device__ __forceinline__ void mma_16816_rn(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  float d[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
 }
 
 // Two floats rounded to bf16 (nearest even), `lo` in the low half.

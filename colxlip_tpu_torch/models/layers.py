@@ -28,6 +28,7 @@ Not ported: cross-attention and the attentional pooler.
 """
 from __future__ import annotations
 
+import logging
 import os
 from typing import Callable, Optional
 
@@ -40,6 +41,8 @@ from ..ops import attention as attention_ops
 from ..ops.fused_ln import fused_layernorm, resolve_ln_impl
 from ..ops.fused_mlp import fused_mlp, resolve_mlp_impl
 from ..ops.quantization import int8_st_linear
+
+logger = logging.getLogger(__name__)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -111,9 +114,12 @@ class GELU(nn.Module):
 class MLP(nn.Module):
     """c_fc -> act -> c_proj, both matmuls in the compute dtype. ``impl``:
     'fused' sends a 3-D input through the one kernel of ``ops/fused_mlp.py``
-    when ``act`` is ``gelu`` or ``gelu_tanh`` (``quick_gelu`` and 2-D inputs
-    keep the two ``Linear``s), 'xla' never, 'auto' ``COLXLIP_MLP_IMPL`` as
-    it is when the module is built. The kernel's exact GELU is the
+    when ``act`` is ``gelu`` or ``gelu_tanh``, 'xla' never, 'auto'
+    ``COLXLIP_MLP_IMPL`` as it is when the module is built. Under 'fused',
+    ``quick_gelu`` (every OpenAI / laion400m checkpoint) and 2-D inputs keep
+    the two ``Linear``s, as the JAX module does; a module built so logs one
+    warning naming its activation, so that such a run is not timed as the
+    kernel's by accident. The kernel's exact GELU is the
     Abramowitz-Stegun erf polynomial, 1.5e-7 from ``gelu``'s erf.
     ``COLXLIP_MLP_INT8=fwd`` in the environment when the module is built
     beats ``impl``: both matmuls run int8 x int8 -> int32 with a
@@ -126,7 +132,12 @@ class MLP(nn.Module):
         self.act = act
         self.dtype = dtype
         self.approximate = {gelu: False, gelu_tanh: True}.get(act)
-        self.fused = resolve_mlp_impl(impl) == "fused" and self.approximate is not None
+        wants_kernel = resolve_mlp_impl(impl) == "fused"
+        self.fused = wants_kernel and self.approximate is not None
+        if wants_kernel and not self.fused:
+            logger.warning("MLP(%d, %d): activation %s has no fused kernel (gelu, gelu_tanh); "
+                           "this module keeps the two Linears under COLXLIP_MLP_IMPL=fused",
+                           dim, hidden, getattr(act, "__name__", act))
         self.int8_fwd = os.environ.get("COLXLIP_MLP_INT8", "") == "fwd"
         self.c_fc = Linear(dim, hidden, dtype=dtype)
         self.c_proj = Linear(hidden, dim, dtype=dtype)

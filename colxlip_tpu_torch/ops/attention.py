@@ -241,8 +241,9 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int,
 def mma_tile_check(a: torch.Tensor, b: torch.Tensor, rows: int = 64):
     """The building blocks of csrc/mma_tile.cuh on one bare tile: from
     bfloat16 ``a`` and ``b`` [64, 64] on the card returns (a . b^T,
-    bf16(a . b^T) . b) in float32, with the rows at and past ``rows`` of
-    both read as zeros. For tests of the fragment layouts; no path calls it."""
+    bf16(a . b^T) . b, a^T . b) in float32, with the rows at and past
+    ``rows`` of both read as zeros. For tests of the fragment layouts; no
+    path calls it."""
     for t in (a, b):
         if t.shape != (64, 64) or t.dtype != torch.bfloat16 or not t.is_cuda \
                 or not t.is_contiguous() or t.data_ptr() % 16:
@@ -250,9 +251,9 @@ def mma_tile_check(a: torch.Tensor, b: torch.Tensor, rows: int = 64):
                              "CUDA tensors")
     kernels = load_kernels()
     c_abt = torch.empty((64, 64), dtype=torch.float32, device=a.device)
-    c_pb = torch.empty_like(c_abt)
+    c_pb, c_tn = torch.empty_like(c_abt), torch.empty_like(c_abt)
     err = kernels.colxlip_mma_tile_check(
-        a.data_ptr(), b.data_ptr(), c_abt.data_ptr(), c_pb.data_ptr(), rows,
+        a.data_ptr(), b.data_ptr(), c_abt.data_ptr(), c_pb.data_ptr(), c_tn.data_ptr(), rows,
         torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check(err, "colxlip_mma_tile_check")
-    return c_abt, c_pb
+    return c_abt, c_pb, c_tn

@@ -22,11 +22,19 @@ transpose, with the cast to the compute dtype, outside the
 ``autograd.Function``, so the gradients pass back through both. ``dw1`` and
 ``dw2`` come back in the same layout.
 
-Two kernels (``csrc/fused_mlp.cu``: forward; backward = dx, dW1 + db1, dW2
-and db2 passes, counted as one launch), each beside a plain PyTorch version
-that walks the rows in chunks, so it too runs at batch 256 (its hidden chunk
-is [chunk, H]). CPU tensors take the plain versions; CUDA tensors launch the
-kernels or raise. There is no fallback.
+Two C entry points (``csrc/fused_mlp.cu``: forward; backward, counted as one
+launch each however many CUDA launches sit behind them), each beside a plain
+PyTorch version that walks the rows in chunks, so it too runs at batch 256
+(its hidden chunk is [chunk, H]). bfloat16 runs every product on the tensor
+cores through one hand-written ``mma.sync`` GEMM tile (``csrc/mlp_gemm.cuh``)
+over the rows in chunks of ``chunk_rows(H)``, whose [chunk, H] hidden tiles
+(one forward, two backward) stay in the card's L2: with W2^T and the
+forward's near-tie lists that workspace is the design's whole memory cost
+(30.0 MiB forward, 25.0 backward at the vision shape). The forward sums the
+elements that lie near a bf16 rounding midpoint again in k order, as the
+plain version's fp32 sgemm does (``csrc/fused_mlp.cu``, "Near-ties").
+float32 keeps the first port's CUDA-core kernels (D <= 768). CPU tensors take the plain versions; CUDA
+tensors launch the kernels or raise. There is no fallback.
 
 ``COLXLIP_MLP_IMPL`` (``fused`` or ``xla``, default ``xla``) chooses the path
 in ``models.layers.MLP`` through ``resolve_mlp_impl``.
@@ -43,11 +51,17 @@ from .fused_ln import resolve_impl
 # kernel launches (plain-version calls do not count), one count per kernel
 FWD_LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
-MAX_FEATURES = 768               # a block holds 32 rows x D fp32 in registers
+MAX_FEATURES = 768               # float32: a block holds 32 rows x D fp32 in registers
 PLAIN_CHUNK = 4096
 _ROWS_PER_TILE = 64              # csrc/stream_tile.cuh kStream
-_MAX_SPLITS = 8                  # row ranges of the dW passes
+_MAX_SPLITS = 8                  # float32: row ranges of the dW passes
 _COLSUM_BLOCKS = 264             # partial rows of db2: two blocks a multiprocessor
+GEMM_ROWS = 128                  # csrc/mlp_gemm.cuh kBM: rows of a C tile
+DB1_ROWS = 64                    # rows a warp sums into one row of db1 partials
+TIE_CAP = 64                     # csrc/fused_mlp.cu kTieCap: near-ties listed a warp
+# bfloat16: a call's [chunk, H] bf16 tiles (two backward, one forward) fit in this much of the
+# H100's 50 MB L2, beside the weights and their fp32 gradients
+L2_WORKSPACE_BYTES = 24 * 2**20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _SQRT1_2 = 0.7071067811865476
@@ -151,18 +165,61 @@ def fused_mlp_bwd_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2:
     return dx.reshape(x.shape), dw1, db1, dw2, db2
 
 
-def _check_cuda(name: str, x, w1, b1, w2, b2=None) -> Tuple[int, int, int]:
+def chunk_rows(h: int, backward: bool = True) -> int:
+    """Rows of one bfloat16 chunk: a multiple of 128 such that its [chunk, H]
+    bf16 tiles, two backward (h then a, and dh) and one forward, fit in
+    L2_WORKSPACE_BYTES (backward 2048 at H = 3072, 3072 at 2048, 1536 at
+    4096; forward twice as many). More rows a chunk, more tiles a launch: the
+    forward's products fill the card's waves better at 4096 than at 2048."""
+    tiles = 2 if backward else 1
+    return max(GEMM_ROWS, L2_WORKSPACE_BYTES // (tiles * 2 * h) // GEMM_ROWS * GEMM_ROWS)
+
+
+def _bf16_workspace(rows: int, d: int, h: int, backward: bool) -> Tuple[int, int]:
+    """(bf16, fp32) elements a bfloat16 call allocates beside its outputs: the
+    [min(rows, chunk), H] hidden tiles (one forward, two backward) and,
+    backward, the partial sums of db1 (one row a warp's 64 rows of a chunk)
+    and db2."""
+    chunk = chunk_rows(h, backward)
+    if not backward:
+        return (min(rows, chunk) + d) * h, 0          # the chunk's a, then W2^T
+    return (2 * min(rows, chunk) * h,
+            chunk // DB1_ROWS * h + min(rows, _COLSUM_BLOCKS) * d)
+
+
+def _tie_ints(rows: int, d: int, h: int) -> int:
+    """int32 elements of the forward's near-tie lists: a count and TIE_CAP
+    entries for each warp of the larger of its two GEMM grids (x W1^T in
+    128-column tiles, a W2 in at least 64-column ones)."""
+    row_tiles = -(-min(rows, chunk_rows(h, backward=False)) // GEMM_ROWS)
+    return 8 * (1 + TIE_CAP) * row_tiles * max(-(-h // 128), -(-d // 64))
+
+
+def workspace_bytes(rows: int, d: int, h: int, backward: bool) -> int:
+    """Device memory a bfloat16 call allocates beside its outputs."""
+    tiles, sums = _bf16_workspace(rows, d, h, backward)
+    return 2 * tiles + 4 * (sums if backward else _tie_ints(rows, d, h))
+
+
+def _check_cuda(name: str, x, w1, b1, w2, b2=None, dy=None) -> Tuple[int, int, int]:
     rows, d, h = _check_args(x, w1, b1, w2, b2)
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
-    if d > MAX_FEATURES:
-        raise ValueError(f"{name}: D={d} outside the kernels' range (D <= {MAX_FEATURES})")
-    for label, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+    if x.dtype == torch.float32 and d > MAX_FEATURES:
+        raise ValueError(f"{name}: D={d} outside the float32 kernels' range "
+                         f"(D <= {MAX_FEATURES}; bfloat16 takes any D that is a multiple of 8)")
+    if x.dtype == torch.bfloat16 and (d % 8 or h % 8):
+        raise ValueError(f"{name}: bfloat16 needs D and H multiples of 8 (16-byte rows for "
+                         f"the tensor-core tiles); got D={d}, H={h}")
+    for label, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2), ("dy", dy)):
         if t is None:
             continue
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous on {x.device}; got "
                              f"{t.device}, contiguous={t.is_contiguous()}")
+        # the tiles' operands go by 16-byte cp.async (the biases are read by element)
+        if x.dtype == torch.bfloat16 and label in ("x", "w1", "w2", "dy") and t.data_ptr() % 16:
+            raise ValueError(f"{name}: bfloat16 {label} must start on 16 bytes (cp.async)")
     return rows, d, h
 
 
@@ -171,18 +228,26 @@ def _launch_fwd(x, w1, b1, w2, b2, approximate: bool) -> torch.Tensor:
     rows, d, h = _check_cuda("fused_mlp", x, w1, b1, w2, b2)
     kernels = load_kernels()
     out = torch.empty_like(x)
+    chunk = chunk_rows(h, backward=False)
+    ws = ties = None
+    if x.dtype == torch.bfloat16:
+        ws = torch.empty(_bf16_workspace(rows, d, h, False)[0], dtype=x.dtype, device=x.device)
+        ws[min(rows, chunk) * h:].view(d, h).copy_(w2.t())   # the settle reads W2^T rows
+        ties = torch.empty(_tie_ints(rows, d, h), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = kernels.colxlip_fused_mlp_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), rows, d, h, int(approximate), _DTYPE_CODES[x.dtype], stream)
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if ties is None else ties.data_ptr(), rows, d, h, int(approximate), chunk,
+        _DTYPE_CODES[x.dtype], stream)
     kernels.check(err, "colxlip_fused_mlp_fwd")
     FWD_LAUNCHES.add()
     return out
 
 
 def bwd_splits(rows: int) -> int:
-    """Row ranges of the dW passes: 8, or one a 64-row tile where there are
-    fewer tiles. A fixed count: (H / 32) x 8 blocks, one a multiprocessor,
+    """float32: row ranges of the dW passes: 8, or one a 64-row tile where
+    there are fewer tiles. A fixed count: (H / 32) x 8 blocks, one a multiprocessor,
     are several waves of the card at either tower's width; fitting the count
     to the card is left to the work on speed."""
     return max(1, min(_MAX_SPLITS, -(-rows // _ROWS_PER_TILE)))
@@ -191,11 +256,11 @@ def bwd_splits(rows: int) -> int:
 def _launch_bwd(x, w1, b1, w2, dy, approximate: bool):
     """The backward kernels on CUDA tensors: (dx, dw1, db1, dw2, db2), the
     last four fp32."""
-    rows, d, h = _check_cuda("fused_mlp backward", x, w1, b1, w2)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"fused_mlp backward: dy must be {x.dtype} {tuple(x.shape)} on "
                          f"{x.device}; got {dy.dtype} {tuple(dy.shape)} on {dy.device}")
     dy = dy.contiguous()
+    rows, d, h = _check_cuda("fused_mlp backward", x, w1, b1, w2, dy=dy)
     kernels = load_kernels()
     dev = x.device
     dx = torch.empty_like(x)
@@ -203,15 +268,22 @@ def _launch_bwd(x, w1, b1, w2, dy, approximate: bool):
     dw2 = torch.empty_like(dw1)
     db1 = torch.empty(h, dtype=torch.float32, device=dev)
     db2 = torch.empty(d, dtype=torch.float32, device=dev)
-    splits, colsum_blocks = bwd_splits(rows), min(rows, _COLSUM_BLOCKS)
-    scratch = torch.empty(splits * h * d + splits * h + colsum_blocks * d,
-                          dtype=torch.float32, device=dev)
+    splits, chunk = bwd_splits(rows), chunk_rows(h)
+    colsum_blocks = min(rows, _COLSUM_BLOCKS)
+    ws = None
+    if x.dtype == torch.bfloat16:
+        tiles, sums = _bf16_workspace(rows, d, h, True)
+        ws = torch.empty(tiles, dtype=x.dtype, device=dev)
+        scratch = torch.empty(sums, dtype=torch.float32, device=dev)
+    else:
+        scratch = torch.empty(splits * h * d + splits * h + colsum_blocks * d,
+                              dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels.colxlip_fused_mlp_bwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
         dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-        scratch.data_ptr(), rows, d, h, int(approximate), splits, colsum_blocks,
-        _DTYPE_CODES[x.dtype], stream)
+        scratch.data_ptr(), None if ws is None else ws.data_ptr(), rows, d, h,
+        int(approximate), splits, colsum_blocks, chunk, _DTYPE_CODES[x.dtype], stream)
     kernels.check(err, "colxlip_fused_mlp_bwd")
     BWD_LAUNCHES.add()
     return dx, dw1, db1, dw2, db2
@@ -260,7 +332,8 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     differentiable in all five.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (float32 or bfloat16, contiguous, D <= 768) or raise."""
+    (contiguous; bfloat16 with D and H multiples of 8, float32 with
+    D <= 768) or raise."""
     _check_args(x, w1, b1, w2, b2)
     x = x.contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):

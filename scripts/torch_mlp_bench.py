@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Check and time the port's fused MLP kernels in bf16 on one NVIDIA GPU.
+
+    python3 scripts/torch_mlp_bench.py [--iters 20] [--cases vision,text,vit-l]
+
+For each case (the vision tower's MLP at the flagship batch 256, 50,432 x 768
+x 3072; the text tower's, 19,712 x 512 x 2048; ViT-L/14's at batch 16, 4,112
+x 1024 x 4096; a ragged 231 x 512 x 2048 in both GELU branches) it holds the
+forward and the backward kernel against their plain versions (chip_smoke.py's
+tolerances: 2^-7 of max(1, largest |out|) forward, 2^-7 of the largest
+|grad| backward; beside them the share of out and dx elements whose bits
+differ from the plain version's), checks that two backward runs give the
+same bits, and
+times with CUDA events in turns (kernel, plain, library, library, plain,
+kernel): the kernels, their plain versions, and the library path of three
+calls (F.linear, F.gelu, F.linear; the backward as their autograd backward,
+forward + backward less forward). Beside them: the bound (the larger of the
+bytes over 3.35 TB/s and the operations over 989 TFLOP/s, as chip_smoke.py
+computes it), and the device time of each product (torch.profiler: the GEMM
+tile kernel by layout and epilogue, and the column sums). Inputs are at a
+tower's scales at init (unit rows, lecun-normal weights). Prints one line a
+case, the card's name and power limit, and one JSON object.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from colxlip_tpu_torch.ops import fused_mlp  # noqa: E402
+
+CASES = [
+    # name, B, N, D, H, GELU branches
+    ("vision", 256, 197, 768, 3072, (False,)),
+    ("text", 256, 77, 512, 2048, (False,)),
+    ("vit-l", 16, 257, 1024, 4096, (False,)),
+    ("ragged", 3, 77, 512, 2048, (False, True)),
+]
+FWD_TOL = BWD_TOL = 2.0 ** -7
+PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 989e12
+# mlp_gemm_kernel<layout, BN, epilogue>: what each epilogue's product is
+PRODUCTS = {0: "x W1^T + gelu", 1: "x W1^T (h)", 2: "dy W2^T (dh)", 3: "a W2 + b2",
+            4: "dh W1 (dx)", 5: "a^T dy + dh^T x (dW)"}
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def product_ms(fn, calls: int = 3) -> dict:
+    """Device ms a call of each product (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        found = re.search(r"mlp_gemm_kernel<(\d+), (\d+), (\d+)>", e.key)
+        name = (f"{PRODUCTS[int(found.group(3))]} [{found.group(2)} cols]" if found
+                else "colsum" if "colsum" in e.key else "reduce" if "reduce" in e.key
+                else e.key[:40])
+        out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
+
+
+def inputs(b, n, d, h, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+
+    def t(shape, std):
+        return (torch.randn(shape, generator=gen) * std).to(dev, torch.bfloat16)
+
+    return (t((b, n, d), 1.0), t((h, d), d ** -0.5), t((h,), 0.1), t((h, d), h ** -0.5),
+            t((d,), 0.1), t((b, n, d), 1.0))
+
+
+def bound_ms(r, d, h, backward: bool) -> float:
+    elements = 3 * r * d + 6 * d * h if backward else 2 * r * d + 2 * d * h
+    flops = (10 if backward else 4) * r * d * h
+    return max(elements * 2 / PEAK_BYTES_PER_S, flops / PEAK_FLOPS) * 1e3
+
+
+def rel_err(got, want, floor=1e-30):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(floor)).item()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--cases", default=",".join(c[0] for c in CASES))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_mlp_bench: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    wanted = args.cases.split(",")
+    results, ok = {}, True
+    for name, b, n, d, h, branches in CASES:
+        if name not in wanted:
+            continue
+        x, w1, b1, w2, b2, dy = inputs(b, n, d, h, dev)
+        errs, same = [], True
+        for approximate in branches:
+            out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
+            got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
+            again = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
+            want_out = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate)
+            want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, approximate)
+            errs.append((rel_err(out, want_out, 1.0),
+                         max(rel_err(g, w) for g, w in zip(got, want)),
+                         (out != want_out).float().mean().item(),
+                         (got[0] != want[0]).float().mean().item()))
+            same &= all(torch.equal(p, q) for p, q in zip(got, again))
+            del out, got, again, want_out, want
+        fwd_err, bwd_err, out_off, dx_off = (max(e[i] for e in errs) for i in range(4))
+
+        w2_out_in = w2.t().contiguous()
+        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2_out_in, b2)]
+
+        def three_calls(x, w1, b1, w2, b2):
+            return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+
+        def lib_fwd():
+            with torch.no_grad():
+                three_calls(x, w1, b1, w2_out_in, b2)
+
+        fns = {
+            "fwd": (lambda: fused_mlp._launch_fwd(x, w1, b1, w2, b2, False),
+                    lambda: fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False), lib_fwd),
+            "bwd": (lambda: fused_mlp._launch_bwd(x, w1, b1, w2, dy, False),
+                    lambda: fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False),
+                    lambda: torch.autograd.grad(three_calls(*leaves), leaves, dy)),
+        }
+        ms = {}
+        for key, (ker, plain, lib) in fns.items():
+            order = [("kernel", ker, args.iters), ("plain", plain, 3), ("library", lib, args.iters)]
+            reads = {}
+            for label, fn, iters in order + order[::-1]:
+                reads.setdefault(label, []).append(cuda_ms(fn, iters))
+            ms[key] = {label: min(v) for label, v in reads.items()}
+            ms[key]["reads"] = reads
+        lib_fwd_ms = ms["fwd"]["library"]
+        ms["bwd"]["library"] -= lib_fwd_ms          # forward + backward less forward
+        rows = b * n
+        for key in ("fwd", "bwd"):
+            ms[key]["bound"] = bound_ms(rows, d, h, key == "bwd")
+        products = {"fwd": product_ms(fns["fwd"][0]), "bwd": product_ms(fns["bwd"][0])}
+        good = fwd_err <= FWD_TOL and bwd_err <= BWD_TOL and same
+        ok &= good
+        results[name] = {"rows": rows, "d": d, "h": h,
+                         "chunk_rows": {"fwd": fused_mlp.chunk_rows(h, False),
+                                        "bwd": fused_mlp.chunk_rows(h)},
+                         "workspace_bytes": {k: fused_mlp.workspace_bytes(rows, d, h, k == "bwd")
+                                             for k in ("fwd", "bwd")},
+                         "fwd_err": fwd_err, "bwd_err": bwd_err, "bit_equal": same,
+                         "out_not_equal_to_plain": out_off, "dx_not_equal_to_plain": dx_off,
+                         "ms": ms, "products_ms": products}
+        print(f"{name} {rows} x {d} x {h} bf16: forward err {fwd_err:.3g}, backward {bwd_err:.3g} "
+              f"of max|grad|, reruns {'bit-equal' if same else 'DIFFER'}, out / dx elements "
+              f"not bit-equal to plain {out_off:.3g} / {dx_off:.3g}; "
+              + "; ".join(f"{k} kernel {v['kernel']:.4f} ms (plain {v['plain']:.4f}, three calls "
+                          f"{v['library']:.4f}, bound {v['bound']:.5f}, "
+                          f"{v['bound'] / v['kernel']:.1%} of it)" for k, v in ms.items())
+              + "; products " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         {**products["fwd"], **products["bwd"]}.items())
+              + ("" if good else "  FAILED"), flush=True)
+        del x, w1, b1, w2, b2, dy, leaves, w2_out_in
+        torch.cuda.empty_cache()
+    print(card)
+    print(json.dumps({"card": card, "ok": ok, "cases": results}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -153,21 +153,24 @@ def test_attention_fp32_kernel_runs_at_its_limit(dev, d, backward):
 @pytest.mark.parametrize("rows", [64, 5, 1])
 def test_mma_tile_layouts_match_matmul(dev, rows):
     """A bare 64 x 64 x 64 product through csrc/mma_tile.cuh (cp.async with
-    zero fill, ldmatrix, mma.sync, the accumulator reused as an A operand)
-    against torch.matmul: products of bf16 values summed in fp32, so the
-    first product differs by summation order only (1e-4 of values up to 30)
+    zero fill, ldmatrix, mma.sync, the accumulator reused as an A operand,
+    and the transposed product A^T B of the MLP's weight gradients) against
+    torch.matmul: products of bf16 values summed in fp32, so the first and
+    third products differ by summation order only (1e-4 of values up to 30)
     and the second by bf16 roundings of the first that land one step apart
     (2^-8 relative, summed over 64 terms)."""
     rng = np.random.default_rng(rows)
     a = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).to(dev)
     b = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).to(dev)
     a, b = a.bfloat16(), b.bfloat16()
-    got_abt, got_pb = attention.mma_tile_check(a, b, rows)
+    got_abt, got_pb, got_tn = attention.mma_tile_check(a, b, rows)
     torch.cuda.synchronize()
     a32, b32 = a.float(), b.float()
     a32[rows:], b32[rows:] = 0, 0
     want_abt = a32 @ b32.T
     torch.testing.assert_close(got_abt, want_abt, rtol=0, atol=1e-4)
+    # the tiles read k-major (ldmatrix.trans for A as well as B): A^T B
+    torch.testing.assert_close(got_tn, a32.T @ b32, rtol=0, atol=1e-4)
     want_pb = want_abt.bfloat16().float() @ b32
     torch.testing.assert_close(got_pb, want_pb, rtol=0,
                                atol=2.0 ** -6 * want_pb.abs().max().item())
@@ -673,8 +676,10 @@ MLP_SHAPES = [
     (2, 197, 768, 3072),    # vision tower
     (3, 77, 512, 2048),     # text tower, a row count that no tile divides
     (2, 17, 128, 512),      # the tiny config
-    (1, 70, 40, 100),       # D and H that no tile divides
+    (1, 70, 40, 100),       # D and H that no tile divides (float32 only: bf16 needs 8 | H)
+    (1, 70, 40, 104),       # D and H that no tile divides, multiples of 8 as bf16 needs
     (1, 300, 64, 96),       # several row ranges in the dW passes
+    (16, 257, 1024, 4096),  # ViT-L/14: bf16 only (float32 refuses D > 768)
 ]
 
 
@@ -694,6 +699,14 @@ def _mlp_inputs(b, n, d, h, dev, dtype, seed=0):
 @pytest.mark.parametrize("b,n,d,h", MLP_SHAPES)
 def test_mlp_kernels_match_plain(dev, b, n, d, h, dtype, approximate):
     x, w1, b1, w2, b2, dy = _mlp_inputs(b, n, d, h, dev, dtype)
+    if dtype == torch.float32 and d > fused_mlp.MAX_FEATURES:
+        with pytest.raises(ValueError, match=f"D={d}"):
+            fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
+        return
+    if dtype == torch.bfloat16 and (d % 8 or h % 8):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
+        return
     before = (fused_mlp.FWD_LAUNCHES.value, fused_mlp.BWD_LAUNCHES.value)
     out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
     got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
@@ -732,6 +745,19 @@ def test_mlp_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="D=800"):
         fused_mlp.fused_mlp(torch.zeros(1, 8, 800, device=dev), torch.zeros(64, 800, device=dev),
                             b1, torch.zeros(64, 800, device=dev), torch.zeros(800, device=dev))
+    # bfloat16 takes D = 800 (the tensor-core tiles have no D limit) ...
+    wide = fused_mlp.fused_mlp(*_mlp_inputs(1, 8, 800, 64, dev, torch.bfloat16)[:5])
+    assert wide.shape == (1, 8, 800) and torch.isfinite(wide.float()).all()
+    # ... but needs 16-byte rows: D and H multiples of 8, operands on 16 bytes
+    for d, h in ((36, 64), (32, 100)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fused_mlp.fused_mlp(*_mlp_inputs(1, 8, d, h, dev, torch.bfloat16)[:5])
+    xb, w1b, b1b, w2b, b2b, dyb = _mlp_inputs(1, 8, 32, 64, dev, torch.bfloat16)
+    shifted = torch.zeros(1 + xb.numel(), dtype=torch.bfloat16, device=dev)[1:].view(xb.shape)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fused_mlp.fused_mlp(shifted, w1b, b1b, w2b, b2b)
+    with pytest.raises(ValueError, match="16 bytes"):
+        fused_mlp._launch_bwd(xb, w1b, b1b, w2b, shifted, False)
     with pytest.raises(ValueError, match="share the compute dtype"):
         fused_mlp.fused_mlp(x, w1.bfloat16(), b1, w2, b2)
     with pytest.raises(ValueError, match="not supported"):

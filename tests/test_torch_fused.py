@@ -311,6 +311,28 @@ def test_mlp_module_dispatch(monkeypatch):
         layers.MLP(32, 4.0, layers.quick_gelu, dtype=torch.float32)
 
 
+def test_mlp_quick_gelu_under_fused_logs_its_activation(monkeypatch, caplog):
+    """Under COLXLIP_MLP_IMPL=fused a quick_gelu MLP keeps the two Linears, as
+    the JAX module does, and says so once when it is built, naming the
+    activation; a gelu MLP logs nothing and takes the kernel."""
+    calls = _count_calls(monkeypatch, layers, "fused_mlp")
+    monkeypatch.setenv("COLXLIP_MLP_IMPL", "fused")
+    x = torch.randn(2, 5, 32, generator=torch.Generator().manual_seed(2))
+    with caplog.at_level("WARNING", logger=layers.__name__):
+        quick = layers.MLP(32, 4.0, layers.quick_gelu, dtype=torch.float32)
+    lines = [r.getMessage() for r in caplog.records if r.name == layers.__name__]
+    assert len(lines) == 1 and "quick_gelu" in lines[0] and "two Linears" in lines[0]
+    caplog.clear()
+    with caplog.at_level("WARNING", logger=layers.__name__):
+        exact = layers.MLP(32, 4.0, layers.gelu, dtype=torch.float32)
+        tanh = layers.MLP(32, 4.0, layers.gelu_tanh, dtype=torch.float32)
+        quick(x)
+    assert not [r for r in caplog.records if r.name == layers.__name__]
+    assert not quick.fused and not calls
+    exact(x), tanh(x)
+    assert exact.fused and tanh.fused and calls == ["fused_mlp", "fused_mlp"]
+
+
 def test_mlp_module_gradients_reach_the_fp32_parameters(monkeypatch):
     """bf16 compute: the casts and the transpose sit outside the kernel's
     Function, so fp32 parameters get fp32 gradients in their own layout,

@@ -1,0 +1,482 @@
+"""The tile algorithm of the bf16 MLP kernels, emulated on the CPU.
+
+In bfloat16 ``csrc/fused_mlp.cu`` runs the MLP's products one at a time
+through the GEMM tile of ``csrc/mlp_gemm.cuh`` (``mma.sync`` on
+``ldmatrix`` fragments, K in steps of 64 through a ring of ``cp.async``
+stages) over the rows in chunks of ``ops.fused_mlp.chunk_rows(H)``: forward
+x W1^T (epilogue: h rounded twice, a = bf16(gelu(h))) then a W2 (+ b2);
+backward x W1^T (h), dy W2^T (da stays fp32: dh = bf16(gelu'(h) da), a over
+h, each warp's column sums of dh), a^T dy and dh^T x (the TN layout: A read
+k-major through ``ldmatrix.trans``; the first chunk stores dW, later chunks
+add), dh W1 (dx). A CUDA kernel cannot run here, so this file writes the
+same algorithm in plain PyTorch: operands staged with zero fill past their
+bounds (the weight-gradient products bound K at the chunk's real rows, and
+the emulated workspace rows past them hold NaN, as uninitialised device
+memory may), K summed in steps of 64 in order, every epilogue's roundings,
+dW and the db1 partial rows added chunk by chunk, db1 reduced in partial
+order. It also reads the fragment loaders' lane addresses out of
+``csrc/mma_tile.cuh`` and checks, through an emulated ``ldmatrix``, that
+each gives the m16n8k16 fragment of the block it names (the k-major A of
+the TN products included). The emulation is used by nothing in the package.
+
+It holds the algorithm against the unchanged plain versions
+``fused_mlp_plain`` / ``fused_mlp_bwd_plain`` under ``chip_smoke.py``'s bf16
+tolerances (2^-7: forward of max(1, largest |out|), backward of the largest
+|grad|), and against the JAX package's Pallas kernels in interpret mode
+under ``tests/test_torch_fused.py``'s bf16 bars (2e-2).
+"""
+from __future__ import annotations
+
+import importlib.util
+import pathlib
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from colxlip_tpu.ops import fused_mlp as jax_mlp
+from colxlip_tpu_torch.ops import fused_mlp
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+CSRC = REPO / "colxlip_tpu_torch" / "csrc"
+BM = 128          # kBM: rows of a C tile
+BK = 64           # kBK: k a stage
+STAGES = 3        # kStages
+WARPS = 8         # kWarps
+WARP_N = 32       # kWarpN: columns a warp owns
+PAD = 8           # kPad: elements of padding a staged row
+TIE_CAP = 64      # csrc/fused_mlp.cu kTieCap: near-ties listed a warp
+FWD_TOL = 2.0 ** -7
+BWD_TOL = 2.0 ** -7
+JAX_TOL = 2e-2
+SHAPES = [
+    # rows, D, H, chunk rows
+    (300, 64, 256, 128),       # three chunks, the last 44 rows
+    (231, 128, 512, 128),      # the smoke test's ragged 3 x 77 rows: 128 + 103
+    (200, 256, 1024, 256),     # one chunk, ragged inside its second row tile
+    (130, 1024, 4096, 128),    # ViT-L's width: a chunk of 2 rows at the end
+]
+
+
+def _inputs(rows, d, h, seed=0):
+    """x, w1 [H, D], b1, w2 [H, D], b2, dy in bf16 at a tower's scales at init."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape, std):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)
+                                ).bfloat16()
+
+    return (t((rows, d), 1.0), t((h, d), d ** -0.5), t((h,), 0.1), t((h, d), h ** -0.5),
+            t((d,), 0.1), t((rows, d), 1.0))
+
+
+# ---------------------------------------------------------------------------
+# the GEMM tile
+# ---------------------------------------------------------------------------
+
+def stage(op: torch.Tensor, rows: int, cols: int, rows_pad: int, cols_pad: int):
+    """An operand as the tile's loads see it: elements [0, rows) x [0, cols)
+    as stored (fp32), zeros elsewhere, whatever lies there in memory."""
+    out = torch.zeros(rows_pad, cols_pad)
+    out[:rows, :cols] = op[:rows, :cols].float()
+    return out
+
+
+def gemm(a_mk: torch.Tensor, b_kn: torch.Tensor, m: int, n: int, k: int) -> torch.Tensor:
+    """C [m, n] fp32 of A [m, k] . B [k, n] as the tile sums it: both staged
+    with zero fill to whole tiles, K in steps of BK in ascending order (a
+    bf16 x bf16 product is exact in fp32)."""
+    mp, np_, kp = -(-m // BM) * BM, -(-n // WARP_N) * WARP_N, -(-k // BK) * BK
+    a, b = stage(a_mk, m, k, mp, kp), stage(b_kn, k, n, kp, np_)
+    acc = torch.zeros(mp, np_)
+    for k0 in range(0, kp, BK):
+        acc += a[:, k0:k0 + BK] @ b[k0:k0 + BK]
+    return acc[:m, :n]
+
+
+def rnd(v: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to bf16 and read back (round_to<bf16>)."""
+    return v.bfloat16().float()
+
+
+def tie_ulps(k: int, rn: bool) -> int:
+    """fused_mlp.cu tie_ulps: the near-tie window of a K-long sum, in fp32
+    steps of the value's binade: 128 (2^-16 of it) where the tile adds each
+    mma's products rounding to nearest (a W2), max(128, K / 8) where the mma
+    accumulates and truncates (x W1^T)."""
+    return 128 if rn else max(128, k // 8)
+
+
+def near_tie(v: torch.Tensor, k: int, rn: bool) -> torch.Tensor:
+    """fused_mlp.cu near_tie: the 16 bits bf16 rounds away lie within
+    tie_ulps(k, rn) of their midpoint."""
+    low = v.contiguous().view(torch.int32) & 0xFFFF
+    return (low - 0x8000).abs() <= tie_ulps(k, rn)
+
+
+def sequential(a_mk: torch.Tensor, b_kn: torch.Tensor) -> torch.Tensor:
+    """[m, n] fp32 sums in k order, one rounding a step (sequential_dot: a
+    bf16 x bf16 product is exact in fp32, so the fma rounds once)."""
+    a, b = a_mk.float(), b_kn.float()
+    s = torch.zeros(a.shape[0], b.shape[1])
+    for k in range(a.shape[1]):
+        s = s + a[:, k:k + 1] * b[k:k + 1]
+    return s
+
+
+def settled(acc, a_mk, b_kn, rn):
+    """The forward's settle: near-tie elements summed again in k order."""
+    flag = near_tie(acc, a_mk.shape[1], rn)
+    rows, cols = flag.nonzero(as_tuple=True)
+    if rows.numel():
+        a, b = a_mk.float()[rows], b_kn.float()[:, cols]
+        s = torch.zeros(rows.numel())
+        for k in range(a.shape[1]):
+            s = s + a[:, k] * b[k]
+        acc = acc.clone()
+        acc[rows, cols] = s
+    return acc
+
+
+def pre_activation(acc, bias):
+    return rnd(rnd(acc) + bias.float())
+
+
+def tiled_forward(x, w1, b1, w2, b2, approximate, chunk):
+    """The bf16 forward: per chunk x W1^T (kNT, epilogue kEpiGelu) into the
+    [chunk, H] workspace, then a W2 (kNN, kEpiBias), each followed by the
+    settle of its near-tie elements."""
+    rows, d = x.shape
+    h = w1.shape[0]
+    out = torch.full((rows, d), float("nan"))
+    ws = torch.full((min(rows, chunk), h), float("nan"))
+    for r0 in range(0, rows, chunk):
+        rc = min(chunk, rows - r0)
+        xc = x[r0:r0 + rc]
+        acc = settled(gemm(xc, w1.T, rc, h, d), xc, w1.T, False)
+        ws[:rc] = rnd(fused_mlp.kernel_gelu(pre_activation(acc, b1), approximate))
+        acc = settled(gemm(ws, w2, rc, d, h), ws[:rc], w2, True)
+        out[r0:r0 + rc] = rnd(rnd(acc) + b2.float())
+    return out.bfloat16()
+
+
+def tiled_backward(x, w1, b1, w2, dy, approximate, chunk):
+    """The bf16 backward: (dx, dw1, db1, dw2, db2), the schedule of
+    ``bf16_bwd``. The workspace rows past a chunk's end hold NaN: a product
+    that read them would poison its output."""
+    rows, d = x.shape
+    h = w1.shape[0]
+    cap = min(rows, chunk)
+    hid = torch.full((cap, h), float("nan"))
+    dh = torch.full((cap, h), float("nan"))
+    parts = torch.full((chunk // fused_mlp.DB1_ROWS, h), float("nan"))
+    dx = torch.full((rows, d), float("nan"))
+    dw1 = torch.full((h, d), float("nan"))
+    dw2 = torch.full((h, d), float("nan"))
+    db2 = dy.float().sum(0)
+    for r0 in range(0, rows, chunk):
+        rc, first = min(chunk, rows - r0), r0 == 0
+        xc, dyc = x[r0:r0 + rc], dy[r0:r0 + rc]
+        hid[:rc] = pre_activation(gemm(xc, w1.T, rc, h, d), b1)           # kEpiPre
+        da = gemm(dyc, w2.T, rc, h, d)                                    # kEpiDh
+        value, grad = fused_mlp.kernel_gelu_and_grad(hid[:rc], approximate)
+        dh[:rc] = rnd(grad * da)
+        hid[:rc] = rnd(value)
+        tiles = -(-rc // BM) * BM // fused_mlp.DB1_ROWS
+        for p in range(tiles):    # each warp's 64 rows, rows past rc adding nothing
+            s = dh[p * 64:min(rc, (p + 1) * 64)].sum(0)
+            parts[p] = s if first else parts[p] + s
+        # kTN: A = the workspace read k-major, K = the chunk's real rows
+        for dw, a_ws, b_in in ((dw2, hid, dyc), (dw1, dh, xc)):
+            acc = gemm(a_ws.T, b_in, h, d, rc)
+            dw[:] = acc if first else dw + acc
+        dx[r0:r0 + rc] = rnd(gemm(dh, w1, rc, d, h))                      # kNN, kEpiRound
+    db1 = torch.zeros(h)
+    for p in range(2 * (-(-cap // BM))):
+        db1 = db1 + parts[p]
+    return dx.bfloat16(), dw1, db1, dw2, db2
+
+
+def _rel(got, want, floor=1e-30):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(floor)).item()
+
+
+def test_constants_are_the_kernels_own():
+    """The emulation's tile sizes are the header's and the wrapper's; the
+    tolerances are chip_smoke.py's."""
+    tile = (CSRC / "mlp_gemm.cuh").read_text()
+    for name, value in (("kWarps", WARPS), ("kBM", BM), ("kBK", BK), ("kStages", STAGES),
+                        ("kWarpN", WARP_N), ("kPad", PAD)):
+        assert re.search(rf"constexpr int {name} = {value};", tile), name
+    source = (CSRC / "fused_mlp.cu").read_text()
+    assert "unsigned tie_ulps(int k, bool rn) {\n  return rn ? 128 : max(128, k / 8);" in source
+    assert "gemm::mainloop<L, BN, E == kEpiBias>" in source
+    assert re.search(rf"constexpr int kTieCap = {TIE_CAP};", source)
+    assert fused_mlp.TIE_CAP == TIE_CAP
+    assert fused_mlp.GEMM_ROWS == BM
+    # the db1 sums: one row a warp at 128 x 128 (warps 2 x 4, 64 rows each)
+    assert fused_mlp.DB1_ROWS == BM // (WARPS // (128 // WARP_N))
+    assert "launch_gemm<gemm::kNT, 128, kEpiDh>" in (CSRC / "fused_mlp.cu").read_text()
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.FUSED_FWD_TOL["bfloat16"] == FWD_TOL
+    assert smoke.FUSED_BWD_TOL["bfloat16"] == BWD_TOL
+
+
+def test_chunks_stay_in_l2_and_far_under_one_hidden_tensor():
+    assert [fused_mlp.chunk_rows(h) for h in (2048, 3072, 4096)] == [3072, 2048, 1536]
+    assert [fused_mlp.chunk_rows(h, False) for h in (2048, 3072, 4096)] == [6144, 4096, 3072]
+    for h in (512, 2048, 3072, 4096, 5120):
+        c, cf = fused_mlp.chunk_rows(h), fused_mlp.chunk_rows(h, backward=False)
+        assert c % BM == 0 and 2 * c * h * 2 <= fused_mlp.L2_WORKSPACE_BYTES
+        assert cf % BM == 0 and cf * h * 2 <= fused_mlp.L2_WORKSPACE_BYTES
+    rows, d, h = 256 * 197, 768, 3072             # the vision tower at batch 256
+    hidden = rows * h * 2                         # one [B, N, H] bf16 tensor: 295 MiB
+    fwd, bwd = (fused_mlp.workspace_bytes(rows, d, h, b) for b in (False, True))
+    tiles = 4096 * h * 2                          # the forward's one tile, the backward's two
+    # the forward: W2^T for the settle, a count and 64 near-ties a warp of 768 tiles
+    assert fwd == tiles + d * h * 2 + 4 * 8 * (1 + TIE_CAP) * 32 * 24
+    assert bwd == tiles + 4 * (32 * h + 264 * d)  # db1 sums a warp's rows, db2 264 partials
+    assert max(fwd, bwd) < 32 * 2**20 < hidden // 9
+    # a short input takes one chunk of its own rows
+    assert fused_mlp.workspace_bytes(231, 512, 2048, False) == (
+        (231 + 512) * 2048 * 2 + 4 * 8 * (1 + TIE_CAP) * 2 * 16)
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("layout", ["NT", "NN", "TN"])
+def test_staged_rows_are_conflict_free_and_two_blocks_fit(layout, bn):
+    """Each tile's row stride puts the eight 16-byte rows of one ldmatrix
+    phase in eight bank groups, and a block's three stages leave room for a
+    second block on the multiprocessor (227 KB)."""
+    a_rs = BM + PAD if layout == "TN" else BK + PAD
+    b_rs = BK + PAD if layout == "NT" else bn + PAD
+    for rs in (a_rs, b_rs):
+        assert len({(r * rs * 2 // 16) % 8 for r in range(8)}) == 8, rs
+    a = BK * a_rs if layout == "TN" else BM * a_rs
+    b = bn * b_rs if layout == "NT" else BK * b_rs
+    assert 2 * STAGES * (a + b) * 2 <= 232448
+
+
+# ---------------------------------------------------------------------------
+# fragment loaders: mma_tile.cuh's lane addresses through an emulated ldmatrix
+# ---------------------------------------------------------------------------
+
+def _lane_address(name: str):
+    """The address expression of one loader of mma_tile.cuh, as a function of
+    (lane, rs): the text after `p + ` in its ldmatrix call."""
+    src = (CSRC / "mma_tile.cuh").read_text()
+    body = re.search(rf"void {name}\(uint32_t \(&\w\)\[4\], const bf16\* p, int rs, "
+                     rf"int lane\) \{{\s*(ldmatrix_x4(?:_trans)?)\(\w, p \+ (.*?)\);\s*\}}",
+                     src, flags=re.S)
+    assert body, name
+    expr = " ".join(body.group(2).split())
+    return body.group(1).endswith("_trans"), (lambda lane, rs: eval(expr, {}, {"lane": lane,
+                                                                             "rs": rs}))
+
+
+def ldmatrix_x4(smem: np.ndarray, addresses, trans: bool) -> np.ndarray:
+    """regs[lane, j] = the pair lane receives in register j: row g, columns
+    2t, 2t + 1 of matrix j (with .trans: rows 2t, 2t + 1 of column g); lane
+    8 j + r gives the address of row r of matrix j."""
+    regs = np.zeros((32, 4, 2), smem.dtype)
+    for j in range(4):
+        mat = np.stack([smem[addresses[8 * j + r]:addresses[8 * j + r] + 8] for r in range(8)])
+        if trans:
+            mat = mat.T
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            regs[lane, j] = mat[g, 2 * t:2 * t + 2]
+    return regs
+
+
+def a_from_fragment(regs) -> np.ndarray:
+    """The 16 x 16 A an m16n8k16 A fragment stands for (mma_tile.cuh)."""
+    a = np.full((16, 16), np.nan)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j, (r, c) in enumerate(((g, 2 * t), (g + 8, 2 * t), (g, 2 * t + 8),
+                                    (g + 8, 2 * t + 8))):
+            a[r, c:c + 2] = regs[lane, j]
+    return a
+
+
+def b_from_fragments(regs) -> np.ndarray:
+    """The 16 x 16 B (k x n, two n-tiles) that registers 0-1 (n-tile 0) and
+    2-3 (n-tile 1) stand for: b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g]."""
+    b = np.full((16, 16), np.nan)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(4):
+            k0 = 2 * t + (8 if j % 2 else 0)
+            b[k0:k0 + 2, g + 8 * (j // 2)] = regs[lane, j]
+    return b
+
+
+@pytest.mark.parametrize("name", ["ldm_a", "ldm_a_trans", "ldm_b", "ldm_b_trans"])
+@pytest.mark.parametrize("rs", [BK + PAD, 64 + PAD, BM + PAD])
+def test_fragment_loaders_give_the_block_they_name(name, rs):
+    """Each loader, pointed at (row0, col0) of a staged tile with row stride
+    rs, gives the fragment of the 16 x 16 block there: ldm_a A[m][k] =
+    tile[m][k]; ldm_a_trans A[m][k] = tile[k][m] (the TN products' k-major
+    A); ldm_b B[k][n] = tile[n][k]; ldm_b_trans B[k][n] = tile[k][n]."""
+    trans, address = _lane_address(name)
+    assert trans == name.endswith("_trans")
+    rows = 48
+    rng = np.random.default_rng(rs)
+    smem = rng.standard_normal(rows * rs)
+    tile = smem.reshape(rows, rs)
+    for r0, c0 in ((0, 0), (16, 8), (32, min(rs, 72) - 24)):
+        regs = ldmatrix_x4(smem, [r0 * rs + c0 + address(lane, rs) for lane in range(32)],
+                           trans)
+        block = tile[r0:r0 + 16, c0:c0 + 16]
+        if name == "ldm_a":
+            want, got = block, a_from_fragment(regs)
+        elif name == "ldm_a_trans":
+            want, got = block.T, a_from_fragment(regs)
+        elif name == "ldm_b":
+            want, got = block.T, b_from_fragments(regs)
+        else:
+            want, got = block, b_from_fragments(regs)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_tn_fragments_multiply_to_a_transposed_product():
+    """A 16 x 16 x 16 product from the TN loaders alone: ldm_a_trans on a
+    k-major A tile and ldm_b_trans on a k-major B tile give A^T B."""
+    _, a_addr = _lane_address("ldm_a_trans")
+    _, b_addr = _lane_address("ldm_b_trans")
+    rs = BM + PAD
+    rng = np.random.default_rng(7)
+    at = rng.standard_normal((16, rs))        # tile[k][m]
+    bt = rng.standard_normal((16, rs))        # tile[k][n]
+    a = a_from_fragment(ldmatrix_x4(at.ravel(), [a_addr(l, rs) for l in range(32)], True))
+    b = b_from_fragments(ldmatrix_x4(bt.ravel(), [b_addr(l, rs) for l in range(32)], True))
+    np.testing.assert_allclose(a @ b, at[:, :16].T @ bt[:, :16], rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the chunk schedule against the plain versions and the JAX package
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("rows,d,h,chunk", SHAPES)
+def test_tiled_forward_matches_plain(rows, d, h, chunk, approximate):
+    x, w1, b1, w2, b2, _ = _inputs(rows, d, h)
+    got = tiled_forward(x, w1, b1, w2, b2, approximate, chunk)
+    want = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert _rel(got, want, 1.0) <= FWD_TOL
+
+
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("rows,d,h,chunk", SHAPES)
+def test_tiled_backward_matches_plain(rows, d, h, chunk, approximate):
+    x, w1, b1, w2, _, dy = _inputs(rows, d, h, seed=1)
+    got = tiled_backward(x, w1, b1, w2, dy, approximate, chunk)
+    want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, approximate)
+    for g, w, name in zip(got, want, ("dx", "dw1", "db1", "dw2", "db2")):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all(), name
+        assert _rel(g, w) <= BWD_TOL, name
+
+
+def test_one_chunk_or_many_give_the_same_function():
+    """The chunk size moves only the order of the dW and db1 sums."""
+    x, w1, b1, w2, b2, dy = _inputs(300, 64, 256, seed=2)
+    assert torch.equal(tiled_forward(x, w1, b1, w2, b2, False, 128),
+                       tiled_forward(x, w1, b1, w2, b2, False, 384))
+    many = tiled_backward(x, w1, b1, w2, dy, False, 128)
+    one = tiled_backward(x, w1, b1, w2, dy, False, 384)
+    assert torch.equal(many[0], one[0])
+    for a, b in zip(many[1:4], one[1:4]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,rn,ulps", [(768, False, 128), (1024, False, 128),
+                                       (3072, False, 384), (3072, True, 128), (4096, True, 128)])
+def test_near_tie_window(k, rn, ulps):
+    """A value is a near-tie when the 16 bits that bf16 rounds away lie within
+    tie_ulps fp32 steps of their midpoint: 2^-16 of its binade where the tile
+    rounds each mma's sum to nearest, and up to K / 8 steps where its
+    truncating accumulation can drift one step a k-step of 16."""
+    assert tie_ulps(k, rn) == ulps
+    mid = torch.tensor([0x40108000], dtype=torch.int32).view(torch.float32)  # 2.2578125
+    steps = torch.tensor([-ulps - 1, -ulps, 0, ulps, ulps + 1], dtype=torch.int32)
+    v = (mid.view(torch.int32) + steps).view(torch.float32)
+    assert near_tie(v, k, rn).tolist() == [False, True, True, True, False]
+    assert near_tie(torch.tensor([2.25, 2.265625, 0.0]), k, rn).tolist() == [False] * 3
+
+
+def test_settle_makes_the_forward_a_sequential_fp32_forward():
+    """With the near-ties summed again in k order, the tile's forward equals a
+    forward whose every sum is a sequential fp32 sum (the order of the plain
+    version on the card, cuBLAS's sgemm) but where a sum is small next to its
+    terms: there the window, 2^-16 of the value, is narrower than the two
+    orders' difference. Without the settle hundreds of elements land a bf16
+    step apart, some of them at values above 1."""
+    x, w1, b1, w2, b2, _ = _inputs(1000, 256, 1024, seed=5)
+
+    def forward(tile_sums):
+        def sums(a, b, rn):
+            acc = gemm(a, b, a.shape[0], b.shape[1], a.shape[1])
+            return settled(acc, a, b, rn) if tile_sums == "settled" else acc
+        if tile_sums == "sequential":
+            def sums(a, b, rn):
+                return sequential(a, b)
+        h = pre_activation(sums(x, w1.T, False), b1)
+        a = rnd(fused_mlp.kernel_gelu(h, False))
+        return rnd(rnd(sums(a, w2, True)) + b2.float())
+
+    want = forward("sequential")
+    tile, settle = forward("tile"), forward("settled")
+    top = want.abs().max()
+    assert (tile != want).sum() > 100 and (tile - want).abs().max() >= 2.0 ** -9 * top
+    off = (settle - want).abs()
+    assert (off > 0).sum() <= 2 and off.max() <= 2.0 ** -10 * top
+    assert torch.equal(tiled_forward(x, w1, b1, w2, b2, False, 512).float(), settle)
+
+
+@pytest.mark.parametrize("variant", ["round h once", "round da"])
+def test_the_epilogues_roundings_are_the_functions(variant):
+    """h is the product rounded, the bias added, and rounded again; dh takes
+    da in fp32. Either shortcut is a different function: it moves some
+    elements of h (or dh) off the plain version's bits."""
+    x, w1, b1, w2, _, dy = _inputs(256, 128, 512, seed=3)
+    acc = x.float() @ w1.float().T
+    want_h = fused_mlp._hidden(x, w1.float(), b1)
+    assert torch.equal(pre_activation(acc, b1), want_h.float())
+    if variant == "round h once":
+        assert (rnd(acc + b1.float()) != want_h.float()).any()
+    else:
+        da = dy.float() @ w2.float().T
+        grad = fused_mlp.kernel_gelu_and_grad(want_h, False)[1]
+        assert (rnd(grad * rnd(da)) != rnd(grad * da)).any()
+
+
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+def test_tiled_mlp_matches_jax_pallas(approximate):
+    """The emulation against the Pallas kernels in interpret mode (W1 in the
+    JAX kernel's layout [D, H]) on the same seeded inputs, in bf16."""
+    rows, d, h = 72, 64, 256
+    x, w1, b1, w2, b2, dy = _inputs(rows, d, h, seed=4)
+    as_jax = [jnp.asarray(t.float().numpy(), jnp.bfloat16)
+              for t in (x.reshape(3, 24, d), w1.T, b1, w2, b2)]
+    want, vjp = jax.vjp(lambda *a: jax_mlp.fused_mlp(*a, approximate, 0, True), *as_jax)
+    want_g = vjp(jnp.asarray(dy.reshape(3, 24, d).float().numpy(), jnp.bfloat16))
+    got = tiled_forward(x, w1, b1, w2, b2, approximate, 128)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32).reshape(rows, d),
+                               rtol=0, atol=JAX_TOL)
+    got_g = tiled_backward(x, w1, b1, w2, dy, approximate, 128)
+    want_np = [np.asarray(g, np.float32) for g in want_g]
+    want_np[0] = want_np[0].reshape(rows, d)
+    want_np[1] = want_np[1].T                       # dW1 [D, H] -> [H, D]
+    for g, w, name in zip(got_g, want_np, ("dx", "dw1", "db1", "dw2", "db2")):
+        g = g.float().numpy()
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=0, atol=JAX_TOL * np.abs(w).max(), err_msg=name)
