@@ -9,7 +9,7 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      power limit (nvidia-smi).
   2. build: compiles colxlip_tpu_torch/csrc/*.cu with nvcc for sm_90a (one
      nvcc per source, all at once); meanwhile a second nvcc -Xptxas -v of the
-     attention, MaxSim and MLP sources reads each kernel's registers and
+     attention, MaxSim, MLP and CE sources reads each kernel's registers and
      spills (printed in phase 5).
   3. kernels: first a bare 64 x 64 x 64 product through the tensor-core tile
      code (csrc/mma_tile.cuh) against torch.matmul, A . B^T, its rounded
@@ -26,7 +26,8 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      both shapes, two of its runs bit for bit; the
      three streaming-CE kernels (forward, dA + dscale, dB) in
      fp32 and bf16 at M = N = 256 and 4096 (D = 512), M = 33, N = 129
-     (D = 64), and in bf16 at M = N = 32768, where the dense fp32 logits
+     (D = 64) and M = N = 1024 with b = a, in bf16 at M = N = 4096 with
+     D = 768 and at M = N = 32768, where the dense fp32 logits
      would be 4 GiB: the kernel path's peak memory there is printed and
      bounded, and two runs of the backward must agree bit for bit. The
      LayerNorm and MLP kernels (forward and backward each) in fp32 and bf16
@@ -185,11 +186,15 @@ BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 CE_FWD_TOL = 1e-5
 CE_BWD_TOL = 1e-4
 CE_CASES = [
-    # M, N, D, logit scale, dtypes
-    (256, 256, 512, 1 / 0.07, ("float32", "bfloat16")),     # one step of phase 7
-    (33, 129, 64, 30.0, ("float32", "bfloat16")),
-    (4096, 4096, 512, 100.0, ("float32", "bfloat16")),
-    (32768, 32768, 512, 100.0, ("bfloat16",)),              # dense logits: 4 GiB
+    # M, N, D, logit scale, dtypes, b = a
+    (256, 256, 512, 1 / 0.07, ("float32", "bfloat16"), False),     # one step of phase 7
+    (33, 129, 64, 30.0, ("float32", "bfloat16"), False),
+    (4096, 4096, 512, 100.0, ("float32", "bfloat16"), False),
+    (4096, 4096, 768, 100.0, ("bfloat16",), False),        # ViT-L-14's embed_dim, the widest D
+    # b = a: each row's own column is its largest logit (p near 1) beside a
+    # label term near -g, so dz's two largest terms cancel in every row
+    (1024, 1024, 512, 1 / 0.07, ("float32", "bfloat16"), True),
+    (32768, 32768, 512, 100.0, ("bfloat16",), False),      # dense logits: 4 GiB
 ]
 CE_PEAK_LIMIT_GIB = 1.0     # kernel path at 32768, above its inputs
 # LayerNorm and MLP kernels vs their plain versions:
@@ -508,9 +513,11 @@ def check_ce_kernels(dev, gen):
 
     errs = {"fused_ce_fwd": 0.0, "fused_ce_bwd_da": 0.0, "fused_ce_bwd_db": 0.0}
     inputs = {}
-    for m, n, d, scale, dtypes in CE_CASES:
+    for m, n, d, scale, dtypes, tied in CE_CASES:
         for name in dtypes:
             a, b, labels, s, g = ce_inputs(m, n, d, scale, getattr(torch, name), dev, gen)
+            if tied:
+                b = a.clone()
             loss, lse = fused_ce._launch_fwd(a, b, labels, s)
             da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
             db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
@@ -524,7 +531,8 @@ def check_ce_kernels(dev, gen):
             err = {"fused_ce_fwd": max(unit_err(loss, want_loss), unit_err(lse, want_lse)),
                    "fused_ce_bwd_da": max(max_rel_err(da, want_da), max_rel_err(ds, want_ds)),
                    "fused_ce_bwd_db": max_rel_err(db, want_db)}
-            log(f"[3 kernels] fused CE M={m} N={n} D={d} scale={scale:.4g} {name}: fwd "
+            log(f"[3 kernels] fused CE M={m} N={n} D={d} scale={scale:.4g}"
+                f"{' b=a' if tied else ''} {name}: fwd "
                 f"|err| / (1 + |loss|) {err['fused_ce_fwd']:.3g} (tol {CE_FWD_TOL}); "
                 f"max_abs_err / max|grad| dA+dscale {err['fused_ce_bwd_da']:.3g}, dB "
                 f"{err['fused_ce_bwd_db']:.3g} (tol {CE_BWD_TOL}); loss mean "
@@ -537,7 +545,7 @@ def check_ce_kernels(dev, gen):
                 raise RuntimeError(f"fused CE M={m} N={n} {name}: two runs of the backward "
                                    "kernels differ (they use no atomics)")
             errs = {k: max(v, err[k]) for k, v in errs.items()}
-            if name == "bfloat16":
+            if name == "bfloat16" and d == 512 and not tied and m == n:
                 inputs[m] = (a, b, labels, s, lse, g)
             del loss, da, ds, db, again, want_loss, want_lse, want_da, want_ds, want_db
 
@@ -607,6 +615,7 @@ def time_ce_kernels(inputs, card: str):
             f"[M, N]): forward {dense_ms[0]:.4f} ms, forward + backward {dense_ms[1]:.4f} ms; "
             f"the three kernels together {sum(k for k, _ in row.values()):.4f} ms ({card})")
         timing[f"dense_ce/{m}"] = dense_ms
+        timing[f"ce_bounds/{m}"] = bounds
         del a_, b_, s_
         torch.cuda.empty_cache()
     return timing
@@ -1923,7 +1932,8 @@ def main() -> int:
     usage = {}
     usage_thread = threading.Thread(
         target=lambda: usage.update(build.resource_usage(
-            ["fused_attention", "fused_attention_bwd", "maxsim", "maxsim_bwd", "fused_mlp"])),
+            ["fused_attention", "fused_attention_bwd", "maxsim", "maxsim_bwd", "fused_mlp",
+             "fused_ce"])),
         daemon=True)
     usage_thread.start()
     kernels = build.load_kernels()
@@ -2272,6 +2282,15 @@ def main() -> int:
             "plain_ms": timing["maxsim/nonzero"][1], "max_abs_err": serving_err,
             "bound_ms": bounds["maxsim_fwd/serving"][0]},
         "maxsim_passes_ms": maxsim_passes,
+        # the shape the CE kernels are for: M = N = 32768, D = 512, bf16
+        "ce_32768": {
+            **{f"fused_ce_{key}": {
+                "ms": timing[f"fused_ce_{key}/32768"][0],
+                "plain_ms": timing[f"fused_ce_{key}/32768"][1],
+                "bound_ms": timing["ce_bounds/32768"][f"fused_ce_{key}"][0]}
+               for key in ("fwd", "bwd_da", "bwd_db")},
+            "dense_fwd_ms": timing["dense_ce/32768"][0],
+            "dense_fwd_bwd_ms": timing["dense_ce/32768"][1]},
         "attention_text": {
             "batch": TRAIN_BATCH, "fwd_ms": timing["attention/text-train"][0],
             "bwd_ms": timing["attention_bwd/text"][0],

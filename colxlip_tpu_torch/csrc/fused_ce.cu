@@ -3,8 +3,9 @@
 // [M, N] logit matrix in device memory.
 //
 // Replaces: colxlip_tpu/ops/fused_ce.py `_fwd_call` (:82, body `_fwd_kernel`
-// :45) and `_bwd_call` (:180; bodies `_bwd_da_kernel` :122 and
-// `_bwd_db_kernel` :152). Same arithmetic:
+// :45; TPU kernel #11) and `_bwd_call` (:180), whose two pallas_calls are
+// TPU kernels #12 (:184, body `_bwd_da_kernel` :122: dA and the per-row
+// dscale) and #13 (:206, body `_bwd_db_kernel` :152: dB). Same arithmetic:
 //
 //   forward   z_ij = scale * <a_i, b_j>   (dot accumulated in fp32 from the
 //             input dtype, scaled after), online max / sum over column tiles
@@ -12,7 +13,7 @@
 //             lse_i = max + log(sum), loss_i = lse_i - z_{i, label_i} with
 //             the label logit picked out of the same scaled tile
 //   dA        dz_ij = (exp(z_ij - lse_i) - [j == label_i]) * g_i,
-//             dA = scale * dz @ B with B read as fp32, scaled after the sum;
+//             dA = scale * dz @ B, scaled after the sum;
 //             dscale_i = sum_j dz_ij * <a_i, b_j>
 //   dB        dB = scale * dz^T @ A, likewise
 //
@@ -23,26 +24,71 @@
 //
 // Hopper has no sequential grid to carry a running sum across, so the loop
 // over the streamed dimension sits inside the block: in the forward and in
-// dA one block owns a row tile and walks the column tiles; in dB one block
-// owns a column tile and walks the row tiles (the transposed grid of
+// dA one block owns rows of a and walks tiles of rows of b; in dB one block
+// owns rows of b and walks tiles of rows of a (the transposed grid of
 // fused_ce.py:206-220). Nothing is summed across blocks, so there are no
 // atomics and two runs agree bit for bit.
 //
-// What bounds it on the H100: the work is 2 M N D flops forward and 4 M N D
-// in each backward kernel against (M + N) D input elements, so at M = N =
-// 32768, D = 512 it is bound by operations (1.1 + 2 x 2.2 TFLOP over 67 MB in
-// bf16), and at the one-step shape M = N = 256 by launch latency. This first
-// version runs every product as fp32 FMAs on the CUDA cores: a 16 x 16
-// thread block holds the [rows, cols] tile of raw dots in registers, fed
-// from shared-memory chunks of 32 features stored feature-major with odd row
-// strides (conflict-free stores, broadcast loads): csrc/stream_tile.cuh,
-// shared with csrc/fused_mlp.cu. The backward kernels put dz for the tile
-// in shared memory and then each warp adds dz times the streamed matrix's rows (read through L1/L2,
-// lanes on consecutive features) into its 4 owned rows of the fp32 output,
-// all D features of them in registers. Moving the products onto the tensor
-// cores (bf16 mma.sync / wgmma for the dots, TF32 or split-bf16 for the
-// fp32 second product) is the next step.
+// What bounds them on the H100: operations. The forward is 2 M N D flops,
+// each backward kernel 4 M N D (the logit tile again, then dz times the
+// streamed matrix), against (M + N) D input elements: at M = N = 32768,
+// D = 512 that is 1.1 and 2.2 TFLOP over 67 MB in bf16 (1.11 and 2.22 ms at
+// 989 TFLOP/s). At the one-step shape M = N = 256 launch latency bounds all
+// three.
+//
+// bf16 backward (#12, #13): the tensor cores. One kernel body serves both,
+// `ce_bwd_mma_kernel<DC, DA>`, with the roles of a and b swapped for dB:
+// the block owns kOwn rows ("own": a for dA, b for dB; 64 rows for D <= 512,
+// 32 above) and walks the other matrix ("stream") in tiles of 64 rows. Per
+// tile, 8 warps:
+//   1. raw = X_own . X_stream^T [kOwn, 64] by mma.sync.m16n8k16 (bf16
+//      operands, fp32 sums) from ldmatrix fragments of the own tile (staged
+//      once) and the stream tile (a ring of two cp.async stages where two
+//      fit in shared memory, D <= 512; one at D = 768). Each k-step of 16
+//      features is taken from a zero accumulator and added in fp32 rounding
+//      to nearest (mma_tile.cuh mma_16816_rn): an mma that accumulates in
+//      place truncates to the accumulator's last bit, and over 32 k-steps of
+//      positive terms (<a_i, a_i> when b = a) that bias, times a scale of
+//      100, would move p by 1e-4 relative. Warps: kOwn / 16 row groups
+//      times 8 / (kOwn / 16) column groups.
+//   2. the epilogue, in registers: dz from the tile, the masks (own rows and
+//      stream rows past their ends give 0), lse, g and label by own row (dA,
+//      read once) or by stream row (dB, staged with the tile); dA adds
+//      dz * raw into the thread's per-row dscale. dz goes to shared memory
+//      split in two bf16 halves, dz_hi = bf16(dz), dz_lo = bf16(dz - dz_hi).
+//   3. out[kOwn, D] += dz_hi . X_stream + dz_lo . X_stream by mma.sync, A
+//      from the dz halves, B the same stream tile read k-major
+//      (ldmatrix.trans). A warp owns 16 rows times D / (8 / (kOwn / 16))
+//      features of the fp32 output in registers (128 a thread at D = 512,
+//      96 at D = 768); the tile's 8 mma per n-tile go into a zero
+//      accumulator that is then added to the output rounding to nearest.
+// The split makes the tensor cores run 2 M N D + 2 x 2 M N D = 6 M N D
+// flops for the function's 4 M N D. Why it is safe here when it was not for
+// MaxSim (csrc/maxsim_tile.cuh): nothing routes on an argmax, the outputs
+// are fp32 and never rounded to bf16, and X is bf16, exact in one half. One bf16
+// rounding of dz would cost 2^-9 of the label term (p - 1) g, near the
+// largest term of a row: about 2e-3 of max|grad| against the bar of 1e-4;
+// the split leaves 2^-18 (tests/test_torch_ce_tiles.py holds both). D is
+// staged in 16-byte pieces: the wrapper pads rows to a multiple of 8
+// features with zeros (exact) and the kernel zero-fills features past D;
+// n-tiles of the output past D are skipped. No atomics: dscale's per-thread
+// sums meet in shared memory in a fixed order.
+//
+// fp32 (all three kernels) and the bf16 forward: fp32 FMAs on the CUDA
+// cores, as first ported: a 16 x 16 thread block holds the [rows, cols]
+// tile of raw dots in registers, fed from shared-memory chunks of 32
+// features stored feature-major (csrc/stream_tile.cuh, shared with
+// csrc/fused_mlp.cu); the backward puts dz for the tile in shared memory and
+// each warp adds dz times the streamed rows (read through L1/L2) into its 4
+// owned rows. fp32 runs only under --precision fp32, and a tensor-core fp32
+// product would need three split products: it stays here.
+//
+// Next steps for a later PR: the forward (#11) on the same tile (raw as in
+// step 1, the online logsumexp in the epilogue, no second product); wgmma
+// with TMA, a warpgroup reading the stream tile once where each of today's
+// warps re-reads its fragments from shared memory.
 
+#include "mma_tile.cuh"
 #include "stream_tile.cuh"
 
 namespace {
@@ -116,7 +162,7 @@ ce_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __res
 }
 
 // ---------------------------------------------------------------------------
-// backward
+// float32 backward (CUDA cores)
 // ---------------------------------------------------------------------------
 
 // dA and per-row dscale: one block per tile of 32 rows of a, looping over
@@ -225,10 +271,7 @@ ce_bwd_db_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
   store_owned<DPT>(out, db, j0, n, d, scale);
 }
 
-// ---------------------------------------------------------------------------
-// launchers
-// ---------------------------------------------------------------------------
-
+// The backward kernels' arguments, as the C entry points receive them.
 struct Args {
   const void* a;
   const void* b;
@@ -240,38 +283,327 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int DPT>
+// ---------------------------------------------------------------------------
+// bf16 backward on the tensor cores: one body for dA (DA) and dB
+// ---------------------------------------------------------------------------
+
+namespace ce_mma {
+
+namespace mma = colxlip::mma;
+using mma::bf16;
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kStreamRows = 64;  // rows of the streamed matrix a tile
+constexpr int kPad = 8;          // elements of padding a staged row
+
+// Tile geometry at feature capacity DC (64, 128, 256, 512 or 768; D <= DC).
+template <int DC>
+struct Cfg {
+  static constexpr int kOwn = DC <= 512 ? 64 : 32;       // rows a block owns
+  static constexpr int kWR = kOwn / 16;                  // row groups of warps
+  static constexpr int kWC = kWarps / kWR;               // column groups: 2 or 4
+  static constexpr int kRS = DC + kPad;                  // row stride of the tiles
+  static constexpr int kDzRS = kStreamRows + kPad;       // row stride of dz
+  static constexpr int kRawNT = kStreamRows / kWC / 8;   // n-tiles of raw a warp
+  static constexpr int kOutCols = DC / kWC;              // output features a warp
+  static constexpr int kOutNT = kOutCols / 8;
+  static constexpr size_t kOwnBytes = size_t(kOwn) * kRS * 2;
+  static constexpr size_t kStreamBytes = size_t(kStreamRows) * kRS * 2;
+  static constexpr size_t kStatBytes = 3 * kStreamRows * 4;  // lse, g, label (dB)
+  static constexpr size_t kDzBytes = 2 * size_t(kOwn) * kDzRS * 2;
+  static constexpr size_t kPartBytes = size_t(kWC) * kOwn * 4;
+  static constexpr size_t bytes(int stages) {
+    return kOwnBytes + stages * (kStreamBytes + kStatBytes) + kDzBytes + kPartBytes;
+  }
+  static constexpr int kStages = bytes(2) <= colxlip::kMaxSharedBytes ? 2 : 1;
+  static constexpr size_t kBytes = bytes(kStages);
+};
+
+// Rows row0 .. row0 + ROWS - 1 of a [n, d] bf16 matrix (d a multiple of 8,
+// 16-byte aligned rows) into a tile of row stride DC + kPad; rows past n and
+// features past d are zeros. The caller commits.
+template <int DC, int ROWS>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int row0,
+                                           int n, int d) {
+  constexpr int P = DC / 8;  // 16-byte pieces a row
+  for (int idx = threadIdx.x; idx < ROWS * P; idx += kThreads) {
+    const int r = idx / P, c = (idx - r * P) * 8;
+    const bool live = row0 + r < n && c < d;
+    mma::cp_async_16(dst + r * (DC + kPad) + c, live ? src + size_t(row0 + r) * d + c : src,
+                     live);
+  }
+}
+
+// DA: own = a [M], stream = b [N]; out = dA [M, d], dscale [M].
+// !DA: own = b [N], stream = a [M]; out = dB [N, d]. lse, g and labels are
+// indexed by rows of a either way.
+template <int DC, bool DA>
+__global__ void __launch_bounds__(kThreads, 1)
+ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ stream_g,
+                  const int* __restrict__ labels, const float* __restrict__ scale_ptr,
+                  const float* __restrict__ lse, const float* __restrict__ g_rows,
+                  float* __restrict__ out, float* __restrict__ dscale, int own_n,
+                  int stream_n, int d) {
+  using C = Cfg<DC>;
+  constexpr int RS = C::kRS;
+  constexpr int TILE = kStreamRows * RS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* own_s = reinterpret_cast<bf16*>(smem);
+  bf16* stream_s = reinterpret_cast<bf16*>(smem + C::kOwnBytes);
+  float* stat_s = reinterpret_cast<float*>(smem + C::kOwnBytes + C::kStages * C::kStreamBytes);
+  bf16* dzh = reinterpret_cast<bf16*>(smem + C::kOwnBytes +
+                                      C::kStages * (C::kStreamBytes + C::kStatBytes));
+  bf16* dzl = dzh + C::kOwn * C::kDzRS;
+  float* part = reinterpret_cast<float*>(dzl + C::kOwn * C::kDzRS);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / C::kWC, wc = warp % C::kWC;
+  const int own0 = blockIdx.x * C::kOwn;
+  const int tiles = (stream_n + kStreamRows - 1) / kStreamRows;
+  const float scale = *scale_ptr;
+
+  // stream tile `tile` into stage `buf`, with (dB) the lse, g and label of
+  // its rows; dead rows get zeros, which the masks below never use
+  auto stage_stream = [&](int tile, int buf) {
+    const int s0 = tile * kStreamRows;
+    stage_rows<DC, kStreamRows>(stream_s + buf * TILE, stream_g, s0, stream_n, d);
+    if constexpr (!DA) {
+      for (int idx = threadIdx.x; idx < 3 * kStreamRows; idx += kThreads) {
+        const int which = idx / kStreamRows, c = idx - which * kStreamRows;
+        const bool live = s0 + c < stream_n;
+        const float* src = which == 0 ? lse : which == 1 ? g_rows
+                                                         : reinterpret_cast<const float*>(labels);
+        mma::cp_async_4(stat_s + buf * 3 * kStreamRows + idx, src + (live ? s0 + c : 0), live);
+      }
+    }
+  };
+
+  stage_rows<DC, C::kOwn>(own_s, own_g, own0, own_n, d);
+  stage_stream(0, 0);
+  mma::cp_async_commit();
+
+  // this thread's two own rows (fragment rows g and g + 8 of the warp's 16)
+  const int lr0 = wr * 16 + g;
+  const int r0 = own0 + lr0, r1 = r0 + 8;
+  float lse_r[2] = {0.f, 0.f}, g_r[2] = {0.f, 0.f}, ds[2] = {0.f, 0.f};
+  int lab_r[2] = {-1, -1};
+  if constexpr (DA) {
+    if (r0 < own_n) lse_r[0] = lse[r0], g_r[0] = g_rows[r0], lab_r[0] = labels[r0];
+    if (r1 < own_n) lse_r[1] = lse[r1], g_r[1] = g_rows[r1], lab_r[1] = labels[r1];
+  }
+
+  float acc[C::kOutNT][4];
+#pragma unroll
+  for (int nt = 0; nt < C::kOutNT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+
+  const int ksteps = (d + 15) >> 4;
+  const int raw_col0 = wc * (kStreamRows / C::kWC);   // the warp's first tile column
+  const int out_col0 = wc * C::kOutCols;              // the warp's first output feature
+  const bf16* pa = own_s + (wr * 16 + (lane & 15)) * RS + (lane >> 4) * 8;
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int buf = C::kStages == 2 ? (tile & 1) : 0;
+    // tile `tile` has arrived, and every warp is done with the stage and the
+    // dz halves of the tile before
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (C::kStages == 2 && tile + 1 < tiles) {
+      stage_stream(tile + 1, buf ^ 1);
+      mma::cp_async_commit();
+    }
+    const int s0 = tile * kStreamRows;
+    const bf16* st = stream_s + buf * TILE;
+
+    // 1. raw = X_own . X_stream^T, one k-step of 16 at a time from zero
+    float raw[C::kRawNT][4];
+#pragma unroll
+    for (int nt = 0; nt < C::kRawNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) raw[nt][i] = 0.f;
+    const bf16* pb = st + (raw_col0 + (lane & 7) + ((lane >> 4) << 3)) * RS + ((lane >> 3) & 1) * 8;
+#pragma unroll 4
+    for (int kk = 0; kk < ksteps; ++kk) {
+      uint32_t af[4];
+      mma::ldmatrix_x4(af, pa + kk * 16);
+#pragma unroll
+      for (int np = 0; np < C::kRawNT / 2; ++np) {
+        uint32_t bfr[4];
+        mma::ldmatrix_x4(bfr, pb + np * 16 * RS + kk * 16);
+        mma::mma_16816_rn(raw[2 * np], af, bfr[0], bfr[1]);
+        mma::mma_16816_rn(raw[2 * np + 1], af, bfr[2], bfr[3]);
+      }
+    }
+
+    // 2. dz in registers, masked; dscale (dA); the two bf16 halves to shared
+    const float* sst = stat_s + buf * 3 * kStreamRows;
+#pragma unroll
+    for (int nt = 0; nt < C::kRawNT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int own_row = h ? r1 : r0;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int lc = raw_col0 + nt * 8 + 2 * t + e;
+          const int col = s0 + lc;
+          const float x = raw[nt][2 * h + e];
+          float dz = 0.f;
+          if (own_row < own_n && col < stream_n) {
+            if constexpr (DA) {
+              const float p = expf(scale * x - lse_r[h]);
+              dz = (p - (col == lab_r[h] ? 1.f : 0.f)) * g_r[h];
+            } else {
+              const float p = expf(scale * x - sst[lc]);
+              const int lab = __float_as_int(sst[2 * kStreamRows + lc]);
+              dz = (p - (own_row == lab ? 1.f : 0.f)) * sst[kStreamRows + lc];
+            }
+          }
+          if constexpr (DA) ds[h] = fmaf(dz, x, ds[h]);
+          v[e] = dz;
+        }
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 lo =
+            __floats2bfloat162_rn(v[0] - __low2float(hi), v[1] - __high2float(hi));
+        const int off = (lr0 + 8 * h) * C::kDzRS + raw_col0 + nt * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(dzh + off) = hi;
+        *reinterpret_cast<__nv_bfloat162*>(dzl + off) = lo;
+      }
+    }
+    __syncthreads();
+
+    // 3. out += dz_hi . X_stream + dz_lo . X_stream over the tile's 64 rows
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma::ldm_a(ah[kk], dzh + wr * 16 * C::kDzRS + kk * 16, C::kDzRS, lane);
+      mma::ldm_a(al[kk], dzl + wr * 16 * C::kDzRS + kk * 16, C::kDzRS, lane);
+    }
+    const bf16* qb = st + (lane & 15) * RS + (lane >> 4) * 8 + out_col0;
+#pragma unroll
+    for (int np = 0; np < C::kOutNT / 2; ++np) {
+      if (out_col0 + np * 16 >= d) continue;   // the same in every lane
+      float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t bfr[4];
+        mma::ldmatrix_x4_trans(bfr, qb + kk * 16 * RS + np * 16);
+        mma::mma_16816(d0, ah[kk], bfr[0], bfr[1]);
+        mma::mma_16816(d0, al[kk], bfr[0], bfr[1]);
+        mma::mma_16816(d1, ah[kk], bfr[2], bfr[3]);
+        mma::mma_16816(d1, al[kk], bfr[2], bfr[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        acc[2 * np][i] += d0[i];
+        acc[2 * np + 1][i] += d1[i];
+      }
+    }
+    if (C::kStages == 1 && tile + 1 < tiles) {
+      __syncthreads();   // every warp is done with the one stage
+      stage_stream(tile + 1, 0);
+      mma::cp_async_commit();
+    }
+  }
+
+  // scale * out, rows g and g + 8, features out_col0 + 8 nt + 2t (+1)
+#pragma unroll
+  for (int nt = 0; nt < C::kOutNT; ++nt) {
+    const int col = out_col0 + nt * 8 + 2 * t;
+    if (col >= d) continue;
+    if (r0 < own_n)
+      *reinterpret_cast<float2*>(out + size_t(r0) * d + col) =
+          make_float2(scale * acc[nt][0], scale * acc[nt][1]);
+    if (r1 < own_n)
+      *reinterpret_cast<float2*>(out + size_t(r1) * d + col) =
+          make_float2(scale * acc[nt][2], scale * acc[nt][3]);
+  }
+  if constexpr (DA) {
+    // a row's dscale: its quad, then its kWC column groups in order
+    const float s0 = mma::quad_sum(ds[0]), s1 = mma::quad_sum(ds[1]);
+    if (t == 0) {
+      part[wc * C::kOwn + lr0] = s0;
+      part[wc * C::kOwn + lr0 + 8] = s1;
+    }
+    __syncthreads();
+    for (int r = threadIdx.x; r < C::kOwn; r += kThreads) {
+      if (own0 + r >= own_n) continue;
+      float total = 0.f;
+#pragma unroll
+      for (int w = 0; w < C::kWC; ++w) total += part[w * C::kOwn + r];
+      dscale[own0 + r] = total;
+    }
+  }
+}
+
+template <int DC, bool DA>
+cudaError_t launch(const Args& x, float* out, float* dscale) {
+  using C = Cfg<DC>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(ce_bwd_mma_kernel<DC, DA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(C::kBytes));
+  if (attr != cudaSuccess) return attr;
+  const int own_n = DA ? x.m : x.n, stream_n = DA ? x.n : x.m;
+  const bf16* own = static_cast<const bf16*>(DA ? x.a : x.b);
+  const bf16* streamed = static_cast<const bf16*>(DA ? x.b : x.a);
+  ce_bwd_mma_kernel<DC, DA><<<(own_n + C::kOwn - 1) / C::kOwn, kThreads, C::kBytes, x.stream>>>(
+      own, streamed, x.labels, x.scale, x.lse, x.g, out, dscale, own_n, stream_n, x.d);
+  return cudaGetLastError();
+}
+
+// bf16 rows must be a multiple of 8 features on 16-byte aligned bases (the
+// wrapper pads and copies where they are not).
+template <bool DA>
+cudaError_t dispatch(const Args& x, float* out, float* dscale) {
+  if (x.d % 8 != 0 || (reinterpret_cast<uintptr_t>(x.a) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(x.b) & 15) != 0)
+    return cudaErrorInvalidValue;
+  if (x.d <= 64) return launch<64, DA>(x, out, dscale);
+  if (x.d <= 128) return launch<128, DA>(x, out, dscale);
+  if (x.d <= 256) return launch<256, DA>(x, out, dscale);
+  if (x.d <= 512) return launch<512, DA>(x, out, dscale);
+  return launch<768, DA>(x, out, dscale);
+}
+
+}  // namespace ce_mma
+
+// ---------------------------------------------------------------------------
+// float32 backward launchers
+// ---------------------------------------------------------------------------
+
+template <int DPT>
 cudaError_t launch_da(const Args& x, float* da, float* dscale) {
-  ce_bwd_da_kernel<T, DPT><<<(x.m + kOwn - 1) / kOwn, kThreads, 0, x.stream>>>(
-      static_cast<const T*>(x.a), static_cast<const T*>(x.b), x.labels, x.scale, x.lse, x.g, da,
-      dscale, x.m, x.n, x.d);
+  ce_bwd_da_kernel<float, DPT><<<(x.m + kOwn - 1) / kOwn, kThreads, 0, x.stream>>>(
+      static_cast<const float*>(x.a), static_cast<const float*>(x.b), x.labels, x.scale, x.lse,
+      x.g, da, dscale, x.m, x.n, x.d);
   return cudaGetLastError();
 }
 
-template <typename T, int DPT>
+template <int DPT>
 cudaError_t launch_db(const Args& x, float* db) {
-  ce_bwd_db_kernel<T, DPT><<<(x.n + kOwn - 1) / kOwn, kThreads, 0, x.stream>>>(
-      static_cast<const T*>(x.a), static_cast<const T*>(x.b), x.labels, x.scale, x.lse, x.g, db,
-      x.m, x.n, x.d);
+  ce_bwd_db_kernel<float, DPT><<<(x.n + kOwn - 1) / kOwn, kThreads, 0, x.stream>>>(
+      static_cast<const float*>(x.a), static_cast<const float*>(x.b), x.labels, x.scale, x.lse,
+      x.g, db, x.m, x.n, x.d);
   return cudaGetLastError();
 }
 
-// The per-thread feature count is a template argument (the accumulators live
-// in registers): 32 * DPT >= D.
-template <typename T>
+// float32: the per-thread feature count is a template argument (the
+// accumulators live in registers): 32 * DPT >= D.
 cudaError_t dispatch_da(const Args& x, float* da, float* dscale) {
-  if (x.d <= 64) return launch_da<T, 2>(x, da, dscale);
-  if (x.d <= 256) return launch_da<T, 8>(x, da, dscale);
-  if (x.d <= 512) return launch_da<T, 16>(x, da, dscale);
-  return launch_da<T, 24>(x, da, dscale);
+  if (x.d <= 64) return launch_da<2>(x, da, dscale);
+  if (x.d <= 256) return launch_da<8>(x, da, dscale);
+  if (x.d <= 512) return launch_da<16>(x, da, dscale);
+  return launch_da<24>(x, da, dscale);
 }
 
-template <typename T>
 cudaError_t dispatch_db(const Args& x, float* db) {
-  if (x.d <= 64) return launch_db<T, 2>(x, db);
-  if (x.d <= 256) return launch_db<T, 8>(x, db);
-  if (x.d <= 512) return launch_db<T, 16>(x, db);
-  return launch_db<T, 24>(x, db);
+  if (x.d <= 64) return launch_db<2>(x, db);
+  if (x.d <= 256) return launch_db<8>(x, db);
+  if (x.d <= 512) return launch_db<16>(x, db);
+  return launch_db<24>(x, db);
 }
 
 bool bad_shape(int m, int n, int d, int dtype) {
@@ -306,7 +638,9 @@ extern "C" int colxlip_fused_ce_fwd(const void* a, const void* b, const void* la
 }
 
 // As the forward, plus lse [M] and g [M] float32 (the cotangent of the loss
-// rows); out da [M, D] and dscale [M] float32.
+// rows); out da [M, D] and dscale [M] float32. bfloat16 takes the
+// tensor-core kernel, whose rows must be a multiple of 8 features on 16-byte
+// aligned bases (cudaErrorInvalidValue otherwise); float32 the CUDA cores.
 extern "C" int colxlip_fused_ce_bwd_da(const void* a, const void* b, const void* labels,
                                        const void* scale, const void* lse, const void* g,
                                        void* da, void* dscale, int m, int n, int d, int dtype,
@@ -317,7 +651,7 @@ extern "C" int colxlip_fused_ce_bwd_da(const void* a, const void* b, const void*
                static_cast<cudaStream_t>(stream)};
   float* out = static_cast<float*>(da);
   float* ds = static_cast<float*>(dscale);
-  return dtype == 0 ? dispatch_da<float>(x, out, ds) : dispatch_da<__nv_bfloat16>(x, out, ds);
+  return dtype == 0 ? dispatch_da(x, out, ds) : ce_mma::dispatch<true>(x, out, ds);
 }
 
 // As colxlip_fused_ce_bwd_da; out db [N, D] float32.
@@ -329,5 +663,5 @@ extern "C" int colxlip_fused_ce_bwd_db(const void* a, const void* b, const void*
                static_cast<const float*>(lse), static_cast<const float*>(g), m, n, d,
                static_cast<cudaStream_t>(stream)};
   float* out = static_cast<float*>(db);
-  return dtype == 0 ? dispatch_db<float>(x, out) : dispatch_db<__nv_bfloat16>(x, out);
+  return dtype == 0 ? dispatch_db(x, out) : ce_mma::dispatch<false>(x, out, nullptr);
 }

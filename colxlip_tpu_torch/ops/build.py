@@ -154,8 +154,9 @@ def build() -> pathlib.Path:
 def resource_usage(stems) -> dict:
     """Registers and spills of every kernel in ``csrc/<stem>.cu``, as ``nvcc
     -Xptxas -v`` reports them: {kernel<template arguments>: (registers, stack
-    bytes, spill-store bytes, spill-load bytes)}. Compiles into a temporary
-    directory and keeps nothing; for reports only, no path needs it."""
+    bytes, spill-store bytes, spill-load bytes)}, the name without its
+    namespaces. Compiles into a temporary directory and keeps nothing; for
+    reports only, no path needs it."""
     nvcc = find_nvcc()
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -173,8 +174,9 @@ def resource_usage(stems) -> dict:
             # its registers
             for name, stack, stores, loads, regs in re.findall(
                     r"Compiling entry function '(?:void )?(?:\(anonymous namespace\)::)?"
-                    r"(\w+(?:<[^>]*>)?)[^']*'.*?(\d+) bytes stack frame, (\d+) bytes spill "
-                    r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", text, flags=re.S):
+                    r"(?:\w+::)*(\w+(?:<[^>]*>)?)[^']*'.*?(\d+) bytes stack frame, "
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
+                    text, flags=re.S):
                 out[name] = (int(regs), int(stack), int(stores), int(loads))
     return out
 

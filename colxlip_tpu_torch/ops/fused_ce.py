@@ -11,9 +11,11 @@ kernels are ``_fwd_call``, and ``_bwd_call`` with its ``_bwd_da_kernel`` and
     dscale   = sum_ij dz_ij * <a_i, b_j>
 
 Three kernels (``csrc/fused_ce.cu``: forward, dA with the per-row dscale,
-dB), each beside a plain PyTorch version that walks the columns in chunks
-with the same online max / sum recurrence and an explicit backward, so its
-memory is O((M + N) D + M chunk) and it runs at M = N = 32768 as the oracle.
+dB; in bf16 the two backward kernels run on the tensor cores, with dz split
+into two bf16 halves), each beside a plain PyTorch version that walks the
+columns in chunks with the same online max / sum recurrence and an explicit
+backward, so its memory is O((M + N) D + M chunk) and it runs at
+M = N = 32768 as the oracle.
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. There is no fallback.
 
@@ -160,35 +162,49 @@ def _check_bwd(a, lse, g) -> None:
                              f"float32 [{a.shape[0]}]; got {t.dtype} {tuple(t.shape)}")
 
 
-def _launch_bwd_da(a, b, labels, scale, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dA kernel on CUDA tensors: (dA fp32 [M, D], dscale rows fp32 [M])."""
+def mma_operands(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a and b as the bf16 backward kernels take them: rows of a multiple of
+    8 features (zero-padded, which is exact for every product and costs
+    O((M + N) D)) on 16-byte aligned bases (copied where they are not)."""
+    pad = -a.shape[1] % 8
+    if pad:
+        return (torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, pad)))
+    return tuple(x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, b))
+
+
+def _launch_bwd(entry, a, b, labels, scale, lse, g, rows: int, with_dscale: bool):
+    """One backward kernel on CUDA tensors: fp32 [rows, D] (and dscale rows
+    fp32 [M] with the dA kernel)."""
     m, n, d = _check_cuda(a, b, labels, scale, ("lse", lse), ("g", g))
     _check_bwd(a, lse, g)
+    if a.dtype == torch.bfloat16:
+        a, b = mma_operands(a, b)
+    width = a.shape[1]
     kernels = load_kernels()
-    da = torch.empty((m, d), dtype=torch.float32, device=a.device)
-    dscale = torch.empty(m, dtype=torch.float32, device=a.device)
+    out = torch.empty((rows, width), dtype=torch.float32, device=a.device)
+    dscale = torch.empty(m, dtype=torch.float32, device=a.device) if with_dscale else None
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = kernels.colxlip_fused_ce_bwd_da(
+    extra = (dscale.data_ptr(),) if with_dscale else ()
+    err = getattr(kernels, entry)(
         a.data_ptr(), b.data_ptr(), labels.data_ptr(), scale.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), da.data_ptr(), dscale.data_ptr(), m, n, d, _DTYPE_CODES[a.dtype], stream)
-    kernels.check(err, "colxlip_fused_ce_bwd_da")
+        g.data_ptr(), out.data_ptr(), *extra, m, n, width, _DTYPE_CODES[a.dtype], stream)
+    kernels.check(err, entry)
+    out = out if width == d else out[:, :d].contiguous()
+    return (out, dscale) if with_dscale else out
+
+
+def _launch_bwd_da(a, b, labels, scale, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dA kernel on CUDA tensors: (dA fp32 [M, D], dscale rows fp32 [M])."""
+    out = _launch_bwd("colxlip_fused_ce_bwd_da", a, b, labels, scale, lse, g, a.shape[0], True)
     BWD_DA_LAUNCHES.add()
-    return da, dscale
+    return out
 
 
 def _launch_bwd_db(a, b, labels, scale, lse, g) -> torch.Tensor:
     """The dB kernel on CUDA tensors: dB fp32 [N, D]."""
-    m, n, d = _check_cuda(a, b, labels, scale, ("lse", lse), ("g", g))
-    _check_bwd(a, lse, g)
-    kernels = load_kernels()
-    db = torch.empty((n, d), dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = kernels.colxlip_fused_ce_bwd_db(
-        a.data_ptr(), b.data_ptr(), labels.data_ptr(), scale.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), db.data_ptr(), m, n, d, _DTYPE_CODES[a.dtype], stream)
-    kernels.check(err, "colxlip_fused_ce_bwd_db")
+    out = _launch_bwd("colxlip_fused_ce_bwd_db", a, b, labels, scale, lse, g, b.shape[0], False)
     BWD_DB_LAUNCHES.add()
-    return db
+    return out
 
 
 def _on_cpu(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""Check and time the port's streaming-CE kernels on one NVIDIA GPU.
+
+    python3 scripts/torch_ce_bench.py [--sizes 256,4096,32768] [--iters 10]
+
+Runs the three kernels of ``csrc/fused_ce.cu`` alone in bf16 (forward #11,
+dA with the per-row dscale #12, dB #13). For each size M = N (D = 512, the
+logit scales of ``chip_smoke.py``'s ``CE_CASES``) and for the extra shapes
+below it holds each kernel against its plain version under
+``chip_smoke.py``'s bars (loss rows and lse 1e-5 of 1 + |value|; dA, dB and
+dscale 1e-4 of the largest |grad|) and checks that two backward runs give
+the same bits. At each size it then times, with CUDA events in turns
+(kernel, plain, plain, kernel), each kernel and its plain version, the
+dense pair (fp32 ``torch.matmul`` + ``F.cross_entropy``, which holds the
+[M, N] logits: forward, and forward plus backward) and one direction of the
+loss under autograd through the kernels (forward + dA + dB), beside each
+kernel's bound, and reads each kernel's device time with torch.profiler.
+It prints the registers and spills of ``fused_ce.cu``'s kernels
+(``nvcc -Xptxas -v``), one line a case, the card's name and power limit,
+and one JSON object; it exits 1 if a check fails.
+
+The case "tied-100" (b = a at logit scale 100) is measured and printed but
+not held to the bar: there each row's own column has a logit of about 100,
+and the forward sums <a_i, a_i> in another order than the backward's tensor
+cores, so a few fp32 steps between the two sums move p by 100 times as much
+(PERF.md, the CE backward findings).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from colxlip_tpu_torch.ops import build, fused_ce  # noqa: E402
+
+SCALES = {256: 1 / 0.07}          # chip_smoke.CE_CASES: 100 at the larger sizes
+EXTRA = [
+    # name, M, N, D, logit scale, b = a, held to the bar
+    ("vit-l-768", 4096, 4096, 768, 100.0, False, True),
+    ("ragged-64", 33, 129, 64, 30.0, False, True),
+    ("d36", 130, 200, 36, 20.0, False, True),
+    ("tied", 1024, 1024, 512, 1 / 0.07, True, True),
+    ("tied-100", 1024, 1024, 512, 100.0, True, False),
+]
+
+
+def inputs(m, n, d, scale, tied, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    a, b, labels, s, g = chip_smoke.ce_inputs(m, n, d, scale, torch.bfloat16, dev, gen)
+    return a, (a.clone() if tied else b), labels, s, g
+
+
+def check(a, b, labels, s, g):
+    """Errors of the three kernels against their plain versions, and whether
+    two backward runs agree bit for bit."""
+    loss, lse = fused_ce._launch_fwd(a, b, labels, s)
+    da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+    db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
+    again = (*fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+             fused_ce._launch_bwd_db(a, b, labels, s, lse, g))
+    want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
+    want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
+    torch.cuda.synchronize()
+
+    def unit(got, want):
+        return ((got - want).abs() / (1 + want.abs())).max().item()
+
+    err = {"fwd": max(unit(loss, want_loss), unit(lse, want_lse)),
+           "da": chip_smoke.max_rel_err(da, want_da), "dscale": chip_smoke.max_rel_err(ds, want_ds),
+           "db": chip_smoke.max_rel_err(db, want_db)}
+    same = all(torch.equal(x, y) for x, y in zip((da, ds, db), again))
+    good = (err["fwd"] <= chip_smoke.CE_FWD_TOL and torch.isfinite(loss).all().item()
+            and max(err["da"], err["dscale"], err["db"]) <= chip_smoke.CE_BWD_TOL and same)
+    return err, same, good, lse
+
+
+def device_ms(fn, calls: int) -> dict:
+    """Device ms a call of each CE kernel that ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(r"(ce_\w+_kernel(?:<[^>]*>)?)", e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and found:
+            out[found.group(1)] = e.self_device_time_total / 1e3 / calls
+    return out
+
+
+def time_size(m, a, b, labels, s, lse, g, iters):
+    import torch.nn.functional as F
+
+    ms = chip_smoke.cuda_ms
+    warm = 1 if m > 4096 else 2
+    calls = {
+        "fwd": (lambda: fused_ce._launch_fwd(a, b, labels, s),
+                lambda: fused_ce.fused_ce_fwd_plain(a, b, labels, s)),
+        "bwd_da": (lambda: fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+                   lambda: fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, lse, g)),
+        "bwd_db": (lambda: fused_ce._launch_bwd_db(a, b, labels, s, lse, g),
+                   lambda: fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, lse, g)),
+    }
+    row = {}
+    for key, (kernel, plain) in calls.items():
+        k1, p1 = ms(kernel, iters, warm), ms(plain, iters, warm)
+        p2, k2 = ms(plain, iters, warm), ms(kernel, iters, warm)
+        row[key] = {"kernel_ms": [k1, k2], "plain_ms": [p1, p2]}
+    long_labels = labels.long()
+    a_, b_, s_ = (x.clone().requires_grad_() for x in (a, b, s))
+
+    def dense():
+        return F.cross_entropy(s_ * torch.matmul(a_.float(), b_.float().T), long_labels)
+
+    def dense_fwd():
+        with torch.no_grad():
+            dense()
+
+    def fused_step():
+        torch.autograd.grad(fused_ce.fused_contrastive_ce(a_, b_, labels, s_), (a_, b_, s_))
+
+    dense_ms = {"fwd": ms(dense_fwd, iters, warm),
+                "fwd_bwd": ms(lambda: torch.autograd.grad(dense(), (a_, b_, s_)), iters, warm)}
+    autograd_ms = ms(fused_step, iters, warm)
+    bounds = chip_smoke.ce_bounds(a, b)
+    for key in row:
+        row[key]["bound_ms"], row[key]["bound_by"] = bounds[f"fused_ce_{key}"]
+    passes = device_ms(lambda: (fused_ce._launch_fwd(a, b, labels, s),
+                                fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+                                fused_ce._launch_bwd_db(a, b, labels, s, lse, g)),
+                       2 if m > 4096 else 5)
+    return row, dense_ms, autograd_ms, passes
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sizes", default="256,4096,32768")
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_ce_bench: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    card = chip_smoke.card_line()
+    kernels = build.load_kernels()
+    usage = build.resource_usage(["fused_ce"])
+    print(f"build {kernels.build_seconds:.1f} s; fused_ce.cu registers / stack / spill stores / "
+          "spill loads: " + "; ".join(f"{k} {v}" for k, v in sorted(usage.items())), flush=True)
+    results, ok = {"registers": usage}, True
+    cases = [(f"{m}", m, m, 512, SCALES.get(m, 100.0), False, True)
+             for m in (int(x) for x in args.sizes.split(","))] + EXTRA
+    for name, m, n, d, scale, tied, gated in cases:
+        a, b, labels, s, g = inputs(m, n, d, scale, tied, dev)
+        err, same, good, lse = check(a, b, labels, s, g)
+        ok &= good or not gated
+        entry = {"m": m, "n": n, "d": d, "scale": scale, "tied": tied, "errors": err,
+                 "bit_equal": same, "held": gated, "ok": good}
+        line = (f"{name} M={m} N={n} D={d} scale={scale:.4g}{' b=a' if tied else ''}: errors "
+                + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+                + f"; reruns {'bit-equal' if same else 'DIFFER'}"
+                + ("" if good else "  FAILED" if gated else "  (over the bar; not held)"))
+        if name.isdigit():
+            iters = max(2, args.iters // 5) if m > 4096 else args.iters
+            row, dense_ms, autograd_ms, passes = time_size(m, a, b, labels, s, lse, g, iters)
+            entry.update(timing=row, dense_ms=dense_ms, autograd_ms=autograd_ms,
+                         device_ms=passes)
+            line += "".join(
+                f"\n  {key}: kernel {v['kernel_ms'][0]:.4f}/{v['kernel_ms'][1]:.4f} ms, plain "
+                f"{v['plain_ms'][0]:.4f}/{v['plain_ms'][1]:.4f} ms, bound {v['bound_ms']:.5f} ms "
+                f"({v['bound_by']})" for key, v in row.items())
+            line += (f"\n  dense pair forward {dense_ms['fwd']:.4f} ms, forward + backward "
+                     f"{dense_ms['fwd_bwd']:.4f} ms; one direction through the kernels under "
+                     f"autograd {autograd_ms:.4f} ms; device ms a call "
+                     + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+        results[name] = entry
+        print(line, flush=True)
+        del a, b, labels, s, g, lse
+        torch.cuda.empty_cache()
+    print(card)
+    print(json.dumps({"card": card, "ok": ok, "cases": results}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

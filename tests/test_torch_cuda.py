@@ -480,6 +480,7 @@ CE_SHAPES = [
     (33, 129, 64, 30.0),        # ragged, M != N
     (100, 70, 40, 100.0),       # D not a multiple of 32, the scale at its clamp
     (65, 1000, 768, 50.0),      # the widest D the kernels take
+    (130, 200, 36, 20.0),       # D not a multiple of 8: bf16 rows padded to 40
 ]
 
 
@@ -513,6 +514,24 @@ def test_fused_ce_kernels_match_plain(dev, m, n, d, scale, dtype):
     want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
     for got, want in ((da, want_da), (db, want_db), (ds, want_ds)):
         assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ce_kernels_match_plain_when_b_is_a(dev, dtype):
+    """b = a: each row's own column is its largest logit (p near 1) beside a
+    label term near -g, so dz's two largest terms cancel in every row; at
+    the entry point's logit scale."""
+    a, _, labels, s, g = _ce_inputs(300, 300, 512, 1 / 0.07, dev, dtype, seed=1)
+    b = a.clone()
+    loss, lse = fused_ce._launch_fwd(a, b, labels, s)
+    da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+    db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
+    want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
+    want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
+    for got, want in ((da, want_da), (db, want_db), (ds, want_ds)):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
 
 
