@@ -9,8 +9,8 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      power limit (nvidia-smi).
   2. build: compiles colxlip_tpu_torch/csrc/*.cu with nvcc for sm_90a (one
      nvcc per source, all at once); meanwhile a second nvcc -Xptxas -v of the
-     attention, MaxSim, MLP and CE sources reads each kernel's registers and
-     spills (printed in phase 5).
+     attention, MaxSim, MLP, CE and LayerNorm sources reads each kernel's
+     registers and spills (printed in phase 5).
   3. kernels: first a bare 64 x 64 x 64 product through the tensor-core tile
      code (csrc/mma_tile.cuh) against torch.matmul, A . B^T, its rounded
      result times B, and A^T . B from k-major tiles; then each forward kernel
@@ -26,14 +26,17 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      both shapes, two of its runs bit for bit; the
      three streaming-CE kernels (forward, dA + dscale, dB) in
      fp32 and bf16 at M = N = 256 and 4096 (D = 512), M = 33, N = 129
-     (D = 64) and M = N = 1024 with b = a, in bf16 at M = N = 4096 with
-     D = 768 and at M = N = 32768, where the dense fp32 logits
+     (D = 64) and M = N = 1024 with b = a, in bf16 at M = N = 1024 with
+     b = a at logit scale 100 ("tied-100", held: the bf16 forward and
+     backward take their logits from one tensor-core tile), at M = N = 4096
+     with D = 768 and at M = N = 32768, where the dense fp32 logits
      would be 4 GiB: the kernel path's peak memory there is printed and
      bounded, and two runs of the backward must agree bit for bit. The
      LayerNorm and MLP kernels (forward and backward each) in fp32 and bf16
      at the training shapes (batch 256, vision and text), the token-head
-     LayerNorm shape and one ragged shape each, and the MLP in bf16 at
-     ViT-L/14's width (D 1024, H 4096, 16 x 257 rows); two runs of each
+     LayerNorm shape and one ragged shape each, and the LayerNorm (both
+     types) and the MLP (bf16) at ViT-L/14's width (D 1024, H 4096, 16 x 257
+     rows), as phase 8b runs them; two runs of each
      backward must agree bit for bit, and at the vision shape neither
      direction of the MLP may hold as much as one [B, N, H] tensor above its
      inputs.
@@ -56,7 +59,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      over the dense logits is timed beside it; F.layer_norm forward and
      backward beside the LayerNorm kernels; the three calls F.linear,
      F.gelu, F.linear and their autograd backward beside the MLP kernels, at
-     every MLP case, each with its bound);
+     every MLP case, each with its bound; the LayerNorm backward at vision,
+     text, token-head and ViT-L/14's width, its row kernel and partial-row
+     reduce apart (torch.profiler) beside torch.add(x, dy),
+     which moves the same bytes; the CE forward at M = N = 256, 4096 and
+     32768 beside its plain version and the dense pair);
      encode throughput at batch 64, request latency; the attention bounds
      at the text shape as well. The library calls are
      timed only: on the paths timed here the port never calls them.
@@ -75,6 +82,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      against the same weights through the plain attention, and 2 colclip
      train steps at batch 16 (finite falling loss, one attention launch a
      block forward and backward, one MaxSim launch each way).
+     Then (6c) phase 6's step with COLXLIP_LN_IMPL=fused alone (the
+     LayerNorm kernels in both towers, the MLPs on the library path),
+     TRAIN_STEPS steps on the same batch and schedule: exact launch counts,
+     falling loss, the step's ms and peak beside phase 6's, one profiled step.
   7. training entry point: colxlip_tpu_torch.main.main([...]) in process,
      ViT-B-16 (full width and depth, clip loss) with --dataset-type
      synthetic --batch-size 256 --precision bf16 --ce-impl fused, 2 epochs
@@ -99,7 +110,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      the hidden tensors the default path keeps for autograd, and the step
      may take at most FUSED_STEP_RATIO_MAX times phase 6's; then the device
      time of one more step by kernel and the device's idle share
-     (torch.profiler).
+     (torch.profiler). Then (8b) ViT-L-14-colxlip the same way at batch
+     VIT_L_BATCH (the LayerNorm backward at D = 1024): both encoders against
+     the default path on the same weights, VIT_L_STEPS train steps with exact
+     launch counts, and the peak below phase 6b's.
   9. the int8 slice, full width and depth, seed 0: (a) every Dense weight of
      both towers through the quantizer kernel (99 launches) and through
      round-to-nearest (quantize_vision_params / quantize_text_params);
@@ -186,15 +200,20 @@ BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 CE_FWD_TOL = 1e-5
 CE_BWD_TOL = 1e-4
 CE_CASES = [
-    # M, N, D, logit scale, dtypes, b = a
-    (256, 256, 512, 1 / 0.07, ("float32", "bfloat16"), False),     # one step of phase 7
-    (33, 129, 64, 30.0, ("float32", "bfloat16"), False),
-    (4096, 4096, 512, 100.0, ("float32", "bfloat16"), False),
-    (4096, 4096, 768, 100.0, ("bfloat16",), False),        # ViT-L-14's embed_dim, the widest D
+    # M, N, D, logit scale, dtypes, b = a, seed: None draws from the phase's
+    # one generator; a case added later has a generator of its own, so that
+    # adding it changes the inputs of no other check
+    (256, 256, 512, 1 / 0.07, ("float32", "bfloat16"), False, None),     # one step of phase 7
+    (33, 129, 64, 30.0, ("float32", "bfloat16"), False, None),
+    (4096, 4096, 512, 100.0, ("float32", "bfloat16"), False, None),
+    (4096, 4096, 768, 100.0, ("bfloat16",), False, None),  # ViT-L-14's embed_dim, the widest D
     # b = a: each row's own column is its largest logit (p near 1) beside a
     # label term near -g, so dz's two largest terms cancel in every row
-    (1024, 1024, 512, 1 / 0.07, ("float32", "bfloat16"), True),
-    (32768, 32768, 512, 100.0, ("bfloat16",), False),      # dense logits: 4 GiB
+    (1024, 1024, 512, 1 / 0.07, ("float32", "bfloat16"), True, None),
+    # "tied-100": b = a at the scale's clamp, each row's own logit about 100;
+    # holds because the bf16 forward and backward take raw from one logit tile
+    (1024, 1024, 512, 100.0, ("bfloat16",), True, 100),
+    (32768, 32768, 512, 100.0, ("bfloat16",), False, None),     # dense logits: 4 GiB
 ]
 CE_PEAK_LIMIT_GIB = 1.0     # kernel path at 32768, above its inputs
 # LayerNorm and MLP kernels vs their plain versions:
@@ -209,11 +228,13 @@ CE_PEAK_LIMIT_GIB = 1.0     # kernel path at 32768, above its inputs
 FUSED_FWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 FUSED_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 LN_CASES = [
-    # name, leading shape, D
-    ("vision", (256, 197), 768),
-    ("text", (256, 77), 512),
-    ("token-head", (256, 196), 512),
-    ("ragged", (197 * 3,), 512),
+    # name, leading shape, D, seed (None: the phase's one generator; a case
+    # added later has a generator of its own, as in CE_CASES)
+    ("vision", (256, 197), 768, None),
+    ("text", (256, 77), 512, None),
+    ("token-head", (256, 196), 512, None),
+    ("ragged", (197 * 3,), 512, None),
+    ("vit-l", (16, 257), 1024, 1024),   # phase 8b's width: the PE = 32 bucket
 ]
 MLP_CASES = [
     # name, B, N, D, H, the GELU branches checked, dtypes (float32 takes D <= 768)
@@ -368,10 +389,10 @@ def plain_versions():
 
 
 @contextlib.contextmanager
-def fused_towers():
-    """COLXLIP_LN_IMPL=fused and COLXLIP_MLP_IMPL=fused while models are built
-    (the modules read them once, in their constructors)."""
-    names = ("COLXLIP_LN_IMPL", "COLXLIP_MLP_IMPL")
+def fused_towers(names=("COLXLIP_LN_IMPL", "COLXLIP_MLP_IMPL")):
+    """COLXLIP_LN_IMPL=fused and COLXLIP_MLP_IMPL=fused (or the variables
+    named) while models are built (the modules read them once, in their
+    constructors)."""
     saved = {k: os.environ.get(k) for k in names}
     os.environ.update({k: "fused" for k in names})
     try:
@@ -513,9 +534,10 @@ def check_ce_kernels(dev, gen):
 
     errs = {"fused_ce_fwd": 0.0, "fused_ce_bwd_da": 0.0, "fused_ce_bwd_db": 0.0}
     inputs = {}
-    for m, n, d, scale, dtypes, tied in CE_CASES:
+    for m, n, d, scale, dtypes, tied, seed in CE_CASES:
+        case_gen = gen if seed is None else torch.Generator().manual_seed(seed)
         for name in dtypes:
-            a, b, labels, s, g = ce_inputs(m, n, d, scale, getattr(torch, name), dev, gen)
+            a, b, labels, s, g = ce_inputs(m, n, d, scale, getattr(torch, name), dev, case_gen)
             if tied:
                 b = a.clone()
             loss, lse = fused_ce._launch_fwd(a, b, labels, s)
@@ -657,11 +679,12 @@ def check_fused_kernels(dev, gen):
         errs[f"{kind}_fwd"] = max(errs[f"{kind}_fwd"], fwd_err)
         errs[f"{kind}_bwd"] = max(errs[f"{kind}_bwd"], bwd_err)
 
-    for case, lead, d in LN_CASES:
-        x32 = torch.randn(*lead, d, generator=gen) * 2 + 0.5
-        dy32 = torch.randn(*lead, d, generator=gen)
-        scale = (1 + 0.1 * torch.randn(d, generator=gen)).to(dev)
-        bias = (0.1 * torch.randn(d, generator=gen)).to(dev)
+    for case, lead, d, seed in LN_CASES:
+        case_gen = gen if seed is None else torch.Generator().manual_seed(seed)
+        x32 = torch.randn(*lead, d, generator=case_gen) * 2 + 0.5
+        dy32 = torch.randn(*lead, d, generator=case_gen)
+        scale = (1 + 0.1 * torch.randn(d, generator=case_gen)).to(dev)
+        bias = (0.1 * torch.randn(d, generator=case_gen)).to(dev)
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             x, dy = x32.to(dev, dtype), dy32.to(dev, dtype)
@@ -731,8 +754,8 @@ def time_fused_kernels(inputs, card: str):
 
     from colxlip_tpu_torch.ops import fused_ln, fused_mlp
 
-    timing = {}
-    for case in ("vision", "text", "token-head"):
+    timing, ln_bwd = {}, {}
+    for case in ("vision", "text", "token-head", "vit-l"):
         x, scale, bias, dy = inputs[f"ln/{case}"]
         d = x.shape[-1]
         w, b = scale.to(x.dtype), bias.to(x.dtype)
@@ -748,7 +771,18 @@ def time_fused_kernels(inputs, card: str):
         timing[f"fused_ln_bwd/{case}"] = (
             cuda_ms(lambda: fused_ln._launch_bwd(x, scale, dy, 1e-5), 20),
             cuda_ms(lambda: fused_ln.layernorm_bwd_plain(x, scale, dy, 1e-5), 20), lib_bwd)
-        del x_, w_, b_, y_
+        # #8's two kernels apart, and the same bytes moved with no arithmetic
+        sink = torch.empty_like(x)
+        split = device_ms_by_kernel(lambda: fused_ln._launch_bwd(x, scale, dy, 1e-5), 10,
+                                    r"(ln_bwd_kernel|reduce_partials)")
+        rows = x.numel() // d
+        ln_bwd[case] = {
+            "ms": timing[f"fused_ln_bwd/{case}"][0], "plain_ms": timing[f"fused_ln_bwd/{case}"][1],
+            "library_ms": lib_bwd,
+            "bound_ms": bound_ms(3 * rows * d * x.element_size(), 16 * rows * d, "bfloat16")[0],
+            "row_kernel_ms": split.get("ln_bwd_kernel"), "reduce_ms": split.get("reduce_partials"),
+            "same_bytes_add_ms": cuda_ms(lambda: torch.add(x, dy, out=sink), 20)}
+        del x_, w_, b_, y_, sink
     for case, *_ in MLP_CASES:
         x, w1, b1, w2, b2, dy = inputs[f"mlp/{case}"]
         w2_out_in = w2.t().contiguous()          # [D, H], the layout F.linear takes
@@ -781,8 +815,34 @@ def time_fused_kernels(inputs, card: str):
                                                 "forward)" if "bwd" in key else ""))
         log(f"[5 timing] {key} bf16: kernel {ker:.4f} ms, plain "
             f"{plain:.4f} ms, {what} {lib:.4f} ms ({card})")
+    for case, row in ln_bwd.items():
+        log(f"[5 timing] fused_ln_bwd/{case}: row kernel {row['row_kernel_ms']:.4f} ms + "
+            f"partial-row reduce {row['reduce_ms']:.4f} ms of device time (torch.profiler); the "
+            f"call {row['ms']:.4f} ms against its bound {row['bound_ms']:.5f} ms = "
+            f"{row['bound_ms'] / row['ms']:.1%} of it; torch.add(x, dy) (the same bytes) "
+            f"{row['same_bytes_add_ms']:.4f} ms ({card})")
+    timing["ln_bwd_cases"] = ln_bwd
     torch.cuda.empty_cache()
     return timing
+
+
+def device_ms_by_kernel(fn, calls: int, pattern: str) -> dict:
+    """Device ms a call of each kernel whose name matches ``pattern`` (its
+    first group names it) over ``calls`` calls of ``fn`` (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(pattern, e.key)
+        if e.device_type == torch.autograd.DeviceType.CUDA and found:
+            out[found.group(1)] = out.get(found.group(1), 0.0) + \
+                e.self_device_time_total / 1e3 / calls
+    return out
 
 
 def time_library_attention(qkv, dout, heads: int, causal: bool):
@@ -1333,6 +1393,166 @@ def fused_phase(dev, card: str, train):
             compare_step(dev, dtype, ref_state, step_cfg, images[:COMPARE_BATCH],
                          texts[:COMPARE_BATCH], tag="[8 fused]")
     return {"launches": launches, "step_ms": step_ms, "peak_gib": peak, "losses": losses}
+
+
+def ln_only_phase(dev, card: str, train):
+    """Phase 6c: the flagship step of phase 6 with COLXLIP_LN_IMPL=fused alone
+    (LayerNorm kernels #7-8 in both towers, the MLPs on the library path),
+    TRAIN_STEPS steps at batch 256 on the same batch and schedule, against
+    phase 6's step."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.ops import attention, fused_ln, fused_mlp, maxsim
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig, make_train_step
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import cosine_lr
+
+    with fused_towers(("COLXLIP_LN_IMPL",)):
+        model, cfg = create_model(MODEL, dev, torch.bfloat16, seed=0)
+    model.train()
+    images, texts = synthetic_batch(TRAIN_BATCH, cfg.vision_cfg.image_size,
+                                    cfg.text_cfg.context_length, seed=0)
+    images, texts = torch.from_numpy(images).to(dev), torch.from_numpy(texts).to(dev)
+    step_cfg = TrainStepConfig(loss_type="colclip", alpha=0.5, mask_mode="nonzero")
+    schedule = cosine_lr(2e-4, 2, TRAIN_STEPS)
+    step = make_train_step(model, create_optimizer(model, schedule), schedule, step_cfg)
+    counters = {"fused_ln_fwd": fused_ln.FWD_LAUNCHES, "fused_ln_bwd": fused_ln.BWD_LAUNCHES,
+                "fused_mlp_fwd": fused_mlp.FWD_LAUNCHES, "fused_mlp_bwd": fused_mlp.BWD_LAUNCHES,
+                "fused_attention_fwd": attention.LAUNCHES,
+                "fused_attention_bwd": attention.BWD_LAUNCHES, "maxsim_fwd": maxsim.LAUNCHES,
+                "maxsim_bwd": maxsim.BWD_LAUNCHES}
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = step(images, texts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        vals = {k: float(v) for k, v in metrics.items()}
+        losses.append(vals["total_loss"])
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"[6c] step {i}: non-finite metrics {vals}")
+    launches = {name: c.value for name, c in counters.items()}
+    per_step = {**STEP_LAUNCHES, "fused_mlp": 0}
+    want = {name: TRAIN_STEPS * per_step[name.rsplit("_", 1)[0]] for name in counters}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    step_ms = statistics.median(secs[2:]) * 1e3
+    log(f"[6c ln] {MODEL} with COLXLIP_LN_IMPL=fused alone: loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} (phase 6: {train['losses'][0]:.5f} -> {train['losses'][-1]:.5f}); "
+        f"step at batch {TRAIN_BATCH}: median {step_ms:.2f} ms over steps 2..{TRAIN_STEPS - 1} = "
+        f"{TRAIN_BATCH / step_ms * 1e3:.1f} img/s against phase 6's {train['step_ms']:.2f} ms "
+        f"({step_ms / train['step_ms']:.3f} x); peak device memory {peak:.2f} GiB (phase 6: "
+        f"{train['peak_gib']:.2f}); kernel launches over {TRAIN_STEPS} steps {launches} ({card})")
+    if launches != want:
+        raise RuntimeError(f"[6c] launches {launches}, expected {want}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"[6c] the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    profile_step(step, images, texts, card, tag="[6c ln]")
+    del step, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak, "losses": losses,
+            "over_default": step_ms / train["step_ms"]}
+
+
+def vit_l_fused_phase(dev, card: str, vit_l):
+    """Phase 8b: ViT-L-14-colxlip (vision 1024 wide, 24 blocks; text 768, 12)
+    through the LayerNorm and MLP kernels, the first model path that runs #8
+    at D = 1024: both encoders at batch VIT_L_BATCH against the same weights
+    on the default path, then VIT_L_STEPS colclip steps with exact launch
+    counts, and the peak memory against phase 6b's."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.ops import attention, maxsim
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig, make_train_step
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    default_model, cfg = create_model(VIT_L_MODEL, dev, torch.bfloat16, seed=0)
+    with fused_towers():
+        model, _ = create_model(VIT_L_MODEL, dev, torch.bfloat16, seed=0)
+    vis, txt = cfg.vision_cfg, cfg.text_cfg
+    images, texts = synthetic_batch(VIT_L_BATCH, vis.image_size, txt.context_length, seed=2)
+    images, texts = torch.from_numpy(images).to(dev), torch.from_numpy(texts).to(dev)
+    new = fused_counters()
+    counters = {**new, "fused_attention_fwd": attention.LAUNCHES,
+                "fused_attention_bwd": attention.BWD_LAUNCHES, "maxsim_fwd": maxsim.LAUNCHES,
+                "maxsim_bwd": maxsim.BWD_LAUNCHES}
+    # LayerNorms an encode: ln_1 and ln_2 a block and the token head's two,
+    # with ln_pre and ln_post in the vision tower and ln_final in the text's
+    layer_norms = {"image": 2 * vis.layers + 4, "text": 2 * txt.layers + 3}
+    blocks = {"image": vis.layers, "text": txt.layers}
+
+    def reset():
+        for c in counters.values():
+            c.reset()
+
+    model.eval()
+    with torch.inference_mode():
+        for kind, batch in (("image", images), ("text", texts)):
+            encode = "encode_image" if kind == "image" else "encode_text"
+            reset()
+            got = getattr(model, encode)(batch, normalize=True)
+            torch.cuda.synchronize()
+            launches = {name: c.value for name, c in new.items()}
+            want_launches = {"fused_ln_fwd": layer_norms[kind], "fused_ln_bwd": 0,
+                             "fused_mlp_fwd": blocks[kind], "fused_mlp_bwd": 0}
+            want = getattr(default_model, encode)(batch, normalize=True)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            off = max(((1.0 - torch.nn.functional.cosine_similarity(
+                g.float(), w.float(), dim=-1)) * (w.float().norm(dim=-1) > 0.5)).max().item()
+                for g, w in zip(got, want))
+            log(f"[8b vit-l fused] {encode} batch {VIT_L_BATCH} through the kernels vs the "
+                f"default path: max_abs_err {err:.3g} (tol {ENCODE_TOL}), largest 1 - cosine of "
+                f"a row {off:.3g} (tol {ENCODE_COSINE_TOL}); launches {launches}")
+            if launches != want_launches:
+                raise RuntimeError(f"[8b] {encode}: launches {launches}, expected {want_launches}")
+            if not (err <= ENCODE_TOL and off <= ENCODE_COSINE_TOL
+                    and all(torch.isfinite(g).all() for g in got)):
+                raise RuntimeError(f"[8b] {encode}: max_abs_err {err}, 1 - cosine {off}")
+    del default_model
+    torch.cuda.empty_cache()
+
+    model.train()
+    step_cfg = TrainStepConfig(loss_type="colclip", alpha=0.5, mask_mode="nonzero")
+    schedule = const_lr(1e-4, 0)
+    step = make_train_step(model, create_optimizer(model, schedule), schedule, step_cfg)
+    reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, secs = [], []
+    for i in range(VIT_L_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = step(images, texts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        vals = {k: float(v) for k, v in metrics.items()}
+        losses.append(vals["total_loss"])
+        if not all(math.isfinite(v) for v in vals.values()):
+            raise RuntimeError(f"[8b] step {i}: non-finite metrics {vals}")
+    launches = {name: c.value for name, c in counters.items()}
+    per_step = {"fused_ln": sum(layer_norms.values()), "fused_mlp": sum(blocks.values()),
+                "fused_attention": sum(blocks.values()), "maxsim": 1}
+    want_launches = {name: VIT_L_STEPS * per_step[name.rsplit("_", 1)[0]] for name in counters}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[8b vit-l fused] loss {losses[0]:.5f} -> {losses[-1]:.5f} over {VIT_L_STEPS} steps at "
+        f"batch {VIT_L_BATCH} (last step {secs[-1] * 1e3:.1f} ms against phase 6b's "
+        f"{vit_l['step_ms']:.1f} ms; peak device memory {peak:.2f} GiB against phase 6b's "
+        f"{vit_l['peak_gib']:.2f} GiB); kernel launches {launches} ({card})")
+    if launches != want_launches:
+        raise RuntimeError(f"[8b] launches {launches}, expected {want_launches}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"[8b] the loss did not fall: {losses}")
+    if not peak < vit_l["peak_gib"]:
+        raise RuntimeError(f"[8b] peak {peak} GiB through the kernels is not below the default "
+                           f"path's {vit_l['peak_gib']} GiB (the MLPs hold no hidden tensors)")
+    del step, model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_ms": secs[-1] * 1e3, "peak_gib": peak}
 
 
 def main_phase(dev, card: str):
@@ -1933,7 +2153,7 @@ def main() -> int:
     usage_thread = threading.Thread(
         target=lambda: usage.update(build.resource_usage(
             ["fused_attention", "fused_attention_bwd", "maxsim", "maxsim_bwd", "fused_mlp",
-             "fused_ce"])),
+             "fused_ce", "fused_ln"])),
         daemon=True)
     usage_thread.start()
     kernels = build.load_kernels()
@@ -2205,18 +2425,21 @@ def main() -> int:
         httpd.shutdown()
         svc.stop()
         server.join(timeout=30)
+    ce_sizes = list(ce_inputs_by_m)
     del svc, bwd_inputs, ce_inputs_by_m, fused_inputs
     torch.cuda.empty_cache()
 
     # ---- phase 6: the train slice -----------------------------------------
     train = train_phase(dev, card)
     vit_l = vit_l_phase(dev, card)
+    ln_only = ln_only_phase(dev, card, train)
 
     # ---- phase 7: the training entry point ----------------------------------
     trainer = main_phase(dev, card)
 
     # ---- phase 8: the towers through the LayerNorm and MLP kernels ----------
     fused = fused_phase(dev, card, train)
+    vit_l_fused = vit_l_fused_phase(dev, card, vit_l)
 
     # ---- phase 9: the int8 slice and /v1/search ------------------------------
     int8 = int8_phase(dev, card, train, encode_ms)
@@ -2321,6 +2544,21 @@ def main() -> int:
                                    (*timing[f"fused_mlp_{key}/{case}"],
                                     mlp_case_bounds[case][f"fused_mlp_{key}"][0]))}
             for case, *_ in MLP_CASES},
+        "ln_bwd_cases": timing["ln_bwd_cases"],
+        "ce_fwd_sizes": {m: {"ms": timing[f"fused_ce_fwd/{m}"][0],
+                             "plain_ms": timing[f"fused_ce_fwd/{m}"][1],
+                             "dense_fwd_ms": timing[f"dense_ce/{m}"][0],
+                             "bound_ms": timing[f"ce_bounds/{m}"]["fused_ce_fwd"][0]}
+                         for m in sorted(ce_sizes)},
+        "ln_only_train_step": {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+                               "ms": ln_only["step_ms"], "peak_gib": ln_only["peak_gib"],
+                               "over_default": ln_only["over_default"],
+                               "launches": ln_only["launches"]},
+        "vit_l_fused_train": {"model": VIT_L_MODEL, "batch": VIT_L_BATCH,
+                              "step_ms": vit_l_fused["step_ms"],
+                              "peak_gib": vit_l_fused["peak_gib"],
+                              "launches": vit_l_fused["launches"],
+                              "losses": vit_l_fused["losses"]},
         "fused_train_step": {"batch": TRAIN_BATCH, "steps": FUSED_STEPS, "ms": fused["step_ms"],
                              "img_per_s": TRAIN_BATCH / fused["step_ms"] * 1e3,
                              "peak_gib": fused["peak_gib"],

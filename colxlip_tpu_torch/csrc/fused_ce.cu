@@ -36,57 +36,79 @@
 // 989 TFLOP/s). At the one-step shape M = N = 256 launch latency bounds all
 // three.
 //
-// bf16 backward (#12, #13): the tensor cores. One kernel body serves both,
-// `ce_bwd_mma_kernel<DC, DA>`, with the roles of a and b swapped for dB:
-// the block owns kOwn rows ("own": a for dA, b for dB; 64 rows for D <= 512,
-// 32 above) and walks the other matrix ("stream") in tiles of 64 rows. Per
-// tile, 8 warps:
+// bf16, all three kernels: the tensor cores, on one logit tile. The block
+// owns kOwn rows ("own": a for the forward and dA, b for dB; 64 rows for
+// D <= 512, 32 above) and walks the other matrix ("stream") in tiles of 64
+// rows. Per tile, 8 warps:
 //   1. raw = X_own . X_stream^T [kOwn, 64] by mma.sync.m16n8k16 (bf16
 //      operands, fp32 sums) from ldmatrix fragments of the own tile (staged
 //      once) and the stream tile (a ring of two cp.async stages where two
-//      fit in shared memory, D <= 512; one at D = 768). Each k-step of 16
-//      features is taken from a zero accumulator and added in fp32 rounding
-//      to nearest (mma_tile.cuh mma_16816_rn): an mma that accumulates in
-//      place truncates to the accumulator's last bit, and over 32 k-steps of
+//      fit in shared memory, D <= 512; one at D = 768): `logit_tile`, one
+//      function that all three kernels call. Each k-step of 16 features is
+//      taken from a zero accumulator and added in fp32 rounding to nearest
+//      (mma_tile.cuh mma_16816_rn): an mma that accumulates in place
+//      truncates to the accumulator's last bit, and over 32 k-steps of
 //      positive terms (<a_i, a_i> when b = a) that bias, times a scale of
-//      100, would move p by 1e-4 relative. Warps: kOwn / 16 row groups
-//      times 8 / (kOwn / 16) column groups.
-//   2. the epilogue, in registers: dz from the tile, the masks (own rows and
-//      stream rows past their ends give 0), lse, g and label by own row (dA,
-//      read once) or by stream row (dB, staged with the tile); dA adds
-//      dz * raw into the thread's per-row dscale. dz goes to shared memory
-//      split in two bf16 halves, dz_hi = bf16(dz), dz_lo = bf16(dz - dz_hi).
-//   3. out[kOwn, D] += dz_hi . X_stream + dz_lo . X_stream by mma.sync, A
-//      from the dz halves, B the same stream tile read k-major
+//      100, would move p by 1e-4 relative. Warps: kOwn / 16 row groups times
+//      8 / (kOwn / 16) column groups. A k-step's result for (i, j) depends
+//      only on that k-step's 16 values of a_i and b_j, and the k-steps are
+//      added in the same order in every kernel, so the forward and the
+//      backward get the same bits of raw_ij: the backward's
+//      p = exp(scale raw - lse) meets the forward's lse of the same sums.
+//      When the forward summed in k order on the CUDA cores, b = a at scale
+//      100 put dscale at 8.5e-5 of max|grad| against the bar of 1e-4.
+//   2. the epilogue, in registers.
+//      Forward (#11, `ce_fwd_mma_kernel<DC>`): z = scale raw, -1e30 past N;
+//      each thread keeps a running (max, sum) for its two rows over the
+//      columns it holds (tile max, the sum rescaled, expf(z - max) added)
+//      and the label logit where its column is the label. No second product
+//      and nothing in shared memory: at the end the pairs merge in a fixed
+//      order, the quad by shuffles, then the column groups through shared
+//      memory; lse = max + log(sum), loss = lse - z_label. No [kOwn, D]
+//      output accumulator, so it takes far fewer registers than the
+//      backward.
+//      Backward (`ce_bwd_mma_kernel<DC, DA>`, one body for #12 and #13 with
+//      the roles of a and b swapped for dB): dz from the tile, the masks
+//      (own rows and stream rows past their ends give 0), lse, g and label
+//      by own row (dA, read once) or by stream row (dB, staged with the
+//      tile); dA adds dz * raw into the thread's per-row dscale. dz goes to
+//      shared memory split in two bf16 halves, dz_hi = bf16(dz),
+//      dz_lo = bf16(dz - dz_hi).
+//   3. (backward) out[kOwn, D] += dz_hi . X_stream + dz_lo . X_stream by
+//      mma.sync, A from the dz halves, B the same stream tile read k-major
 //      (ldmatrix.trans). A warp owns 16 rows times D / (8 / (kOwn / 16))
 //      features of the fp32 output in registers (128 a thread at D = 512,
 //      96 at D = 768); the tile's 8 mma per n-tile go into a zero
 //      accumulator that is then added to the output rounding to nearest.
-// The split makes the tensor cores run 2 M N D + 2 x 2 M N D = 6 M N D
-// flops for the function's 4 M N D. Why it is safe here when it was not for
-// MaxSim (csrc/maxsim_tile.cuh): nothing routes on an argmax, the outputs
-// are fp32 and never rounded to bf16, and X is bf16, exact in one half. One bf16
+// What bounds the bf16 forward: operations, 2 M N D flops (1.11174 ms at
+// M = N = 32768, D = 512); it also takes one expf an element (1.07e9 there)
+// on the special-function units. The split makes the backward's tensor
+// cores run 2 M N D + 2 x 2 M N D = 6 M N D flops for the function's
+// 4 M N D. Why it is safe here when it was not for MaxSim
+// (csrc/maxsim_tile.cuh): nothing routes on an argmax, the outputs are fp32
+// and never rounded to bf16, and X is bf16, exact in one half. One bf16
 // rounding of dz would cost 2^-9 of the label term (p - 1) g, near the
 // largest term of a row: about 2e-3 of max|grad| against the bar of 1e-4;
 // the split leaves 2^-18 (tests/test_torch_ce_tiles.py holds both). D is
 // staged in 16-byte pieces: the wrapper pads rows to a multiple of 8
-// features with zeros (exact) and the kernel zero-fills features past D;
-// n-tiles of the output past D are skipped. No atomics: dscale's per-thread
-// sums meet in shared memory in a fixed order.
+// features with zeros (exact) and the kernels zero-fill features past D;
+// n-tiles of the output past D are skipped. No atomics: the forward's pairs
+// and dscale's per-thread sums meet in shared memory in a fixed order.
 //
-// fp32 (all three kernels) and the bf16 forward: fp32 FMAs on the CUDA
-// cores, as first ported: a 16 x 16 thread block holds the [rows, cols]
-// tile of raw dots in registers, fed from shared-memory chunks of 32
-// features stored feature-major (csrc/stream_tile.cuh, shared with
-// csrc/fused_mlp.cu); the backward puts dz for the tile in shared memory and
-// each warp adds dz times the streamed rows (read through L1/L2) into its 4
-// owned rows. fp32 runs only under --precision fp32, and a tensor-core fp32
-// product would need three split products: it stays here.
+// fp32 (all three kernels): fp32 FMAs on the CUDA cores, as first ported: a
+// 16 x 16 thread block holds the [rows, cols] tile of raw dots in
+// registers, fed from shared-memory chunks of 32 features stored
+// feature-major (csrc/stream_tile.cuh, shared with csrc/fused_mlp.cu); the
+// backward puts dz for the tile in shared memory and each warp adds dz times
+// the streamed rows (read through L1/L2) into its 4 owned rows. fp32 runs
+// only under --precision fp32, and a tensor-core fp32 product would need
+// three split products: it stays here.
 //
-// Next steps for a later PR: the forward (#11) on the same tile (raw as in
-// step 1, the online logsumexp in the epilogue, no second product); wgmma
-// with TMA, a warpgroup reading the stream tile once where each of today's
-// warps re-reads its fragments from shared memory.
+// Next steps for a later PR: wgmma with TMA, a warpgroup reading the stream
+// tile once where each of today's warps re-reads its fragments from shared
+// memory; a producer warp that keeps the stream tiles in flight while two
+// consumer warpgroups run one tile's epilogue under the next tile's
+// products (today one block an SM at D = 512 overlaps nothing).
 
 #include "mma_tile.cuh"
 #include "stream_tile.cuh"
@@ -99,8 +121,8 @@ using namespace colxlip::stream_tile;
 constexpr float kNeg = -1e30f;
 
 // ---------------------------------------------------------------------------
-// forward: one block per tile of 64 rows of a, looping over tiles of 64 rows
-// of b
+// float32 forward (CUDA cores): one block per tile of 64 rows of a, looping
+// over tiles of 64 rows of b
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -284,7 +306,7 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 backward on the tensor cores: one body for dA (DA) and dB
+// bf16 on the tensor cores: the forward, and one body for dA (DA) and dB
 // ---------------------------------------------------------------------------
 
 namespace ce_mma {
@@ -320,6 +342,19 @@ struct Cfg {
   static constexpr size_t kBytes = bytes(kStages);
 };
 
+// The forward's shared memory: the same own and stream tiles, no dz, and the
+// (max, sum, label logit) of each own row from each column group.
+template <int DC>
+struct FwdCfg : Cfg<DC> {
+  using B = Cfg<DC>;
+  static constexpr size_t kPartBytes = 3 * size_t(B::kWC) * B::kOwn * 4;
+  static constexpr size_t bytes(int stages) {
+    return B::kOwnBytes + stages * B::kStreamBytes + kPartBytes;
+  }
+  static constexpr int kStages = bytes(2) <= colxlip::kMaxSharedBytes ? 2 : 1;
+  static constexpr size_t kBytes = bytes(kStages);
+};
+
 // Rows row0 .. row0 + ROWS - 1 of a [n, d] bf16 matrix (d a multiple of 8,
 // 16-byte aligned rows) into a tile of row stride DC + kPad; rows past n and
 // features past d are zeros. The caller commits.
@@ -332,6 +367,165 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
     const bool live = row0 + r < n && c < d;
     mma::cp_async_16(dst + r * (DC + kPad) + c, live ? src + size_t(row0 + r) * d + c : src,
                      live);
+  }
+}
+
+// Step 1 of all three bf16 kernels: raw[nt] = the warp's 16 own rows times NT
+// n-tiles of 8 stream rows, X_own . X_stream^T, in C-fragment layout. `pa` is
+// the lane's ldmatrix address in the own tile (row 16 wr + lane % 16, feature
+// 8 (lane / 16)), `cols` the stream tile at the warp's first column. Each
+// k-step of 16 features is taken from a zero accumulator and added in fp32
+// rounding to nearest, in k order. An m16n8k16 result for (i, j) depends only
+// on the 16 values of a_i and of b_j in its k-step, so every kernel that
+// calls this with the same padded d gets the same bits of raw_ij, whatever
+// its warp layout: the forward's lse and the backward's p agree.
+template <int NT, int RS>
+__device__ __forceinline__ void logit_tile(float (&raw)[NT][4], const bf16* pa, const bf16* cols,
+                                           int ksteps, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) raw[nt][i] = 0.f;
+  const bf16* pb = cols + ((lane & 7) + ((lane >> 4) << 3)) * RS + ((lane >> 3) & 1) * 8;
+#pragma unroll 4
+  for (int kk = 0; kk < ksteps; ++kk) {
+    uint32_t af[4];
+    mma::ldmatrix_x4(af, pa + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t bfr[4];
+      mma::ldmatrix_x4(bfr, pb + np * 16 * RS + kk * 16);
+      mma::mma_16816_rn(raw[2 * np], af, bfr[0], bfr[1]);
+      mma::mma_16816_rn(raw[2 * np + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// (m, s) <- the logsumexp pair of (m, s) and (m2, s2): max, then each sum
+// rescaled to it. The same bits in either order (fp32 + and * commute).
+__device__ __forceinline__ void merge_lse(float& m, float& s, float m2, float s2) {
+  const float mm = fmaxf(m, m2);
+  s = s * expf(m - mm) + s2 * expf(m2 - mm);
+  m = mm;
+}
+
+// The forward (#11): own = a [M] (labels per own row), stream = b [N]; out
+// loss and lse [M]. Per tile, raw by logit_tile, then in registers z = scale
+// raw (-1e30 past N) and the thread's running (max, sum) for its two rows over
+// the columns it holds: tile max, the sum rescaled, then expf(z - max) added
+// in column order; the thread whose column is the row's label keeps z. At
+// the end the pairs merge in a fixed order: the quad's four lanes by
+// shuffles, then the kWC column groups in order through shared memory.
+template <int DC>
+__global__ void __launch_bounds__(kThreads, 2)
+ce_fwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                  const int* __restrict__ labels, const float* __restrict__ scale_ptr,
+                  float* __restrict__ loss, float* __restrict__ lse, int m, int n, int d) {
+  using C = FwdCfg<DC>;
+  constexpr int RS = C::kRS;
+  constexpr int TILE = kStreamRows * RS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* own_s = reinterpret_cast<bf16*>(smem);
+  bf16* stream_s = reinterpret_cast<bf16*>(smem + C::kOwnBytes);
+  float* part = reinterpret_cast<float*>(smem + C::kOwnBytes + C::kStages * C::kStreamBytes);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / C::kWC, wc = warp % C::kWC;
+  const int own0 = blockIdx.x * C::kOwn;
+  const int tiles = (n + kStreamRows - 1) / kStreamRows;
+  const float scale = *scale_ptr;
+
+  stage_rows<DC, C::kOwn>(own_s, a, own0, m, d);
+  stage_rows<DC, kStreamRows>(stream_s, b, 0, n, d);
+  mma::cp_async_commit();
+
+  // this thread's two rows (fragment rows g and g + 8 of the warp's 16)
+  const int lr0 = wr * 16 + g;
+  const int r0 = own0 + lr0, r1 = r0 + 8;
+  const int lab[2] = {r0 < m ? labels[r0] : -1, r1 < m ? labels[r1] : -1};
+  float mx[2] = {kNeg, kNeg}, sum[2] = {0.f, 0.f}, zl[2] = {0.f, 0.f};
+
+  const int ksteps = (d + 15) >> 4;
+  const int raw_col0 = wc * (kStreamRows / C::kWC);
+  const bf16* pa = own_s + (wr * 16 + (lane & 15)) * RS + (lane >> 4) * 8;
+
+  for (int tile = 0; tile < tiles; ++tile) {
+    const int buf = C::kStages == 2 ? (tile & 1) : 0;
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (C::kStages == 2 && tile + 1 < tiles) {
+      stage_rows<DC, kStreamRows>(stream_s + (buf ^ 1) * TILE, b, (tile + 1) * kStreamRows, n,
+                                  d);
+      mma::cp_async_commit();
+    }
+    float raw[C::kRawNT][4];
+    logit_tile<C::kRawNT, RS>(raw, pa, stream_s + buf * TILE + raw_col0 * RS, ksteps, lane);
+
+    const int c0 = tile * kStreamRows + raw_col0 + 2 * t;   // the thread's first column
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float tmax = kNeg;
+#pragma unroll
+      for (int nt = 0; nt < C::kRawNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + nt * 8 + e;
+          const float z = col < n ? scale * raw[nt][2 * h + e] : kNeg;
+          raw[nt][2 * h + e] = z;
+          tmax = fmaxf(tmax, z);
+          if (col == lab[h]) zl[h] += z;
+        }
+      const float mnew = fmaxf(mx[h], tmax);
+      float p = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < C::kRawNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) p += expf(raw[nt][2 * h + e] - mnew);   // masked: 0
+      sum[h] = sum[h] * expf(mx[h] - mnew) + p;
+      mx[h] = mnew;
+    }
+    if (C::kStages == 1 && tile + 1 < tiles) {
+      __syncthreads();   // every warp is done with the one stage
+      stage_rows<DC, kStreamRows>(stream_s, b, (tile + 1) * kStreamRows, n, d);
+      mma::cp_async_commit();
+    }
+  }
+
+  // a row's pairs: its quad (lanes t ^ 1, then t ^ 2), then its column groups
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      const float m2 = __shfl_xor_sync(0xffffffffu, mx[h], off);
+      const float s2 = __shfl_xor_sync(0xffffffffu, sum[h], off);
+      zl[h] += __shfl_xor_sync(0xffffffffu, zl[h], off);
+      merge_lse(mx[h], sum[h], m2, s2);
+    }
+  float* part_m = part;
+  float* part_s = part + C::kWC * C::kOwn;
+  float* part_z = part + 2 * C::kWC * C::kOwn;
+  if (t == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int at = wc * C::kOwn + lr0 + 8 * h;
+      part_m[at] = mx[h];
+      part_s[at] = sum[h];
+      part_z[at] = zl[h];
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < C::kOwn; r += kThreads) {
+    if (own0 + r >= m) continue;
+    float mm = part_m[r], ss = part_s[r], zz = part_z[r];
+#pragma unroll
+    for (int w = 1; w < C::kWC; ++w) {
+      merge_lse(mm, ss, part_m[w * C::kOwn + r], part_s[w * C::kOwn + r]);
+      zz += part_z[w * C::kOwn + r];
+    }
+    const float l = mm + logf(ss);
+    lse[own0 + r] = l;
+    loss[own0 + r] = l - zz;
   }
 }
 
@@ -418,25 +612,9 @@ ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ strea
     const int s0 = tile * kStreamRows;
     const bf16* st = stream_s + buf * TILE;
 
-    // 1. raw = X_own . X_stream^T, one k-step of 16 at a time from zero
+    // 1. raw = X_own . X_stream^T, the forward's logit tile
     float raw[C::kRawNT][4];
-#pragma unroll
-    for (int nt = 0; nt < C::kRawNT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) raw[nt][i] = 0.f;
-    const bf16* pb = st + (raw_col0 + (lane & 7) + ((lane >> 4) << 3)) * RS + ((lane >> 3) & 1) * 8;
-#pragma unroll 4
-    for (int kk = 0; kk < ksteps; ++kk) {
-      uint32_t af[4];
-      mma::ldmatrix_x4(af, pa + kk * 16);
-#pragma unroll
-      for (int np = 0; np < C::kRawNT / 2; ++np) {
-        uint32_t bfr[4];
-        mma::ldmatrix_x4(bfr, pb + np * 16 * RS + kk * 16);
-        mma::mma_16816_rn(raw[2 * np], af, bfr[0], bfr[1]);
-        mma::mma_16816_rn(raw[2 * np + 1], af, bfr[2], bfr[3]);
-      }
-    }
+    logit_tile<C::kRawNT, RS>(raw, pa, st + raw_col0 * RS, ksteps, lane);
 
     // 2. dz in registers, masked; dscale (dA); the two bf16 halves to shared
     const float* sst = stat_s + buf * 3 * kStreamRows;
@@ -556,16 +734,41 @@ cudaError_t launch(const Args& x, float* out, float* dscale) {
 
 // bf16 rows must be a multiple of 8 features on 16-byte aligned bases (the
 // wrapper pads and copies where they are not).
+bool misaligned(const Args& x) {
+  return x.d % 8 != 0 || (reinterpret_cast<uintptr_t>(x.a) & 15) != 0 ||
+         (reinterpret_cast<uintptr_t>(x.b) & 15) != 0;
+}
+
 template <bool DA>
 cudaError_t dispatch(const Args& x, float* out, float* dscale) {
-  if (x.d % 8 != 0 || (reinterpret_cast<uintptr_t>(x.a) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(x.b) & 15) != 0)
-    return cudaErrorInvalidValue;
+  if (misaligned(x)) return cudaErrorInvalidValue;
   if (x.d <= 64) return launch<64, DA>(x, out, dscale);
   if (x.d <= 128) return launch<128, DA>(x, out, dscale);
   if (x.d <= 256) return launch<256, DA>(x, out, dscale);
   if (x.d <= 512) return launch<512, DA>(x, out, dscale);
   return launch<768, DA>(x, out, dscale);
+}
+
+template <int DC>
+cudaError_t launch_fwd(const Args& x, float* loss, float* lse) {
+  using C = FwdCfg<DC>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(ce_fwd_mma_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(C::kBytes));
+  if (attr != cudaSuccess) return attr;
+  ce_fwd_mma_kernel<DC><<<(x.m + C::kOwn - 1) / C::kOwn, kThreads, C::kBytes, x.stream>>>(
+      static_cast<const bf16*>(x.a), static_cast<const bf16*>(x.b), x.labels, x.scale, loss, lse,
+      x.m, x.n, x.d);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_fwd(const Args& x, float* loss, float* lse) {
+  if (misaligned(x)) return cudaErrorInvalidValue;
+  if (x.d <= 64) return launch_fwd<64>(x, loss, lse);
+  if (x.d <= 128) return launch_fwd<128>(x, loss, lse);
+  if (x.d <= 256) return launch_fwd<256>(x, loss, lse);
+  if (x.d <= 512) return launch_fwd<512>(x, loss, lse);
+  return launch_fwd<768>(x, loss, lse);
 }
 
 }  // namespace ce_mma
@@ -614,26 +817,22 @@ bool bad_shape(int m, int n, int d, int dtype) {
 
 // a [M, D], b [N, D] (dtype 0 = float32, 1 = bfloat16), labels [M] int32,
 // scale: one float32 on the device; out loss [M], lse [M] float32. Returns a
-// cudaError_t (0 = launched).
+// cudaError_t (0 = launched). bfloat16 takes the tensor-core kernel, whose rows
+// must be a multiple of 8 features on 16-byte aligned bases
+// (cudaErrorInvalidValue otherwise); float32 the CUDA cores.
 extern "C" int colxlip_fused_ce_fwd(const void* a, const void* b, const void* labels,
                                     const void* scale, void* loss, void* lse, int m, int n, int d,
                                     int dtype, void* stream) {
   if (bad_shape(m, n, d, dtype)) return cudaErrorInvalidValue;
-  constexpr int BM = kTY * 4;
-  const int grid = (m + BM - 1) / BM;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* lab = static_cast<const int*>(labels);
-  const float* sc = static_cast<const float*>(scale);
+  const Args x{a, b, static_cast<const int*>(labels), static_cast<const float*>(scale),
+               nullptr, nullptr, m, n, d, static_cast<cudaStream_t>(stream)};
   float* lo = static_cast<float*>(loss);
   float* ls = static_cast<float*>(lse);
-  if (dtype == 0)
-    ce_fwd_kernel<float><<<grid, kThreads, 0, s>>>(static_cast<const float*>(a),
-                                                   static_cast<const float*>(b), lab, sc, lo, ls,
-                                                   m, n, d);
-  else
-    ce_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), lab, sc, lo,
-        ls, m, n, d);
+  if (dtype == 1) return ce_mma::dispatch_fwd(x, lo, ls);
+  constexpr int BM = kTY * 4;
+  ce_fwd_kernel<float><<<(m + BM - 1) / BM, kThreads, 0, x.stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), x.labels, x.scale, lo, ls, m,
+      n, d);
   return cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 // direction, nothing saved for the backward but x.
 //
 // Replaces: colxlip_tpu/ops/fused_ln.py `_fwd_call` (:90, body `_fwd_kernel`
-// :58) and `_bwd_call` (:123, body `_bwd_kernel` :68). Same arithmetic:
+// :58; TPU kernel #7) and `_bwd_call` (:123, body `_bwd_kernel` :68; TPU
+// kernel #8). Same arithmetic:
 //
 //   forward   mu = mean(x), xc = x - mu, var = mean(xc * xc)  (two passes
 //             over the row in registers, not E[x^2] - E[x]^2),
@@ -14,22 +15,54 @@
 //             dgamma = sum over rows of dy * xhat, dbeta = sum over rows of
 //             dy, both fp32
 //
-// One warp owns a row and holds it in registers (lane l has columns l, l +
-// 32, ...; the per-lane count is a template bucket, D <= 1024), so the
-// statistics are two warp reductions and the row is read once. The TPU
-// kernel sums dgamma and dbeta across its sequential grid. Here each warp
-// sums the rows it walks in registers, the block's warps add up in warp
-// order through shared memory, each block writes one partial row, and a
-// second small kernel adds the partial rows in block order: no atomics, so
-// two runs agree bit for bit.
-//
-// What bounds it on the H100: bytes. The forward moves 2 R D elements and
+// What bounds both on the H100: bytes. The forward moves 2 R D elements and
 // the backward 3 R D against about 8 and 16 operations an element; at the
-// vision shape (50,432 x 768, bf16) that is 155 and 232 MB, 0.05 and 0.07
-// ms at 3.35 TB/s. The loads are one element a lane (a warp reads 64
-// contiguous bytes of bf16 at a time), not 16-byte vectors: the simple
-// version first.
+// vision shape (50,432 x 768, bf16) that is 155 and 232 MB, 0.04625 and
+// 0.06937 ms at 3.35 TB/s.
+//
+// Forward (#7): one warp owns a row and holds it in registers (lane l has
+// columns l, l + 32, ...; the per-lane count is a template bucket, D <=
+// 1024), so the statistics are two warp reductions and the row is read once.
+// One element a lane a load: 61% of its bound, faster than F.layer_norm,
+// left as first ported.
+//
+// Backward (#8), redesigned for the bandwidth. A warp still owns a row, but
+// a lane holds 16-byte vectors (8 bf16 or 4 fp32 values: vector lane + 32 c,
+// 3 a lane at D = 768 in bf16) and walks every gridDim.x * 8-th row with the
+// next row in flight while it reduces this one: x's vectors are loaded into
+// registers (16 bytes a lane a load, evict-first) and dy's lines prefetched
+// into L1, from where dy is read twice (for the sums, then for dx) rather
+// than held: the registers go to x, dgamma and dbeta, and at D = 768 the
+// kernel fits two blocks an SM (128 registers). gamma is staged once a block
+// in shared memory, lane-major, so a warp reads it as 512 contiguous bytes.
+// A lane sums each vector in order, then its vectors in order; a statistic
+// is the warp's butterfly of those sums times one fp32 reciprocal of D, and
+// dx = fma(dy gamma, rstd, fma(xhat, -rstd m2, -rstd m1)). A row whose width
+// is not a multiple of the vector, or whose base is not 16-byte aligned,
+// takes the same body with scalar loads (VEC = false). The TPU kernel sums
+// dgamma and dbeta across its sequential grid. Here each warp sums the rows
+// it walks in registers, the block's warps add up in warp order through
+// shared memory, each block writes one partial row, and a second kernel adds
+// the partial rows (stream_tile.cuh reduce_partials, which the MLP shares: at
+// 264 partial rows one block per 32 columns, kRedGroups row groups each
+// summing every kRedGroups-th partial row in order, then the groups in
+// order). No atomics, so two runs agree bit for bit. Two blocks an SM cap a
+// thread at 128 registers; bf16 fits that up to D = 768, fp32 (twice the
+// registers for the same x) would spill, so fp32 asks for one block an SM.
+//
+// Why no deeper prefetch: this kernel is bound by its own instructions and
+// their latency, not by the memory (scripts/torch_ln_bench.py on an NVIDIA
+// H100 80GB HBM3 at 700 W; PERF.md): without its loads it still takes 0.069
+// ms at the vision shape, where torch.add(x, dy) moves the same bytes in
+// 0.079, and a cp.async or bulk-copy ring of 2-4 rows in shared memory, or
+// more warps an SM, moved it by a few percent at most.
+//
+// Left for later: the forward on the same vectors; fewer instructions a row
+// (each element is unpacked, centred, scaled and summed about 17 times).
 
+#include <stdint.h>
+
+#include "common.cuh"
 #include "stream_tile.cuh"
 
 namespace {
@@ -37,7 +70,6 @@ namespace {
 using colxlip::from_f;
 using colxlip::to_f;
 using colxlip::warp_sum;
-using colxlip::stream_tile::reduce_partials;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
@@ -82,54 +114,211 @@ ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// A lane's PE values of a row: NV vectors of V = 16 / sizeof(T) elements,
+// vector v = lane + 32 c holding elements v V .. v V + V - 1 (PE is the
+// bucket's capacity: 32 PE >= D).
+template <typename T, int PE>
+struct Lanes {
+  static constexpr int V = 16 / int(sizeof(T));
+  static constexpr int NV = PE / V;
+};
+
+// p[0] + p[1] + ... in that order.
+template <int N>
+__device__ __forceinline__ float in_order(const float (&p)[N]) {
+  float s = p[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) s += p[i];
+  return s;
+}
+
+// 16 bytes of V values (T chooses the type) as floats, and V floats back to
+// 16 bytes at p.
+__device__ __forceinline__ void unpack16(const float*, const uint4& u, float* out) {
+  out[0] = __uint_as_float(u.x), out[1] = __uint_as_float(u.y);
+  out[2] = __uint_as_float(u.z), out[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack16(const __nv_bfloat16*, const uint4& u, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x, out[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void pack16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void pack16(__nv_bfloat16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
 // partials: [gridDim.x][2][d] fp32, row 0 the block's dgamma, row 1 its dbeta.
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
+// VEC: d a multiple of V and x, dy, dx 16-byte aligned (else scalar loads).
+template <typename T, int PE, bool VEC>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 && PE <= 24 ? 2 : 1)
 ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
               const T* __restrict__ dy, T* __restrict__ dx, float* __restrict__ partials,
               int rows, int d, float eps) {
-  __shared__ float red[2][kMaxD];
+  using L = Lanes<T, PE>;
+  constexpr int V = L::V, NV = L::NV;
+  __shared__ __align__(16) float red[2][kMaxD];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float dg[DPT], db[DPT];
+  const float inv_d = 1.f / float(d);
+  const int stride = gridDim.x * kWarps;
+  const int first = blockIdx.x * kWarps + warp;
+  const int count = first < rows ? (rows - first + stride - 1) / stride : 0;
+  float dg[PE], db[PE];
 #pragma unroll
-  for (int c = 0; c < DPT; ++c) dg[c] = db[c] = 0.f;
+  for (int i = 0; i < PE; ++i) dg[i] = db[i] = 0.f;
 
-  for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
-    float v[DPT], go[DPT];
-    const float rstd = center_row<T, DPT>(x + size_t(row) * d, d, eps, v);
-    const T* dyr = dy + size_t(row) * d;
-    float s1 = 0.f, s2 = 0.f;
+  // VEC: the warp's next row in flight while this row is reduced: x's
+  // 16-byte vectors into registers, dy's lines into L1 (read twice from there)
+  uint4 nx[NV];
+  auto fetch = [&](int k) {
+    if (k < count) {
+      const size_t off = size_t(first + k * stride) * d;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int col = lane + 32 * c;
-      const float o = col < d ? to_f(dyr[col]) : 0.f;
-      v[c] *= rstd;                                   // xhat
-      go[c] = col < d ? o * gamma[col] : 0.f;         // dy * gamma
-      s1 += go[c];
-      s2 = fmaf(go[c], v[c], s2);
-      dg[c] = fmaf(o, v[c], dg[c]);
-      db[c] += o;
+      for (int c = 0; c < NV; ++c) {
+        const int e = (lane + 32 * c) * V;
+        if (e < d) {
+          nx[c] = __ldcs(reinterpret_cast<const uint4*>(x + off + e));
+          asm volatile("prefetch.global.L1 [%0];\n" ::"l"(dy + off + e));
+        }
+      }
     }
-    const float m1 = warp_sum(s1) / float(d), m2 = warp_sum(s2) / float(d);
-    T* dxr = dx + size_t(row) * d;
+  };
+  if constexpr (VEC) fetch(0);
+
+  // gamma once a block, lane-major: float4 q of vector c of lane l at
+  // gs[(c V / 4 + q) 32 + l], so a warp's read of it is 512 contiguous bytes
+  // (zeros past d); 128 PE bytes, in red until the warps add up
+  float4* gs = reinterpret_cast<float4*>(&red[0][0]);
+  for (int idx = threadIdx.x; idx < 8 * PE; idx += kThreads) {   // 32 lanes x PE / 4
+    const int l = idx & 31, q = idx >> 5, c = q / (V / 4), j = (q % (V / 4)) * 4;
+    const int e = (l + 32 * c) * V + j;
+    gs[idx] = make_float4(e < d ? gamma[e] : 0.f, e + 1 < d ? gamma[e + 1] : 0.f,
+                          e + 2 < d ? gamma[e + 2] : 0.f, e + 3 < d ? gamma[e + 3] : 0.f);
+  }
+  __syncthreads();
+
+  for (int k = 0; k < count; ++k) {
+    const T* xr = x + size_t(first + k * stride) * d;
+    const T* dyr = dy + size_t(first + k * stride) * d;
+    float xv[PE];   // x, then x - mu, then xhat
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) dxr[col] = from_f<T>(rstd * (go[c] - m1 - v[c] * m2));
+    for (int c = 0; c < NV; ++c) {
+      const int e = (lane + 32 * c) * V;
+      if (VEC && e < d) {
+        unpack16(x, nx[c], xv + c * V);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) xv[c * V + j] = !VEC && e + j < d ? to_f(xr[e + j]) : 0.f;
+      }
+    }
+    if constexpr (VEC) fetch(k + 1);
+    // vector c of dy and of gamma, zeros past d; read twice a row
+    auto load_dy = [&](int c, float (&o)[V], float (&gm)[V]) {
+      const int e = (lane + 32 * c) * V;
+      if constexpr (VEC) {
+        if (e < d) {
+          unpack16(x, __ldg(reinterpret_cast<const uint4*>(dyr + e)), o);
+        } else {
+#pragma unroll
+          for (int j = 0; j < V; ++j) o[j] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) o[j] = e + j < d ? to_f(dyr[e + j]) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < V / 4; ++q) {
+        const float4 g4 = gs[(c * (V / 4) + q) * 32 + lane];
+        gm[4 * q] = g4.x, gm[4 * q + 1] = g4.y, gm[4 * q + 2] = g4.z, gm[4 * q + 3] = g4.w;
+      }
+    };
+
+    // a lane's sums: one chain a vector (its V values in order), then the
+    // vectors in order; then the warp's butterfly
+    float p0[NV], p1[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      p0[c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) p0[c] += xv[c * V + j];
+    }
+    // products that feed a sum are rounded alone (__fmul_rn is never
+    // contracted into an fma), so both instantiations give the same bits
+    const float mu = __fmul_rn(warp_sum(in_order(p0)), inv_d);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int e = (lane + 32 * c) * V;
+      p0[c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int i = c * V + j;
+        xv[i] = (VEC ? e : e + j) < d ? xv[i] - mu : 0.f;   // VEC: a vector is live or dead
+        p0[c] = fmaf(xv[i], xv[i], p0[c]);
+      }
+    }
+    const float rstd = rsqrtf(__fmul_rn(warp_sum(in_order(p0)), inv_d) + eps);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      float o[V], gm[V];
+      load_dy(c, o, gm);
+      p0[c] = p1[c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const int i = c * V + j;
+        xv[i] *= rstd;                          // xhat
+        dg[i] = fmaf(o[j], xv[i], dg[i]);
+        db[i] += o[j];
+        const float go = __fmul_rn(o[j], gm[j]);   // dy * gamma
+        p0[c] += go;
+        p1[c] = fmaf(go, xv[i], p1[c]);
+      }
+    }
+    const float m1 = __fmul_rn(warp_sum(in_order(p0)), inv_d);
+    const float m2 = __fmul_rn(warp_sum(in_order(p1)), inv_d);
+    // dx = rstd (go - m1 - xhat m2) = go rstd + (xhat (-rstd m2) + (-rstd m1))
+    const float a0 = -rstd * m1, a1 = -rstd * m2;
+    T* dxr = dx + size_t(first + k * stride) * d;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int e = (lane + 32 * c) * V;
+      float o[V], gm[V], out[V];
+      load_dy(c, o, gm);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        out[j] = fmaf(__fmul_rn(o[j], gm[j]), rstd, fmaf(xv[c * V + j], a1, a0));
+      if constexpr (VEC) {
+        if (e < d) pack16(dxr + e, out);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (e + j < d) dxr[e + j] = from_f<T>(out[j]);
+      }
     }
   }
+  __syncthreads();   // every warp is done with gs before red reuses it
 
   // the block's warps add up in warp order
   for (int w = 0; w < kWarps; ++w) {
     if (warp == w) {
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        const int col = lane + 32 * c;
-        if (col < d) {
-          red[0][col] = (w == 0 ? 0.f : red[0][col]) + dg[c];
-          red[1][col] = (w == 0 ? 0.f : red[1][col]) + db[c];
+      for (int c = 0; c < NV; ++c)
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const int col = (lane + 32 * c) * V + j;
+          if (col < d) {
+            red[0][col] = (w == 0 ? 0.f : red[0][col]) + dg[c * V + j];
+            red[1][col] = (w == 0 ? 0.f : red[1][col]) + db[c * V + j];
+          }
         }
-      }
     }
     __syncthreads();
   }
@@ -157,11 +346,19 @@ cudaError_t launch_fwd(const Args& a, const float* beta, void* y) {
   return cudaGetLastError();
 }
 
-template <typename T, int DPT>
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename T, int PE>
 cudaError_t launch_bwd(const Args& a, const void* dy, void* dx, float* partials, int blocks) {
-  ln_bwd_kernel<T, DPT><<<blocks, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.x), a.gamma, static_cast<const T*>(dy), static_cast<T*>(dx),
-      partials, a.rows, a.d, a.eps);
+  const T* x = static_cast<const T*>(a.x);
+  const T* g = static_cast<const T*>(dy);
+  T* out = static_cast<T*>(dx);
+  if (a.d % Lanes<T, PE>::V == 0 && aligned16(x) && aligned16(g) && aligned16(out))
+    ln_bwd_kernel<T, PE, true><<<blocks, kThreads, 0, a.stream>>>(
+        x, a.gamma, g, out, partials, a.rows, a.d, a.eps);
+  else
+    ln_bwd_kernel<T, PE, false><<<blocks, kThreads, 0, a.stream>>>(
+        x, a.gamma, g, out, partials, a.rows, a.d, a.eps);
   return cudaGetLastError();
 }
 
@@ -176,9 +373,9 @@ cudaError_t dispatch_fwd(const Args& a, const float* beta, void* y) {
   return launch_fwd<T, 32>(a, beta, y);
 }
 
+// The backward's bucket: PE values a lane, 32 PE >= D.
 template <typename T>
 cudaError_t dispatch_bwd(const Args& a, const void* dy, void* dx, float* partials, int blocks) {
-  if (a.d <= 128) return launch_bwd<T, 4>(a, dy, dx, partials, blocks);
   if (a.d <= 256) return launch_bwd<T, 8>(a, dy, dx, partials, blocks);
   if (a.d <= 512) return launch_bwd<T, 16>(a, dy, dx, partials, blocks);
   if (a.d <= 768) return launch_bwd<T, 24>(a, dy, dx, partials, blocks);
@@ -214,5 +411,6 @@ extern "C" int colxlip_fused_ln_bwd(const void* x, const void* gamma, const void
   const cudaError_t err = dtype == 0 ? dispatch_bwd<float>(a, dy, dx, part, blocks)
                                      : dispatch_bwd<__nv_bfloat16>(a, dy, dx, part, blocks);
   if (err != cudaSuccess) return err;
-  return reduce_partials(part, static_cast<float*>(dgb), blocks, 2 * d, a.stream);
+  return colxlip::stream_tile::reduce_partials(part, static_cast<float*>(dgb), blocks, 2 * d,
+                                               a.stream);
 }

@@ -139,9 +139,19 @@ __device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT]
   }
 }
 
-// out[i] = sum over s < splits of partials[s * n + i], in that order: the
+// out[i] = sum over s < splits of partials[s * n + i] in a fixed order: the
 // second pass of a reduction across blocks (no atomics, so two runs agree
-// bit for bit).
+// bit for bit). Few partial rows (splits <= kRedGroups): one thread a column
+// adds them in order. Many (the LayerNorm's dgamma / dbeta, the MLP's db1 and
+// db2: 100-300 rows): one block per 32 columns, row group r (of kRedGroups)
+// adds rows r, r + kRedGroups, ... in order, then the groups add up in order.
+// Where splits <= kRedGroups both orders are the same, so the choice moves
+// time and no bit: at 264 rows the sliced form takes the LN's and the MLP's
+// bias reduces from 0.009 to 0.002-0.005 ms, at the fp32 MLP's 8 rows of
+// H x D it is ten times slower than the serial one (0.61 against 0.065 ms;
+// H100, PERF.md).
+constexpr int kRedGroups = 32;
+
 template <int kUnused = 0>
 __global__ void reduce_partials_kernel(const float* __restrict__ partials,
                                        float* __restrict__ out, int splits, int n) {
@@ -152,9 +162,35 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials,
   out[i] = total;
 }
 
+template <int kUnused = 0>
+__global__ void __launch_bounds__(32 * kRedGroups)
+reduce_partials_sliced_kernel(const float* __restrict__ partials, float* __restrict__ out,
+                              int splits, int n) {
+  __shared__ float acc[kRedGroups][32];
+  const int lane = threadIdx.x & 31, group = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  float total = 0.f;
+  if (col < n) {
+#pragma unroll 4
+    for (int s = group; s < splits; s += kRedGroups) total += partials[size_t(s) * n + col];
+  }
+  acc[group][lane] = total;
+  __syncthreads();
+  if (group == 0 && col < n) {
+    float sum = acc[0][lane];
+#pragma unroll
+    for (int r = 1; r < kRedGroups; ++r) sum += acc[r][lane];
+    out[col] = sum;
+  }
+}
+
 inline cudaError_t reduce_partials(const float* partials, float* out, int splits, int n,
                                    cudaStream_t stream) {
-  reduce_partials_kernel<><<<(n + 255) / 256, 256, 0, stream>>>(partials, out, splits, n);
+  if (splits <= kRedGroups)
+    reduce_partials_kernel<><<<(n + 255) / 256, 256, 0, stream>>>(partials, out, splits, n);
+  else
+    reduce_partials_sliced_kernel<><<<(n + 31) / 32, 32 * kRedGroups, 0, stream>>>(
+        partials, out, splits, n);
   return cudaGetLastError();
 }
 

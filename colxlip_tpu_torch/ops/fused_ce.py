@@ -11,11 +11,11 @@ kernels are ``_fwd_call``, and ``_bwd_call`` with its ``_bwd_da_kernel`` and
     dscale   = sum_ij dz_ij * <a_i, b_j>
 
 Three kernels (``csrc/fused_ce.cu``: forward, dA with the per-row dscale,
-dB; in bf16 the two backward kernels run on the tensor cores, with dz split
-into two bf16 halves), each beside a plain PyTorch version that walks the
-columns in chunks with the same online max / sum recurrence and an explicit
-backward, so its memory is O((M + N) D + M chunk) and it runs at
-M = N = 32768 as the oracle.
+dB; in bf16 all three run on the tensor cores through one logit tile, the
+backward with dz split into two bf16 halves), each beside a plain PyTorch
+version that walks the columns in chunks with the same online max / sum
+recurrence and an explicit backward, so its memory is O((M + N) D + M chunk)
+and it runs at M = N = 32768 as the oracle.
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. There is no fallback.
 
@@ -142,14 +142,16 @@ def _check_cuda(a, b, labels, scale, *more) -> Tuple[int, int, int]:
 
 def _launch_fwd(a, b, labels, scale) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel on CUDA tensors (checks, never falls back)."""
-    m, n, d = _check_cuda(a, b, labels, scale)
+    m, n, _ = _check_cuda(a, b, labels, scale)
+    if a.dtype == torch.bfloat16:
+        a, b = mma_operands(a, b)
     kernels = load_kernels()
     loss = torch.empty(m, dtype=torch.float32, device=a.device)
     lse = torch.empty_like(loss)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = kernels.colxlip_fused_ce_fwd(
         a.data_ptr(), b.data_ptr(), labels.data_ptr(), scale.data_ptr(), loss.data_ptr(),
-        lse.data_ptr(), m, n, d, _DTYPE_CODES[a.dtype], stream)
+        lse.data_ptr(), m, n, a.shape[1], _DTYPE_CODES[a.dtype], stream)
     kernels.check(err, "colxlip_fused_ce_fwd")
     FWD_LAUNCHES.add()
     return loss, lse
@@ -163,7 +165,7 @@ def _check_bwd(a, lse, g) -> None:
 
 
 def mma_operands(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a and b as the bf16 backward kernels take them: rows of a multiple of
+    """a and b as the bf16 kernels take them: rows of a multiple of
     8 features (zero-padded, which is exact for every product and costs
     O((M + N) D)) on 16-byte aligned bases (copied where they are not)."""
     pad = -a.shape[1] % 8

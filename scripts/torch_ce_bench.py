@@ -19,18 +19,17 @@ It prints the registers and spills of ``fused_ce.cu``'s kernels
 (``nvcc -Xptxas -v``), one line a case, the card's name and power limit,
 and one JSON object; it exits 1 if a check fails.
 
-The case "tied-100" (b = a at logit scale 100) is measured and printed but
-not held to the bar: there each row's own column has a logit of about 100,
-and the forward sums <a_i, a_i> in another order than the backward's tensor
-cores, so a few fp32 steps between the two sums move p by 100 times as much
-(PERF.md, the CE backward findings).
+The case "tied-100" (b = a at logit scale 100) is held to the same bars:
+there each row's own column has a logit of about 100, so a few fp32 steps
+between the forward's and the backward's sums of <a_i, a_i> would move p by
+100 times as much; all three bf16 kernels take raw from one logit tile
+(``logit_tile``), so their sums agree bit for bit.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import re
 import sys
 
 import torch
@@ -42,12 +41,12 @@ from colxlip_tpu_torch.ops import build, fused_ce  # noqa: E402
 
 SCALES = {256: 1 / 0.07}          # chip_smoke.CE_CASES: 100 at the larger sizes
 EXTRA = [
-    # name, M, N, D, logit scale, b = a, held to the bar
-    ("vit-l-768", 4096, 4096, 768, 100.0, False, True),
-    ("ragged-64", 33, 129, 64, 30.0, False, True),
-    ("d36", 130, 200, 36, 20.0, False, True),
-    ("tied", 1024, 1024, 512, 1 / 0.07, True, True),
-    ("tied-100", 1024, 1024, 512, 100.0, True, False),
+    # name, M, N, D, logit scale, b = a
+    ("vit-l-768", 4096, 4096, 768, 100.0, False),
+    ("ragged-64", 33, 129, 64, 30.0, False),
+    ("d36", 130, 200, 36, 20.0, False),
+    ("tied", 1024, 1024, 512, 1 / 0.07, True),
+    ("tied-100", 1024, 1024, 512, 100.0, True),
 ]
 
 
@@ -80,22 +79,6 @@ def check(a, b, labels, s, g):
     good = (err["fwd"] <= chip_smoke.CE_FWD_TOL and torch.isfinite(loss).all().item()
             and max(err["da"], err["dscale"], err["db"]) <= chip_smoke.CE_BWD_TOL and same)
     return err, same, good, lse
-
-
-def device_ms(fn, calls: int) -> dict:
-    """Device ms a call of each CE kernel that ``fn`` launches (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        found = re.search(r"(ce_\w+_kernel(?:<[^>]*>)?)", e.key)
-        if e.device_type == torch.autograd.DeviceType.CUDA and found:
-            out[found.group(1)] = e.self_device_time_total / 1e3 / calls
-    return out
 
 
 def time_size(m, a, b, labels, s, lse, g, iters):
@@ -135,10 +118,11 @@ def time_size(m, a, b, labels, s, lse, g, iters):
     bounds = chip_smoke.ce_bounds(a, b)
     for key in row:
         row[key]["bound_ms"], row[key]["bound_by"] = bounds[f"fused_ce_{key}"]
-    passes = device_ms(lambda: (fused_ce._launch_fwd(a, b, labels, s),
-                                fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
-                                fused_ce._launch_bwd_db(a, b, labels, s, lse, g)),
-                       2 if m > 4096 else 5)
+    passes = chip_smoke.device_ms_by_kernel(
+        lambda: (fused_ce._launch_fwd(a, b, labels, s),
+                 fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+                 fused_ce._launch_bwd_db(a, b, labels, s, lse, g)),
+        2 if m > 4096 else 5, r"(ce_\w+_kernel(?:<[^>]*>)?)")
     return row, dense_ms, autograd_ms, passes
 
 
@@ -158,18 +142,18 @@ def main() -> int:
     print(f"build {kernels.build_seconds:.1f} s; fused_ce.cu registers / stack / spill stores / "
           "spill loads: " + "; ".join(f"{k} {v}" for k, v in sorted(usage.items())), flush=True)
     results, ok = {"registers": usage}, True
-    cases = [(f"{m}", m, m, 512, SCALES.get(m, 100.0), False, True)
+    cases = [(f"{m}", m, m, 512, SCALES.get(m, 100.0), False)
              for m in (int(x) for x in args.sizes.split(","))] + EXTRA
-    for name, m, n, d, scale, tied, gated in cases:
+    for name, m, n, d, scale, tied in cases:
         a, b, labels, s, g = inputs(m, n, d, scale, tied, dev)
         err, same, good, lse = check(a, b, labels, s, g)
-        ok &= good or not gated
+        ok &= good
         entry = {"m": m, "n": n, "d": d, "scale": scale, "tied": tied, "errors": err,
-                 "bit_equal": same, "held": gated, "ok": good}
+                 "bit_equal": same, "ok": good}
         line = (f"{name} M={m} N={n} D={d} scale={scale:.4g}{' b=a' if tied else ''}: errors "
                 + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
                 + f"; reruns {'bit-equal' if same else 'DIFFER'}"
-                + ("" if good else "  FAILED" if gated else "  (over the bar; not held)"))
+                + ("" if good else "  FAILED"))
         if name.isdigit():
             iters = max(2, args.iters // 5) if m > 4096 else args.iters
             row, dense_ms, autograd_ms, passes = time_size(m, a, b, labels, s, lse, g, iters)

@@ -2,6 +2,7 @@
 """Check and time the port's fused MLP kernels in bf16 on one NVIDIA GPU.
 
     python3 scripts/torch_mlp_bench.py [--iters 20] [--cases vision,text,vit-l]
+                                       [--dtype float32]
 
 For each case (the vision tower's MLP at the flagship batch 256, 50,432 x 768
 x 3072; the text tower's, 19,712 x 512 x 2048; ViT-L/14's at batch 16, 4,112
@@ -19,7 +20,17 @@ bytes over 3.35 TB/s and the operations over 989 TFLOP/s, as chip_smoke.py
 computes it), and the device time of each product (torch.profiler: the GEMM
 tile kernel by layout and epilogue, and the column sums). Inputs are at a
 tower's scales at init (unit rows, lecun-normal weights). Prints one line a
-case, the card's name and power limit, and one JSON object.
+case, the card's name and power limit, and one JSON object. With ``--dtype
+float32`` the same runs in fp32 (CUDA cores, D <= 768: vision, text and
+ragged; bars 1e-5 forward, 1e-4 backward; the bound at 67 TFLOP/s).
+
+    python3 scripts/torch_mlp_bench.py --cases none --draws 32
+
+surveys the bf16 forward's check at the vision shape over the draws of
+seeds 1 .. 32 (``inputs(..., seed)``, the erf-polynomial GELU): one line a
+draw with its error against the 2^-7 bar and the share of out elements not
+bit-equal to the plain version, and the seeds above the bar. The survey is
+not held (ROADMAP.md section C keeps the open fault it measures).
 """
 from __future__ import annotations
 
@@ -45,7 +56,8 @@ CASES = [
     ("ragged", 3, 77, 512, 2048, (False, True)),
 ]
 FWD_TOL = BWD_TOL = 2.0 ** -7
-PEAK_BYTES_PER_S, PEAK_FLOPS = 3.35e12, 989e12
+FP32_TOL = (1e-5, 1e-4)        # chip_smoke.py FUSED_FWD_TOL / FUSED_BWD_TOL in fp32
+PEAK_BYTES_PER_S, PEAK_FLOPS, PEAK_FP32_FLOPS = 3.35e12, 989e12, 67e12
 # mlp_gemm_kernel<layout, BN, epilogue>: what each epilogue's product is
 PRODUCTS = {0: "x W1^T + gelu", 1: "x W1^T (h)", 2: "dy W2^T (dh)", 3: "a W2 + b2",
             4: "dh W1 (dx)", 5: "a^T dy + dh^T x (dW)"}
@@ -86,20 +98,21 @@ def product_ms(fn, calls: int = 3) -> dict:
     return out
 
 
-def inputs(b, n, d, h, dev, seed=0):
+def inputs(b, n, d, h, dev, seed=0, dtype=torch.bfloat16):
     gen = torch.Generator().manual_seed(seed)
 
     def t(shape, std):
-        return (torch.randn(shape, generator=gen) * std).to(dev, torch.bfloat16)
+        return (torch.randn(shape, generator=gen) * std).to(dev, dtype)
 
     return (t((b, n, d), 1.0), t((h, d), d ** -0.5), t((h,), 0.1), t((h, d), h ** -0.5),
             t((d,), 0.1), t((b, n, d), 1.0))
 
 
-def bound_ms(r, d, h, backward: bool) -> float:
+def bound_ms(r, d, h, backward: bool, fp32: bool = False) -> float:
     elements = 3 * r * d + 6 * d * h if backward else 2 * r * d + 2 * d * h
     flops = (10 if backward else 4) * r * d * h
-    return max(elements * 2 / PEAK_BYTES_PER_S, flops / PEAK_FLOPS) * 1e3
+    return max(elements * (4 if fp32 else 2) / PEAK_BYTES_PER_S,
+               flops / (PEAK_FP32_FLOPS if fp32 else PEAK_FLOPS)) * 1e3
 
 
 def rel_err(got, want, floor=1e-30):
@@ -111,6 +124,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--cases", default=",".join(c[0] for c in CASES))
+    ap.add_argument("--draws", type=int, default=0)
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_mlp_bench: no CUDA device", file=sys.stderr)
@@ -119,12 +134,14 @@ def main() -> int:
     dev = torch.device("cuda:0")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    dtype, fp32 = getattr(torch, args.dtype), args.dtype == "float32"
+    fwd_tol, bwd_tol = FP32_TOL if fp32 else (FWD_TOL, BWD_TOL)
     wanted = args.cases.split(",")
     results, ok = {}, True
     for name, b, n, d, h, branches in CASES:
         if name not in wanted:
             continue
-        x, w1, b1, w2, b2, dy = inputs(b, n, d, h, dev)
+        x, w1, b1, w2, b2, dy = inputs(b, n, d, h, dev, dtype=dtype)
         errs, same = [], True
         for approximate in branches:
             out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
@@ -169,9 +186,9 @@ def main() -> int:
         ms["bwd"]["library"] -= lib_fwd_ms          # forward + backward less forward
         rows = b * n
         for key in ("fwd", "bwd"):
-            ms[key]["bound"] = bound_ms(rows, d, h, key == "bwd")
+            ms[key]["bound"] = bound_ms(rows, d, h, key == "bwd", fp32)
         products = {"fwd": product_ms(fns["fwd"][0]), "bwd": product_ms(fns["bwd"][0])}
-        good = fwd_err <= FWD_TOL and bwd_err <= BWD_TOL and same
+        good = fwd_err <= fwd_tol and bwd_err <= bwd_tol and same
         ok &= good
         results[name] = {"rows": rows, "d": d, "h": h,
                          "chunk_rows": {"fwd": fused_mlp.chunk_rows(h, False),
@@ -181,7 +198,7 @@ def main() -> int:
                          "fwd_err": fwd_err, "bwd_err": bwd_err, "bit_equal": same,
                          "out_not_equal_to_plain": out_off, "dx_not_equal_to_plain": dx_off,
                          "ms": ms, "products_ms": products}
-        print(f"{name} {rows} x {d} x {h} bf16: forward err {fwd_err:.3g}, backward {bwd_err:.3g} "
+        print(f"{name} {rows} x {d} x {h} {args.dtype}: forward err {fwd_err:.3g}, backward {bwd_err:.3g} "
               f"of max|grad|, reruns {'bit-equal' if same else 'DIFFER'}, out / dx elements "
               f"not bit-equal to plain {out_off:.3g} / {dx_off:.3g}; "
               + "; ".join(f"{k} kernel {v['kernel']:.4f} ms (plain {v['plain']:.4f}, three calls "
@@ -192,9 +209,30 @@ def main() -> int:
               + ("" if good else "  FAILED"), flush=True)
         del x, w1, b1, w2, b2, dy, leaves, w2_out_in
         torch.cuda.empty_cache()
+    if args.draws:
+        results["draws"] = survey_draws(args.draws, dev)
     print(card)
     print(json.dumps({"card": card, "ok": ok, "cases": results}))
     return 0 if ok else 1
+
+
+def survey_draws(count: int, dev) -> dict:
+    """The bf16 forward against its plain version at the vision shape on the
+    draws of seeds 1 .. count: {seed: (error, share not bit-equal)}."""
+    _, b, n, d, h, _ = CASES[0]
+    out = {}
+    for seed in range(1, count + 1):
+        x, w1, b1, w2, b2, _ = inputs(b, n, d, h, dev, seed)
+        got = fused_mlp._launch_fwd(x, w1, b1, w2, b2, False)
+        want = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False)
+        out[seed] = (rel_err(got, want, 1.0), (got != want).float().mean().item())
+        print(f"draw {seed} vision bf16 forward: err {out[seed][0]:.5g} (bar {FWD_TOL:.5g}), "
+              f"out elements not bit-equal to plain {out[seed][1]:.3g}"
+              + ("  ABOVE THE BAR" if out[seed][0] > FWD_TOL else ""), flush=True)
+        del x, w1, b1, w2, b2, got, want
+    print("draws above the bar: " + (", ".join(str(k) for k, v in out.items() if v[0] > FWD_TOL)
+                                     or "none"), flush=True)
+    return out
 
 
 if __name__ == "__main__":

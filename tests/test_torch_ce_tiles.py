@@ -1,25 +1,33 @@
-"""The tile algorithm of the bf16 streaming-CE backward kernels, emulated on
-the CPU.
+"""The tile algorithm of the bf16 streaming-CE kernels, emulated on the CPU.
 
-In bfloat16 ``csrc/fused_ce.cu`` computes dA (with the per-row dscale) and
-dB with one tensor-core body, ``ce_bwd_mma_kernel<DC, DA>``: a block owns
-rows of one matrix (a for dA, b for dB; 64 rows at D <= 512, 32 above) and
-walks the other in tiles of 64 rows. Per tile it takes the logit tile
-raw = X_own . X_stream^T one k-step of 16 features at a time from zero,
-added in fp32; the epilogue makes dz = (exp(scale raw - lse) - onehot) g
-with rows past either end masked to 0, adds dz * raw into dscale (dA),
-and splits dz into dz_hi = bf16(dz) and dz_lo = bf16(dz - dz_hi); then
+In bfloat16 ``csrc/fused_ce.cu`` runs all three kernels on one tensor-core
+logit tile. A block owns rows of one matrix (a for the forward and dA, b for
+dB; 64 rows at D <= 512, 32 above) and walks the other in tiles of 64 rows.
+Per tile every kernel takes raw = X_own . X_stream^T through one function,
+``logit_tile``: one k-step of 16 features at a time from zero, added in
+fp32. The forward then keeps, for each of a thread's two rows, a running
+(max, sum) over the columns the thread holds (z = scale raw, -1e30 past N;
+tile max, the sum rescaled, exp(z - max) added in column order) and the
+label logit, and merges the pairs in a fixed order at the end: the quad's
+four lanes (t ^ 1, then t ^ 2), then the column groups in order. The
+backward's epilogue makes dz = (exp(scale raw - lse) - onehot) g with rows
+past either end masked to 0, adds dz * raw into dscale (dA), and splits dz
+into dz_hi = bf16(dz) and dz_lo = bf16(dz - dz_hi); then
 out += dz_hi . X_stream + dz_lo . X_stream, the tile's sum from zero added
 to the fp32 output, and the output is scaled at the end. The wrapper pads
-rows to a multiple of 8 features with zeros. A CUDA kernel cannot run
-here, so this file writes the same algorithm in plain PyTorch (a bf16 x bf16
-product is exact in fp32) and holds it against the unchanged plain versions
-``fused_ce_bwd_da_plain`` / ``fused_ce_bwd_db_plain`` under ``chip_smoke.py``'s
-bar (1e-4 of the largest |grad|, dscale included), and against the JAX
-package's Pallas kernels in interpret mode through ``jax.vjp`` of
-``fused_contrastive_ce``. A control rounds dz to bf16 once instead of
-splitting it and fails the same bar where every label logit dominates
-(b = a, scale 100). The emulation is used by nothing in the package.
+rows to a multiple of 8 features with zeros. A CUDA kernel cannot run here,
+so this file writes the same algorithm in plain PyTorch (a bf16 x bf16
+product is exact in fp32; each k-step sums its 16 products per (i, j) from a
+[own, stream, 16] tensor, so the sum does not depend on which matrix is own)
+and holds it against the unchanged plain versions ``fused_ce_fwd_plain``
+(``chip_smoke.py``'s 1e-5 of 1 + |loss|) and ``fused_ce_bwd_da_plain`` /
+``fused_ce_bwd_db_plain`` (1e-4 of the largest |grad|, dscale included), and
+against the JAX package's Pallas kernels in interpret mode through
+``fused_contrastive_ce`` and its ``jax.vjp``. The forward's raw equals the
+backward's bit for bit, and b = a at scale 100 ("tied-100") meets the bar
+when the backward is fed the tiled forward's lse. A control rounds dz to
+bf16 once instead of splitting it and fails the same bar where every label
+logit dominates. The emulation is used by nothing in the package.
 """
 from __future__ import annotations
 
@@ -44,7 +52,9 @@ PAD = 8                                 # kPad: elements of padding a staged row
 KSTEP = 16                              # features an mma k-step
 CAPACITIES = (64, 128, 256, 512, 768)   # the feature capacities DC the dispatch takes
 MAX_SHARED = 232448                     # common.cuh kMaxSharedBytes
+CE_FWD_TOL = 1e-5
 CE_BWD_TOL = 1e-4
+NEG = -1e30                             # kNeg: the running max's start, and columns past N
 SHAPES = [
     # M, N, D, logit scale
     (256, 256, 512, 1 / 0.07),   # one step of the entry point
@@ -72,6 +82,14 @@ def shared_bytes(dc: int, stages: int) -> int:
     wc = WARPS // (own // 16)
     return (own * rs * 2 + stages * (STREAM_ROWS * rs * 2 + 3 * STREAM_ROWS * 4)
             + 2 * own * (STREAM_ROWS + PAD) * 2 + wc * own * 4)
+
+
+def fwd_shared_bytes(dc: int, stages: int) -> int:
+    """FwdCfg<DC>::bytes(stages): the own tile, the stream stages, and the
+    (max, sum, label logit) of each own row from each column group."""
+    own, rs = own_rows(dc), dc + PAD
+    wc = WARPS // (own // 16)
+    return own * rs * 2 + stages * STREAM_ROWS * rs * 2 + 3 * wc * own * 4
 
 
 def _inputs(m, n, d, scale, seed=0, tied=False):
@@ -102,7 +120,82 @@ def _staged(x: torch.Tensor, row0: int, rows: int, width: int) -> torch.Tensor:
     return out
 
 
-def tiled_backward(a, b, labels, scale, lse, g, da: bool, split: bool = True):
+def logit_tile(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The kernels' shared step 1: raw = x . y^T for an own tile x [rows, kp]
+    and a stream tile y [64, kp], one k-step of 16 features at a time from
+    zero, added in fp32. A k-step sums the 16 exact products of (i, j) from a
+    [rows, 64, 16] tensor, so raw_ij has the same bits whichever matrix owns
+    the rows."""
+    raw = torch.zeros(x.shape[0], y.shape[0])
+    for k0 in range(0, x.shape[1], KSTEP):
+        raw = raw + (x[:, None, k0:k0 + KSTEP] * y[None, :, k0:k0 + KSTEP]).sum(dim=-1)
+    return raw
+
+
+def _merge(m1, s1, m2, s2):
+    """The kernel's merge_lse: the larger max, each sum rescaled to it."""
+    mm = torch.maximum(m1, m2)
+    return mm, s1 * torch.exp(m1 - mm) + s2 * torch.exp(m2 - mm)
+
+
+def tiled_forward(a, b, labels, scale, raws=None):
+    """The forward kernel's algorithm: (loss [M], lse [M]) fp32. ``raws``, if
+    a list, collects each (own block, stream tile)'s raw."""
+    m, d = a.shape
+    n = b.shape[0]
+    dp = -(-d // 8) * 8
+    kp = -(-dp // KSTEP) * KSTEP
+    rows = own_rows(capacity(dp))
+    wc = WARPS // (rows // 16)                   # column groups of warps
+    nt = STREAM_ROWS // wc // 8                  # n-tiles a warp holds
+    scale = torch.as_tensor(scale, dtype=torch.float32)
+    labels = labels.long()
+    loss, lse = torch.zeros(m), torch.zeros(m)
+    for o0 in range(0, m, rows):
+        x = _staged(a, o0, rows, kp)
+        lab = torch.full((rows,), -1, dtype=torch.long)
+        lab[:min(rows, m - o0)] = labels[o0:o0 + rows]
+        # a thread's state: [row, column group, lane t of the quad]
+        mx = torch.full((rows, wc, 4), NEG)
+        sm = torch.zeros(rows, wc, 4)
+        zl = torch.zeros(rows, wc, 4)
+        for s0 in range(0, n, STREAM_ROWS):
+            raw = logit_tile(x, _staged(b, s0, STREAM_ROWS, kp))
+            if raws is not None:
+                raws.append(((o0, s0), raw))
+            col = torch.arange(s0, s0 + STREAM_ROWS)
+            z = torch.where(col[None, :] < n, scale * raw, torch.tensor(NEG))
+
+            def by_thread(t):   # column group, quad lane, then its nt x 2 columns in order
+                return t.reshape(t.shape[0], wc, nt, 4, 2).transpose(2, 3).reshape(
+                    t.shape[0], wc, 4, 2 * nt)
+
+            zt, ct = by_thread(z), by_thread(col[None, :].expand(rows, -1))
+            zl = zl + torch.where(ct == lab[:, None, None, None], zt, torch.zeros(())).sum(-1)
+            mnew = torch.maximum(mx, zt.amax(dim=-1))
+            p = torch.zeros(rows, wc, 4)
+            for i in range(2 * nt):
+                p = p + torch.exp(zt[..., i] - mnew)
+            sm = sm * torch.exp(mx - mnew) + p
+            mx = mnew
+        # the quad: lanes t ^ 1, then t ^ 2
+        m01, s01 = _merge(mx[..., 0], sm[..., 0], mx[..., 1], sm[..., 1])
+        m23, s23 = _merge(mx[..., 2], sm[..., 2], mx[..., 3], sm[..., 3])
+        mq, sq = _merge(m01, s01, m23, s23)
+        zq = (zl[..., 0] + zl[..., 1]) + (zl[..., 2] + zl[..., 3])
+        # the column groups in order
+        mm, ss, zz = mq[:, 0], sq[:, 0], zq[:, 0]
+        for w in range(1, wc):
+            mm, ss = _merge(mm, ss, mq[:, w], sq[:, w])
+            zz = zz + zq[:, w]
+        live = min(rows, m - o0)
+        row_lse = mm + torch.log(ss)
+        lse[o0:o0 + live] = row_lse[:live]
+        loss[o0:o0 + live] = (row_lse - zz)[:live]
+    return loss, lse
+
+
+def tiled_backward(a, b, labels, scale, lse, g, da: bool, split: bool = True, raws=None):
     """The kernel's algorithm: dA [M, D] and dscale rows [M] (da), or dB
     [N, D]; ``split=False`` is the control that rounds dz to bf16 once."""
     m, d = a.shape
@@ -126,9 +219,9 @@ def tiled_backward(a, b, labels, scale, lse, g, da: bool, split: bool = True):
             y = _staged(stream, s0, STREAM_ROWS, kp)
             col_idx = torch.arange(s0, s0 + STREAM_ROWS)
             col_live = col_idx < stream_n
-            raw = torch.zeros(rows, STREAM_ROWS)
-            for k0 in range(0, kp, KSTEP):
-                raw = raw + x[:, k0:k0 + KSTEP] @ y[:, k0:k0 + KSTEP].T
+            raw = logit_tile(x, y)
+            if raws is not None:
+                raws.append(((o0, s0), raw))
             if da:
                 at = own_idx.clamp(max=m - 1)
                 lse_t, g_t = lse[at][:, None], g[at][:, None]
@@ -179,10 +272,18 @@ def test_constants_are_the_kernels_own():
         list(CAPACITIES[:-1])
     assert fused_ce.MAX_FEATURES == CAPACITIES[-1]
     assert "mma::mma_16816_rn(raw[2 * np]" in src        # k-steps from zero, added in fp32
+    # the forward: the same capacities and geometry, its own shared memory,
+    # and step 1 through the one function the backward calls
+    assert [int(c) for c in re.findall(r"return launch_fwd<(\d+)>", src)] == list(CAPACITIES)
+    assert "struct FwdCfg : Cfg<DC>" in src
+    assert "static constexpr size_t kPartBytes = 3 * size_t(B::kWC) * B::kOwn * 4;" in src
+    assert "return B::kOwnBytes + stages * B::kStreamBytes + kPartBytes;" in src
+    assert len(re.findall(r"logit_tile<C::kRawNT, RS>\(raw, pa,", src)) == 2
+    assert "constexpr float kNeg = -1e30f;" in src and NEG == -1e30
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.CE_BWD_TOL == CE_BWD_TOL
+    assert smoke.CE_BWD_TOL == CE_BWD_TOL and smoke.CE_FWD_TOL == CE_FWD_TOL
 
 
 @pytest.mark.parametrize("dc", CAPACITIES)
@@ -199,6 +300,16 @@ def test_tiles_fit_and_ldmatrix_rows_are_conflict_free(dc):
     assert own_rows(dc) * dc // (WARPS * 32) <= 128
 
 
+@pytest.mark.parametrize("dc", CAPACITIES)
+def test_forward_tiles_fit(dc):
+    """The forward holds no dz: two stream stages up to D = 512, one at 768,
+    and two blocks an SM (228 KB of shared memory) up to D = 256."""
+    stages = 2 if fwd_shared_bytes(dc, 2) <= MAX_SHARED else 1
+    assert stages == (2 if dc <= 512 else 1)
+    assert fwd_shared_bytes(dc, stages) <= min(MAX_SHARED, shared_bytes(dc, stages))
+    assert (2 * (fwd_shared_bytes(dc, stages) + 1024) <= 233472) == (dc <= 256)
+
+
 def test_wrapper_pads_rows_to_eight_features():
     a, b = torch.ones(5, 36, dtype=torch.bfloat16), torch.ones(7, 36, dtype=torch.bfloat16)
     pa, pb = fused_ce.mma_operands(a, b)
@@ -211,6 +322,65 @@ def test_wrapper_pads_rows_to_eight_features():
 @pytest.mark.parametrize("m,n,d,scale", SHAPES)
 def test_tiled_backward_matches_plain(m, n, d, scale):
     errs = _errors(*_inputs(m, n, d, scale))
+    assert max(errs) <= CE_BWD_TOL, errs
+
+
+@pytest.mark.parametrize("m,n,d,scale", SHAPES)
+def test_tiled_forward_matches_plain(m, n, d, scale):
+    a, b, labels, s, want_lse, _ = _inputs(m, n, d, scale)
+    want_loss, _ = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    loss, lse = tiled_forward(a, b, labels, s)
+    for got, want in ((loss, want_loss), (lse, want_lse)):
+        assert ((got - want).abs() / (1 + want.abs())).max().item() <= CE_FWD_TOL
+
+
+def test_tiled_forward_matches_jax_pallas():
+    """The emulated forward's mean loss against the JAX package's Pallas
+    forward (interpret mode); M != N, D = 40 and a ragged last tile."""
+    m, n, d, scale = 70, 100, 40, 30.0
+    a, b, labels, s, _, _ = _inputs(m, n, d, scale, seed=5)
+    want = float(jax_fused_ce(jnp.asarray(a.float().numpy()), jnp.asarray(b.float().numpy()),
+                              jnp.asarray(labels.numpy()), jnp.float32(scale), block_m=8,
+                              block_n=128, interpret=True))
+    loss, _ = tiled_forward(a, b, labels, s)
+    assert abs(loss.mean().item() - want) <= CE_FWD_TOL * (1 + abs(want))
+
+
+@pytest.mark.parametrize("m,n,d", [(130, 200, 36), (70, 65, 768)])
+def test_forward_and_backward_take_the_same_raw(m, n, d):
+    """raw of every (own block, stream tile) in the forward is the dA
+    kernel's bit for bit, and the dB kernel's (own and stream swapped) is its
+    transpose bit for bit: one helper, one k order."""
+    a, b, labels, s, lse, g = _inputs(m, n, d, 20.0, seed=7)
+    fwd, bwd_a, bwd_b = [], [], []
+    tiled_forward(a, b, labels, s, raws=fwd)
+    tiled_backward(a, b, labels, s, lse, g, True, raws=bwd_a)
+    tiled_backward(a, b, labels, s, lse, g, False, raws=bwd_b)
+    assert [k for k, _ in fwd] == [k for k, _ in bwd_a]
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(fwd, bwd_a))
+    # one full own block of dB against the forward's tiles it covers
+    full = torch.cat([torch.cat([r for (o0, s0), r in fwd if s0 == c0], 0)
+                      for c0 in range(0, -(-n // STREAM_ROWS) * STREAM_ROWS, STREAM_ROWS)], 1)
+    rows = own_rows(capacity(-(-d // 8) * 8))
+    for (o0, s0), raw in bwd_b:
+        want = full[s0:s0 + STREAM_ROWS, o0:o0 + rows].T
+        assert torch.equal(raw[:want.shape[0], :want.shape[1]], want)
+
+
+def test_tied_100_meets_the_bar_with_the_tiled_forward():
+    """b = a at logit scale 100 ("tied-100"): the emulated backward fed the
+    emulated forward's lse (the kernels' path: both from one logit tile)
+    against the plain backward fed the plain lse holds 1e-4 of max|grad| for
+    dA, dB and dscale; the forward holds its own bar too."""
+    a, b, labels, s, want_lse, g = _inputs(512, 512, 512, 100.0, seed=11, tied=True)
+    want_loss, _ = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    loss, lse = tiled_forward(a, b, labels, s)
+    assert ((loss - want_loss).abs() / (1 + want_loss.abs())).max().item() <= CE_FWD_TOL
+    da, ds = tiled_backward(a, b, labels, s, lse, g, True)
+    db = tiled_backward(a, b, labels, s, lse, g, False)
+    want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
+    want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
+    errs = (_rel(da, want_da), _rel(ds, want_ds), _rel(db, want_db))
     assert max(errs) <= CE_BWD_TOL, errs
 
 
