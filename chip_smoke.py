@@ -36,13 +36,17 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      at the training shapes (batch 256, vision and text), the token-head
      LayerNorm shape and one ragged shape each, and the LayerNorm (both
      types) and the MLP (bf16) at ViT-L/14's width (D 1024, H 4096, 16 x 257
-     rows), as phase 8b runs them; two runs of each
+     rows), as phase 8b runs them; the bf16 MLP forward per element against
+     the exact function (ops/fused_mlp_check.py), and at the vision shape two
+     controls that must fail that bar; two runs of each
      backward must agree bit for bit, and at the vision shape neither
      direction of the MLP may hold as much as one [B, N, H] tensor above its
      inputs.
      The stochastic-rounding int8 quantizer (3e) at every Dense shape of the
-     model, one ragged shape and one with an all-zero column and a column
-     whose extremes sit at +-absmax, fp32 and bf16, seeds 0 and 1: values and
+     model, one ragged shape, one with an all-zero column and a column
+     whose extremes sit at +-absmax, and two slices too tall for a cluster's
+     shared memory (ViT-L-14's [4096, 1024], K = 16,384), fp32 and bf16,
+     seeds 0 and 1: values and
      scales equal to the plain version's bit for bit, one seed twice equal,
      two seeds different, scales equal to round-to-nearest's and values
      within one step of it, and unbiased over 64 seeds.
@@ -63,7 +67,9 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      text, token-head and ViT-L/14's width, its row kernel and partial-row
      reduce apart (torch.profiler) beside torch.add(x, dy),
      which moves the same bytes; the CE forward at M = N = 256, 4096 and
-     32768 beside its plain version and the dense pair);
+     32768 beside its plain version and the dense pair; the quantizer's call,
+     its host side apart and its device side, which must be one kernel a
+     call, torch.profiler);
      encode throughput at batch 64, request latency; the attention bounds
      at the text shape as well. The library calls are
      timed only: on the paths timed here the port never calls them.
@@ -115,7 +121,7 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      the default path on the same weights, VIT_L_STEPS train steps with exact
      launch counts, and the peak below phase 6b's.
   9. the int8 slice, full width and depth, seed 0: (a) every Dense weight of
-     both towers through the quantizer kernel (99 launches) and through
+     both towers through the quantizer kernel (99 launches, timed) and through
      round-to-nearest (quantize_vision_params / quantize_text_params);
      (b) vision_encode_int8 / text_encode_int8 at batch 64 with either set of
      weights against the bf16 model (cosine of every row above 0.99, 12
@@ -219,14 +225,20 @@ CE_PEAK_LIMIT_GIB = 1.0     # kernel path at 32768, above its inputs
 # LayerNorm and MLP kernels vs their plain versions:
 #   forward, of max(1, largest |out|): fp32 1e-5 (the sums run in another
 #     order, 3072 terms deep in the MLP, and rsqrtf / expf / tanhf stand
-#     against torch's); bf16 2^-7 (the output is rounded to bf16 once: one
-#     step of the largest value);
+#     against torch's); bf16 LayerNorm 2^-7 (the output is rounded to bf16
+#     once: one step of the largest value). The bf16 MLP forward rounds four
+#     times and sums in its own order: it is held per element to the exact
+#     function within what its fp32 sums and GELU allow
+#     (colxlip_tpu_torch/ops/fused_mlp_check.py derives the bar), and two
+#     controls must fail that bar (MLP_CONTROL_ROWS);
 #   backward, of the largest |grad|: fp32 1e-4 (dscale, dbias, dW and db sum
 #     50,432 rows in another order); bf16 2^-7 (dx is rounded to bf16 once,
 #     and a dh or a that lands one bf16 step apart moves a weight gradient by
 #     far less).
 FUSED_FWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 FUSED_BWD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# rows of the vision case through the first control (K sums kept in bf16)
+MLP_CONTROL_ROWS = 2048
 LN_CASES = [
     # name, leading shape, D, seed (None: the phase's one generator; a case
     # added later has a generator of its own, as in CE_CASES)
@@ -296,6 +308,11 @@ STEP_TOL = {"float32": (0.9999, 1e-3, 1e-3), "bfloat16": (0.98, 5e-2, 1e-2)}
 # [K, N] = [in, out], and one ragged shape (N not a multiple of 4)
 QUANT_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 512), (512, 1536),
                 (512, 512), (512, 2048), (2048, 512), (197, 129)]
+# slices too tall for a cluster's shared memory, read again from L2 in the
+# same launch: ViT-L-14's c_proj [4096, 1024] and a K of 16,384 (own seed, so
+# that no other check's draw moves)
+QUANT_TALL_SHAPES = [(4096, 1024), (16384, 512)]
+QUANT_TALL_SEED = 14
 QUANT_SEEDS = 64            # launches of the unbiasedness check
 # Dense weights of the two towers: conv1, proj and 12 x 4 in the vision tower,
 # the projection and 12 x 4 in the text tower
@@ -655,6 +672,40 @@ def mlp_inputs(b, n, d, h, dtype, dev, gen):
             t((d,), 0.1), t((b, n, d), 1.0))
 
 
+def hold_mlp_forward(label, args, approximate, out, controls=False):
+    """The bf16 MLP forward ``out`` of ``args`` (x, w1, b1, w2, b2) against its
+    per-element bar (ops/fused_mlp_check.py); raises if any element is
+    outside. With ``controls`` both controls must fail the same bar: the
+    forward with its K sums kept in bf16 (on the first MLP_CONTROL_ROWS
+    rows) and ``out`` with one element moved three bf16 steps."""
+    import torch
+
+    from colxlip_tpu_torch.ops import fused_mlp_check as check
+
+    bar = check.forward_bar(*args, approximate)
+    report = check.check_forward(out, bar)
+    log(f"[3 kernels] {label} bf16 forward: {check.describe(report)}")
+    if not report["ok"]:
+        raise RuntimeError(f"{label} bf16 forward: {report['outside']} elements outside the "
+                           "per-element bar")
+    if not controls:
+        return report
+    d = out.shape[-1]
+    rows = min(MLP_CONTROL_ROWS, out.numel() // d)
+    x = args[0].reshape(-1, d)[:rows]
+    part = check.Bar(*(t.reshape(-1, d)[:rows] for t in bar))
+    for name, got, want_bar in (
+            (f"K sums kept in bf16 ({rows} rows)",
+             check.bf16_sum_forward(x, *args[1:], approximate), part),
+            ("one element moved three steps", check.moved_three_steps(out, bar), bar)):
+        control = check.check_forward(got, want_bar)
+        log(f"[3 kernels] {label} control, {name}: {check.describe(control)}")
+        if control["ok"]:
+            raise RuntimeError(f"{label}: the control '{name}' passes the bar")
+    torch.cuda.synchronize()
+    return report
+
+
 def check_fused_kernels(dev, gen):
     """Phase 3d: the LayerNorm and MLP kernels against their plain versions.
     Returns (max errors per kernel, bf16 inputs by case name for the timings)."""
@@ -665,10 +716,12 @@ def check_fused_kernels(dev, gen):
     errs = {"fused_ln_fwd": 0.0, "fused_ln_bwd": 0.0, "fused_mlp_fwd": 0.0, "fused_mlp_bwd": 0.0}
     inputs = {}
 
-    def settle(kind, label, name, fwd_err, bwd_err, got, again):
-        f_tol, b_tol = FUSED_FWD_TOL[name], FUSED_BWD_TOL[name]
+    def hold(kind, label, name, fwd_err, bwd_err, got, again, fwd_tol=None):
+        f_tol = FUSED_FWD_TOL[name] if fwd_tol is None else fwd_tol
+        b_tol = FUSED_BWD_TOL[name]
+        held = f"tol {f_tol:.3g}" if math.isfinite(f_tol) else "printed, not held"
         log(f"[3 kernels] {label} {name}: forward max_abs_err / max(1, max|out|) "
-            f"{fwd_err:.3g} (tol {f_tol:.3g}); backward max_abs_err / max|grad| "
+            f"{fwd_err:.3g} ({held}); backward max_abs_err / max|grad| "
             f"{bwd_err:.3g} (tol {b_tol:.3g})")
         if not (fwd_err <= f_tol and bwd_err <= b_tol):
             raise RuntimeError(f"{label} {name}: forward {fwd_err} > {f_tol} or backward "
@@ -694,9 +747,9 @@ def check_fused_kernels(dev, gen):
             want_y = fused_ln.layernorm_plain(x, scale, bias, 1e-5)
             want = fused_ln.layernorm_bwd_plain(x, scale, dy, 1e-5)
             torch.cuda.synchronize()
-            settle("fused_ln", f"layernorm {case} {tuple(x.shape)}", name,
-                   max_rel_err(y, want_y, 1.0), max(max_rel_err(g, w) for g, w in zip(got, want)),
-                   got, again)
+            hold("fused_ln", f"layernorm {case} {tuple(x.shape)}", name,
+                 max_rel_err(y, want_y, 1.0), max(max_rel_err(g, w) for g, w in zip(got, want)),
+                 got, again)
             if dtype == torch.bfloat16:
                 inputs[f"ln/{case}"] = (x, scale, bias, dy)
             del y, got, again, want_y, want
@@ -712,10 +765,16 @@ def check_fused_kernels(dev, gen):
                 want_out = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate)
                 want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, approximate)
                 torch.cuda.synchronize()
-                settle("fused_mlp", f"mlp {case} B={b} N={n} D={d} H={h} "
-                       f"gelu={'tanh' if approximate else 'erf polynomial'}", name,
-                       max_rel_err(out, want_out, 1.0),
-                       max(max_rel_err(g, w) for g, w in zip(got, want)), got, again)
+                label = (f"mlp {case} B={b} N={n} D={d} H={h} "
+                         f"gelu={'tanh' if approximate else 'erf polynomial'}")
+                if dtype == torch.bfloat16:
+                    hold_mlp_forward(label, (x, w1, b1, w2, b2), approximate, out,
+                                     controls=case == "vision")
+                # bf16: the forward's aggregate against the plain version is printed,
+                # not held (the per-element bar above holds it)
+                hold("fused_mlp", label, name, max_rel_err(out, want_out, 1.0),
+                     max(max_rel_err(g, w) for g, w in zip(got, want)), got, again,
+                     math.inf if dtype == torch.bfloat16 else None)
                 del out, got, again, want_out, want
             if dtype == torch.bfloat16:
                 inputs[f"mlp/{case}"] = (x, w1, b1, w2, b2, dy)
@@ -1687,11 +1746,13 @@ def check_quantizer(dev, gen):
 
     from colxlip_tpu_torch.ops import quantization as q
 
-    cases = [(f"{k}x{n}", k, n, False) for k, n in QUANT_SHAPES]
-    cases.append(("512x512 zero column, +-absmax column", 512, 512, True))
+    cases = [(f"{k}x{n}", k, n, False, gen) for k, n in QUANT_SHAPES]
+    cases.append(("512x512 zero column, +-absmax column", 512, 512, True, gen))
+    tall = torch.Generator().manual_seed(QUANT_TALL_SEED)
+    cases += [(f"{k}x{n} (tall)", k, n, False, tall) for k, n in QUANT_TALL_SHAPES]
     worst, inputs = 0.0, {}
-    for label, k, n, special in cases:
-        base = (torch.randn(k, n, generator=gen) * k ** -0.5).to(dev)   # a Dense layer's scale
+    for label, k, n, special, case_gen in cases:
+        base = (torch.randn(k, n, generator=case_gen) * k ** -0.5).to(dev)   # a layer's scale
         if special:
             base[:, 0] = 0.0
             base[:, 1] = base[:, 1].clamp(-0.09, 0.09)
@@ -1728,7 +1789,7 @@ def check_quantizer(dev, gen):
                         and values[7, 1] in (-127, -126) and runs[0][1][0, 0] == 1e-8):
                     raise RuntimeError(f"quantize_int8 {label} {name}: the zero column or "
                                        "the +-absmax elements are wrong")
-            if (k, n) in ((768, 3072), (3072, 768)):
+            if (k, n) in ((768, 3072), (3072, 768), QUANT_TALL_SHAPES[0]):
                 inputs[f"{k}x{n}/{name}"] = w
 
     # unbiasedness on the card. T = sum over seeds and elements of (value - x),
@@ -1787,24 +1848,45 @@ def time_quantizer(inputs, card: str):
         log(f"[5 timing] quantize_int8 {key}: kernel {ker:.4f} ms, plain {plain:.4f} ms, "
             f"round-to-nearest from five PyTorch calls {lib:.4f} ms; bound {bounds[key][0]:.5f} "
             f"ms by {bounds[key][1]} ({card})")
-    # the wrapper's host work (three allocations, one ctypes call) paces that
-    # loop; the device's own time a launch, by kernel, from the profiler
+    # a call's host side (two allocations, one ctypes call) apart from its
+    # device side: the host clock around calls that never wait for the card,
+    # and the profiler's device operations, which must be one kernel a call
     from torch.profiler import ProfilerActivity, profile
 
     w = inputs["768x3072/float32"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            q._launch(w, 0)
-        torch.cuda.synchronize()
-    device_us = {next((n for n in ("absmax_kernel", "quantize_kernel", "Memset")
-                       if n in e.key), e.key[:40]): e.self_device_time_total / 20
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA}
-    log("[5 timing] quantize_int8 768x3072/float32 device time a launch (torch.profiler, 20 "
-        "launches): " + (", ".join(f"{k} {v:.2f} us" for k, v in device_us.items())
-                         or "not measured (the profiler saw no device events)")
-        + f"; together {sum(device_us.values()) / 1e3:.4f} ms ({card})")
-    timing["quantize_int8_device_ms"] = sum(device_us.values()) / 1e3 if device_us else None
+    calls = 200
+    for _ in range(5):
+        q._launch(w, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        q._launch(w, 0)
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    log(f"[5 timing] quantize_int8 768x3072/float32 a call's host side: {host_ms * 1e3:.2f} us "
+        f"(enqueue: {calls} calls that never wait for the card; {card})")
+    for key, w in inputs.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                q._launch(w, 0)
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops = sum(e.count for e in device)
+        names = sorted({"quantize_kernel" if "quantize_kernel" in e.key else e.key[:40]
+                        for e in device})
+        ms = sum(e.self_device_time_total for e in device) / 20 / 1e3 if device else None
+        bound = bounds[key][0]
+        log(f"[5 timing] quantize_int8 {key} device time a call: "
+            + (f"{ms * 1e3:.2f} us, {bound / ms:.1%} of the bound {bound * 1e3:.2f} us "
+               f"(torch.profiler, 20 calls: {ops} device operations {names})" if ms else
+               "not measured (the profiler saw no device events)") + f" ({card})")
+        if device and (ops != 20 or names != ["quantize_kernel"]):
+            raise RuntimeError(f"quantize_int8 {key}: {ops} device operations in 20 calls "
+                               f"({names}); one kernel a call expected")
+        timing[f"quantize_int8_device_ms/{key}"] = ms
+    timing["quantize_int8_device_ms"] = timing["quantize_int8_device_ms/768x3072/float32"]
+    timing["quantize_int8_host_ms"] = host_ms
     return timing, bounds
 
 
@@ -1867,18 +1949,22 @@ def int8_phase(dev, card: str, train, encode_ms):
     rtn = {"vision": quantize_vision_params(model), "text": quantize_text_params(model)}
     q.LAUNCHES.reset()
     stochastic, quant_launches = {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for tower in ("vision", "text"):
         before = q.LAUNCHES.value
         stochastic[tower] = stochastic_tree(model, rtn[tower], tower)
         quant_launches[tower] = q.LAUNCHES.value - before
     torch.cuda.synchronize()
+    requant_ms = (time.perf_counter() - t0) * 1e3
     steps = max((a["q"].int() - b["q"].int()).abs().max().item()
                 for tower in rtn for a, b in (
                     [(x[name], y[name]) for x, y in zip(stochastic[tower]["blocks"],
                                                         rtn[tower]["blocks"])
                      for name in ("in_proj", "out_proj", "c_fc", "c_proj")]))
     log(f"[9 int8] {MODEL} (seed 0): {q.LAUNCHES.value} Dense weights through the quantizer "
-        f"kernel {quant_launches}; its values are within {steps} step of round-to-nearest's")
+        f"kernel {quant_launches} in {requant_ms:.2f} ms (host clock, transposes included; "
+        f"{card}); its values are within {steps} step of round-to-nearest's")
     if quant_launches != QUANT_LAUNCHES or steps > 1:
         raise RuntimeError(f"quantizer launches {quant_launches}, expected {QUANT_LAUNCHES}; "
                            f"or {steps} steps from round-to-nearest")
@@ -2120,7 +2206,8 @@ def int8_phase(dev, card: str, train, encode_ms):
             server.join(timeout=30)
     del model
     torch.cuda.empty_cache()
-    return {"quant_launches": sum(quant_launches.values()), "encode": rates,
+    return {"quant_launches": sum(quant_launches.values()), "requant_ms": requant_ms,
+            "encode": rates,
             "maxsim_int8_err": int8_err[TRAIN_BATCH], "maxsim_int8_ms": int8_ms,
             "maxsim_kernel_ms": kernel_ms, "step_ms": step_ms, "loss_err": loss_err,
             "index_img_per_s": INDEX_ITEMS / build_s, "search_ms": lat,
@@ -2532,8 +2619,9 @@ def main() -> int:
         "launches_search": int8["search_launches"],
         "quantize_rtn_five_calls_ms": timing[f"quantize_int8/{quant_key}"][2],
         "quantize_int8_device_ms": timing["quantize_int8_device_ms"],
-        "int8": {k: int8[k] for k in ("encode", "maxsim_int8_err", "maxsim_int8_ms",
-                                      "maxsim_kernel_ms", "step_ms", "loss_err",
+        "quantize_int8_host_ms": timing["quantize_int8_host_ms"],
+        "int8": {k: int8[k] for k in ("requant_ms", "encode", "maxsim_int8_err",
+                                      "maxsim_int8_ms", "maxsim_kernel_ms", "step_ms", "loss_err",
                                       "index_img_per_s", "search_ms", "search_err")},
         "mlp_three_calls_ms": {"fwd": timing["fused_mlp_fwd/vision"][2],
                                "bwd": timing["fused_mlp_bwd/vision"][2]},

@@ -39,8 +39,8 @@
 // and 4096 forward, where one tile is live):
 //
 //   forward, per chunk                     epilogue
-//     x W1^T   kNT  -> ws [R_c, H]         a = T(gelu(T(T(acc) + b1))); settle
-//     a W2     kNN  -> out rows            T(T(acc) + b2); settle
+//     x W1^T   kNT  -> ws [R_c, H]         a = T(gelu(T(T(acc) + b1)))
+//     a W2     kNN  -> out rows            T(T(acc) + b2)
 //   backward: db2 = column sums of dy (colsum + reduce, once); per chunk
 //     x W1^T   kNT  -> ws [R_c, H]         h = T(T(acc) + b1)
 //     dy W2^T  kNT  -> dh [R_c, H]         acc is da, fp32: reads h, writes
@@ -57,16 +57,14 @@
 // chunks in order on one stream, partial sums reduced in index order), with
 // no atomics, so two runs agree bit for bit.
 //
-// Near-ties (the forward). A tile sums K in another order than the plain
-// version's fp32 sgemm, which sums in k order. Where a sum lies near a
-// midpoint between two bf16 values the two round apart, and the bias added
-// after that rounding can make one step two (a sum just above a power of
-// two, the output just below it): at the vision shape on the H100 a
-// tile-only forward put 32,321 outputs more than one step from the plain
-// version's. So x W1^T and a W2 list the elements near a midpoint and
-// settle_kernel sums those again in k order (below). The backward's outputs
-// round once (dx, dh) or not at all (dW, db), and are held to 2^-7 of the
-// largest gradient: it keeps the tile's sums.
+// Roundings (the forward). A tile sums K in another order than any other
+// implementation: where a sum lies near a midpoint between two bf16 values,
+// two correct orders round it apart, and the bias added after that rounding
+// can make one step two. The forward is held to the exact function within
+// what its fp32 sums and its fp32 GELU allow (ops/fused_mlp_check.py derives
+// the per-element bar), not to another implementation's order. The
+// backward's outputs round once (dx, dh) or not at all (dW, db), and are held
+// to 2^-7 of the largest gradient.
 //
 // fp32: the CUDA cores (stream_tile.cuh), D <= 768, as first ported:
 //
@@ -467,108 +465,7 @@ struct EpiArgs {
   float* db1_part;    // kEpiDh: [2 m / 128][n], one row a warp's 64 rows
   int first;          // kEpiAcc, kEpiDh: store, where later chunks add
   int approximate;
-  const bf16* bt;     // kEpiGelu, kEpiBias: B as [n, k] rows (the settle's reads)
-  int* ties;          // kEpiGelu, kEpiBias: the warps' near-tie lists (below)
-  int tie_warps;      // warps of the grid: counts ties[0 ..), lists after them
 };
-
-// The forward's settle. Where an fp32 sum lies near a midpoint between two
-// bf16 values, another summation order may round it to the other one, and the
-// bias added after the rounding can turn that one step into two of the output
-// (the sum just above 4, the output just below).
-// The plain version sums in fp32 in k order (cuBLAS's sgemm, as the first
-// CUDA-core kernels did), so every such element of x W1^T and a W2 is summed
-// again that way: the tile's epilogue writes its value and lists it (up to
-// kTieCap a warp, in a fixed order, no atomics; past that it settles inline),
-// and settle_kernel recomputes the listed elements, one lane each. The
-// window covers the sequential sum's own error and the tile's drift: 128
-// fp32 steps of the value's binade (2^-16 of it) where the tile adds each
-// mma's products by round-to-nearest (a W2, RN), and where the mma
-// accumulates in place and truncates to the sum's last bit, up to a step a
-// k-step of 16, max(128, K / 8) (x W1^T, K = D). About 0.4% of the elements
-// are listed; each re-reads two rows of K and sums them in a chain of K fmas,
-// so the window's width is the settle's cost (1.60 ms of the vision shape's
-// forward on the H100).
-constexpr int kTieCap = 64;   // listed elements a warp
-
-__device__ __forceinline__ unsigned tie_ulps(int k, bool rn) {
-  return rn ? 128 : max(128, k / 8);
-}
-
-__device__ __forceinline__ bool near_tie(float v, unsigned ulps) {
-  const unsigned low = __float_as_uint(v) & 0xFFFFu;   // the bits bf16 rounds away
-  return (low > 0x8000u ? low - 0x8000u : 0x8000u - low) <= ulps;
-}
-
-// Eight products of a sequential sum, in order.
-__device__ __forceinline__ float fma8(float s, const uint4& va, const uint4& vb) {
-  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&va);
-  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&vb);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    s = fmaf(__low2float(pa[j]), __low2float(pb[j]), s);
-    s = fmaf(__high2float(pa[j]), __high2float(pb[j]), s);
-  }
-  return s;
-}
-
-// sum over i < k of a[i] b[i] as an fp32 fma chain in i order (the first
-// product exact, one rounding a step); k a multiple of 8, both rows on 16
-// bytes. The 16 loads of 64 elements are in flight before their 64 fmas, so
-// that a lane waits on the L2 once a group, not once every 8 elements (the
-// settle took 4.24 ms of the vision forward on the H100 loading 8 at a time,
-// 1.60 this way).
-__device__ __forceinline__ float sequential_dot(const bf16* __restrict__ a,
-                                                const bf16* __restrict__ b, int k) {
-  constexpr int kV = 8;   // 16-byte loads a group of 64 elements
-  float s = 0.f;
-  for (int i = 0; i < k; i += 8 * kV) {
-    uint4 va[kV], vb[kV];
-#pragma unroll
-    for (int v = 0; v < kV; ++v) {
-      const bool live = i + 8 * v < k;   // zeros past k add +0 and change no rounding
-      va[v] = live ? *reinterpret_cast<const uint4*>(a + i + 8 * v) : make_uint4(0, 0, 0, 0);
-      vb[v] = live ? *reinterpret_cast<const uint4*>(b + i + 8 * v) : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int v = 0; v < kV; ++v) s = fma8(s, va[v], vb[v]);
-  }
-  return s;
-}
-
-// The same sum called, not inlined, by the tile for a warp whose list is
-// full, so that it adds no registers to the GEMM kernel.
-__device__ __noinline__ float sequential_dot_called(const bf16* __restrict__ a,
-                                                    const bf16* __restrict__ b, int k) {
-  return sequential_dot(a, b, k);
-}
-
-// Element (row, col) of kEpiGelu's or kEpiBias's output from its sequential
-// sum v.
-template <int E>
-__device__ __forceinline__ void settle_store(const EpiArgs& e, int row, int col, float v) {
-  const float bias = to_f(e.bias[col]);
-  bf16* dst = static_cast<bf16*>(e.out) + size_t(row) * e.ldo + col;
-  if constexpr (E == kEpiGelu)
-    *dst = from_f<bf16>(gelu_value(pre_activation<bf16>(v, bias), e.approximate));
-  else
-    *dst = from_f<bf16>(round_to<bf16>(v) + bias);
-}
-
-// The lists of one GEMM launch, on the same grid: warp w's lanes settle its
-// listed elements.
-template <int E>
-__global__ void __launch_bounds__(gemm::kThreads)
-settle_kernel(const gemm::Operands p, const EpiArgs e) {
-  const int w = (blockIdx.y * gridDim.x + blockIdx.x) * gemm::kWarps + (threadIdx.x >> 5);
-  const int count = min(e.ties[w], kTieCap);
-  for (int i = threadIdx.x & 31; i < count; i += 32) {
-    const int id = e.ties[e.tie_warps + w * kTieCap + i];
-    const int row = id / p.n, col = id - row * p.n;
-    settle_store<E>(e, row, col,
-                    sequential_dot(p.a + size_t(row) * p.lda, e.bt + size_t(col) * p.k, p.k));
-  }
-}
 
 // One C tile of one product and its epilogue. A thread holds, of each m16 x
 // n8 accumulator tile, rows g and g + 8 at columns 2t and 2t + 1 (as
@@ -593,14 +490,12 @@ mlp_gemm_kernel(const gemm::Operands p0, const EpiArgs e0, const gemm::Operands 
   const EpiArgs e{z ? e1.out : e0.out,           z ? e1.ldo : e0.ldo,
                   z ? e1.bias : e0.bias,         z ? e1.dh : e0.dh,
                   z ? e1.db1_part : e0.db1_part, z ? e1.first : e0.first,
-                  z ? e1.approximate : e0.approximate, z ? e1.bt : e0.bt,
-                  z ? e1.ties : e0.ties,         z ? e1.tie_warps : e0.tie_warps};
+                  z ? e1.approximate : e0.approximate};
   constexpr int MI = Tl::kMI, NI = Tl::kNI;
-  constexpr bool kSettle = E == kEpiGelu || E == kEpiBias;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int m0 = blockIdx.y * gemm::kBM, n0 = blockIdx.x * BN;
   float acc[MI][NI][4];
-  gemm::mainloop<L, BN, E == kEpiBias>(acc, reinterpret_cast<bf16*>(smem_raw), p, m0, n0);
+  gemm::mainloop<L, BN>(acc, reinterpret_cast<bf16*>(smem_raw), p, m0, n0);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp / Tl::kWarpsN, wn = warp % Tl::kWarpsN;
@@ -608,8 +503,6 @@ mlp_gemm_kernel(const gemm::Operands p0, const EpiArgs e0, const gemm::Operands 
   const int col0 = n0 + wn * gemm::kWarpN + 2 * (lane & 3);
   float bias[NI][2];
   float sums[NI][2];   // kEpiDh: this thread's column sums of dh
-  uint64_t tie_bits = 0;   // kSettle: element ((mi NI + ni) 2 + half) 2 + j is near a tie
-  const unsigned ulps = tie_ulps(p.k, E == kEpiBias);
 #pragma unroll
   for (int ni = 0; ni < NI; ++ni) {
     const int col = col0 + 8 * ni;
@@ -649,11 +542,6 @@ mlp_gemm_kernel(const gemm::Operands p0, const EpiArgs e0, const gemm::Operands 
         const float v0 = acc[mi][ni][2 * half], v1 = acc[mi][ni][2 * half + 1];
         const float bias0 = bias[ni][0], bias1 = bias[ni][1];
         const size_t off = size_t(row) * e.ldo + col;
-        if constexpr (kSettle) {
-          const int bit = ((mi * NI + ni) * 2 + half) * 2;
-          tie_bits |= uint64_t(near_tie(v0, ulps)) << bit | uint64_t(near_tie(v1, ulps))
-                                                               << (bit + 1);
-        }
         if constexpr (E == kEpiGelu) {
           *bf16_pair(e.out, off) = __floats2bfloat162_rn(
               gelu_value(pre_activation<bf16>(v0, bias0), e.approximate),
@@ -681,31 +569,6 @@ mlp_gemm_kernel(const gemm::Operands p0, const EpiArgs e0, const gemm::Operands 
         }
       }
     }
-  }
-  if constexpr (kSettle) {
-    // the warp's list: lane l's elements after those of lanes 0 .. l - 1, each
-    // lane's in bit order
-    const int mine = __popcll(tie_bits);
-    int upto = mine;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int other = __shfl_up_sync(0xffffffffu, upto, o);
-      if (lane >= o) upto += other;
-    }
-    const int w = (blockIdx.y * gridDim.x + blockIdx.x) * gemm::kWarps + warp;
-    int pos = upto - mine;
-    for (uint64_t bits = tie_bits; bits; bits &= bits - 1, ++pos) {
-      const int t = __ffsll(static_cast<long long>(bits)) - 1;
-      const int row = row0 + 16 * ((t >> 2) / NI) + 8 * ((t >> 1) & 1);
-      const int col = col0 + 8 * ((t >> 2) % NI) + (t & 1);
-      if (pos < kTieCap)
-        e.ties[e.tie_warps + w * kTieCap + pos] = row * p.n + col;
-      else
-        settle_store<E>(e, row, col,
-                        sequential_dot_called(p.a + size_t(row) * p.lda,
-                                              e.bt + size_t(col) * p.k, p.k));
-    }
-    if (lane == 31) e.ties[w] = upto;
   }
   if constexpr (E == kEpiDh) {
     // the warp's kWM rows of each column: the eight lanes of one column
@@ -750,14 +613,8 @@ cudaError_t launch_gemm(const gemm::Operands& p, const EpiArgs& e, cudaStream_t 
                            cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tl::kBytes));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.n + BN - 1) / BN, (p.m + gemm::kBM - 1) / gemm::kBM, count);
-  EpiArgs es = e;   // the settle's lists follow one count a warp of this grid
-  es.tie_warps = int(grid.x * grid.y) * gemm::kWarps;
   mlp_gemm_kernel<L, BN, E><<<grid, gemm::kThreads, Tl::kBytes, stream>>>(
-      p, es, count > 1 ? *p1 : p, count > 1 ? *e1 : es);
-  if constexpr (E == kEpiGelu || E == kEpiBias) {
-    COLXLIP_TRY(cudaGetLastError());
-    settle_kernel<E><<<grid, gemm::kThreads, 0, stream>>>(p, es);
-  }
+      p, e, count > 1 ? *p1 : p, count > 1 ? *e1 : e);
   return cudaGetLastError();
 }
 
@@ -783,30 +640,20 @@ int multiprocessors() {
 }
 
 // ws: [min(rows, chunk), h] bf16 (the forward's chunk holds twice the
-// backward's rows: one tile where the backward has two), then W2^T [d, h]
-// (the settle's rows of a W2, filled by the caller); ties: the near-tie lists
-// of one launch, (1 + kTieCap) ints a warp.
-cudaError_t bf16_fwd(const Args& a, const void* b2, void* out, bf16* ws, int* ties, int chunk) {
+// backward's rows: one tile where the backward has two).
+cudaError_t bf16_fwd(const Args& a, const void* b2, void* out, bf16* ws, int chunk) {
   const bf16* x = static_cast<const bf16*>(a.x);
   const bf16* w1 = static_cast<const bf16*>(a.w1);
-  const bf16* w2t = ws + size_t(std::min(chunk, a.rows)) * a.h;
   const int sms = multiprocessors();
   for (int r0 = 0; r0 < a.rows; r0 += chunk) {
     const int rc = std::min(chunk, a.rows - r0);
     const gemm::Operands up{x + size_t(r0) * a.d, w1, a.d, a.d, rc, a.h, a.d};
-    const EpiArgs eu{ws,      a.h,           static_cast<const bf16*>(a.b1), nullptr, nullptr,
-                     0,       a.approximate, w1,                             ties};
+    const EpiArgs eu{ws, a.h, static_cast<const bf16*>(a.b1), nullptr, nullptr, 0,
+                     a.approximate};
     COLXLIP_TRY((launch_gemm<gemm::kNT, 128, kEpiGelu>(up, eu, a.stream)));
     const gemm::Operands down{ws, static_cast<const bf16*>(a.w2), a.h, a.d, rc, a.d, a.h};
-    const EpiArgs ed{static_cast<bf16*>(out) + size_t(r0) * a.d,
-                     a.d,
-                     static_cast<const bf16*>(b2),
-                     nullptr,
-                     nullptr,
-                     0,
-                     a.approximate,
-                     w2t,
-                     ties};
+    const EpiArgs ed{static_cast<bf16*>(out) + size_t(r0) * a.d, a.d,
+                     static_cast<const bf16*>(b2), nullptr, nullptr, 0, a.approximate};
     COLXLIP_TRY((launch_d_columns<gemm::kNN, kEpiBias>(down, ed, sms, a.stream)));
   }
   return cudaSuccess;
@@ -874,20 +721,17 @@ bool bad_shape(int rows, int d, int h, int dtype, const void* ws, int chunk) {
 
 // x, out [rows, d]; w1, w2 [h, d]; b1 [h]; b2 [d], all of one dtype (0 =
 // float32, 1 = bfloat16). bf16: d and h multiples of 8, x, w1, w2 16-byte
-// aligned, chunk_rows a multiple of 128, workspace [min(rows, chunk_rows) + d,
-// h] bf16 whose last d rows hold W2^T, ties 8 (1 + 64) ceil(min(rows,
-// chunk_rows) / 128) max(ceil(h / 128), ceil(d / 64)) ints; float32: d <= 768,
-// workspace, ties and chunk_rows unused. Returns a cudaError_t (0 = launched).
+// aligned, chunk_rows a multiple of 128, workspace [min(rows, chunk_rows), h]
+// bf16; float32: d <= 768, workspace and chunk_rows unused. Returns a
+// cudaError_t (0 = launched).
 extern "C" int colxlip_fused_mlp_fwd(const void* x, const void* w1, const void* b1,
                                      const void* w2, const void* b2, void* out, void* workspace,
-                                     void* ties, int rows, int d, int h, int approximate,
-                                     int chunk_rows, int dtype, void* stream) {
-  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows) || (dtype == 1 && ties == nullptr))
-    return cudaErrorInvalidValue;
+                                     int rows, int d, int h, int approximate, int chunk_rows,
+                                     int dtype, void* stream) {
+  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows)) return cudaErrorInvalidValue;
   const Args a{x, w1, b1, w2, rows, d, h, approximate, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_fwd<float>(a, b2, out);
-  return bf16_fwd(a, b2, out, static_cast<bf16*>(workspace), static_cast<int*>(ties),
-                  chunk_rows);
+  return bf16_fwd(a, b2, out, static_cast<bf16*>(workspace), chunk_rows);
 }
 
 // As the forward, plus dy, dx [rows, d] in the same dtype; out dw1, dw2 [h, d],

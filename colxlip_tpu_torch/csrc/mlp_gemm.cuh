@@ -104,10 +104,9 @@ __device__ __forceinline__ void load_stage(bf16* s, const Operands& p, int m0, i
 }
 
 // The products of one stage into the warp's accumulators: acc[mi][ni] is the
-// m16 x n8 tile at rows wm * kWM + 16 mi, columns wn * 32 + 8 ni of the block.
-// RN: each mma's products are added by fp32 adds (mma_16816_rn), else the
-// mma accumulates in place.
-template <int L, int BN, bool RN>
+// m16 x n8 tile at rows wm * kWM + 16 mi, columns wn * 32 + 8 ni of the block;
+// the mma accumulates in place.
+template <int L, int BN>
 __device__ __forceinline__ void stage_products(float (&acc)[Tile<L, BN>::kMI][4][4],
                                                const bf16* s, int wm, int wn, int lane) {
   using T = Tile<L, BN>;
@@ -134,13 +133,8 @@ __device__ __forceinline__ void stage_products(float (&acc)[Tile<L, BN>::kMI][4]
         mma::ldm_b(bf, bs + n * T::kBRS + kk * 16, T::kBRS, lane);
 #pragma unroll
       for (int mi = 0; mi < T::kMI; ++mi) {
-        if constexpr (RN) {
-          mma::mma_16816_rn(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          mma::mma_16816_rn(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
-        } else {
-          mma::mma_16816(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
-          mma::mma_16816(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
-        }
+        mma::mma_16816(acc[mi][2 * nj], af[mi], bf[0], bf[1]);
+        mma::mma_16816(acc[mi][2 * nj + 1], af[mi], bf[2], bf[3]);
       }
     }
   }
@@ -149,7 +143,7 @@ __device__ __forceinline__ void stage_products(float (&acc)[Tile<L, BN>::kMI][4]
 // acc = the warp's part of C[m0 .. m0 + 127, n0 .. n0 + BN - 1], fp32, with
 // k summed in steps of kBK in ascending order. Every thread of the block
 // takes part; `smem` holds kStages stages (Tile::kBytes).
-template <int L, int BN, bool RN = false>
+template <int L, int BN>
 __device__ __forceinline__ void mainloop(float (&acc)[Tile<L, BN>::kMI][4][4], bf16* smem,
                                          const Operands& p, int m0, int n0) {
   using T = Tile<L, BN>;
@@ -176,7 +170,7 @@ __device__ __forceinline__ void mainloop(float (&acc)[Tile<L, BN>::kMI][4][4], b
     const int next = ks + kStages - 1;
     if (next < steps) load_stage<L, BN>(smem + (next % kStages) * T::kStage, p, m0, n0, next * kBK);
     mma::cp_async_commit();
-    stage_products<L, BN, RN>(acc, smem + (ks % kStages) * T::kStage, wm, wn, lane);
+    stage_products<L, BN>(acc, smem + (ks % kStages) * T::kStage, wm, wn, lane);
   }
   mma::cp_async_wait<0>();
 }

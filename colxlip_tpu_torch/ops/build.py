@@ -61,15 +61,14 @@ _SIGNATURES = {
     "colxlip_fused_ln_fwd": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     # x, gamma, dy, dx, partials, dgb, rows, D, eps, blocks, dtype, stream
     "colxlip_fused_ln_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
-    # x, w1, b1, w2, b2, out, workspace, ties, rows, D, H, approximate, chunk_rows, dtype,
-    # stream
-    "colxlip_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, out, workspace, rows, D, H, approximate, chunk_rows, dtype, stream
+    "colxlip_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2, scratch, workspace, rows, D, H,
     # approximate, splits, colsum_blocks, chunk_rows, dtype, stream
     "colxlip_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # w, values, scales, amax scratch, K, N, seed low word, seed high word, dtype, stream
-    "colxlip_quantize_int8": [_P, _P, _P, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I, _P],
+    # w, values, scales, K, N, seed low word, seed high word, dtype, stream
+    "colxlip_quantize_int8": [_P, _P, _P, _I, _I, ctypes.c_uint32, ctypes.c_uint32, _I, _P],
 }
 
 

@@ -28,11 +28,11 @@ PyTorch version that walks the rows in chunks, so it too runs at batch 256
 (its hidden chunk is [chunk, H]). bfloat16 runs every product on the tensor
 cores through one hand-written ``mma.sync`` GEMM tile (``csrc/mlp_gemm.cuh``)
 over the rows in chunks of ``chunk_rows(H)``, whose [chunk, H] hidden tiles
-(one forward, two backward) stay in the card's L2: with W2^T and the
-forward's near-tie lists that workspace is the design's whole memory cost
-(30.0 MiB forward, 25.0 backward at the vision shape). The forward sums the
-elements that lie near a bf16 rounding midpoint again in k order, as the
-plain version's fp32 sgemm does (``csrc/fused_mlp.cu``, "Near-ties").
+(one forward, two backward) stay in the card's L2: that workspace is the
+design's whole memory cost (24.0 MiB forward, 25.0 backward at the vision
+shape). The tile sums K in its own order, so its bf16 forward is held to the
+exact function by a per-element bar derived from the roundings
+(``ops/fused_mlp_check.py``), not to the plain version's sgemm order.
 float32 keeps the first port's CUDA-core kernels (D <= 768). CPU tensors take the plain versions; CUDA
 tensors launch the kernels or raise. There is no fallback.
 
@@ -58,7 +58,6 @@ _MAX_SPLITS = 8                  # float32: row ranges of the dW passes
 _COLSUM_BLOCKS = 264             # partial rows of db2: two blocks a multiprocessor
 GEMM_ROWS = 128                  # csrc/mlp_gemm.cuh kBM: rows of a C tile
 DB1_ROWS = 64                    # rows a warp sums into one row of db1 partials
-TIE_CAP = 64                     # csrc/fused_mlp.cu kTieCap: near-ties listed a warp
 # bfloat16: a call's [chunk, H] bf16 tiles (two backward, one forward) fit in this much of the
 # H100's 50 MB L2, beside the weights and their fp32 gradients
 L2_WORKSPACE_BYTES = 24 * 2**20
@@ -85,14 +84,15 @@ def erf_poly(x: torch.Tensor) -> torch.Tensor:
 
 
 def kernel_gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
-    """The kernels' GELU value in fp32."""
+    """The kernels' GELU value in fp32 (float64 for a float64 x)."""
     return kernel_gelu_and_grad(x, approximate)[0]
 
 
 def kernel_gelu_and_grad(x: torch.Tensor, approximate: bool
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(value, d/dx) in fp32: the exact derivatives of the kernels' formulas."""
-    x32 = x.float()
+    """(value, d/dx) in fp32 (float64 for a float64 x: the forward's check):
+    the exact derivatives of the kernels' formulas."""
+    x32 = x if x.dtype == torch.float64 else x.float()
     if approximate:
         t = torch.tanh(_SQRT_2_OVER_PI * (x32 + 0.044715 * x32 * x32 * x32))
         du = _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * x32 * x32)
@@ -182,23 +182,15 @@ def _bf16_workspace(rows: int, d: int, h: int, backward: bool) -> Tuple[int, int
     and db2."""
     chunk = chunk_rows(h, backward)
     if not backward:
-        return (min(rows, chunk) + d) * h, 0          # the chunk's a, then W2^T
+        return min(rows, chunk) * h, 0                # the chunk's a
     return (2 * min(rows, chunk) * h,
             chunk // DB1_ROWS * h + min(rows, _COLSUM_BLOCKS) * d)
-
-
-def _tie_ints(rows: int, d: int, h: int) -> int:
-    """int32 elements of the forward's near-tie lists: a count and TIE_CAP
-    entries for each warp of the larger of its two GEMM grids (x W1^T in
-    128-column tiles, a W2 in at least 64-column ones)."""
-    row_tiles = -(-min(rows, chunk_rows(h, backward=False)) // GEMM_ROWS)
-    return 8 * (1 + TIE_CAP) * row_tiles * max(-(-h // 128), -(-d // 64))
 
 
 def workspace_bytes(rows: int, d: int, h: int, backward: bool) -> int:
     """Device memory a bfloat16 call allocates beside its outputs."""
     tiles, sums = _bf16_workspace(rows, d, h, backward)
-    return 2 * tiles + 4 * (sums if backward else _tie_ints(rows, d, h))
+    return 2 * tiles + 4 * sums
 
 
 def _check_cuda(name: str, x, w1, b1, w2, b2=None, dy=None) -> Tuple[int, int, int]:
@@ -228,18 +220,14 @@ def _launch_fwd(x, w1, b1, w2, b2, approximate: bool) -> torch.Tensor:
     rows, d, h = _check_cuda("fused_mlp", x, w1, b1, w2, b2)
     kernels = load_kernels()
     out = torch.empty_like(x)
-    chunk = chunk_rows(h, backward=False)
-    ws = ties = None
+    ws = None
     if x.dtype == torch.bfloat16:
         ws = torch.empty(_bf16_workspace(rows, d, h, False)[0], dtype=x.dtype, device=x.device)
-        ws[min(rows, chunk) * h:].view(d, h).copy_(w2.t())   # the settle reads W2^T rows
-        ties = torch.empty(_tie_ints(rows, d, h), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = kernels.colxlip_fused_mlp_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(),
-        None if ties is None else ties.data_ptr(), rows, d, h, int(approximate), chunk,
-        _DTYPE_CODES[x.dtype], stream)
+        out.data_ptr(), None if ws is None else ws.data_ptr(), rows, d, h, int(approximate),
+        chunk_rows(h, backward=False), _DTYPE_CODES[x.dtype], stream)
     kernels.check(err, "colxlip_fused_mlp_fwd")
     FWD_LAUNCHES.add()
     return out

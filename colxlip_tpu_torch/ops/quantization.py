@@ -9,7 +9,8 @@ one scale a column (the TPU kernel ``quantize_int8_pallas``):
 
 ``floor(x + u)`` is unbiased: its mean over the noise is x. A CPU tensor
 takes ``quantize_int8_plain``; a CUDA tensor launches
-``csrc/quantize_int8.cu`` or raises. There is no fallback, and in particular
+``csrc/quantize_int8.cu`` (one launch of thread-block clusters along K, the
+weight read once) or raises. There is no fallback, and in particular
 never a silent one to round-to-nearest (which is what the JAX wrapper does
 off the TPU).
 
@@ -142,11 +143,10 @@ def _launch(w: torch.Tensor, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
     kernels = load_kernels()
     values = torch.empty((k, n), dtype=torch.int8, device=w.device)
     scales = torch.empty((1, n), dtype=torch.float32, device=w.device)
-    amax = torch.empty((n,), dtype=torch.int32, device=w.device)
     stream = torch.cuda.current_stream(w.device).cuda_stream
     err = kernels.colxlip_quantize_int8(
-        w.data_ptr(), values.data_ptr(), scales.data_ptr(), amax.data_ptr(), k, n,
-        seed & _MASK32, seed >> 32, _DTYPE_CODES[w.dtype], stream)
+        w.data_ptr(), values.data_ptr(), scales.data_ptr(), k, n, seed & _MASK32, seed >> 32,
+        _DTYPE_CODES[w.dtype], stream)
     kernels.check(err, "colxlip_quantize_int8")
     LAUNCHES.add()
     return values, scales

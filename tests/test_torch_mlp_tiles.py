@@ -19,15 +19,18 @@ order. It also reads the fragment loaders' lane addresses out of
 each gives the m16n8k16 fragment of the block it names (the k-major A of
 the TN products included). The emulation is used by nothing in the package.
 
-It holds the algorithm against the unchanged plain versions
-``fused_mlp_plain`` / ``fused_mlp_bwd_plain`` under ``chip_smoke.py``'s bf16
-tolerances (2^-7: forward of max(1, largest |out|), backward of the largest
-|grad|), and against the JAX package's Pallas kernels in interpret mode
-under ``tests/test_torch_fused.py``'s bf16 bars (2e-2).
+It holds the forward to its per-element bar (``ops/fused_mlp_check.py``: the
+exact function within what the tile's fp32 sums and the fp32 GELU allow),
+checks the bar itself on constructed values and against two controls that
+must fail it, holds the backward against the unchanged plain version
+``fused_mlp_bwd_plain`` under ``chip_smoke.py``'s bf16 tolerance (2^-7 of
+the largest |grad|), and both against the JAX package's Pallas kernels in
+interpret mode under ``tests/test_torch_fused.py``'s bf16 bars (2e-2).
 """
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import pathlib
 import re
 
@@ -38,7 +41,7 @@ import pytest
 import torch
 
 from colxlip_tpu.ops import fused_mlp as jax_mlp
-from colxlip_tpu_torch.ops import fused_mlp
+from colxlip_tpu_torch.ops import fused_mlp, fused_mlp_check as bar_check
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CSRC = REPO / "colxlip_tpu_torch" / "csrc"
@@ -48,8 +51,6 @@ STAGES = 3        # kStages
 WARPS = 8         # kWarps
 WARP_N = 32       # kWarpN: columns a warp owns
 PAD = 8           # kPad: elements of padding a staged row
-TIE_CAP = 64      # csrc/fused_mlp.cu kTieCap: near-ties listed a warp
-FWD_TOL = 2.0 ** -7
 BWD_TOL = 2.0 ** -7
 JAX_TOL = 2e-2
 SHAPES = [
@@ -102,53 +103,13 @@ def rnd(v: torch.Tensor) -> torch.Tensor:
     return v.bfloat16().float()
 
 
-def tie_ulps(k: int, rn: bool) -> int:
-    """fused_mlp.cu tie_ulps: the near-tie window of a K-long sum, in fp32
-    steps of the value's binade: 128 (2^-16 of it) where the tile adds each
-    mma's products rounding to nearest (a W2), max(128, K / 8) where the mma
-    accumulates and truncates (x W1^T)."""
-    return 128 if rn else max(128, k // 8)
-
-
-def near_tie(v: torch.Tensor, k: int, rn: bool) -> torch.Tensor:
-    """fused_mlp.cu near_tie: the 16 bits bf16 rounds away lie within
-    tie_ulps(k, rn) of their midpoint."""
-    low = v.contiguous().view(torch.int32) & 0xFFFF
-    return (low - 0x8000).abs() <= tie_ulps(k, rn)
-
-
-def sequential(a_mk: torch.Tensor, b_kn: torch.Tensor) -> torch.Tensor:
-    """[m, n] fp32 sums in k order, one rounding a step (sequential_dot: a
-    bf16 x bf16 product is exact in fp32, so the fma rounds once)."""
-    a, b = a_mk.float(), b_kn.float()
-    s = torch.zeros(a.shape[0], b.shape[1])
-    for k in range(a.shape[1]):
-        s = s + a[:, k:k + 1] * b[k:k + 1]
-    return s
-
-
-def settled(acc, a_mk, b_kn, rn):
-    """The forward's settle: near-tie elements summed again in k order."""
-    flag = near_tie(acc, a_mk.shape[1], rn)
-    rows, cols = flag.nonzero(as_tuple=True)
-    if rows.numel():
-        a, b = a_mk.float()[rows], b_kn.float()[:, cols]
-        s = torch.zeros(rows.numel())
-        for k in range(a.shape[1]):
-            s = s + a[:, k] * b[k]
-        acc = acc.clone()
-        acc[rows, cols] = s
-    return acc
-
-
 def pre_activation(acc, bias):
     return rnd(rnd(acc) + bias.float())
 
 
 def tiled_forward(x, w1, b1, w2, b2, approximate, chunk):
     """The bf16 forward: per chunk x W1^T (kNT, epilogue kEpiGelu) into the
-    [chunk, H] workspace, then a W2 (kNN, kEpiBias), each followed by the
-    settle of its near-tie elements."""
+    [chunk, H] workspace, then a W2 (kNN, kEpiBias)."""
     rows, d = x.shape
     h = w1.shape[0]
     out = torch.full((rows, d), float("nan"))
@@ -156,9 +117,9 @@ def tiled_forward(x, w1, b1, w2, b2, approximate, chunk):
     for r0 in range(0, rows, chunk):
         rc = min(chunk, rows - r0)
         xc = x[r0:r0 + rc]
-        acc = settled(gemm(xc, w1.T, rc, h, d), xc, w1.T, False)
+        acc = gemm(xc, w1.T, rc, h, d)
         ws[:rc] = rnd(fused_mlp.kernel_gelu(pre_activation(acc, b1), approximate))
-        acc = settled(gemm(ws, w2, rc, d, h), ws[:rc], w2, True)
+        acc = gemm(ws, w2, rc, d, h)
         out[r0:r0 + rc] = rnd(rnd(acc) + b2.float())
     return out.bfloat16()
 
@@ -206,17 +167,15 @@ def _rel(got, want, floor=1e-30):
 
 
 def test_constants_are_the_kernels_own():
-    """The emulation's tile sizes are the header's and the wrapper's; the
-    tolerances are chip_smoke.py's."""
+    """The emulation's tile sizes are the header's and the wrapper's, the
+    bar's k-step is the tile's mma; the tolerance is chip_smoke.py's."""
     tile = (CSRC / "mlp_gemm.cuh").read_text()
     for name, value in (("kWarps", WARPS), ("kBM", BM), ("kBK", BK), ("kStages", STAGES),
                         ("kWarpN", WARP_N), ("kPad", PAD)):
         assert re.search(rf"constexpr int {name} = {value};", tile), name
-    source = (CSRC / "fused_mlp.cu").read_text()
-    assert "unsigned tie_ulps(int k, bool rn) {\n  return rn ? 128 : max(128, k / 8);" in source
-    assert "gemm::mainloop<L, BN, E == kEpiBias>" in source
-    assert re.search(rf"constexpr int kTieCap = {TIE_CAP};", source)
-    assert fused_mlp.TIE_CAP == TIE_CAP
+    assert "mma.sync.aligned.m16n8k16" in (CSRC / "mma_tile.cuh").read_text()
+    assert bar_check.K_STEP == 16 and "mma::mma_16816(acc" in tile
+    assert "gemm::mainloop<L, BN>(acc" in (CSRC / "fused_mlp.cu").read_text()
     assert fused_mlp.GEMM_ROWS == BM
     # the db1 sums: one row a warp at 128 x 128 (warps 2 x 4, 64 rows each)
     assert fused_mlp.DB1_ROWS == BM // (WARPS // (128 // WARP_N))
@@ -224,8 +183,8 @@ def test_constants_are_the_kernels_own():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    assert smoke.FUSED_FWD_TOL["bfloat16"] == FWD_TOL
     assert smoke.FUSED_BWD_TOL["bfloat16"] == BWD_TOL
+    assert "check.forward_bar(" in inspect.getsource(smoke.hold_mlp_forward)
 
 
 def test_chunks_stay_in_l2_and_far_under_one_hidden_tensor():
@@ -239,13 +198,11 @@ def test_chunks_stay_in_l2_and_far_under_one_hidden_tensor():
     hidden = rows * h * 2                         # one [B, N, H] bf16 tensor: 295 MiB
     fwd, bwd = (fused_mlp.workspace_bytes(rows, d, h, b) for b in (False, True))
     tiles = 4096 * h * 2                          # the forward's one tile, the backward's two
-    # the forward: W2^T for the settle, a count and 64 near-ties a warp of 768 tiles
-    assert fwd == tiles + d * h * 2 + 4 * 8 * (1 + TIE_CAP) * 32 * 24
+    assert fwd == tiles                           # the chunk's a, nothing else
     assert bwd == tiles + 4 * (32 * h + 264 * d)  # db1 sums a warp's rows, db2 264 partials
     assert max(fwd, bwd) < 32 * 2**20 < hidden // 9
     # a short input takes one chunk of its own rows
-    assert fused_mlp.workspace_bytes(231, 512, 2048, False) == (
-        (231 + 512) * 2048 * 2 + 4 * 8 * (1 + TIE_CAP) * 2 * 16)
+    assert fused_mlp.workspace_bytes(231, 512, 2048, False) == 231 * 2048 * 2
 
 
 @pytest.mark.parametrize("bn", [64, 128])
@@ -367,11 +324,21 @@ def test_tn_fragments_multiply_to_a_transposed_product():
 @pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
 @pytest.mark.parametrize("rows,d,h,chunk", SHAPES)
 def test_tiled_forward_matches_plain(rows, d, h, chunk, approximate):
+    """The tile-only forward (no element summed again) inside the per-element
+    bar, as the plain version is: both differ from the exact function only
+    by their fp32 sums' order."""
     x, w1, b1, w2, b2, _ = _inputs(rows, d, h)
     got = tiled_forward(x, w1, b1, w2, b2, approximate, chunk)
-    want = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate)
+    bar = bar_check.forward_bar(x, w1, b1, w2, b2, approximate)
     assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
-    assert _rel(got, want, 1.0) <= FWD_TOL
+    report = bar_check.check_forward(got, bar)
+    assert report["ok"], bar_check.describe(report)
+    # outputs stay below 4 here: at most two steps of [2, 4), where a tie at
+    # the bias add makes one step of T(q) two
+    assert report["max_allowance"] <= 2 * 2.0 ** -6
+    plain = bar_check.check_forward(fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate),
+                                    bar)
+    assert plain["ok"], bar_check.describe(plain)
 
 
 @pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
@@ -397,48 +364,98 @@ def test_one_chunk_or_many_give_the_same_function():
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("k,rn,ulps", [(768, False, 128), (1024, False, 128),
-                                       (3072, False, 384), (3072, True, 128), (4096, True, 128)])
-def test_near_tie_window(k, rn, ulps):
-    """A value is a near-tie when the 16 bits that bf16 rounds away lie within
-    tie_ulps fp32 steps of their midpoint: 2^-16 of its binade where the tile
-    rounds each mma's sum to nearest, and up to K / 8 steps where its
-    truncating accumulation can drift one step a k-step of 16."""
-    assert tie_ulps(k, rn) == ulps
-    mid = torch.tensor([0x40108000], dtype=torch.int32).view(torch.float32)  # 2.2578125
-    steps = torch.tensor([-ulps - 1, -ulps, 0, ulps, ulps + 1], dtype=torch.int32)
-    v = (mid.view(torch.int32) + steps).view(torch.float32)
-    assert near_tie(v, k, rn).tolist() == [False, True, True, True, False]
-    assert near_tie(torch.tensor([2.25, 2.265625, 0.0]), k, rn).tolist() == [False] * 3
+@pytest.mark.parametrize("v,want,step", [
+    (1.0 + 2.0 ** -8, 1.0, 2.0 ** -7),                      # a midpoint: ties to even
+    (1.0 + 3 * 2.0 ** -8, 1.0 + 2.0 ** -6, 2.0 ** -7),       # the other way
+    (2.0 - 2.0 ** -9, 2.0, 2.0 ** -7),                       # carries into the next binade
+    (-0.75 - 2.0 ** -10, -0.75, 2.0 ** -8),
+    (0.0, 0.0, 2.0 ** -133),
+])
+def test_bf16_rounding_and_step(v, want, step):
+    t = torch.tensor([v], dtype=torch.float64)
+    assert bar_check.round_bf16(t).item() == want
+    assert bar_check.round_bf16(t).item() == t.float().bfloat16().double().item()
+    assert bar_check.bf16_step(t).item() == step
 
 
-def test_settle_makes_the_forward_a_sequential_fp32_forward():
-    """With the near-ties summed again in k order, the tile's forward equals a
-    forward whose every sum is a sequential fp32 sum (the order of the plain
-    version on the card, cuBLAS's sgemm) but where a sum is small next to its
-    terms: there the window, 2^-16 of the value, is narrower than the two
-    orders' difference. Without the settle hundreds of elements land a bf16
-    step apart, some of them at values above 1."""
-    x, w1, b1, w2, b2, _ = _inputs(1000, 256, 1024, seed=5)
+@pytest.mark.parametrize("q,err,bias,y,lo,hi", [
+    # far from a midpoint of T(q): one value, bit-equal
+    (1.25 + 2.0 ** -9, 2.0 ** -12, 0.0, 1.25, 1.25, 1.25),
+    # within err of the midpoint 1.25 + 2^-8: one step either way
+    (1.25 + 2.0 ** -8 - 2.0 ** -12, 2.0 ** -11, 0.0, 1.25, 1.25, 1.2578125),
+    # on a midpoint with no error: ties to even only
+    (1.25 + 2.0 ** -8, 0.0, 0.0, 1.25, 1.25, 1.25),
+    # err of 1.5 steps: the interval crosses two midpoints and a binade
+    (0.5, 1.5 * 2.0 ** -8, 0.0, 0.5, 0.494140625, 0.5078125),
+    # the sum just above 4, the output just below: one step of q is two of y
+    (4.015625 - 2.0 ** -12, 2.0 ** -10, -0.0625, 3.9375, 3.9375, 3.96875),
+    # both candidates T(q) + b2 on midpoints of y's grid: ties to even make a
+    # one-step difference of T(q) two steps of y
+    (-2.1024708, 0.003, 0.0859375, -2.03125, -2.03125, -2.0),
+])
+def test_bar_counts_the_roundings(q, err, bias, y, lo, hi):
+    """The output interval of T(T(q +- err) + b2) on constructed values."""
+    got = bar_check.through_roundings(*(torch.tensor([v], dtype=torch.float64)
+                                        for v in (q, err, bias)))
+    assert [g.item() for g in got] == [y, lo, hi]
 
-    def forward(tile_sums):
-        def sums(a, b, rn):
-            acc = gemm(a, b, a.shape[0], b.shape[1], a.shape[1])
-            return settled(acc, a, b, rn) if tile_sums == "settled" else acc
-        if tile_sums == "sequential":
-            def sums(a, b, rn):
-                return sequential(a, b)
-        h = pre_activation(sums(x, w1.T, False), b1)
-        a = rnd(fused_mlp.kernel_gelu(h, False))
-        return rnd(rnd(sums(a, w2, True)) + b2.float())
 
-    want = forward("sequential")
-    tile, settle = forward("tile"), forward("settled")
-    top = want.abs().max()
-    assert (tile != want).sum() > 100 and (tile - want).abs().max() >= 2.0 ** -9 * top
-    off = (settle - want).abs()
-    assert (off > 0).sum() <= 2 and off.max() <= 2.0 ** -10 * top
-    assert torch.equal(tiled_forward(x, w1, b1, w2, b2, False, 512).float(), settle)
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+def test_gelu_error_bound_covers_fp32(approximate):
+    """The fp32 GELU (the plain version's, the kernels' formula) lies within
+    gelu_error_bound of its float64 value at every bf16 h in [-8, 8]."""
+    h = torch.arange(-8.0, 8.0, 2.0 ** -7, dtype=torch.float64)
+    h = bar_check.round_bf16(torch.cat([h, h * 2.0 ** -5]))
+    exact = fused_mlp.kernel_gelu(h, approximate)
+    fp32 = fused_mlp.kernel_gelu(h.float(), approximate).double()
+    bound = bar_check.gelu_error_bound(h, exact)
+    assert ((fp32 - exact).abs() <= bound).all()
+    assert ((fp32 - exact).abs() <= bound / 4).all()    # the doubling's margin, and more
+
+
+def _truncating_tile_sum(a, b):
+    """a @ b as an mma that adds each k-step's 16 exact products to the
+    accumulator exactly and truncates the result to fp32 (float64 in, out)."""
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float64)
+    for k0 in range(0, a.shape[1], 16):
+        exact = acc + a[:, k0:k0 + 16] @ b[k0:k0 + 16]
+        f = exact.float()
+        toward_zero = torch.where(f.double().abs() > exact.abs(),
+                                  torch.nextafter(f, torch.zeros_like(f)), f)
+        acc = toward_zero.double()
+    return acc
+
+
+@pytest.mark.parametrize("rows,d,h", [(96, 768, 3072), (64, 1024, 4096)])
+def test_sum_bound_covers_a_truncating_tile(rows, d, h):
+    """sum_error_bound holds an accumulation that truncates once a k-step of
+    16: on a layer's inputs (terms of both signs) with room, no element using
+    half of it, and on terms all positive, where every truncation errs the
+    same way and the partial sums grow to the whole sum."""
+    x, w1, _, w2, _, _ = _inputs(rows, d, h, seed=6)
+    mixed = (x.double(), w1.double().T)
+    positive = (x.double().abs(), w2.double()[:d].abs())
+    for (a, b), room in ((mixed, 0.5), (positive, 1.0)):
+        err = (_truncating_tile_sum(a, b) - a @ b).abs()
+        assert (err <= room * bar_check.sum_error_bound(a, b)).all()
+
+
+@pytest.mark.parametrize("control", ["bf16 sums", "three steps"])
+@pytest.mark.parametrize("rows,d,h,chunk", SHAPES[1:3])
+def test_controls_fail_the_bar(rows, d, h, chunk, control):
+    """The forward with its K sums kept in bf16 (rounded every k-step of 16),
+    and the tile's output with one element moved three bf16 steps, both fail
+    the bar that the tile passes."""
+    x, w1, b1, w2, b2, _ = _inputs(rows, d, h, seed=7)
+    bar = bar_check.forward_bar(x, w1, b1, w2, b2)
+    out = tiled_forward(x, w1, b1, w2, b2, False, chunk)
+    assert bar_check.check_forward(out, bar)["ok"]
+    got = (bar_check.bf16_sum_forward(x, w1, b1, w2, b2) if control == "bf16 sums"
+           else bar_check.moved_three_steps(out, bar))
+    report = bar_check.check_forward(got, bar)
+    assert not report["ok"] and report["outside"] >= 1
+    if control == "three steps":
+        assert report["outside"] == 1 and report["worst_steps"] >= 3
 
 
 @pytest.mark.parametrize("variant", ["round h once", "round da"])
