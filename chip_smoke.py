@@ -96,13 +96,17 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      ViT-B-16 (full width and depth, clip loss) with --dataset-type
      synthetic --batch-size 256 --precision bf16 --ce-impl fused, 2 epochs
      of 6 steps with fresh batches from the prefetch threads, a checkpoint
-     per epoch; checks the return code, that every logged loss is finite and
-     the first is near ln 256, that epoch_1, epoch_2, params.txt, out.log and
-     metrics.jsonl exist, and that the steps launched the three CE kernels
-     (two each a step) and the attention kernels; then --epochs 3 --resume
-     latest must go on from epoch_2 and write epoch_3. Prints the step's ms
-     and samples/s, data_time, the peak device memory and the device's idle
-     share over three profiled steps.
+     per epoch, and --retrieval-flickr --val-frequency 1 (global scoring) on
+     the vendored Flickr30k val annotations with a seeded JPEG written at
+     each image path (1,014 images of 256-500 px, 5,070 captions); checks
+     the return code, that every logged loss is finite and the first is near
+     ln 256, that epoch_1, epoch_2, params.txt, out.log and metrics.jsonl
+     exist, that results.jsonl holds an eval line for each epoch, and that
+     the steps and evals launched the three CE kernels (two each a step) and
+     the attention kernels exactly; then --epochs 3 --resume latest must go
+     on from epoch_2, write epoch_3 and a third eval line. Prints the step's
+     ms and samples/s, data_time, the peak device memory, the device's idle
+     share over three profiled steps and the eval's R@k and time split.
   8. the towers through the LayerNorm and MLP kernels: with
      COLXLIP_LN_IMPL=fused and COLXLIP_MLP_IMPL=fused set before the model
      is built, ViT-B-16-colxlip (full width and depth, seed 0, bf16):
@@ -134,7 +138,21 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      seeded images built with build_image_index: ids and scores against a
      recomputation with score_similarity, shortlist 2,048 against brute
      force, launch counts, latency and build img/s.
-  Phases 4, 6 and 7 run the default path and must launch none of the
+ 10. eval, ViT-B-16-colxlip (full width and depth, seed 0, bf16) saved as a
+     .pt and evaluated by colxlip_tpu_torch.main.main([...]) in its eval-only
+     mode with --retrieval-flickr --eval-scoring mixed on the same 5,070
+     texts and 1,014 images: the attention kernel launched exactly 12 times
+     an encode batch a tower, the MaxSim forward (fp32) once, no backward
+     kernel; the similarity matrix within 2e-2 x logit_scale of the same
+     weights through the plain versions on the card; results.jsonl equal to
+     the reference loop oracle on that matrix, exactly; both runs' R@k, the
+     eval's wall seconds and its split (host image load and transform, image
+     encode, text encode, score, metrics); the MaxSim forward at the eval
+     shape beside its plain version and bound; the attention kernel's share
+     of an encode batch's device time (torch.profiler); then zero-shot with
+     the full 1,000 x 80 classifier over a seeded folder of one image a
+     class, with its attention launch count.
+  Phases 4, 6, 7 and 10 run the default path and must launch none of the
   LayerNorm and MLP kernels.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -153,6 +171,7 @@ import contextlib
 import copy
 import io
 import json
+import logging
 import math
 import os
 import re
@@ -326,6 +345,20 @@ TOWER_LAYERS = 12           # blocks in each tower: one attention launch each an
 INDEX_ITEMS = 2048
 INDEX_BATCH = 256
 SEARCH_K, SEARCH_SHORTLIST = 10, 100
+# phase 10 (and phase 7's epoch-end eval): the vendored Flickr30k val
+# annotations (1,014 images, 5,070 captions), a seeded JPEG at each image path
+REPO = os.path.dirname(os.path.abspath(__file__))
+FLICKR_ANNOTATIONS = os.path.join(REPO, "datasets", "flickr30k-images", "flickr30k_val.json")
+EVAL_MODEL = "ViT-B-16-colxlip"
+EVAL_BATCH = 256            # --batch-size: texts and images an encode batch
+EVAL_ALPHA = 0.5
+EVAL_IMAGE_SIDES = (256, 500)
+ZS_CLASSES = 1000           # one seeded image a class, the vendored class names
+# zero-shot logits, kernels vs plain versions: cosines of unit-norm image
+# features and class weights, so |f'.c' - f.c| <= |f' - f| + |c' - c|, and a
+# 1 - cosine of ENCODE_COSINE_TOL on each allows sqrt(2 ENCODE_COSINE_TOL)
+ZS_LOGIT_TOL = 2 * (2 * ENCODE_COSINE_TOL) ** 0.5
+ZS_BATCH_CLASSES = 32       # zero_shot.build_zero_shot_classifier's batch of classes
 
 
 def log(*parts) -> None:
@@ -1614,8 +1647,9 @@ def vit_l_fused_phase(dev, card: str, vit_l):
     return {"launches": launches, "losses": losses, "step_ms": secs[-1] * 1e3, "peak_gib": peak}
 
 
-def main_phase(dev, card: str):
-    """Phase 7: train ViT-B-16 through the port's training entry point."""
+def main_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int):
+    """Phase 7: train ViT-B-16 through the port's training entry point, with
+    the Flickr30k suite evaluated at the end of every epoch."""
     import torch
 
     from colxlip_tpu_torch import main as entry
@@ -1633,7 +1667,8 @@ def main_phase(dev, card: str):
                 str(TRAIN_BATCH), "--precision", "bf16", "--ce-impl", "fused", "--epochs", "2",
                 "--steps-per-epoch", str(MAIN_STEPS_PER_EPOCH), "--log-every-n-steps", "1",
                 "--save-frequency", "1", "--workers", "0", "--seed", "0", "--logs", logs,
-                "--name", "smoke"]
+                "--name", "smoke", "--retrieval-flickr", "--flickr-data-root-dir", flickr_root,
+                "--val-frequency", "1"]
         log(f"[7 main] python -m colxlip_tpu_torch.main {' '.join(argv)}")
         unused = fused_counters()
         for c in (*counters.values(), *unused.values()):
@@ -1666,10 +1701,20 @@ def main_phase(dev, card: str):
             if abs(losses[0] - math.log(TRAIN_BATCH)) > 0.5:
                 raise RuntimeError(f"loss at step 1 is {losses[0]}, not near ln {TRAIN_BATCH}")
             layers = 24   # 12 blocks in each tower
-            want = {"fused_attention_fwd": layers * steps, "fused_attention_bwd": layers * steps,
+            evals = 2     # one at the end of each epoch
+            want = {"fused_attention_fwd": layers * steps + evals * encode_launches(
+                        n_texts, n_images, TRAIN_BATCH), "fused_attention_bwd": layers * steps,
                     "fused_ce_fwd": 2 * steps, "fused_ce_bwd_da": 2 * steps,
                     "fused_ce_bwd_db": 2 * steps}
-            log(f"[7 main] rc 0 in {secs:.1f} s; kernel launches over {steps} steps: {launches}")
+            log(f"[7 main] rc 0 in {secs:.1f} s; kernel launches over {steps} steps and {evals} "
+                f"epoch-end evals: {launches}")
+            results = read_results(base)
+            if [r["epoch"] for r in results] != [1, 2]:
+                raise RuntimeError(f"results.jsonl epochs {[r['epoch'] for r in results]}")
+            with open(os.path.join(base, "out.log")) as f:
+                split = re.findall(r"flickr seconds: (.*)", f.read())
+            log(f"[7 main] epoch-end eval, Flickr30k val {n_texts} x {n_images}, global "
+                f"scoring: epoch 2 {r_at_k(results[-1], 'flickr_')}; {split[-1]} ({card})")
             if launches != want:
                 raise RuntimeError(f"launches {launches}, expected {want}")
             check_default_path(unused, "phase 7")
@@ -1694,6 +1739,10 @@ def main_phase(dev, card: str):
             if ("epoch_2' (epoch 2)" not in out_log
                     or [r["step"] for r in recs] != list(range(1, steps + 7))):
                 raise RuntimeError("--resume latest did not go on from epoch_2 at step 13")
+            results = read_results(base)
+            if [r["epoch"] for r in results] != [1, 2, 3] or not all(
+                    math.isfinite(r["flickr_text_to_image_mean_rank"]) for r in results):
+                raise RuntimeError(f"results.jsonl after the resume: {results}")
             idle = re.findall(r"profiled steps: .*", out_log)
             if not idle:
                 raise RuntimeError("the profiled steps logged no device time")
@@ -1709,6 +1758,11 @@ def main_phase(dev, card: str):
         f"{feed_ms[1]:.1f} ms the first time, {feed_ms[2]:.1f} ms after ({card})")
     return {"launches": launches, "step_ms": step_ms, "data_ms": data_ms, "peak_gib": peak,
             "device_idle": idle[-1], "feed_ms": feed_ms}
+
+
+def read_results(base: str) -> list:
+    with open(os.path.join(base, "checkpoints", "results.jsonl")) as f:
+        return [json.loads(line) for line in f]
 
 
 def time_host_feed(dev):
@@ -2214,6 +2268,326 @@ def int8_phase(dev, card: str, train, encode_ms):
             "search_err": search_err, "search_launches": search_launches}
 
 
+def seeded_jpeg(rng, path: str) -> None:
+    """A JPEG with sides drawn from EVAL_IMAGE_SIDES and low-frequency
+    content, so that it decodes like a photo of that size."""
+    from PIL import Image
+
+    h, w = (int(x) for x in rng.integers(EVAL_IMAGE_SIDES[0], EVAL_IMAGE_SIDES[1] + 1, 2))
+    coarse = rng.integers(0, 256, (h // 8 + 1, w // 8 + 1, 3), dtype="uint8")
+    Image.fromarray(coarse).resize((w, h), Image.BILINEAR).save(path, quality=90)
+
+
+def write_flickr_suite(root: str, seed: int = 0):
+    """The vendored Flickr30k val annotations under ``root`` with one seeded
+    JPEG at each image path they name. Returns (the reader's root_dir,
+    texts, images)."""
+    import shutil
+
+    import numpy as np
+
+    with open(FLICKR_ANNOTATIONS) as f:
+        anns = json.load(f)
+    img_dir = os.path.join(root, "flickr30k-images")
+    os.makedirs(img_dir)
+    shutil.copy(FLICKR_ANNOTATIONS, img_dir)
+    rng = np.random.default_rng(seed)
+    for ann in anns:
+        seeded_jpeg(rng, os.path.join(root, ann["image"]))
+    return img_dir, sum(len(a["caption"]) for a in anns), len({a["image"] for a in anns})
+
+
+def write_imagenet_folder(root: str, classes: int, seed: int = 1) -> None:
+    """A torchvision-layout folder: one seeded JPEG in each of ``classes``
+    sorted class directories (no classnames.json: the vendored names)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"n{c:08d}"))
+        seeded_jpeg(rng, os.path.join(root, f"n{c:08d}", "0.JPEG"))
+
+
+def encode_launches(n_texts: int, n_images: int, batch: int) -> int:
+    """Attention forward launches of one eval: one a block an encode batch."""
+    return TOWER_LAYERS * (-(-n_texts // batch) + -(-n_images // batch))
+
+
+def loop_retrieval_metrics(i2t_sim, txt2img, img2txt) -> dict:
+    """The reference's per-row loops (numpy's stable argsort of -sim, the
+    rank of the first ground truth): the oracle the metrics must equal."""
+    import numpy as np
+
+    out = {}
+    t2i_ranks = np.array([np.where(np.argsort(-row, kind="stable") == txt2img[i])[0][0]
+                          for i, row in enumerate(i2t_sim.T)], np.float64)
+    i2t_ranks = np.array([min(np.where(np.argsort(-row, kind="stable") == c)[0][0]
+                              for c in img2txt[i]) for i, row in enumerate(i2t_sim)], np.float64)
+    for pre, r in (("text_to_image", t2i_ranks), ("image_to_text", i2t_ranks)):
+        out.update({f"{pre}_R@1": float((r < 1).mean()), f"{pre}_R@5": float((r < 5).mean()),
+                    f"{pre}_R@10": float((r < 10).mean()),
+                    f"{pre}_mean_rank": float(r.mean() + 1),
+                    f"{pre}_median_rank": float(np.floor(np.median(r)) + 1)})
+    return out
+
+
+def r_at_k(metrics: dict, prefix: str = "") -> str:
+    return ", ".join(f"{d} R@{k} {metrics[f'{prefix}{d}_R@{k}']:.4f}"
+                     for d in ("text_to_image", "image_to_text") for k in (1, 5, 10))
+
+
+class _Records(logging.Handler):
+    """Keeps the messages of the loggers it is added to."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def check_zero_shot(model, tokenizer, classnames, clf, batches, zs: dict, card: str) -> dict:
+    """The zero-shot classifier and the logits of its images, kernels against
+    the plain versions on the same weights and inputs: the classifier within
+    ENCODE_TOL on any element and ENCODE_COSINE_TOL on 1 - cosine of any
+    class, the logits within ZS_LOGIT_TOL; ``zs``'s top-1 / top-5 must be
+    those of the kernels' logits."""
+    import numpy as np
+    import torch
+
+    from colxlip_tpu_torch.training import zero_shot
+
+    t0 = time.perf_counter()
+    with plain_versions():
+        plain_clf = zero_shot.build_zero_shot_classifier(model, tokenizer, classnames)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    clf_err = (clf - plain_clf).abs().max().item()
+    clf_off = (1.0 - torch.nn.functional.cosine_similarity(clf, plain_clf, dim=0)).max().item()
+    dev = clf.device
+    logits = []
+    for plain in (False, True):
+        with plain_versions() if plain else contextlib.nullcontext(), torch.inference_mode():
+            feats = torch.cat([zero_shot._pooled(model.encode_image(
+                torch.from_numpy(images).to(dev), normalize=True)) for images, _ in batches])
+        logits.append((feats @ (plain_clf if plain else clf)).cpu().numpy())
+    labels = np.concatenate([lab for _, lab in batches])
+    logit_err = float(np.abs(logits[0] - logits[1]).max())
+    acc = []
+    for lg in logits:
+        top = np.argsort(-lg, axis=1)[:, :5]
+        acc.append({"imagenet-zeroshot-val-top1": float((top[:, 0] == labels).mean()),
+                    "imagenet-zeroshot-val-top5": float((top == labels[:, None]).any(1).mean())})
+    same_top1 = float((logits[0].argmax(1) == logits[1].argmax(1)).mean())
+    log(f"[10 eval] zero-shot vs the plain versions: classifier {tuple(clf.shape)} max_abs_err "
+        f"{clf_err:.3g} (tol {ENCODE_TOL}), largest 1 - cosine of a class {clf_off:.3g} (tol "
+        f"{ENCODE_COSINE_TOL}); logits of {len(labels)} images max_abs_err {logit_err:.3g} "
+        f"(tol {ZS_LOGIT_TOL:.3g}); top-1 class the same for {same_top1:.1%} of the images; "
+        f"kernels {acc[0]}, plain {acc[1]}; plain classifier {plain_s:.2f} s ({card})")
+    if not (clf_err <= ENCODE_TOL and clf_off <= ENCODE_COSINE_TOL
+            and logit_err <= ZS_LOGIT_TOL and acc[0] == zs):
+        raise RuntimeError(f"zero-shot vs the plain versions: classifier {clf_err} / {clf_off}, "
+                           f"logits {logit_err}, top-k {zs} (kernels' logits give {acc[0]})")
+    return {"classifier_err": clf_err, "classifier_cosine_off": clf_off,
+            "logit_err": logit_err, "plain": acc[1], "same_top1": same_top1}
+
+
+def eval_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int, work: str):
+    """Phase 10: retrieval and zero-shot eval of ViT-B-16-colxlip (full
+    width and depth, seed 0) through the entry point's eval-only mode."""
+    import numpy as np
+    import torch
+
+    from colxlip_tpu_torch import factory
+    from colxlip_tpu_torch import main as entry
+    from colxlip_tpu_torch.data.retrieval import build_retrieval_suite
+    from colxlip_tpu_torch.ops import attention, maxsim
+    from colxlip_tpu_torch.training import evaluate, zero_shot
+    from colxlip_tpu_torch.training.checkpoint import save_pt_checkpoint
+    from colxlip_tpu_torch.training.logging_utils import setup_logging
+
+    model, _ = factory.create_model(EVAL_MODEL, dev, torch.bfloat16, seed=0)
+    pt = save_pt_checkpoint(os.path.join(work, "eval.pt"), model)
+    del model
+    torch.cuda.empty_cache()
+    logs = os.path.join(work, "logs")
+    argv = ["--model", EVAL_MODEL, "--pretrained", pt, "--allow-degraded-tokenizer",
+            "--precision", "bf16", "--batch-size", str(EVAL_BATCH), "--logs", logs,
+            "--name", "eval", "--retrieval-flickr", "--flickr-data-root-dir", flickr_root,
+            "--eval-scoring", "mixed", "--alpha", str(EVAL_ALPHA), "--seed", "0"]
+    log(f"[10 eval] python -m colxlip_tpu_torch.main {' '.join(argv)}")
+    counters = {"fused_attention_fwd": attention.LAUNCHES,
+                "fused_attention_bwd": attention.BWD_LAUNCHES,
+                "maxsim_fwd": maxsim.LAUNCHES, "maxsim_bwd": maxsim.BWD_LAUNCHES}
+    unused = fused_counters()
+    captured = []
+    real_metrics = evaluate.compute_retrieval_metrics
+
+    def capture(sim, txt2img, img2txt):
+        captured.append((np.array(sim), txt2img, img2txt))
+        return real_metrics(sim, txt2img, img2txt)
+
+    evaluate.compute_retrieval_metrics = capture
+    for c in (*counters.values(), *unused.values()):
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        rc = entry.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.value for name, c in counters.items()}
+    finally:
+        evaluate.compute_retrieval_metrics = real_metrics
+        setup_logging(None)
+    if rc != 0 or len(captured) != 1:
+        raise RuntimeError(f"eval-only main returned {rc} after {len(captured)} suites")
+    check_default_path(unused, "phase 10")
+    want = {"fused_attention_fwd": encode_launches(n_texts, n_images, EVAL_BATCH),
+            "fused_attention_bwd": 0, "maxsim_fwd": 1, "maxsim_bwd": 0}
+    log(f"[10 eval] rc 0 in {wall:.1f} s; kernel launches {launches} (expected {want})")
+    if launches != want:
+        raise RuntimeError(f"phase 10 launches {launches}, expected {want}")
+    sim, txt2img, img2txt = captured[0]
+    if sim.shape != (n_images, n_texts) or sim.dtype != np.float32 or not np.isfinite(sim).all():
+        raise RuntimeError(f"similarity {sim.dtype} {sim.shape}, not finite [{n_images}, "
+                           f"{n_texts}] float32")
+    with open(os.path.join(logs, "eval", "checkpoints", "results.jsonl")) as f:
+        (results,) = [json.loads(line) for line in f]
+    oracle = loop_retrieval_metrics(sim, txt2img, img2txt)
+    got = {k[len("flickr_"):]: v for k, v in results.items() if k.startswith("flickr_")
+           and not k.endswith("_samples")}
+    if got != oracle or results["epoch"] != 0 or results["flickr_num_text_samples"] != n_texts:
+        raise RuntimeError(f"results.jsonl {results} against the loop oracle {oracle}")
+    with open(os.path.join(logs, "eval", "out.log")) as f:
+        split = re.findall(r"flickr seconds: (.*)", f.read())
+    log(f"[10 eval] Flickr30k val {n_texts} texts x {n_images} images, mixed scoring "
+        f"(alpha {EVAL_ALPHA}), batch {EVAL_BATCH}: wall {wall:.2f} s (model build and "
+        f".pt load included); {split[-1]}; metrics equal the loop oracle; {r_at_k(oracle)} "
+        f"({card})")
+
+    # the same weights, inputs and device through the plain versions
+    model, _, preprocess_val = factory.create_model_and_transforms(
+        EVAL_MODEL, pt, device=dev, precision="bf16")
+    tokenizer = factory.get_tokenizer(EVAL_MODEL)
+    suite = build_retrieval_suite("flickr", {"root_dir": flickr_root, "split": "val"},
+                                  tokenizer, preprocess_val)
+    scale = float(np.exp(model.logit_scale.detach().cpu().numpy()))
+    with plain_versions():
+        enc = evaluate.Encoder(model, EVAL_BATCH)
+        txt_feats, txt_tokens = enc.encode_texts(suite)
+        img_feats, img_tokens = enc.encode_images(suite)
+        plain_sim = evaluate.score_similarity(img_feats, txt_feats, img_tokens, txt_tokens,
+                                              scale, scoring="mixed", alpha=EVAL_ALPHA)
+    plain_sim = plain_sim.cpu().numpy()
+    sim_err = float(np.abs(sim - plain_sim).max())
+    sim_tol = SCORE_TOL_PER_UNIT_SCALE * scale
+    plain_metrics = evaluate.compute_retrieval_metrics(plain_sim, suite.txt2img, suite.img2txt)
+    log(f"[10 eval] similarity vs the plain path: max_abs_err {sim_err:.3g} (tol "
+        f"{sim_tol:.3g} = {SCORE_TOL_PER_UNIT_SCALE} x logit_scale {scale:.4f}); |score| max "
+        f"{np.abs(plain_sim).max():.3g}; plain path {r_at_k(plain_metrics)} (chance: R@1 "
+        f"{1 / n_images:.4f} text to image)")
+    if not sim_err <= sim_tol:
+        raise RuntimeError(f"phase 10 similarity: {sim_err} > {sim_tol}")
+
+    # kernel #5 in fp32 at the eval shape on the eval's tokens, against its
+    # plain version (MAXSIM_TOL), then timed beside it and its bound
+    with torch.inference_mode():
+        got = maxsim.maxsim(txt_tokens, img_tokens)
+        want = maxsim.maxsim_plain(txt_tokens, img_tokens)
+        maxsim_err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        del got, want
+        ms = cuda_ms(lambda: maxsim.maxsim(txt_tokens, img_tokens), 1, warmup=0)
+        plain_ms = cuda_ms(lambda: maxsim.maxsim_plain(txt_tokens, img_tokens), 1, warmup=0)
+    bound = maxsim_bound(txt_tokens, img_tokens, False)
+    shape = (*txt_tokens.shape, *img_tokens.shape[:2])
+    log(f"[10 eval] maxsim_fwd fp32 at the eval shape M={shape[0]} Lt={shape[1]} D={shape[2]} "
+        f"K={shape[3]} Li={shape[4]} vs its plain version on the eval's tokens: max_abs_err "
+        f"{maxsim_err:.3g} (tol {MAXSIM_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound[0]:.5f} ms by {bound[1]} ({bound[0] / ms:.1%} of it) ({card})")
+    if not (maxsim_err <= MAXSIM_TOL and finite):
+        raise RuntimeError(f"phase 10 maxsim at the eval shape: {maxsim_err} > {MAXSIM_TOL}")
+    del txt_tokens, img_tokens, txt_feats, img_feats
+
+    # kernel #1's share of an encode batch's device time (torch.profiler)
+    model.eval()
+    batches = {"image": torch.from_numpy(next(suite.iter_image_batches(EVAL_BATCH))).to(dev),
+               "text": torch.from_numpy(suite.tokens[:EVAL_BATCH]).to(dev)}
+    share = {}
+    with torch.no_grad():
+        for kind, batch in batches.items():
+            fn = getattr(model, f"encode_{kind}")
+            fn(batch)
+            by = device_ms_by_kernel(lambda: fn(batch, normalize=True), 3, r"^(.*)$")
+            attn_ms = sum(v for k, v in by.items() if "attn_fwd" in k)
+            share[kind] = {"attention_ms": attn_ms, "device_ms": sum(by.values())}
+            log(f"[10 eval] encode {kind} batch {EVAL_BATCH}: device {share[kind]['device_ms']:.3f} "
+                f"ms, of which the attention kernel {attn_ms:.3f} ms "
+                f"({attn_ms / share[kind]['device_ms']:.1%}) ({card})")
+
+    # zero-shot: the full 1,000 x 80 classifier, one image a class
+    val = os.path.join(work, "imagenet")
+    write_imagenet_folder(val, ZS_CLASSES)
+    records = _Records()
+    zs_logger = logging.getLogger(zero_shot.__name__)
+    zs_logger.addHandler(records)
+    zs_logger.setLevel(logging.INFO)
+    clf, seen = [], []
+    real_build, real_iter = zero_shot.build_zero_shot_classifier, zero_shot.iter_imagenet_val
+    zero_shot.build_zero_shot_classifier = lambda *a, **k: clf.append(real_build(*a, **k)) or clf[-1]
+
+    def keep_batches(*a, **k):
+        for item in real_iter(*a, **k):
+            seen.append(item)
+            yield item
+
+    zero_shot.iter_imagenet_val = keep_batches
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        zs = zero_shot.zero_shot_eval(model, tokenizer, preprocess_val, val,
+                                      batch_size=EVAL_BATCH)
+        torch.cuda.synchronize()
+    finally:
+        zero_shot.build_zero_shot_classifier = real_build
+        zero_shot.iter_imagenet_val = real_iter
+        zs_logger.removeHandler(records)
+    zs_wall = time.perf_counter() - t0
+    zs_launches = {name: c.value for name, c in counters.items()}
+    n_names = len(zero_shot.resolve_classnames(val))
+    zs_want = {"fused_attention_fwd": TOWER_LAYERS * (-(-n_names // ZS_BATCH_CLASSES)
+                                                     + -(-ZS_CLASSES // EVAL_BATCH)),
+               "fused_attention_bwd": 0, "maxsim_fwd": 0, "maxsim_bwd": 0}
+    norms = clf[0].norm(dim=0) if clf else None
+    if (zs_launches != zs_want or set(zs) != {"imagenet-zeroshot-val-top1",
+                                              "imagenet-zeroshot-val-top5"}
+            or not 0 <= zs["imagenet-zeroshot-val-top1"] <= zs["imagenet-zeroshot-val-top5"] <= 1
+            or clf[0].shape != (model.cfg.embed_dim, n_names)
+            or not torch.isfinite(clf[0]).all()
+            or (norms - 1).abs().max() > 1e-3):
+        raise RuntimeError(f"zero-shot: {zs}, launches {zs_launches} (expected {zs_want}), "
+                           f"classifier {tuple(clf[0].shape) if clf else None}")
+    zs_split = [m for m in records.messages if m.startswith("zero-shot seconds")]
+    log(f"[10 eval] zero-shot, {n_names} classes x 80 templates, {ZS_CLASSES} images: "
+        f"{zs}; {zs_wall:.2f} s ({zs_split[-1]}); launches {zs_launches} ({card})")
+    zs_check = check_zero_shot(model, tokenizer, zero_shot.resolve_classnames(val), clf[0],
+                               seen, zs, card)
+    del model
+    torch.cuda.empty_cache()
+    return {"suite": "flickr", "texts": n_texts, "images": n_images, "scoring": "mixed",
+            "wall_s": wall, "split": split[-1], "launches": launches, "sim_err": sim_err,
+            "sim_tol": sim_tol, "metrics": oracle, "plain_metrics": plain_metrics,
+            "maxsim_fp32": {"m": shape[0], "lt": shape[1], "d": shape[2], "k": shape[3],
+                            "li": shape[4], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                            "bound_by": bound[1], "launches": launches["maxsim_fwd"],
+                            "max_abs_err": maxsim_err},
+            "encode_attention_share": share,
+            "zero_shot": {**zs, "seconds": zs_wall, "split": zs_split[-1],
+                          "launches": zs_launches, **zs_check}}
+
+
 def main() -> int:
     import torch
 
@@ -2521,15 +2895,24 @@ def main() -> int:
     vit_l = vit_l_phase(dev, card)
     ln_only = ln_only_phase(dev, card, train)
 
-    # ---- phase 7: the training entry point ----------------------------------
-    trainer = main_phase(dev, card)
+    with tempfile.TemporaryDirectory() as eval_dir:
+        t0 = time.perf_counter()
+        flickr = write_flickr_suite(eval_dir)
+        log(f"[7 main] wrote {flickr[2]} seeded JPEGs at the paths of the Flickr30k val "
+            f"annotations ({flickr[1]} captions) in {time.perf_counter() - t0:.1f} s")
 
-    # ---- phase 8: the towers through the LayerNorm and MLP kernels ----------
-    fused = fused_phase(dev, card, train)
-    vit_l_fused = vit_l_fused_phase(dev, card, vit_l)
+        # ---- phase 7: the training entry point ------------------------------
+        trainer = main_phase(dev, card, *flickr)
 
-    # ---- phase 9: the int8 slice and /v1/search ------------------------------
-    int8 = int8_phase(dev, card, train, encode_ms)
+        # ---- phase 8: the towers through the LayerNorm and MLP kernels ------
+        fused = fused_phase(dev, card, train)
+        vit_l_fused = vit_l_fused_phase(dev, card, vit_l)
+
+        # ---- phase 9: the int8 slice and /v1/search --------------------------
+        int8 = int8_phase(dev, card, train, encode_ms)
+
+        # ---- phase 10: retrieval and zero-shot eval ---------------------------
+        evaluation = eval_phase(dev, card, *flickr, eval_dir)
 
     tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
@@ -2657,7 +3040,8 @@ def main() -> int:
         "main": {"model": MAIN_MODEL, "batch": TRAIN_BATCH, "step_ms": trainer["step_ms"],
                  "samples_per_s": TRAIN_BATCH / trainer["step_ms"] * 1e3,
                  "data_ms": trainer["data_ms"], "peak_gib": trainer["peak_gib"],
-                 "feed_ms": trainer["feed_ms"]}}), flush=True)
+                 "feed_ms": trainer["feed_ms"]},
+        "eval": evaluation}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

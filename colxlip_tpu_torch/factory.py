@@ -94,7 +94,7 @@ def init_weights(model: CLIP, generator: torch.Generator) -> None:
         if isinstance(mod, Linear):
             normal_(mod.weight, mod.weight.shape[1] ** -0.5)
             mod.bias.zero_()
-        elif isinstance(mod, MultiHeadAttention):
+        elif isinstance(mod, MultiHeadAttention) and not mod.cross:
             normal_(mod.in_proj_weight, mod.in_proj_weight.shape[1] ** -0.5)
             mod.in_proj_bias.zero_()
         elif isinstance(mod, PatchEmbed):

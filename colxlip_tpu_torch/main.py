@@ -4,8 +4,15 @@
 Experiment naming, the log directory with ``params.txt`` and ``out.log``,
 ``--resume latest|<path>``, model / optimizer / schedule construction, the
 synthetic dataset, the epoch loop with numbered and most-recent checkpoint
-saves and rotation, and ``--preempt-save``. It runs on ``--device``
-(``cuda:0`` unless told otherwise) and raises when that device is missing.
+saves and rotation, ``--preempt-save``, the retrieval suites
+(``--retrieval-*``) and zero-shot ImageNet (``--imagenet-val``) at the end of
+an epoch (``--val-frequency``, ``--zeroshot-frequency``, ``--eval-scoring``),
+and the eval-only mode: without ``--train-data`` and with a
+``--dataset-type`` other than ``synthetic``, ``main`` evaluates the
+``--pretrained`` weights (before any ``--resume``, as the JAX entry point
+does), appends ``checkpoints/results.jsonl`` and returns. It runs on
+``--device`` (``cuda:0`` unless told otherwise) and raises when that device
+is missing.
 
 What the port cannot do yet is refused, never ignored: each such flag logs
 an error and ``main`` returns 1 before any model work (``unsupported_flags``
@@ -21,10 +28,11 @@ import sys
 import threading
 import time
 from datetime import datetime
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from .data.retrieval import RetrievalSuite, build_retrieval_suite
 from .data.synthetic import SyntheticConfig, SyntheticDataset
 from .factory import create_loss, create_model_and_transforms, get_tokenizer
 from .parallel.train_step import make_train_step
@@ -32,6 +40,7 @@ from .params import parse_args
 from .training.checkpoint import (
     get_latest_checkpoint, load_native_checkpoint, read_step_in_epoch, restore_train_state,
     rotate_checkpoints, save_checkpoint, train_state)
+from .training.evaluate import evaluate
 from .training.logging_utils import MetricsWriter, dump_params, setup_logging
 from .training.optim import create_optimizer
 from .training.schedules import const_lr, const_lr_cooldown, cosine_lr
@@ -79,9 +88,37 @@ def build_lr_schedule(args, total_steps: int) -> Callable[[int], float]:
     raise ValueError(f"Unknown scheduler {args.lr_scheduler}")
 
 
-_RETRIEVAL_FLAGS = ("retrieval_coco", "retrieval_flickr", "retrieval_docci",
-                    "retrieval_urban_1k", "retrieval_iiw", "retrieval_dci",
-                    "retrieval_sharegpt4v")
+def retrieval_suite_specs(args) -> List[Tuple[str, dict]]:
+    """(suite name, reader arguments) for every suite whose flag is set and
+    whose reader arguments are all given, in the JAX order."""
+    specs = [
+        (args.retrieval_coco, "coco", {"root_dir": args.coco_data_root_dir, "split": "val"}),
+        (args.retrieval_flickr, "flickr",
+         {"root_dir": args.flickr_data_root_dir, "split": args.flickr_val_or_test}),
+        (args.retrieval_docci, "docci", {"root_dir": args.docci_data_root_dir}),
+        (args.retrieval_urban_1k, "urban_1k", {"root_dir": args.urban_1k_data_root_dir}),
+        (args.retrieval_dci, "dci", {"root_dir": args.dci_data_root_dir}),
+        (args.retrieval_iiw, "iiw",
+         {"root_dir": args.iiw_data_root_dir, "finegrained": args.iiw_finegrained}),
+        (args.retrieval_sharegpt4v and args.sharegpt4v_json_1k is not None, "sharegpt4v-1k",
+         {"root_dir": args.sharegpt4v_data_root_dir, "json_name": args.sharegpt4v_json_1k}),
+        (args.retrieval_sharegpt4v and args.sharegpt4v_json_10k is not None, "sharegpt4v-10k",
+         {"root_dir": args.sharegpt4v_data_root_dir, "json_name": args.sharegpt4v_json_10k}),
+    ]
+    return [(name, reader_args) for flag, name, reader_args in specs
+            if flag and all(v is not None for v in reader_args.values())]
+
+
+def build_retrieval_suites(args, tokenizer, preprocess_val) -> List[RetrievalSuite]:
+    """The configured suites; one that fails to build (a missing file, a
+    missing key) is logged and skipped, as in the JAX entry point."""
+    suites = []
+    for name, reader_args in retrieval_suite_specs(args):
+        try:
+            suites.append(build_retrieval_suite(name, reader_args, tokenizer, preprocess_val))
+        except (OSError, KeyError) as e:
+            logger.warning("skipping retrieval suite %s: %s", name, e)
+    return suites
 
 
 def unsupported_flags(args) -> List[str]:
@@ -91,11 +128,6 @@ def unsupported_flags(args) -> List[str]:
         (bool(args.train_data),
          "--train-data: the tar pipeline (data/wds.py and the train transforms) is not "
          "yet ported; use --dataset-type synthetic"),
-        (any(getattr(args, f) for f in _RETRIEVAL_FLAGS),
-         "--retrieval-*: the retrieval eval suites (data/retrieval.py, "
-         "training/evaluate.py) are not yet ported"),
-        (bool(args.imagenet_val),
-         "--imagenet-val: zero-shot eval (training/zero_shot.py) is not yet ported"),
         (bool(args.remote_sync),
          "--remote-sync: remote sync (utils/file_utils.py) is not yet ported"),
         (args.model_parallel > 1,
@@ -169,10 +201,9 @@ def main(argv=None) -> int:
         logger.error("%s", msg)
     if refused:
         return 1
-    if args.dataset_type != "synthetic":
-        # the JAX entry point falls into its eval-only mode here
-        logger.error("eval-only mode but no retrieval suites configured (training "
-                     "needs --dataset-type synthetic until the tar pipeline is ported)")
+    eval_only = not args.train_data and args.dataset_type != "synthetic"
+    if eval_only and not retrieval_suite_specs(args) and not args.imagenet_val:
+        logger.error("eval-only mode but no retrieval suites configured")
         return 1
     logger.info("Running on %s.", device)
 
@@ -203,7 +234,7 @@ def main(argv=None) -> int:
         logger.info("Train text context: %d (eval keeps %d)", train_ctx,
                     tokenizer.context_length)
 
-    model, cfg, _ = create_model_and_transforms(
+    model, cfg, preprocess_val = create_model_and_transforms(
         args.model,
         pretrained=args.pretrained or None,
         device=device,
@@ -219,6 +250,30 @@ def main(argv=None) -> int:
     )
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model: %s (%.1fM params)", args.model, n_params / 1e6)
+
+    suites = build_retrieval_suites(args, tokenizer, preprocess_val)
+    zero_shot_fn = None
+    if args.imagenet_val:
+        from .training.zero_shot import zero_shot_eval
+
+        def zero_shot_fn(m):  # noqa: E306
+            return zero_shot_eval(m, tokenizer, preprocess_val, args.imagenet_val,
+                                  batch_size=args.batch_size,
+                                  classnames_path=args.imagenet_classnames)
+
+    def run_eval(epoch: int, zs) -> None:
+        evaluate(model, suites, epoch=epoch, batch_size=args.batch_size,
+                 scoring=args.eval_scoring, alpha=args.alpha,
+                 results_file=os.path.join(checkpoint_dir, "results.jsonl"),
+                 zero_shot_fn=zs, maxsim_impl=args.maxsim_impl,
+                 mask_mode=args.token_mask_mode)
+
+    if eval_only:
+        if not suites and zero_shot_fn is None:
+            logger.error("eval-only mode but no retrieval suites configured")
+            return 1
+        run_eval(0, zero_shot_fn)
+        return 0
 
     global_batch = args.batch_size
     num_samples = args.train_num_samples or global_batch * 100
@@ -296,6 +351,13 @@ def main(argv=None) -> int:
         logger.info("Epoch %d done: %d steps in %.1fs", epoch, steps,
                     time.perf_counter() - t0)
         completed_epoch = epoch + 1
+
+        if (suites or zero_shot_fn is not None) and (
+                (args.val_frequency > 0 and completed_epoch % args.val_frequency == 0)
+                or completed_epoch == args.epochs):
+            run_eval(completed_epoch, zero_shot_fn if (
+                zero_shot_fn is not None and args.zeroshot_frequency > 0
+                and completed_epoch % args.zeroshot_frequency == 0) else None)
 
         do_numbered = args.save_frequency > 0 and (
             completed_epoch % args.save_frequency == 0 or completed_epoch == args.epochs)

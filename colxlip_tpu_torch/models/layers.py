@@ -24,7 +24,23 @@ every ``MLP`` through ``ops.quantization.int8_st_linear`` (int8 forward,
 straight-through backward) on the same parameters; it takes precedence over
 ``COLXLIP_MLP_IMPL``, as in the JAX package.
 
-Not ported: cross-attention and the attentional pooler.
+``MultiHeadAttention`` takes its attention path from ``attn_impl`` (or
+``COLXLIP_ATTN_IMPL``, read when the module is built; ``ops.attention``
+``resolve_impl``): 'fused', the default, hands the packed projection to the
+attention kernels; every other name goes through
+``ops.attention.multi_head_attention``. Built with ``kv_dim`` it is
+cross-attention, with ``q_proj`` / ``k_proj`` / ``v_proj``.
+
+``gelu`` reads ``COLXLIP_GELU_IMPL`` on every call, as the JAX function
+does: 'stock' (exact erf, ``F.gelu``), 'aspoly' (the Abramowitz-Stegun erf
+polynomial), 'fast' and 'fast9' (erf as the tanh of an odd polynomial of
+degree 13 or 9); each of the last three has the JAX custom VJP's gradient.
+Unset, the port keeps 'stock', where the JAX default is 'fast9' (a TPU
+speed knob, 3.4e-6 from erf). Any other name raises. ``gelu_tanh`` takes
+the library's tanh GELU under 'stock' and the closed form with its custom
+gradient under the others.
+
+Not ported: the attentional pooler.
 """
 from __future__ import annotations
 
@@ -39,7 +55,8 @@ from torch import nn
 
 from ..ops import attention as attention_ops
 from ..ops.fused_ln import fused_layernorm, resolve_ln_impl
-from ..ops.fused_mlp import fused_mlp, resolve_mlp_impl
+from ..ops.fused_mlp import (_SQRT1_2, erf_poly, fused_mlp, kernel_gelu_and_grad,
+                             resolve_mlp_impl)
 from ..ops.quantization import int8_st_linear
 
 logger = logging.getLogger(__name__)
@@ -90,14 +107,81 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+GELU_IMPLS = ("stock", "aspoly", "fast", "fast9")
+# erf(x / sqrt 2) = tanh(p(x)), p odd: the coefficients of x, x^3, ... of the
+# JAX package's fits (colxlip_tpu/ops/fused_mlp.py _TANH_ERF_C, _TANH_ERF_C9):
+# degree 13, 1.24e-7 from GELU over [-8, 8]; degree 9, 3.4e-6
+TANH_ERF_C = (7.978849415003e-01, 3.633308435436e-02, -3.259467502166e-05,
+              -5.530634998354e-05, 3.964779949953e-06, -1.322668724700e-07,
+              1.756295264109e-09)
+TANH_ERF_C9 = (7.978279664811e-01, 3.646912955145e-02, -1.250404030320e-04,
+               -3.054860572436e-05, 1.117285474498e-06)
+
+
+def resolve_gelu_impl() -> str:
+    """``COLXLIP_GELU_IMPL`` (unset: 'stock'); an unknown name raises."""
+    impl = os.environ.get("COLXLIP_GELU_IMPL") or "stock"
+    if impl not in GELU_IMPLS:
+        raise ValueError(f"COLXLIP_GELU_IMPL={impl!r}: expected one of {GELU_IMPLS} "
+                         "(unset: 'stock')")
+    return impl
+
+
+def _tanh_erf_gelu_and_grad(x32: torch.Tensor, coeffs) -> tuple:
+    """(GELU, d/dx) in fp32 with erf(x / sqrt 2) = tanh(x p(x^2)), Horner in
+    x^2 as in the JAX package."""
+    u = x32 * x32
+    p = torch.full_like(x32, coeffs[-1])
+    for c in coeffs[-2::-1]:
+        p = p * u + c
+    n = len(coeffs)
+    dp = torch.full_like(x32, (2 * n - 1) * coeffs[-1])
+    for i in range(n - 2, -1, -1):
+        dp = dp * u + (2 * i + 1) * coeffs[i]
+    t = torch.tanh(x32 * p)
+    return 0.5 * x32 * (1.0 + t), 0.5 * (1.0 + t) + 0.5 * x32 * (1.0 - t * t) * dp
+
+
+def _gelu_and_grad(x32: torch.Tensor, impl: str) -> tuple:
+    if impl == "aspoly":
+        return (0.5 * x32 * (1.0 + erf_poly(x32 * _SQRT1_2)),
+                kernel_gelu_and_grad(x32, approximate=False)[1])
+    if impl == "tanh":
+        return kernel_gelu_and_grad(x32, approximate=True)
+    return _tanh_erf_gelu_and_grad(x32, TANH_ERF_C if impl == "fast" else TANH_ERF_C9)
+
+
+class _FormulaGELU(torch.autograd.Function):
+    """A GELU formula in fp32, cast to the input's dtype; the backward keeps
+    only x and recomputes the derivative (the JAX custom VJPs)."""
+
+    @staticmethod
+    def forward(ctx, x, impl):
+        ctx.save_for_backward(x)
+        ctx.impl = impl
+        return _gelu_and_grad(x.float(), impl)[0].to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        grad = _gelu_and_grad(x.float(), ctx.impl)[1]
+        return (g.float() * grad).to(x.dtype), None
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact-erf GELU. The JAX default is a degree-9 tanh-structured erf
-    (colxlip_tpu/models/layers.py ``gelu``), 3.4e-6 from erf in fp32."""
-    return F.gelu(x, approximate="none")
+    """Exact-erf GELU by ``COLXLIP_GELU_IMPL`` (module docstring)."""
+    impl = resolve_gelu_impl()
+    if impl == "stock":
+        return F.gelu(x, approximate="none")
+    return _FormulaGELU.apply(x, impl)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+    """tanh-approximate GELU: the library's under 'stock', else the closed
+    form with the JAX custom VJP's gradient."""
+    if resolve_gelu_impl() == "stock":
+        return F.gelu(x, approximate="tanh")
+    return _FormulaGELU.apply(x, "tanh")
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -216,24 +300,48 @@ class PatchDropout(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with a packed [3D, D] in_proj.
+    """Multi-head attention. Self-attention has a packed [3D, D] in_proj:
+    its [B, N, 3D] output goes to ``ops.attention.packed_attention``, which
+    under 'fused' hands it to the CUDA kernel on the card with no split and
+    no transpose, and otherwise splits it for
+    ``ops.attention.multi_head_attention``. Built with ``kv_dim``,
+    the module is cross-attention: ``q_proj`` [D, D], ``k_proj`` / ``v_proj``
+    [D, kv_dim], called with ``kv`` [B, M, kv_dim]. ``attn_impl`` 'auto'
+    reads ``COLXLIP_ATTN_IMPL`` once, here; an unknown name raises here."""
 
-    The packed projection's [B, N, 3D] output goes straight into
-    ``ops.attention.fused_mha_packed`` (the CUDA kernel on the card), whose
-    [B, N, D] output goes straight into out_proj: no split, no transpose."""
-
-    def __init__(self, dim: int, heads: int, *, dtype: torch.dtype):
+    def __init__(self, dim: int, heads: int, *, dtype: torch.dtype, attn_impl: str = "auto",
+                 kv_dim: Optional[int] = None):
         super().__init__()
         self.heads = heads
         self.dtype = dtype
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
-        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.attn_impl = attention_ops.check_impl(attn_impl)
+        self.cross = kv_dim is not None
+        if self.cross:
+            self.q_proj = Linear(dim, dim, dtype=dtype)
+            self.k_proj = Linear(kv_dim, dim, dtype=dtype)
+            self.v_proj = Linear(kv_dim, dim, dtype=dtype)
+        else:
+            self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+            self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = Linear(dim, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, is_causal: bool = False) -> torch.Tensor:
-        qkv = dense(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
-        out = attention_ops.fused_mha_packed(qkv, self.heads, is_causal)
-        return self.out_proj(out)
+    def forward(self, x: torch.Tensor, is_causal: bool = False, *,
+                kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, n, d = x.shape
+        if self.cross != (kv is not None):
+            raise ValueError("MultiHeadAttention: kv= goes with a module built with kv_dim, "
+                             "and only with one")
+        if not self.cross:
+            qkv = dense(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
+            return self.out_proj(attention_ops.packed_attention(
+                qkv, self.heads, is_causal, self.attn_impl, mask=mask))
+        q, k, v = self.q_proj(x), self.k_proj(kv), self.v_proj(kv)
+        h = self.heads
+        q, k, v = (t.reshape(b, t.shape[1], h, d // h) for t in (q, k, v))
+        out = attention_ops.multi_head_attention(q, k, v, mask=mask, causal=is_causal,
+                                                 impl=self.attn_impl)
+        return self.out_proj(out.reshape(b, n, d))
 
 
 class ResidualAttentionBlock(nn.Module):

@@ -14,13 +14,26 @@ Forward and backward each dispatch on the tensor's device:
     tiles over key tiles of 64) at any sequence length; float32 keeps the
     CUDA-core kernels, which hold a head's whole K and V in shared memory and
     so take a sequence only up to ``fp32_max_seq``.
+
+The dispatch of ``colxlip_tpu/ops/attention.py`` sits beside the kernels:
+``multi_head_attention`` on [B, N, H, D] tensors takes the path that
+``resolve_impl`` names. 'fused' is the kernels above (self-attention
+repacked to [B, N, 3 H D]); 'xla' is ``F.scaled_dot_product_attention``
+(the library path, also the way round the float32 kernels' sequence limit);
+'xla_bf16' the hand-written softmax with probabilities stored in bfloat16;
+'xla_remat' SDPA recomputed in the backward; 'flash' SDPA pinned to its
+flash backend. An explicit additive mask always takes 'xla'.
 """
 from __future__ import annotations
 
 import functools
 import math
+import os
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .build import LaunchCounter, load_kernels
 
@@ -147,7 +160,8 @@ def _check_cuda(qkv: torch.Tensor, heads: int, name: str, backward: bool = False
         raise ValueError(
             f"{name}: seq {n} too long for the float32 kernel at head_dim {d} "
             f"(seq <= {fp32_max_seq(d, backward)}: a head's K and V must fit in "
-            f"{MAX_SHARED_BYTES} bytes of shared memory; bfloat16 has no limit)")
+            f"{MAX_SHARED_BYTES} bytes of shared memory; bfloat16 has no limit; "
+            "COLXLIP_ATTN_IMPL=xla takes the library path)")
     if not qkv.is_contiguous():
         raise ValueError(f"{name}: qkv must be contiguous")
     _check_aligned(qkv, name, "qkv")
@@ -257,3 +271,149 @@ def mma_tile_check(a: torch.Tensor, b: torch.Tensor, rows: int = 64):
         torch.cuda.current_stream(a.device).cuda_stream)
     kernels.check(err, "colxlip_mma_tile_check")
     return c_abt, c_pb, c_tn
+
+
+# ---------------------------------------------------------------------------
+# the dispatch (colxlip_tpu/ops/attention.py)
+# ---------------------------------------------------------------------------
+
+ATTN_IMPLS = ("fused", "flash", "xla", "xla_bf16", "xla_remat")
+
+
+def resolve_impl(impl: str = "auto") -> str:
+    """'auto' -> ``COLXLIP_ATTN_IMPL`` if set, else 'fused' on every device
+    (on the CPU 'fused' is the plain version). Any other name is returned as
+    it is; ``multi_head_attention`` refuses the unknown ones. The JAX
+    function takes 'fused' on the TPU only and 'xla' elsewhere: here the
+    kernels are the default on the card, and the CPU runs their plain
+    version so that the CPU and the card take one path."""
+    if impl != "auto":
+        return impl
+    return os.environ.get("COLXLIP_ATTN_IMPL") or "fused"
+
+
+def check_impl(impl: str) -> str:
+    """``impl`` after ``resolve_impl``; an unknown name raises."""
+    impl = resolve_impl(impl)
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r} (COLXLIP_ATTN_IMPL or attn_impl); "
+                         f"one of {sorted(ATTN_IMPLS)}")
+    return impl
+
+
+def _bhnd(*tensors: torch.Tensor):
+    return [t.transpose(1, 2) for t in tensors]
+
+
+def _causal_keep(n: int, m: int, device) -> torch.Tensor:
+    """[n, m] bool, True where key j may be seen from query i (j <= i)."""
+    return torch.ones(n, m, dtype=torch.bool, device=device).tril()
+
+
+def xla_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  mask: Optional[torch.Tensor] = None, causal: bool = False) -> torch.Tensor:
+    """The library path: ``F.scaled_dot_product_attention`` on q [B, N, H, D],
+    k / v [B, M, H, D] -> [B, N, H, D]. ``mask`` is an additive bias that
+    broadcasts to [B, H, N, M]; it and ``causal`` compose (SDPA refuses
+    ``is_causal`` with a mask, so the two become one bias: the JAX docstring
+    names the bug of dropping the causal mask when a bias is given). The
+    scores are scaled as SDPA scales them, by multiplying with 1/sqrt(D), as
+    ``jax.nn.dot_product_attention`` does, not by the kernels' plain
+    versions' division."""
+    qt, kt, vt = _bhnd(q, k, v)
+    if mask is None:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    else:
+        bias = mask.to(q.dtype)
+        if causal:
+            keep = _causal_keep(q.shape[1], k.shape[1], q.device)
+            bias = bias + torch.zeros(keep.shape, dtype=q.dtype, device=q.device).masked_fill(
+                ~keep, float("-inf"))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+    return out.transpose(1, 2)
+
+
+def _manual_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                      probs_dtype: torch.dtype) -> torch.Tensor:
+    """Hand-written attention: fp32 scores scaled by 1/sqrt(D), softmax in
+    fp32, the probabilities STORED in ``probs_dtype``, then PV summed in fp32
+    and returned in the dtype that ``probs_dtype`` and v's promote to."""
+    n, m, d = q.shape[1], k.shape[1], q.shape[-1]
+    qt, kt, vt = _bhnd(q, k, v)
+    logits = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    if causal:
+        logits = logits.masked_fill(~_causal_keep(n, m, q.device), float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(probs_dtype)
+    out = torch.matmul(probs.float(), vt.float()).to(torch.promote_types(probs_dtype, v.dtype))
+    return out.transpose(1, 2)
+
+
+def xla_bf16_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = False) -> torch.Tensor:
+    """``_manual_attention`` with bfloat16 probabilities (the JAX package's
+    CPU numerics for attention rounded to bf16: normalised probabilities)."""
+    return _manual_attention(q, k, v, causal=causal, probs_dtype=torch.bfloat16)
+
+
+def xla_remat_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = False) -> torch.Tensor:
+    """SDPA under ``torch.utils.checkpoint``: nothing is saved between the
+    forward and the backward but the inputs; the backward runs the forward
+    again."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return xla_attention(q, k, v, causal=causal)
+    return torch.utils.checkpoint.checkpoint(
+        functools.partial(xla_attention, causal=causal), q, k, v, use_reentrant=False)
+
+
+def flash_attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = False) -> torch.Tensor:
+    """SDPA pinned to its flash backend on [B, N, H, D] tensors. The JAX
+    function wraps the TPU library's flash kernel; this one raises where
+    torch has no flash backend for the device and dtype (on the card: not
+    float32)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = _bhnd(q, k, v)
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    return out.transpose(1, 2)
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         mask: Optional[torch.Tensor] = None, causal: bool = False,
+                         impl: str = "auto") -> torch.Tensor:
+    """q [B, N, H, D], k / v [B, M, H, D] -> [B, N, H, D] through the path
+    ``impl`` names (``resolve_impl``; unknown names raise). An explicit
+    additive ``mask`` always takes 'xla'. 'fused' repacks self-attention
+    (N == M) to [B, N, 3 H D] for ``fused_mha_packed``; cross-attention takes
+    'xla'. The towers hand their packed projection to ``packed_attention``,
+    which skips the repack."""
+    impl = check_impl(impl)
+    if mask is None:
+        if impl == "fused" and q.shape[1] == k.shape[1] == v.shape[1]:
+            b, n, h, d = q.shape
+            qkv = torch.cat([t.reshape(b, n, h * d) for t in (q, k, v)], dim=-1)
+            return fused_mha_packed(qkv, h, causal).reshape(b, n, h, d)
+        if impl == "flash":
+            return flash_attention_bnhd(q, k, v, causal=causal)
+        if impl == "xla_bf16":
+            return xla_bf16_attention(q, k, v, causal=causal)
+        if impl == "xla_remat":
+            return xla_remat_attention(q, k, v, causal=causal)
+    return xla_attention(q, k, v, mask=mask, causal=causal)
+
+
+def packed_attention(qkv: torch.Tensor, heads: int, causal: bool = False, impl: str = "auto",
+                     *, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-attention on a packed projection [B, N, 3 H D] -> [B, N, H D].
+    'fused' without a mask hands it to ``fused_mha_packed`` as it is, with
+    no split and no transpose; other names, and any ``mask``, split it and go
+    through ``multi_head_attention``."""
+    impl = check_impl(impl)
+    if mask is None and impl == "fused":
+        return fused_mha_packed(qkv, heads, causal)
+    b, n, three_hd = qkv.shape
+    q, k, v = (t.reshape(b, n, heads, -1) for t in qkv.chunk(3, dim=-1))
+    out = multi_head_attention(q, k, v, mask=mask, causal=causal, impl=impl)
+    return out.reshape(b, n, three_hd // 3)

@@ -14,8 +14,11 @@ A functional forward of the vision and text towers (``models/vision.py``,
                  LayerNorm / GELU in fp32 / bf16 as in the bf16 model; layer
                  outputs are bf16.
 
-The attention core is ``ops.attention.fused_mha_packed`` on the bf16 packed
-QKV: the attention kernel on the card, its plain version on the CPU.
+The attention core is ``ops.attention.packed_attention`` on the bf16 packed
+QKV, with ``attn_impl`` (an ``ops.attention`` name; default 'fused', the
+attention kernel on the card and its plain version on the CPU). 'xla_bf16' has the
+numerics the JAX module takes off the TPU (``fused_mha_reference``:
+normalised probabilities rounded to bf16).
 
 Weight layout: the port's ``Linear`` weights are [out, in] and so are the
 int8 values here, ``q`` int8 [out, in] with ``scale`` fp32 [out]: **axis 0 is
@@ -133,10 +136,11 @@ def _layernorm(x: torch.Tensor, ln: Mapping[str, torch.Tensor],
     return (y * ln["weight"] + ln["bias"]).to(out_dtype)
 
 
-def _blocks_forward(cfg, x: torch.Tensor, blocks, heads: int, causal: bool) -> torch.Tensor:
+def _blocks_forward(cfg, x: torch.Tensor, blocks, heads: int, causal: bool,
+                    attn_impl: str = "fused") -> torch.Tensor:
     for blk in blocks:
         qkv = _qdense(_layernorm(x, blk["ln_1"]), blk["in_proj"])
-        attn = attention_ops.fused_mha_packed(qkv, heads, causal)
+        attn = attention_ops.packed_attention(qkv, heads, causal, attn_impl)
         x = x + _qdense(attn, blk["out_proj"])
         h = _qdense(_layernorm(x, blk["ln_2"]), blk["c_fc"])
         if cfg.quick_gelu:
@@ -155,7 +159,7 @@ def _l2_normalize(pooled: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def vision_encode_int8(cfg, qparams: Mapping[str, Any], images: torch.Tensor, *,
-                       normalize: bool = True) -> torch.Tensor:
+                       normalize: bool = True, attn_impl: str = "fused") -> torch.Tensor:
     """images [B, H, W, 3] (float, or integer 0..255) -> pooled features
     [B, embed_dim] fp32, on the device of ``qparams`` and ``images``.
 
@@ -185,7 +189,8 @@ def vision_encode_int8(cfg, qparams: Mapping[str, Any], images: torch.Tensor, *,
     x = x + qparams["positional_embedding"].bfloat16()
     if qparams.get("ln_pre") is not None:
         x = _layernorm(x, qparams["ln_pre"])
-    x = _blocks_forward(cfg, x, qparams["blocks"], vcfg.heads, causal=False)
+    x = _blocks_forward(cfg, x, qparams["blocks"], vcfg.heads, causal=False,
+                        attn_impl=attn_impl)
     x = _layernorm(x, qparams["ln_post"])
     pooled = _qdense(x[:, 0], qparams["proj"], out_dtype=torch.float32)
     return _l2_normalize(pooled) if normalize else pooled
@@ -193,7 +198,7 @@ def vision_encode_int8(cfg, qparams: Mapping[str, Any], images: torch.Tensor, *,
 
 @torch.no_grad()
 def text_encode_int8(cfg, qparams: Mapping[str, Any], text: torch.Tensor, *,
-                     normalize: bool = True) -> torch.Tensor:
+                     normalize: bool = True, attn_impl: str = "fused") -> torch.Tensor:
     """text [B, L] integer token ids -> pooled features [B, embed_dim] fp32.
 
     Mirrors ``encode_text_tower`` for the standard serving configuration:
@@ -205,7 +210,8 @@ def text_encode_int8(cfg, qparams: Mapping[str, Any], text: torch.Tensor, *,
             "use the bf16 model for other configurations")
     x = qparams["token_embedding"][text.long()].bfloat16()
     x = x + qparams["positional_embedding"][:text.shape[1]].bfloat16()
-    x = _blocks_forward(cfg, x, qparams["blocks"], tcfg.heads, causal=True)
+    x = _blocks_forward(cfg, x, qparams["blocks"], tcfg.heads, causal=True,
+                        attn_impl=attn_impl)
     x = _layernorm(x, qparams["ln_final"])
     pooled = x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
     pooled = _qdense(pooled, qparams["text_projection"], out_dtype=torch.float32)

@@ -1,1 +1,1 @@
-"""Evaluation helpers: port of ``colxlip_tpu/training`` (scoring only so far)."""
+"""Training and evaluation: port of ``colxlip_tpu/training``."""

@@ -1117,3 +1117,79 @@ def test_int8_encoders_on_the_card(dev):
     for ref, got in pairs:
         assert got.dtype == torch.float32 and torch.isfinite(got).all()
         assert (ref.float() * got).sum(dim=-1).min() > 0.99
+
+
+# ---------------------------------------------------------------------------
+# the attention and GELU dispatch on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("impl", ["xla", "xla_bf16", "xla_remat", "flash"])
+def test_attention_dispatch_paths_on_the_card(dev, impl, causal):
+    """Each library path on bf16 [B, N, H, D] against the attention kernel
+    on the same inputs, within 2^-6 of max|v| (the paths round the
+    probabilities at different places: tests/test_torch_attention_dispatch.py),
+    with no kernel launch; 'flash' refuses float32, where torch has no flash
+    backend on the card."""
+    b, n, h, d = 2, 197, 12, 64
+    q, k, v = (torch.from_numpy(_qkv(b, n, h * d, seed=s)[..., :h * d].reshape(b, n, h, d))
+               .to(dev, torch.bfloat16) for s in range(3))
+    with torch.inference_mode():
+        want = attention.multi_head_attention(q, k, v, causal=causal, impl="fused")
+        before = attention.LAUNCHES.value
+        got = attention.multi_head_attention(q, k, v, causal=causal, impl=impl)
+    assert attention.LAUNCHES.value == before
+    assert got.dtype == torch.bfloat16 and got.shape == (b, n, h, d)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * v.float().abs().max().item(), err
+    if impl == "flash":
+        with pytest.raises(RuntimeError):
+            attention.multi_head_attention(q.float(), k.float(), v.float(), impl="flash")
+
+
+def test_fp32_past_the_kernel_limit_takes_the_library_path(dev):
+    """float32 at one token past the forward kernel's limit: 'fused' refuses
+    and names COLXLIP_ATTN_IMPL=xla; the module built with 'xla' runs it and
+    agrees with the plain version to 1e-5."""
+    from colxlip_tpu_torch.models.layers import MultiHeadAttention
+
+    n = attention.fp32_max_seq(64, False) + 1
+    x = torch.from_numpy(_qkv(1, n, 64)[..., :128]).to(dev)
+    fused = MultiHeadAttention(128, 2, dtype=torch.float32, attn_impl="fused").to(dev)
+    for p in fused.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    with pytest.raises(ValueError, match="COLXLIP_ATTN_IMPL=xla"), torch.no_grad():
+        fused(x)
+    lib = MultiHeadAttention(128, 2, dtype=torch.float32, attn_impl="xla").to(dev)
+    lib.load_state_dict(fused.state_dict())
+    with torch.no_grad():
+        got = lib(x)
+        qkv = torch.nn.functional.linear(x, fused.in_proj_weight, fused.in_proj_bias)
+        want = fused.out_proj(attention.fused_mha_plain(qkv, 2))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["stock", "aspoly", "fast", "fast9"])
+def test_gelu_impls_on_the_card_equal_the_cpu(dev, impl, monkeypatch):
+    """'stock' is the library's GELU on each device: the port's ``gelu`` is
+    ``F.gelu`` on the card bit for bit. The three formulas, value and
+    gradient, in fp32 on the card within 1e-6 of the same formula on the
+    CPU (about one fp32 step at |x| 8: the card's exp and tanh against the
+    CPU's)."""
+    from colxlip_tpu_torch.models import layers
+
+    monkeypatch.setenv("COLXLIP_GELU_IMPL", impl)
+    x = torch.linspace(-8, 8, 10001)
+    if impl == "stock":
+        xd = x.to(dev)
+        assert torch.equal(layers.gelu(xd), torch.nn.functional.gelu(xd))
+        return
+    out = {}
+    for where in ("cpu", dev):
+        xt = x.to(where).requires_grad_()
+        y = layers.gelu(xt)
+        (g,) = torch.autograd.grad(y.sum(), xt)
+        out[str(where)] = (y.detach().cpu(), g.cpu())
+    (y0, g0), (y1, g1) = out.values()
+    torch.testing.assert_close(y1, y0, rtol=0, atol=1e-6)
+    torch.testing.assert_close(g1, g0, rtol=0, atol=1e-6)

@@ -396,8 +396,6 @@ def test_main_cut_mid_epoch_and_resumed_logs_the_uncut_losses(tmp_path, monkeypa
 
 REFUSED = [
     (["--train-data", "shards-{0..3}.tar"], "--train-data"),
-    (["--retrieval-coco", "--coco-data-root-dir", "x"], "--retrieval-"),
-    (["--imagenet-val", "x"], "--imagenet-val"),
     (["--remote-sync", "s3://b"], "--remote-sync"),
     (["--model-parallel", "2"], "--model-parallel"),
     (["--fsdp"], "--fsdp"),
@@ -430,6 +428,42 @@ def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, message):
     with open(tmp_path / "refused" / "out.log") as f:
         log = f.read()
     assert "ERROR" in log and message in log
+
+
+def test_main_skips_a_missing_retrieval_suite_and_trains_on(tmp_path):
+    """--retrieval-* was refused until eval was ported. A suite whose files
+    are missing is logged and skipped, and training goes on, as in the JAX
+    entry point; with no suite and no zero-shot there is no eval."""
+    argv = _argv(tmp_path, "skip", "--retrieval-coco", "--coco-data-root-dir",
+                 str(tmp_path / "no-coco"), "--val-frequency", "1", epochs=1)
+    assert main_mod.main(argv) == 0
+    base = tmp_path / "skip"
+    with open(base / "out.log") as f:
+        log = f.read()
+    assert "WARNING" in log and "skipping retrieval suite coco" in log
+    assert os.path.isdir(base / "checkpoints" / "epoch_1")
+    assert not os.path.exists(base / "checkpoints" / "results.jsonl")
+    assert _losses(tmp_path, "skip")[0] == [1, 2, 3, 4]
+
+
+def test_main_imagenet_val_runs_zero_shot(tmp_path):
+    """--imagenet-val (refused until eval was ported) runs zero-shot at the
+    end of an epoch that --zeroshot-frequency selects; the result line holds
+    top-1 and top-5 over the folder's images."""
+    from PIL import Image
+
+    val = tmp_path / "val"
+    for c in range(3):
+        (val / f"n{c}").mkdir(parents=True)
+        Image.fromarray(np.full((40, 50, 3), 60 * c, np.uint8)).save(val / f"n{c}" / "a.JPEG")
+    (val / "classnames.json").write_text(json.dumps(["red fox", "blue car", "green tree"]))
+    argv = _argv(tmp_path, "zs", "--imagenet-val", str(val), "--zeroshot-frequency", "1",
+                 epochs=1)
+    assert main_mod.main(argv) == 0
+    with open(tmp_path / "zs" / "checkpoints" / "results.jsonl") as f:
+        (line,) = [json.loads(x) for x in f]
+    assert line["epoch"] == 1
+    assert 0.0 <= line["imagenet-zeroshot-val-top1"] <= line["imagenet-zeroshot-val-top5"] == 1.0
 
 
 def test_image_mean_and_std_reach_the_model_and_the_transform(tmp_path, monkeypatch):

@@ -48,6 +48,8 @@ from colxlip_tpu_torch.training.evaluate import score_similarity
 
 TINY = "ViT-S-16-test"
 SCALE_RTOL = 1e-7      # one fp32 step: the two packages may divide by 127 differently
+# the int8 encoders against the JAX functions through 'xla_bf16' (the test says why)
+INT8_ENCODER_ATOL, INT8_ENCODER_COS = 6e-3, 3e-4
 
 
 def _t(x) -> torch.Tensor:
@@ -475,9 +477,10 @@ def test_quantized_tower_params_match_the_jax_trees(towers, tower):
     assert len(fn(model)["blocks"]) == 2
 
 
-def _encode_pair(towers, tower, cfg_changes=None):
+def _encode_pair(towers, tower, cfg_changes=None, attn_impl="fused"):
     """(port features, JAX features, fraction of elements more than 1e-4
-    apart) for one tower on the same int8 weights (the JAX tree, converted)."""
+    apart) for one tower on the same int8 weights (the JAX tree, converted),
+    with the port's attention on ``attn_impl``."""
     jcfg, _, params, model, imgs, txts = towers
     cfg = model.cfg
     if cfg_changes:
@@ -486,40 +489,65 @@ def _encode_pair(towers, tower, cfg_changes=None):
     if tower == "vision":
         jq = jax_int8.quantize_vision_params(params)
         want = jax_int8.vision_encode_int8(jcfg, jq, jnp.asarray(imgs))
-        got = vision_encode_int8(cfg, convert.int8_params_from_jax(jq), _t(imgs))
+        got = vision_encode_int8(cfg, convert.int8_params_from_jax(jq), _t(imgs),
+                                 attn_impl=attn_impl)
     else:
         jq = jax_int8.quantize_text_params(params)
         want = jax_int8.text_encode_int8(jcfg, jq, jnp.asarray(txts))
-        got = text_encode_int8(cfg, convert.int8_params_from_jax(jq), _t(txts))
+        got = text_encode_int8(cfg, convert.int8_params_from_jax(jq), _t(txts),
+                               attn_impl=attn_impl)
     got, want = got.numpy(), np.asarray(want)
     return got, want, float((np.abs(got - want) > 1e-4).mean())
+
+
+def _check_encode_pair(towers, tower, branch, attn_impl, atol, cos):
+    changes = None if branch == "erf" else {branch: True}
+    got, want, moved = _encode_pair(towers, tower, changes, attn_impl)
+    assert got.shape == want.shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, atol=atol,
+                               err_msg=f"{moved:.1%} of the elements differ by more than 1e-4")
+    assert (1 - (got * want).sum(axis=-1)).max() < cos
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
 
 
 @pytest.mark.parametrize("tower", ["vision", "text"])
 @pytest.mark.parametrize("branch", ["erf", "quick_gelu", "gelu_approximate"])
 def test_int8_encoders_match_jax_on_the_same_int8_weights(towers, tower, branch):
-    """Unit-norm 128-d features (elements about 0.09): every element within
-    1e-2 and 1 - cosine of every row under 1e-3; measured 7e-3 and 3.3e-4.
-    Bit equality is not promised, and the first layer shows why. Up to the
-    first attention the two packages agree bit for bit (embedding, LayerNorm,
-    the int8 QKV product). Then they round to bf16 at different places: off
-    the TPU the JAX module takes ``fused_mha_reference``, which rounds the
-    normalised probabilities, where the port's plain attention has the TPU
-    kernel's numerics and rounds the unnormalised exponentials (36% of its
-    outputs sit one bf16 step apart), and ``jax.nn.gelu`` evaluates in bf16
-    operation by operation where ``F.gelu`` rounds once (30% one step apart).
-    After that, row-quantized activations land on other int8 steps. The
-    message says how many elements moved by more than 1e-4. At this size a
-    wrong GELU branch would hide under that bar (the branches differ by 2e-3
-    at a random init), so ``test_the_gelu_branches_differ`` checks which
-    activation each configuration calls."""
-    changes = None if branch == "erf" else {branch: True}
-    got, want, moved = _encode_pair(towers, tower, changes)
-    assert got.shape == want.shape and got.dtype == np.float32
-    np.testing.assert_allclose(got, want, atol=1e-2,
-                               err_msg=f"{moved:.1%} of the elements differ by more than 1e-4")
-    assert (1 - (got * want).sum(axis=-1)).max() < 1e-3
-    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+    """The port's default attention ('fused', what the card runs): unit-norm
+    128-d features (elements about 0.09), every element within 1e-2 and
+    1 - cosine of every row under 1e-3; measured 7.1e-3 and 3.3e-4. Bit
+    equality is not promised, and the first layer shows why. Up to the first
+    attention the two packages agree bit for bit (embedding, LayerNorm, the
+    int8 QKV product). Then they round to bf16 at different places: off the
+    TPU the JAX module takes ``fused_mha_reference``, which rounds the
+    normalised probabilities, where the port's 'fused' plain version has the
+    TPU kernel's numerics and rounds the unnormalised exponentials (36% of
+    its outputs sit one bf16 step apart); the activations differ too (see
+    the next test). After that, row-quantized activations land on other int8
+    steps. The message says how many elements moved by more than 1e-4. At
+    this size a wrong GELU branch would hide under that bar (the branches
+    differ by 2e-3 at a random init), so ``test_the_gelu_branches_differ``
+    checks which activation each configuration calls."""
+    _check_encode_pair(towers, tower, branch, "fused", 1e-2, 1e-3)
+
+
+@pytest.mark.parametrize("tower", ["vision", "text"])
+@pytest.mark.parametrize("branch", ["erf", "quick_gelu", "gelu_approximate"])
+def test_int8_encoders_match_jax_closer_through_xla_bf16(towers, tower, branch):
+    """The same pair with the port's attention on 'xla_bf16', the numerics
+    of the JAX module off the TPU (``fused_mha_reference``: normalised
+    probabilities rounded to bf16): every element within INT8_ENCODER_ATOL
+    and 1 - cosine of every row under INT8_ENCODER_COS; measured 4.9e-3 and
+    1.8e-4. Up to the activation the two packages now agree bit for bit
+    (embedding, LayerNorm, the int8 products, and the attention on the same
+    qkv). Off the TPU the JAX module evaluates GELU and QuickGELU in bf16
+    operation by operation, with its constants rounded to bf16
+    (``0.5 * x``, ``x * 0.70703125``, ``erfc``, each rounded), where the port
+    computes in fp32 and rounds once: 38% (erf), 45% (tanh) and 31% (quick)
+    of the activations sit one bf16 step apart, and row-quantized
+    activations then land on other int8 steps. So 2e-3 (the bar first asked
+    for) is not reached without copying XLA's CPU rounding into the port."""
+    _check_encode_pair(towers, tower, branch, "xla_bf16", INT8_ENCODER_ATOL, INT8_ENCODER_COS)
 
 
 def test_the_gelu_branches_differ(towers, monkeypatch):
@@ -569,9 +597,12 @@ def test_int8_uint8_input(towers):
     out = vision_encode_int8(model.cfg, qp, _t(u8))
     assert out.shape == (3, model.cfg.embed_dim) and torch.isfinite(out).all()
     np.testing.assert_allclose(out.norm(dim=-1).numpy(), 1.0, atol=1e-5)
-    want = jax_int8.vision_encode_int8(jcfg, jax_int8.quantize_vision_params(params),
-                                       jnp.asarray(u8))
-    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-2)   # as above
+    jq = jax_int8.quantize_vision_params(params)
+    want = np.asarray(jax_int8.vision_encode_int8(jcfg, jq, jnp.asarray(u8)))
+    np.testing.assert_allclose(out.numpy(), want, atol=1e-2)   # as above, 'fused'
+    got = vision_encode_int8(model.cfg, convert.int8_params_from_jax(jq), _t(u8),
+                             attn_impl="xla_bf16")
+    np.testing.assert_allclose(got.numpy(), want, atol=INT8_ENCODER_ATOL)  # as above
 
 
 def test_int8_encoders_refuse_nonstandard_configs(towers):
