@@ -152,7 +152,26 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      of an encode batch's device time (torch.profiler); then zero-shot with
      the full 1,000 x 80 classifier over a seeded folder of one image a
      class, with its attention launch count.
-  Phases 4, 6, 7 and 10 run the default path and must launch none of the
+  11. the tar path: 8 WebDataset shards of 384 seeded samples
+     (colxlip_tpu_torch/data/shard_writer.py: JPEGs 512 px on the shorter
+     side and 512-768 on the longer at quality 95, as the reference's scrape
+     keeps them, with the recaption JSON), written by a thread pool; then
+     ViT-B-16-colxlip (full width and depth, seed 0, bf16, colclip) trained
+     by colxlip_tpu_torch.main.main([...]) at batch 256 with --workers
+     min(8, cpu count) in three feeds: (a) PIL decode and the float32 feed,
+     2 epochs cut at 6 steps; (b) --normalize-on-device --packed-feed, with
+     --native-decode where a probe finds jpeglib.h and -ljpeg (the printed
+     line says which), 2 x 6 steps; (c) --ship-format yuv420 --packed-feed,
+     6 steps. Each: rc 0, finite losses, the first within 0.5 of phase 6's,
+     launches exact (24 attention each way and one MaxSim each way a step;
+     no LayerNorm, MLP or CE launch), the median step and data_time of
+     steps 3 onward, the idle share of the profiled steps, host-to-device
+     bytes a step, peak memory, and the pipeline alone (no model) over 6
+     batches. A batch of (b) packed, copied and unpacked on the card equals
+     the host batch bit for bit; (c)'s decode on the card is within 2e-4 of
+     the numpy reference; with the native decoder, 16 samples are within an
+     RMS of 12 pixel units of the PIL transform on the same boxes.
+  Phases 4, 6, 7, 10 and 11 run the default path and must launch none of the
   LayerNorm and MLP kernels.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
@@ -347,6 +366,17 @@ INDEX_BATCH = 256
 SEARCH_K, SEARCH_SHORTLIST = 10, 100
 # phase 10 (and phase 7's epoch-end eval): the vendored Flickr30k val
 # annotations (1,014 images, 5,070 captions), a seeded JPEG at each image path
+# phase 11: seeded tar shards in the reference's recaption layout, trained by
+# main in three feeds at batch TRAIN_BATCH; 8 shards of 384 samples give 12
+# batches, rounded to 8 an epoch for 8 workers, so each epoch is cut at
+# TAR_STEPS_PER_EPOCH
+TAR_MODEL = "ViT-B-16-colxlip"
+TAR_SHARDS = 8
+TAR_PER_SHARD = 384
+TAR_STEPS_PER_EPOCH = 6
+TAR_HOST_BATCHES = 6
+YUV_TOL = 2e-4            # the JAX bar (tests/test_yuv420.py)
+NATIVE_RMS_MAX = 12.0     # pixel units, the JAX bar (tests/test_native.py)
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLICKR_ANNOTATIONS = os.path.join(REPO, "datasets", "flickr30k-images", "flickr30k_val.json")
 EVAL_MODEL = "ViT-B-16-colxlip"
@@ -907,9 +937,12 @@ def time_fused_kernels(inputs, card: str):
                                                 "forward)" if "bwd" in key else ""))
         log(f"[5 timing] {key} bf16: kernel {ker:.4f} ms, plain "
             f"{plain:.4f} ms, {what} {lib:.4f} ms ({card})")
+    def device(ms):
+        return "not measured (the profiler recorded no event)" if ms is None else f"{ms:.4f} ms"
+
     for case, row in ln_bwd.items():
-        log(f"[5 timing] fused_ln_bwd/{case}: row kernel {row['row_kernel_ms']:.4f} ms + "
-            f"partial-row reduce {row['reduce_ms']:.4f} ms of device time (torch.profiler); the "
+        log(f"[5 timing] fused_ln_bwd/{case}: row kernel {device(row['row_kernel_ms'])} + "
+            f"partial-row reduce {device(row['reduce_ms'])} of device time (torch.profiler); the "
             f"call {row['ms']:.4f} ms against its bound {row['bound_ms']:.5f} ms = "
             f"{row['bound_ms'] / row['ms']:.1%} of it; torch.add(x, dy) (the same bytes) "
             f"{row['same_bytes_add_ms']:.4f} ms ({card})")
@@ -918,18 +951,38 @@ def time_fused_kernels(inputs, card: str):
     return timing
 
 
+def profiled(fn):
+    """torch.profiler (CPU and CUDA) over one run of ``fn`` that follows one
+    warm-up run under the same profiler: the tracer can drop the device
+    events of its first moments (seen on the card: 19 of 20 launches, or none
+    of a kernel's, recorded), so the recorded window opens only once tracing
+    runs. Returns (the recorded events of ``key_averages()`` without the
+    schedule's own ``ProfilerStep#`` span, which the device timeline carries
+    too; the recorded run's wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
+    return [e for e in prof.key_averages() if not e.key.startswith("ProfilerStep")], wall_ms
+
+
 def device_ms_by_kernel(fn, calls: int, pattern: str) -> dict:
     """Device ms a call of each kernel whose name matches ``pattern`` (its
     first group names it) over ``calls`` calls of ``fn`` (torch.profiler)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    events, _ = profiled(lambda: [fn() for _ in range(calls)])
     out = {}
-    for e in prof.key_averages():
+    for e in events:
         found = re.search(pattern, e.key)
         if e.device_type == torch.autograd.DeviceType.CUDA and found:
             out[found.group(1)] = out.get(found.group(1), 0.0) + \
@@ -1080,20 +1133,14 @@ def maxsim_pass_ms(tt, ii, g, calls: int = 3):
     """Device ms a call of each kernel of the MaxSim forward (max, mean) and
     backward (route, coef, dT, dI) at the training shape (torch.profiler)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from colxlip_tpu_torch.ops import maxsim
 
     out = {}
     for fn in (lambda: maxsim._launch_fwd(tt, ii, "nonzero", None),
                lambda: maxsim._launch_bwd(tt, ii, g, "nonzero", None)):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
+        events, _ = profiled(lambda: [fn() for _ in range(calls)])
+        for e in events:
             found = re.search(r"maxsim_(?:bwd_)?(\w+?)_kernel", e.key)
             if e.device_type == torch.autograd.DeviceType.CUDA and found:
                 out[found.group(1)] = e.self_device_time_total / 1e3 / calls
@@ -1163,14 +1210,9 @@ def profile_step(step, images, texts, card: str, tag: str = "[6 train]") -> None
     """Device time of one step by kernel, and the device's idle share of it
     (torch.profiler; the step's wall time includes the profiler's cost)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(images, texts)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
+    events, wall_ms = profiled(lambda: step(images, texts))
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"{tag} profiled step: {device_ms:.1f} ms of kernels in {wall_ms:.1f} ms "
@@ -1785,8 +1827,8 @@ def time_host_feed(dev):
     feed = _PrefetchIterator([], device=dev)
     try:
         prepared = feed._prep(*batch)
-        _, cold = ms(lambda: feed._ship(*prepared))
-        _, warm = ms(lambda: feed._ship(*prepared))
+        _, cold = ms(lambda: feed._feeder(*prepared))
+        _, warm = ms(lambda: feed._feeder(*prepared))
     finally:
         feed.close()
     return gen_ms, cold, warm
@@ -1905,8 +1947,6 @@ def time_quantizer(inputs, card: str):
     # a call's host side (two allocations, one ctypes call) apart from its
     # device side: the host clock around calls that never wait for the card,
     # and the profiler's device operations, which must be one kernel a call
-    from torch.profiler import ProfilerActivity, profile
-
     w = inputs["768x3072/float32"]
     calls = 200
     for _ in range(5):
@@ -1920,11 +1960,8 @@ def time_quantizer(inputs, card: str):
     log(f"[5 timing] quantize_int8 768x3072/float32 a call's host side: {host_ms * 1e3:.2f} us "
         f"(enqueue: {calls} calls that never wait for the card; {card})")
     for key, w in inputs.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                q._launch(w, 0)
-            torch.cuda.synchronize()
-        device = [e for e in prof.key_averages()
+        events, _ = profiled(lambda: [q._launch(w, 0) for _ in range(20)])
+        device = [e for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         ops = sum(e.count for e in device)
         names = sorted({"quantize_kernel" if "quantize_kernel" in e.key else e.key[:40]
@@ -2467,7 +2504,7 @@ def eval_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int, wo
         f"({card})")
 
     # the same weights, inputs and device through the plain versions
-    model, _, preprocess_val = factory.create_model_and_transforms(
+    model, _, _, preprocess_val = factory.create_model_and_transforms(
         EVAL_MODEL, pt, device=dev, precision="bf16")
     tokenizer = factory.get_tokenizer(EVAL_MODEL)
     suite = build_retrieval_suite("flickr", {"root_dir": flickr_root, "split": "val"},
@@ -2586,6 +2623,213 @@ def eval_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int, wo
             "encode_attention_share": share,
             "zero_shot": {**zs, "seconds": zs_wall, "split": zs_split[-1],
                           "launches": zs_launches, **zs_check}}
+
+
+def feed_bytes(images, texts, packed: bool) -> int:
+    """Host-to-device bytes of one batch as the ship stage sends it: the
+    packed buffer, or the images and the caption-0 ids (int32)."""
+    import numpy as np
+
+    from colxlip_tpu_torch.parallel.data_feed import pack_batch
+    from colxlip_tpu_torch.training.train import select_caption0
+
+    texts = select_caption0(texts)
+    if packed:
+        return pack_batch(images, texts).nbytes
+    if images.dtype != np.uint8:
+        images = images.astype(np.float32)
+    return images.nbytes + texts.nbytes
+
+
+def host_pipeline(spec: str, flags, workers: int, batches: int):
+    """The tar pipeline alone (no model, no device), built as main builds it
+    for ``flags``: (img/s over ``batches`` batches after the first, the
+    first batch)."""
+    from colxlip_tpu_torch.data.transforms import image_transform
+    from colxlip_tpu_torch.data.wds import WdsConfig, WdsTrainPipeline
+    from colxlip_tpu_torch.factory import get_tokenizer
+    from colxlip_tpu_torch.models import get_model_config
+
+    size = get_model_config(TAR_MODEL)["vision_cfg"]["image_size"]
+    transform = image_transform(size, True, normalize_on_device="--normalize-on-device" in flags,
+                                ship="yuv420" if "yuv420" in flags else "rgb")
+    pipe = WdsTrainPipeline(
+        WdsConfig(urls=spec, batch_size=TRAIN_BATCH, seed=0, num_workers=workers,
+                  num_sampled_captions=1, native_decode="--native-decode" in flags),
+        transform, get_tokenizer(TAR_MODEL))
+    it = iter(pipe)
+    try:
+        first = next(it)
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        secs = time.perf_counter() - t0
+    finally:
+        it.close()
+    return batches * TRAIN_BATCH / secs, first
+
+
+def tar_phase(dev, card: str, phase6_first_loss: float):
+    """Phase 11: ViT-B-16-colxlip trained by main from seeded tar shards in
+    three feeds, with the host pipeline alone beside each run."""
+    import numpy as np
+    import torch
+
+    from colxlip_tpu_torch import main as entry
+    from colxlip_tpu_torch import native
+    from colxlip_tpu_torch.data import shard_writer
+    from colxlip_tpu_torch.data.transforms import (OPENAI_DATASET_MEAN, OPENAI_DATASET_STD,
+                                                   image_transform, sample_rrc_box)
+    from colxlip_tpu_torch.models import get_model_config
+    from colxlip_tpu_torch.ops import attention, fused_ce, maxsim, yuv420
+    from colxlip_tpu_torch.parallel.data_feed import DeviceFeeder, unpack_batch
+    from colxlip_tpu_torch.training.logging_utils import setup_logging
+    from colxlip_tpu_torch.training.train import select_caption0
+
+    cfg = get_model_config(TAR_MODEL)
+    size = cfg["vision_cfg"]["image_size"]
+    layers = cfg["vision_cfg"]["layers"] + cfg["text_cfg"]["layers"]   # one attention each
+    workers = min(8, os.cpu_count() or 1)
+    has_jpeg = native.libjpeg_present()
+    log(f"[11 tar] native decoder probe (a program with jpeglib.h linked with -ljpeg by "
+        f"{native.CXX}): {'builds' if has_jpeg else 'does not build'} on this machine -> run "
+        f"(b) {'with' if has_jpeg else 'WITHOUT'} --native-decode")
+    runs = [("a", [], 2),
+            ("b", [*(["--native-decode"] if has_jpeg else []), "--normalize-on-device",
+                   "--packed-feed"], 2),
+            ("c", ["--ship-format", "yuv420", "--packed-feed"], 1)]
+    counters = {"fused_attention_fwd": attention.LAUNCHES,
+                "fused_attention_bwd": attention.BWD_LAUNCHES,
+                "maxsim_fwd": maxsim.LAUNCHES, "maxsim_bwd": maxsim.BWD_LAUNCHES}
+    idle_counters = {**fused_counters(), "fused_ce_fwd": fused_ce.FWD_LAUNCHES,
+                     "fused_ce_bwd_da": fused_ce.BWD_DA_LAUNCHES,
+                     "fused_ce_bwd_db": fused_ce.BWD_DB_LAUNCHES}
+    out = {"workers": workers, "cpu_count": os.cpu_count(), "native_decode": has_jpeg,
+           "runs": {}}
+    with tempfile.TemporaryDirectory() as work:
+        shard_dir = os.path.join(work, "shards")
+        paths, secs, shard_bytes = shard_writer.write_shards(
+            shard_dir, TAR_SHARDS, TAR_PER_SHARD, seed=0, workers=workers)
+        spec = os.path.join(shard_dir, "{0000..%04d}.tar" % (TAR_SHARDS - 1))
+        log(f"[11 tar] wrote {TAR_SHARDS} shards x {TAR_PER_SHARD} samples (jpg 512 x 512-768 "
+            f"at quality 95 + recaption json) in {secs:.1f} s, {shard_bytes / 1e6:.1f} MB, "
+            f"{workers} threads")
+        out["shards"] = {"seconds": secs, "mb": shard_bytes / 1e6}
+        for name, flags, epochs in runs:
+            steps = epochs * TAR_STEPS_PER_EPOCH
+            img_per_s, (images, texts) = host_pipeline(spec, flags, workers, TAR_HOST_BATCHES)
+            packed = "--packed-feed" in flags
+            h2d = feed_bytes(images, texts, packed)
+            if name == "b":
+                # a host batch through the packed feed and unpacked on the card
+                caption0 = select_caption0(texts)
+                buf, _ = DeviceFeeder(dev, packed=True)(images, caption0)
+                got_i, got_t = unpack_batch(buf, images.shape[1:], caption0.shape[1])
+                torch.cuda.synchronize()
+                if not (np.array_equal(got_i.cpu().numpy(), images)
+                        and np.array_equal(got_t.cpu().numpy(), caption0)):
+                    raise RuntimeError("(b): the batch unpacked on the card is not the host's")
+                log("[11 tar] (b) a host batch packed, copied and unpacked on the card equals "
+                    "the host batch bit for bit")
+            if name == "c":
+                dec = yuv420.decode_yuv420(torch.from_numpy(images).to(dev),
+                                           OPENAI_DATASET_MEAN, OPENAI_DATASET_STD)
+                ref = (yuv420.yuv420_to_rgb(images) / 255.0
+                       - np.asarray(OPENAI_DATASET_MEAN, np.float32)) / np.asarray(
+                           OPENAI_DATASET_STD, np.float32)
+                err = float(np.abs(dec.cpu().numpy() - ref).max())
+                log(f"[11 tar] (c) decode_yuv420 on the card, batch {images.shape[0]}: "
+                    f"max_abs_err {err:.3g} against the numpy yuv420_to_rgb (tol {YUV_TOL})")
+                if not err <= YUV_TOL:
+                    raise RuntimeError(f"(c): decode_yuv420 {err} > {YUV_TOL}")
+                out["yuv_decode_err"] = err
+            logs = os.path.join(work, f"logs-{name}")
+            argv = ["--model", TAR_MODEL, "--train-data", spec, "--batch-size", str(TRAIN_BATCH),
+                    "--precision", "bf16", "--workers", str(workers), "--seed", "0",
+                    "--epochs", str(epochs), "--steps-per-epoch", str(TAR_STEPS_PER_EPOCH),
+                    "--log-every-n-steps", "1", "--save-frequency", "0", "--logs", logs,
+                    "--name", name, "--profile-dir", os.path.join(logs, "trace"), *flags]
+            log(f"[11 tar] ({name}) python -m colxlip_tpu_torch.main {' '.join(argv)}")
+            for c in (*counters.values(), *idle_counters.values()):
+                c.reset()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            try:
+                rc = entry.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                setup_logging(None)
+            secs = time.perf_counter() - t0
+            launches = {k: c.value for k, c in counters.items()}
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            base = os.path.join(logs, name)
+            with open(os.path.join(base, "metrics.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            with open(os.path.join(base, "out.log")) as f:
+                out_log = f.read()
+            idle = re.findall(r"profiled steps: .*device idle ([0-9.]+)%", out_log)
+            epoch_s = [float(x) for x in re.findall(r"Epoch \d+ done: \d+ steps in ([0-9.]+)s",
+                                                    out_log)]
+            losses = [r["total_loss"] for r in recs]
+            if rc != 0 or len(recs) != steps or not all(math.isfinite(x) for x in losses):
+                raise RuntimeError(f"({name}): rc {rc}, losses {losses}")
+            if abs(losses[0] - phase6_first_loss) > 0.5:
+                raise RuntimeError(f"({name}): first loss {losses[0]} is not within 0.5 of "
+                                   f"phase 6's {phase6_first_loss}")
+            want = {"fused_attention_fwd": layers * steps, "fused_attention_bwd": layers * steps,
+                    "maxsim_fwd": steps, "maxsim_bwd": steps}
+            if launches != want:
+                raise RuntimeError(f"({name}): launches {launches}, expected {want}")
+            check_default_path(idle_counters, f"phase 11 ({name})")
+            if not idle:
+                raise RuntimeError(f"({name}): the profiled steps logged no device time")
+            steady = recs[2:]
+            step_ms = statistics.median(r["batch_time"] for r in steady) * 1e3
+            data_ms = statistics.median(r["data_time"] for r in steady) * 1e3
+            log(f"[11 tar] ({name}) {' '.join(flags) or 'PIL decode, float32 feed'}: rc 0 in "
+                f"{secs:.1f} s, {steps} steps, loss {losses[0]:.5f} -> {losses[-1]:.5f}; step "
+                f"median {step_ms:.2f} ms = {TRAIN_BATCH / step_ms * 1e3:.1f} samples/s over "
+                f"steps 3..{steps} (steps 3-5 profiled); data_time median {data_ms:.2f} ms; "
+                f"device idle {idle[-1]}% over steps 3-5; host->device {h2d / 1e6:.2f} MB a "
+                f"step; peak device memory {peak:.2f} GiB; host pipeline alone "
+                f"{img_per_s:.1f} img/s over {TAR_HOST_BATCHES} batches ({workers} workers, "
+                f"os.cpu_count() {os.cpu_count()}); epochs {epoch_s} s; launches {launches} "
+                f"({card})")
+            out["runs"][name] = {
+                "flags": flags, "steps": steps, "step_ms": step_ms,
+                "samples_per_s": TRAIN_BATCH / step_ms * 1e3, "data_ms": data_ms,
+                "device_idle_pct": float(idle[-1]), "h2d_bytes": h2d, "peak_gib": peak,
+                "host_img_per_s": img_per_s, "launches": launches, "losses": losses,
+                "epoch_s": epoch_s, "seconds": secs}
+            torch.cuda.empty_cache()
+        if has_jpeg:
+            # the native decoder against the PIL transform on the same boxes
+            import io
+            import random
+            import tarfile
+
+            from PIL import Image
+
+            with tarfile.open(paths[0]) as tf:
+                jpegs = [tf.extractfile(m).read() for m in tf.getmembers()
+                         if m.name.endswith(".jpg")][:16]
+            boxes, want = [], []
+            pil = image_transform(size, True)
+            for i, data in enumerate(jpegs):
+                img = Image.open(io.BytesIO(data))
+                boxes.append(sample_rrc_box(*img.size, rng=random.Random(i)))
+                want.append(pil(img, rng=random.Random(i)))
+            got, failures = native.process_batch(jpegs, (size, size), OPENAI_DATASET_MEAN,
+                                                 OPENAI_DATASET_STD,
+                                                 crops=np.asarray(boxes, np.int32))
+            rms = float(np.sqrt(np.mean(((got - np.stack(want))
+                                         * np.asarray(OPENAI_DATASET_STD) * 255) ** 2)))
+            log(f"[11 tar] (b) native decode of {len(jpegs)} samples against the PIL "
+                f"transform on the same boxes: RMS {rms:.3f} pixel units (bar {NATIVE_RMS_MAX})")
+            if failures or not rms < NATIVE_RMS_MAX:
+                raise RuntimeError(f"native decode: {failures} failures, RMS {rms}")
+            out["native_rms"] = rms
+    return out
 
 
 def main() -> int:
@@ -2858,6 +3102,24 @@ def main() -> int:
         text_qkv = bwd_inputs["attention_bwd/text"][0]
         text_bounds = attention_bounds(text_qkv, text_qkv, causal=True)
         bounds.update({f"{k}/text": v for k, v in text_bounds.items()})
+        vision_qkv = bwd_inputs["attention_bwd/vision"][0]
+        bounds["fused_attention_fwd/vision-train"] = attention_bounds(
+            vision_qkv, vision_qkv)["fused_attention_fwd"]
+        sdpa_text = time_library_attention(*bwd_inputs["attention_bwd/text"])
+        log(f"[5 timing] F.scaled_dot_product_attention, text shape B={TRAIN_BATCH} causal: "
+            f"forward {sdpa_text[0]:.4f} ms, backward {sdpa_text[1]:.4f} ms ({card})")
+        ln_fwd_cases = {}
+        for case in ("vision", "text", "token-head", "vit-l"):
+            x = fused_inputs[f"ln/{case}"][0]
+            rows, d = x.numel() // x.shape[-1], x.shape[-1]
+            ker, plain, lib = timing[f"fused_ln_fwd/{case}"]
+            ln_fwd_cases[case] = {
+                "rows": rows, "d": d, "ms": ker, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": bound_ms(2 * rows * d * x.element_size(), 8 * rows * d,
+                                     "bfloat16")[0]}
+            log(f"[5 timing] fused_ln_fwd/{case} {rows} x {d} bf16: kernel {ker:.4f} ms, "
+                f"F.layer_norm {lib:.4f} ms, bound {ln_fwd_cases[case]['bound_ms']:.5f} ms "
+                f"(bytes) ({card})")
         for name, (ms, by) in bounds.items():
             log(f"[5 timing] bound {name}: {ms:.5f} ms, by {by} (H100 SXM: 3.35 TB/s, "
                 f"989 TFLOP/s bf16, 67 TFLOP/s fp32)")
@@ -2913,6 +3175,9 @@ def main() -> int:
 
         # ---- phase 10: retrieval and zero-shot eval ---------------------------
         evaluation = eval_phase(dev, card, *flickr, eval_dir)
+
+    # ---- phase 11: the tar path through main ------------------------------
+    tar = tar_phase(dev, card, train["losses"][0])
 
     tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
@@ -2987,10 +3252,15 @@ def main() -> int:
         "attention_text": {
             "batch": TRAIN_BATCH, "fwd_ms": timing["attention/text-train"][0],
             "bwd_ms": timing["attention_bwd/text"][0],
+            "fwd_plain_ms": timing["attention/text-train"][1],
+            "bwd_plain_ms": timing["attention_bwd/text"][1],
+            "fwd_sdpa_ms": sdpa_text[0], "bwd_sdpa_ms": sdpa_text[1],
             "fwd_bound_ms": bounds["fused_attention_fwd/text"][0],
             "bwd_bound_ms": bounds["fused_attention_bwd/text"][0]},
-        "attention_train_fwd_ms": dict(zip(("kernel", "plain", "sdpa"),
-                                           (*timing["attention/vision-train"], sdpa_train[0]))),
+        "attention_train_fwd_ms": dict(zip(("kernel", "plain", "sdpa", "bound"),
+                                           (*timing["attention/vision-train"], sdpa_train[0],
+                                            bounds["fused_attention_fwd/vision-train"][0]))),
+        "ln_fwd_cases": ln_fwd_cases,
         "attention_vit_l": {
             "batch": MAX_BATCH, "fwd_ms": vit_l_fwd[0], "fwd_plain_ms": vit_l_fwd[1],
             "fwd_sdpa_ms": sdpa_l[0], "fwd_bound_ms": vit_l_bounds["fused_attention_fwd"][0],
@@ -3041,7 +3311,9 @@ def main() -> int:
                  "samples_per_s": TRAIN_BATCH / trainer["step_ms"] * 1e3,
                  "data_ms": trainer["data_ms"], "peak_gib": trainer["peak_gib"],
                  "feed_ms": trainer["feed_ms"]},
-        "eval": evaluation}), flush=True)
+        "eval": evaluation,
+        "launches_tar": {name: run["launches"] for name, run in tar["runs"].items()},
+        "tar": tar}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,12 @@ offline fallback: without a merge table (``$COLXLIP_BPE_PATH`` or
 (ids 0-511). SOT and EOT stay pinned at 49406 and 49407, so EOT is the
 largest id of every row, which the text tower's argmax pooling relies on.
 
-The JAX package sends printable-ASCII captions to a C++ BPE core that is
-byte-identical to its Python path; the port keeps only the Python path.
+Printable-ASCII captions go to the port's C++ BPE core
+(``native/bpe_tokenizer.cc``), whose ids equal the Python path's, as in the
+JAX package; ``COLXLIP_NATIVE_TOKENIZER=0`` keeps every caption on the
+Python path. Unlike the JAX tokenizer, which logs a warning and stays in
+Python when the core does not build, the port raises: the variable is the
+one way to the Python path.
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import html
 import logging
 import os
 import pathlib
+import re as _stdlib_re
+import threading
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
@@ -105,6 +111,11 @@ class SimpleTokenizer:
             with opener(bpe_path, "rt", encoding="utf-8") as f:
                 lines = f.read().split("\n")
             merges = [tuple(m.split()) for m in lines[1:49152 - 256 - 2 + 1]]
+        self._merges = merges
+        self._native_lock = threading.Lock()   # loader threads share one tokenizer
+        self._native_tried = False
+        self._native_handle: Optional[int] = None
+        self._native_free = None
         self.has_merges = bool(merges)
         if not self.has_merges:
             logger.warning(
@@ -174,19 +185,62 @@ class SimpleTokenizer:
             ids.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return ids
 
+    # The native core handles only clean printable ASCII: '<' could form a
+    # special-token literal, '&' an HTML entity (basic_clean unescapes), and
+    # \x1c-\x1f are Python-regex whitespace the C scanner does not model.
+    _NATIVE_ELIGIBLE = _stdlib_re.compile(r"^[\t\n\r\x20-\x7e]*$")
+
+    def _get_native(self) -> Optional[int]:
+        """The handle of the C++ BPE core over this merge table, built at
+        first use; None when ``COLXLIP_NATIVE_TOKENIZER=0``. A failed build
+        raises (``native.build``)."""
+        with self._native_lock:
+            if not self._native_tried:
+                self._native_tried = True
+                if os.environ.get("COLXLIP_NATIVE_TOKENIZER", "1") != "0":
+                    from .. import native
+
+                    blob = "\n".join(" ".join(m) for m in self._merges).encode("utf-8")
+                    self._native_handle = native.bpe_init(blob)
+                    self._native_free = native.bpe_free
+            return self._native_handle
+
+    def __del__(self):
+        # each handle holds the whole encoder and rank maps natively
+        handle = getattr(self, "_native_handle", None)
+        if handle is not None:
+            self._native_handle = None
+            try:
+                self._native_free(handle)
+            except (AttributeError, TypeError):   # the native module torn down at exit
+                pass
+
     def __call__(self, texts: Union[str, Sequence[str]]) -> np.ndarray:
         """Zero-padded [n, context_length] int32 ids; over-long inputs are
-        truncated with EOT forced into the last slot (open_clip semantics)."""
+        truncated with EOT forced into the last slot (open_clip semantics).
+        Printable-ASCII strings take the C++ core, the rest the Python path."""
         if isinstance(texts, str):
             texts = [texts]
         context_length = self.context_length
         result = np.zeros((len(texts), context_length), dtype=np.int32)
+        native_handle = self._get_native()
+        native_idx = []
         for i, text in enumerate(texts):
+            if native_handle is not None and self._NATIVE_ELIGIBLE.match(text) \
+                    and "<" not in text and "&" not in text:
+                native_idx.append(i)
+                continue
             tokens = [self.sot_token] + self.encode(text) + [self.eot_token]
             if len(tokens) > context_length:
                 tokens = tokens[:context_length]
                 tokens[-1] = self.eot_token
             result[i, :len(tokens)] = tokens
+        if native_idx:
+            from .. import native
+
+            result[np.asarray(native_idx)] = native.bpe_encode_batch(
+                native_handle, [texts[i].encode("ascii") for i in native_idx],
+                context_length)
         return result
 
 

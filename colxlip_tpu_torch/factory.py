@@ -20,7 +20,7 @@ from torch import nn
 
 from .convert import load_pt_state_dict
 from .data.tokenizer import SimpleTokenizer
-from .data.transforms import EvalTransform, image_transform
+from .data.transforms import AugmentationCfg, ImageTransform, image_transform
 from .models import CLIP, CLIPCfg, ColXLIP, get_model_config, list_models
 from .models.layers import Linear, MultiHeadAttention
 from .models.pos_embed import get_2d_sincos_pos_embed, interpolate_pos_embed
@@ -180,15 +180,24 @@ def create_model_and_transforms(
         gelu_approximate: bool = False, seed: int = 0,
         force_patch_dropout: Optional[float] = None,
         image_mean: Optional[Sequence[float]] = None,
-        image_std: Optional[Sequence[float]] = None
-) -> Tuple[CLIP, CLIPCfg, EvalTransform]:
-    """(model in train mode on ``device``, cfg, preprocess_val): the part of
-    the JAX ``create_model_and_transforms`` the training entry point needs.
-    The parameters live in the model; ``pretrained`` is a local OpenCLIP-layout
-    ``.pt`` loaded through ``load_weights``. ``image_mean`` / ``image_std``
-    default to the model config's and, when given, override both the tower's
-    normalisation of uint8 images and ``preprocess_val``. The train-time
-    transform waits for the tar pipeline."""
+        image_std: Optional[Sequence[float]] = None,
+        aug_cfg: Optional[AugmentationCfg] = None, normalize_on_device: bool = False,
+        raw_aug: str = "rrc", ship: str = "rgb"
+) -> Tuple[CLIP, CLIPCfg, ImageTransform, ImageTransform]:
+    """(model in train mode on ``device``, cfg, preprocess_train,
+    preprocess_val), as the JAX ``create_model_and_transforms`` builds them.
+    The parameters live in the model; ``pretrained`` is a local
+    OpenCLIP-layout ``.pt`` loaded through ``load_weights``. ``image_mean`` /
+    ``image_std`` default to the model config's and, when given, override
+    the tower's normalisation of uint8 images and both transforms.
+
+    ``preprocess_train`` is the RandomResizedCrop transform (``aug_cfg``'s
+    ranges, ``raw_aug`` for packed records); with ``normalize_on_device`` it
+    emits uint8 RGB, and with ``ship='yuv420'`` the pipeline ships planar
+    YUV420 batches. ``preprocess_val`` takes the uint8 output too under
+    either flag (the device normalises it to the same numbers) but never
+    YUV420, which is lossy. As in the JAX factory, the train transform's own
+    generator is unseeded: the pipeline hands it a seeded one a sample."""
     model, cfg = create_model(
         model_name, device, compute_dtype(precision), seed=seed, quick_gelu=quick_gelu,
         force_image_size=force_image_size, alpha=alpha,
@@ -197,10 +206,15 @@ def create_model_and_transforms(
         image_std=image_std)
     if pretrained:
         load_weights(model, pretrained)
+    size, mean, std = (cfg.vision_cfg.image_size, tuple(cfg.vision_cfg.image_mean),
+                       tuple(cfg.vision_cfg.image_std))
+    preprocess_train = image_transform(
+        size, is_train=True, mean=mean, std=std, aug_cfg=aug_cfg,
+        normalize_on_device=normalize_on_device, raw_aug=raw_aug, ship=ship)
     preprocess_val = image_transform(
-        cfg.vision_cfg.image_size, is_train=False, mean=tuple(cfg.vision_cfg.image_mean),
-        std=tuple(cfg.vision_cfg.image_std))
-    return model.train(), cfg, preprocess_val
+        size, is_train=False, mean=mean, std=std,
+        normalize_on_device=normalize_on_device or ship == "yuv420")
+    return model.train(), cfg, preprocess_train, preprocess_val
 
 
 def get_tokenizer(model_name: str = "", context_length: Optional[int] = None,

@@ -3,11 +3,14 @@
 
 Experiment naming, the log directory with ``params.txt`` and ``out.log``,
 ``--resume latest|<path>``, model / optimizer / schedule construction, the
-synthetic dataset, the epoch loop with numbered and most-recent checkpoint
-saves and rotation, ``--preempt-save``, the retrieval suites
-(``--retrieval-*``) and zero-shot ImageNet (``--imagenet-val``) at the end of
-an epoch (``--val-frequency``, ``--zeroshot-frequency``, ``--eval-scoring``),
-and the eval-only mode: without ``--train-data`` and with a
+train data (WebDataset tar shards through ``data/wds.py`` with
+``--train-data``: the train transforms, ``--native-decode``, the uint8
+(``--normalize-on-device``) and YUV420 (``--ship-format yuv420``) wire
+formats, ``--packed-feed``; else the synthetic dataset), the epoch loop
+with numbered and most-recent checkpoint saves and rotation,
+``--preempt-save``, the retrieval suites (``--retrieval-*``) and zero-shot
+ImageNet (``--imagenet-val``) at the end of an epoch (``--val-frequency``,
+``--zeroshot-frequency``, ``--eval-scoring``), and the eval-only mode: without ``--train-data`` and with a
 ``--dataset-type`` other than ``synthetic``, ``main`` evaluates the
 ``--pretrained`` weights (before any ``--resume``, as the JAX entry point
 does), appends ``checkpoints/results.jsonl`` and returns. It runs on
@@ -16,7 +19,8 @@ is missing.
 
 What the port cannot do yet is refused, never ignored: each such flag logs
 an error and ``main`` returns 1 before any model work (``unsupported_flags``
-lists them with the module each waits for).
+lists them with the module each waits for; ``feed_errors`` the feed flags
+that cannot hold together, as the JAX entry point refuses them).
 """
 from __future__ import annotations
 
@@ -34,7 +38,10 @@ import torch
 
 from .data.retrieval import RetrievalSuite, build_retrieval_suite
 from .data.synthetic import SyntheticConfig, SyntheticDataset
+from .data.transforms import AugmentationCfg
+from .data.wds import SharedEpoch, WdsConfig, WdsTrainPipeline
 from .factory import create_loss, create_model_and_transforms, get_tokenizer
+from .ops.yuv420 import yuv420_rows
 from .parallel.train_step import make_train_step
 from .params import parse_args
 from .training.checkpoint import (
@@ -125,30 +132,14 @@ def unsupported_flags(args) -> List[str]:
     """One message per flag of ``args`` whose feature is not ported yet, each
     naming the module it waits for."""
     checks = [
-        (bool(args.train_data),
-         "--train-data: the tar pipeline (data/wds.py and the train transforms) is not "
-         "yet ported; use --dataset-type synthetic"),
         (bool(args.remote_sync),
          "--remote-sync: remote sync (utils/file_utils.py) is not yet ported"),
         (args.model_parallel > 1,
          "--model-parallel > 1: tensor parallelism (parallel/gspmd.py) is not yet ported"),
         (args.fsdp, "--fsdp: sharded state (parallel/gspmd.py) is not yet ported"),
-        (args.packed_feed,
-         "--packed-feed: the packed feed (parallel/data_feed.py) is not yet ported"),
-        (args.normalize_on_device,
-         "--normalize-on-device: the flag only changes the tar pipeline's train transform "
-         "(data/wds.py, not yet ported); the vision tower takes uint8 images already, and "
-         "the synthetic stream stays float32"),
-        (bool(args.aug_cfg),
-         "--aug-cfg: the train transforms (data/transforms.py AugmentationCfg, "
-         "data/wds.py) are not yet ported; the synthetic stream has no augmentation"),
-        (args.raw_aug != "rrc",
-         "--raw-aug: augmentation on packed raw-uint8 shards (data/pack.py) is not yet "
-         "ported"),
-        (args.ship_format == "yuv420",
-         "--ship-format yuv420: the YUV420 feed (ops/yuv420.py) is not yet ported"),
         (args.pipeline == "grain",
-         "--pipeline grain: the grain pipeline (data/grain_pipeline.py) is not yet ported"),
+         "--pipeline grain: the grain pipeline (data/grain_pipeline.py) is not yet ported "
+         "(use the default --pipeline wds)"),
         (any(v is not None for v in (args.dist_coordinator, args.dist_num_processes,
                                      args.dist_process_id, args.dist_impl)),
          "--dist-*: multi-process training (parallel/mesh.py, parallel/collectives.py) "
@@ -178,6 +169,26 @@ def unsupported_flags(args) -> List[str]:
     return [msg for bad, msg in checks if bad]
 
 
+def feed_errors(args) -> List[str]:
+    """One message per flag of ``args`` that cannot hold on this train feed,
+    as the JAX entry point refuses them: ``--packed-feed`` needs a uint8 wire
+    format and the tar pipeline; ``--aug-cfg`` takes only known keys."""
+    errors = []
+    if args.packed_feed:
+        if not (args.normalize_on_device or args.ship_format == "yuv420"):
+            errors.append("--packed-feed requires a uint8 wire format: add "
+                          "--normalize-on-device or --ship-format yuv420")
+        if args.dataset_type == "synthetic" or not args.train_data:
+            errors.append("--packed-feed requires the webdataset pipeline (the synthetic "
+                          "dataset emits float32 batches)")
+    if args.aug_cfg:
+        try:
+            AugmentationCfg.from_kwargs(args.aug_cfg)
+        except ValueError as e:
+            errors.append(str(e))
+    return errors
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = torch.device(args.device)
@@ -196,7 +207,7 @@ def main(argv=None) -> int:
     if args.copy_codebase:
         copy_codebase(args)
 
-    refused = unsupported_flags(args)
+    refused = unsupported_flags(args) + feed_errors(args)
     for msg in refused:
         logger.error("%s", msg)
     if refused:
@@ -220,21 +231,23 @@ def main(argv=None) -> int:
     # --allow-degraded-tokenizer).
     needs_parity_tokenizer = bool(args.pretrained) or bool(
         resume_from and resume_from.endswith(".pt"))
-    tokenizer = get_tokenizer(
-        args.model,
-        require_merges=needs_parity_tokenizer and not args.allow_degraded_tokenizer)
+    require_merges = needs_parity_tokenizer and not args.allow_degraded_tokenizer
+    tokenizer = get_tokenizer(args.model, require_merges=require_merges)
     # --text-ctx: train-time data-side context override (the text tower
     # slices its positional embedding to the input length)
     train_ctx = args.text_ctx or 0
+    train_tokenizer = tokenizer
     if train_ctx:
         if not 3 <= train_ctx <= tokenizer.context_length:
             logger.error("--text-ctx %d must be in [3, %d] (the model's context)",
                          train_ctx, tokenizer.context_length)
             return 1
+        train_tokenizer = get_tokenizer(args.model, context_length=train_ctx,
+                                        require_merges=require_merges)
         logger.info("Train text context: %d (eval keeps %d)", train_ctx,
                     tokenizer.context_length)
 
-    model, cfg, preprocess_val = create_model_and_transforms(
+    model, cfg, preprocess_train, preprocess_val = create_model_and_transforms(
         args.model,
         pretrained=args.pretrained or None,
         device=device,
@@ -247,6 +260,10 @@ def main(argv=None) -> int:
         seed=args.seed,
         image_mean=tuple(args.image_mean) if args.image_mean else None,
         image_std=tuple(args.image_std) if args.image_std else None,
+        aug_cfg=AugmentationCfg.from_kwargs(args.aug_cfg) if args.aug_cfg else None,
+        normalize_on_device=args.normalize_on_device,
+        raw_aug=args.raw_aug,
+        ship=args.ship_format,
     )
     n_params = sum(p.numel() for p in model.parameters())
     logger.info("Model: %s (%.1fM params)", args.model, n_params / 1e6)
@@ -276,15 +293,30 @@ def main(argv=None) -> int:
         return 0
 
     global_batch = args.batch_size
-    num_samples = args.train_num_samples or global_batch * 100
-    size = cfg.vision_cfg.image_size
-    size = size if isinstance(size, int) else size[0]
-    train_data = SyntheticDataset(SyntheticConfig(
-        batch_size=global_batch, image_size=(size, size),
-        context_length=train_ctx or cfg.text_cfg.context_length,
-        num_sampled_captions=args.num_sampled_captions,
-        seed=args.seed, num_samples=num_samples))
-    steps_per_epoch = args.steps_per_epoch or len(train_data)
+    ctx = train_ctx or cfg.text_cfg.context_length
+    if args.dataset_type == "synthetic" or not args.train_data:
+        num_samples = args.train_num_samples or global_batch * 100
+        size = cfg.vision_cfg.image_size
+        size = size if isinstance(size, int) else size[0]
+        train_data = SyntheticDataset(SyntheticConfig(
+            batch_size=global_batch, image_size=(size, size), context_length=ctx,
+            num_sampled_captions=args.num_sampled_captions,
+            seed=args.seed, num_samples=num_samples))
+        num_batches = len(train_data)
+    else:
+        # the step reads caption 0 only (select_caption0): one i.i.d. draw
+        # gives it the same distribution without tokenizing k - 1 more
+        wds_cfg = WdsConfig(
+            urls=args.train_data, weights=args.train_data_upsampling_factors,
+            batch_size=global_batch, num_samples=args.train_num_samples,
+            resampled=args.dataset_resampled, seed=args.seed, num_workers=args.workers,
+            num_sampled_captions=1, max_merged_num=args.max_merged_num,
+            pixelprose=args.pixelprose, native_decode=args.native_decode,
+            decode_threads=args.decode_threads)
+        train_data = WdsTrainPipeline(wds_cfg, preprocess_train, train_tokenizer,
+                                      SharedEpoch(0))
+        num_batches = train_data.num_batches or 1000
+    steps_per_epoch = args.steps_per_epoch or num_batches
     total_steps = steps_per_epoch * args.epochs
 
     lr_schedule = build_lr_schedule(args, total_steps)
@@ -293,9 +325,15 @@ def main(argv=None) -> int:
         beta1=args.beta1, beta2=args.beta2, eps=args.eps, weight_decay=args.wd,
         grad_clip_norm=args.grad_clip_norm, lock_image=args.lock_image,
         lock_text=args.lock_text)
+    packed_spec = None
+    if args.packed_feed:
+        h, w = preprocess_train.cfg.size_hw
+        img_shape = (yuv420_rows(h), w) if args.ship_format == "yuv420" else (h, w, 3)
+        packed_spec = (img_shape, ctx)
+        logger.info("Packed feed: one %s + texts buffer a step", img_shape)
     step_fn = make_train_step(model, optimizer,
                               None if args.skip_scheduler else lr_schedule,
-                              create_loss(args))
+                              create_loss(args), packed_feed=packed_spec)
 
     start_epoch = 0
     resume_step_in_epoch = 0
@@ -329,10 +367,12 @@ def main(argv=None) -> int:
 
     for epoch in range(start_epoch, args.epochs):
         logger.info("Start epoch %d", epoch)
+        if hasattr(train_data, "set_epoch"):
+            train_data.set_epoch(epoch)
         skip = resume_step_in_epoch if epoch == start_epoch else 0
         t0 = time.perf_counter()
         steps, stopped = train_one_epoch(
-            step_fn, train_data, device=device, epoch=epoch,
+            step_fn, train_data, device=device, packed=packed_spec is not None, epoch=epoch,
             global_batch_size=global_batch, num_devices=1,
             log_every_n_steps=args.log_every_n_steps, writer=writer,
             steps_per_epoch=steps_per_epoch, lr_schedule=lr_schedule,

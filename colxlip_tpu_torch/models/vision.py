@@ -9,8 +9,10 @@ class token), 'avg' (the mean of the patch tokens), anything else no pooling.
 
 Takes NHWC images [B, H, W, 3], the JAX layout: floats already normalised, or
 integers (the uint8 feed), which are normalised here, on the tensor's device,
-in fp32 with the config's mean and std. The planar YUV420 feed (3-D input)
-and ``attentional_pool`` are not ported and raise ``NotImplementedError``.
+in fp32 with the config's mean and std; or the planar YUV420 feed, integers
+[B, H*3//2, W], which ``ops.yuv420.decode_yuv420`` turns into normalised fp32
+RGB on the device. ``attentional_pool`` is not ported and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import Callable, Tuple
 import torch
 from torch import nn
 
+from ..ops.yuv420 import decode_yuv420
 from .configs import CLIPVisionCfg
 from .layers import LayerNorm, PatchDropout, Transformer
 
@@ -96,11 +99,13 @@ class VisionTransformer(nn.Module):
         self.register_buffer("image_std", torch.tensor(cfg.image_std), persistent=False)
 
     def forward(self, image: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """image [B, H, W, 3] (NHWC; float, or integer 0..255) -> (pooled
-        [B, E], tokens [B, P, W])."""
+        """image [B, H, W, 3] (NHWC; float, or integer 0..255) or planar
+        YUV420 [B, H*3//2, W] (integer) -> (pooled [B, E], tokens [B, P, W])."""
         if image.ndim == 3:
-            raise NotImplementedError("the planar YUV420 feed [B, H*3//2, W] is not yet "
-                                      "ported in colxlip_tpu_torch")
+            if image.is_floating_point():
+                raise ValueError("3-D image batches must be planar uint8 YUV420 "
+                                 f"[B, H*3//2, W]; got {image.dtype} {tuple(image.shape)}")
+            image = decode_yuv420(image, self.cfg.image_mean, self.cfg.image_std)
         if image.ndim != 4 or image.shape[-1] != 3:
             raise ValueError("encode_image takes NHWC images [B, H, W, 3], float "
                              f"(normalized) or integer; got {image.dtype} {tuple(image.shape)}")

@@ -15,21 +15,24 @@ says so. ``accum_freq > 1`` is gradient accumulation with cached-negative
 splicing (the JAX ``microbatched_loss_fn``): pass 1 encodes every
 microbatch under ``no_grad``; pass 2 re-encodes each microbatch with
 gradients, splices it into the cached bank, takes the loss over the whole
-accumulation and adds its gradients. A device mesh, the packed feed and
-distillation teachers are not ported and raise ``NotImplementedError``, and
-so does a model with ``patch_dropout > 0`` (the JAX step cannot run one).
+accumulation and adds its gradients. With ``packed_feed=(img_shape, ctx)``
+the step takes ``(buf, None)``, one ``data_feed.pack_batch`` buffer, and
+unpacks it on the device first. A device mesh and distillation teachers are
+not ported and raise ``NotImplementedError``, and so does a model with
+``patch_dropout > 0`` (the JAX step cannot run one).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..losses import clip_loss, colclip_loss
 from ..models.layers import PatchDropout
+from .data_feed import unpack_batch
 from ..training.optim import global_norm
 
 MAX_LOGIT_SCALE = math.log(100.0)
@@ -105,13 +108,15 @@ class TrainStep:
     made, and ``schedule(step.step)`` is the next update's learning rate."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
-                 schedule: Optional[Callable[[int], float]], cfg: TrainStepConfig):
+                 schedule: Optional[Callable[[int], float]], cfg: TrainStepConfig,
+                 packed_feed: Optional[Tuple[Tuple[int, ...], int]] = None):
         if cfg.accum_freq < 1:
             raise ValueError(f"accum_freq must be >= 1; got {cfg.accum_freq}")
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
         self.cfg = cfg
+        self.packed_feed = packed_feed
         self.forward = build_forward(model, cfg)
         self.step = 0
 
@@ -144,7 +149,11 @@ class TrainStep:
         losses = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
         return losses, cached[0]["logit_scale"]
 
-    def __call__(self, images: torch.Tensor, texts: torch.Tensor) -> Metrics:
+    def __call__(self, images: torch.Tensor, texts: Optional[torch.Tensor]) -> Metrics:
+        if self.packed_feed is not None:
+            if texts is not None:
+                raise ValueError("a packed_feed step takes (buf, None)")
+            images, texts = unpack_batch(images, *self.packed_feed)
         params = [p for p in self.model.parameters() if p.requires_grad]
         for p in params:
             p.grad = None
@@ -175,8 +184,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     schedule: Optional[Callable[[int], float]], cfg: TrainStepConfig,
                     *, mesh=None, packed_feed=None, teacher=None) -> TrainStep:
     """The one-device train step. ``schedule`` (step -> lr) sets each
-    update's learning rate; None keeps the optimizer's."""
-    for name, value in (("mesh", mesh), ("packed_feed", packed_feed), ("teacher", teacher)):
+    update's learning rate; None keeps the optimizer's. ``packed_feed``:
+    (per-sample image shape, ctx) of the packed buffers the step takes."""
+    for name, value in (("mesh", mesh), ("teacher", teacher)):
         if value is not None:
             raise NotImplementedError(f"make_train_step: {name} is not yet ported")
     if any(isinstance(m, PatchDropout) and m.prob > 0 for m in model.modules()):
@@ -186,4 +196,4 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             "make_train_step: vision_cfg.patch_dropout > 0 is refused: the JAX train step "
             "passes no 'patch_dropout' rng and raises InvalidRngError, so there is no "
             "seeded draw to reproduce (PatchDropout itself is ported: models/layers.py)")
-    return TrainStep(model, optimizer, schedule, cfg)
+    return TrainStep(model, optimizer, schedule, cfg, packed_feed=packed_feed)

@@ -5,9 +5,12 @@ meters (``data_time``, ``batch_time``, samples/s and samples/s/device),
 caption-0 selection, the ``text_trunc_rate`` meter and periodic logging.
 Batches reach the device through a two-stage background prefetch: a host
 thread drains the input pipeline and a ship thread copies each batch
-through pinned memory onto the step's device on its own CUDA stream, so the
-host work and the copy of batches i+1 and i+2 overlap the device's work on
-batch i.
+through pinned memory onto the step's device on its own CUDA stream
+(``parallel.data_feed.DeviceFeeder``; with ``packed`` one fused buffer a
+step), so the host work and the copy of batches i+1 and i+2 overlap the
+device's work on batch i. The host thread closes the pipeline's iterator
+when it stops, so a tar pipeline's worker threads end with the epoch even
+when ``steps_per_epoch`` cuts it short.
 
 The loop never waits for the device between steps: CUDA launches are
 asynchronous, the step's metrics stay device tensors, and they are read
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..data.tokenizer import EOT_TOKEN
+from ..parallel.data_feed import DeviceFeeder
 from .logging_utils import AverageMeter, MetricsWriter
 
 logger = logging.getLogger(__name__)
@@ -49,32 +53,28 @@ class _PrefetchIterator:
     device, each keeping up to ``depth`` batches in flight, so the steady
     state is max(host, transfer, compute), not their sum.
 
-    With a CUDA ``device`` the ship stage stages each array in pinned memory
-    and copies it with ``non_blocking=True`` on a stream of its own; it
-    waits for the copy itself (never the training thread), and marks the
-    device tensors as used by the consumer's stream so the allocator does
-    not hand their memory out again while a step still reads it. With the
-    CPU as ``device`` batches pass through as CPU tensors. The device is
-    always named by the caller: there is no default to fall to.
+    The ship stage is a ``DeviceFeeder`` on ``device`` (``packed``: one
+    fused buffer, the item (buf, None)); it waits for its copy itself, never
+    the training thread. The device is always named by the caller: there is
+    no default to fall to.
 
     Exceptions from either stage re-raise in the consumer. ``close()`` stops
-    both threads promptly when the consumer exits early.
+    both threads promptly when the consumer exits early; the host thread
+    then closes the input iterator (a generator is closed by the thread that
+    runs it, so its ``finally`` stops whatever threads it started).
     """
 
     _DONE = object()
 
     def __init__(self, dataloader: Iterable, device: Union[str, torch.device],
-                 depth: int = 2, trunc_meter: Optional[AverageMeter] = None):
+                 depth: int = 2, trunc_meter: Optional[AverageMeter] = None,
+                 packed: bool = False):
         self._host_q: queue.Queue = queue.Queue(maxsize=depth)
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
-        self._device = torch.device(device)
+        self._feeder = DeviceFeeder(device, packed=packed)
         self._trunc_meter = trunc_meter
         self._it = iter(dataloader)
-        self._copy_stream = self._consumer_stream = None
-        if self._device.type == "cuda":
-            self._consumer_stream = torch.cuda.current_stream(self._device)
-            self._copy_stream = torch.cuda.Stream(self._device)
         self._host_thread = threading.Thread(target=self._produce_host, daemon=True)
         self._ship_thread = threading.Thread(target=self._produce_ship, daemon=True)
         self._host_thread.start()
@@ -93,18 +93,6 @@ class _PrefetchIterator:
         if images.dtype != np.uint8:
             images = np.asarray(images, np.float32)
         return images, texts
-
-    def _ship(self, images: np.ndarray, texts: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
-        host = [torch.from_numpy(np.ascontiguousarray(x)) for x in (images, texts)]
-        if self._copy_stream is None:
-            return host[0], host[1]
-        with torch.cuda.stream(self._copy_stream):
-            pinned = [t.pin_memory() for t in host]
-            out = [t.to(self._device, non_blocking=True) for t in pinned]
-        self._copy_stream.synchronize()   # the pinned staging may go after this
-        for t in out:
-            t.record_stream(self._consumer_stream)
-        return out[0], out[1]
 
     def _put(self, q: queue.Queue, item) -> bool:
         while not self._stop.is_set():
@@ -127,6 +115,12 @@ class _PrefetchIterator:
             # queue.get would hang for ever
             item = e if isinstance(e, Exception) else RuntimeError(
                 f"prefetch host stage died: {type(e).__name__}: {e}")
+        finally:
+            # this thread runs the iterator, so only it may close it (from
+            # another thread: "generator already executing")
+            close = getattr(self._it, "close", None)
+            if close is not None:
+                close()
         self._put(self._host_q, item)
 
     def _produce_ship(self):
@@ -150,7 +144,7 @@ class _PrefetchIterator:
                 self._put(self._q, got)
                 return
             try:
-                item = self._ship(*got)
+                item = self._feeder(*got)
             except BaseException as e:  # noqa: BLE001 - re-raised in the consumer
                 item = e if isinstance(e, Exception) else RuntimeError(
                     f"prefetch ship stage died: {type(e).__name__}: {e}")
@@ -235,6 +229,7 @@ def train_one_epoch(
     lr_schedule=None,
     profiler_dir: Optional[str] = None,
     device: Union[str, torch.device],
+    packed: bool = False,
     prefetch_depth: int = 2,
     skip_steps: int = 0,
     stop_flag=None,
@@ -246,6 +241,8 @@ def train_one_epoch(
     (``parallel.train_step.TrainStep``): it owns the model and the optimizer,
     and ``step_fn.step`` counts the updates made so far. ``device`` is where
     the batches are shipped (the step's device); it has no default.
+    ``packed``: each batch ships as one ``pack_batch`` buffer and the step
+    gets (buf, None); it must be built with the matching ``packed_feed``.
 
     skip_steps: consume (and discard) this many leading batches before
     training, the mid-epoch resume fast-forward. A deterministic pipeline
@@ -271,7 +268,7 @@ def train_one_epoch(
         steps_per_epoch = max(steps_per_epoch - skip_steps, 0)
 
     prefetch = _PrefetchIterator(raw_it, device=device, depth=prefetch_depth,
-                                 trunc_meter=trunc_m)
+                                 trunc_meter=trunc_m, packed=packed)
     start_step = int(step_fn.step)   # a host counter: no device read
     end = time.perf_counter()
     window_start = end

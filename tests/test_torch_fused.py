@@ -19,6 +19,7 @@ against the JAX package's, and ``patch_dropout_select`` against
 """
 from __future__ import annotations
 
+import os
 import pathlib
 import re
 
@@ -384,10 +385,65 @@ def test_model_configs_are_byte_for_byte_copies():
         assert a.read_bytes() == b.read_bytes(), a.name
 
 
+_OPEN_PROBE = r"""
+import importlib, os, pathlib, pkgutil, sys, tempfile
+jax_pkg = pathlib.Path(sys.argv[1]).resolve()
+seen = []
+
+def under(p):
+    try:
+        return jax_pkg == pathlib.Path(os.fsdecode(p)).resolve() or \
+            jax_pkg in pathlib.Path(os.fsdecode(p)).resolve().parents
+    except (TypeError, ValueError):
+        return False
+
+def hook(event, args):
+    if event == "open" and args and isinstance(args[0], (str, bytes, os.PathLike)) \
+            and under(args[0]):
+        seen.append(("open", os.fsdecode(args[0])))
+    elif event == "subprocess.Popen":
+        seen.extend(("run", str(a)) for a in (args[1] or ()) if "colxlip_tpu/" in str(a)
+                    or under(a))
+
+sys.addaudithook(hook)
+import colxlip_tpu_torch
+for mod in pkgutil.walk_packages(colxlip_tpu_torch.__path__, "colxlip_tpu_torch."):
+    importlib.import_module(mod.name)
+from colxlip_tpu_torch import native, factory
+from colxlip_tpu_torch.data.tokenizer import SimpleTokenizer
+native.BUILD_DIR = pathlib.Path(tempfile.mkdtemp())
+native.load("bpe_tokenizer")
+if native.libjpeg_present():
+    native.load("dataloader")
+SimpleTokenizer(context_length=16)(["a photo of a dog"])
+factory.create_model("ViT-S-16-test-colxlip", "cpu")
+print("loaded:", sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "colxlip_tpu")))
+print("seen:", seen)
+"""
+
+
 def test_port_reads_nothing_of_the_jax_package():
     """No import of jax or colxlip_tpu, and no path into colxlip_tpu/, in the
-    port's sources or in chip_smoke.py (mentions in comments and docstrings
-    name the counterpart a file was ported from)."""
+    port's sources (the C++ and CUDA sources included) or in chip_smoke.py
+    (mentions in comments and docstrings name the counterpart a file was
+    ported from); and a process that imports every port module, builds the
+    native core from scratch, tokenizes and builds a model opens no file
+    under colxlip_tpu/, passes none to a compiler and loads no module of jax
+    or colxlip_tpu."""
+    import subprocess
+    import sys
+
+    proc = subprocess.run([sys.executable, "-c", _OPEN_PROBE, str(REPO / "colxlip_tpu")],
+                          cwd=REPO, capture_output=True, text=True, timeout=600,
+                          env={**os.environ, "COLXLIP_NATIVE_TOKENIZER": "1"})
+    assert proc.returncode == 0, proc.stderr
+    assert "loaded: []" in proc.stdout and "seen: []" in proc.stdout, proc.stdout
+    native_sources = [*(REPO / "colxlip_tpu_torch").rglob("*.cc"),
+                      *(REPO / "colxlip_tpu_torch").rglob("*.cu"),
+                      *(REPO / "colxlip_tpu_torch").rglob("*.cuh")]
+    assert len(native_sources) >= 2
+    for src in native_sources:
+        assert not re.search(r"#\s*include\s*[<\"][^>\"]*colxlip_tpu/", src.read_text()), src
     importing = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|colxlip_tpu)(\.|\s|$)",
                            re.M)
     path_into = re.compile(r"""/\s*["']colxlip_tpu["']|["'/]colxlip_tpu/""")

@@ -344,10 +344,29 @@ def test_uint8_images_are_normalised_on_the_device_as_jax_does(jax_model, port_m
     for w, g, h in zip(want, got, from_host):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
         assert torch.equal(g, h)              # the host float32 transform, bit for bit
-    with pytest.raises(NotImplementedError, match="YUV420"):
-        port_model.encode_image(torch.zeros(2, 96, 64, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="YUV420"):
+        port_model.encode_image(torch.zeros(2, 96, 64))
     with pytest.raises(ValueError, match="NHWC"):
         port_model.encode_image(torch.zeros(2, 3, 64, 64))
+
+
+def test_yuv420_images_match_the_jax_tower(jax_model, port_model):
+    """A planar YUV420 batch [B, H*3//2, W] (uint8) decodes on the device and
+    encodes to the JAX tower's features on the same weights."""
+    from colxlip_tpu_torch.ops.yuv420 import rgb_to_yuv420
+
+    model, params = jax_model
+    rng = np.random.default_rng(8)
+    coarse = rng.integers(0, 256, (3, 16, 16, 3), dtype=np.uint8)
+    yuv = rgb_to_yuv420(coarse.repeat(4, axis=1).repeat(4, axis=2))
+    assert yuv.shape == (3, 96, 64)
+    want = jax.jit(lambda p, x: model.apply(
+        p, x, method=lambda m, x: m.encode_image(x, normalize=True)))(params, jnp.asarray(yuv))
+    with torch.no_grad():
+        got = port_model.encode_image(torch.from_numpy(yuv), normalize=True)
+    for w, g in zip(want, got):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
 
 
 def test_sincos_tower_init_and_grid_check():
@@ -405,7 +424,7 @@ def test_load_weights_resizes_the_positional_embedding(port_model, tmp_path):
     """--pretrained at 64 px into --force-image-size 112: the 4 x 4 position
     grid is resampled to 7 x 7 as the JAX loader does; nothing else moves."""
     path = save_pt_checkpoint(str(tmp_path / "w.pt"), port_model)
-    model, cfg, _ = factory.create_model_and_transforms(
+    model, cfg, _, _ = factory.create_model_and_transforms(
         TINY, path, device="cpu", precision="fp32", force_image_size=112, seed=1)
     assert cfg.vision_cfg.grid_size == (7, 7)
     old = port_model.state_dict()
