@@ -171,8 +171,29 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      the host batch bit for bit; (c)'s decode on the card is within 2e-4 of
      the numpy reference; with the native decoder, 16 samples are within an
      RMS of 12 pixel units of the PIL transform on the same boxes.
-  Phases 4, 6, 7, 10 and 11 run the default path and must launch none of the
-  LayerNorm and MLP kernels.
+  12. data parallelism: a torch.distributed process group of one on the card
+     (NCCL; it refuses two ranks on one GPU). (a) make_train_step(mesh=group)
+     on ViT-B-16-colxlip, bf16, batch 256, in four modes: colclip full mode,
+     colclip --local-loss, colclip --local-loss --token-dist ring
+     --token-neighborhood 2, clip --local-loss --ce-impl fused (the
+     local-loss modes with --gather-with-grad), each against the one-device
+     step on the same weights and batch: full mode bit-equal in every metric
+     and gradient; the others within DIST_LOSS_TOL in the losses and, with
+     gradients, in fp32 compute under STEP_TOL's fp32 bar (every cosine at
+     least 0.9999, norms within 1e-3) and in bf16 under its bf16 bar (two
+     MaxSim calls round dT and dI to bf16 apart where one device rounds
+     once); launches exact (MaxSim twice a step under local loss, each CE
+     kernel twice a step in the clip mode); each mode's ms a step and peak
+     beside the one-device step's and phase 6's, and one profiled step of
+     full mode each way. (b) the name and
+     resume-path broadcast, the stop consensus, the barrier, the gradient
+     all-reduce and the parameter broadcast, once each under the group with
+     tensors on the card. (c) #5 and #6 at T 256 x I 1024 and T 1024 x I 256 (77 x 197
+     tokens, D 512, bf16) and #11-13 at M 256, N 1024, D 512 with labels
+     offset by 768 (bf16, fp32), against their plain versions with phase
+     3's tolerances, timed beside them and their bounds.
+  Phases 4, 6, 7, 10, 11 and 12 run the default path and must launch none of
+  the LayerNorm and MLP kernels.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi name and power limit, and before that one JSON object with the
@@ -377,6 +398,12 @@ TAR_STEPS_PER_EPOCH = 6
 TAR_HOST_BATCHES = 6
 YUV_TOL = 2e-4            # the JAX bar (tests/test_yuv420.py)
 NATIVE_RMS_MAX = 12.0     # pixel units, the JAX bar (tests/test_native.py)
+# phase 12: the data-parallel step under a process group of one
+DIST_BACKEND = "nccl"
+DIST_STEPS = 4              # the first compared, the rest timed (learning rate 0)
+DIST_LOSS_TOL = 1e-5        # the losses; the gradients take STEP_TOL of their dtype
+DIST_MAXSIM_SHAPES = [(256, 1024), (1024, 256)]   # local-loss rows at 4 ranks x 256
+DIST_CE_SHAPE = (256, 1024, 768)                  # M, N, rank 3's label offset
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLICKR_ANNOTATIONS = os.path.join(REPO, "datasets", "flickr30k-images", "flickr30k_val.json")
 EVAL_MODEL = "ViT-B-16-colxlip"
@@ -400,6 +427,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2832,6 +2867,341 @@ def tar_phase(dev, card: str, phase6_first_loss: float):
     return out
 
 
+def dist_modes():
+    """Phase 12's four modes: (name, TrainStepConfig keywords, launches a
+    step as the code implies them at one rank). Full mode keeps the default
+    gather (no gradient through it); the local-loss modes gather with
+    gradient, which at one rank makes their loss the one-device loss term for
+    term (without it each direction's gradient stops at its own rows, by
+    design). Local loss runs MaxSim twice a step (text rows over the
+    gathered images, the gathered texts over the local images), as does the
+    ring at one rank (one block each way); the clip mode runs each CE kernel
+    twice a step (image rows, text rows)."""
+    attn = {"fused_attention_fwd": 2 * TOWER_LAYERS, "fused_attention_bwd": 2 * TOWER_LAYERS}
+    no_ce = {"fused_ce_fwd": 0, "fused_ce_bwd_da": 0, "fused_ce_bwd_db": 0}
+    return [
+        ("colclip_full", dict(loss_type="colclip"),
+         {**attn, "maxsim_fwd": 1, "maxsim_bwd": 1, **no_ce}),
+        ("colclip_local", dict(loss_type="colclip", local_loss=True, gather_with_grad=True),
+         {**attn, "maxsim_fwd": 2, "maxsim_bwd": 2, **no_ce}),
+        ("colclip_local_ring_cap2",
+         dict(loss_type="colclip", local_loss=True, gather_with_grad=True, token_dist="ring",
+              token_neighborhood=2),
+         {**attn, "maxsim_fwd": 2, "maxsim_bwd": 2, **no_ce}),
+        ("clip_local_fused", dict(loss_type="clip", local_loss=True, gather_with_grad=True,
+                                  ce_impl="fused"),
+         {**attn, "maxsim_fwd": 0, "maxsim_bwd": 0, "fused_ce_fwd": 2, "fused_ce_bwd_da": 2,
+          "fused_ce_bwd_db": 2}),
+    ]
+
+
+def dist_counters():
+    from colxlip_tpu_torch.ops import attention, fused_ce, maxsim
+
+    return {"fused_attention_fwd": attention.LAUNCHES,
+            "fused_attention_bwd": attention.BWD_LAUNCHES,
+            "maxsim_fwd": maxsim.LAUNCHES, "maxsim_bwd": maxsim.BWD_LAUNCHES,
+            "fused_ce_fwd": fused_ce.FWD_LAUNCHES, "fused_ce_bwd_da": fused_ce.BWD_DA_LAUNCHES,
+            "fused_ce_bwd_db": fused_ce.BWD_DB_LAUNCHES}
+
+
+def dist_step(dev, dtype, ref_state, step_cfg, images, texts, group, steps: int,
+              profile_tag=None, card: str = ""):
+    """``steps`` train steps at learning rate 0 (the weights stay) from
+    ``ref_state`` in ``dtype`` compute: one device (group None) or the
+    data-parallel group; with ``profile_tag`` one more step under the
+    profiler. Returns (the first step's metrics, its gradients, launches of
+    the first step, the median ms of the later steps, peak GiB)."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.train_step import make_train_step
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    model, _ = create_model(MODEL, dev, dtype, seed=0)
+    model.load_state_dict(ref_state)
+    model.train()
+    zero = const_lr(0.0, 0)
+    step = make_train_step(model, create_optimizer(model, zero), zero, step_cfg, mesh=group)
+    counters = dist_counters()
+    unused = fused_counters()
+    for c in (*counters.values(), *unused.values()):
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = {k: float(v) for k, v in step(images, texts).items()}
+    torch.cuda.synchronize()
+    launches = {name: c.value for name, c in counters.items()}
+    check_default_path(unused, "phase 12")
+    grads = {k: p.grad.float().clone() for k, p in model.named_parameters()}
+    secs = []
+    for _ in range(steps - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(images, texts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = statistics.median(secs) * 1e3 if secs else float("nan")
+    if profile_tag is not None:
+        profile_step(step, images, texts, card, tag=profile_tag)
+    del step, model
+    torch.cuda.empty_cache()
+    return metrics, grads, launches, ms, peak
+
+
+def compare_dist(label: str, got_metrics, want_metrics, got_grads, want_grads) -> dict:
+    """The group step against the one-device step: the losses' largest
+    relative difference, the gradients' lowest cosine and largest relative
+    norm difference, and whether everything is equal bit for bit."""
+    loss_err = max(abs(got_metrics[k] - want_metrics[k]) / max(abs(want_metrics[k]), 1e-30)
+                   for k in want_metrics if k.endswith("loss"))
+    cos_min, norm_err, equal, worst = grad_agreement(got_grads, want_grads)
+    same_metrics = all(got_metrics[k] == want_metrics[k] for k in want_metrics)
+    log(f"[12 dist] {label}: group step " + " ".join(f"{k} {v:.6f}" for k, v in
+                                                       got_metrics.items())
+        + "; one device " + " ".join(f"{k} {v:.6f}" for k, v in want_metrics.items()))
+    log(f"[12 dist] {label}: max rel loss diff {loss_err:.3g}, lowest grad cosine "
+        f"{cos_min:.7f} ({', '.join(f'{k} {v:.7f}' for k, v in worst.items())}), max rel "
+        f"grad-norm diff {norm_err:.3g}, metrics {'bit-equal' if same_metrics else 'differ'}, "
+        f"gradients {'bit-equal' if equal else 'differ'}")
+    return {"loss_rel_err": loss_err, "grad_cos_min": cos_min, "grad_norm_rel_err": norm_err,
+            "bit_equal": same_metrics and equal}
+
+
+def grad_agreement(got, want):
+    """(lowest per-tensor cosine, largest relative norm difference, whether
+    every tensor is equal bit for bit, the three tensors of lowest cosine)."""
+    import torch
+
+    cosines, norm_err, equal = {}, 0.0, True
+    for name, w in want.items():
+        g = got[name]
+        equal = equal and torch.equal(g, w)
+        nw, ng = w.norm().item(), g.norm().item()
+        if nw == 0 and ng == 0:
+            continue
+        cosines[name] = (g * w).sum().item() / max(nw * ng, 1e-30)
+        norm_err = max(norm_err, abs(ng - nw) / max(nw, 1e-30))
+    worst = sorted(cosines, key=cosines.get)[:3]
+    return cosines[worst[0]], norm_err, equal, {k: cosines[k] for k in worst}
+
+
+def check_dist_helpers(dev, group, model_state) -> list:
+    """Phase 12b: every collective main and the train step call, once each
+    on the group with tensors on the card; returns the names checked."""
+    import torch
+    import torch.distributed as dist
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.mesh import broadcast_str, collective_device
+    from colxlip_tpu_torch.parallel.train_step import all_reduce_mean_, broadcast_parameters
+    from colxlip_tpu_torch.training.train import _stop_consensus
+
+    if collective_device(group) != dev:
+        raise RuntimeError(f"phase 12: the group's device {collective_device(group)} is not {dev}")
+    name = "2026_10_17-12_00_00-model_ViT-B-16-colxlip-lr_0.0005-b_256-p_amp_bf16"
+    path = "/logs/run/checkpoints/epoch_latest"
+    if broadcast_str(name, group) != name or broadcast_str(path, group) != path \
+            or broadcast_str("", group) != "":
+        raise RuntimeError("phase 12: the name / resume-path broadcast changed its string")
+    if _stop_consensus(True, group, dev) is not True or \
+            _stop_consensus(False, group, dev) is not False:
+        raise RuntimeError("phase 12: the stop consensus disagrees with the one rank's flag")
+    dist.barrier(group)          # main's wait for rank 0's eval and last save
+    grads = [torch.randn(1000, generator=torch.Generator().manual_seed(i)).to(dev)
+             for i in range(3)]
+    want = [g.clone() for g in grads]
+    all_reduce_mean_(grads, group)
+    if not all(torch.equal(g, w) for g, w in zip(grads, want)):
+        raise RuntimeError("phase 12: the gradient all-reduce of one rank changed its values")
+    model, _ = create_model(MODEL, dev, torch.bfloat16, seed=1)
+    model.load_state_dict(model_state)
+    broadcast_parameters(model, group)
+    if not all(torch.equal(p, model_state[k]) for k, p in model.named_parameters()):
+        raise RuntimeError("phase 12: the parameter broadcast of one rank changed them")
+    del model
+    torch.cuda.empty_cache()
+    return ["broadcast_str (run name, resume path)", "stop consensus (int32 MAX)", "barrier",
+            "gradient all-reduce (coalesced SUM / world)", "parameter broadcast"]
+
+
+def check_dist_kernels(dev, gen, card: str) -> dict:
+    """Phase 12c: #5 and #6 at a 4-rank step's local-loss rectangles (T 256 x
+    I 1024 and T 1024 x I 256; 77 x 197 tokens, D 512; bf16) and #11-13 at
+    M 256, N 1024, D 512 with labels offset by 768 (rank 3's rows), bf16 and
+    fp32, each against its plain version with phase 3's tolerances, timed
+    beside the plain version and the bound."""
+    import torch
+
+    from colxlip_tpu_torch.ops import fused_ce, maxsim
+
+    out = {}
+    lt, li, d = 77, 197, 512
+    for m, k in DIST_MAXSIM_SHAPES:
+        t = torch.nn.functional.normalize(torch.randn(m, lt, d, generator=gen), dim=-1)
+        eot = torch.randint(3, lt, (m,), generator=gen)
+        t = t * (torch.arange(lt)[None, :] < eot[:, None])[:, :, None]
+        img = torch.nn.functional.normalize(torch.randn(k, li, d, generator=gen), dim=-1)
+        g = (torch.randn(m, k, generator=gen) / m).to(dev)
+        tt, ii = t.to(dev, torch.bfloat16), img.to(dev, torch.bfloat16)
+        fwd_err = check_maxsim_forward(tt, ii, "nonzero", None, "4-rank")
+        got = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
+        want = maxsim.maxsim_bwd_plain(tt, ii, g)
+        torch.cuda.synchronize()
+        bwd_err = max(max_rel_err(a, w) for a, w in zip(got, want))
+        tol = BWD_TOL["bfloat16"]
+        log(f"[12 dist] maxsim bwd M={m} K={k} Lt={lt} Li={li} D={d} bfloat16: max_abs_err / "
+            f"max|grad| {bwd_err:.3g} (tol {tol}) (dT, dI)")
+        if not bwd_err <= tol:
+            raise RuntimeError(f"phase 12 maxsim bwd {m} x {k}: {bwd_err} > {tol}")
+        del got, want
+        row = {"maxsim_fwd": (cuda_ms(lambda: maxsim._launch_fwd(tt, ii, "nonzero", None), 5),
+                              cuda_ms(lambda: maxsim.maxsim_plain(tt, ii), 3),
+                              maxsim_bound(tt, ii, False), fwd_err),
+               "maxsim_bwd": (cuda_ms(lambda: maxsim._launch_bwd(tt, ii, g, "nonzero", None), 5),
+                              cuda_ms(lambda: maxsim.maxsim_bwd_plain(tt, ii, g), 3),
+                              maxsim_bound(tt, ii, True), bwd_err)}
+        for name, (ker, plain, (bound, by), err) in row.items():
+            out[f"{name}/{m}x{k}"] = {"ms": ker, "plain_ms": plain, "bound_ms": bound,
+                                      "bound_by": by, "max_abs_err": err}
+            log(f"[12 dist] {name} T {m} x I {k} bf16: kernel {ker:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {bound:.5f} ms ({by}) ({card})")
+        del tt, ii, g
+    m, n, offset = DIST_CE_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        a, b, _, s, g = ce_inputs(m, n, 512, 1 / 0.07, dtype, dev, gen)
+        labels = (torch.arange(m, dtype=torch.int32) + offset).to(dev)
+        loss, lse = fused_ce._launch_fwd(a, b, labels, s)
+        da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+        db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
+        want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+        want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
+        want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
+        torch.cuda.synchronize()
+        fwd_err = max(((x - w).abs() / (1 + w.abs())).max().item()
+                      for x, w in ((loss, want_loss), (lse, want_lse)))
+        da_err = max(max_rel_err(da, want_da), max_rel_err(ds, want_ds))
+        db_err = max_rel_err(db, want_db)
+        name = str(dtype).split(".")[-1]
+        log(f"[12 dist] fused CE M={m} N={n} D=512 labels {offset}..{offset + m - 1} {name}: fwd "
+            f"|err| / (1 + |loss|) {fwd_err:.3g} (tol {CE_FWD_TOL}); max_abs_err / max|grad| "
+            f"dA+dscale {da_err:.3g}, dB {db_err:.3g} (tol {CE_BWD_TOL}); loss mean "
+            f"{loss.mean().item():.5f}")
+        if not (fwd_err <= CE_FWD_TOL and da_err <= CE_BWD_TOL and db_err <= CE_BWD_TOL
+                and torch.isfinite(loss).all()):
+            raise RuntimeError(f"phase 12 fused CE {m} x {n} {name}: {fwd_err} {da_err} {db_err}")
+        bounds = ce_bounds(a, b)
+        timed = {
+            "fused_ce_fwd": (lambda: fused_ce._launch_fwd(a, b, labels, s),
+                             lambda: fused_ce.fused_ce_fwd_plain(a, b, labels, s), fwd_err),
+            "fused_ce_bwd_da": (lambda: fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+                                lambda: fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, lse, g),
+                                da_err),
+            "fused_ce_bwd_db": (lambda: fused_ce._launch_bwd_db(a, b, labels, s, lse, g),
+                                lambda: fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, lse, g),
+                                db_err)}
+        for key, (ker_fn, plain_fn, err) in timed.items():
+            ker, plain = cuda_ms(ker_fn, 20), cuda_ms(plain_fn, 20)
+            bound, by = bounds[key]
+            out[f"{key}/{m}x{n}/{name}"] = {"ms": ker, "plain_ms": plain, "bound_ms": bound,
+                                            "bound_by": by, "max_abs_err": err}
+            log(f"[12 dist] {key} M={m} N={n} D=512 {name}: kernel {ker:.4f} ms, plain "
+                f"{plain:.4f} ms, bound {bound:.5f} ms ({by}) ({card})")
+    return out
+
+
+def dist_phase(dev, card: str, train):
+    """Phase 12: data parallelism under a process group of one on the card
+    (NCCL refuses two ranks on one GPU). (a) make_train_step(mesh=group) on
+    ViT-B-16-colxlip, bf16, batch 256, in four modes, each against the
+    one-device step on the same weights and batch (the three local-loss
+    modes' gradients also in fp32 compute); (b) the collectives of main;
+    (c) kernels #5-6 and #11-13 at a 4-rank step's shapes. Every mode is
+    read before the phase fails."""
+    import torch
+    import torch.distributed as dist
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
+
+    t0 = time.perf_counter()
+    port = free_port()
+    if DIST_BACKEND == "nccl":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(DIST_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    group = dist.group.WORLD
+    try:
+        log(f"[12 dist] process group: {dist.get_backend(group)}, world size "
+            f"{dist.get_world_size(group)}, rank {dist.get_rank(group)}, tcp://127.0.0.1:{port} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        model, cfg = create_model(MODEL, dev, torch.bfloat16, seed=0)
+        ref_state = copy.deepcopy(model.state_dict())
+        del model
+        images, texts = synthetic_batch(TRAIN_BATCH, cfg.vision_cfg.image_size,
+                                        cfg.text_cfg.context_length, seed=12)
+        images, texts = torch.from_numpy(images).to(dev), torch.from_numpy(texts).to(dev)
+        modes, failures = {}, []
+        for name, kw, want_launches in dist_modes():
+            step_cfg = TrainStepConfig(**kw)
+            # bf16, the path a user runs: launches, ms and peak; one profiled
+            # step each way in full mode
+            tags = ("[12 dist one device]", "[12 dist group]") if name == "colclip_full" \
+                else (None, None)
+            m1, g1, l1, ms1, peak1 = dist_step(dev, torch.bfloat16, ref_state, step_cfg,
+                                               images, texts, None, DIST_STEPS, tags[0], card)
+            mg, gg, lg, msg, peakg = dist_step(dev, torch.bfloat16, ref_state, step_cfg,
+                                               images, texts, group, DIST_STEPS, tags[1], card)
+            readings = {"bfloat16": compare_dist(f"{name} bf16", mg, m1, gg, g1)}
+            del g1, gg
+            log(f"[12 dist] {name}: launches a step {lg} (one device {l1})")
+            log(f"[12 dist] {name}: step {msg:.2f} ms at batch {TRAIN_BATCH} under the group "
+                f"({TRAIN_BATCH / msg * 1e3:.1f} img/s), {ms1:.2f} ms on one device, phase 6 "
+                f"{train['step_ms']:.2f} ms; peak device memory {peakg:.2f} GiB (one device "
+                f"{peak1:.2f}, phase 6 {train['peak_gib']:.2f}) ({card})")
+            if lg != want_launches:
+                failures.append(f"{name}: launches {lg}, expected {want_launches}")
+            if name == "colclip_full":
+                if not readings["bfloat16"]["bit_equal"]:
+                    failures.append(f"{name}: the group step is not bit-equal to the "
+                                    "one-device step")
+            else:
+                # the same step in fp32 compute, where only the order of the
+                # sums differs, holds the gradient bar; bf16 rounds each of the
+                # two MaxSim calls' dT and dI apart before autograd adds them,
+                # and is held to phase 6's bf16 bar
+                m1, g1, *_ = dist_step(dev, torch.float32, ref_state, step_cfg, images, texts,
+                                       None, 1)
+                mg, gg, *_ = dist_step(dev, torch.float32, ref_state, step_cfg, images, texts,
+                                       group, 1)
+                readings["float32"] = compare_dist(f"{name} fp32", mg, m1, gg, g1)
+                del g1, gg
+                for dtype, r in readings.items():
+                    cos_min, norm_tol, _ = STEP_TOL[dtype]
+                    if not (r["loss_rel_err"] <= DIST_LOSS_TOL and r["grad_cos_min"] >= cos_min
+                            and r["grad_norm_rel_err"] <= norm_tol):
+                        failures.append(f"{name} {dtype}: {r} outside ({DIST_LOSS_TOL}, "
+                                        f"{cos_min}, {norm_tol})")
+            modes[name] = {"ms": msg, "one_device_ms": ms1, "peak_gib": peakg,
+                           "one_device_peak_gib": peak1, "launches": lg, **{
+                               f"{dtype}_{k}": v for dtype, r in readings.items()
+                               for k, v in r.items()}}
+        helpers = check_dist_helpers(dev, group, ref_state)
+        log(f"[12 dist] under {dist.get_backend(group)} with tensors on {dev}: "
+            + "; ".join(helpers) + " - each as the one rank's own values")
+        del ref_state, images, texts
+        torch.cuda.empty_cache()
+        kernels = check_dist_kernels(dev, torch.Generator().manual_seed(12), card)
+    finally:
+        dist.destroy_process_group()
+    log(f"[12 dist] phase 12 took {time.perf_counter() - t0:.1f} s ({card})")
+    if failures:
+        raise RuntimeError("phase 12: " + "; ".join(failures))
+    return {"modes": modes, "kernels": kernels}
+
+
 def main() -> int:
     import torch
 
@@ -3179,6 +3549,9 @@ def main() -> int:
     # ---- phase 11: the tar path through main ------------------------------
     tar = tar_phase(dev, card, train["losses"][0])
 
+    # ---- phase 12: data parallelism under a process group of one ----------
+    data_parallel = dist_phase(dev, card, train)
+
     tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
     attn_fwd = (tl["fused_attention_fwd"], attn_err, timing["attention/vision"],
@@ -3313,7 +3686,7 @@ def main() -> int:
                  "feed_ms": trainer["feed_ms"]},
         "eval": evaluation,
         "launches_tar": {name: run["launches"] for name, run in tar["runs"].items()},
-        "tar": tar}), flush=True)
+        "tar": tar, "dist": data_parallel}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """The training entry point: ``python -m colxlip_tpu_torch.main``, port of
-``colxlip_tpu/main.py`` on one device.
+``colxlip_tpu/main.py``.
 
 Experiment naming, the log directory with ``params.txt`` and ``out.log``,
 ``--resume latest|<path>``, model / optimizer / schedule construction, the
@@ -16,6 +16,16 @@ ImageNet (``--imagenet-val``) at the end of an epoch (``--val-frequency``,
 does), appends ``checkpoints/results.jsonl`` and returns. It runs on
 ``--device`` (``cuda:0`` unless told otherwise) and raises when that device
 is missing.
+
+Data parallelism, one process a device: ``--dist-coordinator host:port
+--dist-num-processes N --dist-process-id R`` (or torchrun's environment)
+joins a ``torch.distributed`` group, NCCL on the card and gloo with
+``--device cpu``; rank r trains on ``cuda:<local rank>``. ``--batch-size`` is
+per rank. Rank 0 names the run and finds ``--resume latest`` for every
+rank (broadcast), writes ``params.txt``, ``out.log``, ``metrics.jsonl`` and
+every checkpoint, and runs the epoch-end eval while the others wait;
+``--log-local`` gives rank r its own ``out-<r>.log``. Every rank loads the
+resumed checkpoint.
 
 What the port cannot do yet is refused, never ignored: each such flag logs
 an error and ``main`` returns 1 before any model work (``unsupported_flags``
@@ -35,6 +45,7 @@ from datetime import datetime
 from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .data.retrieval import RetrievalSuite, build_retrieval_suite
 from .data.synthetic import SyntheticConfig, SyntheticDataset
@@ -42,6 +53,9 @@ from .data.transforms import AugmentationCfg
 from .data.wds import SharedEpoch, WdsConfig, WdsTrainPipeline
 from .factory import create_loss, create_model_and_transforms, get_tokenizer
 from .ops.yuv420 import yuv420_rows
+from .parallel.mesh import (
+    broadcast_str, collective_device, create_mesh, initialize_multihost, rank, world)
+from .parallel.data_feed import global_batch_size
 from .parallel.train_step import make_train_step
 from .params import parse_args
 from .training.checkpoint import (
@@ -140,10 +154,8 @@ def unsupported_flags(args) -> List[str]:
         (args.pipeline == "grain",
          "--pipeline grain: the grain pipeline (data/grain_pipeline.py) is not yet ported "
          "(use the default --pipeline wds)"),
-        (any(v is not None for v in (args.dist_coordinator, args.dist_num_processes,
-                                     args.dist_process_id, args.dist_impl)),
-         "--dist-*: multi-process training (parallel/mesh.py, parallel/collectives.py) "
-         "is not yet ported"),
+        (args.dist_impl is not None,
+         "--dist-impl: the SigLIP negative exchange (losses/siglip.py) is not yet ported"),
         (bool(args.distill_model or args.distill_pretrained),
          "--distill-model / --distill-pretrained: distillation (losses/distill.py) is "
          "not yet ported"),
@@ -162,9 +174,6 @@ def unsupported_flags(args) -> List[str]:
         (args.precision == "pure_bf16",
          "--precision pure_bf16: bf16 parameters (models/configs.py PrecisionPolicy) "
          "are not yet ported"),
-        (args.token_dist == "ring" or args.token_neighborhood > 0,
-         "--token-dist ring / --token-neighborhood: the ring token exchange "
-         "(losses/colclip.py) is not yet ported"),
     ]
     return [msg for bad, msg in checks if bad]
 
@@ -195,17 +204,39 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is available "
                            "(pass --device cpu to run the plain versions on the CPU)")
+    created = initialize_multihost(args.dist_coordinator, args.dist_num_processes,
+                                   args.dist_process_id,
+                                   backend="gloo" if device.type == "cpu" else "nccl")
+    try:
+        return _main(args, device)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _main(args, device: torch.device) -> int:
+    group = create_mesh() if dist.is_initialized() else None
+    is_master = rank() == 0
+    n_ranks = world()
+    if group is not None and device.type == "cuda":
+        device = collective_device(group)      # cuda:<local rank>
 
     if args.name is None:
-        args.name = generate_name(args)
+        # rank 0 names the run; the broadcast makes every rank agree
+        args.name = broadcast_str(generate_name(args), group)
     log_base = os.path.join(args.logs, args.name)
     checkpoint_dir = os.path.join(log_base, "checkpoints")
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    setup_logging(os.path.join(log_base, "out.log"),
-                  logging.DEBUG if args.debug else logging.INFO)
-    dump_params(args, os.path.join(log_base, "params.txt"))
-    if args.copy_codebase:
-        copy_codebase(args)
+    log_path = None
+    if is_master:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        log_path = os.path.join(log_base, "out.log")
+    elif args.log_local:
+        log_path = os.path.join(log_base, f"out-{rank()}.log")
+    setup_logging(log_path, logging.DEBUG if args.debug else logging.INFO)
+    if is_master:
+        dump_params(args, os.path.join(log_base, "params.txt"))
+        if args.copy_codebase:
+            copy_codebase(args)
 
     refused = unsupported_flags(args) + feed_errors(args)
     for msg in refused:
@@ -216,11 +247,14 @@ def main(argv=None) -> int:
     if eval_only and not retrieval_suite_specs(args) and not args.imagenet_val:
         logger.error("eval-only mode but no retrieval suites configured")
         return 1
-    logger.info("Running on %s.", device)
+    logger.info("Running on %s (rank %d of %d).", device, rank(), n_ranks)
 
     resume_from: Optional[str] = None
     if args.resume == "latest":
-        resume_from = get_latest_checkpoint(checkpoint_dir)
+        # rank 0 discovers and broadcasts, so a checkpoint landing mid-discovery
+        # on a shared file system cannot split the ranks
+        found = get_latest_checkpoint(checkpoint_dir) if is_master else ""
+        resume_from = broadcast_str(found or "", group) or None
         if resume_from:
             logger.info("Found latest checkpoint: %s", resume_from)
     elif args.resume:
@@ -285,34 +319,42 @@ def main(argv=None) -> int:
                  zero_shot_fn=zs, maxsim_impl=args.maxsim_impl,
                  mask_mode=args.token_mask_mode)
 
+    def eval_on_rank0(epoch: int, zs) -> None:
+        if is_master:
+            run_eval(epoch, zs)
+        if group is not None:
+            dist.barrier(group)
+
     if eval_only:
         if not suites and zero_shot_fn is None:
             logger.error("eval-only mode but no retrieval suites configured")
             return 1
-        run_eval(0, zero_shot_fn)
+        eval_on_rank0(0, zero_shot_fn)
         return 0
 
-    global_batch = args.batch_size
+    # --batch-size is per rank; each rank's feed yields its own rows of the
+    # global batch
+    global_batch = global_batch_size(args.batch_size)
     ctx = train_ctx or cfg.text_cfg.context_length
     if args.dataset_type == "synthetic" or not args.train_data:
         num_samples = args.train_num_samples or global_batch * 100
         size = cfg.vision_cfg.image_size
         size = size if isinstance(size, int) else size[0]
         train_data = SyntheticDataset(SyntheticConfig(
-            batch_size=global_batch, image_size=(size, size), context_length=ctx,
+            batch_size=args.batch_size, image_size=(size, size), context_length=ctx,
             num_sampled_captions=args.num_sampled_captions,
-            seed=args.seed, num_samples=num_samples))
+            seed=args.seed, num_samples=num_samples, rank=rank(), world_size=n_ranks))
         num_batches = len(train_data)
     else:
         # the step reads caption 0 only (select_caption0): one i.i.d. draw
         # gives it the same distribution without tokenizing k - 1 more
         wds_cfg = WdsConfig(
             urls=args.train_data, weights=args.train_data_upsampling_factors,
-            batch_size=global_batch, num_samples=args.train_num_samples,
+            batch_size=args.batch_size, num_samples=args.train_num_samples,
             resampled=args.dataset_resampled, seed=args.seed, num_workers=args.workers,
             num_sampled_captions=1, max_merged_num=args.max_merged_num,
             pixelprose=args.pixelprose, native_decode=args.native_decode,
-            decode_threads=args.decode_threads)
+            decode_threads=args.decode_threads, rank=rank(), world_size=n_ranks)
         train_data = WdsTrainPipeline(wds_cfg, preprocess_train, train_tokenizer,
                                       SharedEpoch(0))
         num_batches = train_data.num_batches or 1000
@@ -333,7 +375,7 @@ def main(argv=None) -> int:
         logger.info("Packed feed: one %s + texts buffer a step", img_shape)
     step_fn = make_train_step(model, optimizer,
                               None if args.skip_scheduler else lr_schedule,
-                              create_loss(args), packed_feed=packed_spec)
+                              create_loss(args), mesh=group, packed_feed=packed_spec)
 
     start_epoch = 0
     resume_step_in_epoch = 0
@@ -348,7 +390,7 @@ def main(argv=None) -> int:
     writer = MetricsWriter(
         log_base, args.report_to, wandb_project=args.wandb_project_name,
         wandb_notes=args.wandb_notes, run_name=args.name,
-        resume=resume_from is not None, config=vars(args))
+        resume=resume_from is not None, config=vars(args)) if is_master else None
 
     # preemption hook: the scheduler's warning signal sets a flag; the epoch
     # loop stops at a step boundary, main saves a mid-epoch epoch_latest and
@@ -373,20 +415,21 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         steps, stopped = train_one_epoch(
             step_fn, train_data, device=device, packed=packed_spec is not None, epoch=epoch,
-            global_batch_size=global_batch, num_devices=1,
+            global_batch_size=global_batch, num_devices=n_ranks,
             log_every_n_steps=args.log_every_n_steps, writer=writer,
             steps_per_epoch=steps_per_epoch, lr_schedule=lr_schedule,
             profiler_dir=args.profile_dir if epoch == start_epoch else None,
             skip_steps=skip, stop_flag=stop_event,
             stop_check_every=args.preempt_check_every,
-            prefetch_depth=args.prefetch_depth)
+            prefetch_depth=args.prefetch_depth, group=group)
         if stopped:
             step_done = skip + steps
             logger.info("Preempted in epoch %d after step %d/%d: saving mid-epoch "
                         "checkpoint", epoch, step_done, steps_per_epoch)
-            save_checkpoint(checkpoint_dir, train_state(model, optimizer, step_fn.step),
-                            epoch=epoch, name=args.name, most_recent=True,
-                            step_in_epoch=step_done)
+            if is_master:
+                save_checkpoint(checkpoint_dir, train_state(model, optimizer, step_fn.step),
+                                epoch=epoch, name=args.name, most_recent=True,
+                                step_in_epoch=step_done)
             break
         logger.info("Epoch %d done: %d steps in %.1fs", epoch, steps,
                     time.perf_counter() - t0)
@@ -395,13 +438,13 @@ def main(argv=None) -> int:
         if (suites or zero_shot_fn is not None) and (
                 (args.val_frequency > 0 and completed_epoch % args.val_frequency == 0)
                 or completed_epoch == args.epochs):
-            run_eval(completed_epoch, zero_shot_fn if (
+            eval_on_rank0(completed_epoch, zero_shot_fn if (
                 zero_shot_fn is not None and args.zeroshot_frequency > 0
                 and completed_epoch % args.zeroshot_frequency == 0) else None)
 
-        do_numbered = args.save_frequency > 0 and (
+        do_numbered = is_master and args.save_frequency > 0 and (
             completed_epoch % args.save_frequency == 0 or completed_epoch == args.epochs)
-        if do_numbered or args.save_most_recent:
+        if do_numbered or (is_master and args.save_most_recent):
             state = train_state(model, optimizer, step_fn.step)
             if do_numbered:
                 save_checkpoint(checkpoint_dir, state, epoch=completed_epoch,
@@ -412,7 +455,10 @@ def main(argv=None) -> int:
                 save_checkpoint(checkpoint_dir, state, epoch=completed_epoch,
                                 name=args.name, most_recent=True)
 
-    writer.close()
+    if writer is not None:
+        writer.close()
+    if group is not None:
+        dist.barrier(group)      # every rank leaves after rank 0's last save
     return 0
 
 

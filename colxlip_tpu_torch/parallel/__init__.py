@@ -1,1 +1,1 @@
-"""The train step: port of ``colxlip_tpu/parallel`` (one device so far)."""
+"""The train step and data parallelism: port of ``colxlip_tpu/parallel``."""

@@ -1,5 +1,8 @@
-"""Host batches -> device tensors: port of ``colxlip_tpu/parallel/data_feed.py``
-on one device.
+"""Host batches -> device tensors: port of ``colxlip_tpu/parallel/data_feed.py``.
+
+Each rank's pipeline yields its own rows of the global batch and ships them
+to its own device: there is no global array to assemble, so
+``global_batch_size`` is the per-rank batch times the group size.
 
 ``pack_batch`` fuses a uint8 image batch and its token ids into one
 per-sample byte buffer (ids as little-endian uint16 pairs), so a step's
@@ -13,6 +16,14 @@ from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from .mesh import world
+
+
+def global_batch_size(per_device_batch: int) -> int:
+    """The global batch: the per-rank batch times the data group's size
+    (one device a rank)."""
+    return per_device_batch * world()
 
 
 def pack_batch(images: np.ndarray, texts: np.ndarray) -> np.ndarray:

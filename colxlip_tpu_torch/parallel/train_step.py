@@ -1,5 +1,5 @@
 """One optimizer step of the dual-tower model: port of
-``colxlip_tpu/parallel/train_step.py`` on one device.
+``colxlip_tpu/parallel/train_step.py``.
 
 ``make_train_step(model, optimizer, schedule, cfg)`` returns
 ``step(images, texts) -> metrics``: forward through both towers (the
@@ -17,23 +17,34 @@ microbatch under ``no_grad``; pass 2 re-encodes each microbatch with
 gradients, splices it into the cached bank, takes the loss over the whole
 accumulation and adds its gradients. With ``packed_feed=(img_shape, ctx)``
 the step takes ``(buf, None)``, one ``data_feed.pack_batch`` buffer, and
-unpacks it on the device first. A device mesh and distillation teachers are
-not ported and raise ``NotImplementedError``, and so does a model with
-``patch_dropout > 0`` (the JAX step cannot run one).
+unpacks it on the device first. Distillation teachers are not ported and
+raise ``NotImplementedError``, and so does a model with ``patch_dropout >
+0`` (the JAX step cannot run one).
+
+``mesh`` (the data-parallel group of ``parallel/mesh.py``, or its name
+``'data'``) is the JAX ``shard_map`` over the data axis, one rank a
+device: each rank feeds its own rows of the global batch, the loss gathers
+across the group, and after the backward (after the last microbatch) the
+gradients and then the losses are averaged over the group (the JAX
+``pmean``: one coalesced all-reduce a dtype) before the global-norm clip,
+``grad_norm`` and AdamW. At construction the parameters are broadcast from
+rank 0 (the JAX ``replicate_state``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..losses import clip_loss, colclip_loss
 from ..models.layers import PatchDropout
 from .data_feed import unpack_batch
 from ..training.optim import global_norm
+from .mesh import AxisName, resolve_group
 
 MAX_LOGIT_SCALE = math.log(100.0)
 # model outputs that are parameters or scalars, never per-sample rows: the
@@ -62,22 +73,25 @@ class TrainStepConfig:
 Metrics = Dict[str, torch.Tensor]
 
 
-def compute_loss(out: Dict[str, torch.Tensor], cfg: TrainStepConfig) -> Metrics:
+def compute_loss(out: Dict[str, torch.Tensor], cfg: TrainStepConfig,
+                 axis_name: AxisName = None) -> Metrics:
     """Dispatch on the loss type (``colclip`` and ``clip`` are ported)."""
     if cfg.loss_type == "colclip":
         return colclip_loss(
             out["image_features"], out["text_features"],
             out["token_image_features"], out["token_text_features"],
-            out["logit_scale"], alpha=cfg.alpha, local_loss=cfg.local_loss,
-            gather_with_grad=cfg.gather_with_grad, logit_bias=out.get("logit_bias"),
+            out["logit_scale"], alpha=cfg.alpha, axis_name=axis_name,
+            local_loss=cfg.local_loss, gather_with_grad=cfg.gather_with_grad,
+            logit_bias=out.get("logit_bias"),
             maxsim_impl=cfg.maxsim_impl, mask_mode=cfg.mask_mode,
             token_dist=cfg.token_dist, token_neighborhood=cfg.token_neighborhood,
             text_mask=out.get("text_mask"), output_dict=True)
     if cfg.loss_type == "clip":
         total = clip_loss(
             out["image_features"], out["text_features"], out["logit_scale"],
-            local_loss=cfg.local_loss, gather_with_grad=cfg.gather_with_grad,
-            logit_bias=out.get("logit_bias"), ce_impl=cfg.ce_impl)
+            axis_name=axis_name, local_loss=cfg.local_loss,
+            gather_with_grad=cfg.gather_with_grad, logit_bias=out.get("logit_bias"),
+            ce_impl=cfg.ce_impl)
         return {"total_loss": total}
     if cfg.loss_type in ("siglip", "coca", "distill"):
         raise NotImplementedError(f"loss_type={cfg.loss_type!r} is not yet ported")
@@ -97,6 +111,42 @@ def build_forward(model: nn.Module, cfg: TrainStepConfig) -> Callable:
     return forward
 
 
+def _coalesced(tensors: List[torch.Tensor], collective: Callable[[torch.Tensor], None]
+               ) -> None:
+    """Run ``collective`` in place once a dtype, on the tensors flattened into
+    one buffer, and copy the result back."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        collective(flat)
+        for t, part in zip(same, flat.split([t.numel() for t in same])):
+            t.copy_(part.view_as(t))
+
+
+@torch.no_grad()
+def all_reduce_mean_(tensors: List[torch.Tensor], group: dist.ProcessGroup) -> None:
+    """Average ``tensors`` over ``group`` in place: the sum (gloo has no
+    AVG), divided by the group size as a tensor. The divisor is filled on
+    the device: ``torch.tensor(n, device='cuda')`` is a host-to-device copy
+    that waits for the device, so the host would stop queueing the rest of
+    the step."""
+    def mean(flat: torch.Tensor) -> None:
+        dist.all_reduce(flat, group=group)
+        flat.div_(torch.full((), dist.get_world_size(group), dtype=flat.dtype,
+                             device=flat.device))
+    _coalesced(tensors, mean)
+
+
+@torch.no_grad()
+def broadcast_parameters(model: nn.Module, group: dist.ProcessGroup) -> None:
+    """Every rank takes rank 0's parameters (the JAX ``replicate_state``)."""
+    src = dist.get_global_rank(group, 0)
+    _coalesced(list(model.parameters()),
+               lambda flat: dist.broadcast(flat, src=src, group=group))
+
+
 @torch.no_grad()
 def clamp_logit_scale(model: nn.Module) -> None:
     """Clamp the logit_scale parameter to [0, ln 100] after the update."""
@@ -109,7 +159,8 @@ class TrainStep:
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  schedule: Optional[Callable[[int], float]], cfg: TrainStepConfig,
-                 packed_feed: Optional[Tuple[Tuple[int, ...], int]] = None):
+                 packed_feed: Optional[Tuple[Tuple[int, ...], int]] = None,
+                 group: Optional[dist.ProcessGroup] = None):
         if cfg.accum_freq < 1:
             raise ValueError(f"accum_freq must be >= 1; got {cfg.accum_freq}")
         self.model = model
@@ -118,11 +169,14 @@ class TrainStep:
         self.cfg = cfg
         self.packed_feed = packed_feed
         self.forward = build_forward(model, cfg)
+        self.group = group
         self.step = 0
+        if group is not None:
+            broadcast_parameters(model, group)
 
     def _loss_and_grads(self, images, texts):
         out = self.forward(images, texts)
-        losses = compute_loss(out, self.cfg)
+        losses = compute_loss(out, self.cfg, self.group)
         losses["total_loss"].backward()
         return losses, out["logit_scale"]
 
@@ -143,7 +197,7 @@ class TrainStep:
             for k in batched:
                 spliced[k] = torch.cat([out_j[k] if i == j else c[k]
                                         for i, c in enumerate(cached)])
-            losses = compute_loss(spliced, self.cfg)
+            losses = compute_loss(spliced, self.cfg, self.group)
             losses["total_loss"].backward()  # grads add up over microbatches
             per_micro.append({k: v.detach() for k, v in losses.items()})
         losses = {k: torch.stack([m[k] for m in per_micro]).mean() for k in per_micro[0]}
@@ -167,6 +221,12 @@ class TrainStep:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         metrics = {k: v.detach() for k, v in losses.items()}
+        if self.group is not None:
+            all_reduce_mean_([p.grad for p in params], self.group)
+            names = list(metrics)
+            stacked = torch.stack([metrics[k].float() for k in names])
+            all_reduce_mean_([stacked], self.group)
+            metrics = dict(zip(names, stacked.unbind()))
         metrics["logit_scale"] = logit_scale.detach()
         metrics["grad_norm"] = global_norm(p.grad for p in params)
         if self.schedule is not None:
@@ -182,13 +242,13 @@ class TrainStep:
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     schedule: Optional[Callable[[int], float]], cfg: TrainStepConfig,
-                    *, mesh=None, packed_feed=None, teacher=None) -> TrainStep:
-    """The one-device train step. ``schedule`` (step -> lr) sets each
-    update's learning rate; None keeps the optimizer's. ``packed_feed``:
+                    *, mesh: AxisName = None, packed_feed=None, teacher=None) -> TrainStep:
+    """The train step. ``schedule`` (step -> lr) sets each update's learning
+    rate; None keeps the optimizer's. ``mesh``: None (one device) or the
+    data-parallel group (or its name ``'data'``). ``packed_feed``:
     (per-sample image shape, ctx) of the packed buffers the step takes."""
-    for name, value in (("mesh", mesh), ("teacher", teacher)):
-        if value is not None:
-            raise NotImplementedError(f"make_train_step: {name} is not yet ported")
+    if teacher is not None:
+        raise NotImplementedError("make_train_step: teacher is not yet ported")
     if any(isinstance(m, PatchDropout) and m.prob > 0 for m in model.modules()):
         # the JAX step applies the model with train=True and no rngs, so its
         # PatchDropout raises flax InvalidRngError: the step has no draw to port
@@ -196,4 +256,5 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             "make_train_step: vision_cfg.patch_dropout > 0 is refused: the JAX train step "
             "passes no 'patch_dropout' rng and raises InvalidRngError, so there is no "
             "seeded draw to reproduce (PatchDropout itself is ported: models/layers.py)")
-    return TrainStep(model, optimizer, schedule, cfg, packed_feed=packed_feed)
+    return TrainStep(model, optimizer, schedule, cfg, packed_feed=packed_feed,
+                     group=resolve_group(mesh))

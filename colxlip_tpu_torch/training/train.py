@@ -17,6 +17,10 @@ asynchronous, the step's metrics stay device tensors, and they are read
 only at log boundaries (every ``log_every_n_steps`` steps and at the last
 step), where the work of the whole window completes.
 
+Under data parallelism (``group``) every rank runs this loop on its own
+rows; the stop request is agreed on at the check boundaries
+(``_stop_consensus``), so every rank leaves the epoch at the same step.
+
 The truncation meter counts a caption as truncated when EOT sits in the last
 slot, as the JAX loop does: a caption that fits the context exactly counts
 too.
@@ -32,6 +36,7 @@ from typing import Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.tokenizer import EOT_TOKEN
 from ..parallel.data_feed import DeviceFeeder
@@ -216,6 +221,19 @@ class _Trace:
                         device_ms, wall_ms, 100 * max(0.0, 1 - device_ms / wall_ms))
 
 
+def _stop_consensus(local_stop: bool, group: Optional[dist.ProcessGroup],
+                    device: torch.device) -> bool:
+    """Whether any rank of ``group`` was asked to stop (one int32 MAX
+    all-reduce on ``device``; the local flag alone without a group). Every
+    rank must leave at the same step boundary: a lone rank that leaves
+    strands the others in the next step's collective."""
+    if group is None:
+        return local_stop
+    flag = torch.tensor([int(local_stop)], dtype=torch.int32, device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag.item())
+
+
 def train_one_epoch(
     step_fn,
     dataloader: Iterable,
@@ -234,6 +252,7 @@ def train_one_epoch(
     skip_steps: int = 0,
     stop_flag=None,
     stop_check_every: int = 20,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[int, bool]:
     """Run one epoch; returns (steps_run, stopped_early).
 
@@ -251,7 +270,9 @@ def train_one_epoch(
 
     stop_flag: a ``threading.Event``-like object; when set, training stops at
     the next ``stop_check_every`` step boundary and returns
-    ``stopped_early=True`` so the caller can checkpoint.
+    ``stopped_early=True`` so the caller can checkpoint. With ``group`` (the
+    data-parallel group; ``device`` is this rank's) a flag set on any rank
+    stops every rank there (``_stop_consensus``).
     """
     batch_time_m = AverageMeter()
     data_time_m = AverageMeter()
@@ -334,7 +355,7 @@ def train_one_epoch(
                     })
                     writer.write(host_metrics, step_idx)
             if stop_flag is not None and (i % stop_check_every) == 0:
-                if stop_flag.is_set():
+                if _stop_consensus(stop_flag.is_set(), group, device):
                     stopped = True
                     logger.info("stop requested: leaving epoch %d after %d step(s)",
                                 epoch, skip_steps + steps_run)

@@ -1220,3 +1220,90 @@ def test_packed_feed_on_the_card(dev, wire):
         ref = (yuv420.yuv420_to_rgb(images) / 255.0 - np.asarray(mean, np.float32)) / \
             np.asarray(std, np.float32)
         np.testing.assert_allclose(got, ref, rtol=0, atol=2e-4)
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """A torch.distributed NCCL group of one on cuda:0 (NCCL refuses two
+    ranks on one GPU)."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _tiny_step(dev, cfg, mesh, seed=0):
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.standard_normal((6, 64, 64, 3)).astype(np.float32)).to(dev)
+    txts = np.zeros((6, 32), np.int64)
+    txts[:, 0], txts[:, 1:9], txts[:, 9] = 49406, rng.integers(1, 49000, (6, 8)), 49407
+    model, _ = create_model("ViT-S-16-test-colxlip", dev, torch.float32, seed=0)
+    step = make_train_step(model.train(), create_optimizer(model, 1e-3), None, cfg, mesh=mesh)
+    metrics = step(imgs, torch.from_numpy(txts).to(dev))
+    return metrics, {k: p.detach().clone() for k, p in model.named_parameters()}, \
+        {k: p.grad.clone() for k, p in model.named_parameters()}
+
+
+def test_nccl_group_of_one_full_mode_step_is_the_one_device_step(dev, nccl_group):
+    """make_train_step(mesh=<NCCL group of one>) in full mode: the gathers,
+    the gradient all-reduce and the parameter broadcast run on NCCL with
+    CUDA tensors, and the step gives the one-device step's metrics and
+    parameters bit for bit."""
+    cfg = TrainStepConfig(loss_type="colclip")
+    m1, p1, g1 = _tiny_step(dev, cfg, None)
+    mg, pg, gg = _tiny_step(dev, cfg, nccl_group)
+    for key in m1:
+        assert torch.equal(mg[key], m1[key]), key
+    for key in p1:
+        assert torch.equal(gg[key], g1[key]) and torch.equal(pg[key], p1[key]), key
+
+
+@pytest.mark.parametrize("kw", [
+    dict(loss_type="colclip", local_loss=True, gather_with_grad=True),
+    dict(loss_type="colclip", local_loss=True, gather_with_grad=True, token_dist="ring",
+         token_neighborhood=2),
+    dict(loss_type="clip", local_loss=True, gather_with_grad=True, ce_impl="fused"),
+], ids=["local", "ring_cap2", "clip_fused_local"])
+def test_nccl_group_of_one_local_loss_step_is_the_one_device_step(dev, nccl_group, kw):
+    """The local-loss branches under the group of one, fp32: with the
+    gather's gradient they are the one-device loss term for term, so the
+    metrics agree within 1e-5 and every gradient within 1e-4 of its largest
+    |g| (fp32 sums in another order: two MaxSim or CE calls where one device
+    makes one)."""
+    cfg = TrainStepConfig(**kw)
+    m1, _, g1 = _tiny_step(dev, cfg, None)
+    mg, _, gg = _tiny_step(dev, cfg, nccl_group)
+    for key in m1:
+        torch.testing.assert_close(mg[key], m1[key], rtol=1e-5, atol=0)
+    for key, w in g1.items():
+        torch.testing.assert_close(gg[key], w, rtol=0, atol=1e-4 * w.abs().max().item())
+
+
+def test_nccl_collectives_of_one_rank(dev, nccl_group):
+    """The gathers (with and without grad, local loss), the ring shift, the
+    string broadcast and the stop consensus on NCCL with CUDA tensors."""
+    from colxlip_tpu_torch.parallel import collectives
+    from colxlip_tpu_torch.parallel.mesh import broadcast_str, collective_device
+    from colxlip_tpu_torch.training.train import _stop_consensus
+
+    assert collective_device(nccl_group) == dev
+    x = torch.randn(5, 7, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    for kw in (dict(gather_with_grad=True), dict(), dict(local_loss=True)):
+        y = collectives.gather_features(x, axis_name="data", **kw)
+        assert torch.equal(y, x)
+        assert y.requires_grad == (not kw.get("local_loss"))
+    (collectives.gather_features(x, axis_name="data", gather_with_grad=True) * 3).sum().backward()
+    assert torch.equal(x.grad, torch.full_like(x, 3))
+    assert torch.equal(collectives.ring_shift(x, "data", 1), x)
+    assert broadcast_str("run-name", nccl_group) == "run-name"
+    assert _stop_consensus(True, nccl_group, dev) and not _stop_consensus(False, nccl_group, dev)

@@ -400,7 +400,6 @@ REFUSED = [
     (["--fsdp"], "--fsdp"),
     (["--packed-feed"], "--packed-feed"),
     (["--pipeline", "grain"], "--pipeline grain"),
-    (["--dist-coordinator", "host:1234"], "--dist-"),
     (["--dist-impl", "shift"], "--dist-"),
     (["--distill-model", TINY, "--distill-pretrained", "x.pt"], "--distill-model"),
     (["--siglip"], "--siglip"),
@@ -408,7 +407,6 @@ REFUSED = [
     (["--force-patch-dropout", "0.5"], "--force-patch-dropout"),
     (["--async-checkpoint"], "--async-checkpoint"),
     (["--precision", "pure_bf16"], "pure_bf16"),
-    (["--token-dist", "ring"], "--token-dist ring"),
     (["--dataset-type", "auto"], "eval-only mode"),
     (["--aug-cfg", "color_jitter=0.4"], "--aug-cfg"),
 ]
@@ -518,6 +516,19 @@ def test_main_trains_with_maxsim_impl_streaming_int8(tmp_path):
     assert got != want
     np.testing.assert_allclose(got, want, rtol=2e-2)
     assert os.path.isdir(os.path.join(logs, "int8", "checkpoints", "epoch_1"))
+
+
+def test_main_trains_local_loss_and_the_ring_on_one_process(tmp_path):
+    """--local-loss --token-dist ring --token-neighborhood 2 on one process
+    train, as in the JAX entry point: at one device the three flags change
+    nothing, so the losses are the default run's."""
+    logs = str(tmp_path)
+    flags = ("--model", TINY + "-colxlip", "--save-frequency", "0")
+    assert main_mod.main(_argv(logs, "recipe", *flags, "--local-loss", "--token-dist", "ring",
+                               "--token-neighborhood", "2", epochs=1)) == 0
+    assert main_mod.main(_argv(logs, "default", *flags, epochs=1)) == 0
+    (steps, got), (_, want) = _losses(logs, "recipe"), _losses(logs, "default")
+    assert steps == [1, 2, 3, 4] and got == want
 
 
 def test_main_needs_a_card_unless_told_cpu(tmp_path):

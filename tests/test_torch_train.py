@@ -399,16 +399,18 @@ def test_unported_options_raise(jax_model):
     scale = torch.tensor(10.0)
     with pytest.raises(ValueError, match="fused CE path does not support logit_bias"):
         clip_loss(feats[0], feats[1], scale, ce_impl="fused", logit_bias=torch.tensor(-1.0))
-    with pytest.raises(NotImplementedError, match="axis_name"):
+    # the data axis needs a process group (parallel/mesh.py); the
+    # neighbourhood cap needs the ring, as in JAX
+    with pytest.raises(RuntimeError, match="no process group"):
         clip_loss(feats[0], feats[1], scale, axis_name="data")
-    with pytest.raises(NotImplementedError, match="distributed"):
-        colclip_loss(*feats, scale, token_dist="ring")
+    with pytest.raises(ValueError, match="token_neighborhood requires token_dist='ring'"):
+        colclip_loss(*feats, scale, token_neighborhood=2)
     with pytest.raises(ValueError, match="unknown impl"):
         colclip_loss(*feats, scale, maxsim_impl="int8")
     model = _port_model(jax_model[1])
     opt = optim.create_optimizer(model, 1e-3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(model, opt, None, TrainStepConfig(), mesh=object())
+    with pytest.raises(ValueError, match="unknown axis"):
+        make_train_step(model, opt, None, TrainStepConfig(), mesh="model")
     step = make_train_step(model, opt, None, dataclasses.replace(
         TrainStepConfig(), loss_type="siglip"))
     imgs, txts = _batch()
