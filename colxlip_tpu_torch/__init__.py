@@ -14,7 +14,10 @@ towers and the ``/v1/score`` MaxSim), the train step
 checkpoints, resume, preemption). The TPU kernels on those paths are
 hand-written CUDA kernels (``csrc/``): packed-QKV attention and MaxSim,
 forward and backward, and the streaming contrastive CE (forward, dA, dB)
-behind ``--ce-impl fused``, all under ``torch.autograd.Function``s.
+behind ``--ce-impl fused``, all under ``torch.autograd.Function``s. Later
+slices added the fused towers, int8 and corpus search, eval, the tar feed,
+data parallelism, and the other loss families: SigLIP, distillation and
+CoCa, with captioning behind ``/v1/caption``.
 """
 
 __version__ = "0.1.0"

@@ -6,6 +6,14 @@ port's state dict, in pure numpy. It mirrors
 ``colxlip_tpu/training/checkpoint.py`` ``export_pt_state_dict``: OpenCLIP keys,
 flat text tower, packed ``in_proj_weight``, conv-layout ``conv1``, the token
 heads as a Sequential. ``.pt`` is the exchange format in both directions.
+CoCa trees use the OpenCLIP keys that the JAX importer
+(``convert_openclip_state_dict``) reads: ``cls_emb``,
+``text_decoder.resblocks.*``, ``text_decoder.cross_attn.*`` (q / k / v packed
+into one ``attn.in_proj_weight``), ``text_decoder.ln_final`` and
+``text_decoder.text_projection`` (the ``to_logits`` kernel [width, vocab] as
+it is). An ``AttentionalPooler`` (``attn_pool``, in the vision tower or
+CoCa's) keeps its JAX path: ``query``, ``ln_q``, ``ln_k``,
+``attn.{q,k,v,out}_proj``.
 
 ``load_pt_state_dict`` reads an OpenCLIP-layout ``.pt`` checkpoint (the
 ``--checkpoint`` of the server, the ``--pretrained`` of the trainer).
@@ -51,6 +59,12 @@ _TOKEN_HEAD = {
     ("ln_out", "bias"): ("3.bias", False),
 }
 _RESBLOCK = re.compile(r"^resblocks_(\d+)$")
+_CROSS_BLOCK = re.compile(r"^cross_attn_(\d+)$")
+_CROSS = {
+    ("ln_1", "scale"): "ln_1.weight", ("ln_1", "bias"): "ln_1.bias",
+    ("ln_1_kv", "scale"): "ln_1_kv.weight", ("ln_1_kv", "bias"): "ln_1_kv.bias",
+    ("ln_2", "scale"): "ln_2.weight", ("ln_2", "bias"): "ln_2.bias",
+}
 
 
 def _leaves(tree: Mapping, prefix=()):
@@ -77,12 +91,50 @@ def _transformer(blocks: Mapping, prefix: str, out: dict, unmapped: list) -> Non
             out[f"{prefix}{m.group(1)}.{key}"] = v.T if transpose else v
 
 
+def _attn_pool(tree: Mapping, prefix: str, out: dict, unmapped: list) -> None:
+    """An AttentionalPooler subtree: the JAX path, Dense kernels transposed."""
+    for sub, v in _leaves(tree):
+        v = np.asarray(v)
+        if sub == ("query",):
+            out[prefix + "query"] = v
+        elif len(sub) == 2 and sub[0] in ("ln_q", "ln_k"):
+            out[f"{prefix}{sub[0]}.{'weight' if sub[1] == 'scale' else 'bias'}"] = v
+        elif len(sub) == 3 and sub[0] == "attn" and sub[2] in ("kernel", "bias"):
+            leaf = "weight" if sub[2] == "kernel" else "bias"
+            out[f"{prefix}attn.{sub[1]}.{leaf}"] = v.T if leaf == "weight" else v
+        else:
+            unmapped.append(prefix + ".".join(sub))
+
+
+def _cross_block(block: Mapping, prefix: str, out: dict, unmapped: list) -> None:
+    """A CoCa cross-attention block: q / k / v packed into one in_proj."""
+    attn = block.get("attn", {})
+    names = ("q_proj", "k_proj", "v_proj")
+    if all(n in attn for n in names):
+        out[prefix + "attn.in_proj_weight"] = np.concatenate(
+            [np.asarray(attn[n]["kernel"]).T for n in names])
+        out[prefix + "attn.in_proj_bias"] = np.concatenate(
+            [np.asarray(attn[n]["bias"]) for n in names])
+    for sub, v in _leaves(block):
+        v = np.asarray(v)
+        if sub[:2] in (("attn", n) for n in names):
+            continue
+        if sub in _CROSS:
+            out[prefix + _CROSS[sub]] = v
+            continue
+        conv = _BLOCK.get(sub)
+        if conv is None:
+            unmapped.append(prefix + ".".join(sub))
+            continue
+        key, transpose = conv
+        out[prefix + key] = v.T if transpose else v
+
+
 def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
     """JAX params tree (``{'params': {...}}`` or the inner dict) -> OpenCLIP
-    key -> float32 numpy array, equal to ``export_pt_state_dict``'s output."""
+    key -> float32 numpy array, equal to ``export_pt_state_dict``'s output
+    for CLIP and ColXLIP trees."""
     p = params.get("params", params)
-    if "text_decoder" in p or "cls_emb" in p.get("text", {}):
-        raise ValueError("CoCa trees are not supported (CLIP/ColXLIP only)")
     out: Dict[str, np.ndarray] = {}
     unmapped: list = []
 
@@ -102,14 +154,16 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
             out[f"visual.{k}.bias"] = np.asarray(v["bias"])
         elif k == "transformer":
             _transformer(v, "visual.transformer.resblocks.", out, unmapped)
+        elif k == "attn_pool":
+            _attn_pool(v, "visual.attn_pool.", out, unmapped)
         else:
             unmapped.append(f"visual.{k}")
 
     for k, v in p.get("text", {}).items():
         if k == "token_embedding":
             out["token_embedding.weight"] = np.asarray(v["embedding"])
-        elif k == "positional_embedding":
-            out["positional_embedding"] = np.asarray(v)
+        elif k in ("positional_embedding", "cls_emb"):
+            out[k] = np.asarray(v)
         elif k == "ln_final":
             out["ln_final.weight"] = np.asarray(v["scale"])
             out["ln_final.bias"] = np.asarray(v["bias"])
@@ -135,6 +189,21 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
             v = np.asarray(v)
             out[f"{head}.{key}"] = v.T if transpose else v
 
+    if "attn_pool" in p:
+        _attn_pool(p["attn_pool"], "attn_pool.", out, unmapped)
+    for k, v in p.get("text_decoder", {}).items():
+        self_block, cross = _RESBLOCK.match(k), _CROSS_BLOCK.match(k)
+        if self_block:
+            _transformer({k: v}, "text_decoder.resblocks.", out, unmapped)
+        elif cross:
+            _cross_block(v, f"text_decoder.cross_attn.{cross.group(1)}.", out, unmapped)
+        elif k == "ln_final":
+            out["text_decoder.ln_final.weight"] = np.asarray(v["scale"])
+            out["text_decoder.ln_final.bias"] = np.asarray(v["bias"])
+        else:
+            unmapped.append(f"text_decoder.{k}")
+    if "to_logits" in p:
+        out["text_decoder.text_projection"] = np.asarray(p["to_logits"]["kernel"])
     for k in ("logit_scale", "logit_bias"):
         if k in p:
             out[k] = np.asarray(p[k]).reshape(())

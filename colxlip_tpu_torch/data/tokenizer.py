@@ -131,6 +131,8 @@ class SimpleTokenizer:
         # specials pinned to the canonical CLIP ids regardless of merge count
         self.encoder["<|startoftext|>"] = SOT_TOKEN
         self.encoder["<|endoftext|>"] = EOT_TOKEN
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.bpe_ranks = dict(zip(merges, range(len(merges))))
         self.cache = {"<|startoftext|>": "<|startoftext|>",
                       "<|endoftext|>": "<|endoftext|>"}
@@ -184,6 +186,14 @@ class SimpleTokenizer:
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return ids
+
+    def decode(self, tokens) -> str:
+        """Ids -> text: each id's BPE string, bytes decoded as UTF-8 (bad
+        bytes replaced), '</w>' word ends as spaces; an unknown id is
+        dropped and an unknown character reads as a space, as in JAX."""
+        text = "".join(self.decoder.get(int(t), "") for t in tokens)
+        return (bytearray(self.byte_decoder.get(c, 32) for c in text)
+                .decode("utf-8", errors="replace").replace("</w>", " "))
 
     # The native core handles only clean printable ASCII: '<' could form a
     # special-token literal, '&' an HTML entity (basic_clean unescapes), and

@@ -1,10 +1,12 @@
 """Model factory: port of ``colxlip_tpu/factory.py``.
 
-``create_model(name, device, dtype)`` builds ``ColXLIP`` when "colxlip" is in
-the name, else ``CLIP``, with fp32 parameters and ``dtype`` compute (the JAX
+``create_model(name, device, dtype)`` builds ``CoCa`` when "coca" is in the
+name (with the config's ``multimodal_cfg``), ``ColXLIP`` when "colxlip" is,
+else ``CLIP``, with fp32 parameters and ``dtype`` compute (the JAX
 service's bf16 policy by default), initialised from a seeded
 ``torch.Generator`` on the CPU (the same weights whatever the device), then
-moved to ``device``. ``create_model_and_transforms``, ``get_tokenizer`` and
+moved to ``device``. ``create_teacher`` builds a distillation teacher the
+same way and loads its ``.pt``. ``create_model_and_transforms``, ``get_tokenizer`` and
 ``create_loss`` are what the training entry point (``main.py``) builds from
 its flags.
 """
@@ -22,7 +24,9 @@ from .convert import load_pt_state_dict
 from .data.tokenizer import SimpleTokenizer
 from .data.transforms import AugmentationCfg, ImageTransform, image_transform
 from .models import CLIP, CLIPCfg, ColXLIP, get_model_config, list_models
-from .models.layers import Linear, MultiHeadAttention
+from .models.coca import CoCa, CrossAttention
+from .models.configs import MultimodalCfg, multimodal_config
+from .models.layers import AttentionalPooler, Linear, MultiHeadAttention
 from .models.pos_embed import get_2d_sincos_pos_embed, interpolate_pos_embed
 from .models.vision import PatchEmbed
 
@@ -59,9 +63,6 @@ def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
     if cfg_dict is None:
         raise RuntimeError(f"Model config for {model_name} not found; "
                            f"available: {list_models()}")
-    if "coca" in model_name.lower():
-        raise NotImplementedError("CoCa models are not yet ported in "
-                                  "colxlip_tpu_torch")
     cfg = CLIPCfg.from_dict(cfg_dict)
     if quick_gelu is not None:
         cfg = dataclasses.replace(cfg, quick_gelu=quick_gelu)
@@ -82,25 +83,36 @@ def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
 
 
 @torch.no_grad()
-def init_weights(model: CLIP, generator: torch.Generator) -> None:
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init at the JAX package's scales (lecun-normal dense kernels
-    and zero biases; the text tower's depth-scaled block normals; the 2-D
-    sin-cos table where the config asks for it). LayerNorm and LayerScale
-    parameters keep their constructors' constants."""
+    and zero biases; the depth-scaled block normals of the text tower and of
+    CoCa's decoder; the 2-D sin-cos table where the config asks for it).
+    LayerNorm and LayerScale parameters keep their constructors' constants."""
     def normal_(p: torch.Tensor, std: float) -> None:
         p.normal_(0.0, std, generator=generator)
+
+    def scaled_blocks(blocks, width: int, layers: int) -> None:
+        proj_std = width ** -0.5 * (2 * layers) ** -0.5
+        for block in blocks:
+            normal_(block.attn.in_proj_weight, width ** -0.5)
+            normal_(block.attn.out_proj.weight, proj_std)
+            normal_(block.mlp.c_fc.weight, (2 * width) ** -0.5)
+            normal_(block.mlp.c_proj.weight, proj_std)
 
     for mod in model.modules():
         if isinstance(mod, Linear):
             normal_(mod.weight, mod.weight.shape[1] ** -0.5)
             mod.bias.zero_()
-        elif isinstance(mod, MultiHeadAttention) and not mod.cross:
+        elif isinstance(mod, (MultiHeadAttention, CrossAttention)) and hasattr(
+                mod, "in_proj_weight"):
             normal_(mod.in_proj_weight, mod.in_proj_weight.shape[1] ** -0.5)
             mod.in_proj_bias.zero_()
         elif isinstance(mod, PatchEmbed):
             normal_(mod.weight, mod.weight[0].numel() ** -0.5)
         elif isinstance(mod, nn.Embedding):
             normal_(mod.weight, 0.02)
+        elif isinstance(mod, AttentionalPooler):
+            normal_(mod.query, mod.query.shape[1] ** -0.5)
     vis, cfg = model.visual, model.cfg
     width = cfg.vision_cfg.width
     for p in (vis.class_embedding, vis.positional_embedding, vis.proj):
@@ -110,13 +122,14 @@ def init_weights(model: CLIP, generator: torch.Generator) -> None:
             width, cfg.vision_cfg.grid_size[0], cls_token=True)))
     tw, tl = cfg.text_cfg.width, cfg.text_cfg.layers
     normal_(model.positional_embedding, 0.01)
-    normal_(model.text_projection, tw ** -0.5)
-    proj_std = tw ** -0.5 * (2 * tl) ** -0.5
-    for block in model.transformer.resblocks:
-        normal_(block.attn.in_proj_weight, tw ** -0.5)
-        normal_(block.attn.out_proj.weight, proj_std)
-        normal_(block.mlp.c_fc.weight, (2 * tw) ** -0.5)
-        normal_(block.mlp.c_proj.weight, proj_std)
+    if isinstance(model.text_projection, nn.Parameter):
+        normal_(model.text_projection, tw ** -0.5)
+    scaled_blocks(model.transformer.resblocks, tw, tl)
+    if isinstance(model, CoCa):
+        normal_(model.cls_emb, 0.01)
+        dec, mcfg = model.text_decoder, model.multimodal_cfg
+        scaled_blocks([*dec.resblocks, *dec.cross_attn], mcfg.width, mcfg.layers)
+        normal_(dec.text_projection, mcfg.width ** -0.5)
     model.logit_scale.fill_(cfg.init_logit_scale)
 
 
@@ -135,10 +148,24 @@ def create_model(model_name: str, device: Union[str, torch.device],
                        alpha=alpha, gelu_approximate=gelu_approximate,
                        force_patch_dropout=force_patch_dropout,
                        image_mean=image_mean, image_std=image_std)
-    cls = ColXLIP if "colxlip" in model_name.lower() else CLIP
-    model = cls(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
+    if "coca" in model_name.lower():
+        model = CoCa(cfg, multimodal_config(model_name) or MultimodalCfg(), dtype=dtype,
+                     grad_checkpointing=grad_checkpointing)
+    else:
+        cls = ColXLIP if "colxlip" in model_name.lower() else CLIP
+        model = cls(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
     init_weights(model, torch.Generator(device="cpu").manual_seed(seed))
     return model.to(device).eval(), cfg
+
+
+def create_teacher(model_name: str, checkpoint_path: str, device: Union[str, torch.device],
+                   dtype: torch.dtype = torch.bfloat16, *, seed: int = 0) -> nn.Module:
+    """A distillation teacher: ``create_model`` loaded from an OpenCLIP-layout
+    ``.pt`` (``load_weights``), in eval mode, with no parameter that takes
+    a gradient (the train step never hands them to the optimizer)."""
+    teacher, _ = create_model(model_name, device, dtype, seed=seed)
+    load_weights(teacher, checkpoint_path)
+    return teacher.eval().requires_grad_(False)
 
 
 def resize_vision_pos_embed(sd: Dict[str, torch.Tensor], new_grid: Tuple[int, int]

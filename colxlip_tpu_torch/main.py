@@ -27,6 +27,14 @@ every checkpoint, and runs the epoch-end eval while the others wait;
 ``--log-local`` gives rank r its own ``out-<r>.log``. Every rank loads the
 resumed checkpoint.
 
+The loss is chosen as the JAX ``create_loss`` chooses it: a CoCa model
+trains the contrastive and caption terms (``--coca-contrastive-loss-weight``,
+``--coca-caption-loss-weight``; ``--ce-impl fused`` streams the caption CE);
+``--distill-model`` with ``--distill-pretrained`` (a local ``.pt``) distils
+from that teacher, run forward only; ``--siglip`` trains the sigmoid loss,
+its negatives exchanged across ranks as ``--dist-impl`` says (default
+'bidir'); else colclip for a ColXLIP model and clip for the rest.
+
 What the port cannot do yet is refused, never ignored: each such flag logs
 an error and ``main`` returns 1 before any model work (``unsupported_flags``
 lists them with the module each waits for; ``feed_errors`` the feed flags
@@ -51,7 +59,8 @@ from .data.retrieval import RetrievalSuite, build_retrieval_suite
 from .data.synthetic import SyntheticConfig, SyntheticDataset
 from .data.transforms import AugmentationCfg
 from .data.wds import SharedEpoch, WdsConfig, WdsTrainPipeline
-from .factory import create_loss, create_model_and_transforms, get_tokenizer
+from .factory import (compute_dtype, create_loss, create_model_and_transforms, create_teacher,
+                      get_tokenizer)
 from .ops.yuv420 import yuv420_rows
 from .parallel.mesh import (
     broadcast_str, collective_device, create_mesh, initialize_multihost, rank, world)
@@ -154,15 +163,6 @@ def unsupported_flags(args) -> List[str]:
         (args.pipeline == "grain",
          "--pipeline grain: the grain pipeline (data/grain_pipeline.py) is not yet ported "
          "(use the default --pipeline wds)"),
-        (args.dist_impl is not None,
-         "--dist-impl: the SigLIP negative exchange (losses/siglip.py) is not yet ported"),
-        (bool(args.distill_model or args.distill_pretrained),
-         "--distill-model / --distill-pretrained: distillation (losses/distill.py) is "
-         "not yet ported"),
-        (args.siglip, "--siglip: the SigLIP loss (losses/siglip.py) is not yet ported"),
-        ("coca" in args.model.lower(),
-         f"--model {args.model}: CoCa models (models/coca.py, losses/coca.py) are not "
-         "yet ported"),
         (args.force_patch_dropout is not None,
          "--force-patch-dropout: the train step has no generator for PatchDropout's draw. "
          "The JAX step passes no 'patch_dropout' rng either and raises flax "
@@ -373,9 +373,15 @@ def _main(args, device: torch.device) -> int:
         img_shape = (yuv420_rows(h), w) if args.ship_format == "yuv420" else (h, w, 3)
         packed_spec = (img_shape, ctx)
         logger.info("Packed feed: one %s + texts buffer a step", img_shape)
+    loss_cfg = create_loss(args)
+    teacher = None
+    if loss_cfg.loss_type == "distill":
+        teacher = create_teacher(args.distill_model, args.distill_pretrained, device,
+                                 compute_dtype(args.precision), seed=args.seed)
+        logger.info("Distilling from %s (%s)", args.distill_model, args.distill_pretrained)
     step_fn = make_train_step(model, optimizer,
                               None if args.skip_scheduler else lr_schedule,
-                              create_loss(args), mesh=group, packed_feed=packed_spec)
+                              loss_cfg, mesh=group, packed_feed=packed_spec, teacher=teacher)
 
     start_epoch = 0
     resume_step_in_epoch = 0

@@ -78,6 +78,23 @@ class CLIPTextCfg:
 
 
 @dataclasses.dataclass
+class MultimodalCfg:
+    """CoCa caption decoder config (colxlip_tpu/models/coca.py MultimodalCfg);
+    a model config's ``multimodal_cfg`` entry."""
+    context_length: int = 76
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+    mlp_ratio: float = 4.0
+    ls_init_value: Optional[float] = None
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MultimodalCfg":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass
 class CLIPCfg:
     """Full model config = one JSON file in model_configs/."""
     embed_dim: int = 512
@@ -170,3 +187,10 @@ def get_model_config(model_name: str) -> Optional[dict]:
     if model_name in _MODEL_CONFIGS:
         return copy.deepcopy(_MODEL_CONFIGS[model_name])
     return None
+
+
+def multimodal_config(model_name: str) -> Optional[MultimodalCfg]:
+    """The registered config's ``multimodal_cfg`` (the CoCa decoder), which
+    ``CLIPCfg.from_dict`` leaves out; None when the config has none."""
+    d = (get_model_config(model_name) or {}).get("multimodal_cfg")
+    return None if d is None else MultimodalCfg.from_dict(d)

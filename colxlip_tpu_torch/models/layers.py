@@ -40,7 +40,10 @@ speed knob, 3.4e-6 from erf). Any other name raises. ``gelu_tanh`` takes
 the library's tanh GELU under 'stock' and the closed form with its custom
 gradient under the others.
 
-Not ported: the attentional pooler.
+``AttentionalPooler`` is learned-query cross-attention pooling (``query``,
+``ln_q``, ``ln_k``, ``attn`` built with ``kv_dim``); ``Transformer`` and its
+blocks take an additive attention ``mask`` (the CoCa text tower's), which
+sends self-attention to the library path ('xla'), as in JAX.
 """
 from __future__ import annotations
 
@@ -360,8 +363,9 @@ class ResidualAttentionBlock(nn.Module):
             self.ls_2 = LayerScale(dim, ls_init_value)
         self.scaled = ls_init_value is not None
 
-    def forward(self, x: torch.Tensor, is_causal: bool = False) -> torch.Tensor:
-        attn_out = self.attn(self.ln_1(x), is_causal)
+    def forward(self, x: torch.Tensor, is_causal: bool = False,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        attn_out = self.attn(self.ln_1(x), is_causal, mask=mask)
         x = x + (self.ls_1(attn_out) if self.scaled else attn_out)
         mlp_out = self.mlp(self.ln_2(x))
         return x + (self.ls_2(mlp_out) if self.scaled else mlp_out)
@@ -383,12 +387,33 @@ class Transformer(nn.Module):
                                    ls_init_value=ls_init_value)
             for _ in range(layers)])
 
-    def forward(self, x: torch.Tensor, is_causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, is_causal: bool = False,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: an additive attention bias that broadcasts to [B, H, N, N]."""
         remat = self.grad_checkpointing and torch.is_grad_enabled()
         for block in self.resblocks:
             if remat:
-                x = torch.utils.checkpoint.checkpoint(block, x, is_causal,
+                x = torch.utils.checkpoint.checkpoint(block, x, is_causal, mask,
                                                       use_reentrant=False)
             else:
-                x = block(x, is_causal)
+                x = block(x, is_causal, mask)
         return x
+
+
+class AttentionalPooler(nn.Module):
+    """``n_queries`` learned queries cross-attend into a sequence [B, M,
+    kv_dim] -> [B, n_queries, d_model]: the keys and values are ``ln_k(x)``,
+    the queries ``ln_q(query)`` in the compute dtype."""
+
+    def __init__(self, d_model: int, kv_dim: int, n_head: int = 8, n_queries: int = 256, *,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.query = nn.Parameter(torch.empty(n_queries, d_model))
+        self.ln_k = LayerNorm(kv_dim)
+        self.ln_q = LayerNorm(d_model)
+        self.attn = MultiHeadAttention(d_model, n_head, dtype=dtype, kv_dim=kv_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        q = self.ln_q(self.query.to(self.dtype)[None])
+        return self.attn(q.expand(x.shape[0], -1, -1), kv=self.ln_k(x))

@@ -3,9 +3,12 @@
 token embedding + positional_embedding[:n] (so a shorter input runs a
 shorter context: the serving ``--text-buckets`` lever) -> blocks (causal
 unless ``no_causal_mask``) -> ln_final -> pooling (``pool_type``: 'argmax',
-the EOT position; 'first'; 'last'; anything else none) -> @ text_projection.
-``embed_cls``, ``proj_type`` other than 'linear' and ``proj_bias`` are not
-ported and raise ``NotImplementedError``.
+the EOT position; 'first'; 'last'; anything else none) -> the projection:
+none with ``proj_type='none'`` (or ``embed_dim`` 0), a ``Linear`` with bias
+named ``text_projection`` with ``proj_bias``, else the bare [width,
+embed_dim] matrix ``text_projection`` (any other ``proj_type`` is linear,
+as in the JAX tower). ``embed_cls`` belongs to the CoCa text tower
+(``models/coca.py``); this tower refuses it.
 
 OpenCLIP keeps the text tower's parameters flat on the CLIP module
 (``token_embedding.weight``, ``positional_embedding``, ``transformer.*``,
@@ -22,19 +25,35 @@ import torch.nn.functional as F
 from torch import nn
 
 from .configs import CLIPTextCfg
-from .layers import LayerNorm, Transformer
+from .layers import LayerNorm, Linear, Transformer
 
 
 def check_supported(cfg: CLIPTextCfg) -> None:
-    unported = {
-        "embed_cls": cfg.embed_cls,
-        "proj_type": cfg.proj_type != "linear",
-        "proj_bias": cfg.proj_bias,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    if cfg.embed_cls:
         raise NotImplementedError(
-            f"text_cfg options {bad} are not yet ported in colxlip_tpu_torch")
+            "text_cfg option 'embed_cls' is the CoCa text tower's (models/coca.py "
+            "CoCaTextTower); the CLIP text tower does not take it")
+
+
+def add_projection(model: nn.Module, cfg: CLIPTextCfg, embed_dim: int, *,
+                   dtype: torch.dtype) -> None:
+    """``model.text_projection``: None, a ``Linear`` (``proj_bias``) or the
+    bare [width, embed_dim] matrix, by the config."""
+    if cfg.proj_type == "none" or not embed_dim:
+        model.text_projection = None
+    elif cfg.proj_bias:
+        model.text_projection = Linear(cfg.width, embed_dim, dtype=dtype)
+    else:
+        model.text_projection = nn.Parameter(torch.empty(cfg.width, embed_dim))
+
+
+def project(model: nn.Module, pooled: torch.Tensor) -> torch.Tensor:
+    proj = model.text_projection
+    if proj is None:
+        return pooled
+    if isinstance(proj, Linear):
+        return proj(pooled)
+    return torch.matmul(pooled, proj.to(pooled.dtype))
 
 
 def add_text_tower(model: nn.Module, cfg: CLIPTextCfg, embed_dim: int,
@@ -49,7 +68,7 @@ def add_text_tower(model: nn.Module, cfg: CLIPTextCfg, embed_dim: int,
                                     dtype=dtype, grad_checkpointing=grad_checkpointing,
                                     ls_init_value=cfg.ls_init_value)
     model.ln_final = LayerNorm(cfg.width)
-    model.text_projection = nn.Parameter(torch.empty(cfg.width, embed_dim))
+    add_projection(model, cfg, embed_dim, dtype=dtype)
 
 
 def text_global_pool(x: torch.Tensor, text: torch.Tensor,
@@ -76,4 +95,4 @@ def encode_text_tower(model: nn.Module, text: torch.Tensor,
     x = model.transformer(x, is_causal=not cfg.no_causal_mask)
     x = model.ln_final(x)
     pooled = text_global_pool(x, text, cfg.pool_type)
-    return torch.matmul(pooled, model.text_projection.to(pooled.dtype)), x
+    return project(model, pooled), x

@@ -4,15 +4,16 @@ patchify-as-matmul (``conv1``) -> + class token and positional embedding
 (learned, or the fixed 2-D sin-cos table as its initial value) in the compute
 dtype -> PatchDropout when training -> ln_pre (unless ``no_ln_pre``) -> blocks
 -> ln_post on all tokens then pooling, or pooling then ln_post on the pooled
-vector (``final_ln_after_pool``) -> pooled @ proj. ``pool_type``: 'tok' (the
+vector (``final_ln_after_pool``), or with ``attentional_pool`` the learned
+queries' cross-attention (``attn_pool``), ln_post on its output, then
+pooling -> pooled @ proj. ``pool_type``: 'tok' (the
 class token), 'avg' (the mean of the patch tokens), anything else no pooling.
 
 Takes NHWC images [B, H, W, 3], the JAX layout: floats already normalised, or
 integers (the uint8 feed), which are normalised here, on the tensor's device,
 in fp32 with the config's mean and std; or the planar YUV420 feed, integers
 [B, H*3//2, W], which ``ops.yuv420.decode_yuv420`` turns into normalised fp32
-RGB on the device. ``attentional_pool`` is not ported and raises
-``NotImplementedError``.
+RGB on the device.
 """
 from __future__ import annotations
 
@@ -23,16 +24,12 @@ from torch import nn
 
 from ..ops.yuv420 import decode_yuv420
 from .configs import CLIPVisionCfg
-from .layers import LayerNorm, PatchDropout, Transformer
+from .layers import AttentionalPooler, LayerNorm, PatchDropout, Transformer
 
 POS_EMBED_TYPES = ("learnable", "sin_cos_2d")
 
 
 def check_supported(cfg: CLIPVisionCfg) -> None:
-    if cfg.attentional_pool:
-        raise NotImplementedError(
-            "vision_cfg option 'attentional_pool' (cross-attention) is not yet ported in "
-            "colxlip_tpu_torch")
     if cfg.pos_embed_type not in POS_EMBED_TYPES:
         raise ValueError(f"pos_embed_type {cfg.pos_embed_type!r}: expected one of "
                          f"{POS_EMBED_TYPES}")
@@ -92,6 +89,9 @@ class VisionTransformer(nn.Module):
         self.transformer = Transformer(width, cfg.layers, cfg.heads, cfg.mlp_ratio, act,
                                        dtype=dtype, grad_checkpointing=grad_checkpointing,
                                        ls_init_value=cfg.ls_init_value)
+        if cfg.attentional_pool:
+            self.attn_pool = AttentionalPooler(width, width, cfg.attn_pooler_heads,
+                                               cfg.attn_pooler_queries, dtype=dtype)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, embed_dim))
         # for the integer feed; not part of the state dict
@@ -123,7 +123,9 @@ class VisionTransformer(nn.Module):
         if not cfg.no_ln_pre:
             x = self.ln_pre(x)
         x = self.transformer(x)
-        if cfg.final_ln_after_pool:
+        if cfg.attentional_pool:
+            pooled, tokens = global_pool(self.ln_post(self.attn_pool(x)), cfg.pool_type)
+        elif cfg.final_ln_after_pool:
             pooled, tokens = global_pool(x, cfg.pool_type)
             pooled = self.ln_post(pooled)
         else:

@@ -15,6 +15,11 @@ name ``mesh.DATA_AXIS`` or a process group (``parallel/mesh.py``).
 - ``ring_shift``: this rank's tensor to ``(rank + shift) % n`` and the one of
   ``(rank - shift) % n`` back, one ``batch_isend_irecv``; its backward is
   the same shift run the other way.
+- ``all_reduce_sum``: ``lax.psum`` (the sum over the ranks on every rank);
+  its backward all-reduces the cotangent, as psum's transpose does.
+- ``all_gather_stacked``: ``lax.all_gather(axis=0)`` without ``tiled``,
+  [b, ...] -> [world, b, ...]; its backward is the sum-scatter of
+  ``gather_features(gather_with_grad=True)``.
 """
 from __future__ import annotations
 
@@ -92,6 +97,35 @@ class _RingShift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return shift_rows(g, ctx.group, -ctx.shift), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.detach().clone().contiguous()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, axis_name: AxisName) -> torch.Tensor:
+    """The sum of ``x`` over the ranks, on every rank (``lax.psum``)."""
+    return _AllReduceSum.apply(x, resolve_group(axis_name))
+
+
+def all_gather_stacked(x: torch.Tensor, axis_name: AxisName) -> torch.Tensor:
+    """[b, ...] on every rank -> [world, b, ...], rank-major, differentiable
+    (``lax.all_gather`` without ``tiled``): the cotangent of every rank's copy
+    is summed onto the rank that sent the rows."""
+    group = resolve_group(axis_name)
+    n = dist.get_world_size(group)
+    return _GatherWithGrad.apply(x, group).reshape(n, *x.shape)
 
 
 def ring_shift(x: torch.Tensor, axis_name: AxisName, shift: int = 1) -> torch.Tensor:

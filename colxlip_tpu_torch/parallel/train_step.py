@@ -15,11 +15,13 @@ says so. ``accum_freq > 1`` is gradient accumulation with cached-negative
 splicing (the JAX ``microbatched_loss_fn``): pass 1 encodes every
 microbatch under ``no_grad``; pass 2 re-encodes each microbatch with
 gradients, splices it into the cached bank, takes the loss over the whole
-accumulation and adds its gradients. With ``packed_feed=(img_shape, ctx)``
-the step takes ``(buf, None)``, one ``data_feed.pack_batch`` buffer, and
-unpacks it on the device first. Distillation teachers are not ported and
-raise ``NotImplementedError``, and so does a model with ``patch_dropout >
-0`` (the JAX step cannot run one).
+accumulation and adds its gradients. The bank holds the outputs whose
+leading dimension is the microbatch, never the weights and scalars of
+``_NON_BATCH_OUTPUTS`` (``caption_head_kernel`` is [D, V], whatever D is).
+With ``packed_feed=(img_shape, ctx)`` the step takes ``(buf, None)``, one
+``data_feed.pack_batch`` buffer, and unpacks it on the device first. A model
+with ``patch_dropout > 0`` raises ``NotImplementedError`` (the JAX step
+cannot run one).
 
 ``mesh`` (the data-parallel group of ``parallel/mesh.py``, or its name
 ``'data'``) is the JAX ``shard_map`` over the data axis, one rank a
@@ -40,7 +42,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..losses import clip_loss, colclip_loss
+from ..losses import clip_loss, coca_loss, colclip_loss, distill_clip_loss, siglip_loss
 from ..models.layers import PatchDropout
 from .data_feed import unpack_batch
 from ..training.optim import global_norm
@@ -48,13 +50,15 @@ from .mesh import AxisName, resolve_group
 
 MAX_LOGIT_SCALE = math.log(100.0)
 # model outputs that are parameters or scalars, never per-sample rows: the
-# accumulation splice does not cache them
-_NON_BATCH_OUTPUTS = frozenset({"logit_scale", "logit_bias"})
+# accumulation splice does not cache them, even where a leading dimension
+# equals the microbatch
+_NON_BATCH_OUTPUTS = frozenset(
+    {"logit_scale", "logit_bias", "dist_logit_scale", "caption_head_kernel"})
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
-    loss_type: str = "colclip"            # 'clip' | 'colclip' (others: not ported)
+    loss_type: str = "colclip"            # 'clip' | 'colclip' | 'siglip' | 'coca' | 'distill'
     alpha: float = 0.5
     local_loss: bool = False
     gather_with_grad: bool = False
@@ -75,7 +79,7 @@ Metrics = Dict[str, torch.Tensor]
 
 def compute_loss(out: Dict[str, torch.Tensor], cfg: TrainStepConfig,
                  axis_name: AxisName = None) -> Metrics:
-    """Dispatch on the loss type (``colclip`` and ``clip`` are ported)."""
+    """Dispatch on the loss type."""
     if cfg.loss_type == "colclip":
         return colclip_loss(
             out["image_features"], out["text_features"],
@@ -93,16 +97,48 @@ def compute_loss(out: Dict[str, torch.Tensor], cfg: TrainStepConfig,
             gather_with_grad=cfg.gather_with_grad, logit_bias=out.get("logit_bias"),
             ce_impl=cfg.ce_impl)
         return {"total_loss": total}
-    if cfg.loss_type in ("siglip", "coca", "distill"):
-        raise NotImplementedError(f"loss_type={cfg.loss_type!r} is not yet ported")
+    if cfg.loss_type == "coca":
+        d = coca_loss(
+            out["image_features"], out["text_features"], out.get("logits"), out["labels"],
+            out["logit_scale"], caption_loss_weight=cfg.coca_caption_loss_weight,
+            clip_loss_weight=cfg.coca_contrastive_loss_weight, axis_name=axis_name,
+            local_loss=cfg.local_loss, gather_with_grad=cfg.gather_with_grad,
+            output_dict=True, ce_impl=cfg.ce_impl, caption_hidden=out.get("caption_hidden"),
+            caption_head_kernel=out.get("caption_head_kernel"))
+        return {"contrastive_loss": d["contrastive_loss"], "caption_loss": d["caption_loss"],
+                "total_loss": d["contrastive_loss"] + d["caption_loss"]}
+    if cfg.loss_type == "distill":
+        contrastive, distill = distill_clip_loss(
+            out["image_features"], out["text_features"], out["logit_scale"],
+            out["dist_image_features"], out["dist_text_features"], out["dist_logit_scale"],
+            axis_name=axis_name, local_loss=cfg.local_loss,
+            gather_with_grad=cfg.gather_with_grad)
+        return {"contrastive_loss": contrastive, "distill_loss": distill,
+                "total_loss": contrastive + distill}
+    if cfg.loss_type == "siglip":
+        total = siglip_loss(out["image_features"], out["text_features"], out["logit_scale"],
+                            out.get("logit_bias"), axis_name=axis_name,
+                            dist_impl=cfg.dist_impl)
+        return {"total_loss": total}
     raise ValueError(f"unknown loss_type: {cfg.loss_type!r}")
 
 
-def build_forward(model: nn.Module, cfg: TrainStepConfig) -> Callable:
-    """forward(images, texts) -> the model's output dict, plus the 'valid'
-    text mask (positions strictly before the EOT argmax) for that mask mode."""
+def build_forward(model: nn.Module, cfg: TrainStepConfig,
+                  teacher: Optional[nn.Module] = None) -> Callable:
+    """forward(images, texts) -> the model's output dict, plus the teacher's
+    detached features for distillation and the 'valid' text mask (positions
+    strictly before the EOT argmax) for that mask mode. A CoCa model under
+    ``ce_impl='fused'`` is asked for no dense caption logits."""
+    kw = {"logits": False} if cfg.loss_type == "coca" and cfg.ce_impl == "fused" else {}
+
     def forward(images: torch.Tensor, texts: torch.Tensor) -> Dict[str, torch.Tensor]:
-        out = model(images, texts)
+        out = model(images, texts, **kw)
+        if teacher is not None:
+            with torch.no_grad():
+                t_out = teacher(images, texts)
+            out["dist_image_features"] = t_out["image_features"]
+            out["dist_text_features"] = t_out["text_features"]
+            out["dist_logit_scale"] = t_out["logit_scale"]
         if cfg.mask_mode == "valid" and "token_text_features" in out:
             eot = texts.argmax(dim=-1)
             positions = torch.arange(texts.shape[1], device=texts.device)
@@ -160,7 +196,8 @@ class TrainStep:
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
                  schedule: Optional[Callable[[int], float]], cfg: TrainStepConfig,
                  packed_feed: Optional[Tuple[Tuple[int, ...], int]] = None,
-                 group: Optional[dist.ProcessGroup] = None):
+                 group: Optional[dist.ProcessGroup] = None,
+                 teacher: Optional[nn.Module] = None):
         if cfg.accum_freq < 1:
             raise ValueError(f"accum_freq must be >= 1; got {cfg.accum_freq}")
         self.model = model
@@ -168,7 +205,8 @@ class TrainStep:
         self.schedule = schedule
         self.cfg = cfg
         self.packed_feed = packed_feed
-        self.forward = build_forward(model, cfg)
+        self.teacher = teacher if teacher is None else teacher.eval()
+        self.forward = build_forward(model, cfg, teacher)
         self.group = group
         self.step = 0
         if group is not None:
@@ -188,8 +226,10 @@ class TrainStep:
         ims, txs = images.chunk(n), texts.chunk(n)
         with torch.no_grad():
             cached = [self.forward(im, tx) for im, tx in zip(ims, txs)]
+        b = ims[0].shape[0]
         batched = [k for k, v in cached[0].items()
-                   if k not in _NON_BATCH_OUTPUTS and v.ndim >= 1]
+                   if k not in _NON_BATCH_OUTPUTS and isinstance(v, torch.Tensor)
+                   and v.ndim >= 1 and v.shape[0] == b]
         per_micro = []
         for j in range(n):
             out_j = self.forward(ims[j], txs[j])
@@ -246,9 +286,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     """The train step. ``schedule`` (step -> lr) sets each update's learning
     rate; None keeps the optimizer's. ``mesh``: None (one device) or the
     data-parallel group (or its name ``'data'``). ``packed_feed``:
-    (per-sample image shape, ctx) of the packed buffers the step takes."""
-    if teacher is not None:
-        raise NotImplementedError("make_train_step: teacher is not yet ported")
+    (per-sample image shape, ctx) of the packed buffers the step takes.
+    ``teacher``: the distillation teacher (``loss_type='distill'``), a model
+    whose forward returns ``image_features``, ``text_features`` and
+    ``logit_scale``."""
     if any(isinstance(m, PatchDropout) and m.prob > 0 for m in model.modules()):
         # the JAX step applies the model with train=True and no rngs, so its
         # PatchDropout raises flax InvalidRngError: the step has no draw to port
@@ -257,4 +298,4 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             "passes no 'patch_dropout' rng and raises InvalidRngError, so there is no "
             "seeded draw to reproduce (PatchDropout itself is ported: models/layers.py)")
     return TrainStep(model, optimizer, schedule, cfg, packed_feed=packed_feed,
-                     group=resolve_group(mesh))
+                     group=resolve_group(mesh), teacher=teacher)

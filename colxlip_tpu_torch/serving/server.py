@@ -29,7 +29,12 @@ Endpoints (JSON), as in the JAX server:
                          "scoring": "maxsim"}   (needs --index <dir>)
                         -> {"indices": [[...]], "scores": [[...]], "ids"?}
                         two-stage text -> corpus search (serving/index.py)
-  POST /v1/caption -> 400: not yet ported (needs the CoCa decoder).
+  POST /v1/caption      {"images_b64": [...], "method": "greedy"|"top_k"|"top_p",
+                         "max_len": null, "top_k": 50, "top_p": 0.9,
+                         "temperature": 1.0, "seed": 0}
+                        -> {"captions": [...]}   (CoCa models; 400 otherwise)
+                        autoregressive decode (serving/generate.py), at most
+                        max_batch images a decode
 
 Run: ``python -m colxlip_tpu_torch.serving.server --model ViT-B-16-colxlip``.
 """
@@ -56,11 +61,11 @@ from ..data.tokenizer import EOT_TOKEN, SOT_TOKEN, get_tokenizer_cached
 from ..data.transforms import image_transform
 from ..factory import create_model, load_weights
 from ..training.evaluate import score_similarity
+from ..models.coca import CoCa
+from .generate import generate_captions, tokens_to_text
 from .index import RetrievalIndex
 
 logger = logging.getLogger(__name__)
-
-NOT_PORTED = "not yet ported in colxlip_tpu_torch"
 
 
 def disable_tf32() -> None:
@@ -368,6 +373,22 @@ class ColXLIPService:
             alpha=self.alpha if alpha is None else alpha,
             mask_mode=self.mask_mode, text_mask=text_mask)
 
+    def caption(self, images_b64: List[str], *, method: str = "greedy",
+                max_len: Optional[int] = None, top_k: int = 50, top_p: float = 0.9,
+                temperature: float = 1.0, seed: int = 0) -> List[str]:
+        """CoCa models only: decode a caption an image, ``max_batch`` images
+        a decode (each with the request's ``seed``)."""
+        if not isinstance(self.model, CoCa):
+            raise ValueError(f"{self.model_name!r} has no caption decoder — "
+                             "captioning needs a CoCa model")
+        imgs = self.decode_images(images_b64)
+        step = self.engine.max_batch
+        tokens = np.concatenate([generate_captions(
+            self.model, imgs[i:i + step], method=method, max_len=max_len, top_k=top_k,
+            top_p=top_p, temperature=temperature, seed=seed)
+            for i in range(0, len(imgs), step)])
+        return tokens_to_text(tokens, self.tokenizer)
+
     def record(self, path: str, seconds: float) -> None:
         with self._metrics_lock:
             self.request_counts[path] = self.request_counts.get(path, 0) + 1
@@ -474,8 +495,13 @@ class _Handler(BaseHTTPRequestHandler):
                     resp["ids"] = ids
                 return self._send(200, resp)
             if self.path == "/v1/caption":
-                raise ValueError(f"/v1/caption is {NOT_PORTED} "
-                                 "(needs the CoCa decoder)")
+                caps = self.service.caption(
+                    req["images_b64"], method=req.get("method", "greedy"),
+                    max_len=req.get("max_len"), top_k=int(req.get("top_k", 50)),
+                    top_p=float(req.get("top_p", 0.9)),
+                    temperature=float(req.get("temperature", 1.0)),
+                    seed=int(req.get("seed", 0)))
+                return self._send(200, {"captions": caps})
             return self._send(404, {"error": f"unknown path {self.path}"})
         except (KeyError, ValueError, TypeError) as e:
             return self._send(400, {"error": str(e)})

@@ -106,7 +106,7 @@ def _jax_case(kind, kw, inputs):
     return np.asarray(out[0]), [np.asarray(g).reshape(W, B, *g.shape[1:]) for g in out[1:]]
 
 
-@pytest.mark.parametrize("case", list(worker.LOSS_CASES))
+@pytest.mark.parametrize("case", worker.loss_cases("losses"))
 def test_port_rank_matches_jax_device(runs, case):
     inputs, ranks = runs
     kind, kw = worker.LOSS_CASES[case]

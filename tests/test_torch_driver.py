@@ -400,10 +400,6 @@ REFUSED = [
     (["--fsdp"], "--fsdp"),
     (["--packed-feed"], "--packed-feed"),
     (["--pipeline", "grain"], "--pipeline grain"),
-    (["--dist-impl", "shift"], "--dist-"),
-    (["--distill-model", TINY, "--distill-pretrained", "x.pt"], "--distill-model"),
-    (["--siglip"], "--siglip"),
-    (["--model", "coca-S-test"], "CoCa"),
     (["--force-patch-dropout", "0.5"], "--force-patch-dropout"),
     (["--async-checkpoint"], "--async-checkpoint"),
     (["--precision", "pure_bf16"], "pure_bf16"),
@@ -422,6 +418,41 @@ def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, message):
     with open(tmp_path / "refused" / "out.log") as f:
         log = f.read()
     assert "ERROR" in log and message in log
+
+
+FAMILIES = {
+    # name -> (flags, the losses metrics.jsonl must hold)
+    "coca": (["--model", "coca-S-test", "--coca-caption-loss-weight", "1.5"],
+             ("contrastive_loss", "caption_loss")),
+    "siglip": (["--siglip", "--dist-impl", "shift"], ()),
+    "distill": (["--distill-model", TINY], ("contrastive_loss", "distill_loss")),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_main_trains_the_other_loss_families_and_resumes(tmp_path, family):
+    """CoCa (coca-S-test, the caption CE streamed under --ce-impl fused),
+    --siglip (--dist-impl at one process changes nothing, as in JAX) and
+    distillation from a seeded teacher .pt: rc 0, finite losses with the
+    family's terms in metrics.jsonl, a checkpoint a later run resumes."""
+    logs = str(tmp_path)
+    flags, terms = FAMILIES[family]
+    if family == "distill":
+        teacher, _ = factory.create_model(TINY, "cpu", torch.float32, seed=5)
+        flags = flags + ["--distill-pretrained",
+                         checkpoint.save_pt_checkpoint(str(tmp_path / "teacher.pt"), teacher)]
+    assert main_mod.main(_argv(logs, family, *flags, epochs=1)) == 0
+    assert main_mod.main(_argv(logs, family, *flags, "--resume", "latest")) == 0
+    steps, losses = _losses(logs, family)
+    assert steps == list(range(1, 9)) and np.isfinite(losses).all()
+    with open(os.path.join(logs, family, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    for term in terms:
+        assert all(np.isfinite(r[term]) for r in records), term
+    with open(os.path.join(logs, family, "out.log")) as f:
+        assert "=> resuming checkpoint" in f.read()
+    assert sorted(os.listdir(os.path.join(logs, family, "checkpoints"))) == ["epoch_1",
+                                                                           "epoch_2"]
 
 
 def test_main_skips_a_missing_retrieval_suite_and_trains_on(tmp_path):

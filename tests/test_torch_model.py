@@ -295,6 +295,8 @@ VISION_OPTIONS = {
     "pool-avg-ln-after": {"pool_type": "avg", "final_ln_after_pool": True},
     "pool-none": {"pool_type": "none"},
     "patch-dropout-in-eval": {"patch_dropout": 0.5},
+    "attentional-pool": {"attentional_pool": True, "attn_pooler_queries": 6,
+                         "attn_pooler_heads": 2},
 }
 
 
@@ -390,6 +392,9 @@ TEXT_OPTIONS = {
     "pool-first": {"pool_type": "first"},
     "pool-last": {"pool_type": "last"},
     "pool-none": {"pool_type": "none"},
+    "proj-none": {"proj_type": "none"},
+    "proj-bias": {"proj_bias": True},
+    "proj-mlp-is-linear": {"proj_type": "mlp"},
 }
 
 
@@ -401,6 +406,11 @@ def test_text_tower_options_match_jax(option):
     for w, g in zip(j_txt, p_txt):
         assert tuple(g.shape) == w.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=FEATURE_ATOL)
+    # proj_type 'none' holds no projection; proj_bias a Linear, as the JAX Dense
+    keys = {k for k in port.state_dict() if k.startswith("text_projection")}
+    assert keys == {"proj-none": set(), "proj-bias": {"text_projection.weight",
+                                                      "text_projection.bias"}
+                    }.get(option, {"text_projection"})
 
 
 def test_layer_scale_keys_convert_in_both_directions(tmp_path):
@@ -453,15 +463,13 @@ def test_force_patch_dropout_reaches_the_vision_config():
 
 
 def test_unported_tower_options_still_raise():
+    """``embed_cls`` is the CoCa text tower's (models/coca.py), as in JAX,
+    where only CoCaTextTower reads it: the CLIP text tower refuses it."""
     cfg = factory.model_config(TINY)
-    cfg.vision_cfg.attentional_pool = True
-    with pytest.raises(NotImplementedError, match="attentional_pool"):
+    cfg.text_cfg.embed_cls = True
+    with pytest.raises(NotImplementedError, match="embed_cls.*models/coca.py"):
         ColXLIP(cfg, dtype=torch.float32)
-    for field, value in (("embed_cls", True), ("proj_type", "mlp"), ("proj_bias", True)):
-        cfg = factory.model_config(TINY)
-        setattr(cfg.text_cfg, field, value)
-        with pytest.raises(NotImplementedError, match=field):
-            ColXLIP(cfg, dtype=torch.float32)
+
 
 
 def test_port_never_imports_jax():

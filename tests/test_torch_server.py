@@ -181,9 +181,45 @@ def test_score_matches_jax_model(server, jax_model, scoring):
     pytest.param("/v1/caption", {"images_b64": ["aGk="]}, id="/v1/caption-body1"),
 ])
 def test_unported_endpoints_answer_400(server, path, body):
+    """/v1/caption on a model without a caption decoder answers 400 with the
+    JAX server's message (it was 400 "not yet ported" before CoCa was)."""
     _, port = server
     resp = _post(port, path, body, expect=400)
-    assert "not yet ported in colxlip_tpu_torch" in resp["error"]
+    assert resp["error"] == (f"{TINY!r} has no caption decoder — captioning needs a CoCa "
+                             "model")
+
+
+@pytest.fixture(scope="module")
+def coca_server():
+    model, cfg = factory.create_model("coca-S-test", "cpu", torch.float32, seed=4)
+    svc = ColXLIPService("coca-S-test", device="cpu", dtype=torch.float32, max_batch=2,
+                         model=model, cfg=cfg)
+    httpd = make_server(svc, host="127.0.0.1", port=0)
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    yield svc, httpd.server_address[1]
+    httpd.shutdown()
+    svc.stop()
+    t.join(timeout=10)
+
+
+def test_caption_answers_the_greedy_strings(coca_server):
+    """/v1/caption on coca-S-test: 200 and, for 3 images (two decodes at
+    max_batch 2), the strings of generate_captions' greedy tokens; a
+    sampled request repeats under its seed."""
+    from colxlip_tpu_torch.serving.generate import generate_captions, tokens_to_text
+
+    svc, port = coca_server
+    rng = np.random.default_rng(5)
+    imgs = [_jpeg_b64(rng) for _ in range(3)]
+    resp = _post(port, "/v1/caption", {"images_b64": imgs, "max_len": 12})
+    want = tokens_to_text(generate_captions(svc.model, svc.decode_images(imgs), max_len=12),
+                          svc.tokenizer)
+    assert resp == {"captions": want} and len(want) == 3
+    body = {"images_b64": imgs[:2], "method": "top_k", "top_k": 5, "seed": 3, "max_len": 8}
+    assert _post(port, "/v1/caption", body) == _post(port, "/v1/caption", body)
+    bad = _post(port, "/v1/caption", {"images_b64": imgs[:1], "method": "beam"}, expect=400)
+    assert "unknown decode method" in bad["error"]
 
 
 def test_search_without_an_index_answers_400(server):

@@ -411,8 +411,11 @@ def test_unported_options_raise(jax_model):
     opt = optim.create_optimizer(model, 1e-3)
     with pytest.raises(ValueError, match="unknown axis"):
         make_train_step(model, opt, None, TrainStepConfig(), mesh="model")
+    # every JAX loss type is ported (siglip, coca and distill since their
+    # slice: tests/test_torch_siglip.py, tests/test_torch_coca.py); an unknown
+    # one raises the JAX ValueError
     step = make_train_step(model, opt, None, dataclasses.replace(
-        TrainStepConfig(), loss_type="siglip"))
+        TrainStepConfig(), loss_type="triplet"))
     imgs, txts = _batch()
-    with pytest.raises(NotImplementedError, match="siglip"):
+    with pytest.raises(ValueError, match="unknown loss_type: 'triplet'"):
         step(torch.from_numpy(imgs), torch.from_numpy(txts))

@@ -7,7 +7,10 @@ seeded inputs and writes ``<out_dir>/rank<r>.npz``; the test files
 (``tests/test_torch_dist*.py``) spawn the ranks once per file and hold
 the results against the JAX ``shard_map`` functions. Suites:
 
-- ``losses``: ``LOSS_CASES`` (the collectives, clip and colclip);
+- ``losses``: the ``LOSS_CASES`` of ``LOSS_SUITES['losses']`` (the
+  collectives, clip and colclip);
+- ``siglip``: the ``LOSS_CASES`` of ``LOSS_SUITES['siglip']`` (SigLIP's four
+  negative exchanges and the distillation loss);
 - ``step``: ``STEP_CASES``, one train step each from the same weights;
 - ``main``: ``colxlip_tpu_torch.main.main(argv)``; the rank saves its
   final parameters, and with ``--stop-after-step k`` (before ``argv``)
@@ -30,7 +33,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-# name -> (kind, keywords); kinds: 'gather', 'shift', 'clip', 'colclip'
+# name -> (kind, keywords); kinds: 'gather', 'shift', 'clip', 'colclip',
+# 'siglip' ('bias' adds a logit_bias), 'distill'
 LOSS_CASES = {
     "gather_with_grad": ("gather", dict(gather_with_grad=True)),
     "gather_no_grad": ("gather", dict()),
@@ -56,8 +60,21 @@ LOSS_CASES = {
     "colclip_ring_no_grad": ("colclip", dict(local_loss=True, token_dist="ring")),
     "colclip_ring_cap2_no_grad": ("colclip", dict(local_loss=True, token_dist="ring",
                                                   token_neighborhood=2)),
+    "siglip_bidir": ("siglip", dict(dist_impl="bidir")),
+    "siglip_shift": ("siglip", dict(dist_impl="shift")),
+    "siglip_reduce": ("siglip", dict(dist_impl="reduce")),
+    "siglip_gather": ("siglip", dict(dist_impl="gather")),
+    "siglip_bidir_bias": ("siglip", dict(dist_impl="bidir", bias=True)),
+    "siglip_reduce_bias": ("siglip", dict(dist_impl="reduce", bias=True)),
+    "distill_full": ("distill", dict()),
+    "distill_full_gather_with_grad": ("distill", dict(gather_with_grad=True)),
+    "distill_local": ("distill", dict(local_loss=True)),
+    "distill_local_gather_with_grad": ("distill", dict(local_loss=True,
+                                                       gather_with_grad=True)),
 }
+LOSS_SUITES = {"losses": ("gather", "shift", "clip", "colclip"), "siglip": ("siglip", "distill")}
 LOSS_SCALE = 10.0
+LOSS_BIAS = -2.0
 LOSS_ALPHA = 0.6
 
 # name -> TrainStepConfig keywords (the colclip loss); 'text_ctx' feeds
@@ -79,14 +96,46 @@ def rows(x: np.ndarray, rank: int, world: int) -> np.ndarray:
     return x[rank * b:(rank + 1) * b]
 
 
-def run_losses(rank: int, world: int, inputs, out: dict) -> None:
-    from colxlip_tpu_torch.losses import clip_loss, colclip_loss
+def loss_cases(suite: str) -> list:
+    """The names of ``LOSS_CASES`` that ``suite`` runs."""
+    return [name for name, (kind, _) in LOSS_CASES.items() if kind in LOSS_SUITES[suite]]
+
+
+def run_losses(rank: int, world: int, inputs, out: dict, suite: str = "losses") -> None:
+    from colxlip_tpu_torch.losses import clip_loss, colclip_loss, distill_clip_loss, siglip_loss
     from colxlip_tpu_torch.parallel.collectives import gather_features, ring_shift
 
     local = {k: torch.from_numpy(rows(inputs[k], rank, world))
-             for k in ("image", "text", "token_image", "token_text", "text_mask")}
+             for k in inputs.files if not k.startswith("cot_")}
     scale = torch.tensor(LOSS_SCALE)
-    for name, (kind, kw) in LOSS_CASES.items():
+    if suite == "siglip":
+        try:
+            siglip_loss(local["image"], local["text"], scale, axis_name="data",
+                        dist_impl="ring")
+        except ValueError as e:
+            out["siglip_unknown_dist_impl"] = np.array(str(e))
+    for name in loss_cases(suite):
+        kind, kw = LOSS_CASES[name]
+        if kind in ("siglip", "distill"):
+            kw = dict(kw)
+            feats = [local[k].clone().requires_grad_(True) for k in ("image", "text")]
+            if kind == "siglip":
+                bias = (torch.tensor(LOSS_BIAS, requires_grad=True) if kw.pop("bias", False)
+                        else None)
+                loss = siglip_loss(*feats, scale, bias, axis_name="data", **kw)
+                if bias is not None:
+                    feats.append(bias)
+            else:
+                loss = distill_clip_loss(*feats, scale, local["dist_image"], local["dist_text"],
+                                         torch.tensor(LOSS_SCALE / 2), axis_name="data",
+                                         output_dict=True, **kw)
+                out[f"{name}/distill"] = loss["distill_loss"].detach().numpy()
+                loss = loss["contrastive_loss"] + loss["distill_loss"]
+            loss.backward()
+            out[f"{name}/value"] = loss.detach().numpy()
+            for i, f in enumerate(feats):
+                out[f"{name}/grad{i}"] = f.grad.numpy()
+            continue
         if kind in ("gather", "shift"):
             x = local["image"].clone().requires_grad_(True)
             if kind == "gather":
@@ -234,7 +283,10 @@ def main() -> int:
                                 world_size=world, rank=rank)
         try:
             inputs = np.load(inputs_path)
-            {"losses": run_losses, "step": run_step}[suite](rank, world, inputs, out)
+            if suite == "step":
+                run_step(rank, world, inputs, out)
+            else:
+                run_losses(rank, world, inputs, out, suite)
         finally:
             dist.destroy_process_group()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
