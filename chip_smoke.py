@@ -215,8 +215,39 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      the plain versions' (rows that agree, printed), the first step's logits
      within phase 4's encode bars of theirs; in fp32 the tokens equal the
      plain versions'; request ms at batch 8 and 64 and ms a decode step.
-  Phases 4, 6, 7, 10, 11, 12 and 13 run the default path and must launch none
-  of the LayerNorm and MLP kernels.
+  14. the pod recipes' per-device step (colxlip_tpu_torch/parallel/pod_shape.py:
+     one device's share of --local-loss --token-dist ring --token-neighborhood 8
+     --gather-with-grad across M = 64 devices, the transport left out, the
+     remote blocks rolled copies of the local ones): ViT-B-16-colxlip, bf16,
+     batch 256, alpha 0.7, in both window modes ('scan': 8 MaxSim calls a
+     direction; 'fused': one over the [8 x 256] window) at 77 text tokens and
+     'scan' at the recipes' --text-ctx 64, and ViT-L-14-colxlip at the
+     recipe's batch 64 'scan' (halved until it fits, the cut printed). Each:
+     POD_STEPS steps at learning rate 0 on one device-resident batch,
+     launches a step exact (24 / 24 attention, 36 / 36 at ViT-L; 16 / 16
+     MaxSim under 'scan', 2 / 2 under 'fused'), ms a step (median of steps
+     2-4, host clock ending in synchronize()), img/s, peak, and one profiled
+     step's MaxSim share of the device time. The batch-64 step at M 8, K 4
+     against the plain versions under phase 6's bars (fp32 and bf16), 'scan'
+     against 'fused' in fp32 (losses within 1e-5), and #5 / #6 at the fused
+     window's T 256 x I 2048 and T 2048 x I 256 against their plain versions,
+     timed beside them and their bounds.
+  15. saves and precision through main: (a) ViT-B-16 with --async-checkpoint
+     --save-frequency 1 --save-most-recent --delete-previous-checkpoint, 3
+     epochs of 2 steps at batch 256; before each async save the same state is
+     saved synchronously into a side directory (timed), and each async
+     epoch_N and epoch_latest must load bit-equal to it; rc 0, the rotation's
+     directories, then --epochs 4 --resume latest goes on at step 7; the
+     resumed run's state on the card saved synchronously, async with the host
+     snapshot and async with the device snapshot: the blocking snapshot, the
+     background write and the synchronous save in seconds, apart, the three
+     files bit-equal. (b) ViT-B-16-colxlip --precision pure_bf16 through main
+     (6 epochs of one step on one batch of 256): rc 0, the loss falls,
+     launches as phase 6 (24 / 24 attention, 1 / 1 MaxSim a step); the step's
+     ms and peak timed apart beside the same step with fp32 parameters and
+     phase 6's.
+  Phases 4, 6, 7, 10, 11, 12, 13, 14 and 15 run the default path and must
+  launch none of the LayerNorm and MLP kernels.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi name and power limit, and before that one JSON object with the
@@ -238,6 +269,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -430,6 +462,23 @@ DIST_STEPS = 4              # the first compared, the rest timed (learning rate 
 DIST_LOSS_TOL = 1e-5        # the losses; the gradients take STEP_TOL of their dtype
 DIST_MAXSIM_SHAPES = [(256, 1024), (1024, 256)]   # local-loss rows at 4 ranks x 256
 DIST_CE_SHAPE = (256, 1024, 768)                  # M, N, rank 3's label offset
+# phase 14: one device's share of the pod recipes (scripts/train_merged30m_v5e64.sh,
+# scripts/train_vitl14_v5e64.sh: --local-loss --token-dist ring --token-neighborhood 8
+# --gather-with-grad), through parallel/pod_shape.py
+POD_MODEL = "ViT-B-16-colxlip"
+POD_BATCH = 256
+POD_DEVICES = 64            # M: the pooled banks hold M x b rows
+POD_K = 8                   # the ring window
+POD_ALPHA = 0.7
+POD_TEXT_CTX = 64           # the recipes' --text-ctx
+POD_STEPS = 4               # at learning rate 0; the step time is the median of steps 2-4
+POD_VIT_L_BATCH = 64        # the ViT-L-14 recipe's batch
+POD_COMPARE = (8, 4)        # M, K of the batch-64 step held against the plain versions
+POD_LOSS_TOL = 1e-5         # 'scan' against 'fused' in fp32
+POD_MAXSIM_SHAPES = [(256, 2048), (2048, 256)]   # the fused window at b 256, K 8
+# phase 15: --async-checkpoint and --precision pure_bf16 through main
+SAVE_EPOCHS = 3
+SAVE_STEPS_PER_EPOCH = 2
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLICKR_ANNOTATIONS = os.path.join(REPO, "datasets", "flickr30k-images", "flickr30k_val.json")
 EVAL_MODEL = "ViT-B-16-colxlip"
@@ -1235,7 +1284,7 @@ def synthetic_batch(n: int, image_size: int, ctx: int, seed: int):
 
 
 def compare_step(dev, dtype, ref_state, step_cfg, images, texts, tag: str = "[6 train]",
-                 model_name: str = MODEL) -> None:
+                 model_name: str = MODEL, make_step=None) -> None:
     """One train step (learning rate 0) through the kernels and through the
     plain versions on the same weights and inputs; raises on disagreement.
     ``ref_state`` None keeps ``model_name``'s seed-0 weights. A tensor
@@ -1245,7 +1294,8 @@ def compare_step(dev, dtype, ref_state, step_cfg, images, texts, tag: str = "[6 
     (CoCa at random init: the key bias of every attention, whose gradient
     is zero by construction, and the query-side LayerNorm of the decoder's
     cross blocks, whose keys, the pooled image slots, are alike, read
-    1e-6 of the largest in bf16 and 3e-10 in fp32)."""
+    1e-6 of the largest in bf16 and 3e-10 in fp32). ``make_step(model,
+    optimizer, schedule, cfg)`` builds the step (default make_train_step)."""
     import torch
 
     from colxlip_tpu_torch.factory import create_model
@@ -1253,6 +1303,7 @@ def compare_step(dev, dtype, ref_state, step_cfg, images, texts, tag: str = "[6 
     from colxlip_tpu_torch.training.optim import create_optimizer
     from colxlip_tpu_torch.training.schedules import const_lr
 
+    make_step = make_step or make_train_step
     results = []
     for plain in (False, True):
         model, _ = create_model(model_name, dev, dtype, seed=0)
@@ -1260,7 +1311,7 @@ def compare_step(dev, dtype, ref_state, step_cfg, images, texts, tag: str = "[6 
             model.load_state_dict(ref_state)
         model.train()
         zero = const_lr(0.0, 0)
-        step = make_train_step(model, create_optimizer(model, zero), zero, step_cfg)
+        step = make_step(model, create_optimizer(model, zero), zero, step_cfg)
         with plain_versions() if plain else contextlib.nullcontext():
             metrics = step(images, texts)
         grads = {k: p.grad.float() for k, p in model.named_parameters()}
@@ -3083,35 +3134,33 @@ def check_dist_helpers(dev, group, model_state) -> list:
             "gradient all-reduce (coalesced SUM / world)", "parameter broadcast"]
 
 
-def check_dist_kernels(dev, gen, card: str) -> dict:
-    """Phase 12c: #5 and #6 at a 4-rank step's local-loss rectangles (T 256 x
-    I 1024 and T 1024 x I 256; 77 x 197 tokens, D 512; bf16) and #11-13 at
-    M 256, N 1024, D 512 with labels offset by 768 (rank 3's rows), bf16 and
-    fp32, each against its plain version with phase 3's tolerances, timed
-    beside the plain version and the bound."""
+def check_maxsim_rects(dev, gen, shapes, tag: str, label: str, card: str) -> dict:
+    """#5 and #6 at the rectangles ``shapes`` (text items T x image items I;
+    77 x 197 tokens, D 512; bf16), each against its plain version with phase
+    3's tolerances, timed beside the plain version and the bound."""
     import torch
 
-    from colxlip_tpu_torch.ops import fused_ce, maxsim
+    from colxlip_tpu_torch.ops import maxsim
 
     out = {}
     lt, li, d = 77, 197, 512
-    for m, k in DIST_MAXSIM_SHAPES:
+    for m, k in shapes:
         t = torch.nn.functional.normalize(torch.randn(m, lt, d, generator=gen), dim=-1)
         eot = torch.randint(3, lt, (m,), generator=gen)
         t = t * (torch.arange(lt)[None, :] < eot[:, None])[:, :, None]
         img = torch.nn.functional.normalize(torch.randn(k, li, d, generator=gen), dim=-1)
         g = (torch.randn(m, k, generator=gen) / m).to(dev)
         tt, ii = t.to(dev, torch.bfloat16), img.to(dev, torch.bfloat16)
-        fwd_err = check_maxsim_forward(tt, ii, "nonzero", None, "4-rank")
+        fwd_err = check_maxsim_forward(tt, ii, "nonzero", None, label)
         got = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
         want = maxsim.maxsim_bwd_plain(tt, ii, g)
         torch.cuda.synchronize()
         bwd_err = max(max_rel_err(a, w) for a, w in zip(got, want))
         tol = BWD_TOL["bfloat16"]
-        log(f"[12 dist] maxsim bwd M={m} K={k} Lt={lt} Li={li} D={d} bfloat16: max_abs_err / "
+        log(f"{tag} maxsim bwd M={m} K={k} Lt={lt} Li={li} D={d} bfloat16: max_abs_err / "
             f"max|grad| {bwd_err:.3g} (tol {tol}) (dT, dI)")
         if not bwd_err <= tol:
-            raise RuntimeError(f"phase 12 maxsim bwd {m} x {k}: {bwd_err} > {tol}")
+            raise RuntimeError(f"{tag} maxsim bwd {m} x {k}: {bwd_err} > {tol}")
         del got, want
         row = {"maxsim_fwd": (cuda_ms(lambda: maxsim._launch_fwd(tt, ii, "nonzero", None), 5),
                               cuda_ms(lambda: maxsim.maxsim_plain(tt, ii), 3),
@@ -3122,9 +3171,23 @@ def check_dist_kernels(dev, gen, card: str) -> dict:
         for name, (ker, plain, (bound, by), err) in row.items():
             out[f"{name}/{m}x{k}"] = {"ms": ker, "plain_ms": plain, "bound_ms": bound,
                                       "bound_by": by, "max_abs_err": err}
-            log(f"[12 dist] {name} T {m} x I {k} bf16: kernel {ker:.4f} ms, plain "
+            log(f"{tag} {name} T {m} x I {k} bf16: kernel {ker:.4f} ms, plain "
                 f"{plain:.4f} ms, bound {bound:.5f} ms ({by}) ({card})")
         del tt, ii, g
+    return out
+
+
+def check_dist_kernels(dev, gen, card: str) -> dict:
+    """Phase 12c: #5 and #6 at a 4-rank step's local-loss rectangles (T 256 x
+    I 1024 and T 1024 x I 256; 77 x 197 tokens, D 512; bf16) and #11-13 at
+    M 256, N 1024, D 512 with labels offset by 768 (rank 3's rows), bf16 and
+    fp32, each against its plain version with phase 3's tolerances, timed
+    beside the plain version and the bound."""
+    import torch
+
+    from colxlip_tpu_torch.ops import fused_ce
+
+    out = check_maxsim_rects(dev, gen, DIST_MAXSIM_SHAPES, "[12 dist]", "4-rank", card)
     m, n, offset = DIST_CE_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
         a, b, _, s, g = ce_inputs(m, n, 512, 1 / 0.07, dtype, dev, gen)
@@ -3264,12 +3327,14 @@ def family_counters():
 
 
 def family_main(dev, card: str, name: str, model: str, extra, want_fwd: int, want_bwd: int,
-                logs: str, terms=("total_loss",), falling=True):
+                logs: str, terms=("total_loss",), falling=True, other_launches=None,
+                tag: str = "[13 families]"):
     """``main`` on one seeded synthetic batch of FAMILY_BATCH (train-num-samples
     = the batch, so each of FAMILY_STEPS epochs is one step on the same batch,
     which the losses must learn): rc 0, finite losses (falling where asked),
-    the attention launches exact (the other kernels none). Returns (the
-    metrics records, launches, peak GiB, the train step main built)."""
+    the attention launches exact (the other kernels none, or a step's
+    ``other_launches``). Returns (the metrics records, launches, peak GiB,
+    the train step main built)."""
     import torch
 
     from colxlip_tpu_torch import main as entry
@@ -3280,7 +3345,7 @@ def family_main(dev, card: str, name: str, model: str, extra, want_fwd: int, wan
             "--precision", "bf16", "--lr", "2e-4", "--warmup", "2", "--log-every-n-steps", "1",
             "--save-frequency", "0", "--workers", "0", "--seed", "0", "--logs", logs,
             "--name", name, *extra]
-    log(f"[13 families] python -m colxlip_tpu_torch.main {' '.join(argv)}")
+    log(f"{tag} python -m colxlip_tpu_torch.main {' '.join(argv)}")
     counters = family_counters()
     for c in counters.values():
         c.reset()
@@ -3300,7 +3365,7 @@ def family_main(dev, card: str, name: str, model: str, extra, want_fwd: int, wan
     launches = {k: c.value for k, c in counters.items() if c.value}
     with open(os.path.join(logs, name, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
-    log(f"[13 families] {name}: rc {rc} in {secs:.1f} s; "
+    log(f"{tag} {name}: rc {rc} in {secs:.1f} s; "
         + "; ".join(f"{t} " + " ".join(f"{r[t]:.5f}" for r in recs) for t in terms)
         + f"; launches {launches}; peak {peak:.2f} GiB ({card})")
     if rc != 0 or [r["step"] for r in recs] != list(range(1, FAMILY_STEPS + 1)):
@@ -3309,8 +3374,9 @@ def family_main(dev, card: str, name: str, model: str, extra, want_fwd: int, wan
         vals = [r[t] for r in recs]
         if not all(math.isfinite(v) for v in vals) or (falling and not vals[-1] < vals[0]):
             raise RuntimeError(f"{name}: {t} {vals} (finite{' and falling' if falling else ''})")
-    want = {"fused_attention_fwd": want_fwd * FAMILY_STEPS,
-            "fused_attention_bwd": want_bwd * FAMILY_STEPS}
+    want = {k: n * FAMILY_STEPS for k, n in {"fused_attention_fwd": want_fwd,
+                                            "fused_attention_bwd": want_bwd,
+                                            **(other_launches or {})}.items()}
     if launches != want:
         raise RuntimeError(f"{name}: launches {launches}, expected {want}")
     return recs, launches, peak, steps[0]
@@ -3329,9 +3395,11 @@ def family_batch(model_name: str, dev):
     return torch.from_numpy(images).to(dev), torch.from_numpy(texts).to(dev)
 
 
-def family_step_ms(dev, model_name: str, step_cfg, images, texts, teacher=None, steps: int = 4):
+def family_step_ms(dev, model_name: str, step_cfg, images, texts, teacher=None, steps: int = 4,
+                   param_dtype=None):
     """``steps`` train steps at learning rate 0 on one device-resident batch:
-    (the first step's metrics, the median ms of the later ones, peak GiB)."""
+    (the first step's metrics, the median ms of the later ones, peak GiB).
+    ``param_dtype``: the parameters' dtype (default fp32)."""
     import torch
 
     from colxlip_tpu_torch.factory import create_model
@@ -3339,7 +3407,8 @@ def family_step_ms(dev, model_name: str, step_cfg, images, texts, teacher=None, 
     from colxlip_tpu_torch.training.optim import create_optimizer
     from colxlip_tpu_torch.training.schedules import const_lr
 
-    model, _ = create_model(model_name, dev, torch.bfloat16, seed=0)
+    model, _ = create_model(model_name, dev, torch.bfloat16, seed=0,
+                            param_dtype=param_dtype or torch.float32)
     model.train()
     zero = const_lr(0.0, 0)
     step = make_train_step(model, create_optimizer(model, zero), zero, step_cfg, teacher=teacher)
@@ -3566,6 +3635,383 @@ def families_phase(dev, card: str):
     # (d) captioning over HTTP
     res["caption"] = caption_phase(dev, card)
     log(f"[13 families] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return res
+
+
+def pod_cfg(k=None):
+    """The recipes' loss flags, the ring window K (default POD_K)."""
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
+
+    return TrainStepConfig(loss_type="colclip", alpha=POD_ALPHA, local_loss=True,
+                           gather_with_grad=True, token_dist="ring",
+                           token_neighborhood=k or POD_K)
+
+
+def pod_make_step(m: int, mode: str):
+    """make_step for compare_step: the pod-shape step at M = ``m``."""
+    from colxlip_tpu_torch.parallel.pod_shape import make_pod_shape_step
+
+    return lambda model, opt, sched, cfg: make_pod_shape_step(
+        model, opt, sched, cfg, pod_devices=m, window_mode=mode)
+
+
+def pod_run(dev, card: str, model_name: str, batch: int, mode: str, ctx=None) -> dict:
+    """POD_STEPS pod-shape steps (M = POD_DEVICES, K = POD_K) at learning rate
+    0 on one seeded device-resident batch, bf16, at ``ctx`` text tokens (the
+    model's context by default): launches a step exact, ms a step (median of
+    steps 2-4), img/s, peak; then one profiled step's MaxSim share of the
+    device time."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model, model_config
+    from colxlip_tpu_torch.parallel.pod_shape import make_pod_shape_step
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    cfg = model_config(model_name)
+    ctx = ctx or cfg.text_cfg.context_length
+    images, texts = synthetic_batch(batch, cfg.vision_cfg.image_size, ctx, seed=14)
+    images, texts = torch.from_numpy(images).to(dev), torch.from_numpy(texts).to(dev)
+    model, _ = create_model(model_name, dev, torch.bfloat16, seed=0)
+    model.train()
+    zero = const_lr(0.0, 0)
+    step = make_pod_shape_step(model, create_optimizer(model, zero), zero, pod_cfg(),
+                               pod_devices=POD_DEVICES, window_mode=mode)
+    layers = cfg.vision_cfg.layers + cfg.text_cfg.layers
+    calls = 2 * POD_K if mode == "scan" else 2
+    want = {"fused_attention_fwd": layers, "fused_attention_bwd": layers,
+            "maxsim_fwd": calls, "maxsim_bwd": calls, "fused_ce_fwd": 0,
+            "fused_ce_bwd_da": 0, "fused_ce_bwd_db": 0}
+    counters, unused = dist_counters(), fused_counters()
+    for c in (*counters.values(), *unused.values()):
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    secs, first = [], None
+    for _ in range(POD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(images, texts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        first = first or {k: float(v) for k, v in metrics.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    launches = {k: c.value for k, c in counters.items()}
+    check_default_path(unused, "phase 14")
+    if launches != {k: n * POD_STEPS for k, n in want.items()}:
+        raise RuntimeError(f"phase 14 {model_name} {mode}: launches over {POD_STEPS} steps "
+                           f"{launches}, expected {want} a step")
+    if not all(math.isfinite(v) for v in first.values()):
+        raise RuntimeError(f"phase 14 {model_name} {mode}: metrics {first}")
+    ms = statistics.median(secs[1:]) * 1e3
+    events, wall_ms = profiled(lambda: step(images, texts))
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    maxsim_ms = sum(e.self_device_time_total for e in kernels if "maxsim" in e.key) / 1e3
+    label = f"{model_name} b {batch} ctx {ctx} {mode}"
+    log(f"[14 pod] {label}: M {POD_DEVICES} K {POD_K} alpha {POD_ALPHA}, bf16: step {ms:.2f} ms "
+        f"= {batch / ms * 1e3:.1f} img/s a device, peak {peak:.2f} GiB; launches a step "
+        f"{want}; total_loss {first['total_loss']:.5f}; profiled step: MaxSim {maxsim_ms:.2f} "
+        f"of {device_ms:.2f} ms of kernels ({maxsim_ms / device_ms:.1%}) in {wall_ms:.1f} ms "
+        f"({card})")
+    del step, model, images, texts
+    torch.cuda.empty_cache()
+    return {"model": model_name, "batch": batch, "ctx": ctx, "window_mode": mode,
+            "step_ms": ms, "img_per_s": batch / ms * 1e3, "peak_gib": peak,
+            "launches_per_step": want, "maxsim_device_ms": maxsim_ms,
+            "device_ms": device_ms, "maxsim_share": maxsim_ms / device_ms,
+            "first_metrics": first}
+
+
+def pod_first_metrics(dev, dtype, ref_state, images, texts, mode: str) -> dict:
+    """One pod-shape step (M, K = POD_COMPARE) at learning rate 0: its metrics."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    model, _ = create_model(POD_MODEL, dev, dtype, seed=0)
+    model.load_state_dict(ref_state)
+    model.train()
+    zero = const_lr(0.0, 0)
+    m, k = POD_COMPARE
+    step = pod_make_step(m, mode)(model, create_optimizer(model, zero), zero, pod_cfg(k))
+    metrics = {key: float(v) for key, v in step(images, texts).items()}
+    del step, model
+    torch.cuda.empty_cache()
+    return metrics
+
+
+def pod_phase(dev, card: str, train) -> dict:
+    """Phase 14: one device's share of the pod recipes (parallel/pod_shape.py):
+    ViT-B-16-colxlip at batch 256, M 64, K 8 in both window modes at 77 text
+    tokens and 'scan' at --text-ctx 64, ViT-L-14-colxlip at batch 64 'scan'
+    (halved until it fits, the cut printed); the batch-64 step (M 8, K 4)
+    against the plain versions and 'scan' against 'fused' in fp32; #5 / #6 at
+    the fused window's rectangles."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+
+    t_phase = time.perf_counter()
+    runs = [pod_run(dev, card, POD_MODEL, POD_BATCH, mode) for mode in ("scan", "fused")]
+    runs.append(pod_run(dev, card, POD_MODEL, POD_BATCH, "scan", POD_TEXT_CTX))
+    batch, vit_l = POD_VIT_L_BATCH, None
+    while vit_l is None:
+        oom = None
+        try:
+            vit_l = pod_run(dev, card, VIT_L_MODEL, batch, "scan")
+        except torch.cuda.OutOfMemoryError as e:
+            oom = str(e).splitlines()[0][:200]
+        if oom is not None:       # the failed run's tensors are free once its frame is
+            torch.cuda.empty_cache()
+            log(f"[14 pod] {VIT_L_MODEL} batch {batch}: out of memory ({oom})")
+            if batch == 1:
+                raise RuntimeError(f"phase 14: {VIT_L_MODEL} does not fit at batch 1")
+            batch //= 2
+    vit_l["cut"] = None if batch == POD_VIT_L_BATCH else f"batch {POD_VIT_L_BATCH} -> {batch}"
+    runs.append(vit_l)
+    if vit_l["cut"]:
+        log(f"[14 pod] {VIT_L_MODEL}: the largest batch that fits is {batch} (cut: "
+            f"{vit_l['cut']})")
+    scan, fused = runs[0], runs[1]
+    log(f"[14 pod] {POD_MODEL} batch {POD_BATCH}: scan {scan['step_ms']:.2f} ms, fused "
+        f"{fused['step_ms']:.2f} ms, --text-ctx {POD_TEXT_CTX} scan {runs[2]['step_ms']:.2f} ms; "
+        f"phase 6's one-device step {train['step_ms']:.2f} ms ({card})")
+
+    model, cfg = create_model(POD_MODEL, dev, torch.bfloat16, seed=0)
+    ref_state = copy.deepcopy(model.state_dict())
+    del model
+    images, texts = synthetic_batch(COMPARE_BATCH, cfg.vision_cfg.image_size,
+                                    cfg.text_cfg.context_length, seed=14)
+    images, texts = torch.from_numpy(images).to(dev), torch.from_numpy(texts).to(dev)
+    m, k = POD_COMPARE
+    for dtype in (torch.float32, torch.bfloat16):
+        compare_step(dev, dtype, ref_state, pod_cfg(k), images, texts,
+                     tag=f"[14 pod M {m} K {k} scan]", model_name=POD_MODEL,
+                     make_step=pod_make_step(m, "scan"))
+    by_mode = {mode: pod_first_metrics(dev, torch.float32, ref_state, images, texts, mode)
+               for mode in ("scan", "fused")}
+    mode_err = max(abs(by_mode["fused"][key] - v) / max(abs(v), 1e-30)
+                   for key, v in by_mode["scan"].items())
+    log(f"[14 pod] batch {COMPARE_BATCH} M {m} K {k} fp32, 'scan' against 'fused': "
+        + " ".join(f"{key} {v:.6f}/{by_mode['fused'][key]:.6f}" for key, v in by_mode["scan"].items())
+        + f"; max relative difference {mode_err:.3g} (tol {POD_LOSS_TOL})")
+    if not mode_err <= POD_LOSS_TOL:
+        raise RuntimeError(f"phase 14: 'scan' and 'fused' disagree by {mode_err}")
+    del ref_state, images, texts
+    torch.cuda.empty_cache()
+    kernels = check_maxsim_rects(dev, torch.Generator().manual_seed(14), POD_MAXSIM_SHAPES,
+                                 "[14 pod]", "pod window", card)
+    log(f"[14 pod] phase 14 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"runs": runs, "scan_vs_fused_fp32": mode_err, "kernels": kernels}
+
+
+def assert_same_state(got, want, where: str) -> None:
+    """Two checkpoint payloads hold the same structure and bit-equal tensors."""
+    import torch
+
+    if isinstance(want, torch.Tensor):
+        if not (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and torch.equal(got.cpu(), want.cpu())):
+            raise RuntimeError(f"{where}: the tensors differ")
+    elif isinstance(want, dict):
+        if list(got) != list(want):
+            raise RuntimeError(f"{where}: keys differ")
+        for key in want:
+            assert_same_state(got[key], want[key], f"{where}.{key}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise RuntimeError(f"{where}: lengths differ")
+        for i, (x, y) in enumerate(zip(got, want)):
+            assert_same_state(x, y, f"{where}[{i}]")
+    elif got != want:
+        raise RuntimeError(f"{where}: {got!r} != {want!r}")
+
+
+def async_main_run(dev, card: str, logs: str) -> dict:
+    """Phase 15 (a): main --async-checkpoint --save-frequency 1
+    --save-most-recent --delete-previous-checkpoint, SAVE_EPOCHS epochs of
+    SAVE_STEPS_PER_EPOCH steps. Each async save is preceded by a synchronous
+    save of the same state into a side directory (timed); each async
+    checkpoint must load bit-equal to it. Then --resume latest."""
+    import torch
+
+    from colxlip_tpu_torch import main as entry
+    from colxlip_tpu_torch.training import checkpoint
+    from colxlip_tpu_torch.training.logging_utils import setup_logging
+
+    side = os.path.join(logs, "sync_side")
+    ckpts = os.path.join(logs, "async", "checkpoints")
+    seconds = []
+    real = entry.save_checkpoint_async
+
+    def compare(epoch: int) -> None:
+        want = checkpoint.load_native_checkpoint(os.path.join(side, f"epoch_{epoch}"))
+        for tag in (f"epoch_{epoch}", "epoch_latest"):     # one snapshot wrote both
+            got = checkpoint.load_native_checkpoint(os.path.join(ckpts, tag))
+            assert_same_state(got, want, f"async {tag} against the sync save")
+        shutil.rmtree(os.path.join(side, f"epoch_{epoch}"))
+
+    def wrapped(checkpoint_dir, state, *, epoch, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(side, state, epoch=epoch, name=kw.get("name", ""))
+        sync_s = time.perf_counter() - t0
+        checkpoint.wait_for_saves()
+        if seconds:
+            seconds[-1]["write"] = checkpoint.ASYNC_SECONDS["write"]
+            compare(epoch - 1)
+        real(checkpoint_dir, state, epoch=epoch, **kw)
+        seconds.append({"epoch": epoch, "sync_save": sync_s,
+                        "snapshot": checkpoint.ASYNC_SECONDS["snapshot"]})
+
+    argv = ["--model", MAIN_MODEL, "--dataset-type", "synthetic", "--batch-size",
+            str(TRAIN_BATCH), "--precision", "bf16", "--epochs", str(SAVE_EPOCHS),
+            "--steps-per-epoch", str(SAVE_STEPS_PER_EPOCH), "--log-every-n-steps", "1",
+            "--save-frequency", "1", "--save-most-recent", "--delete-previous-checkpoint",
+            "--async-checkpoint", "--workers", "0", "--seed", "0", "--logs", logs,
+            "--name", "async"]
+    log(f"[15 saves] python -m colxlip_tpu_torch.main {' '.join(argv)}")
+    unused = fused_counters()
+    for c in unused.values():
+        c.reset()
+    entry.save_checkpoint_async = wrapped
+    t0 = time.perf_counter()
+    try:
+        rc = entry.main(argv)
+    finally:
+        entry.save_checkpoint_async = real
+        setup_logging(None)
+    secs = time.perf_counter() - t0
+    seconds[-1]["write"] = checkpoint.ASYNC_SECONDS["write"]   # main waited at exit
+    if rc != 0 or sorted(os.listdir(ckpts)) != [f"epoch_{SAVE_EPOCHS}", "epoch_latest"]:
+        raise RuntimeError(f"main --async-checkpoint: rc {rc}, {os.listdir(ckpts)}")
+    check_default_path(unused, "phase 15")
+    compare(SAVE_EPOCHS)
+    for r in seconds:
+        log(f"[15 saves] epoch {r['epoch']}: snapshot {r['snapshot']:.3f} s (blocking), "
+            f"background write {r['write']:.3f} s (epoch_{r['epoch']}, epoch_latest and the "
+            f"rotation); a synchronous save of the same state {r['sync_save']:.3f} s ({card})")
+    log(f"[15 saves] rc 0 in {secs:.1f} s; {sorted(os.listdir(ckpts))} left by the rotation; every "
+        f"async checkpoint (epoch_1..{SAVE_EPOCHS}, epoch_latest) loads bit-equal to the "
+        "synchronous save of the same state")
+
+    resume = [*argv, "--resume", "latest"]
+    resume[resume.index("--epochs") + 1] = str(SAVE_EPOCHS + 1)
+    try:
+        rc = entry.main(resume)
+    finally:
+        setup_logging(None)
+    base = os.path.join(logs, "async")
+    with open(os.path.join(base, "metrics.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f]
+    with open(os.path.join(base, "out.log")) as f:
+        resumed = f"(epoch {SAVE_EPOCHS})" in f.read()
+    total = (SAVE_EPOCHS + 1) * SAVE_STEPS_PER_EPOCH
+    if rc != 0 or not resumed or steps != list(range(1, total + 1)):
+        raise RuntimeError(f"--resume latest: rc {rc}, resumed at epoch {SAVE_EPOCHS}: "
+                           f"{resumed}, steps {steps}")
+    log(f"[15 saves] --epochs {SAVE_EPOCHS + 1} --resume latest: went on from epoch "
+        f"{SAVE_EPOCHS} at step {SAVE_EPOCHS * SAVE_STEPS_PER_EPOCH + 1}; "
+        f"{sorted(os.listdir(ckpts))}")
+    return {"per_epoch": seconds, "main_s": secs}
+
+
+def save_split(dev, card: str, logs: str) -> dict:
+    """Phase 15 (a, continued): the resumed run's last state on the card
+    (model and AdamW), saved three ways: synchronously, async with the host
+    snapshot (pinned buffers, one synchronize) and async with the device
+    snapshot ($COLXLIP_ASYNC_SNAPSHOT_HBM over the state's bytes); the three
+    files bit-equal."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.training import checkpoint
+    from colxlip_tpu_torch.training.optim import create_optimizer
+
+    path = os.path.join(logs, "async", "checkpoints", f"epoch_{SAVE_EPOCHS + 1}")
+    payload = checkpoint.load_native_checkpoint(path)
+    model, _ = create_model(MAIN_MODEL, dev, torch.bfloat16, seed=0)
+    model.train()
+    opt = create_optimizer(model, 1e-4)
+    checkpoint.restore_train_state(payload["state"], model, opt)
+    del payload
+    state = checkpoint.train_state(model, opt, 1)
+    state_gib = sum(t.numel() * t.element_size() for t in model.state_dict().values()) / 2**30
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(os.path.join(logs, "split"), state, epoch=0)
+    out["sync_save_s"] = time.perf_counter() - t0
+    want = checkpoint.load_native_checkpoint(os.path.join(logs, "split", "epoch_0"))
+    for i, (snap, budget) in enumerate((("host", "0"), ("device", str(64 << 30)))):
+        os.environ["COLXLIP_ASYNC_SNAPSHOT_HBM"] = budget
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save_checkpoint_async(os.path.join(logs, "split"), state, epoch=i + 1)
+            returned = time.perf_counter() - t0
+            checkpoint.wait_for_saves()
+        finally:
+            os.environ.pop("COLXLIP_ASYNC_SNAPSHOT_HBM", None)
+        out[f"{snap}_snapshot_s"] = checkpoint.ASYNC_SECONDS["snapshot"]
+        out[f"{snap}_returned_s"] = returned
+        out[f"{snap}_write_s"] = checkpoint.ASYNC_SECONDS["write"]
+        got = checkpoint.load_native_checkpoint(os.path.join(logs, "split", f"epoch_{i + 1}"))
+        assert_same_state(got["state"], want["state"],
+                          f"async ({snap} snapshot) against the sync save")
+        del got
+    del want, state, model, opt
+    torch.cuda.empty_cache()
+    log(f"[15 saves] {MAIN_MODEL} train state ({state_gib:.2f} GiB of weights, AdamW moments "
+        f"beside them): synchronous save {out['sync_save_s']:.3f} s; async with the host "
+        f"snapshot: blocking {out['host_snapshot_s']:.3f} s, background write "
+        f"{out['host_write_s']:.3f} s; with the device snapshot: blocking "
+        f"{out['device_snapshot_s']:.3f} s, write {out['device_write_s']:.3f} s; the three "
+        f"files bit-equal ({card})")
+    return out
+
+
+def saves_phase(dev, card: str, train) -> dict:
+    """Phase 15: --async-checkpoint (saves, their seconds apart, the resume)
+    and --precision pure_bf16 (main, launches, the step's ms and peak)."""
+    import torch
+
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
+
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as logs:
+        res["async_main"] = async_main_run(dev, card, logs)
+        res["split"] = save_split(dev, card, logs)
+        shutil.rmtree(os.path.join(logs, "async"))
+        shutil.rmtree(os.path.join(logs, "split"))
+
+        recs, launches, peak, step = family_main(
+            dev, card, "pure_bf16", MODEL, ["--precision", "pure_bf16"], 2 * TOWER_LAYERS,
+            2 * TOWER_LAYERS, logs, other_launches={"maxsim_fwd": 1, "maxsim_bwd": 1},
+            tag="[15 pure_bf16]")
+    del step                      # main's model and AdamW state: not in the peaks below
+    torch.cuda.empty_cache()
+    images, texts = family_batch(MODEL, dev)
+    cfg = TrainStepConfig(loss_type="colclip")
+    steps = {}
+    for name, dtype in (("pure_bf16", torch.bfloat16), ("bf16", torch.float32)):
+        _, ms, step_peak = family_step_ms(dev, MODEL, cfg, images, texts, param_dtype=dtype)
+        steps[name] = {"step_ms": ms, "img_per_s": FAMILY_BATCH / ms * 1e3, "peak_gib": step_peak}
+    log(f"[15 pure_bf16] {MODEL} batch {FAMILY_BATCH}: loss "
+        f"{recs[0]['total_loss']:.5f} -> {recs[-1]['total_loss']:.5f}; step "
+        f"{steps['pure_bf16']['step_ms']:.2f} ms, peak {steps['pure_bf16']['peak_gib']:.2f} GiB; "
+        f"fp32 parameters (bf16) in this phase {steps['bf16']['step_ms']:.2f} ms, "
+        f"{steps['bf16']['peak_gib']:.2f} GiB; phase 6 {train['step_ms']:.2f} ms, "
+        f"{train['peak_gib']:.2f} GiB ({card})")
+    del images, texts
+    torch.cuda.empty_cache()
+    res["pure_bf16"] = {"losses": [r["total_loss"] for r in recs], "launches": launches,
+                        "main_peak_gib": peak, **steps}
+    log(f"[15 saves] phase 15 took {time.perf_counter() - t_phase:.1f} s ({card})")
     return res
 
 
@@ -3922,6 +4368,12 @@ def main() -> int:
     # ---- phase 13: SigLIP, distillation, CoCa training and captioning -----
     families = families_phase(dev, card)
 
+    # ---- phase 14: one device's share of the pod recipes --------------------
+    pod = pod_phase(dev, card, train)
+
+    # ---- phase 15: --async-checkpoint and --precision pure_bf16 through main -
+    saves = saves_phase(dev, card, train)
+
     tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
     attn_fwd = (tl["fused_attention_fwd"], attn_err, timing["attention/vision"],
@@ -4056,7 +4508,8 @@ def main() -> int:
                  "feed_ms": trainer["feed_ms"]},
         "eval": evaluation,
         "launches_tar": {name: run["launches"] for name, run in tar["runs"].items()},
-        "tar": tar, "dist": data_parallel, "families": families}), flush=True)
+        "tar": tar, "dist": data_parallel, "families": families, "pod": pod,
+        "saves": saves}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

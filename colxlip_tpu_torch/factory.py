@@ -2,13 +2,14 @@
 
 ``create_model(name, device, dtype)`` builds ``CoCa`` when "coca" is in the
 name (with the config's ``multimodal_cfg``), ``ColXLIP`` when "colxlip" is,
-else ``CLIP``, with fp32 parameters and ``dtype`` compute (the JAX
-service's bf16 policy by default), initialised from a seeded
-``torch.Generator`` on the CPU (the same weights whatever the device), then
-moved to ``device``. ``create_teacher`` builds a distillation teacher the
-same way and loads its ``.pt``. ``create_model_and_transforms``, ``get_tokenizer`` and
-``create_loss`` are what the training entry point (``main.py``) builds from
-its flags.
+else ``CLIP``, with ``dtype`` compute (the JAX service's bf16 policy by
+default) and fp32 parameters (bf16 Dense, attention, embedding and patchify
+weights under ``param_dtype=bfloat16``, the 'pure_bf16' policy),
+initialised from a seeded ``torch.Generator`` on the CPU (the same weights
+whatever the device), then moved to ``device``. ``create_teacher`` builds a
+distillation teacher the same way and loads its ``.pt``.
+``create_model_and_transforms``, ``get_tokenizer`` and ``create_loss`` are
+what the training entry point (``main.py``) builds from its flags.
 """
 from __future__ import annotations
 
@@ -33,20 +34,51 @@ from .models.vision import PatchEmbed
 logger = logging.getLogger(__name__)
 
 
-PRECISION_DTYPES = {"fp32": torch.float32, "amp": torch.float32,
-                    "bf16": torch.bfloat16, "amp_bf16": torch.bfloat16}
+# precision -> (parameter dtype, compute dtype): the JAX PrecisionPolicy
+PRECISION_DTYPES = {"fp32": (torch.float32, torch.float32),
+                    "amp": (torch.float32, torch.float32),
+                    "bf16": (torch.float32, torch.bfloat16),
+                    "amp_bf16": (torch.float32, torch.bfloat16),
+                    "pure_bf16": (torch.bfloat16, torch.bfloat16)}
 
 
-def compute_dtype(precision: str) -> torch.dtype:
-    """The JAX ``PrecisionPolicy``: fp32 parameters always; 'fp32' / 'amp'
-    compute in fp32, 'bf16' / 'amp_bf16' in bf16. 'pure_bf16' (bf16
-    parameters) is not ported."""
-    if precision == "pure_bf16":
-        raise NotImplementedError("precision 'pure_bf16' (bf16 parameters) is not yet "
-                                  "ported in colxlip_tpu_torch")
+def _policy(precision: str) -> Tuple[torch.dtype, torch.dtype]:
     if precision not in PRECISION_DTYPES:
         raise ValueError(f"unsupported precision: {precision!r}")
     return PRECISION_DTYPES[precision]
+
+
+def compute_dtype(precision: str) -> torch.dtype:
+    """The JAX ``PrecisionPolicy``'s compute dtype: 'fp32' / 'amp' compute in
+    fp32, 'bf16' / 'amp_bf16' / 'pure_bf16' in bf16."""
+    return _policy(precision)[1]
+
+
+def param_dtype(precision: str) -> torch.dtype:
+    """The policy's parameter dtype: bf16 under 'pure_bf16', else fp32."""
+    return _policy(precision)[0]
+
+
+@torch.no_grad()
+def cast_params_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast the parameters that the JAX model creates in the policy's
+    ``param_dtype`` (every Dense kernel and bias, the attention projections,
+    the token embedding, the patchify kernel and CoCa's vocab head) to
+    ``dtype``, in place. LayerNorm and LayerScale parameters, the class and
+    positional embeddings, the tower projections, the pooler's queries and
+    the logit scale and bias stay fp32, as the JAX model declares them."""
+    tensors = []
+    for mod in model.modules():
+        if isinstance(mod, (Linear, nn.Embedding, PatchEmbed)):
+            tensors += [mod.weight, *([mod.bias] if isinstance(mod, Linear) else [])]
+        elif isinstance(mod, (MultiHeadAttention, CrossAttention)) and hasattr(
+                mod, "in_proj_weight"):
+            tensors += [mod.in_proj_weight, mod.in_proj_bias]
+    if isinstance(model, CoCa):
+        tensors.append(model.text_decoder.text_projection)
+    for p in tensors:
+        p.data = p.data.to(dtype)
+    return model
 
 
 def model_config(model_name: str, quick_gelu: Optional[bool] = None, *,
@@ -135,6 +167,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def create_model(model_name: str, device: Union[str, torch.device],
                  dtype: torch.dtype = torch.bfloat16, *, seed: int = 0,
+                 param_dtype: torch.dtype = torch.float32,
                  quick_gelu: Optional[bool] = None,
                  force_image_size: Optional[int] = None, alpha: Optional[float] = None,
                  gelu_approximate: Optional[bool] = None,
@@ -142,7 +175,9 @@ def create_model(model_name: str, device: Union[str, torch.device],
                  force_patch_dropout: Optional[float] = None,
                  image_mean: Optional[Sequence[float]] = None,
                  image_std: Optional[Sequence[float]] = None) -> Tuple[CLIP, CLIPCfg]:
-    """(model on ``device`` in eval mode, its config), seeded random init.
+    """(model on ``device`` in eval mode, its config), seeded random init in
+    fp32 (the same numbers whatever the dtypes), then ``cast_params_`` to
+    ``param_dtype`` (bf16 under 'pure_bf16'). ``dtype`` is the compute dtype.
     ``grad_checkpointing`` recomputes each residual block in the backward."""
     cfg = model_config(model_name, quick_gelu, force_image_size=force_image_size,
                        alpha=alpha, gelu_approximate=gelu_approximate,
@@ -155,6 +190,8 @@ def create_model(model_name: str, device: Union[str, torch.device],
         cls = ColXLIP if "colxlip" in model_name.lower() else CLIP
         model = cls(cfg, dtype=dtype, grad_checkpointing=grad_checkpointing)
     init_weights(model, torch.Generator(device="cpu").manual_seed(seed))
+    if param_dtype != torch.float32:
+        cast_params_(model, param_dtype)
     return model.to(device).eval(), cfg
 
 
@@ -226,7 +263,8 @@ def create_model_and_transforms(
     YUV420, which is lossy. As in the JAX factory, the train transform's own
     generator is unseeded: the pipeline hands it a seeded one a sample."""
     model, cfg = create_model(
-        model_name, device, compute_dtype(precision), seed=seed, quick_gelu=quick_gelu,
+        model_name, device, compute_dtype(precision), seed=seed,
+        param_dtype=param_dtype(precision), quick_gelu=quick_gelu,
         force_image_size=force_image_size, alpha=alpha,
         gelu_approximate=gelu_approximate, grad_checkpointing=grad_checkpointing,
         force_patch_dropout=force_patch_dropout, image_mean=image_mean,

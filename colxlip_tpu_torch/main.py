@@ -7,13 +7,15 @@ train data (WebDataset tar shards through ``data/wds.py`` with
 ``--train-data``: the train transforms, ``--native-decode``, the uint8
 (``--normalize-on-device``) and YUV420 (``--ship-format yuv420``) wire
 formats, ``--packed-feed``; else the synthetic dataset), the epoch loop
-with numbered and most-recent checkpoint saves and rotation,
-``--preempt-save``, the retrieval suites (``--retrieval-*``) and zero-shot
-ImageNet (``--imagenet-val``) at the end of an epoch (``--val-frequency``,
-``--zeroshot-frequency``, ``--eval-scoring``), and the eval-only mode: without ``--train-data`` and with a
-``--dataset-type`` other than ``synthetic``, ``main`` evaluates the
-``--pretrained`` weights (before any ``--resume``, as the JAX entry point
-does), appends ``checkpoints/results.jsonl`` and returns. It runs on
+with numbered and most-recent checkpoint saves and rotation (written by a
+background thread under ``--async-checkpoint``), ``--preempt-save``, the
+retrieval suites (``--retrieval-*``) and zero-shot ImageNet
+(``--imagenet-val``) at the end of an epoch (``--val-frequency``,
+``--zeroshot-frequency``, ``--eval-scoring``), and the eval-only mode:
+without ``--train-data`` and with a ``--dataset-type`` other than
+``synthetic``, ``main`` evaluates the ``--pretrained`` weights (before any
+``--resume``, as the JAX entry point does), appends
+``checkpoints/results.jsonl`` and returns. It runs on
 ``--device`` (``cuda:0`` unless told otherwise) and raises when that device
 is missing.
 
@@ -69,7 +71,7 @@ from .parallel.train_step import make_train_step
 from .params import parse_args
 from .training.checkpoint import (
     get_latest_checkpoint, load_native_checkpoint, read_step_in_epoch, restore_train_state,
-    rotate_checkpoints, save_checkpoint, train_state)
+    rotate_checkpoints, save_checkpoint, save_checkpoint_async, train_state, wait_for_saves)
 from .training.evaluate import evaluate
 from .training.logging_utils import MetricsWriter, dump_params, setup_logging
 from .training.optim import create_optimizer
@@ -168,12 +170,6 @@ def unsupported_flags(args) -> List[str]:
          "The JAX step passes no 'patch_dropout' rng either and raises flax "
          "InvalidRngError with this flag, so the port refuses it too (the module and the "
          "tower option are ported: models/layers.py PatchDropout)"),
-        (args.async_checkpoint,
-         "--async-checkpoint: background saves (training/checkpoint.py) are not yet "
-         "ported"),
-        (args.precision == "pure_bf16",
-         "--precision pure_bf16: bf16 parameters (models/configs.py PrecisionPolicy) "
-         "are not yet ported"),
     ]
     return [msg for bad, msg in checks if bad]
 
@@ -432,6 +428,7 @@ def _main(args, device: torch.device) -> int:
             step_done = skip + steps
             logger.info("Preempted in epoch %d after step %d/%d: saving mid-epoch "
                         "checkpoint", epoch, step_done, steps_per_epoch)
+            wait_for_saves()     # never race an epoch save still in flight
             if is_master:
                 save_checkpoint(checkpoint_dir, train_state(model, optimizer, step_fn.step),
                                 epoch=epoch, name=args.name, most_recent=True,
@@ -450,7 +447,16 @@ def _main(args, device: torch.device) -> int:
 
         do_numbered = is_master and args.save_frequency > 0 and (
             completed_epoch % args.save_frequency == 0 or completed_epoch == args.epochs)
-        if do_numbered or (is_master and args.save_most_recent):
+        if args.async_checkpoint and (do_numbered or (is_master and args.save_most_recent)):
+            # one snapshot feeds the numbered and the latest writes; the
+            # writes and the rotation overlap the next epoch
+            save_checkpoint_async(
+                checkpoint_dir, train_state(model, optimizer, step_fn.step),
+                epoch=completed_epoch, name=args.name, most_recent=not do_numbered,
+                also_most_recent=do_numbered and args.save_most_recent,
+                rotate_keep_epoch=(completed_epoch if do_numbered
+                                   and args.delete_previous_checkpoint else None))
+        elif do_numbered or (is_master and args.save_most_recent):
             state = train_state(model, optimizer, step_fn.step)
             if do_numbered:
                 save_checkpoint(checkpoint_dir, state, epoch=completed_epoch,
@@ -461,6 +467,7 @@ def _main(args, device: torch.device) -> int:
                 save_checkpoint(checkpoint_dir, state, epoch=completed_epoch,
                                 name=args.name, most_recent=True)
 
+    wait_for_saves()             # raises if a background save failed
     if writer is not None:
         writer.close()
     if group is not None:

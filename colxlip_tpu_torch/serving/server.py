@@ -155,16 +155,18 @@ class DynamicBatcher:
                 batch = (wave[0].payload if len(wave) == 1
                          else np.concatenate([w.payload for w in wave]))
                 outs = self._fn(batch)
-                i = 0
-                for w in wave:
-                    n = w.payload.shape[0]
-                    w.future.set_result(tuple(o[i:i + n] for o in outs))
-                    i += n
+                # count the wave before any caller can see its result, so a
+                # /metrics read after a response always includes it
                 with self._stats_lock:
                     self.stats["waves"] += 1
                     self.stats["items"] += batch.shape[0]
                     self.stats["max_wave"] = max(self.stats["max_wave"],
                                                  batch.shape[0])
+                i = 0
+                for w in wave:
+                    n = w.payload.shape[0]
+                    w.future.set_result(tuple(o[i:i + n] for o in outs))
+                    i += n
             except Exception as e:  # noqa: BLE001 — fail the wave, keep serving
                 logger.exception("batch wave failed")
                 with self._stats_lock:
@@ -420,7 +422,17 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # route to logging, not stderr
         logger.debug("%s " + fmt, self.address_string(), *args)
 
+    _post_t0: Optional[float] = None   # set while a POST is not yet recorded
+
+    def _record_post(self) -> None:
+        if self._post_t0 is not None:
+            self.service.record(self.path, time.monotonic() - self._post_t0)
+            self._post_t0 = None
+
     def _send(self, code: int, obj: dict) -> None:
+        # a POST is counted before its response leaves, so a client that
+        # reads /metrics after the response always sees it
+        self._record_post()
         body = json.dumps(obj).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
@@ -452,11 +464,11 @@ class _Handler(BaseHTTPRequestHandler):
         })
 
     def do_POST(self):  # noqa: N802 — http.server API
-        t0 = time.monotonic()
+        self._post_t0 = time.monotonic()
         try:
             self._route_post()
         finally:
-            self.service.record(self.path, time.monotonic() - t0)
+            self._record_post()       # a request that sent no response
 
     def _embed(self, req: dict, kind: str, key: str) -> None:
         items = req[key]

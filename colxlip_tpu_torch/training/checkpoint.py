@@ -12,8 +12,14 @@ everywhere and the ``torch.optim.AdamW`` state. A mid-epoch (preemption)
 save adds a ``preempt.json`` sidecar with the steps of the epoch already
 run. Every save is written into ``<tag>.tmp`` and renamed, so a crash leaves
 no half-written ``epoch_<N>``, and resume picks only names that match
-``epoch_<N>`` / ``epoch_latest`` exactly. Saves are synchronous and whole;
-the JAX package's orbax directories are not read.
+``epoch_<N>`` / ``epoch_latest`` exactly. Saves are whole; the JAX
+package's orbax directories are not read.
+
+``save_checkpoint_async`` (``--async-checkpoint``) takes a snapshot of the
+state, which is finished when it returns (the live tensors are updated in
+place by the next step), and writes it with ``save_checkpoint`` in a
+background thread; one save is in flight at a time and ``wait_for_saves``
+joins it, re-raising the writer's failure.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import logging
 import os
 import re
 import shutil
+import threading
+import time
 from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
@@ -86,6 +94,110 @@ def save_checkpoint(checkpoint_dir: str, state: Mapping[str, Any], *, epoch: int
             json.dump({"epoch": int(epoch), "step_in_epoch": int(step_in_epoch)}, f)
     _replace_dir(tmp, path)
     return path
+
+
+_SAVE_THREAD: Optional[threading.Thread] = None
+_SAVE_ERROR: Optional[BaseException] = None
+# seconds of the last async save: the blocking snapshot, the background write
+ASYNC_SECONDS: Dict[str, Optional[float]] = {"snapshot": None, "write": None}
+
+
+def wait_for_saves() -> None:
+    """Block until the in-flight async save (if any) has finished. A failure
+    of the background writer is re-raised here, as ``RuntimeError("async
+    checkpoint save failed")`` from it: a swallowed save error would let
+    training end with rc 0 and no checkpoint, where the synchronous save
+    raises."""
+    global _SAVE_THREAD, _SAVE_ERROR
+    if _SAVE_THREAD is not None:
+        _SAVE_THREAD.join()
+        _SAVE_THREAD = None
+    if _SAVE_ERROR is not None:
+        err, _SAVE_ERROR = _SAVE_ERROR, None
+        raise RuntimeError("async checkpoint save failed") from err
+
+
+def snapshot_state(state: Any, device_budget: int = 0) -> Any:
+    """A finished copy of ``state`` (nested dicts, lists and tuples of
+    tensors and plain values). CUDA tensors are copied on the device when
+    their bytes fit in ``device_budget``, else into pinned host buffers with
+    one synchronize at the end; CPU tensors are cloned."""
+    tensors = []
+
+    def collect(x):
+        if isinstance(x, torch.Tensor):
+            tensors.append(x)
+        elif isinstance(x, Mapping):
+            for v in x.values():
+                collect(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                collect(v)
+
+    collect(state)
+    on_device = sum(t.numel() * t.element_size() for t in tensors if t.is_cuda)
+    keep_on_device = on_device <= device_budget
+
+    def copy(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach()
+            if not x.is_cuda or keep_on_device:
+                return x.clone()
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            return host.copy_(x, non_blocking=True)
+        if isinstance(x, Mapping):
+            return type(x)((k, copy(v)) for k, v in x.items())
+        if isinstance(x, (list, tuple)):
+            return type(x)(copy(v) for v in x)
+        return x
+
+    snap = copy(state)
+    if on_device and not keep_on_device:
+        torch.cuda.synchronize()
+    return snap
+
+
+def save_checkpoint_async(checkpoint_dir: str, state: Mapping[str, Any], *, epoch: int,
+                          name: str = "", most_recent: bool = False,
+                          also_most_recent: bool = False,
+                          rotate_keep_epoch: Optional[int] = None) -> None:
+    """Checkpoint without stopping training for the write.
+
+    Joins the previous save first (one in flight at a time), snapshots
+    ``state`` (``snapshot_state``; the device budget in bytes is
+    ``$COLXLIP_ASYNC_SNAPSHOT_HBM``, default 0: a host copy), and writes the
+    snapshot with ``save_checkpoint`` in a daemon thread.
+    ``also_most_recent`` writes ``epoch_latest`` from the same snapshot after
+    ``epoch_<N>``; ``rotate_keep_epoch`` runs ``rotate_checkpoints`` only
+    once the save that supersedes the old checkpoints is on disk. The
+    writer's failure is re-raised by the next ``wait_for_saves``."""
+    global _SAVE_THREAD
+    wait_for_saves()
+    t0 = time.perf_counter()
+    snap = snapshot_state(state, int(os.environ.get("COLXLIP_ASYNC_SNAPSHOT_HBM", 0)))
+    ASYNC_SECONDS.update(snapshot=time.perf_counter() - t0, write=None)
+
+    def write():
+        global _SAVE_ERROR
+        t1 = time.perf_counter()
+        try:
+            save_checkpoint(checkpoint_dir, snap, epoch=epoch, name=name,
+                            most_recent=most_recent)
+            if also_most_recent and not most_recent:
+                save_checkpoint(checkpoint_dir, snap, epoch=epoch, name=name,
+                                most_recent=True)
+            if rotate_keep_epoch is not None:
+                rotate_checkpoints(checkpoint_dir, rotate_keep_epoch)
+            ASYNC_SECONDS["write"] = time.perf_counter() - t1
+            logger.info("async checkpoint of epoch %d: snapshot %.3f s (blocking), "
+                        "write %.3f s (background)", epoch, ASYNC_SECONDS["snapshot"],
+                        ASYNC_SECONDS["write"])
+        except Exception as e:  # noqa: BLE001 - re-raised by wait_for_saves
+            logger.exception("async checkpoint save failed (epoch %d)", epoch)
+            _SAVE_ERROR = e
+
+    _SAVE_THREAD = threading.Thread(target=write, daemon=True, name="async-checkpoint")
+    _SAVE_THREAD.start()
 
 
 def read_step_in_epoch(checkpoint_path: str) -> int:

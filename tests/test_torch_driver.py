@@ -401,8 +401,6 @@ REFUSED = [
     (["--packed-feed"], "--packed-feed"),
     (["--pipeline", "grain"], "--pipeline grain"),
     (["--force-patch-dropout", "0.5"], "--force-patch-dropout"),
-    (["--async-checkpoint"], "--async-checkpoint"),
-    (["--precision", "pure_bf16"], "pure_bf16"),
     (["--dataset-type", "auto"], "eval-only mode"),
     (["--aug-cfg", "color_jitter=0.4"], "--aug-cfg"),
 ]

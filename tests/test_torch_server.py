@@ -123,6 +123,57 @@ def test_healthz_and_metrics(server):
     assert m["batcher"]["text"]["items"] >= m["batcher"]["text"]["waves"] >= 1
 
 
+def test_batcher_counts_a_wave_before_its_results_resolve():
+    """A done-callback runs in the batcher thread inside ``set_result``: the
+    wave it belongs to must already be in ``stats``, or a client that reads
+    /metrics after its response can miss it."""
+    batcher = DynamicBatcher(lambda x: (x * 2,), max_batch=4, max_wait_ms=0.0)
+    seen = []
+    try:
+        fut = batcher.submit(np.ones((2, 3), np.float32))
+        fut.add_done_callback(lambda f: seen.append(
+            (batcher.stats["waves"], batcher.stats["items"])))
+        np.testing.assert_array_equal(fut.result(timeout=30)[0], 2.0)
+    finally:
+        batcher.stop()
+    assert seen == [(1, 2)]
+
+
+def test_post_is_recorded_before_its_response_is_written():
+    """``do_POST`` records the request before the body goes out (and still
+    records a request whose handler raised before sending anything)."""
+    class Service:
+        def __init__(self):
+            self.recorded = []
+
+        def record(self, path, seconds):
+            self.recorded.append(path)
+
+    class Wire:
+        def __init__(self, svc):
+            self.svc, self.seen = svc, []
+
+        def write(self, body):
+            self.seen.append(list(self.svc.recorded))
+
+    svc = Service()
+    handler = server_mod._Handler.__new__(type("H", (server_mod._Handler,), {"service": svc}))
+    handler.path, handler.wfile = "/v1/embed/text", Wire(svc)
+    handler.send_response = handler.send_header = lambda *a: None
+    handler.end_headers = lambda: None
+    handler._route_post = lambda: handler._send(200, {"ok": True})
+    handler.do_POST()
+    assert handler.wfile.seen == [["/v1/embed/text"]]
+    assert svc.recorded == ["/v1/embed/text"]
+
+    def fail():
+        raise ConnectionResetError("client went away")
+    handler._route_post = fail
+    with pytest.raises(ConnectionResetError):
+        handler.do_POST()
+    assert svc.recorded == ["/v1/embed/text"] * 2
+
+
 def test_embed_text_normalized_and_bucket_invariant(server):
     _, port = server
     texts = ["a photo of a cat", "two dogs on grass", "blue car"]
