@@ -246,8 +246,28 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      launches as phase 6 (24 / 24 attention, 1 / 1 MaxSim a step); the step's
      ms and peak timed apart beside the same step with fp32 parameters and
      phase 6's.
-  Phases 4, 6, 7, 10, 11, 12, 13, 14 and 15 run the default path and must
-  launch none of the LayerNorm and MLP kernels.
+  16. sharded state (colxlip_tpu_torch/parallel/gspmd.py) under a NCCL group
+     of one (NCCL refuses two ranks on one GPU): ViT-B-16-colxlip, colclip,
+     alpha 0.5, mask 'nonzero', bf16, batch 256, gather with gradient, from
+     phase 6's weights. (a) shard_state + make_train_step_gspmd(fsdp=True) on
+     a ('data',) mesh of one: FSDP2's all-gathers and reduce-scatters at
+     size one; 4 steps, the first against the one-device step (losses to
+     1e-5, the gradients to phase 6's bf16 bars; bit-equality printed), the
+     rest timed at learning rate 0; 24 / 24 attention and 1 / 1 MaxSim
+     launches; ms, img/s, peak and idle beside phase 6's. (b) the same on a
+     ('data', 'model') mesh of 1 x 1: the DTensor parameters, the in_proj
+     regroup and the model-axis collectives around kernels #1 and #2 at size
+     one, same bars; again under COLXLIP_LN_IMPL=fused
+     COLXLIP_MLP_IMPL=fused (55 / 24 launches, the MLP's row-parallel bias
+     added after the sum) against the one-device fused step under phase 6's
+     bf16 bars. (c) (a)'s state (150.3 M parameters and the AdamW moments)
+     through save_checkpoint_sharded into $TMPDIR, synchronous and in the
+     background: seconds beside phase 15's save, a restore into a fresh
+     sharded state bit-equal, load_native_checkpoint of the directory equal
+     to the state whole. (d) main --fsdp at one process returns 1 before
+     any model work, with the JAX entry point's words.
+  Phases 4, 6, 7, 10, 11, 12, 13, 14, 15 and 16's default runs use the
+  default path and must launch none of the LayerNorm and MLP kernels.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 nvidia-smi name and power limit, and before that one JSON object with the
@@ -479,6 +499,8 @@ POD_MAXSIM_SHAPES = [(256, 2048), (2048, 256)]   # the fused window at b 256, K 
 # phase 15: --async-checkpoint and --precision pure_bf16 through main
 SAVE_EPOCHS = 3
 SAVE_STEPS_PER_EPOCH = 2
+# phase 16: sharded state under a process group of one
+GSPMD_STEPS = 4             # the first compared, the rest timed (learning rate 0)
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLICKR_ANNOTATIONS = os.path.join(REPO, "datasets", "flickr30k-images", "flickr30k_val.json")
 EVAL_MODEL = "ViT-B-16-colxlip"
@@ -4015,6 +4037,302 @@ def saves_phase(dev, card: str, train) -> dict:
     return res
 
 
+def gspmd_counters():
+    """Every kernel counter of the train step: attention, MaxSim, LayerNorm
+    and MLP."""
+    from colxlip_tpu_torch.ops import attention, maxsim
+
+    return {"fused_attention_fwd": attention.LAUNCHES,
+            "fused_attention_bwd": attention.BWD_LAUNCHES,
+            "maxsim_fwd": maxsim.LAUNCHES, "maxsim_bwd": maxsim.BWD_LAUNCHES,
+            **fused_counters()}
+
+
+def gspmd_run(dev, card: str, ref_state, cfg, images, texts, mesh, steps: int,
+              tag: str, keep: bool = False) -> dict:
+    """``steps`` steps at learning rate 0 from ``ref_state``: the one-device
+    step (``mesh`` None) or shard_state + make_train_step_gspmd(fsdp=True)
+    on ``mesh``, the model built under the environment as it is. Returns the
+    first step's metrics, gradients (this rank's shards: the whole at a mesh
+    of one) and launches, the median ms of the later steps, the peak GiB,
+    and (steps > 1) one profiled step's device ms and idle share; with
+    ``keep`` also the model, the optimizer and the step."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.gspmd import local, make_train_step_gspmd, shard_state
+    from colxlip_tpu_torch.parallel.train_step import make_train_step
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    model, _ = create_model(MODEL, dev, torch.bfloat16, seed=0)
+    model.load_state_dict(ref_state)
+    model.train()
+    zero = const_lr(0.0, 0)
+    if mesh is None:
+        opt = create_optimizer(model, zero)
+        step = make_train_step(model, opt, zero, cfg)
+    else:
+        shard_state(model, mesh, fsdp=True)
+        opt = create_optimizer(model, zero)
+        step = make_train_step_gspmd(model, opt, zero, cfg, mesh, fsdp=True)
+    counters = gspmd_counters()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"metrics": {k: float(v) for k, v in step(images, texts).items()}}
+    torch.cuda.synchronize()
+    out["launches"] = {name: c.value for name, c in counters.items()}
+    out["grads"] = {k: local(p.grad).float().clone() for k, p in model.named_parameters()}
+    secs = []
+    for _ in range(steps - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(images, texts)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["ms"] = statistics.median(secs) * 1e3 if secs else float("nan")
+    out["steps_ms"] = [t * 1e3 for t in secs]
+    if steps > 1:
+        events, wall_ms = profiled(lambda: step(images, texts))
+        device_ms = sum(e.self_device_time_total for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out["device_ms"], out["idle"] = device_ms, max(0.0, 1 - device_ms / wall_ms)
+        log(f"{tag} profiled step: {device_ms:.1f} ms of kernels in {wall_ms:.1f} ms (device "
+            f"idle {out['idle']:.1%}) ({card})")
+    if keep:
+        out["kept"] = (model, opt, step)
+    else:
+        del step, opt, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def gspmd_compare(tag: str, got: dict, want: dict, dtype: str, loss_tol: float) -> list:
+    """The sharded step's first step against the one-device step's: the
+    losses within ``loss_tol`` relative, the gradients within phase 6's
+    ``dtype`` bars; prints the readings and whether all is bit-equal.
+    Returns the failures."""
+    import torch
+
+    loss_err = max(abs(got["metrics"][k] - want["metrics"][k])
+                   / max(abs(want["metrics"][k]), 1e-30)
+                   for k in want["metrics"] if k.endswith("loss"))
+    cos_min, norm_err, equal, worst = grad_agreement(got["grads"], want["grads"])
+    equal = equal and got["metrics"] == want["metrics"]
+    cos_tol, norm_tol, _ = STEP_TOL[dtype]
+    log(f"{tag} first step: " + " ".join(f"{k} {v:.6f}" for k, v in got["metrics"].items())
+        + "; one device " + " ".join(f"{k} {v:.6f}" for k, v in want["metrics"].items()))
+    log(f"{tag} max rel loss diff {loss_err:.3g} (tol {loss_tol}), lowest grad cosine "
+        f"{cos_min:.7f} ({', '.join(f'{k} {v:.7f}' for k, v in worst.items())}; min "
+        f"{cos_tol}), max rel grad-norm diff {norm_err:.3g} (tol {norm_tol}); metrics and "
+        f"gradients {'bit-equal' if equal else 'not bit-equal'} to the one-device step")
+    got["bit_equal"] = equal
+    got.update(loss_rel_err=loss_err, grad_cos_min=cos_min, grad_norm_rel_err=norm_err)
+    if loss_err <= loss_tol and cos_min >= cos_tol and norm_err <= norm_tol:
+        return []
+    return [f"{tag}: losses {loss_err:.3g}, cosine {cos_min:.7f}, norms {norm_err:.3g} outside "
+            f"({loss_tol}, {cos_tol}, {norm_tol})"]
+
+
+def gspmd_saves(dev, card: str, kept, mesh, saves) -> dict:
+    """Phase 16 (c): (a)'s sharded state saved synchronously and in the
+    background into $TMPDIR, restored into a fresh sharded state (bit-equal)
+    and read whole (equal to the state)."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.gspmd import local, shard_state
+    from colxlip_tpu_torch.training import checkpoint as ck
+    from colxlip_tpu_torch.training.optim import create_optimizer
+
+    model, opt, step = kept
+    state = ck.sharded_train_state(model, opt, step.step)
+
+    def shards(m, o):
+        out = {f"param/{k}": local(p).detach() for k, p in m.named_parameters()}
+        for k, p in m.named_parameters():
+            out.update({f"{key}/{k}": local(v) for key, v in o.state[p].items()
+                        if key != "step"})
+        return out
+
+    mine = shards(model, opt)
+    res = {"state_gib": sum(t.numel() * t.element_size() for t in mine.values()) / 2**30}
+    failures = []
+    with tempfile.TemporaryDirectory() as root:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync_path = ck.save_checkpoint_sharded(os.path.join(root, "sync"), state, epoch=1,
+                                               name="gspmd")
+        res["sync_save_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bg_path = ck.save_checkpoint_sharded(os.path.join(root, "bg"), state, epoch=1,
+                                             name="gspmd", background=True)
+        res["background_returned_s"] = time.perf_counter() - t0
+        ck.wait_for_saves()
+        res["background_total_s"] = time.perf_counter() - t0
+        res["checkpoint_gib"] = sum(
+            os.path.getsize(os.path.join(sync_path, f)) for f in os.listdir(sync_path)) / 2**30
+        for label, path in (("sync", sync_path), ("background", bg_path)):
+            fresh, _ = create_model(MODEL, dev, torch.bfloat16, seed=1)
+            fresh.train()
+            shard_state(fresh, mesh, fsdp=True)
+            fresh_opt = create_optimizer(fresh, 0.0)
+            t0 = time.perf_counter()
+            restored = ck.restore_sharded_checkpoint(
+                path, ck.sharded_train_state(fresh, fresh_opt, 0))
+            got_step = ck.restore_sharded_train_state(restored["state"], fresh, fresh_opt)
+            torch.cuda.synchronize()
+            res[f"{label}_restore_s"] = time.perf_counter() - t0
+            got = shards(fresh, fresh_opt)
+            same = got.keys() == mine.keys() and all(torch.equal(got[k], mine[k]) for k in mine)
+            res[f"{label}_restore_bit_equal"] = same and got_step == step.step
+            if not res[f"{label}_restore_bit_equal"]:
+                failures.append(f"the {label} sharded save restores other values")
+            del fresh, fresh_opt, restored, got
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        whole = ck.load_native_checkpoint(sync_path)
+        res["whole_read_s"] = time.perf_counter() - t0
+        names = ck.optimizer_param_names(model, opt)
+        osd = whole["state"]["optimizer"]
+        same = whole["epoch"] == 1 and whole["state"]["step"] == step.step and all(
+            torch.equal(whole["state"]["state_dict"][k].to(dev), mine[f"param/{k}"])
+            for k in whole["state"]["state_dict"]) and all(
+            torch.equal(osd["state"][i][key].to(dev), mine[f"{key}/{names[i]}"])
+            for i in range(len(names)) for key in ("exp_avg", "exp_avg_sq"))
+        res["whole_equal"] = same
+        if not same:
+            failures.append("load_native_checkpoint of the sharded save differs from the state")
+        del whole, osd
+    split = saves["split"]
+    log(f"[16 gspmd] (c) {MODEL} sharded state ({res['state_gib']:.2f} GiB: weights and the "
+        f"two AdamW moments; {res['checkpoint_gib']:.2f} GiB on disk): synchronous "
+        f"save_checkpoint_sharded {res['sync_save_s']:.3f} s; in the background: the call "
+        f"returns in {res['background_returned_s']:.3f} s, finished after "
+        f"{res['background_total_s']:.3f} s; restores {res['sync_restore_s']:.3f} / "
+        f"{res['background_restore_s']:.3f} s, bit-equal {res['sync_restore_bit_equal']} / "
+        f"{res['background_restore_bit_equal']}; read whole {res['whole_read_s']:.3f} s, equal "
+        f"to the state {res['whole_equal']}; phase 15's whole {MAIN_MODEL} save "
+        f"{split['sync_save_s']:.3f} s synchronous, {split['host_snapshot_s']:.3f} s blocking "
+        f"async ({card})")
+    if failures:
+        raise RuntimeError("phase 16 (c): " + "; ".join(failures))
+    return res
+
+
+def gspmd_refusal(dev) -> dict:
+    """Phase 16 (d): main --fsdp at one process returns 1 before any model
+    work, with the JAX entry point's words."""
+    from colxlip_tpu_torch import main as main_mod
+
+    want = ("--fsdp shards state over the data axis and needs a multi-device mesh with data "
+            "size >= 2 (have 1 device(s), data axis 1)")
+    build = main_mod.create_model_and_transforms
+
+    def no_model(*a, **k):
+        raise RuntimeError("phase 16 (d): main --fsdp reached the model at one process")
+
+    with tempfile.TemporaryDirectory() as logs:
+        main_mod.create_model_and_transforms = no_model
+        try:
+            rc = main_mod.main(["--model", MODEL, "--fsdp", "--dataset-type", "synthetic",
+                                "--logs", logs, "--name", "fsdp1", "--device", str(dev)])
+        finally:
+            main_mod.create_model_and_transforms = build
+        with open(os.path.join(logs, "fsdp1", "out.log")) as f:
+            said = want in f.read()
+    log(f"[16 gspmd] (d) main --fsdp at one process: rc {rc}, the JAX words in out.log: "
+        f"{said}")
+    if rc != 1 or not said:
+        raise RuntimeError(f"phase 16 (d): main --fsdp at one process gave rc {rc}, message "
+                           f"{'found' if said else 'missing'}")
+    return {"rc": rc}
+
+
+def gspmd_phase(dev, card: str, train, saves) -> dict:
+    """Phase 16: sharded state under a NCCL process group of one (the
+    module docstring's (a)-(d)). Every run is read before the phase fails."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.mesh import create_mesh
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
+
+    t_phase = time.perf_counter()
+    port = free_port()
+    torch.cuda.set_device(dev)
+    dist.init_process_group(DIST_BACKEND, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    res, failures = {}, []
+    attn = {"fused_attention_fwd": 2 * TOWER_LAYERS, "fused_attention_bwd": 2 * TOWER_LAYERS,
+            "maxsim_fwd": 1, "maxsim_bwd": 1}
+    no_fused = {"fused_ln_fwd": 0, "fused_ln_bwd": 0, "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    with_fused = {k: STEP_LAUNCHES["fused_ln" if "ln" in k else "fused_mlp"] for k in no_fused}
+    try:
+        model, cfg_m = create_model(MODEL, dev, torch.bfloat16, seed=0)
+        ref_state = copy.deepcopy(model.state_dict())
+        del model
+        images, texts = synthetic_batch(TRAIN_BATCH, cfg_m.vision_cfg.image_size,
+                                        cfg_m.text_cfg.context_length, seed=12)
+        images, texts = torch.from_numpy(images).to(dev), torch.from_numpy(texts).to(dev)
+        cfg = TrainStepConfig(loss_type="colclip", alpha=0.5, mask_mode="nonzero",
+                              gather_with_grad=True)
+        one = gspmd_run(dev, card, ref_state, cfg, images, texts, None, 1, "[16 gspmd]")
+        meshes = {"fsdp": create_mesh(1),
+                  "tp": init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))}
+        for name, label in (("fsdp", "(a) FSDP, ('data',) mesh of one"),
+                            ("tp", "(b) TP plan + FSDP, ('data', 'model') mesh of 1 x 1")):
+            tag = f"[16 gspmd {name}]"
+            run = gspmd_run(dev, card, ref_state, cfg, images, texts, meshes[name],
+                            GSPMD_STEPS, tag, keep=name == "fsdp")
+            failures += gspmd_compare(tag, run, one, "bfloat16", DIST_LOSS_TOL)
+            if run["launches"] != {**attn, **no_fused}:
+                failures.append(f"{tag}: launches {run['launches']}")
+            log(f"{tag} {label}: launches a step {run['launches']}; step {run['ms']:.2f} ms at "
+                f"batch {TRAIN_BATCH} (steps 2-{GSPMD_STEPS}: "
+                f"{', '.join(f'{t:.2f}' for t in run['steps_ms'])}; "
+                f"{TRAIN_BATCH / run['ms'] * 1e3:.1f} img/s), peak "
+                f"{run['peak_gib']:.2f} GiB, idle {run['idle']:.1%}; phase 6 "
+                f"{train['step_ms']:.2f} ms ({TRAIN_BATCH / train['step_ms'] * 1e3:.1f} img/s), "
+                f"{train['peak_gib']:.2f} GiB ({card})")
+            res[name] = run
+        tag = "[16 gspmd tp fused]"
+        with fused_towers():
+            one_fused = gspmd_run(dev, card, ref_state, cfg, images, texts, None, 1, tag)
+            run = gspmd_run(dev, card, ref_state, cfg, images, texts, meshes["tp"], GSPMD_STEPS,
+                            tag)
+        failures += gspmd_compare(tag, run, one_fused, "bfloat16", STEP_TOL["bfloat16"][2])
+        if run["launches"] != {**attn, **with_fused} or one_fused["launches"] != run["launches"]:
+            failures.append(f"{tag}: launches {run['launches']}, one device "
+                            f"{one_fused['launches']}")
+        log(f"{tag} (b) under COLXLIP_LN_IMPL=fused COLXLIP_MLP_IMPL=fused: launches a step "
+            f"{run['launches']}; step {run['ms']:.2f} ms (steps 2-{GSPMD_STEPS}: "
+            f"{', '.join(f'{t:.2f}' for t in run['steps_ms'])}; "
+            f"{TRAIN_BATCH / run['ms'] * 1e3:.1f} img/s), peak {run['peak_gib']:.2f} GiB, idle {run['idle']:.1%} ({card})")
+        res["tp_fused"] = run
+        del one_fused, ref_state, images, texts
+        kept = res["fsdp"].pop("kept")
+        res["saves"] = gspmd_saves(dev, card, kept, meshes["fsdp"], saves)
+        del kept
+        torch.cuda.empty_cache()
+        res["refusal"] = gspmd_refusal(dev)
+    finally:
+        dist.destroy_process_group()
+    for run in (res.get("fsdp"), res.get("tp"), res.get("tp_fused")):
+        if run is not None:
+            run.pop("grads", None)
+    log(f"[16 gspmd] phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    if failures:
+        raise RuntimeError("phase 16: " + "; ".join(failures))
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4374,6 +4692,9 @@ def main() -> int:
     # ---- phase 15: --async-checkpoint and --precision pure_bf16 through main -
     saves = saves_phase(dev, card, train)
 
+    # ---- phase 16: sharded state under a process group of one ---------------
+    sharded = gspmd_phase(dev, card, train, saves)
+
     tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
     attn_fwd = (tl["fused_attention_fwd"], attn_err, timing["attention/vision"],
@@ -4509,7 +4830,7 @@ def main() -> int:
         "eval": evaluation,
         "launches_tar": {name: run["launches"] for name, run in tar["runs"].items()},
         "tar": tar, "dist": data_parallel, "families": families, "pod": pod,
-        "saves": saves}), flush=True)
+        "saves": saves, "gspmd": sharded}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

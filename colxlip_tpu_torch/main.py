@@ -29,6 +29,19 @@ every checkpoint, and runs the epoch-end eval while the others wait;
 ``--log-local`` gives rank r its own ``out-<r>.log``. Every rank loads the
 resumed checkpoint.
 
+Sharded state (``parallel/gspmd.py``): ``--fsdp`` shards the parameters and
+AdamW moments over the data axis, ``--model-parallel P`` splits the towers
+over a 'model' axis of P ranks (rank d P + m), or both; the GSPMD step
+trains one loss over the global batch. ``--batch-size`` is then per data
+index (the P ranks of one read the same rows) and the global batch is
+``--batch-size`` times the data size. Every rank writes its shards of each
+checkpoint (``save_checkpoint_sharded``, in the background under
+``--async-checkpoint``) and reads them back on resume, after placement; a
+whole ``state.pt`` resumes too. The epoch-end eval gathers the whole
+parameters on every rank's call and rank 0 evaluates a plain copy of the
+model. At one process ``--fsdp`` and ``--model-parallel 2`` are refusals,
+as in the JAX entry point.
+
 The loss is chosen as the JAX ``create_loss`` chooses it: a CoCa model
 trains the contrastive and caption terms (``--coca-contrastive-loss-weight``,
 ``--coca-caption-loss-weight``; ``--ce-impl fused`` streams the caption CE);
@@ -44,6 +57,7 @@ that cannot hold together, as the JAX entry point refuses them).
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import shutil
@@ -65,13 +79,18 @@ from .factory import (compute_dtype, create_loss, create_model_and_transforms, c
                       get_tokenizer)
 from .ops.yuv420 import yuv420_rows
 from .parallel.mesh import (
-    broadcast_str, collective_device, create_mesh, initialize_multihost, rank, world)
+    broadcast_str, collective_device, create_mesh, data_index, data_size, initialize_multihost,
+    rank, world)
 from .parallel.data_feed import global_batch_size
+from .parallel.gspmd import (full_state_dict, make_train_step_gspmd, shard_state,
+                             validate_gspmd_config)
 from .parallel.train_step import make_train_step
 from .params import parse_args
 from .training.checkpoint import (
-    get_latest_checkpoint, load_native_checkpoint, read_step_in_epoch, restore_train_state,
-    rotate_checkpoints, save_checkpoint, save_checkpoint_async, train_state, wait_for_saves)
+    get_latest_checkpoint, is_sharded_checkpoint, load_native_checkpoint, read_step_in_epoch,
+    restore_sharded_checkpoint, restore_sharded_train_state, restore_train_state,
+    rotate_checkpoints, save_checkpoint, save_checkpoint_async, save_checkpoint_sharded,
+    sharded_train_state, state_fully_addressable, train_state, wait_for_saves)
 from .training.evaluate import evaluate
 from .training.logging_utils import MetricsWriter, dump_params, setup_logging
 from .training.optim import create_optimizer
@@ -159,9 +178,6 @@ def unsupported_flags(args) -> List[str]:
     checks = [
         (bool(args.remote_sync),
          "--remote-sync: remote sync (utils/file_utils.py) is not yet ported"),
-        (args.model_parallel > 1,
-         "--model-parallel > 1: tensor parallelism (parallel/gspmd.py) is not yet ported"),
-        (args.fsdp, "--fsdp: sharded state (parallel/gspmd.py) is not yet ported"),
         (args.pipeline == "grain",
          "--pipeline grain: the grain pipeline (data/grain_pipeline.py) is not yet ported "
          "(use the default --pipeline wds)"),
@@ -172,6 +188,32 @@ def unsupported_flags(args) -> List[str]:
          "tower option are ported: models/layers.py PatchDropout)"),
     ]
     return [msg for bad, msg in checks if bad]
+
+
+def gspmd_errors(args, n_ranks: int) -> List[str]:
+    """The JAX entry point's refusals of ``--model-parallel`` / ``--fsdp`` on
+    ``n_ranks`` processes (one device each): P must divide the devices,
+    FSDP needs a data axis of 2 or more, the packed feed is the plain
+    data-parallel step's, and the GSPMD step refuses the loss modes
+    ``validate_gspmd_config`` names."""
+    mp = args.model_parallel
+    if mp <= 1 and not args.fsdp:
+        return []
+    errors = []
+    if mp > 1 and n_ranks % mp:
+        errors.append(f"--model-parallel {mp} does not divide the {n_ranks} devices")
+    data = n_ranks // mp if n_ranks % mp == 0 else 0
+    if args.fsdp and data < 2:
+        errors.append(f"--fsdp shards state over the data axis and needs a multi-device mesh "
+                      f"with data size >= 2 (have {n_ranks} device(s), data axis {data})")
+    if args.packed_feed:
+        errors.append("--packed-feed is only supported on the plain data-parallel step (not "
+                      "--model-parallel/--fsdp)")
+    try:
+        validate_gspmd_config(create_loss(args))
+    except ValueError as e:
+        errors.append(str(e))
+    return errors
 
 
 def feed_errors(args) -> List[str]:
@@ -211,9 +253,10 @@ def main(argv=None) -> int:
 
 
 def _main(args, device: torch.device) -> int:
-    group = create_mesh() if dist.is_initialized() else None
+    group = dist.group.WORLD if dist.is_initialized() else None
     is_master = rank() == 0
     n_ranks = world()
+    sharded = args.model_parallel > 1 or args.fsdp
     if group is not None and device.type == "cuda":
         device = collective_device(group)      # cuda:<local rank>
 
@@ -234,7 +277,7 @@ def _main(args, device: torch.device) -> int:
         if args.copy_codebase:
             copy_codebase(args)
 
-    refused = unsupported_flags(args) + feed_errors(args)
+    refused = unsupported_flags(args) + gspmd_errors(args, n_ranks) + feed_errors(args)
     for msg in refused:
         logger.error("%s", msg)
     if refused:
@@ -308,8 +351,8 @@ def _main(args, device: torch.device) -> int:
                                   batch_size=args.batch_size,
                                   classnames_path=args.imagenet_classnames)
 
-    def run_eval(epoch: int, zs) -> None:
-        evaluate(model, suites, epoch=epoch, batch_size=args.batch_size,
+    def run_eval(epoch: int, zs, eval_model=None) -> None:
+        evaluate(eval_model or model, suites, epoch=epoch, batch_size=args.batch_size,
                  scoring=args.eval_scoring, alpha=args.alpha,
                  results_file=os.path.join(checkpoint_dir, "results.jsonl"),
                  zero_shot_fn=zs, maxsim_impl=args.maxsim_impl,
@@ -328,9 +371,12 @@ def _main(args, device: torch.device) -> int:
         eval_on_rank0(0, zero_shot_fn)
         return 0
 
-    # --batch-size is per rank; each rank's feed yields its own rows of the
+    # --batch-size is per rank, or per data index under --model-parallel (the
+    # P ranks of one read the same rows); each feed yields its rows of the
     # global batch
-    global_batch = global_batch_size(args.batch_size)
+    mesh = create_mesh(args.model_parallel) if sharded else None
+    feed_rank, feed_world = (data_index(mesh), data_size(mesh)) if sharded else (rank(), n_ranks)
+    global_batch = args.batch_size * feed_world if sharded else global_batch_size(args.batch_size)
     ctx = train_ctx or cfg.text_cfg.context_length
     if args.dataset_type == "synthetic" or not args.train_data:
         num_samples = args.train_num_samples or global_batch * 100
@@ -339,7 +385,7 @@ def _main(args, device: torch.device) -> int:
         train_data = SyntheticDataset(SyntheticConfig(
             batch_size=args.batch_size, image_size=(size, size), context_length=ctx,
             num_sampled_captions=args.num_sampled_captions,
-            seed=args.seed, num_samples=num_samples, rank=rank(), world_size=n_ranks))
+            seed=args.seed, num_samples=num_samples, rank=feed_rank, world_size=feed_world))
         num_batches = len(train_data)
     else:
         # the step reads caption 0 only (select_caption0): one i.i.d. draw
@@ -350,7 +396,7 @@ def _main(args, device: torch.device) -> int:
             resampled=args.dataset_resampled, seed=args.seed, num_workers=args.workers,
             num_sampled_captions=1, max_merged_num=args.max_merged_num,
             pixelprose=args.pixelprose, native_decode=args.native_decode,
-            decode_threads=args.decode_threads, rank=rank(), world_size=n_ranks)
+            decode_threads=args.decode_threads, rank=feed_rank, world_size=feed_world)
         train_data = WdsTrainPipeline(wds_cfg, preprocess_train, train_tokenizer,
                                       SharedEpoch(0))
         num_batches = train_data.num_batches or 1000
@@ -358,6 +404,15 @@ def _main(args, device: torch.device) -> int:
     total_steps = steps_per_epoch * args.epochs
 
     lr_schedule = build_lr_schedule(args, total_steps)
+    eval_twin = None
+    if sharded:
+        if is_master and (suites or zero_shot_fn is not None):
+            # a plain copy for rank 0's epoch-end eval: a sharded forward is
+            # collective
+            eval_twin = copy.deepcopy(model)
+        shard_state(model, mesh, fsdp=args.fsdp)
+        logger.info("GSPMD step: tp=%d x dp=%d%s", args.model_parallel, feed_world,
+                    " + fsdp" if args.fsdp else "")
     optimizer = create_optimizer(
         model, args.lr if args.skip_scheduler else lr_schedule,
         beta1=args.beta1, beta2=args.beta2, eps=args.eps, weight_decay=args.wd,
@@ -375,19 +430,34 @@ def _main(args, device: torch.device) -> int:
         teacher = create_teacher(args.distill_model, args.distill_pretrained, device,
                                  compute_dtype(args.precision), seed=args.seed)
         logger.info("Distilling from %s (%s)", args.distill_model, args.distill_pretrained)
-    step_fn = make_train_step(model, optimizer,
-                              None if args.skip_scheduler else lr_schedule,
-                              loss_cfg, mesh=group, packed_feed=packed_spec, teacher=teacher)
+    schedule = None if args.skip_scheduler else lr_schedule
+    if sharded:
+        try:
+            step_fn = make_train_step_gspmd(model, optimizer, schedule, loss_cfg, mesh,
+                                            teacher=teacher, fsdp=args.fsdp)
+        except ValueError as e:
+            logger.error("%s", e)
+            return 1
+    else:
+        step_fn = make_train_step(model, optimizer, schedule, loss_cfg, mesh=group,
+                                  packed_feed=packed_spec, teacher=teacher)
 
     start_epoch = 0
     resume_step_in_epoch = 0
     if resume_from:
-        restored = load_native_checkpoint(resume_from)
+        # sharded state is restored after placement, each rank its own shards
+        if sharded and is_sharded_checkpoint(resume_from):
+            restored = restore_sharded_checkpoint(
+                resume_from, sharded_train_state(model, optimizer, 0))
+            step_fn.step = restore_sharded_train_state(restored["state"], model, optimizer)
+        else:
+            restored = load_native_checkpoint(resume_from)
+            step_fn.step = restore_train_state(restored["state"], model, optimizer)
         start_epoch = int(restored["epoch"])
         resume_step_in_epoch = read_step_in_epoch(resume_from)
-        step_fn.step = restore_train_state(restored["state"], model, optimizer)
         logger.info("=> resuming checkpoint '%s' (epoch %d%s)", resume_from, start_epoch,
                     f", step {resume_step_in_epoch}" if resume_step_in_epoch else "")
+    state_addressable = state_fully_addressable(dict(model.named_parameters()))
 
     writer = MetricsWriter(
         log_base, args.report_to, wandb_project=args.wandb_project_name,
@@ -429,7 +499,12 @@ def _main(args, device: torch.device) -> int:
             logger.info("Preempted in epoch %d after step %d/%d: saving mid-epoch "
                         "checkpoint", epoch, step_done, steps_per_epoch)
             wait_for_saves()     # never race an epoch save still in flight
-            if is_master:
+            if not state_addressable:
+                # every rank writes its shards
+                save_checkpoint_sharded(
+                    checkpoint_dir, sharded_train_state(model, optimizer, step_fn.step),
+                    epoch=epoch, name=args.name, most_recent=True, step_in_epoch=step_done)
+            elif is_master:
                 save_checkpoint(checkpoint_dir, train_state(model, optimizer, step_fn.step),
                                 epoch=epoch, name=args.name, most_recent=True,
                                 step_in_epoch=step_done)
@@ -441,13 +516,39 @@ def _main(args, device: torch.device) -> int:
         if (suites or zero_shot_fn is not None) and (
                 (args.val_frequency > 0 and completed_epoch % args.val_frequency == 0)
                 or completed_epoch == args.epochs):
-            eval_on_rank0(completed_epoch, zero_shot_fn if (
+            zs = zero_shot_fn if (
                 zero_shot_fn is not None and args.zeroshot_frequency > 0
-                and completed_epoch % args.zeroshot_frequency == 0) else None)
+                and completed_epoch % args.zeroshot_frequency == 0) else None
+            if sharded:
+                # the whole parameters: a collective every rank enters
+                # (JAX's process_allgather); rank 0 evaluates its plain copy
+                full = full_state_dict(model)
+                if is_master:
+                    eval_twin.load_state_dict(full, strict=True)
+                    run_eval(completed_epoch, zs, eval_twin)
+                del full
+                dist.barrier(group)
+            else:
+                eval_on_rank0(completed_epoch, zs)
 
-        do_numbered = is_master and args.save_frequency > 0 and (
+        want_numbered = args.save_frequency > 0 and (
             completed_epoch % args.save_frequency == 0 or completed_epoch == args.epochs)
-        if args.async_checkpoint and (do_numbered or (is_master and args.save_most_recent)):
+        do_numbered = is_master and want_numbered
+        if not state_addressable and (want_numbered or args.save_most_recent):
+            # every rank writes its shards; --async-checkpoint writes them in
+            # the background, and the rotation waits for the write
+            state = sharded_train_state(model, optimizer, step_fn.step)
+            if want_numbered:
+                save_checkpoint_sharded(
+                    checkpoint_dir, state, epoch=completed_epoch, name=args.name,
+                    background=args.async_checkpoint,
+                    rotate_keep_epoch=(completed_epoch if args.delete_previous_checkpoint
+                                       else None))
+            if args.save_most_recent:
+                save_checkpoint_sharded(checkpoint_dir, state, epoch=completed_epoch,
+                                        name=args.name, most_recent=True,
+                                        background=args.async_checkpoint)
+        elif args.async_checkpoint and (do_numbered or (is_master and args.save_most_recent)):
             # one snapshot feeds the numbered and the latest writes; the
             # writes and the rotation overlap the next epoch
             save_checkpoint_async(

@@ -40,6 +40,16 @@ speed knob, 3.4e-6 from erf). Any other name raises. ``gelu_tanh`` takes
 the library's tanh GELU under 'stock' and the closed form with its custom
 gradient under the others.
 
+Under tensor parallelism ``parallel/gspmd.py`` gives each self-attention
+``MultiHeadAttention`` and each ``MLP`` a ``model_axis``
+(``parallel/tensor_parallel.py`` ``ModelAxis``; None, the default, keeps the
+one-device code above untouched): the module then runs its column-parallel
+product on this rank's shard of ``in_proj`` / ``c_fc`` (``in_proj``
+regrouped to whole heads: the attention runs H / P heads), its row-parallel
+product on its shard of ``out_proj`` / ``c_proj``, sums the partial outputs
+over the model group and adds the replicated bias once, after the sum
+(``fused_mlp`` gets a zero bias there).
+
 ``AttentionalPooler`` is learned-query cross-attention pooling (``query``,
 ``ln_q``, ``ln_k``, ``attn`` built with ``kv_dim``); ``Transformer`` and its
 blocks take an additive attention ``mask`` (the CoCa text tower's), which
@@ -61,6 +71,7 @@ from ..ops.fused_ln import fused_layernorm, resolve_ln_impl
 from ..ops.fused_mlp import (_SQRT1_2, erf_poly, fused_mlp, kernel_gelu_and_grad,
                              resolve_mlp_impl)
 from ..ops.quantization import int8_st_linear
+from ..parallel import tensor_parallel as tp
 
 logger = logging.getLogger(__name__)
 
@@ -228,8 +239,11 @@ class MLP(nn.Module):
         self.int8_fwd = os.environ.get("COLXLIP_MLP_INT8", "") == "fwd"
         self.c_fc = Linear(dim, hidden, dtype=dtype)
         self.c_proj = Linear(hidden, dim, dtype=dtype)
+        self.model_axis: Optional[tp.ModelAxis] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.model_axis is not None:
+            return self._model_parallel(x, self.model_axis)
         if self.int8_fwd:
             h = int8_st_linear(x.to(self.dtype), self.c_fc.weight, self.c_fc.bias)
             return int8_st_linear(self.act(h), self.c_proj.weight, self.c_proj.bias)
@@ -242,6 +256,21 @@ class MLP(nn.Module):
                              self.c_proj.weight.to(dt).t().contiguous(),
                              self.c_proj.bias.to(dt), self.approximate)
         return self.c_proj(self.act(self.c_fc(x)))
+
+    def _model_parallel(self, x: torch.Tensor, axis: tp.ModelAxis) -> torch.Tensor:
+        """This rank's H / P hidden units: c_fc's rows and c_proj's columns."""
+        dt = self.dtype
+        x = tp.enter(x, axis)
+        b1 = tp.take_rows(self.c_fc.bias, axis, 1)
+        if self.fused and x.ndim == 3:
+            y = fused_mlp(x.to(dt), self.c_fc.weight.to(dt), b1.to(dt),
+                          self.c_proj.weight.to(dt).t().contiguous(),
+                          self.c_proj.bias.new_zeros(self.c_proj.bias.shape, dtype=dt),
+                          self.approximate)
+        else:
+            y = torch.matmul(self.act(dense(x, self.c_fc.weight, b1, dt)),
+                             self.c_proj.weight.to(dt).t())
+        return tp.leave(y, axis) + self.c_proj.bias.to(dt)
 
 
 class LayerScale(nn.Module):
@@ -327,6 +356,7 @@ class MultiHeadAttention(nn.Module):
             self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
             self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = Linear(dim, dim, dtype=dtype)
+        self.model_axis: Optional[tp.ModelAxis] = None
 
     def forward(self, x: torch.Tensor, is_causal: bool = False, *,
                 kv: Optional[torch.Tensor] = None,
@@ -335,6 +365,8 @@ class MultiHeadAttention(nn.Module):
         if self.cross != (kv is not None):
             raise ValueError("MultiHeadAttention: kv= goes with a module built with kv_dim, "
                              "and only with one")
+        if self.model_axis is not None:
+            return self._model_parallel(x, is_causal, mask, self.model_axis)
         if not self.cross:
             qkv = dense(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
             return self.out_proj(attention_ops.packed_attention(
@@ -345,6 +377,18 @@ class MultiHeadAttention(nn.Module):
         out = attention_ops.multi_head_attention(q, k, v, mask=mask, causal=is_causal,
                                                  impl=self.attn_impl)
         return self.out_proj(out.reshape(b, n, d))
+
+    def _model_parallel(self, x: torch.Tensor, is_causal: bool, mask: Optional[torch.Tensor],
+                        axis: tp.ModelAxis) -> torch.Tensor:
+        """Self-attention over this rank's H / P heads."""
+        dt = self.dtype
+        x = tp.enter(x, axis)
+        qkv = dense(x, tp.regroup_qkv(self.in_proj_weight, axis),
+                    tp.take_rows(self.in_proj_bias, axis, 3), dt)
+        out = attention_ops.packed_attention(qkv, self.heads // axis.size, is_causal,
+                                             self.attn_impl, mask=mask)
+        y = torch.matmul(out.to(dt), self.out_proj.weight.to(dt).t())
+        return tp.leave(y, axis) + self.out_proj.bias.to(dt)
 
 
 class ResidualAttentionBlock(nn.Module):

@@ -9,9 +9,15 @@ tensors. Functions that take ``axis_name`` accept None (one device), the
 name ``DATA_AXIS`` (the group ``initialize_multihost`` created) or a
 process group itself.
 
-NCCL refuses two ranks on one GPU, so one card runs a group of one. Tensor
-and sequence sharding (the JAX ``'model'`` axis) is not ported:
-``create_mesh(model_parallel > 1)`` raises.
+NCCL refuses two ranks on one GPU, so one card runs a group of one.
+
+``create_mesh(model_parallel)`` is the JAX ``create_mesh``: a
+``torch.distributed.device_mesh.DeviceMesh`` over every rank with dims
+``('data',)``, or ``('data', 'model')`` for tensor parallelism
+(``parallel/gspmd.py``). The model axis varies fastest (rank = d P + m), so
+on one node the per-layer model-axis collectives stay inside the node, as
+``slice_major_device_array`` keeps them inside a slice. ``resolve_group``
+takes such a mesh too and answers its data group.
 """
 from __future__ import annotations
 
@@ -20,10 +26,12 @@ from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
-AxisName = Union[None, str, dist.ProcessGroup]
+AxisName = Union[None, str, dist.ProcessGroup, DeviceMesh]
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
@@ -76,9 +84,12 @@ def data_group() -> Optional[dist.ProcessGroup]:
 
 def resolve_group(axis_name: AxisName) -> Optional[dist.ProcessGroup]:
     """None -> None (one device); ``DATA_AXIS`` -> ``data_group()``; a
-    process group -> itself."""
+    process group -> itself; a ``DeviceMesh`` -> this rank's group of its
+    data axis."""
     if axis_name is None or isinstance(axis_name, dist.ProcessGroup):
         return axis_name
+    if isinstance(axis_name, DeviceMesh):
+        return axis_name.get_group(DATA_AXIS)
     if axis_name != DATA_AXIS:
         raise ValueError(f"unknown axis {axis_name!r}: the port has the {DATA_AXIS!r} "
                          "axis only")
@@ -112,15 +123,39 @@ def collective_device(group: Optional[dist.ProcessGroup] = None) -> torch.device
     return torch.device("cpu")
 
 
-def create_mesh(model_parallel: int = 1) -> dist.ProcessGroup:
-    """The data-parallel group over every rank (the JAX 1-D ``('data',)``
-    mesh). ``model_parallel > 1`` raises: tensor parallelism and sharded state
-    (``parallel/gspmd.py``) wait for their DTensor / FSDP2 port."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            f"create_mesh(model_parallel={model_parallel}): the 'model' axis "
-            "(parallel/gspmd.py onto DTensor / FSDP2) is not yet ported")
-    return resolve_group(DATA_AXIS)
+def create_mesh(model_parallel: int = 1) -> DeviceMesh:
+    """A ``('data',)`` mesh over every rank, or ``('data', 'model')`` of
+    world / P x P with ``model_parallel`` P > 1: rank d P + m holds data
+    index d and model index m. On CUDA under NCCL, on the CPU under gloo. A P
+    that does not divide the world raises ``ValueError`` in the JAX entry
+    point's words."""
+    if not dist.is_initialized():
+        raise RuntimeError("create_mesh: no process group; call initialize_multihost (or "
+                           "torch.distributed.init_process_group) first")
+    n = dist.get_world_size()
+    if model_parallel < 1 or n % model_parallel:
+        raise ValueError(f"--model-parallel {model_parallel} does not divide the {n} devices")
+    device_type = "cuda" if is_nccl(None) else "cpu"
+    if model_parallel == 1:
+        return init_device_mesh(device_type, (n,), mesh_dim_names=(DATA_AXIS,))
+    return init_device_mesh(device_type, (n // model_parallel, model_parallel),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def axis_sizes(mesh: DeviceMesh) -> dict:
+    """{axis name: size} of ``mesh``."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+def data_index(mesh: Optional[DeviceMesh]) -> int:
+    """This rank's index on the data axis (0 without a mesh): the P ranks of
+    one data index read the same rows."""
+    return 0 if mesh is None else mesh.get_local_rank(DATA_AXIS)
+
+
+def data_size(mesh: Optional[DeviceMesh]) -> int:
+    """The size of the data axis (1 without a mesh)."""
+    return 1 if mesh is None else axis_sizes(mesh)[DATA_AXIS]
 
 
 def broadcast_str(value: str, group: Optional[dist.ProcessGroup] = None,

@@ -14,13 +14,21 @@ norm > max). ``lock_image`` / ``lock_text`` leave the tower's parameters out
 of the optimizer: no state, no update, and no share of the clip norm (the
 JAX chain's ``optax.masked``). Their gradients are still computed, as in the
 JAX step, and still count in the step's ``grad_norm`` metric.
+
+Over sharded state (``parallel/gspmd.py``: DTensor gradients) ``global_norm``
+is the norm of the global gradient: each rank sums the squares of its local
+shards, a shard replicated over a mesh axis counts once (on the rank at
+index 0 of that axis), a plain tensor counts on rank 0 only, and one
+all-reduce adds the ranks' sums. The clip scales the local shards.
 """
 from __future__ import annotations
 
 from typing import Callable, Iterable, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 
 _NO_DECAY_TOKENS = ("bn", "ln_", "ln1", "ln2", "bias", "logit_scale", "norm")
 # OpenCLIP names of the text tower's parameters (flat on the model)
@@ -53,8 +61,43 @@ def param_groups(named_params: Iterable[Tuple[str, nn.Parameter]], weight_decay:
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """fp32 sqrt of the sum of squares (optax.global_norm on fp32 leaves)."""
+    """fp32 sqrt of the sum of squares (optax.global_norm on fp32 leaves); of
+    the global tensors where some are DTensors."""
+    tensors = list(tensors)
+    if any(isinstance(t, DTensor) for t in tensors):
+        return _sharded_global_norm(tensors)
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+def _counted_here(t: DTensor) -> bool:
+    """Whether this rank's shard of ``t`` counts: it is at index 0 of every
+    mesh axis that replicates ``t``."""
+    coord = t.device_mesh.get_coordinate()
+    return all(isinstance(pl, Shard) or c == 0 for pl, c in zip(t.placements, coord))
+
+
+def _sharded_global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    rank_zero = dist.get_rank() == 0
+    device = (tensors[0].to_local() if isinstance(tensors[0], DTensor) else tensors[0]).device
+    squares = [torch.zeros((), dtype=torch.float32, device=device)]
+    for t in tensors:
+        if isinstance(t, DTensor):
+            if _counted_here(t):
+                squares.append(t.to_local().float().square().sum())
+        elif rank_zero:
+            squares.append(t.float().square().sum())
+    total = torch.stack(squares).sum()
+    dist.all_reduce(total)
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g * max / norm where norm > max
+    (the norm of the global gradient; DTensors scale their local shards)."""
+    norm = global_norm(grads)
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_([g.to_local() if isinstance(g, DTensor) else g for g in grads], scale)
 
 
 class AdamW(torch.optim.AdamW):
@@ -67,13 +110,8 @@ class AdamW(torch.optim.AdamW):
     @torch.no_grad()
     def step(self, closure=None):
         if self.grad_clip_norm is not None:
-            grads = [p.grad for g in self.param_groups for p in g["params"]
-                     if p.grad is not None]
-            norm = global_norm(grads)
-            # optax.clip_by_global_norm: g * max / norm where norm > max
-            scale = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),
-                                self.grad_clip_norm / norm)
-            torch._foreach_mul_(grads, scale)
+            clip_by_global_norm_([p.grad for g in self.param_groups for p in g["params"]
+                                  if p.grad is not None], self.grad_clip_norm)
         return super().step(closure)
 
 

@@ -218,7 +218,9 @@ def test_token_neighborhood_without_the_ring_raises_as_jax():
 
 def test_the_data_axis_needs_a_group_and_the_model_axis_is_refused():
     """Without a process group the 'data' axis raises and every helper reads
-    one rank; create_mesh refuses the 'model' axis by the slice it waits for."""
+    one rank; create_mesh needs a group for either mesh, and the 'model'
+    axis is no axis name of the loss collectives (its group comes from the
+    mesh, parallel/gspmd.py)."""
     from colxlip_tpu_torch.parallel import mesh
 
     assert mesh.resolve_group(None) is None and mesh.data_group() is None
@@ -229,7 +231,7 @@ def test_the_data_axis_needs_a_group_and_the_model_axis_is_refused():
         mesh.create_mesh()
     with pytest.raises(ValueError, match="unknown axis"):
         mesh.resolve_group("model")
-    with pytest.raises(NotImplementedError, match="gspmd.py onto DTensor / FSDP2"):
+    with pytest.raises(RuntimeError, match="no process group"):
         mesh.create_mesh(model_parallel=2)
     with pytest.raises(ValueError, match="--dist-coordinator"):
         mesh.initialize_multihost(None, 2, 0, backend="gloo")

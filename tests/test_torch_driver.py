@@ -394,19 +394,29 @@ def test_main_cut_mid_epoch_and_resumed_logs_the_uncut_losses(tmp_path, monkeypa
     assert _losses(logs, "cut") == _losses(logs, "uncut")    # exact on the CPU
 
 
+# (flags, the message the log must hold, the case's id): at one process
+# --model-parallel and --fsdp are the JAX entry point's refusals, and the
+# GSPMD step refuses the loss modes it cannot express
 REFUSED = [
-    (["--remote-sync", "s3://b"], "--remote-sync"),
-    (["--model-parallel", "2"], "--model-parallel"),
-    (["--fsdp"], "--fsdp"),
-    (["--packed-feed"], "--packed-feed"),
-    (["--pipeline", "grain"], "--pipeline grain"),
-    (["--force-patch-dropout", "0.5"], "--force-patch-dropout"),
-    (["--dataset-type", "auto"], "eval-only mode"),
-    (["--aug-cfg", "color_jitter=0.4"], "--aug-cfg"),
+    (["--remote-sync", "s3://b"], "--remote-sync", "--remote-sync"),
+    (["--model-parallel", "2"], "--model-parallel 2 does not divide the 1 devices",
+     "--model-parallel"),
+    (["--fsdp"], "--fsdp shards state over the data axis and needs a multi-device mesh with "
+     "data size >= 2 (have 1 device(s), data axis 1)", "--fsdp"),
+    (["--model-parallel", "2", "--gather-with-grad", "--local-loss"],
+     "does not support: --local-loss (sharded-logits form", "--model-parallel --local-loss"),
+    (["--model-parallel", "2"], "does not support: --gather-with-grad off",
+     "--model-parallel without --gather-with-grad"),
+    (["--packed-feed"], "--packed-feed", "--packed-feed"),
+    (["--pipeline", "grain"], "--pipeline grain", "--pipeline grain"),
+    (["--force-patch-dropout", "0.5"], "--force-patch-dropout", "--force-patch-dropout"),
+    (["--dataset-type", "auto"], "eval-only mode", "eval-only mode"),
+    (["--aug-cfg", "color_jitter=0.4"], "--aug-cfg", "--aug-cfg"),
 ]
 
 
-@pytest.mark.parametrize("flags,message", REFUSED, ids=[m for _, m in REFUSED])
+@pytest.mark.parametrize("flags,message", [r[:2] for r in REFUSED],
+                         ids=[r[2] for r in REFUSED])
 def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch, flags, message):
     def no_model(*a, **k):
         raise AssertionError("refused flags must stop main before any model work")

@@ -13,8 +13,12 @@ the results against the JAX ``shard_map`` functions. Suites:
   negative exchanges and the distillation loss);
 - ``step``: ``STEP_CASES``, one train step each from the same weights;
 - ``main``: ``colxlip_tpu_torch.main.main(argv)``; the rank saves its
-  final parameters, and with ``--stop-after-step k`` (before ``argv``)
+  final parameters (its shards and their placements under sharded state), and with ``--stop-after-step k`` (before ``argv``)
   signals itself SIGUSR1 after its k-th step.
+- ``gspmd``: ``GSPMD_CASES``, one sharded step each (``parallel/gspmd.py``)
+  from the same weights on the data rows of this rank's data index, then
+  the sharded saves of the last case's state and the save contracts of
+  ``tests/test_sharded_ckpt.py`` on a 4-rank data mesh.
 
 This file imports nothing of the JAX package: the ranks run the port alone.
 """
@@ -86,6 +90,15 @@ STEP_CASES = {
     "local_ring_cap2": dict(local_loss=True, token_dist="ring", token_neighborhood=2,
                             text_ctx=16),
 }
+# name -> (model_parallel, fsdp, the LayerNorm and MLP kernels' plain versions)
+GSPMD_CASES = {
+    "fsdp_4": (1, True, False),
+    "tp_2x2": (2, False, False),
+    "fsdp_tp_2x2": (2, True, False),
+    "tp_1x4": (4, False, False),
+    "fsdp_tp_2x2_fused": (2, True, True),
+}
+GSPMD_SAVE_CASE = "fsdp_tp_2x2"
 STEP_LR = (1e-3, 10, 100)          # cosine_lr(base, warmup, total)
 STEP_WD = 0.1
 TINY = "ViT-S-16-test-colxlip"
@@ -195,6 +208,167 @@ def run_step(rank: int, world: int, inputs, out: dict) -> None:
             out[f"{name}/param/{k}"] = p.detach().numpy()
 
 
+def _gspmd_model(state, fused: bool):
+    """The tiny model from ``state``, or from other seeded weights (None);
+    ``fused``: built under both kernel variables."""
+    from colxlip_tpu_torch import factory
+    from colxlip_tpu_torch.models import ColXLIP
+
+    names = ("COLXLIP_LN_IMPL", "COLXLIP_MLP_IMPL")
+    old = {k: os.environ.get(k) for k in names}
+    if fused:
+        os.environ.update({k: "fused" for k in names})
+    try:
+        model = ColXLIP(factory.model_config(TINY), dtype=torch.float32)
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    model.load_state_dict(state if state is not None else factory.create_model(
+        TINY, "cpu", torch.float32, seed=5)[0].state_dict(), strict=True)
+    return model.train()
+
+
+def _local_state(model, optimizer) -> dict:
+    """This rank's shards of the parameters and the moments, as numpy."""
+    from colxlip_tpu_torch.parallel.gspmd import local
+
+    out = {}
+    for name, p in model.named_parameters():
+        out[f"param/{name}"] = local(p).detach().numpy().copy()
+        for k, v in optimizer.state[p].items():
+            out[f"{k}/{name}"] = local(v).detach().numpy().copy()
+    return out
+
+
+def run_gspmd(rank: int, world: int, inputs, out_dir: str, out: dict) -> None:
+    from torch.distributed.checkpoint.state_dict import StateDictOptions, get_optimizer_state_dict
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from colxlip_tpu_torch.parallel import gspmd
+    from colxlip_tpu_torch.parallel.mesh import create_mesh, data_index, data_size
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
+    from colxlip_tpu_torch.training import checkpoint as ck
+    from colxlip_tpu_torch.training import optim, schedules
+
+    state = {k[len("param/"):]: torch.from_numpy(inputs[k]) for k in inputs.files
+             if k.startswith("param/")}
+    meshes = {}
+    cfg = TrainStepConfig(loss_type="colclip", gather_with_grad=True)
+    for name, (p, fsdp, fused) in GSPMD_CASES.items():
+        mesh = meshes.setdefault(p, create_mesh(p))
+        d, n = data_index(mesh), data_size(mesh)
+        model = _gspmd_model(state, fused)
+        gspmd.shard_state(model, mesh, fsdp=fsdp)
+        schedule = schedules.cosine_lr(*STEP_LR)
+        opt = optim.create_optimizer(model, schedule, weight_decay=STEP_WD)
+        step = gspmd.make_train_step_gspmd(model, opt, schedule, cfg, mesh, fsdp=fsdp)
+        metrics = step(torch.from_numpy(rows(inputs["images"], d, n)),
+                       torch.from_numpy(rows(inputs["texts"], d, n)))
+        for k, v in metrics.items():
+            out[f"{name}/metric/{k}"] = np.float64(float(v))
+        for k, v in gspmd.full_state_dict(model).items():
+            out[f"{name}/param/{k}"] = v.numpy()
+        for k, q in model.named_parameters():
+            out[f"{name}/placements/{k}"] = np.array(repr(tuple(q.placements)))
+            out[f"{name}/local_shape/{k}"] = np.array(gspmd.local(q).shape)
+            out[f"{name}/moments_follow/{k}"] = np.bool_(all(
+                isinstance(v, DTensor) and v.placements == q.placements
+                and v.device_mesh == q.device_mesh
+                for key, v in opt.state[q].items() if key != "step"))
+            if len(q.placements) == 2 and isinstance(q.placements[1], Replicate):
+                out[f"{name}/grad/{k}"] = gspmd.local(q.grad).numpy()
+        if name == GSPMD_SAVE_CASE:
+            saved = (model, opt, step.step, mesh)
+            # the clip over sharded gradients scales each shard by the global
+            # norm's factor: half the norm halves every whole gradient
+            grads = [q.grad for q in model.parameters()]
+            before = [g.full_tensor().clone() for g in grads]   # a replicated one aliases
+            norm = float(torch.sqrt(sum(b.square().sum() for b in before)))
+            optim.clip_by_global_norm_(grads, norm / 2)
+            out["clip/norm"] = np.float64(norm)
+            out["clip/max_rel_err"] = np.float64(max(
+                float((g.full_tensor() - b / 2).abs().max() / b.abs().max().clamp_min(1e-30))
+                for g, b in zip(grads, before)))
+    model, opt, steps_done, mesh = saved
+    ckpt_dir = os.path.join(out_dir, "ckpt")
+    ck.save_checkpoint_sharded(ckpt_dir, ck.sharded_train_state(model, opt, steps_done),
+                               epoch=1, name="gspmd")
+    mine = _local_state(model, opt)
+    # a sharded restore into a fresh sharded state from other weights
+    fresh = _gspmd_model(None, False)
+    gspmd.shard_state(fresh, mesh, fsdp=True)
+    fresh_opt = optim.create_optimizer(fresh, 0.0, weight_decay=STEP_WD)
+    restored = ck.restore_sharded_checkpoint(os.path.join(ckpt_dir, "epoch_1"),
+                                             ck.sharded_train_state(fresh, fresh_opt, 0))
+    out["restore/step"] = np.int64(ck.restore_sharded_train_state(restored["state"], fresh,
+                                                                   fresh_opt))
+    out["restore/epoch"] = np.int64(restored["epoch"])
+    got = _local_state(fresh, fresh_opt)
+    out["restore/bit_equal"] = np.bool_(got.keys() == mine.keys() and all(
+        np.array_equal(got[k], mine[k]) for k in mine))
+    # a whole state.pt (written by the test process) into the sharded layout
+    whole = ck.load_native_checkpoint(str(inputs["whole_path"]))
+    fresh = _gspmd_model(None, False)
+    gspmd.shard_state(fresh, mesh, fsdp=True)
+    fresh_opt = optim.create_optimizer(fresh, 0.0, weight_decay=STEP_WD)
+    out["whole/step"] = np.int64(ck.restore_train_state(whole["state"], fresh, fresh_opt))
+    for k, v in gspmd.full_state_dict(fresh).items():
+        out[f"whole/param/{k}"] = v.numpy()
+    full_opt = get_optimizer_state_dict(fresh, fresh_opt, options=StateDictOptions(
+        full_state_dict=True, cpu_offload=True))
+    for k, v in full_opt.get("state", {}).items():
+        for key, t in v.items():
+            out[f"whole/{key}/{k}"] = t.numpy()
+    run_save_contracts(rank, ckpt_dir, out)
+
+
+def _contract_state(mesh, offset: float) -> dict:
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    w = torch.arange(32, dtype=torch.float32).reshape(8, 4) + offset
+    return {"step": 3, "params": {
+        "w": distribute_tensor(w, mesh, [Shard(0)]),
+        "scale": distribute_tensor(torch.tensor(7.0 + offset), mesh, [Replicate()])}}
+
+
+def run_save_contracts(rank: int, root: str, out: dict) -> None:
+    """``tests/test_sharded_ckpt.py``'s contracts on a 4-rank data mesh."""
+    from colxlip_tpu_torch.parallel.mesh import create_mesh
+    from colxlip_tpu_torch.training import checkpoint as ck
+
+    mesh = create_mesh(1)
+    d = os.path.join(root, "contracts")
+    p = ck.save_checkpoint_sharded(d, _contract_state(mesh, 0.0), epoch=2, name="t")
+    template = _contract_state(mesh, 100.0)
+    restored = ck.restore_sharded_checkpoint(p, template)
+    s = restored["state"]
+    out["contract/path"] = np.array(p)
+    out["contract/epoch"] = np.int64(restored["epoch"])
+    out["contract/name"] = np.array(restored["name"])
+    out["contract/step"] = np.int64(s["step"])
+    out["contract/w"] = s["params"]["w"].full_tensor().numpy()
+    out["contract/w_local"] = s["params"]["w"].to_local().numpy()
+    out["contract/scale"] = np.float64(float(s["params"]["scale"].full_tensor()))
+    out["contract/same_layout"] = np.bool_(
+        s["params"]["w"].placements == template["params"]["w"].placements)
+    p = ck.save_checkpoint_sharded(d, _contract_state(mesh, 0.0), epoch=1, name="t",
+                                   most_recent=True, step_in_epoch=5)
+    out["contract/sidecar_path"] = np.array(p)
+    out["contract/sidecar"] = np.int64(ck.read_step_in_epoch(p))
+    bg = os.path.join(root, "background")
+    ck.save_checkpoint_sharded(bg, _contract_state(mesh, 0.0), epoch=1, name="t")
+    p = ck.save_checkpoint_sharded(bg, _contract_state(mesh, 1.0), epoch=2, name="t",
+                                   background=True, rotate_keep_epoch=2)
+    out["contract/kept_before_finish"] = np.bool_(os.path.isdir(os.path.join(bg, "epoch_1")))
+    ck.wait_for_saves()
+    out["contract/rotated_after_finish"] = np.bool_(not os.path.isdir(os.path.join(bg, "epoch_1")))
+    restored = ck.restore_sharded_checkpoint(p, _contract_state(mesh, 0.0))
+    out["contract/background_w"] = restored["state"]["params"]["w"].full_tensor().numpy()
+
+
 def run_main(rank: int, world: int, argv: list, out: dict) -> None:
     from colxlip_tpu_torch import main as main_mod
     from colxlip_tpu_torch.parallel import train_step
@@ -203,13 +377,15 @@ def run_main(rank: int, world: int, argv: list, out: dict) -> None:
     if argv and argv[0] == "--stop-after-step":
         stop_after, argv = int(argv[1]), argv[2:]
     steps = []
-    build = main_mod.make_train_step
 
-    def capture(*a, **k):
-        step = build(*a, **k)
-        steps.append(step)
-        return step
-    main_mod.make_train_step = capture
+    def capture(build):
+        def wrapped(*a, **k):
+            step = build(*a, **k)
+            steps.append(step)
+            return step
+        return wrapped
+    main_mod.make_train_step = capture(main_mod.make_train_step)
+    main_mod.make_train_step_gspmd = capture(main_mod.make_train_step_gspmd)
     if stop_after is not None:
         call = train_step.TrainStep.__call__
 
@@ -222,6 +398,10 @@ def run_main(rank: int, world: int, argv: list, out: dict) -> None:
     out["rc"] = np.int64(main_mod.main(argv))
     out["steps_run"] = np.int64(steps[0].step)
     for k, p in steps[0].model.named_parameters():
+        # sharded state: this rank's shard and its placements
+        if hasattr(p, "placements"):
+            out[f"placements/{k}"] = np.array(repr(tuple(p.placements)))
+            p = p.to_local()
         out[f"param/{k}"] = p.detach().numpy()
 
 
@@ -285,6 +465,8 @@ def main() -> int:
             inputs = np.load(inputs_path)
             if suite == "step":
                 run_step(rank, world, inputs, out)
+            elif suite == "gspmd":
+                run_gspmd(rank, world, inputs, out_dir, out)
             else:
                 run_losses(rank, world, inputs, out, suite)
         finally:
