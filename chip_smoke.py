@@ -35,8 +35,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      LayerNorm and MLP kernels (forward and backward each) in fp32 and bf16
      at the training shapes (batch 256, vision and text), the token-head
      LayerNorm shape and one ragged shape each, and the LayerNorm (both
-     types) and the MLP (bf16) at ViT-L/14's width (D 1024, H 4096, 16 x 257
-     rows), as phase 8b runs them; the bf16 MLP forward per element against
+     types) and the MLP (bf16, and fp32 in two feature slices:
+     MLP_FP32_WIDE, timed in phase 5 beside its plain version, the three
+     library calls in fp32 and its bound) at ViT-L/14's width (D 1024, H
+     4096, 16 x 257 rows), as phase 8b runs them; the bf16 MLP forward per element against
      the exact function (ops/fused_mlp_check.py), and at the vision shape two
      controls that must fail that bar; two runs of each
      backward must agree bit for bit, and at the vision shape neither
@@ -123,7 +125,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      (torch.profiler). Then (8b) ViT-L-14-colxlip the same way at batch
      VIT_L_BATCH (the LayerNorm backward at D = 1024): both encoders against
      the default path on the same weights, VIT_L_STEPS train steps with exact
-     launch counts, and the peak below phase 6b's.
+     launch counts, and the peak below phase 6b's; then one fp32 step of it
+     through both kernels (the MLP kernels past D = 768 in their feature
+     slices): 79 LayerNorm, 36 MLP and 36 attention launches each way, its ms
+     and peak, and the step against the plain versions under phase 6's fp32
+     bars.
   9. the int8 slice, full width and depth, seed 0: (a) every Dense weight of
      both towers through the quantizer kernel (99 launches, timed) and through
      round-to-nearest (quantize_vision_params / quantize_text_params);
@@ -241,7 +247,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      resumed run's state on the card saved synchronously, async with the host
      snapshot and async with the device snapshot: the blocking snapshot, the
      background write and the synchronous save in seconds, apart, the three
-     files bit-equal. (b) ViT-B-16-colxlip --precision pure_bf16 through main
+     files bit-equal. (c) --remote-sync s3://bucket/runs through a stand-in
+     aws on PATH (AWS_STUB: the bucket is a local directory): 2 epochs of 2
+     steps with one save, synced at startup and after the save; a fresh log
+     directory with --resume latest pulls epoch_2 and goes on at step 5; the
+     sync and pull seconds. (b) ViT-B-16-colxlip --precision pure_bf16 through main
      (6 epochs of one step on one batch of 256): rc 0, the loss falls,
      launches as phase 6 (24 / 24 attention, 1 / 1 MaxSim a step); the step's
      ms and peak timed apart beside the same step with fp32 parameters and
@@ -265,7 +275,19 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      background: seconds beside phase 15's save, a restore into a fresh
      sharded state bit-equal, load_native_checkpoint of the directory equal
      to the state whole. (d) main --fsdp at one process returns 1 before
-     any model work, with the JAX entry point's words.
+     any model work, with the JAX entry point's words. (e) the TP plan of (b)
+     under COLXLIP_MLP_INT8=fwd against the one-device int8 step (c_proj
+     takes the model group's scales and sums its int32 products), launches
+     as (a). (f) coca_ViT-B-32 (coca loss, batch 256) under the TP plan and
+     under FSDP against the one-device CoCa step: 24 / 24 attention
+     launches, losses to 1e-5, gradients to phase 6's bf16 bars (a gradient
+     under 1e-4 of the largest held by its difference); ms, peak, idle.
+  17. the serving bundle (colxlip_tpu_torch/serving/aot.py on torch.export):
+     ViT-B-16-colxlip's towers exported on the card with a symbolic batch,
+     saved and loaded back; batches of 1, 8 and 64 against the live model
+     within phase 4's encode bars; img/s and txt/s at 64 beside the live
+     model's; the export seconds and bytes; kernel #1 launches 0 times inside
+     the bundle (SDPA under export, as the JAX dispatch) and is printed.
   Phases 4, 6, 7, 10, 11, 12, 13, 14, 15 and 16's default runs use the
   default path and must launch none of the LayerNorm and MLP kernels.
 
@@ -383,12 +405,16 @@ LN_CASES = [
     ("vit-l", (16, 257), 1024, 1024),   # phase 8b's width: the PE = 32 bucket
 ]
 MLP_CASES = [
-    # name, B, N, D, H, the GELU branches checked, dtypes (float32 takes D <= 768)
+    # name, B, N, D, H, the GELU branches checked, dtypes
     ("vision", 256, 197, 768, 3072, (False,), ("float32", "bfloat16")),
     ("text", 256, 77, 512, 2048, (False,), ("float32", "bfloat16")),
     ("ragged", 3, 77, 512, 2048, (False, True), ("float32", "bfloat16")),
     ("vit-l", 16, 257, 1024, 4096, (False,), ("bfloat16",)),
 ]
+# float32 past D = 768 (the feature slices of csrc/fused_mlp.cu): ViT-L/14's
+# MLP, as phase 8b's fp32 step runs it; a generator of its own (seed 1024),
+# so that no other check's draw moves
+MLP_FP32_WIDE = ("vit-l", 16, 257, 1024, 4096, 1024)
 # the fused-towers step (phase 8) against the default step (phase 6): at most
 # this many times its time (the bf16 MLP kernels on the tensor cores)
 FUSED_STEP_RATIO_MAX = 2.0
@@ -501,6 +527,8 @@ SAVE_EPOCHS = 3
 SAVE_STEPS_PER_EPOCH = 2
 # phase 16: sharded state under a process group of one
 GSPMD_STEPS = 4             # the first compared, the rest timed (learning rate 0)
+# phase 17: the serving bundle's batches (a symbolic batch dim)
+AOT_BATCHES = (1, 8, 64)
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLICKR_ANNOTATIONS = os.path.join(REPO, "datasets", "flickr30k-images", "flickr30k_val.json")
 EVAL_MODEL = "ViT-B-16-colxlip"
@@ -613,12 +641,12 @@ def plain_versions():
 
 
 @contextlib.contextmanager
-def fused_towers(names=("COLXLIP_LN_IMPL", "COLXLIP_MLP_IMPL")):
+def fused_towers(names=("COLXLIP_LN_IMPL", "COLXLIP_MLP_IMPL"), value: str = "fused"):
     """COLXLIP_LN_IMPL=fused and COLXLIP_MLP_IMPL=fused (or the variables
-    named) while models are built (the modules read them once, in their
-    constructors)."""
+    named, set to ``value``) while models are built (the modules read them
+    once, in their constructors)."""
     saved = {k: os.environ.get(k) for k in names}
-    os.environ.update({k: "fused" for k in names})
+    os.environ.update({k: value for k in names})
     try:
         yield
     finally:
@@ -872,6 +900,8 @@ def mlp_inputs(b, n, d, h, dtype, dev, gen):
     unit-variance rows (a LayerNorm's output), lecun-normal weights."""
     import torch
 
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
     def t(shape, std):
         return (torch.randn(shape, generator=gen) * std).to(dev, dtype)
 
@@ -986,6 +1016,22 @@ def check_fused_kernels(dev, gen):
             if dtype == torch.bfloat16:
                 inputs[f"mlp/{case}"] = (x, w1, b1, w2, b2, dy)
 
+    case, b, n, d, h, seed = MLP_FP32_WIDE
+    args = mlp_inputs(b, n, d, h, "float32", dev, torch.Generator().manual_seed(seed))
+    x, w1, b1, w2, b2, dy = args
+    out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, False)
+    got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, False)
+    again = fused_mlp._launch_bwd(x, w1, b1, w2, dy, False)
+    want_out = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False)
+    want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False)
+    torch.cuda.synchronize()
+    hold("fused_mlp", f"mlp {case} B={b} N={n} D={d} H={h} gelu=erf polynomial "
+         f"({fused_mlp.fp32_feature_slices(d)} feature slices)", "float32",
+         max_rel_err(out, want_out, 1.0), max(max_rel_err(g, w) for g, w in zip(got, want)),
+         got, again)
+    inputs[f"mlp32/{case}"] = args
+    del out, got, again, want_out, want
+
     # no [B, N, H] tensor on the kernel path, either direction, under autograd
     x, w1, b1, w2, b2, dy = inputs["mlp/vision"]
     leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
@@ -1014,7 +1060,8 @@ def check_fused_kernels(dev, gen):
 def time_fused_kernels(inputs, card: str):
     """Phase 5: the LayerNorm and MLP kernels, their plain versions, and the
     library beside them (F.layer_norm forward and backward; F.linear, F.gelu,
-    F.linear and their autograd backward), bf16 at the training shapes."""
+    F.linear and their autograd backward), bf16 at the training shapes, and
+    the MLP in fp32 at MLP_FP32_WIDE."""
     import torch
     import torch.nn.functional as F
 
@@ -1051,22 +1098,14 @@ def time_fused_kernels(inputs, card: str):
         del x_, w_, b_, y_, sink
     for case, *_ in MLP_CASES:
         x, w1, b1, w2, b2, dy = inputs[f"mlp/{case}"]
-        w2_out_in = w2.t().contiguous()          # [D, H], the layout F.linear takes
-        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2_out_in, b2)]
-
-        def three_calls(x, w1, b1, w2, b2):
-            return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
-
-        with torch.no_grad():
-            lib_fwd = cuda_ms(lambda: three_calls(x, w1, b1, w2_out_in, b2), 5, 2)
-        lib_both = cuda_ms(lambda: torch.autograd.grad(three_calls(*leaves), leaves, dy), 5, 2)
+        lib_fwd, lib_bwd = three_call_mlp_ms(x, w1, b1, w2, b2, dy, 5, 2)
         timing[f"fused_mlp_fwd/{case}"] = (
             cuda_ms(lambda: fused_mlp._launch_fwd(x, w1, b1, w2, b2, False), 10, 2),
             cuda_ms(lambda: fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False), 3, 1), lib_fwd)
         timing[f"fused_mlp_bwd/{case}"] = (
             cuda_ms(lambda: fused_mlp._launch_bwd(x, w1, b1, w2, dy, False), 10, 2),
             cuda_ms(lambda: fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False), 3, 1),
-            lib_both - lib_fwd)
+            lib_bwd)
         bounds = mlp_bounds(x, w1)
         for key in ("fused_mlp_fwd", "fused_mlp_bwd"):
             ker = timing[f"{key}/{case}"][0]
@@ -1074,13 +1113,13 @@ def time_fused_kernels(inputs, card: str):
                 f"H={w1.shape[0]} bf16: kernel {ker:.4f} ms against its bound "
                 f"{bounds[key][0]:.5f} ms ({bounds[key][1]}) = {bounds[key][0] / ker:.1%} of "
                 f"it ({card})")
-        del leaves
+    timing.update(time_mlp_fp32_wide(inputs, card))
     for key, (ker, plain, lib) in timing.items():
         what = ("F.layer_norm" if key.startswith("fused_ln") else
                 "F.linear, F.gelu, F.linear" + (" (autograd backward: forward + backward less "
                                                 "forward)" if "bwd" in key else ""))
-        log(f"[5 timing] {key} bf16: kernel {ker:.4f} ms, plain "
-            f"{plain:.4f} ms, {what} {lib:.4f} ms ({card})")
+        log(f"[5 timing] {key} {'fp32' if 'fp32' in key else 'bf16'}: kernel {ker:.4f} ms, "
+            f"plain {plain:.4f} ms, {what} {lib:.4f} ms ({card})")
     def device(ms):
         return "not measured (the profiler recorded no event)" if ms is None else f"{ms:.4f} ms"
 
@@ -1093,6 +1132,50 @@ def time_fused_kernels(inputs, card: str):
     timing["ln_bwd_cases"] = ln_bwd
     torch.cuda.empty_cache()
     return timing
+
+
+def three_call_mlp_ms(x, w1, b1, w2, b2, dy, iters: int, warmup: int):
+    """(forward ms, backward ms) of F.linear, F.gelu, F.linear on the MLP
+    kernels' inputs (w2 [H, D] transposed to F.linear's [D, H]); the
+    backward is the autograd forward + backward less the forward."""
+    import torch
+    import torch.nn.functional as F
+
+    w2_out_in = w2.t().contiguous()
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2_out_in, b2)]
+
+    def three_calls(x, w1, b1, w2, b2):
+        return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2)
+
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: three_calls(x, w1, b1, w2_out_in, b2), iters, warmup)
+    both = cuda_ms(lambda: torch.autograd.grad(three_calls(*leaves), leaves, dy), iters, warmup)
+    return fwd, both - fwd
+
+
+def time_mlp_fp32_wide(inputs, card: str) -> dict:
+    """Phase 5: kernels #9 and #10 in fp32 at MLP_FP32_WIDE (the feature
+    slices past D = 768), their plain versions, the three library calls in
+    fp32 (TF32 off) and the bound."""
+    from colxlip_tpu_torch.ops import fused_mlp
+
+    case = MLP_FP32_WIDE[0]
+    x, w1, b1, w2, b2, dy = inputs[f"mlp32/{case}"]
+    lib = three_call_mlp_ms(x, w1, b1, w2, b2, dy, 3, 1)
+    out = {f"fused_mlp_fwd/{case}-fp32": (
+        cuda_ms(lambda: fused_mlp._launch_fwd(x, w1, b1, w2, b2, False), 3, 1),
+        cuda_ms(lambda: fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False), 3, 1), lib[0]),
+        f"fused_mlp_bwd/{case}-fp32": (
+        cuda_ms(lambda: fused_mlp._launch_bwd(x, w1, b1, w2, dy, False), 3, 1),
+        cuda_ms(lambda: fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False), 3, 1), lib[1])}
+    bounds = mlp_bounds(x, w1)
+    for key in ("fused_mlp_fwd", "fused_mlp_bwd"):
+        ker = out[f"{key}/{case}-fp32"][0]
+        log(f"[5 timing] {key}/{case}-fp32 R={x.numel() // x.shape[-1]} D={x.shape[-1]} "
+            f"H={w1.shape[0]} fp32 ({fused_mlp.fp32_feature_slices(x.shape[-1])} feature "
+            f"slices): kernel {ker:.4f} ms against its bound {bounds[key][0]:.5f} ms "
+            f"({bounds[key][1]}) = {bounds[key][0] / ker:.1%} of it ({card})")
+    return out
 
 
 def profiled(fn):
@@ -1850,7 +1933,53 @@ def vit_l_fused_phase(dev, card: str, vit_l):
                            f"path's {vit_l['peak_gib']} GiB (the MLPs hold no hidden tensors)")
     del step, model
     torch.cuda.empty_cache()
-    return {"launches": launches, "losses": losses, "step_ms": secs[-1] * 1e3, "peak_gib": peak}
+    fp32 = vit_l_fused_fp32_step(dev, card, step_cfg, images, texts,
+                                 {name: n // VIT_L_STEPS for name, n in launches.items()})
+    return {"launches": launches, "losses": losses, "step_ms": secs[-1] * 1e3, "peak_gib": peak,
+            "fp32": fp32}
+
+
+def vit_l_fused_fp32_step(dev, card: str, step_cfg, images, texts, want_launches) -> dict:
+    """Phase 8b, fp32: one ViT-L-14-colxlip step at batch VIT_L_BATCH with
+    both variables 'fused' and fp32 compute, the MLP kernels past D = 768 in
+    their feature slices: exact launches (79 LayerNorm, 36 MLP and 36
+    attention each way, 1 MaxSim), its ms and peak; then the step against
+    the plain versions on the same weights under phase 6's fp32 bars."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.train_step import make_train_step
+    from colxlip_tpu_torch.training.optim import create_optimizer
+    from colxlip_tpu_torch.training.schedules import const_lr
+
+    counters = gspmd_counters()
+    with fused_towers():
+        model, _ = create_model(VIT_L_MODEL, dev, torch.float32, seed=0)
+        model.train()
+        zero = const_lr(0.0, 0)
+        step = make_train_step(model, create_optimizer(model, zero), zero, step_cfg)
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in step(images, texts).items()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        launches = {name: c.value for name, c in counters.items()}
+        del step, model
+        torch.cuda.empty_cache()
+        log(f"[8b vit-l fused fp32] {VIT_L_MODEL} fp32 step at batch {VIT_L_BATCH} through the "
+            f"kernels: total_loss {metrics['total_loss']:.5f}, {ms:.1f} ms (the first step, "
+            f"the MLP kernels on the CUDA cores), peak device memory {peak:.2f} GiB; launches "
+            f"{launches} ({card})")
+        if launches != want_launches or not all(math.isfinite(v) for v in metrics.values()):
+            raise RuntimeError(f"[8b] fp32: launches {launches}, expected {want_launches}; "
+                               f"metrics {metrics}")
+        compare_step(dev, torch.float32, None, step_cfg, images, texts,
+                     tag="[8b vit-l fused fp32]", model_name=VIT_L_MODEL)
+    return {"step_ms": ms, "peak_gib": peak, "launches": launches, "loss": metrics["total_loss"]}
 
 
 def main_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int):
@@ -3996,6 +4125,124 @@ def save_split(dev, card: str, logs: str) -> dict:
     return out
 
 
+# a stand-in for the AWS CLI: ``aws s3 sync`` and ``aws s3 ls`` over a local
+# directory ($AWS_STUB_ROOT holds the buckets), so that --remote-sync runs
+# with no network
+AWS_STUB = """#!{python}
+import os, shutil, sys
+args = sys.argv[1:]
+root = os.environ["AWS_STUB_ROOT"]
+
+
+def local(p):
+    return os.path.join(root, p[len("s3://"):]) if p.startswith("s3://") else p
+
+
+if args[:2] == ["s3", "sync"]:
+    if os.path.isdir(local(args[2])):
+        shutil.copytree(local(args[2]), local(args[3]), dirs_exist_ok=True)
+elif args[:2] == ["s3", "ls"]:
+    d = local(args[2])
+    if not os.path.isdir(d):
+        sys.exit(1)
+    for name in sorted(os.listdir(d)):
+        print(" " * 27 + "PRE " + name + "/")
+else:
+    sys.exit(2)
+"""
+
+
+def seconds_logged(path: str, pattern: str) -> float:
+    """The seconds of the first line of ``path`` that matches ``pattern``
+    (one group: the number)."""
+    with open(path) as f:
+        found = re.search(pattern, f.read())
+    if found is None:
+        raise RuntimeError(f"{path}: no line matches {pattern!r}")
+    return float(found.group(1))
+
+
+def remote_sync_run(dev, card: str, logs: str) -> dict:
+    """Phase 15 (c): main --remote-sync s3://bucket/runs against AWS_STUB on
+    PATH: MAIN_MODEL, 2 epochs of SAVE_STEPS_PER_EPOCH steps with one save
+    (epoch_2), synced at startup and after the save; then a fresh log
+    directory with --epochs 3 --resume latest lists the remote checkpoints,
+    pulls epoch_2 and goes on at step 2 SAVE_STEPS_PER_EPOCH + 1. The sync
+    seconds come from the runs' out.log."""
+    from colxlip_tpu_torch import main as entry
+    from colxlip_tpu_torch.training.logging_utils import setup_logging
+
+    stub_dir, root = os.path.join(logs, "awsbin"), os.path.join(logs, "s3")
+    os.makedirs(stub_dir)
+    os.makedirs(root)
+    stub = os.path.join(stub_dir, "aws")
+    with open(stub, "w") as f:
+        f.write(AWS_STUB.format(python=sys.executable))
+    os.chmod(stub, 0o755)
+    saved = {k: os.environ.get(k) for k in ("PATH", "AWS_STUB_ROOT")}
+    os.environ["PATH"] = stub_dir + os.pathsep + os.environ.get("PATH", "")
+    os.environ["AWS_STUB_ROOT"] = root
+
+    def argv(where, epochs, *extra):
+        return ["--model", MAIN_MODEL, "--dataset-type", "synthetic", "--batch-size",
+                str(TRAIN_BATCH), "--precision", "bf16", "--epochs", str(epochs),
+                "--steps-per-epoch", str(SAVE_STEPS_PER_EPOCH), "--log-every-n-steps", "1",
+                "--workers", "0", "--seed", "0", "--logs", os.path.join(logs, where),
+                "--name", "remote", "--remote-sync", "s3://bucket/runs", *extra]
+
+    res = {}
+    try:
+        first = argv("first", 2, "--save-frequency", "2")
+        log(f"[15 remote] python -m colxlip_tpu_torch.main {' '.join(first)}")
+        t0 = time.perf_counter()
+        try:
+            rc = entry.main(first)
+        finally:
+            setup_logging(None)
+        res["first_s"] = time.perf_counter() - t0
+        remote = os.path.join(root, "bucket", "runs", "remote")
+        state = os.path.join(remote, "checkpoints", "epoch_2", "state.pt")
+        if rc != 0 or not os.path.isfile(state) or not os.path.isfile(
+                os.path.join(remote, "metrics.jsonl")):
+            raise RuntimeError(f"phase 15 (c): rc {rc}; the remote holds "
+                               f"{sorted(os.listdir(remote)) if os.path.isdir(remote) else None}")
+        out_log = os.path.join(logs, "first", "remote", "out.log")
+        res["startup_sync_s"] = seconds_logged(out_log, r"remote sync at startup took ([\d.]+) s")
+        res["final_sync_s"] = seconds_logged(out_log, r"final remote sync took ([\d.]+) s")
+        res["checkpoint_gib"] = os.path.getsize(state) / 2**30
+        resume = argv("fresh", 3, "--save-frequency", "0", "--resume", "latest")
+        try:
+            rc = entry.main(resume)
+        finally:
+            setup_logging(None)
+        base = os.path.join(logs, "fresh", "remote")
+        with open(os.path.join(base, "metrics.jsonl")) as f:
+            steps = [json.loads(line)["step"] for line in f]
+        res["pull_s"] = seconds_logged(os.path.join(base, "out.log"),
+                                       r"pulled remote checkpoint \S+ in ([\d.]+) s")
+        with open(os.path.join(base, "out.log")) as f:
+            resumed = "(epoch 2)" in f.read()
+        want = list(range(2 * SAVE_STEPS_PER_EPOCH + 1, 3 * SAVE_STEPS_PER_EPOCH + 1))
+        if rc != 0 or not resumed or steps != want:
+            raise RuntimeError(f"phase 15 (c) --resume latest: rc {rc}, resumed at epoch 2: "
+                               f"{resumed}, steps {steps} (expected {want})")
+        res["resumed_steps"] = steps
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for where in ("first", "fresh", "s3"):
+            shutil.rmtree(os.path.join(logs, where), ignore_errors=True)
+    log(f"[15 remote] --remote-sync s3://bucket/runs through a stand-in aws: the startup sync "
+        f"{res['startup_sync_s']:.3f} s, the final sync after the last save "
+        f"{res['final_sync_s']:.3f} s (one {res['checkpoint_gib']:.2f} GiB checkpoint, local "
+        f"disk to local disk); a fresh log directory with --resume latest pulled epoch_2 in "
+        f"{res['pull_s']:.3f} s and went on at step {steps[0]} ({card})")
+    return res
+
+
 def saves_phase(dev, card: str, train) -> dict:
     """Phase 15: --async-checkpoint (saves, their seconds apart, the resume)
     and --precision pure_bf16 (main, launches, the step's ms and peak)."""
@@ -4010,6 +4257,7 @@ def saves_phase(dev, card: str, train) -> dict:
         res["split"] = save_split(dev, card, logs)
         shutil.rmtree(os.path.join(logs, "async"))
         shutil.rmtree(os.path.join(logs, "split"))
+        res["remote"] = remote_sync_run(dev, card, logs)
 
         recs, launches, peak, step = family_main(
             dev, card, "pure_bf16", MODEL, ["--precision", "pure_bf16"], 2 * TOWER_LAYERS,
@@ -4049,7 +4297,7 @@ def gspmd_counters():
 
 
 def gspmd_run(dev, card: str, ref_state, cfg, images, texts, mesh, steps: int,
-              tag: str, keep: bool = False) -> dict:
+              tag: str, keep: bool = False, model_name: "str | None" = None) -> dict:
     """``steps`` steps at learning rate 0 from ``ref_state``: the one-device
     step (``mesh`` None) or shard_state + make_train_step_gspmd(fsdp=True)
     on ``mesh``, the model built under the environment as it is. Returns the
@@ -4065,7 +4313,7 @@ def gspmd_run(dev, card: str, ref_state, cfg, images, texts, mesh, steps: int,
     from colxlip_tpu_torch.training.optim import create_optimizer
     from colxlip_tpu_torch.training.schedules import const_lr
 
-    model, _ = create_model(MODEL, dev, torch.bfloat16, seed=0)
+    model, _ = create_model(model_name or MODEL, dev, torch.bfloat16, seed=0)
     model.load_state_dict(ref_state)
     model.train()
     zero = const_lr(0.0, 0)
@@ -4110,17 +4358,27 @@ def gspmd_run(dev, card: str, ref_state, cfg, images, texts, mesh, steps: int,
     return out
 
 
-def gspmd_compare(tag: str, got: dict, want: dict, dtype: str, loss_tol: float) -> list:
+def gspmd_compare(tag: str, got: dict, want: dict, dtype: str, loss_tol: float,
+                  vanishing: bool = False) -> list:
     """The sharded step's first step against the one-device step's: the
     losses within ``loss_tol`` relative, the gradients within phase 6's
     ``dtype`` bars; prints the readings and whether all is bit-equal.
-    Returns the failures."""
-    import torch
-
+    ``vanishing``: a tensor whose gradient is under VANISHING_GRAD of the
+    step's largest norm is held by its difference instead (CoCa at random
+    init, as ``compare_step`` holds it). Returns the failures."""
     loss_err = max(abs(got["metrics"][k] - want["metrics"][k])
                    / max(abs(want["metrics"][k]), 1e-30)
                    for k in want["metrics"] if k.endswith("loss"))
-    cos_min, norm_err, equal, worst = grad_agreement(got["grads"], want["grads"])
+    want_g, small = want["grads"], {}
+    if vanishing:
+        largest = max(w.norm().item() for w in want_g.values())
+        small = {k: (got["grads"][k] - w).norm().item() / largest for k, w in want_g.items()
+                 if w.norm().item() < VANISHING_GRAD * largest}
+        want_g = {k: w for k, w in want_g.items() if k not in small}
+        log(f"{tag} {len(small)} tensors with a gradient under {VANISHING_GRAD} of the largest: "
+            f"largest difference {max(small.values(), default=0.0):.3g} of it "
+            f"(tol {VANISHING_GRAD})")
+    cos_min, norm_err, equal, worst = grad_agreement(got["grads"], want_g)
     equal = equal and got["metrics"] == want["metrics"]
     cos_tol, norm_tol, _ = STEP_TOL[dtype]
     log(f"{tag} first step: " + " ".join(f"{k} {v:.6f}" for k, v in got["metrics"].items())
@@ -4131,7 +4389,8 @@ def gspmd_compare(tag: str, got: dict, want: dict, dtype: str, loss_tol: float) 
         f"gradients {'bit-equal' if equal else 'not bit-equal'} to the one-device step")
     got["bit_equal"] = equal
     got.update(loss_rel_err=loss_err, grad_cos_min=cos_min, grad_norm_rel_err=norm_err)
-    if loss_err <= loss_tol and cos_min >= cos_tol and norm_err <= norm_tol:
+    if (loss_err <= loss_tol and cos_min >= cos_tol and norm_err <= norm_tol
+            and all(v <= VANISHING_GRAD for v in small.values())):
         return []
     return [f"{tag}: losses {loss_err:.3g}, cosine {cos_min:.7f}, norms {norm_err:.3g} outside "
             f"({loss_tol}, {cos_tol}, {norm_tol})"]
@@ -4253,6 +4512,50 @@ def gspmd_refusal(dev) -> dict:
     return {"rc": rc}
 
 
+def gspmd_coca(dev, card: str, meshes) -> tuple:
+    """Phase 16 (f): coca_ViT-B-32 (coca loss, bf16, FAMILY_BATCH, gather
+    with gradient) under the TP plan on the 1 x 1 mesh and under FSDP on the
+    mesh of one, each against the one-device step: the decoder's
+    cross-attention (packed in_proj regrouped) and both attentional poolers
+    (separate q / k / v) split over 'model'. Returns (the runs, the
+    failures)."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
+
+    model, _ = create_model(COCA_MODEL, dev, torch.bfloat16, seed=0)
+    ref_state = copy.deepcopy(model.state_dict())
+    del model
+    images, texts = family_batch(COCA_MODEL, dev)
+    cfg = TrainStepConfig(loss_type="coca", gather_with_grad=True)
+    attn = {"fused_attention_fwd": 2 * COCA_LAYERS, "fused_attention_bwd": 2 * COCA_LAYERS,
+            "maxsim_fwd": 0, "maxsim_bwd": 0, "fused_ln_fwd": 0, "fused_ln_bwd": 0,
+            "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    tag = "[16 gspmd coca]"
+    one = gspmd_run(dev, card, ref_state, cfg, images, texts, None, GSPMD_STEPS, tag,
+                    model_name=COCA_MODEL)
+    log(f"{tag} one device: step {one['ms']:.2f} ms ({FAMILY_BATCH / one['ms'] * 1e3:.1f} img/s), "
+        f"peak {one['peak_gib']:.2f} GiB, idle {one['idle']:.1%} ({card})")
+    runs, failures = {"one": one}, []
+    for name, label in (("tp", "the TP plan + FSDP, ('data', 'model') mesh of 1 x 1"),
+                        ("fsdp", "FSDP, ('data',) mesh of one")):
+        tag = f"[16 gspmd coca {name}]"
+        run = gspmd_run(dev, card, ref_state, cfg, images, texts, meshes[name], GSPMD_STEPS,
+                        tag, model_name=COCA_MODEL)
+        failures += gspmd_compare(tag, run, one, "bfloat16", DIST_LOSS_TOL, vanishing=True)
+        if run["launches"] != attn:
+            failures.append(f"{tag}: launches {run['launches']}, expected {attn}")
+        log(f"{tag} (f) {COCA_MODEL} under {label}: launches a step {run['launches']}; step "
+            f"{run['ms']:.2f} ms at batch {FAMILY_BATCH} ({FAMILY_BATCH / run['ms'] * 1e3:.1f} "
+            f"img/s; one device {one['ms']:.2f} ms), peak {run['peak_gib']:.2f} GiB, idle "
+            f"{run['idle']:.1%} ({card})")
+        runs[name] = run
+    del ref_state, images, texts
+    torch.cuda.empty_cache()
+    return runs, failures
+
+
 def gspmd_phase(dev, card: str, train, saves) -> dict:
     """Phase 16: sharded state under a NCCL process group of one (the
     module docstring's (a)-(d)). Every run is read before the phase fails."""
@@ -4316,7 +4619,25 @@ def gspmd_phase(dev, card: str, train, saves) -> dict:
             f"{', '.join(f'{t:.2f}' for t in run['steps_ms'])}; "
             f"{TRAIN_BATCH / run['ms'] * 1e3:.1f} img/s), peak {run['peak_gib']:.2f} GiB, idle {run['idle']:.1%} ({card})")
         res["tp_fused"] = run
-        del one_fused, ref_state, images, texts
+        del one_fused
+        tag = "[16 gspmd tp int8]"
+        with fused_towers(("COLXLIP_MLP_INT8",), "fwd"):
+            one_int8 = gspmd_run(dev, card, ref_state, cfg, images, texts, None, 1, tag)
+            run = gspmd_run(dev, card, ref_state, cfg, images, texts, meshes["tp"], GSPMD_STEPS,
+                            tag)
+        failures += gspmd_compare(tag, run, one_int8, "bfloat16", DIST_LOSS_TOL)
+        if run["launches"] != {**attn, **no_fused} or one_int8["launches"] != run["launches"]:
+            failures.append(f"{tag}: launches {run['launches']}, one device "
+                            f"{one_int8['launches']}")
+        log(f"{tag} (e) the TP plan under COLXLIP_MLP_INT8=fwd (c_proj: the model group's "
+            f"scales, int32 sums): launches a step {run['launches']}; step {run['ms']:.2f} ms "
+            f"({TRAIN_BATCH / run['ms'] * 1e3:.1f} img/s), peak {run['peak_gib']:.2f} GiB, idle "
+            f"{run['idle']:.1%} ({card})")
+        res["tp_int8"] = run
+        del one_int8, ref_state, images, texts
+        coca, coca_failures = gspmd_coca(dev, card, meshes)
+        res["coca"] = coca
+        failures += coca_failures
         kept = res["fsdp"].pop("kept")
         res["saves"] = gspmd_saves(dev, card, kept, meshes["fsdp"], saves)
         del kept
@@ -4324,12 +4645,97 @@ def gspmd_phase(dev, card: str, train, saves) -> dict:
         res["refusal"] = gspmd_refusal(dev)
     finally:
         dist.destroy_process_group()
-    for run in (res.get("fsdp"), res.get("tp"), res.get("tp_fused")):
+    for run in (res.get("fsdp"), res.get("tp"), res.get("tp_fused"), res.get("tp_int8"),
+                *res.get("coca", {}).values()):
         if run is not None:
             run.pop("grads", None)
     log(f"[16 gspmd] phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})")
     if failures:
         raise RuntimeError("phase 16: " + "; ".join(failures))
+    return res
+
+
+def aot_phase(dev, card: str) -> dict:
+    """Phase 17: MODEL's towers exported on the card with a symbolic batch
+    (serving/aot.py on torch.export), saved, loaded back without the model
+    code, and held against the live model at AOT_BATCHES within phase 4's
+    encode bars; img/s and txt/s at the last batch beside the live model's;
+    the export seconds and the bundle's bytes; kernel #1 launches 0 times
+    inside the bundle (its attention is SDPA, as the JAX dispatch leaves the
+    Pallas kernel under symbolic dims) where the live model launches it."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.ops import attention
+    from colxlip_tpu_torch.serving import aot
+
+    t_phase = time.perf_counter()
+    model, cfg = create_model(MODEL, dev, torch.bfloat16, seed=0)
+    n = max(AOT_BATCHES)
+    images, texts = synthetic_batch(n, cfg.vision_cfg.image_size, cfg.text_cfg.context_length,
+                                    seed=17)
+    images, texts = torch.from_numpy(images).to(dev), torch.from_numpy(texts).to(dev)
+    res = {"batches": {}}
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        meta = aot.save_aot_bundle(out, model, cfg, model_name=MODEL)
+        res["export_s"] = time.perf_counter() - t0
+        res["bytes"] = meta["bytes"]
+        t0 = time.perf_counter()
+        bundle = aot.load_aot_bundle(out, device=dev)
+        res["load_s"] = time.perf_counter() - t0
+    bundle_launches, live_launches, failures = 0, 0, []
+    for b in AOT_BATCHES:
+        attention.LAUNCHES.reset()
+        got = bundle.encode_image(images[:b]) + bundle.encode_text(texts[:b])
+        torch.cuda.synchronize()
+        bundle_launches += attention.LAUNCHES.value
+        attention.LAUNCHES.reset()
+        with torch.inference_mode():
+            want = (model.encode_image(images[:b], normalize=True)
+                    + model.encode_text(texts[:b], normalize=True))
+        torch.cuda.synchronize()
+        live_launches += attention.LAUNCHES.value
+        err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+        off = max(((1.0 - torch.nn.functional.cosine_similarity(
+            g.float(), w.float(), dim=-1)) * (w.float().norm(dim=-1) > 0.5)).max().item()
+            for g, w in zip(got, want))
+        res["batches"][b] = {"max_abs_err": err, "one_minus_cosine": off}
+        log(f"[17 aot] batch {b}: the bundle's four outputs "
+            f"{[tuple(g.shape) for g in got]} vs the live model: max_abs_err {err:.3g} (tol "
+            f"{ENCODE_TOL}), largest 1 - cosine of a row {off:.3g} (tol {ENCODE_COSINE_TOL})")
+        if not (err <= ENCODE_TOL and off <= ENCODE_COSINE_TOL
+                and all(torch.isfinite(g).all() for g in got)):
+            failures.append(f"batch {b}: max_abs_err {err}, 1 - cosine {off}")
+    log(f"[17 aot] kernel #1 launches inside the bundle: {bundle_launches} over "
+        f"{len(AOT_BATCHES)} image and text encodes (the live model: {live_launches})")
+    if bundle_launches != 0 or live_launches < 1:
+        failures.append(f"#1 launched {bundle_launches} times in the bundle, {live_launches} by "
+                        "the live model")
+    rates = {}
+    for kind in ("image", "text"):
+        batch = images if kind == "image" else texts
+        fn = getattr(bundle, f"encode_{kind}")
+        live = getattr(model, f"encode_{kind}")
+        def live_encode():
+            with torch.inference_mode():
+                return live(batch, normalize=True)
+
+        rates[kind] = (cuda_ms(lambda: fn(batch), 10), cuda_ms(live_encode, 10))
+        unit = "img/s" if kind == "image" else "txt/s"
+        log(f"[17 aot] encode {kind} batch {n} on the card: bundle {rates[kind][0]:.3f} ms = "
+            f"{n / rates[kind][0] * 1e3:.1f} {unit}, live model {rates[kind][1]:.3f} ms = "
+            f"{n / rates[kind][1] * 1e3:.1f} {unit} ({card})")
+    res.update(bundle_launches=bundle_launches, live_launches=live_launches,
+               image_ms=rates["image"][0], image_live_ms=rates["image"][1],
+               text_ms=rates["text"][0], text_live_ms=rates["text"][1])
+    log(f"[17 aot] {MODEL} exported in {res['export_s']:.1f} s, loaded in {res['load_s']:.1f} s; "
+        f"bundle files {res['bytes']} bytes; phase 17 took {time.perf_counter() - t_phase:.1f} s "
+        f"({card})")
+    del bundle, model, images, texts
+    torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("phase 17: " + "; ".join(failures))
     return res
 
 
@@ -4563,6 +4969,8 @@ def main() -> int:
         timing.update(time_fused_kernels(fused_inputs, card))
         mlp_case_bounds = {case: mlp_bounds(*fused_inputs[f"mlp/{case}"][:2])
                            for case, *_ in MLP_CASES}
+        wide = f"{MLP_FP32_WIDE[0]}-fp32"
+        mlp_case_bounds[wide] = mlp_bounds(*fused_inputs[f"mlp32/{MLP_FP32_WIDE[0]}"][:2])
         quant_timing, quant_bounds = time_quantizer(quant_inputs, card)
         timing.update(quant_timing)
         qkv, h, causal = attn_inputs["vision"]
@@ -4695,6 +5103,9 @@ def main() -> int:
     # ---- phase 16: sharded state under a process group of one ---------------
     sharded = gspmd_phase(dev, card, train, saves)
 
+    # ---- phase 17: the serving bundle on torch.export -----------------------
+    bundle = aot_phase(dev, card)
+
     tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
     attn_fwd = (tl["fused_attention_fwd"], attn_err, timing["attention/vision"],
@@ -4800,7 +5211,7 @@ def main() -> int:
             for what, value in zip(("ms", "plain_ms", "three_calls_ms", "bound_ms"),
                                    (*timing[f"fused_mlp_{key}/{case}"],
                                     mlp_case_bounds[case][f"fused_mlp_{key}"][0]))}
-            for case, *_ in MLP_CASES},
+            for case in [c for c, *_ in MLP_CASES] + [wide]},
         "ln_bwd_cases": timing["ln_bwd_cases"],
         "ce_fwd_sizes": {m: {"ms": timing[f"fused_ce_fwd/{m}"][0],
                              "plain_ms": timing[f"fused_ce_fwd/{m}"][1],
@@ -4815,7 +5226,7 @@ def main() -> int:
                               "step_ms": vit_l_fused["step_ms"],
                               "peak_gib": vit_l_fused["peak_gib"],
                               "launches": vit_l_fused["launches"],
-                              "losses": vit_l_fused["losses"]},
+                              "losses": vit_l_fused["losses"], "fp32": vit_l_fused["fp32"]},
         "fused_train_step": {"batch": TRAIN_BATCH, "steps": FUSED_STEPS, "ms": fused["step_ms"],
                              "img_per_s": TRAIN_BATCH / fused["step_ms"] * 1e3,
                              "peak_gib": fused["peak_gib"],
@@ -4830,7 +5241,7 @@ def main() -> int:
         "eval": evaluation,
         "launches_tar": {name: run["launches"] for name, run in tar["runs"].items()},
         "tar": tar, "dist": data_parallel, "families": families, "pod": pod,
-        "saves": saves, "gspmd": sharded}), flush=True)
+        "saves": saves, "gspmd": sharded, "aot": bundle}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,10 @@ forward and backward, and the streaming contrastive CE (forward, dA, dB)
 behind ``--ce-impl fused``, all under ``torch.autograd.Function``s. Later
 slices added the fused towers, int8 and corpus search, eval, the tar feed,
 data parallelism, and the other loss families: SigLIP, distillation and
-CoCa, with captioning behind ``/v1/caption``.
+CoCa, with captioning behind ``/v1/caption``; then the pod step, sharded
+state and tensor parallelism (``parallel/gspmd.py``), ``--remote-sync``
+(``utils/file_utils.py``), the ``torch.export`` serving bundle
+(``serving/aot.py``) and the pretrained tags (``pretrained.py``).
 """
 
 __version__ = "0.1.0"

@@ -66,7 +66,7 @@
 // backward's outputs round once (dx, dh) or not at all (dW, db), and are held
 // to 2^-7 of the largest gradient.
 //
-// fp32: the CUDA cores (stream_tile.cuh), D <= 768, as first ported:
+// fp32: the CUDA cores (stream_tile.cuh), any D, as first ported:
 //
 //   forward   a block owns 32 rows of x and walks the hidden dimension in
 //             slices of 64: the slice of h comes from a register tile
@@ -86,6 +86,13 @@
 // db1 and db2 do. This path computes 16 R D H (h three times, da twice) as
 // fp32 FMAs: a split-bf16 product on the tensor cores would not keep fp32's
 // sums (maxsim_tile.cuh says why).
+//
+// Past D = 768 (ViT-L's 1024) the owned [32, D] tile would not fit in
+// registers, so the owned features are cut into S slices of 512 (blockIdx.y
+// of the forward and dx, blockIdx.z of the dW passes), each block
+// recomputing the hidden slice it reads: 2 (S + 1) R D H forward and
+// 2 (5 S + 3) R D H backward (S = 2 at D = 1024). Each output element is
+// summed in the same order as without the cut.
 
 #include <algorithm>
 
@@ -144,8 +151,8 @@ __device__ __forceinline__ float pre_activation(float dot, float bias) {
 }
 
 // ---------------------------------------------------------------------------
-// forward and dx: one block per tile of 32 rows, looping over slices of 64
-// hidden units
+// forward and dx: one block per tile of 32 rows and per slice of 32 DPT
+// output features (blockIdx.y), looping over slices of 64 hidden units
 // ---------------------------------------------------------------------------
 
 template <typename T, int DPT>
@@ -158,6 +165,7 @@ mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __res
   __shared__ float act[kOwn][kStream + 1];
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int i0 = blockIdx.x * kOwn;
+  const int c0 = blockIdx.y * 32 * DPT, dc = min(32 * DPT, d - c0);
   float acc_out[kOwnPerWarp][DPT];
   zero_owned<DPT>(acc_out);
 
@@ -176,7 +184,7 @@ mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __res
       }
     }
     __syncthreads();
-    accumulate<T, DPT>(act, w2 + size_t(h0) * d, min(kStream, h - h0), d, acc_out);
+    accumulate<T, DPT>(act, w2 + size_t(h0) * d + c0, min(kStream, h - h0), dc, d, acc_out);
     __syncthreads();
   }
 
@@ -187,7 +195,7 @@ mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __res
     if (row >= rows) continue;
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
-      const int col = lane + 32 * c;
+      const int col = c0 + lane + 32 * c;
       if (col < d)
         out[size_t(row) * d + col] = from_f<T>(round_to<T>(acc_out[r][c]) + to_f(b2[col]));
     }
@@ -204,6 +212,7 @@ mlp_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __
   __shared__ float dh[kOwn][kStream + 1];
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int i0 = blockIdx.x * kOwn;
+  const int c0 = blockIdx.y * 32 * DPT, dc = min(32 * DPT, d - c0);
   float acc_out[kOwnPerWarp][DPT];
   zero_owned<DPT>(acc_out);
 
@@ -225,7 +234,7 @@ mlp_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __
       for (int c = 0; c < CPT; ++c)
         dh[ty + kTY * r][tx + kTX * c] = round_to<T>(grad[r][c] * da[r][c]);
     __syncthreads();
-    accumulate<T, DPT>(dh, w1 + size_t(h0) * d, min(kStream, h - h0), d, acc_out);
+    accumulate<T, DPT>(dh, w1 + size_t(h0) * d + c0, min(kStream, h - h0), dc, d, acc_out);
     __syncthreads();
   }
 
@@ -236,19 +245,21 @@ mlp_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __
     if (row >= rows) continue;
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
-      const int col = lane + 32 * c;
+      const int col = c0 + lane + 32 * c;
       if (col < d) dx[size_t(row) * d + col] = from_f<T>(acc_out[r][c]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dW1 + db1 (kFirst) or dW2: one block per slice of 32 hidden units and per
-// range of rows, looping over tiles of 64 rows
+// dW1 + db1 (kFirst) or dW2: one block per slice of 32 hidden units, per
+// range of rows and per slice of 32 DPT features (blockIdx.z), looping over
+// tiles of 64 rows
 // ---------------------------------------------------------------------------
 
 // dw_part [gridDim.y][h][d] and db1_part [gridDim.y][h] fp32: this range's
-// partial sums (db1_part is written by the kFirst kernel only).
+// partial sums (db1_part is written by the kFirst kernel's first feature
+// slice only).
 template <typename T, int DPT, bool kFirst>
 __global__ void __launch_bounds__(kThreads)
 mlp_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
@@ -263,6 +274,7 @@ mlp_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __
   const int j0 = blockIdx.x * kOwn;
   const int first = blockIdx.y * rows_per_split;
   const int last = min(rows, first + rows_per_split);   // rows past it read as zero
+  const int c0 = blockIdx.z * 32 * DPT, dc = min(32 * DPT, d - c0);
 
   float bias[CPT];
 #pragma unroll
@@ -305,7 +317,8 @@ mlp_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __
       }
     }
     __syncthreads();
-    accumulate<T, DPT>(z, (kFirst ? x : dy) + size_t(i0) * d, min(kStream, last - i0), d, out);
+    accumulate<T, DPT>(z, (kFirst ? x : dy) + size_t(i0) * d + c0, min(kStream, last - i0), dc,
+                       d, out);
     if (kFirst) {
 #pragma unroll
       for (int r = 0; r < kOwnPerWarp; ++r) {
@@ -316,8 +329,8 @@ mlp_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __
     __syncthreads();
   }
 
-  store_owned<DPT>(out, dw_part + size_t(blockIdx.y) * h * d, j0, h, d, 1.f);
-  if (kFirst && lane == 0) {
+  store_owned<DPT>(out, dw_part + size_t(blockIdx.y) * h * d + c0, j0, h, dc, d, 1.f);
+  if (kFirst && blockIdx.z == 0 && lane == 0) {
 #pragma unroll
     for (int r = 0; r < kOwnPerWarp; ++r) {
       const int j = j0 + kOwnPerWarp * warp + r;
@@ -351,9 +364,17 @@ struct Args {
   cudaStream_t stream;
 };
 
+// Feature slices of 32 DPT columns: one where D <= 768, more past it, each
+// recomputing the hidden slice it needs (h, and da in the backward).
+template <int DPT>
+int feature_slices(int d) {
+  return (d + 32 * DPT - 1) / (32 * DPT);
+}
+
 template <typename T, int DPT>
 cudaError_t launch_fwd(const Args& a, const void* b2, void* out) {
-  mlp_fwd_kernel<T, DPT><<<(a.rows + kOwn - 1) / kOwn, kThreads, 0, a.stream>>>(
+  const dim3 grid((a.rows + kOwn - 1) / kOwn, feature_slices<DPT>(a.d));
+  mlp_fwd_kernel<T, DPT><<<grid, kThreads, 0, a.stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.w1), static_cast<const T*>(a.b1),
       static_cast<const T*>(a.w2), static_cast<const T*>(b2), static_cast<T*>(out), a.rows, a.d,
       a.h, a.approximate);
@@ -383,7 +404,9 @@ cudaError_t launch_bwd(const Args& a, const BwdOut& o) {
   float* db2_part = db1_part + size_t(o.splits) * a.h;
   cudaError_t err;
 
-  mlp_bwd_dx_kernel<T, DPT><<<(a.rows + kOwn - 1) / kOwn, kThreads, 0, a.stream>>>(
+  const int slices = feature_slices<DPT>(a.d);
+  mlp_bwd_dx_kernel<T, DPT><<<dim3((a.rows + kOwn - 1) / kOwn, slices), kThreads, 0,
+                              a.stream>>>(
       x, w1, b1, w2, dy, static_cast<T*>(o.dx), a.rows, a.d, a.h, a.approximate);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
@@ -395,7 +418,7 @@ cudaError_t launch_bwd(const Args& a, const BwdOut& o) {
   // whole tiles of 64 rows to each range
   const int tiles = (a.rows + kStream - 1) / kStream;
   const int rows_per_split = (tiles + o.splits - 1) / o.splits * kStream;
-  const dim3 grid((a.h + kOwn - 1) / kOwn, o.splits);
+  const dim3 grid((a.h + kOwn - 1) / kOwn, o.splits, slices);
   mlp_bwd_dw_kernel<T, DPT, true><<<grid, kThreads, 0, a.stream>>>(
       x, w1, b1, w2, dy, dw_part, db1_part, a.rows, a.d, a.h, a.approximate, rows_per_split);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
@@ -411,18 +434,20 @@ cudaError_t launch_bwd(const Args& a, const BwdOut& o) {
 }
 
 // The per-thread feature count is a template argument (the accumulators live
-// in registers): 32 * DPT >= D.
+// in registers): 32 * DPT >= D up to 768; past it slices of 512 features
+// (DPT 16), as many as D needs, so any D runs without a larger register tile
+// (a [32, 1024] fp32 tile alone would take 128 registers a thread).
 template <typename T>
 cudaError_t dispatch_fwd(const Args& a, const void* b2, void* out) {
   if (a.d <= 256) return launch_fwd<T, 8>(a, b2, out);
-  if (a.d <= 512) return launch_fwd<T, 16>(a, b2, out);
+  if (a.d <= 512 || a.d > 768) return launch_fwd<T, 16>(a, b2, out);
   return launch_fwd<T, 24>(a, b2, out);
 }
 
 template <typename T>
 cudaError_t dispatch_bwd(const Args& a, const BwdOut& o) {
   if (a.d <= 256) return launch_bwd<T, 8>(a, o);
-  if (a.d <= 512) return launch_bwd<T, 16>(a, o);
+  if (a.d <= 512 || a.d > 768) return launch_bwd<T, 16>(a, o);
   return launch_bwd<T, 24>(a, o);
 }
 
@@ -712,7 +737,7 @@ cudaError_t bf16_bwd(const Args& a, const BwdOut& o, bf16* ws, int chunk) {
 
 bool bad_shape(int rows, int d, int h, int dtype, const void* ws, int chunk) {
   if (rows < 1 || d < 1 || h < 1) return true;
-  if (dtype == 0) return d > kMaxD;
+  if (dtype == 0) return false;
   return dtype != 1 || d % 8 || h % 8 || ws == nullptr || chunk < gemm::kBM ||
          chunk % gemm::kBM;
 }
@@ -722,7 +747,7 @@ bool bad_shape(int rows, int d, int h, int dtype, const void* ws, int chunk) {
 // x, out [rows, d]; w1, w2 [h, d]; b1 [h]; b2 [d], all of one dtype (0 =
 // float32, 1 = bfloat16). bf16: d and h multiples of 8, x, w1, w2 16-byte
 // aligned, chunk_rows a multiple of 128, workspace [min(rows, chunk_rows), h]
-// bf16; float32: d <= 768, workspace and chunk_rows unused. Returns a
+// bf16; float32: any d, workspace and chunk_rows unused. Returns a
 // cudaError_t (0 = launched).
 extern "C" int colxlip_fused_mlp_fwd(const void* x, const void* w1, const void* b1,
                                      const void* w2, const void* b2, void* out, void* workspace,

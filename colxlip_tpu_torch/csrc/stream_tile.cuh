@@ -89,17 +89,18 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // out[r][c] += sum over the tile's `count` streamed rows s of
 // z[4 warp + r][s] * rows[s, lane + 32 c]: each warp owns 4 output rows and
-// all D of their features, and reads z as a warp-wide broadcast.
+// the first `d` features of them (rows `ld` apart; a column slice of wider
+// rows where ld > d), and reads z as a warp-wide broadcast.
 template <typename T, int DPT>
 __device__ __forceinline__ void accumulate(const float (&z)[kOwn][kStream + 1],
-                                           const T* __restrict__ rows, int count, int d,
+                                           const T* __restrict__ rows, int count, int d, int ld,
                                            float (&out)[kOwnPerWarp][DPT]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int s = 0; s < count; ++s) {
     float zr[kOwnPerWarp];
 #pragma unroll
     for (int r = 0; r < kOwnPerWarp; ++r) zr[r] = z[kOwnPerWarp * warp + r][s];
-    const T* row = rows + size_t(s) * d;
+    const T* row = rows + size_t(s) * ld;
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int col = lane + 32 * c;
@@ -112,6 +113,13 @@ __device__ __forceinline__ void accumulate(const float (&z)[kOwn][kStream + 1],
   }
 }
 
+template <typename T, int DPT>
+__device__ __forceinline__ void accumulate(const float (&z)[kOwn][kStream + 1],
+                                           const T* __restrict__ rows, int count, int d,
+                                           float (&out)[kOwnPerWarp][DPT]) {
+  accumulate<T, DPT>(z, rows, count, d, d, out);
+}
+
 template <int DPT>
 __device__ __forceinline__ void zero_owned(float (&out)[kOwnPerWarp][DPT]) {
 #pragma unroll
@@ -120,12 +128,12 @@ __device__ __forceinline__ void zero_owned(float (&out)[kOwnPerWarp][DPT]) {
     for (int c = 0; c < DPT; ++c) out[r][c] = 0.f;
 }
 
-// scale * out -> dst[first + 4 warp + r, :] (fp32) for the owned rows below
-// `limit`.
+// scale * out -> dst[first + 4 warp + r, :d] (fp32, rows `ld` apart) for the
+// owned rows below `limit`.
 template <int DPT>
 __device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT],
                                             float* __restrict__ dst, int first, int limit, int d,
-                                            float scale) {
+                                            int ld, float scale) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < kOwnPerWarp; ++r) {
@@ -134,9 +142,16 @@ __device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT]
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int col = lane + 32 * c;
-      if (col < d) dst[size_t(row) * d + col] = scale * out[r][c];
+      if (col < d) dst[size_t(row) * ld + col] = scale * out[r][c];
     }
   }
+}
+
+template <int DPT>
+__device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT],
+                                            float* __restrict__ dst, int first, int limit, int d,
+                                            float scale) {
+  store_owned<DPT>(out, dst, first, limit, d, d, scale);
 }
 
 // out[i] = sum over s < splits of partials[s * n + i] in a fixed order: the

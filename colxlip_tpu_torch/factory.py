@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -30,6 +31,7 @@ from .models.configs import MultimodalCfg, multimodal_config
 from .models.layers import AttentionalPooler, Linear, MultiHeadAttention
 from .models.pos_embed import get_2d_sincos_pos_embed, interpolate_pos_embed
 from .models.vision import PatchEmbed
+from .pretrained import QUICK_GELU_TAGS, resolve_pretrained
 
 logger = logging.getLogger(__name__)
 
@@ -236,6 +238,19 @@ def load_weights(model: CLIP, checkpoint_path: str) -> None:
                            f"unexpected keys {unexpected[:8]}")
 
 
+def resolve_weights(model_name: str, pretrained: str, cfg: CLIPCfg) -> str:
+    """``--pretrained``: a local path as it is, else a tag or ``hf-hub:``
+    through ``pretrained.resolve_pretrained`` (fetched into its cache), with
+    the JAX warning when a QuickGELU tag meets a model config without it."""
+    if os.path.exists(pretrained):
+        return pretrained
+    if pretrained in QUICK_GELU_TAGS and not cfg.quick_gelu:
+        logger.warning("pretrained tag %r was trained with QuickGELU but this model config has "
+                       "quick_gelu=False — pass quick_gelu=True (--force-quick-gelu) or "
+                       "activations will silently diverge from the checkpoint's", pretrained)
+    return resolve_pretrained(model_name, pretrained)
+
+
 def create_model_and_transforms(
         model_name: str, pretrained: Optional[str] = None, *,
         device: Union[str, torch.device], precision: str = "bf16",
@@ -251,7 +266,8 @@ def create_model_and_transforms(
     """(model in train mode on ``device``, cfg, preprocess_train,
     preprocess_val), as the JAX ``create_model_and_transforms`` builds them.
     The parameters live in the model; ``pretrained`` is a local
-    OpenCLIP-layout ``.pt`` loaded through ``load_weights``. ``image_mean`` /
+    OpenCLIP-layout ``.pt``, a tag of ``pretrained.PRETRAINED`` or
+    ``hf-hub:<repo>`` (``resolve_weights``), loaded through ``load_weights``. ``image_mean`` /
     ``image_std`` default to the model config's and, when given, override
     the tower's normalisation of uint8 images and both transforms.
 
@@ -270,7 +286,7 @@ def create_model_and_transforms(
         force_patch_dropout=force_patch_dropout, image_mean=image_mean,
         image_std=image_std)
     if pretrained:
-        load_weights(model, pretrained)
+        load_weights(model, resolve_weights(model_name, pretrained, cfg))
     size, mean, std = (cfg.vision_cfg.image_size, tuple(cfg.vision_cfg.image_mean),
                        tuple(cfg.vision_cfg.image_std))
     preprocess_train = image_transform(

@@ -11,7 +11,11 @@ with numbered and most-recent checkpoint saves and rotation (written by a
 background thread under ``--async-checkpoint``), ``--preempt-save``, the
 retrieval suites (``--retrieval-*``) and zero-shot ImageNet
 (``--imagenet-val``) at the end of an epoch (``--val-frequency``,
-``--zeroshot-frequency``, ``--eval-scoring``), and the eval-only mode:
+``--zeroshot-frequency``, ``--eval-scoring``), ``--remote-sync`` (the log
+directory copied to ``<url>/<name>`` at startup, by a thread on rank 0 every
+``--remote-sync-frequency`` seconds and after the last save is finished;
+with ``--resume latest`` the remote checkpoints are listed and the newest
+pulled, ``utils/file_utils.py``), and the eval-only mode:
 without ``--train-data`` and with a ``--dataset-type`` other than
 ``synthetic``, ``main`` evaluates the ``--pretrained`` weights (before any
 ``--resume``, as the JAX entry point does), appends
@@ -87,7 +91,7 @@ from .parallel.gspmd import (full_state_dict, make_train_step_gspmd, shard_state
 from .parallel.train_step import make_train_step
 from .params import parse_args
 from .training.checkpoint import (
-    get_latest_checkpoint, is_sharded_checkpoint, load_native_checkpoint, read_step_in_epoch,
+    get_latest_checkpoint, get_latest_checkpoint_remote, is_sharded_checkpoint, load_native_checkpoint, read_step_in_epoch,
     restore_sharded_checkpoint, restore_sharded_train_state, restore_train_state,
     rotate_checkpoints, save_checkpoint, save_checkpoint_async, save_checkpoint_sharded,
     sharded_train_state, state_fully_addressable, train_state, wait_for_saves)
@@ -96,6 +100,7 @@ from .training.logging_utils import MetricsWriter, dump_params, setup_logging
 from .training.optim import create_optimizer
 from .training.schedules import const_lr, const_lr_cooldown, cosine_lr
 from .training.train import train_one_epoch
+from .utils.file_utils import remote_sync, remote_sync_pull, start_sync_process
 
 logger = logging.getLogger(__name__)
 
@@ -176,8 +181,6 @@ def unsupported_flags(args) -> List[str]:
     """One message per flag of ``args`` whose feature is not ported yet, each
     naming the module it waits for."""
     checks = [
-        (bool(args.remote_sync),
-         "--remote-sync: remote sync (utils/file_utils.py) is not yet ported"),
         (args.pipeline == "grain",
          "--pipeline grain: the grain pipeline (data/grain_pipeline.py) is not yet ported "
          "(use the default --pipeline wds)"),
@@ -292,12 +295,47 @@ def _main(args, device: torch.device) -> int:
     if args.resume == "latest":
         # rank 0 discovers and broadcasts, so a checkpoint landing mid-discovery
         # on a shared file system cannot split the ranks
-        found = get_latest_checkpoint(checkpoint_dir) if is_master else ""
-        resume_from = broadcast_str(found or "", group) or None
+        if args.remote_sync:
+            # the remote checkpoints are authoritative (a fresh machine's
+            # local directory may be empty)
+            if args.save_most_recent:
+                logger.error("Cannot use save-most-recent with remote_sync and resume latest.")
+                return 1
+            if args.remote_sync_protocol != "s3":
+                logger.error("Sync protocol not supported when using resume latest.")
+                return 1
+            remote_ckpts = os.path.join(args.remote_sync, args.name, "checkpoints")
+            found = get_latest_checkpoint_remote(remote_ckpts) if is_master else ""
+            found = broadcast_str(found or "", group) or None
+            if found:
+                # the restore reads local paths: every rank pulls the one
+                # checkpoint directory first
+                local = os.path.join(checkpoint_dir, os.path.basename(found))
+                t_sync = time.perf_counter()
+                if not remote_sync_pull(found, local):
+                    logger.error("failed to fetch remote checkpoint %s", found)
+                    return 1
+                logger.info("pulled remote checkpoint %s in %.3f s", found,
+                            time.perf_counter() - t_sync)
+                resume_from = local
+        else:
+            found = get_latest_checkpoint(checkpoint_dir) if is_master else ""
+            resume_from = broadcast_str(found or "", group) or None
         if resume_from:
             logger.info("Found latest checkpoint: %s", resume_from)
     elif args.resume:
         resume_from = args.resume
+
+    sync_thread = None
+    remote_base = os.path.join(args.remote_sync, args.name) if args.remote_sync else None
+    if remote_base and is_master:
+        t_sync = time.perf_counter()
+        if not remote_sync(log_base, remote_base, args.remote_sync_protocol):
+            logger.error("Error: remote sync failed from startup")
+            return 1
+        logger.info("remote sync at startup took %.3f s", time.perf_counter() - t_sync)
+        sync_thread = start_sync_process(args.remote_sync_frequency, log_base, remote_base,
+                                         args.remote_sync_protocol)
 
     # Pretrained weights demand bit-compatible BPE tokenization: without the
     # merge table this is an error before any model work (escape hatch:
@@ -569,6 +607,12 @@ def _main(args, device: torch.device) -> int:
                                 name=args.name, most_recent=True)
 
     wait_for_saves()             # raises if a background save failed
+    if sync_thread is not None:
+        # after the last save is whole on disk, never a half-written one
+        sync_thread.stop_event.set()
+        t_sync = time.perf_counter()
+        remote_sync(log_base, remote_base, args.remote_sync_protocol)
+        logger.info("final remote sync took %.3f s", time.perf_counter() - t_sync)
     if writer is not None:
         writer.close()
     if group is not None:

@@ -40,10 +40,11 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops import attention as attention_ops
+from ..parallel import tensor_parallel as tp
 from .clip import l2_normalize
 from .configs import CLIPCfg, MultimodalCfg
 from .layers import (MLP, AttentionalPooler, LayerNorm, Linear, ResidualAttentionBlock,
-                     Transformer, dense, gelu, quick_gelu)
+                     Transformer, dense, gelu, quick_gelu, row_parallel_out)
 from .vision import VisionTransformer
 
 
@@ -65,7 +66,10 @@ def cls_mask(text: torch.Tensor, pad_id: int) -> torch.Tensor:
 
 class CrossAttention(nn.Module):
     """Multi-head cross-attention with OpenCLIP's packed ``in_proj`` [3 D,
-    D]: q from ``x``, k and v from ``kv`` (both of width D)."""
+    D]: q from ``x``, k and v from ``kv`` (both of width D). Given a
+    ``model_axis`` (``parallel/gspmd.py``), the packed rows are regrouped to
+    this rank's H / P heads as the self-attention's are, and ``out_proj`` is
+    a row-parallel product (``parallel/tensor_parallel.py``)."""
 
     def __init__(self, dim: int, heads: int, *, dtype: torch.dtype, attn_impl: str = "auto"):
         super().__init__()
@@ -75,17 +79,24 @@ class CrossAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = Linear(dim, dim, dtype=dtype)
+        self.model_axis: Optional[tp.ModelAxis] = None
 
     def forward(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
-        b, n, d = x.shape
-        w, bias = self.in_proj_weight, self.in_proj_bias
+        b, n, _ = x.shape
+        axis = self.model_axis
+        w, bias, h = self.in_proj_weight, self.in_proj_bias, self.heads
+        if axis is not None:
+            x, kv = tp.enter(x, axis), tp.enter(kv, axis)
+            w, bias, h = tp.regroup_qkv(w, axis), tp.take_rows(bias, axis, 3), h // axis.size
+        d = w.shape[0] // 3
         q = dense(x, w[:d], bias[:d], self.dtype)
         k = dense(kv, w[d:2 * d], bias[d:2 * d], self.dtype)
         v = dense(kv, w[2 * d:], bias[2 * d:], self.dtype)
-        h = self.heads
         q, k, v = (t.reshape(b, t.shape[1], h, d // h) for t in (q, k, v))
-        out = attention_ops.multi_head_attention(q, k, v, impl=self.attn_impl)
-        return self.out_proj(out.reshape(b, n, d))
+        out = attention_ops.multi_head_attention(q, k, v, impl=self.attn_impl).reshape(b, n, d)
+        if axis is not None:
+            return row_parallel_out(out, self.out_proj, axis, self.dtype)
+        return self.out_proj(out)
 
 
 class CrossResidualBlock(nn.Module):

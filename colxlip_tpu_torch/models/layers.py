@@ -40,15 +40,18 @@ speed knob, 3.4e-6 from erf). Any other name raises. ``gelu_tanh`` takes
 the library's tanh GELU under 'stock' and the closed form with its custom
 gradient under the others.
 
-Under tensor parallelism ``parallel/gspmd.py`` gives each self-attention
+Under tensor parallelism ``parallel/gspmd.py`` gives each
 ``MultiHeadAttention`` and each ``MLP`` a ``model_axis``
 (``parallel/tensor_parallel.py`` ``ModelAxis``; None, the default, keeps the
 one-device code above untouched): the module then runs its column-parallel
-product on this rank's shard of ``in_proj`` / ``c_fc`` (``in_proj``
-regrouped to whole heads: the attention runs H / P heads), its row-parallel
-product on its shard of ``out_proj`` / ``c_proj``, sums the partial outputs
-over the model group and adds the replicated bias once, after the sum
-(``fused_mlp`` gets a zero bias there).
+products on this rank's shard of ``in_proj`` / ``q_proj`` / ``k_proj`` /
+``v_proj`` / ``c_fc`` (``in_proj`` regrouped to whole heads; the row shards
+of the separate projections are whole heads already: the attention runs
+H / P heads), its row-parallel product on its shard of ``out_proj`` /
+``c_proj``, sums the partial outputs over the model group and adds the
+replicated bias once, after the sum (``fused_mlp`` gets a zero bias there;
+under ``COLXLIP_MLP_INT8=fwd`` ``c_proj`` takes the group's scales and sums
+its int32 products, ``tensor_parallel.int8_row_parallel_linear``).
 
 ``AttentionalPooler`` is learned-query cross-attention pooling (``query``,
 ``ln_q``, ``ln_k``, ``attn`` built with ``kv_dim``); ``Transformer`` and its
@@ -258,10 +261,18 @@ class MLP(nn.Module):
         return self.c_proj(self.act(self.c_fc(x)))
 
     def _model_parallel(self, x: torch.Tensor, axis: tp.ModelAxis) -> torch.Tensor:
-        """This rank's H / P hidden units: c_fc's rows and c_proj's columns."""
+        """This rank's H / P hidden units: c_fc's rows and c_proj's columns.
+        Under ``int8_fwd`` c_proj contracts over the split dim, so its two
+        scales are the model group's maxima and its int32 sums are added
+        before the one rescale (``tp.int8_row_parallel_linear``): the forward
+        equals the one-device forward bit for bit."""
         dt = self.dtype
         x = tp.enter(x, axis)
         b1 = tp.take_rows(self.c_fc.bias, axis, 1)
+        if self.int8_fwd:
+            h = int8_st_linear(x.to(dt), self.c_fc.weight, b1)
+            return tp.int8_row_parallel_linear(self.act(h), self.c_proj.weight,
+                                               self.c_proj.bias, axis)
         if self.fused and x.ndim == 3:
             y = fused_mlp(x.to(dt), self.c_fc.weight.to(dt), b1.to(dt),
                           self.c_proj.weight.to(dt).t().contiguous(),
@@ -331,6 +342,15 @@ class PatchDropout(nn.Module):
                                     self.exclude_first_token)
 
 
+def row_parallel_out(out: torch.Tensor, proj: "Linear", axis: tp.ModelAxis,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``proj`` (an ``out_proj``) as a row-parallel product: this rank's
+    [D, D / P] columns times its heads' output, summed over the model group,
+    then the replicated bias once."""
+    y = torch.matmul(out.to(dtype), proj.weight.to(dtype).t())
+    return tp.leave(y, axis) + proj.bias.to(dtype)
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention. Self-attention has a packed [3D, D] in_proj:
     its [B, N, 3D] output goes to ``ops.attention.packed_attention``, which
@@ -366,7 +386,7 @@ class MultiHeadAttention(nn.Module):
             raise ValueError("MultiHeadAttention: kv= goes with a module built with kv_dim, "
                              "and only with one")
         if self.model_axis is not None:
-            return self._model_parallel(x, is_causal, mask, self.model_axis)
+            return self._model_parallel(x, is_causal, mask, self.model_axis, kv)
         if not self.cross:
             qkv = dense(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
             return self.out_proj(attention_ops.packed_attention(
@@ -379,16 +399,27 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(b, n, d))
 
     def _model_parallel(self, x: torch.Tensor, is_causal: bool, mask: Optional[torch.Tensor],
-                        axis: tp.ModelAxis) -> torch.Tensor:
-        """Self-attention over this rank's H / P heads."""
+                        axis: tp.ModelAxis, kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Attention over this rank's H / P heads. Cross-attention: the
+        stored row shards of ``q_proj`` / ``k_proj`` / ``v_proj`` are already
+        whole heads (rows [m D / P, (m + 1) D / P) of each)."""
         dt = self.dtype
         x = tp.enter(x, axis)
-        qkv = dense(x, tp.regroup_qkv(self.in_proj_weight, axis),
-                    tp.take_rows(self.in_proj_bias, axis, 3), dt)
-        out = attention_ops.packed_attention(qkv, self.heads // axis.size, is_causal,
-                                             self.attn_impl, mask=mask)
-        y = torch.matmul(out.to(dt), self.out_proj.weight.to(dt).t())
-        return tp.leave(y, axis) + self.out_proj.bias.to(dt)
+        heads = self.heads // axis.size
+        if not self.cross:
+            qkv = dense(x, tp.regroup_qkv(self.in_proj_weight, axis),
+                        tp.take_rows(self.in_proj_bias, axis, 3), dt)
+            out = attention_ops.packed_attention(qkv, heads, is_causal, self.attn_impl,
+                                                 mask=mask)
+        else:
+            kv = tp.enter(kv, axis)
+            q, k, v = (dense(t, proj.weight, tp.take_rows(proj.bias, axis, 1), dt)
+                       for t, proj in ((x, self.q_proj), (kv, self.k_proj), (kv, self.v_proj)))
+            q, k, v = (t.reshape(t.shape[0], t.shape[1], heads, -1) for t in (q, k, v))
+            out = attention_ops.multi_head_attention(q, k, v, mask=mask, causal=is_causal,
+                                                     impl=self.attn_impl)
+            out = out.reshape(x.shape[0], x.shape[1], -1)
+        return row_parallel_out(out, self.out_proj, axis, dt)
 
 
 class ResidualAttentionBlock(nn.Module):

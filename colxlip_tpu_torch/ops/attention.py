@@ -286,10 +286,18 @@ def resolve_impl(impl: str = "auto") -> str:
     it is; ``multi_head_attention`` refuses the unknown ones. The JAX
     function takes 'fused' on the TPU only and 'xla' elsewhere: here the
     kernels are the default on the card, and the CPU runs their plain
-    version so that the CPU and the card take one path."""
-    if impl != "auto":
-        return impl
-    return os.environ.get("COLXLIP_ATTN_IMPL") or "fused"
+    version so that the CPU and the card take one path.
+
+    While ``torch.export`` traces (``serving/aot.py``: a symbolic batch),
+    'fused' resolves to 'xla', as the JAX dispatch leaves the Pallas kernel
+    for the XLA path when a dim is symbolic (``colxlip_tpu/models/layers.py``
+    ``MultiHeadAttention``): the bundle's attention is SDPA, with no launch
+    of the kernels."""
+    if impl == "auto":
+        impl = os.environ.get("COLXLIP_ATTN_IMPL") or "fused"
+    if impl == "fused" and torch.compiler.is_exporting():
+        return "xla"
+    return impl
 
 
 def check_impl(impl: str) -> str:

@@ -33,7 +33,9 @@ design's whole memory cost (24.0 MiB forward, 25.0 backward at the vision
 shape). The tile sums K in its own order, so its bf16 forward is held to the
 exact function by a per-element bar derived from the roundings
 (``ops/fused_mlp_check.py``), not to the plain version's sgemm order.
-float32 keeps the first port's CUDA-core kernels (D <= 768). CPU tensors take the plain versions; CUDA
+float32 keeps the first port's CUDA-core kernels, any D (past 768 the owned
+features are cut into slices of 512, each recomputing its hidden slice:
+``fp32_feature_slices``). CPU tensors take the plain versions; CUDA
 tensors launch the kernels or raise. There is no fallback.
 
 ``COLXLIP_MLP_IMPL`` (``fused`` or ``xla``, default ``xla``) chooses the path
@@ -51,7 +53,7 @@ from .fused_ln import resolve_impl
 # kernel launches (plain-version calls do not count), one count per kernel
 FWD_LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
-MAX_FEATURES = 768               # float32: a block holds 32 rows x D fp32 in registers
+FP32_SLICE_FEATURES = 512        # float32 past D = 768: owned features a block holds
 PLAIN_CHUNK = 4096
 _ROWS_PER_TILE = 64              # csrc/stream_tile.cuh kStream
 _MAX_SPLITS = 8                  # float32: row ranges of the dW passes
@@ -193,13 +195,17 @@ def workspace_bytes(rows: int, d: int, h: int, backward: bool) -> int:
     return 2 * tiles + 4 * sums
 
 
+def fp32_feature_slices(d: int) -> int:
+    """float32: the slices of owned features a row block is cut into (the
+    forward's and dx's grid.y, the dW passes' grid.z): one up to D = 768,
+    whose [32, D] fp32 tile fits in registers, else slices of 512."""
+    return 1 if d <= 768 else -(-d // FP32_SLICE_FEATURES)
+
+
 def _check_cuda(name: str, x, w1, b1, w2, b2=None, dy=None) -> Tuple[int, int, int]:
     rows, d, h = _check_args(x, w1, b1, w2, b2)
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {x.dtype} not supported (float32, bfloat16)")
-    if x.dtype == torch.float32 and d > MAX_FEATURES:
-        raise ValueError(f"{name}: D={d} outside the float32 kernels' range "
-                         f"(D <= {MAX_FEATURES}; bfloat16 takes any D that is a multiple of 8)")
     if x.dtype == torch.bfloat16 and (d % 8 or h % 8):
         raise ValueError(f"{name}: bfloat16 needs D and H multiples of 8 (16-byte rows for "
                          f"the tensor-core tiles); got D={d}, H={h}")
@@ -320,8 +326,8 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
     differentiable in all five.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (contiguous; bfloat16 with D and H multiples of 8, float32 with
-    D <= 768) or raise."""
+    (contiguous; bfloat16 with D and H multiples of 8, float32 any D) or
+    raise."""
     _check_args(x, w1, b1, w2, b2)
     x = x.contiguous()
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):

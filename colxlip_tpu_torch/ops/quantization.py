@@ -237,6 +237,17 @@ def _int8_linear_forward(x: torch.Tensor, weight: torch.Tensor,
     return y.reshape(*x.shape[:-1], -1).to(x.dtype), acc
 
 
+def straight_through_grads(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                           bias_dtype: torch.dtype):
+    """(dx, dweight, dbias) of ``x @ weight.T + bias`` for the cotangent g:
+    dx in g's dtype (cast to x's), dweight and dbias summed in fp32."""
+    g2 = g.reshape(-1, g.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    dx = torch.matmul(g2, weight.to(g2.dtype)).reshape(x.shape).to(x.dtype)
+    dw = torch.matmul(g2.float().T, x2.float()).to(weight.dtype)
+    return dx, dw, g2.float().sum(dim=0).to(bias_dtype)
+
+
 class _Int8STLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias):
@@ -247,12 +258,7 @@ class _Int8STLinear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1])
-        x2 = x.reshape(-1, x.shape[-1])
-        dx = torch.matmul(g2, weight.to(g2.dtype)).reshape(x.shape).to(x.dtype)
-        dw = torch.matmul(g2.float().T, x2.float()).to(weight.dtype)
-        db = g2.float().sum(dim=0).to(ctx.bias_dtype)
-        return dx, dw, db
+        return straight_through_grads(x, weight, g, ctx.bias_dtype)
 
 
 def int8_st_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

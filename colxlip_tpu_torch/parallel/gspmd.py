@@ -31,8 +31,8 @@ same layout is built from ``torch.distributed`` pieces on the mesh of
   module's ``__dict__`` (which shadows ``_parameters``) and the forward hook
   removes it, so the kernels' wrappers get the tensors they get on one
   device and autograd carries the gradients back to the DTensors. Under TP,
-  ``MultiHeadAttention`` and ``MLP`` take their ``model_axis`` path
-  (``parallel/tensor_parallel.py``).
+  ``MultiHeadAttention``, ``CrossAttention`` and ``MLP`` take their
+  ``model_axis`` path (``parallel/tensor_parallel.py``).
 - ``make_train_step_gspmd``: JAX's step. Each rank runs the forward on its
   data rows; every batch output the loss reads is gathered with gradient
   over the data group; every rank computes the same loss over the global
@@ -54,7 +54,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
-from ..models.coca import CoCa
+from ..models.coca import CrossAttention
 from ..models.layers import MLP, MultiHeadAttention, PatchDropout, ResidualAttentionBlock
 from ..training.optim import global_norm
 from .collectives import gather_features
@@ -202,27 +202,17 @@ def _local_view_hooks(module: nn.Module, skip: Sequence[nn.Module]) -> None:
 
 
 def _check_model_parallel(model: nn.Module, p: int) -> None:
-    """Refuse by name what the 'model' axis cannot split."""
-    if isinstance(model, CoCa):
-        raise ValueError(f"--model-parallel {p}: CoCa models are refused under tensor "
-                         "parallelism (the decoder's cross-attention q / k / v are not "
-                         "split); --fsdp alone takes them")
+    """Refuse by name what the 'model' axis cannot split: heads or hidden
+    widths that P does not divide."""
     for name, m in model.named_modules():
-        if isinstance(m, MultiHeadAttention):
-            if m.cross:
-                raise ValueError(f"--model-parallel {p}: {name} is cross-attention (an "
-                                 "attentional pooler), which is not split over 'model'")
-            if m.heads % p:
-                raise ValueError(f"--model-parallel {p} does not divide the {m.heads} heads "
-                                 f"of {name}")
+        if isinstance(m, (MultiHeadAttention, CrossAttention)) and m.heads % p:
+            raise ValueError(f"--model-parallel {p} does not divide the {m.heads} heads "
+                             f"of {name}")
         if isinstance(m, MLP):
             hidden = m.c_fc.weight.shape[0]
             if hidden % p:
                 raise ValueError(f"--model-parallel {p} does not divide the MLP hidden width "
                                  f"{hidden} of {name}")
-            if m.int8_fwd:
-                raise ValueError(f"--model-parallel {p}: COLXLIP_MLP_INT8=fwd is not split "
-                                 "over 'model'")
 
 
 def shard_state(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> Layout:
@@ -239,7 +229,7 @@ def shard_state(model: nn.Module, mesh: DeviceMesh, fsdp: bool = False) -> Layou
     if MODEL_AXIS in sizes:
         axis = ModelAxis(mesh.get_group(MODEL_AXIS), p, mesh.get_local_rank(MODEL_AXIS))
         for m in model.modules():
-            if isinstance(m, (MultiHeadAttention, MLP)):
+            if isinstance(m, (MultiHeadAttention, CrossAttention, MLP)):
                 m.model_axis = axis
     blocks = [m for m in model.modules() if isinstance(m, ResidualAttentionBlock)]
     for block in blocks:

@@ -26,6 +26,15 @@ kernels' wrappers take them as they take the one-device tensors:
   heads [m H / P, (m + 1) H / P); its backward is the inverse all-to-all.
   The weight stays stored in the JAX layout: a stored permutation would bind
   a checkpoint to one P.
+- ``int8_row_parallel_linear``: ``c_proj`` under ``COLXLIP_MLP_INT8=fwd``.
+  The int8 forward scales each activation row and each weight row by its
+  absmax over the contracted dimension, which is the one split here: each
+  rank takes the model group's maximum of both before it quantizes, and the
+  int32 partial products are summed over the group before the one rescale,
+  so the forward equals the one-device forward bit for bit. Quantizing each
+  shard with its own scales would give a different result that nothing
+  flags. The backward is the straight-through one of the plain row-parallel
+  product.
 """
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ from typing import List, Sequence
 
 import torch
 import torch.distributed as dist
+
+from ..ops.quantization import absmax_scale, int8_mm, straight_through_grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,3 +169,43 @@ def regroup_qkv(w: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
     (m + 1) 3D / P) of [3D, D]) -> the q, k and v rows of its head group, in
     the packed order the attention takes ([3 D / P, D])."""
     return _RegroupQKV.apply(w, axis)
+
+
+def _group_max(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    out = t.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=axis.group)
+    return out
+
+
+def _quantize_rows(t: torch.Tensor, axis: ModelAxis):
+    """Round-to-nearest int8 of t [R, K / P] fp32 with one scale a row, the
+    absmax taken over the whole K of the model group."""
+    scale = absmax_scale(_group_max(t.abs().amax(dim=1, keepdim=True), axis), 1e-8)
+    return torch.round(t / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+class _Int8RowParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, axis):
+        ctx.save_for_backward(x, weight)
+        ctx.bias_dtype = bias.dtype
+        xq, xs = _quantize_rows(x.reshape(-1, x.shape[-1]).float(), axis)
+        wq, ws = _quantize_rows(weight.float(), axis)          # [out, in / P], [out, 1]
+        acc = int8_mm(xq, wq)
+        dist.all_reduce(acc, group=axis.group)                 # exact: int32 sums
+        y = acc.float() * xs * ws.T + bias.float()
+        return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        return (*straight_through_grads(x, weight, g, ctx.bias_dtype), None)
+
+
+def int8_row_parallel_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                             axis: ModelAxis) -> torch.Tensor:
+    """``ops.quantization.int8_st_linear`` over the model group, as a
+    row-parallel product: x [..., K / P] and weight [out, K / P] are this
+    rank's columns of the contraction, ``bias`` [out] is replicated; the
+    result [..., out] is the whole product on every rank of the group."""
+    return _Int8RowParallel.apply(x, weight, bias, axis)

@@ -535,6 +535,31 @@ def get_latest_checkpoint(checkpoint_dir: str) -> Optional[str]:
     return latest_path
 
 
+def get_latest_checkpoint_remote(remote_dir: str) -> Optional[str]:
+    """The newest ``epoch_<N>`` checkpoint under an s3 prefix (``--resume
+    latest`` with ``--remote-sync``: the remote directory is authoritative,
+    a fresh machine's local one may be empty), listed by ``aws s3 ls``; its
+    full s3 path, or None (none there, or the listing failed)."""
+    import subprocess
+
+    try:
+        proc = subprocess.run(["aws", "s3", "ls", remote_dir.rstrip("/") + "/"],
+                              capture_output=True, text=True, timeout=120, check=True)
+    except (OSError, subprocess.SubprocessError) as e:
+        logger.error("remote checkpoint listing failed: %s", e)
+        return None
+    names = []
+    for line in proc.stdout.splitlines():
+        # a directory entry reads "                           PRE epoch_3/"
+        part = line.split()[-1].rstrip("/") if line.split() else ""
+        if re.fullmatch(r"epoch_\d+", part):
+            names.append(part)
+    if not names:
+        return None
+    names.sort(key=_natural_key)
+    return remote_dir.rstrip("/") + "/" + names[-1]
+
+
 def rotate_checkpoints(checkpoint_dir: str, current_epoch: int) -> None:
     """--delete-previous-checkpoint: remove every numbered checkpoint older
     than ``current_epoch`` (so it also rotates with --save-frequency > 1)."""

@@ -784,7 +784,8 @@ MLP_SHAPES = [
     (1, 70, 40, 100),       # D and H that no tile divides (float32 only: bf16 needs 8 | H)
     (1, 70, 40, 104),       # D and H that no tile divides, multiples of 8 as bf16 needs
     (1, 300, 64, 96),       # several row ranges in the dW passes
-    (16, 257, 1024, 4096),  # ViT-L/14: bf16 only (float32 refuses D > 768)
+    (16, 257, 1024, 4096),  # ViT-L/14: float32 cuts the owned features into two slices
+    (1, 70, 1000, 4000),    # float32 past 768 at a D and H that no tile or slice divides
 ]
 
 
@@ -804,10 +805,6 @@ def _mlp_inputs(b, n, d, h, dev, dtype, seed=0):
 @pytest.mark.parametrize("b,n,d,h", MLP_SHAPES)
 def test_mlp_kernels_match_plain(dev, b, n, d, h, dtype, approximate):
     x, w1, b1, w2, b2, dy = _mlp_inputs(b, n, d, h, dev, dtype)
-    if dtype == torch.float32 and d > fused_mlp.MAX_FEATURES:
-        with pytest.raises(ValueError, match=f"D={d}"):
-            fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
-        return
     if dtype == torch.bfloat16 and (d % 8 or h % 8):
         with pytest.raises(ValueError, match="multiples of 8"):
             fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
@@ -895,9 +892,11 @@ def test_mlp_autograd_launches_both_kernels(dev):
 
 def test_mlp_refuses_what_it_does_not_take(dev):
     x, w1, b1, w2, b2, dy = _mlp_inputs(1, 8, 32, 64, dev, torch.float32)
-    with pytest.raises(ValueError, match="D=800"):
-        fused_mlp.fused_mlp(torch.zeros(1, 8, 800, device=dev), torch.zeros(64, 800, device=dev),
-                            b1, torch.zeros(64, 800, device=dev), torch.zeros(800, device=dev))
+    # float32 takes D = 800 (two feature slices past 768) ...
+    args32 = _mlp_inputs(1, 8, 800, 64, dev, torch.float32)[:5]
+    wide32 = fused_mlp.fused_mlp(*args32)
+    want32 = fused_mlp.fused_mlp_plain(*args32)
+    torch.testing.assert_close(wide32, want32, rtol=0, atol=_fwd_tol(want32, torch.float32))
     # bfloat16 takes D = 800 (the tensor-core tiles have no D limit) ...
     wide = fused_mlp.fused_mlp(*_mlp_inputs(1, 8, 800, 64, dev, torch.bfloat16)[:5])
     assert wide.shape == (1, 8, 800) and torch.isfinite(wide.float()).all()

@@ -398,7 +398,12 @@ def test_main_cut_mid_epoch_and_resumed_logs_the_uncut_losses(tmp_path, monkeypa
 # --model-parallel and --fsdp are the JAX entry point's refusals, and the
 # GSPMD step refuses the loss modes it cannot express
 REFUSED = [
-    (["--remote-sync", "s3://b"], "--remote-sync", "--remote-sync"),
+    (["--remote-sync", "s3://b", "--resume", "latest", "--save-most-recent"],
+     "Cannot use save-most-recent with remote_sync and resume latest.",
+     "--remote-sync --resume latest --save-most-recent"),
+    (["--remote-sync", "/tmp/b", "--remote-sync-protocol", "fsspec", "--resume", "latest"],
+     "Sync protocol not supported when using resume latest.",
+     "--remote-sync-protocol fsspec --resume latest"),
     (["--model-parallel", "2"], "--model-parallel 2 does not divide the 1 devices",
      "--model-parallel"),
     (["--fsdp"], "--fsdp shards state over the data axis and needs a multi-device mesh with "

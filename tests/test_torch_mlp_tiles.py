@@ -497,3 +497,66 @@ def test_tiled_mlp_matches_jax_pallas(approximate):
         g = g.float().numpy()
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g, w, rtol=0, atol=JAX_TOL * np.abs(w).max(), err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# float32: the CUDA-core walk, cut into feature slices past D = 768
+# ---------------------------------------------------------------------------
+
+OWN, STREAM = 32, 64          # stream_tile.cuh kOwn, kStream
+FP32_FWD_TOL = 1e-5           # chip_smoke.py FUSED_FWD_TOL["float32"]
+
+
+def fp32_walk_forward(x, w1, b1, w2, b2, approximate, slices):
+    """``mlp_fwd_kernel<float, DPT>`` over a grid of row blocks x ``slices``
+    feature slices of 32 DPT columns: each block takes 64 hidden units at a
+    time (h from the full-D dot, a = gelu(h)) and adds a's product with the
+    slice's columns of W2 unit by unit in order into its fp32 output, as
+    ``accumulate`` does; b2 is added after the rounding."""
+    rows, d = x.shape
+    width = -(-d // slices) if slices == 1 else fused_mlp.FP32_SLICE_FEATURES
+    out = torch.empty_like(x)
+    for r0 in range(0, rows, OWN):
+        xs = x[r0:r0 + OWN]
+        for c0 in range(0, d, width):
+            cols = slice(c0, min(d, c0 + width))
+            acc = torch.zeros(xs.shape[0], cols.stop - c0)
+            for h0 in range(0, w1.shape[0], STREAM):
+                h = torch.matmul(xs, w1[h0:h0 + STREAM].T) + b1[h0:h0 + STREAM]
+                a = fused_mlp.kernel_gelu(h, approximate)
+                for s in range(a.shape[1]):
+                    acc = acc + a[:, s:s + 1] * w2[h0 + s, cols]
+            out[r0:r0 + OWN, cols] = acc + b2[cols]
+    return out
+
+
+def test_fp32_feature_slices_are_the_kernels_own():
+    src = (CSRC / "fused_mlp.cu").read_text()
+    assert "if (a.d <= 512 || a.d > 768) return launch_fwd<T, 16>(a, b2, out);" in src
+    assert "if (a.d <= 512 || a.d > 768) return launch_bwd<T, 16>(a, o);" in src
+    assert "return (d + 32 * DPT - 1) / (32 * DPT);" in src
+    assert fused_mlp.FP32_SLICE_FEATURES == 32 * 16
+    assert [fused_mlp.fp32_feature_slices(d) for d in (40, 768, 769, 1000, 1024, 1025, 4096)] \
+        == [1, 1, 2, 2, 2, 3, 8]
+    assert not hasattr(fused_mlp, "MAX_FEATURES")
+
+
+@pytest.mark.parametrize("d", [1000, 1100])
+def test_fp32_slices_cover_every_feature_and_keep_each_sum(d):
+    """The cut walk gives every output element the same sum, in the same
+    order, as one slice over all D would (bit for bit), and both match the
+    plain version within the fp32 forward bar."""
+    gen = torch.Generator().manual_seed(d)
+    rows, h = 70, 96
+    x = torch.randn(rows, d, generator=gen)
+    w1 = torch.randn(h, d, generator=gen) * d ** -0.5
+    b1 = torch.randn(h, generator=gen) * 0.1
+    w2 = torch.randn(h, d, generator=gen) * h ** -0.5
+    b2 = torch.randn(d, generator=gen) * 0.1
+    slices = fused_mlp.fp32_feature_slices(d)
+    assert (slices - 1) * fused_mlp.FP32_SLICE_FEATURES < d <= slices * fused_mlp.FP32_SLICE_FEATURES
+    cut = fp32_walk_forward(x, w1, b1, w2, b2, False, slices)
+    whole = fp32_walk_forward(x, w1, b1, w2, b2, False, 1)
+    assert torch.equal(cut, whole)
+    want = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False)
+    assert _rel(cut, want, 1.0) <= FP32_FWD_TOL

@@ -19,6 +19,12 @@ the results against the JAX ``shard_map`` functions. Suites:
   from the same weights on the data rows of this rank's data index, then
   the sharded saves of the last case's state and the save contracts of
   ``tests/test_sharded_ckpt.py`` on a 4-rank data mesh.
+- ``gspmd_coca``: ``coca-S-test`` under the tensor-parallel plan
+  (``--model-parallel 2``; FSDP too at 4 ranks): one coca step's metrics and
+  whole gradients, the parameters after it and their sharded save; then
+  ``COLXLIP_MLP_INT8=fwd``: an ``MLP`` at P = 2 against the same module at
+  P = 1 (forward and gradients; the per-shard-scale split beside it) and one
+  colclip step of ``ViT-S-16-test-colxlip`` under the plan.
 
 This file imports nothing of the JAX package: the ranks run the port alone.
 """
@@ -99,6 +105,9 @@ GSPMD_CASES = {
     "fsdp_tp_2x2_fused": (2, True, True),
 }
 GSPMD_SAVE_CASE = "fsdp_tp_2x2"
+COCA = "coca-S-test"
+COCA_P = 2
+INT8_MLP = (64, 4.0)       # width, mlp_ratio of the int8 MLP check
 STEP_LR = (1e-3, 10, 100)          # cosine_lr(base, warmup, total)
 STEP_WD = 0.1
 TINY = "ViT-S-16-test-colxlip"
@@ -325,6 +334,125 @@ def run_gspmd(rank: int, world: int, inputs, out_dir: str, out: dict) -> None:
     run_save_contracts(rank, ckpt_dir, out)
 
 
+def _with_env(values: dict, build):
+    """``build()`` with the environment variables of ``values`` set (None:
+    unset), restored after."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        return build()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _int8_mlp_check(rank: int, mesh, out: dict) -> None:
+    """``MLP`` under ``COLXLIP_MLP_INT8=fwd``: the module at P = 1 (each rank
+    whole) against the same module split over the mesh's model group by
+    hand (c_fc's rows, c_proj's columns, as ``shard_state`` leaves them):
+    the forward and the input and weight gradients; and the split that
+    quantizes each shard with its own scales."""
+    from colxlip_tpu_torch.models.layers import MLP, gelu
+    from colxlip_tpu_torch.ops.quantization import int8_st_linear
+    from colxlip_tpu_torch.parallel import tensor_parallel as tp
+    from colxlip_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    width, ratio = INT8_MLP
+    axis = tp.ModelAxis(mesh.get_group(MODEL_AXIS), mesh.size(1), mesh.get_local_rank(MODEL_AXIS))
+    gen = torch.Generator().manual_seed(23)
+    whole = _with_env({"COLXLIP_MLP_INT8": "fwd"},
+                      lambda: MLP(width, ratio, gelu, dtype=torch.float32))
+    with torch.no_grad():
+        for p in whole.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    x = torch.randn(3, 5, width, generator=gen) * 2.0
+    dy = torch.randn(3, 5, width, generator=gen)
+    hidden = whole.c_fc.weight.shape[0]
+    part = hidden // axis.size
+    lo, hi = axis.index * part, (axis.index + 1) * part
+    split = _with_env({"COLXLIP_MLP_INT8": "fwd"},
+                      lambda: MLP(width, ratio, gelu, dtype=torch.float32))
+    with torch.no_grad():
+        split.c_fc.weight = torch.nn.Parameter(whole.c_fc.weight[lo:hi].clone())
+        split.c_fc.bias.copy_(whole.c_fc.bias)
+        split.c_proj.weight = torch.nn.Parameter(whole.c_proj.weight[:, lo:hi].clone())
+        split.c_proj.bias.copy_(whole.c_proj.bias)
+    split.model_axis = axis
+    results = {}
+    for name, module in (("p1", whole), ("p2", split)):
+        xi = x.clone().requires_grad_()
+        y = module(xi)
+        y.backward(dy)
+        results[name] = y.detach()
+        out[f"int8/{name}/y"] = y.detach().numpy()
+        out[f"int8/{name}/dx"] = xi.grad.numpy()
+        out[f"int8/{name}/c_fc.weight.grad"] = module.c_fc.weight.grad.numpy()
+        out[f"int8/{name}/c_proj.weight.grad"] = module.c_proj.weight.grad.numpy()
+        out[f"int8/{name}/c_proj.bias.grad"] = module.c_proj.bias.grad.numpy()
+    with torch.no_grad():
+        # each shard with its own scales: partial outputs summed in fp32
+        h = int8_st_linear(x, split.c_fc.weight, split.c_fc.bias[lo:hi])
+        y = int8_st_linear(gelu(h), split.c_proj.weight, torch.zeros(width))
+        out["int8/naive/y"] = (tp.leave(y, axis) + split.c_proj.bias).numpy()
+    out["int8/rows"] = np.array([lo, hi])
+
+
+def run_gspmd_coca(rank: int, world: int, inputs, out_dir: str, out: dict) -> None:
+    from colxlip_tpu_torch import factory
+    from colxlip_tpu_torch.parallel import gspmd
+    from colxlip_tpu_torch.parallel.mesh import create_mesh, data_index, data_size
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
+    from colxlip_tpu_torch.training import checkpoint as ck
+    from colxlip_tpu_torch.training import optim, schedules
+
+    mesh = create_mesh(COCA_P)
+    d, n = data_index(mesh), data_size(mesh)
+    fsdp = n > 1
+    state = {k[len("param/"):]: torch.from_numpy(inputs[k]) for k in inputs.files
+             if k.startswith("param/")}
+    model, _ = factory.create_model(COCA, "cpu", torch.float32, seed=rank)
+    model.load_state_dict(state, strict=True)
+    model.train()
+    gspmd.shard_state(model, mesh, fsdp=fsdp)
+    schedule = schedules.cosine_lr(*STEP_LR)
+    opt = optim.create_optimizer(model, schedule, weight_decay=STEP_WD)
+    cfg = TrainStepConfig(loss_type="coca", gather_with_grad=True)
+    step = gspmd.make_train_step_gspmd(model, opt, schedule, cfg, mesh, fsdp=fsdp)
+    metrics = step(torch.from_numpy(rows(inputs["images"], d, n)),
+                   torch.from_numpy(rows(inputs["coca_texts"], d, n)).long())
+    for k, v in metrics.items():
+        out[f"coca/metric/{k}"] = np.float64(float(v))
+    for k, q in model.named_parameters():
+        out[f"coca/grad/{k}"] = q.grad.full_tensor().numpy()
+        out[f"coca/placements/{k}"] = np.array(repr(tuple(q.placements)))
+    for k, v in gspmd.full_state_dict(model).items():
+        out[f"coca/param/{k}"] = v.numpy()
+    out["coca/save"] = np.array(ck.save_checkpoint_sharded(
+        os.path.join(out_dir, "coca_ckpt"), ck.sharded_train_state(model, opt, step.step),
+        epoch=1, name="coca"))
+
+    _int8_mlp_check(rank, mesh, out)
+    int8_model = _with_env({"COLXLIP_MLP_INT8": "fwd"}, lambda: _gspmd_model(
+        {k[len("tiny/"):]: torch.from_numpy(inputs[k]) for k in inputs.files
+         if k.startswith("tiny/")}, False))
+    gspmd.shard_state(int8_model, mesh)
+    opt = optim.create_optimizer(int8_model, schedule, weight_decay=STEP_WD)
+    step = gspmd.make_train_step_gspmd(
+        int8_model, opt, schedule, TrainStepConfig(loss_type="colclip", gather_with_grad=True),
+        mesh)
+    metrics = step(torch.from_numpy(rows(inputs["images"], d, n)),
+                   torch.from_numpy(rows(inputs["texts"], d, n)))
+    for k, v in metrics.items():
+        out[f"int8_step/metric/{k}"] = np.float64(float(v))
+
+
 def _contract_state(mesh, offset: float) -> dict:
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
@@ -467,6 +595,8 @@ def main() -> int:
                 run_step(rank, world, inputs, out)
             elif suite == "gspmd":
                 run_gspmd(rank, world, inputs, out_dir, out)
+            elif suite == "gspmd_coca":
+                run_gspmd_coca(rank, world, inputs, out_dir, out)
             else:
                 run_losses(rank, world, inputs, out, suite)
         finally:
