@@ -35,15 +35,16 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      LayerNorm and MLP kernels (forward and backward each) in fp32 and bf16
      at the training shapes (batch 256, vision and text), the token-head
      LayerNorm shape and one ragged shape each, and the LayerNorm (both
-     types) and the MLP (bf16, and fp32 in two feature slices:
-     MLP_FP32_WIDE, timed in phase 5 beside its plain version, the three
-     library calls in fp32 and its bound) at ViT-L/14's width (D 1024, H
-     4096, 16 x 257 rows), as phase 8b runs them; the bf16 MLP forward per element against
+     types) and the MLP (bf16, and fp32: MLP_FP32_WIDE, timed in phase 5
+     with the fp32 vision case beside its plain version, the three library
+     calls in fp32 and its bound) at ViT-L/14's width (D 1024, H 4096, 16 x
+     257 rows), as phase 8b runs them; the bf16 MLP forward per element against
      the exact function (ops/fused_mlp_check.py), and at the vision shape two
      controls that must fail that bar; two runs of each
      backward must agree bit for bit, and at the vision shape neither
      direction of the MLP may hold as much as one [B, N, H] tensor above its
-     inputs.
+     inputs, nor may the fp32 backward at MLP_FP32_WIDE beside its own
+     gradients.
      The stochastic-rounding int8 quantizer (3e) at every Dense shape of the
      model, one ragged shape, one with an all-zero column and a column
      whose extremes sit at +-absmax, and two slices too tall for a cluster's
@@ -125,11 +126,12 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      (torch.profiler). Then (8b) ViT-L-14-colxlip the same way at batch
      VIT_L_BATCH (the LayerNorm backward at D = 1024): both encoders against
      the default path on the same weights, VIT_L_STEPS train steps with exact
-     launch counts, and the peak below phase 6b's; then one fp32 step of it
-     through both kernels (the MLP kernels past D = 768 in their feature
-     slices): 79 LayerNorm, 36 MLP and 36 attention launches each way, its ms
-     and peak, and the step against the plain versions under phase 6's fp32
-     bars.
+     launch counts, and the peak below phase 6b's; then three fp32 steps of
+     it through both kernels at learning rate 0 (the MLP forward past D = 768
+     in its feature slices, the backward on the CUDA-core GEMM tile): 79
+     LayerNorm, 36 MLP and 36 attention launches each way a step, its ms (the
+     median of steps 2-3) and peak, and the step against the plain versions
+     under phase 6's fp32 bars.
   9. the int8 slice, full width and depth, seed 0: (a) every Dense weight of
      both towers through the quantizer kernel (99 launches, timed) and through
      round-to-nearest (quantize_vision_params / quantize_text_params);
@@ -438,6 +440,7 @@ COMPARE_BATCH = 64
 VIT_L_MODEL = "ViT-L-14-colxlip"
 VIT_L_BATCH = 16
 VIT_L_STEPS = 2
+VIT_L_FP32_STEPS = 3        # 8b's fp32 step: the median of steps 2-3
 # attention cases beyond the two towers' shapes: name, B, N, H, D, causal, dtypes
 ATTN_EXTRA_CASES = [
     ("vit-l", 8, 257, 16, 64, False, ("bfloat16",)),        # one live key in the fifth tile
@@ -1015,6 +1018,8 @@ def check_fused_kernels(dev, gen):
                 del out, got, again, want_out, want
             if dtype == torch.bfloat16:
                 inputs[f"mlp/{case}"] = (x, w1, b1, w2, b2, dy)
+            elif case == "vision":          # timed in fp32 too (phase 5)
+                inputs["mlp32/vision"] = (x, w1, b1, w2, b2, dy)
 
     case, b, n, d, h, seed = MLP_FP32_WIDE
     args = mlp_inputs(b, n, d, h, "float32", dev, torch.Generator().manual_seed(seed))
@@ -1054,6 +1059,32 @@ def check_fused_kernels(dev, gen):
     if not (max(peaks) < hidden and all(torch.isfinite(t.grad).all() for t in leaves)):
         raise RuntimeError(f"fused MLP: peaks {peaks} MiB reach one hidden tensor ({hidden} "
                            "MiB), or a gradient is not finite")
+    del leaves, out
+
+    # the fp32 backward at ViT-L's shape (chunks of fp32_chunk_rows): what it
+    # allocates beside its own gradients (two [chunk, H] tiles, dx's K slices,
+    # the partial sums) stays under one [B, N, H] fp32 tensor
+    x, w1, b1, w2, b2, dy = inputs[f"mlp32/{MLP_FP32_WIDE[0]}"]
+    leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    hidden32 = x.numel() // x.shape[-1] * w1.shape[0] * 4 / 2**20
+    out = fused_mlp.fused_mlp(*leaves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    grads = sum(t.grad.numel() * t.grad.element_size() for t in leaves) / 2**20
+    above = (torch.cuda.max_memory_allocated(dev) - base) / 2**20 - grads
+    rows, d, h = x.numel() // x.shape[-1], x.shape[-1], w1.shape[0]
+    ws = fused_mlp.workspace_bytes(rows, d, h, True, torch.float32,
+                                   fused_mlp._multiprocessors(x.device.index)) / 2**20
+    log(f"[3 kernels] mlp {MLP_FP32_WIDE[0]} fp32 backward under autograd: peak device memory "
+        f"above what was held before and its own gradients ({grads:.1f} MiB) {above:.1f} MiB "
+        f"(workspace {ws:.1f} MiB, chunks of {fused_mlp.fp32_chunk_rows(h)} rows); one "
+        f"[B, N, H] fp32 tensor would be {hidden32:.1f} MiB")
+    if not (above < hidden32 and all(torch.isfinite(t.grad).all() for t in leaves)):
+        raise RuntimeError(f"fused MLP fp32: {above} MiB beside the gradients reach one hidden "
+                           f"tensor ({hidden32} MiB), or a gradient is not finite")
     return errs, inputs
 
 
@@ -1113,7 +1144,7 @@ def time_fused_kernels(inputs, card: str):
                 f"H={w1.shape[0]} bf16: kernel {ker:.4f} ms against its bound "
                 f"{bounds[key][0]:.5f} ms ({bounds[key][1]}) = {bounds[key][0] / ker:.1%} of "
                 f"it ({card})")
-    timing.update(time_mlp_fp32_wide(inputs, card))
+    timing.update(time_mlp_fp32(inputs, card))
     for key, (ker, plain, lib) in timing.items():
         what = ("F.layer_norm" if key.startswith("fused_ln") else
                 "F.linear, F.gelu, F.linear" + (" (autograd backward: forward + backward less "
@@ -1153,28 +1184,35 @@ def three_call_mlp_ms(x, w1, b1, w2, b2, dy, iters: int, warmup: int):
     return fwd, both - fwd
 
 
-def time_mlp_fp32_wide(inputs, card: str) -> dict:
-    """Phase 5: kernels #9 and #10 in fp32 at MLP_FP32_WIDE (the feature
-    slices past D = 768), their plain versions, the three library calls in
-    fp32 (TF32 off) and the bound."""
+def time_mlp_fp32(inputs, card: str) -> dict:
+    """Phase 5: kernels #9 and #10 in fp32 at the vision shape and at
+    MLP_FP32_WIDE (the forward's feature slices past D = 768; the backward's
+    chunks on the CUDA-core GEMM tile), their plain versions, the three
+    library calls in fp32 (TF32 off) and the bound."""
     from colxlip_tpu_torch.ops import fused_mlp
 
-    case = MLP_FP32_WIDE[0]
-    x, w1, b1, w2, b2, dy = inputs[f"mlp32/{case}"]
-    lib = three_call_mlp_ms(x, w1, b1, w2, b2, dy, 3, 1)
-    out = {f"fused_mlp_fwd/{case}-fp32": (
-        cuda_ms(lambda: fused_mlp._launch_fwd(x, w1, b1, w2, b2, False), 3, 1),
-        cuda_ms(lambda: fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False), 3, 1), lib[0]),
-        f"fused_mlp_bwd/{case}-fp32": (
-        cuda_ms(lambda: fused_mlp._launch_bwd(x, w1, b1, w2, dy, False), 3, 1),
-        cuda_ms(lambda: fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False), 3, 1), lib[1])}
-    bounds = mlp_bounds(x, w1)
-    for key in ("fused_mlp_fwd", "fused_mlp_bwd"):
-        ker = out[f"{key}/{case}-fp32"][0]
-        log(f"[5 timing] {key}/{case}-fp32 R={x.numel() // x.shape[-1]} D={x.shape[-1]} "
-            f"H={w1.shape[0]} fp32 ({fused_mlp.fp32_feature_slices(x.shape[-1])} feature "
-            f"slices): kernel {ker:.4f} ms against its bound {bounds[key][0]:.5f} ms "
-            f"({bounds[key][1]}) = {bounds[key][0] / ker:.1%} of it ({card})")
+    out = {}
+    for case in ("vision", MLP_FP32_WIDE[0]):
+        x, w1, b1, w2, b2, dy = inputs[f"mlp32/{case}"]
+        lib = three_call_mlp_ms(x, w1, b1, w2, b2, dy, 3, 1)
+        out[f"fused_mlp_fwd/{case}-fp32"] = (
+            cuda_ms(lambda: fused_mlp._launch_fwd(x, w1, b1, w2, b2, False), 3, 1),
+            cuda_ms(lambda: fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False), 3, 1), lib[0])
+        out[f"fused_mlp_bwd/{case}-fp32"] = (
+            cuda_ms(lambda: fused_mlp._launch_bwd(x, w1, b1, w2, dy, False), 3, 1),
+            cuda_ms(lambda: fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False), 3, 1),
+            lib[1])
+        bounds = mlp_bounds(x, w1)
+        rows, d, h = x.numel() // x.shape[-1], x.shape[-1], w1.shape[0]
+        for key in ("fused_mlp_fwd", "fused_mlp_bwd"):
+            ker = out[f"{key}/{case}-fp32"][0]
+            splits = fused_mlp.fp32_dx_splits(rows, d, h,
+                                              fused_mlp._multiprocessors(x.device.index))
+            how = (f"{fused_mlp.fp32_feature_slices(d)} feature slices" if key.endswith("fwd")
+                   else f"chunks of {fused_mlp.fp32_chunk_rows(h)} rows, dx in {splits} K slices")
+            log(f"[5 timing] {key}/{case}-fp32 R={rows} D={d} H={h} fp32 ({how}): kernel "
+                f"{ker:.4f} ms against its bound {bounds[key][0]:.5f} ms ({bounds[key][1]}) = "
+                f"{bounds[key][0] / ker:.1%} of it ({card})")
     return out
 
 
@@ -1940,11 +1978,13 @@ def vit_l_fused_phase(dev, card: str, vit_l):
 
 
 def vit_l_fused_fp32_step(dev, card: str, step_cfg, images, texts, want_launches) -> dict:
-    """Phase 8b, fp32: one ViT-L-14-colxlip step at batch VIT_L_BATCH with
-    both variables 'fused' and fp32 compute, the MLP kernels past D = 768 in
-    their feature slices: exact launches (79 LayerNorm, 36 MLP and 36
-    attention each way, 1 MaxSim), its ms and peak; then the step against
-    the plain versions on the same weights under phase 6's fp32 bars."""
+    """Phase 8b, fp32: VIT_L_FP32_STEPS ViT-L-14-colxlip steps at batch
+    VIT_L_BATCH and learning rate 0 with both variables 'fused' and fp32
+    compute (the MLP forward past D = 768 in its feature slices, the
+    backward on the CUDA-core GEMM tile): exact launches a step (79
+    LayerNorm, 36 MLP and 36 attention each way, 1 MaxSim), the step's ms
+    as the median of steps 2 onward, and the peak; then the step against the
+    plain versions on the same weights under phase 6's fp32 bars."""
     import torch
 
     from colxlip_tpu_torch.factory import create_model
@@ -1958,28 +1998,35 @@ def vit_l_fused_fp32_step(dev, card: str, step_cfg, images, texts, want_launches
         model.train()
         zero = const_lr(0.0, 0)
         step = make_train_step(model, create_optimizer(model, zero), zero, step_cfg)
-        for c in counters.values():
-            c.reset()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        metrics = {k: float(v) for k, v in step(images, texts).items()}
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        secs = []
+        for i in range(VIT_L_FP32_STEPS):
+            for c in counters.values():
+                c.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = {k: float(v) for k, v in step(images, texts).items()}
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) * 1e3)
+            launches = {name: c.value for name, c in counters.items()}
+            if launches != want_launches:
+                break
+        ms = statistics.median(secs[1:] or secs)   # a step whose launches are wrong stops it
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        launches = {name: c.value for name, c in counters.items()}
         del step, model
         torch.cuda.empty_cache()
         log(f"[8b vit-l fused fp32] {VIT_L_MODEL} fp32 step at batch {VIT_L_BATCH} through the "
-            f"kernels: total_loss {metrics['total_loss']:.5f}, {ms:.1f} ms (the first step, "
-            f"the MLP kernels on the CUDA cores), peak device memory {peak:.2f} GiB; launches "
-            f"{launches} ({card})")
+            f"kernels: total_loss {metrics['total_loss']:.5f}, {ms:.1f} ms (the median of steps "
+            f"2-{VIT_L_FP32_STEPS}; each step " + ", ".join(f"{t:.1f}" for t in secs)
+            + f" ms), peak device memory {peak:.2f} GiB; launches {launches} a step ({card})")
         if launches != want_launches or not all(math.isfinite(v) for v in metrics.values()):
             raise RuntimeError(f"[8b] fp32: launches {launches}, expected {want_launches}; "
                                f"metrics {metrics}")
         compare_step(dev, torch.float32, None, step_cfg, images, texts,
                      tag="[8b vit-l fused fp32]", model_name=VIT_L_MODEL)
-    return {"step_ms": ms, "peak_gib": peak, "launches": launches, "loss": metrics["total_loss"]}
+    return {"step_ms": ms, "steps_ms": secs, "peak_gib": peak, "launches": launches,
+            "loss": metrics["total_loss"]}
 
 
 def main_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int):
@@ -4969,8 +5016,9 @@ def main() -> int:
         timing.update(time_fused_kernels(fused_inputs, card))
         mlp_case_bounds = {case: mlp_bounds(*fused_inputs[f"mlp/{case}"][:2])
                            for case, *_ in MLP_CASES}
-        wide = f"{MLP_FP32_WIDE[0]}-fp32"
-        mlp_case_bounds[wide] = mlp_bounds(*fused_inputs[f"mlp32/{MLP_FP32_WIDE[0]}"][:2])
+        fp32_cases = [f"{case}-fp32" for case in ("vision", MLP_FP32_WIDE[0])]
+        for case in fp32_cases:
+            mlp_case_bounds[case] = mlp_bounds(*fused_inputs[f"mlp32/{case[:-5]}"][:2])
         quant_timing, quant_bounds = time_quantizer(quant_inputs, card)
         timing.update(quant_timing)
         qkv, h, causal = attn_inputs["vision"]
@@ -5211,7 +5259,7 @@ def main() -> int:
             for what, value in zip(("ms", "plain_ms", "three_calls_ms", "bound_ms"),
                                    (*timing[f"fused_mlp_{key}/{case}"],
                                     mlp_case_bounds[case][f"fused_mlp_{key}"][0]))}
-            for case in [c for c, *_ in MLP_CASES] + [wide]},
+            for case in [c for c, *_ in MLP_CASES] + fp32_cases},
         "ln_bwd_cases": timing["ln_bwd_cases"],
         "ce_fwd_sizes": {m: {"ms": timing[f"fused_ce_fwd/{m}"][0],
                              "plain_ms": timing[f"fused_ce_fwd/{m}"][1],

@@ -8,7 +8,8 @@
 //
 //   forward   mu = mean(x), xc = x - mu, var = mean(xc * xc)  (two passes
 //             over the row in registers, not E[x^2] - E[x]^2),
-//             y = xc * rsqrt(var + eps) * gamma + beta, cast to x's type
+//             y = xc * rsqrt(var + eps) * gamma + beta in fp32, cast once
+//             to x's type
 //   backward  mu and rstd recomputed from x; xhat = xc * rstd,
 //             gdo = dy * gamma, m1 = mean(gdo), m2 = mean(gdo * xhat),
 //             dx = rstd * (gdo - m1 - xhat * m2) in x's type;
@@ -20,45 +21,50 @@
 // vision shape (50,432 x 768, bf16) that is 155 and 232 MB, 0.04625 and
 // 0.06937 ms at 3.35 TB/s.
 //
-// Forward (#7): one warp owns a row and holds it in registers (lane l has
-// columns l, l + 32, ...; the per-lane count is a template bucket, D <=
-// 1024), so the statistics are two warp reductions and the row is read once.
-// One element a lane a load: 61% of its bound, faster than F.layer_norm,
-// left as first ported.
+// Both kernels share one lane layout and one statistics helper. A warp owns
+// a row; a lane holds 16-byte vectors (8 bf16 or 4 fp32 values: vector
+// lane + 32 c, 3 a lane at D = 768 in bf16; PE values a lane, a template
+// bucket with 32 PE >= D <= 1024) and walks every gridDim.x * 8-th row with
+// the next row's x in flight while it reduces this one (16 bytes a lane a
+// load, evict-first). center_row takes the statistics: a lane sums each
+// vector in order, then its vectors in order; a statistic is the warp's
+// butterfly of those sums times one fp32 reciprocal of D. So the forward's mu
+// and rstd are bit-equal to the ones the backward recomputes. gamma (and, in
+// the forward, beta) is staged once a block in shared memory, lane-major
+// (stage_lane_major), so a warp reads it as 512 contiguous bytes. A row whose
+// width is not a multiple of the vector, or whose base is not 16-byte
+// aligned, takes the same body with scalar loads (VEC = false).
 //
-// Backward (#8), redesigned for the bandwidth. A warp still owns a row, but
-// a lane holds 16-byte vectors (8 bf16 or 4 fp32 values: vector lane + 32 c,
-// 3 a lane at D = 768 in bf16) and walks every gridDim.x * 8-th row with the
-// next row in flight while it reduces this one: x's vectors are loaded into
-// registers (16 bytes a lane a load, evict-first) and dy's lines prefetched
-// into L1, from where dy is read twice (for the sums, then for dx) rather
-// than held: the registers go to x, dgamma and dbeta, and at D = 768 the
-// kernel fits two blocks an SM (128 registers). gamma is staged once a block
-// in shared memory, lane-major, so a warp reads it as 512 contiguous bytes.
-// A lane sums each vector in order, then its vectors in order; a statistic
-// is the warp's butterfly of those sums times one fp32 reciprocal of D, and
-// dx = fma(dy gamma, rstd, fma(xhat, -rstd m2, -rstd m1)). A row whose width
-// is not a multiple of the vector, or whose base is not 16-byte aligned,
-// takes the same body with scalar loads (VEC = false). The TPU kernel sums
-// dgamma and dbeta across its sequential grid. Here each warp sums the rows
-// it walks in registers, the block's warps add up in warp order through
-// shared memory, each block writes one partial row, and a second kernel adds
-// the partial rows (stream_tile.cuh reduce_partials, which the MLP shares: at
-// 264 partial rows one block per 32 columns, kRedGroups row groups each
-// summing every kRedGroups-th partial row in order, then the groups in
-// order). No atomics, so two runs agree bit for bit. Two blocks an SM cap a
-// thread at 128 registers; bf16 fits that up to D = 768, fp32 (twice the
-// registers for the same x) would spill, so fp32 asks for one block an SM.
+// Forward (#7): y = fma(xc * rstd, gamma, beta), written as 16-byte
+// vectors. Its grid is sized to the card: as
+// many blocks as the occupancy calculator keeps resident, at most one warp a
+// row (fwd_blocks), so at ViT-L's 4,112 rows every row is in flight in one
+// wave, and at the vision shape's 50,432 each warp walks its rows.
 //
-// Why no deeper prefetch: this kernel is bound by its own instructions and
-// their latency, not by the memory (scripts/torch_ln_bench.py on an NVIDIA
-// H100 80GB HBM3 at 700 W; PERF.md): without its loads it still takes 0.069
-// ms at the vision shape, where torch.add(x, dy) moves the same bytes in
-// 0.079, and a cp.async or bulk-copy ring of 2-4 rows in shared memory, or
-// more warps an SM, moved it by a few percent at most.
+// Backward (#8): x's vectors are loaded into registers and dy's lines
+// prefetched into L1, from where dy is read twice (for the sums, then for dx)
+// rather than held: the registers go to x, dgamma and dbeta, and at D = 768
+// the kernel fits two blocks an SM (128 registers). dx = fma(dy gamma, rstd,
+// fma(xhat, -rstd m2, -rstd m1)). The TPU kernel sums dgamma and dbeta
+// across its sequential grid. Here each warp sums the rows it walks in
+// registers, the block's warps add up in warp order through shared memory,
+// each block writes one partial row, and a second kernel adds the partial
+// rows (stream_tile.cuh reduce_partials, which the MLP shares: at 264
+// partial rows one block per 32 columns, kRedGroups row groups each summing
+// every kRedGroups-th partial row in order, then the groups in order). No
+// atomics, so two runs agree bit for bit. Two blocks an SM cap a thread at
+// 128 registers; bf16 fits that up to D = 768, fp32 (twice the registers
+// for the same x) would spill, so fp32 asks for one block an SM.
 //
-// Left for later: the forward on the same vectors; fewer instructions a row
-// (each element is unpacked, centred, scaled and summed about 17 times).
+// Why the backward has no deeper prefetch: it is bound by its own
+// instructions and their latency, not by the memory
+// (scripts/torch_ln_bench.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md):
+// without its loads it still takes 0.069 ms at the vision shape, where
+// torch.add(x, dy) moves the same bytes in 0.079, and a cp.async or
+// bulk-copy ring of 2-4 rows in shared memory, or more warps an SM, moved it
+// by a few percent at most. Left for later: fewer instructions a row in the
+// backward (each element is unpacked, centred, scaled and summed about 17
+// times).
 
 #include <stdint.h>
 
@@ -74,45 +80,6 @@ using colxlip::warp_sum;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxD = 1024;
-
-// Reads row `xr` into v (0 past D), then v = x - mean; returns rstd.
-template <typename T, int DPT>
-__device__ __forceinline__ float center_row(const T* __restrict__ xr, int d, float eps,
-                                            float (&v)[DPT]) {
-  const int lane = threadIdx.x & 31;
-  float sum = 0.f;
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) {
-    const int col = lane + 32 * c;
-    v[c] = col < d ? to_f(xr[col]) : 0.f;
-    sum += v[c];
-  }
-  const float mu = warp_sum(sum) / float(d);
-  float sq = 0.f;
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) {
-    v[c] = lane + 32 * c < d ? v[c] - mu : 0.f;
-    sq = fmaf(v[c], v[c], sq);
-  }
-  return rsqrtf(warp_sum(sq) / float(d) + eps);
-}
-
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
-ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-              const float* __restrict__ beta, T* __restrict__ y, int rows, int d, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
-    float v[DPT];
-    const float rstd = center_row<T, DPT>(x + size_t(row) * d, d, eps, v);
-    T* yr = y + size_t(row) * d;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) yr[col] = from_f<T>(v[c] * rstd * gamma[col] + beta[col]);
-    }
-  }
-}
 
 // A lane's PE values of a row: NV vectors of V = 16 / sizeof(T) elements,
 // vector v = lane + 32 c holding elements v V .. v V + V - 1 (PE is the
@@ -157,6 +124,144 @@ __device__ __forceinline__ void pack16(__nv_bfloat16* p, const float* v) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+// v [d] fp32 staged once a block in shared memory, lane-major: float4 q of
+// vector c of lane l at dst[(c V / 4 + q) 32 + l] (zeros past d), so a
+// warp's read of it is 512 contiguous bytes; 32 lanes x PE / 4 float4.
+template <typename T, int PE>
+__device__ __forceinline__ void stage_lane_major(float4* dst, const float* __restrict__ v,
+                                                 int d) {
+  constexpr int V = Lanes<T, PE>::V;
+  for (int idx = threadIdx.x; idx < 8 * PE; idx += kThreads) {
+    const int l = idx & 31, q = idx >> 5, c = q / (V / 4), j = (q % (V / 4)) * 4;
+    const int e = (l + 32 * c) * V + j;
+    dst[idx] = make_float4(e < d ? v[e] : 0.f, e + 1 < d ? v[e + 1] : 0.f,
+                           e + 2 < d ? v[e + 2] : 0.f, e + 3 < d ? v[e + 3] : 0.f);
+  }
+}
+
+// The lane's vector c of values staged by stage_lane_major.
+template <typename T, int PE>
+__device__ __forceinline__ void read_lane_major(const float4* src, int c,
+                                                float (&out)[Lanes<T, PE>::V]) {
+  constexpr int V = Lanes<T, PE>::V;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < V / 4; ++q) {
+    const float4 g4 = src[(c * (V / 4) + q) * 32 + lane];
+    out[4 * q] = g4.x, out[4 * q + 1] = g4.y, out[4 * q + 2] = g4.z, out[4 * q + 3] = g4.w;
+  }
+}
+
+// Row xr into xv, zeros past d: VEC, the lane's vectors from nx (loaded
+// ahead); else by scalar loads, in the same lane layout.
+template <typename T, int PE, bool VEC>
+__device__ __forceinline__ void load_row(const T* __restrict__ xr,
+                                         const uint4 (&nx)[Lanes<T, PE>::NV], int d,
+                                         float (&xv)[PE]) {
+  constexpr int V = Lanes<T, PE>::V, NV = Lanes<T, PE>::NV;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    const int e = (lane + 32 * c) * V;
+    if (VEC && e < d) {
+      unpack16(xr, nx[c], xv + c * V);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) xv[c * V + j] = !VEC && e + j < d ? to_f(xr[e + j]) : 0.f;
+    }
+  }
+}
+
+// The row's statistics, as both kernels take them: a lane's sums (one chain
+// a vector, its V values in order, then the vectors in order), the warp's
+// butterfly, one fp32 reciprocal of D. xv becomes x - mu (0 past d);
+// returns rstd.
+template <typename T, int PE, bool VEC>
+__device__ __forceinline__ float center_row(float (&xv)[PE], int d, float inv_d, float eps) {
+  constexpr int V = Lanes<T, PE>::V, NV = Lanes<T, PE>::NV;
+  const int lane = threadIdx.x & 31;
+  float p[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    p[c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[c] += xv[c * V + j];
+  }
+  // products that feed a sum are rounded alone (__fmul_rn is never
+  // contracted into an fma), so every instantiation gives the same bits
+  const float mu = __fmul_rn(warp_sum(in_order(p)), inv_d);
+#pragma unroll
+  for (int c = 0; c < NV; ++c) {
+    const int e = (lane + 32 * c) * V;
+    p[c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int i = c * V + j;
+      xv[i] = (VEC ? e : e + j) < d ? xv[i] - mu : 0.f;   // VEC: a vector is live or dead
+      p[c] = fmaf(xv[i], xv[i], p[c]);
+    }
+  }
+  return rsqrtf(__fmul_rn(warp_sum(in_order(p)), inv_d) + eps);
+}
+
+// y = T(fma(xc rstd, gamma, beta)) a row a warp, the next row's x in flight.
+// VEC: d a multiple of V and x, y 16-byte aligned (else scalar loads and
+// stores).
+template <typename T, int PE, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+ln_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+              const float* __restrict__ beta, T* __restrict__ y, int rows, int d, float eps) {
+  using L = Lanes<T, PE>;
+  constexpr int V = L::V, NV = L::NV;
+  __shared__ float4 gb[2][8 * PE];   // gamma, beta lane-major
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float inv_d = 1.f / float(d);
+  const int stride = gridDim.x * kWarps;
+  const int first = blockIdx.x * kWarps + warp;
+  const int count = first < rows ? (rows - first + stride - 1) / stride : 0;
+
+  uint4 nx[NV];
+  auto fetch = [&](int k) {
+    if (k < count) {
+      const T* xr = x + size_t(first + k * stride) * d;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int e = (lane + 32 * c) * V;
+        if (e < d) nx[c] = __ldcs(reinterpret_cast<const uint4*>(xr + e));
+      }
+    }
+  };
+  if constexpr (VEC) fetch(0);
+  stage_lane_major<T, PE>(gb[0], gamma, d);
+  stage_lane_major<T, PE>(gb[1], beta, d);
+  __syncthreads();
+
+  for (int k = 0; k < count; ++k) {
+    const size_t off = size_t(first + k * stride) * d;
+    float xv[PE];   // x, then x - mu
+    load_row<T, PE, VEC>(x + off, nx, d, xv);
+    if constexpr (VEC) fetch(k + 1);
+    const float rstd = center_row<T, PE, VEC>(xv, d, inv_d, eps);
+    T* yr = y + off;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int e = (lane + 32 * c) * V;
+      float g[V], b[V], out[V];
+      read_lane_major<T, PE>(gb[0], c, g);
+      read_lane_major<T, PE>(gb[1], c, b);
+#pragma unroll
+      for (int j = 0; j < V; ++j) out[j] = fmaf(__fmul_rn(xv[c * V + j], rstd), g[j], b[j]);
+      if constexpr (VEC) {
+        if (e < d) pack16(yr + e, out);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          if (e + j < d) yr[e + j] = from_f<T>(out[j]);
+      }
+    }
+  }
+}
+
 // partials: [gridDim.x][2][d] fp32, row 0 the block's dgamma, row 1 its dbeta.
 // VEC: d a multiple of V and x, dy, dx 16-byte aligned (else scalar loads).
 template <typename T, int PE, bool VEC>
@@ -194,32 +299,16 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
   };
   if constexpr (VEC) fetch(0);
 
-  // gamma once a block, lane-major: float4 q of vector c of lane l at
-  // gs[(c V / 4 + q) 32 + l], so a warp's read of it is 512 contiguous bytes
-  // (zeros past d); 128 PE bytes, in red until the warps add up
+  // gamma once a block, lane-major: 128 PE bytes, in red until the warps add up
   float4* gs = reinterpret_cast<float4*>(&red[0][0]);
-  for (int idx = threadIdx.x; idx < 8 * PE; idx += kThreads) {   // 32 lanes x PE / 4
-    const int l = idx & 31, q = idx >> 5, c = q / (V / 4), j = (q % (V / 4)) * 4;
-    const int e = (l + 32 * c) * V + j;
-    gs[idx] = make_float4(e < d ? gamma[e] : 0.f, e + 1 < d ? gamma[e + 1] : 0.f,
-                          e + 2 < d ? gamma[e + 2] : 0.f, e + 3 < d ? gamma[e + 3] : 0.f);
-  }
+  stage_lane_major<T, PE>(gs, gamma, d);
   __syncthreads();
 
   for (int k = 0; k < count; ++k) {
     const T* xr = x + size_t(first + k * stride) * d;
     const T* dyr = dy + size_t(first + k * stride) * d;
     float xv[PE];   // x, then x - mu, then xhat
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      const int e = (lane + 32 * c) * V;
-      if (VEC && e < d) {
-        unpack16(x, nx[c], xv + c * V);
-      } else {
-#pragma unroll
-        for (int j = 0; j < V; ++j) xv[c * V + j] = !VEC && e + j < d ? to_f(xr[e + j]) : 0.f;
-      }
-    }
+    load_row<T, PE, VEC>(xr, nx, d, xv);
     if constexpr (VEC) fetch(k + 1);
     // vector c of dy and of gamma, zeros past d; read twice a row
     auto load_dy = [&](int c, float (&o)[V], float (&gm)[V]) {
@@ -235,37 +324,12 @@ ln_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
 #pragma unroll
         for (int j = 0; j < V; ++j) o[j] = e + j < d ? to_f(dyr[e + j]) : 0.f;
       }
-#pragma unroll
-      for (int q = 0; q < V / 4; ++q) {
-        const float4 g4 = gs[(c * (V / 4) + q) * 32 + lane];
-        gm[4 * q] = g4.x, gm[4 * q + 1] = g4.y, gm[4 * q + 2] = g4.z, gm[4 * q + 3] = g4.w;
-      }
+      read_lane_major<T, PE>(gs, c, gm);
     };
 
-    // a lane's sums: one chain a vector (its V values in order), then the
-    // vectors in order; then the warp's butterfly
+    const float rstd = center_row<T, PE, VEC>(xv, d, inv_d, eps);
+    // the same sums for m1 = mean(dy gamma) and m2 = mean(dy gamma xhat)
     float p0[NV], p1[NV];
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      p0[c] = 0.f;
-#pragma unroll
-      for (int j = 0; j < V; ++j) p0[c] += xv[c * V + j];
-    }
-    // products that feed a sum are rounded alone (__fmul_rn is never
-    // contracted into an fma), so both instantiations give the same bits
-    const float mu = __fmul_rn(warp_sum(in_order(p0)), inv_d);
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      const int e = (lane + 32 * c) * V;
-      p0[c] = 0.f;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int i = c * V + j;
-        xv[i] = (VEC ? e : e + j) < d ? xv[i] - mu : 0.f;   // VEC: a vector is live or dead
-        p0[c] = fmaf(xv[i], xv[i], p0[c]);
-      }
-    }
-    const float rstd = rsqrtf(__fmul_rn(warp_sum(in_order(p0)), inv_d) + eps);
 #pragma unroll
     for (int c = 0; c < NV; ++c) {
       float o[V], gm[V];
@@ -337,16 +401,39 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int DPT>
-cudaError_t launch_fwd(const Args& a, const float* beta, void* y) {
-  const int want = (a.rows + kWarps - 1) / kWarps, cap = 132 * 16;   // then a grid-stride loop
-  const int grid = want < cap ? want : cap;
-  ln_fwd_kernel<T, DPT><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.x), a.gamma, beta, static_cast<T*>(y), a.rows, a.d, a.eps);
-  return cudaGetLastError();
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// The forward's grid: one warp a row, at most as many blocks as stay
+// resident on the card at once (the occupancy calculator's count, read once
+// an instantiation), each warp then walking every gridDim.x * 8-th row.
+template <typename T, int PE, bool VEC>
+int fwd_blocks(int rows) {
+  static const int resident = [] {
+    int dev = 0, sms = 132, per_sm = 1;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ln_fwd_kernel<T, PE, VEC>,
+                                                      kThreads, 0) != cudaSuccess ||
+        per_sm < 1)
+      per_sm = 1;
+    return per_sm * sms;
+  }();
+  const int want = (rows + kWarps - 1) / kWarps;
+  return want < resident ? want : resident;
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+template <typename T, int PE>
+cudaError_t launch_fwd(const Args& a, const float* beta, void* y) {
+  const T* x = static_cast<const T*>(a.x);
+  T* out = static_cast<T*>(y);
+  if (a.d % Lanes<T, PE>::V == 0 && aligned16(x) && aligned16(out))
+    ln_fwd_kernel<T, PE, true><<<fwd_blocks<T, PE, true>(a.rows), kThreads, 0, a.stream>>>(
+        x, a.gamma, beta, out, a.rows, a.d, a.eps);
+  else
+    ln_fwd_kernel<T, PE, false><<<fwd_blocks<T, PE, false>(a.rows), kThreads, 0, a.stream>>>(
+        x, a.gamma, beta, out, a.rows, a.d, a.eps);
+  return cudaGetLastError();
+}
 
 template <typename T, int PE>
 cudaError_t launch_bwd(const Args& a, const void* dy, void* dx, float* partials, int blocks) {
@@ -362,11 +449,10 @@ cudaError_t launch_bwd(const Args& a, const void* dy, void* dx, float* partials,
   return cudaGetLastError();
 }
 
-// The per-lane column count is a template argument (the row lives in
-// registers): 32 * DPT >= D.
+// The forward's bucket, the backward's: PE values a lane, 32 PE >= D (the
+// same lanes hold the same vectors, so the statistics agree bit for bit).
 template <typename T>
 cudaError_t dispatch_fwd(const Args& a, const float* beta, void* y) {
-  if (a.d <= 128) return launch_fwd<T, 4>(a, beta, y);
   if (a.d <= 256) return launch_fwd<T, 8>(a, beta, y);
   if (a.d <= 512) return launch_fwd<T, 16>(a, beta, y);
   if (a.d <= 768) return launch_fwd<T, 24>(a, beta, y);

@@ -1,6 +1,7 @@
 // Transformer MLP c_fc -> GELU -> c_proj with a recompute backward, for
 // Hopper (sm_90a): no [rows, H] tensor reaches device memory, forward or
-// backward. In bf16 only an L2-sized [R_c, H] chunk of it does.
+// backward. Only an L2-sized [R_c, H] chunk of it does (the bf16 paths, and
+// the fp32 backward).
 //
 // Replaces: colxlip_tpu/ops/fused_mlp.py `_fwd_call` (:244, body
 // `_fwd_kernel` :182) and `_bwd_call` (:278, body `_bwd_kernel` :198). Same
@@ -66,37 +67,52 @@
 // backward's outputs round once (dx, dh) or not at all (dW, db), and are held
 // to 2^-7 of the largest gradient.
 //
-// fp32: the CUDA cores (stream_tile.cuh), any D, as first ported:
+// fp32: the CUDA cores, any D.
 //
 //   forward   a block owns 32 rows of x and walks the hidden dimension in
 //             slices of 64: the slice of h comes from a register tile
 //             (stream_tile.cuh raw_tile), becomes a in shared memory, and
 //             its product with the slice's 64 rows of W2 is added into the
-//             block's [32, D] output, held in registers (accumulate)
-//   dx        the same walk: gelu'(h) and da from two register tiles, dh in
-//             shared memory, dx += dh times the slice's rows of W1
-//   dW1, db1  a block owns 32 hidden units and walks the rows of x in tiles
-//             of 64, recomputing h and da for its slice: dW1 += dh^T x
-//   dW2       the same walk with a in place of dh and dy in place of x
-//   db2       a column sum of dy
+//             block's [32, D] output, held in registers (accumulate). Past
+//             D = 768 (ViT-L's 1024) the owned [32, D] tile would not fit in
+//             registers, so the owned features are cut into S slices of 512
+//             (blockIdx.y), each block recomputing the hidden slice it reads:
+//             2 (S + 1) R D H (S = 2 at D = 1024). Each output element is
+//             summed in the same order as without the cut.
+//   backward  the bf16 path's schedule on an fp32 GEMM tile of the CUDA
+//             cores (sgemm_tile.cuh: 128 x 128 register-blocked tiles, 8 x 8
+//             outputs a thread, K in steps of 16 through 3 cp.async stages),
+//             with the same epilogues where the function is the same (T =
+//             float rounds nothing):
 //
-// The row walk of dW1 / dW2 is cut into `splits` ranges so that H / 32
-// blocks times splits fill the card; each range writes its partial sums to
-// scratch and a second kernel adds them in range order (reduce_partials), as
-// db1 and db2 do. This path computes 16 R D H (h three times, da twice) as
-// fp32 FMAs: a split-bf16 product on the tensor cores would not keep fp32's
-// sums (maxsim_tile.cuh says why).
+//     db2 = column sums of dy (colsum + reduce, once); per chunk of R_c rows
+//     x W1^T   kNT  -> ws [R_c, H]         h = acc + b1
+//     dy W2^T  kNT  -> dh [R_c, H]         acc is da: reads h, writes
+//                                          dh = gelu'(h) da, a over h, and
+//                                          each warp's column sums of dh
+//     a^T dy   kTN  -> dW2                 the first chunk stores, later add
+//     dh^T x   kTN  -> dW1                 the same (one launch with dW2)
+//     dh W1    kNN  -> dx rows             cut into `splits` K slices where
+//                                          the chunk's [R_c, D] tiles would
+//                                          leave the card half idle, each
+//                                          slice's partial [R_c, D] to
+//                                          scratch, added in slice order
+//   then db1 = the warps' column sums added in a fixed order.
 //
-// Past D = 768 (ViT-L's 1024) the owned [32, D] tile would not fit in
-// registers, so the owned features are cut into S slices of 512 (blockIdx.y
-// of the forward and dx, blockIdx.z of the dW passes), each block
-// recomputing the hidden slice it reads: 2 (S + 1) R D H forward and
-// 2 (5 S + 3) R D H backward (S = 2 at D = 1024). Each output element is
-// summed in the same order as without the cut.
+//             That is the function's own 10 R D H: h and da once a chunk.
+//             The wrapper picks R_c so that the two fp32 [R_c, H] tiles stay
+//             in L2 (1024 rows at H = 4096) and `splits` so that the dx
+//             tiles fill the card's two blocks an SM; a short last chunk
+//             takes more (chunk_splits: 32 at ViT-L's 16-row tail, where four
+//             would leave 224 of 264 slots idle). Every output is summed in
+//             one fixed order (K in order inside a tile, chunks in order on
+//             one stream, partial sums in index order), with no atomics: two
+//             runs agree bit for bit.
 
 #include <algorithm>
 
 #include "mlp_gemm.cuh"
+#include "sgemm_tile.cuh"
 #include "stream_tile.cuh"
 
 namespace {
@@ -151,8 +167,8 @@ __device__ __forceinline__ float pre_activation(float dot, float bias) {
 }
 
 // ---------------------------------------------------------------------------
-// forward and dx: one block per tile of 32 rows and per slice of 32 DPT
-// output features (blockIdx.y), looping over slices of 64 hidden units
+// fp32 forward: one block per tile of 32 rows and per slice of 32 DPT output
+// features (blockIdx.y), looping over slices of 64 hidden units
 // ---------------------------------------------------------------------------
 
 template <typename T, int DPT>
@@ -202,143 +218,6 @@ mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __res
   }
 }
 
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
-mlp_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-                  const T* __restrict__ w2, const T* __restrict__ dy, T* __restrict__ dx,
-                  int rows, int d, int h, int approximate) {
-  constexpr int RPT = kOwn / kTY, CPT = kStream / kTX;
-  __shared__ Stage<RPT, CPT> st;
-  __shared__ float dh[kOwn][kStream + 1];
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const int i0 = blockIdx.x * kOwn;
-  const int c0 = blockIdx.y * 32 * DPT, dc = min(32 * DPT, d - c0);
-  float acc_out[kOwnPerWarp][DPT];
-  zero_owned<DPT>(acc_out);
-
-  for (int h0 = 0; h0 < h; h0 += kStream) {
-    float grad[RPT][CPT], da[RPT][CPT];
-    raw_tile<T, RPT, CPT>(x, w1, i0, h0, rows, h, d, st, grad);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = h0 + tx + kTX * c;
-      const float bias = col < h ? to_f(b1[col]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        grad[r][c] = col < h ? gelu_grad(pre_activation<T>(grad[r][c], bias), approximate) : 0.f;
-    }
-    raw_tile<T, RPT, CPT>(dy, w2, i0, h0, rows, h, d, st, da);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        dh[ty + kTY * r][tx + kTX * c] = round_to<T>(grad[r][c] * da[r][c]);
-    __syncthreads();
-    accumulate<T, DPT>(dh, w1 + size_t(h0) * d + c0, min(kStream, h - h0), dc, d, acc_out);
-    __syncthreads();
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < kOwnPerWarp; ++r) {
-    const int row = i0 + kOwnPerWarp * warp + r;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int col = c0 + lane + 32 * c;
-      if (col < d) dx[size_t(row) * d + col] = from_f<T>(acc_out[r][c]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dW1 + db1 (kFirst) or dW2: one block per slice of 32 hidden units, per
-// range of rows and per slice of 32 DPT features (blockIdx.z), looping over
-// tiles of 64 rows
-// ---------------------------------------------------------------------------
-
-// dw_part [gridDim.y][h][d] and db1_part [gridDim.y][h] fp32: this range's
-// partial sums (db1_part is written by the kFirst kernel's first feature
-// slice only).
-template <typename T, int DPT, bool kFirst>
-__global__ void __launch_bounds__(kThreads)
-mlp_bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-                  const T* __restrict__ w2, const T* __restrict__ dy,
-                  float* __restrict__ dw_part, float* __restrict__ db1_part, int rows, int d,
-                  int h, int approximate, int rows_per_split) {
-  constexpr int RPT = kStream / kTY, CPT = kOwn / kTX;
-  __shared__ Stage<RPT, CPT> st;
-  __shared__ float z[kOwn][kStream + 1];   // [hidden unit of the slice][row of the tile]
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int j0 = blockIdx.x * kOwn;
-  const int first = blockIdx.y * rows_per_split;
-  const int last = min(rows, first + rows_per_split);   // rows past it read as zero
-  const int c0 = blockIdx.z * 32 * DPT, dc = min(32 * DPT, d - c0);
-
-  float bias[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const int col = j0 + tx + kTX * c;
-    bias[c] = col < h ? to_f(b1[col]) : 0.f;
-  }
-  float out[kOwnPerWarp][DPT], db1[kOwnPerWarp];
-  zero_owned<DPT>(out);
-#pragma unroll
-  for (int r = 0; r < kOwnPerWarp; ++r) db1[r] = 0.f;
-
-  for (int i0 = first; i0 < last; i0 += kStream) {
-    float acc[RPT][CPT];
-    raw_tile<T, RPT, CPT>(x, w1, i0, j0, last, h, d, st, acc);
-    if (kFirst) {
-      float da[RPT][CPT];
-      raw_tile<T, RPT, CPT>(dy, w2, i0, j0, last, h, d, st, da);
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          acc[r][c] = round_to<T>(
-              gelu_grad(pre_activation<T>(acc[r][c], bias[c]), approximate) * da[r][c]);
-    } else {
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          acc[r][c] =
-              round_to<T>(gelu_value(pre_activation<T>(acc[r][c], bias[c]), approximate));
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const bool row_in = i0 + ty + kTY * r < last;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const bool in = row_in && j0 + tx + kTX * c < h;
-        z[tx + kTX * c][ty + kTY * r] = in ? acc[r][c] : 0.f;
-      }
-    }
-    __syncthreads();
-    accumulate<T, DPT>(z, (kFirst ? x : dy) + size_t(i0) * d + c0, min(kStream, last - i0), dc,
-                       d, out);
-    if (kFirst) {
-#pragma unroll
-      for (int r = 0; r < kOwnPerWarp; ++r) {
-        const float* zr = z[kOwnPerWarp * warp + r];
-        db1[r] += warp_sum(zr[lane] + zr[lane + 32]);
-      }
-    }
-    __syncthreads();
-  }
-
-  store_owned<DPT>(out, dw_part + size_t(blockIdx.y) * h * d + c0, j0, h, dc, d, 1.f);
-  if (kFirst && blockIdx.z == 0 && lane == 0) {
-#pragma unroll
-    for (int r = 0; r < kOwnPerWarp; ++r) {
-      const int j = j0 + kOwnPerWarp * warp + r;
-      if (j < h) db1_part[size_t(blockIdx.y) * h + j] = db1[r];
-    }
-  }
-}
-
 // partials[blockIdx.x][col] = sum of dy[r, col] over rows r = blockIdx.x,
 // blockIdx.x + gridDim.x, ... in fp32.
 template <typename T>
@@ -365,7 +244,7 @@ struct Args {
 };
 
 // Feature slices of 32 DPT columns: one where D <= 768, more past it, each
-// recomputing the hidden slice it needs (h, and da in the backward).
+// recomputing the hidden slice it needs.
 template <int DPT>
 int feature_slices(int d) {
   return (d + 32 * DPT - 1) / (32 * DPT);
@@ -388,50 +267,9 @@ struct BwdOut {
   float* db1;
   float* dw2;
   float* db2;
-  float* scratch;   // splits * h * d + splits * h + colsum_blocks * d floats
+  float* scratch;   // fp32 sums: db1 and db2 partial rows, fp32 dx's K slices
   int splits, colsum_blocks;
 };
-
-template <typename T, int DPT>
-cudaError_t launch_bwd(const Args& a, const BwdOut& o) {
-  const T* x = static_cast<const T*>(a.x);
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* b1 = static_cast<const T*>(a.b1);
-  const T* w2 = static_cast<const T*>(a.w2);
-  const T* dy = static_cast<const T*>(o.dy);
-  float* dw_part = o.scratch;
-  float* db1_part = dw_part + size_t(o.splits) * a.h * a.d;
-  float* db2_part = db1_part + size_t(o.splits) * a.h;
-  cudaError_t err;
-
-  const int slices = feature_slices<DPT>(a.d);
-  mlp_bwd_dx_kernel<T, DPT><<<dim3((a.rows + kOwn - 1) / kOwn, slices), kThreads, 0,
-                              a.stream>>>(
-      x, w1, b1, w2, dy, static_cast<T*>(o.dx), a.rows, a.d, a.h, a.approximate);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-  colsum_kernel<T><<<o.colsum_blocks, 256, 0, a.stream>>>(dy, db2_part, a.rows, a.d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(db2_part, o.db2, o.colsum_blocks, a.d, a.stream)) != cudaSuccess)
-    return err;
-
-  // whole tiles of 64 rows to each range
-  const int tiles = (a.rows + kStream - 1) / kStream;
-  const int rows_per_split = (tiles + o.splits - 1) / o.splits * kStream;
-  const dim3 grid((a.h + kOwn - 1) / kOwn, o.splits, slices);
-  mlp_bwd_dw_kernel<T, DPT, true><<<grid, kThreads, 0, a.stream>>>(
-      x, w1, b1, w2, dy, dw_part, db1_part, a.rows, a.d, a.h, a.approximate, rows_per_split);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if ((err = reduce_partials(dw_part, o.dw1, o.splits, a.h * a.d, a.stream)) != cudaSuccess)
-    return err;
-  if ((err = reduce_partials(db1_part, o.db1, o.splits, a.h, a.stream)) != cudaSuccess)
-    return err;
-
-  mlp_bwd_dw_kernel<T, DPT, false><<<grid, kThreads, 0, a.stream>>>(
-      x, w1, b1, w2, dy, dw_part, db1_part, a.rows, a.d, a.h, a.approximate, rows_per_split);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return reduce_partials(dw_part, o.dw2, o.splits, a.h * a.d, a.stream);
-}
 
 // The per-thread feature count is a template argument (the accumulators live
 // in registers): 32 * DPT >= D up to 768; past it slices of 512 features
@@ -444,11 +282,19 @@ cudaError_t dispatch_fwd(const Args& a, const void* b2, void* out) {
   return launch_fwd<T, 24>(a, b2, out);
 }
 
+// db2 = the column sums of dy, both dtypes: partial row b sums rows b,
+// b + blocks, ... in order, then the partial rows add up in order. One
+// thread a column up to 1024 (the sums do not depend on the thread count; a
+// thread's loads no longer wait on another column's: 0.23 ms at 256 threads
+// at the vision shape on the H100).
 template <typename T>
-cudaError_t dispatch_bwd(const Args& a, const BwdOut& o) {
-  if (a.d <= 256) return launch_bwd<T, 8>(a, o);
-  if (a.d <= 512 || a.d > 768) return launch_bwd<T, 16>(a, o);
-  return launch_bwd<T, 24>(a, o);
+cudaError_t column_sums(const T* dy, float* partials, float* db2, int rows, int d, int blocks,
+                        cudaStream_t stream) {
+  const int threads = std::min(1024, (d + 31) / 32 * 32);
+  colsum_kernel<T><<<blocks, threads, 0, stream>>>(dy, partials, rows, d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return reduce_partials(partials, db2, blocks, d, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -685,7 +531,7 @@ cudaError_t bf16_fwd(const Args& a, const void* b2, void* out, bf16* ws, int chu
 }
 
 // ws: 2 [min(rows, chunk), h] bf16 (h, then a; dh); o.scratch: chunk / 64 * h
-// (db1 sums, one row a warp) + colsum_blocks * d (db2 partials, as float32's) fp32.
+// (db1 sums, one row a warp) + colsum_blocks * d (db2 partials) fp32.
 cudaError_t bf16_bwd(const Args& a, const BwdOut& o, bf16* ws, int chunk) {
   const bf16* x = static_cast<const bf16*>(a.x);
   const bf16* w1 = static_cast<const bf16*>(a.w1);
@@ -698,15 +544,7 @@ cudaError_t bf16_bwd(const Args& a, const BwdOut& o, bf16* ws, int chunk) {
   float* db2_part = db1_part + size_t(chunk / 64) * a.h;
   const int sms = multiprocessors();
 
-  // float32's partition of the rows, with a thread for every column (up to
-  // 1024) where float32 loops 256 threads over them: the same sums, and a
-  // thread's loads no longer wait on another column's (0.23 ms at 256 threads
-  // at the vision shape on the H100)
-  const int colsum_threads = std::min(1024, (a.d + 31) / 32 * 32);
-  colsum_kernel<bf16><<<o.colsum_blocks, colsum_threads, 0, a.stream>>>(dy, db2_part, a.rows,
-                                                                       a.d);
-  COLXLIP_TRY(cudaGetLastError());
-  COLXLIP_TRY(reduce_partials(db2_part, o.db2, o.colsum_blocks, a.d, a.stream));
+  COLXLIP_TRY(column_sums(dy, db2_part, o.db2, a.rows, a.d, o.colsum_blocks, a.stream));
 
   for (int r0 = 0; r0 < a.rows; r0 += chunk) {
     const int rc = std::min(chunk, a.rows - r0), first = r0 == 0;
@@ -735,9 +573,276 @@ cudaError_t bf16_bwd(const Args& a, const BwdOut& o, bf16* ws, int chunk) {
                          a.stream);
 }
 
-bool bad_shape(int rows, int d, int h, int dtype, const void* ws, int chunk) {
+// ---------------------------------------------------------------------------
+// fp32 backward: the products on the CUDA cores (sgemm_tile.cuh), the bf16
+// path's schedule and epilogues
+// ---------------------------------------------------------------------------
+
+namespace sg = colxlip::sgemm;
+
+struct EpiArgs32 {
+  float* out;          // [m, ldo]
+  int ldo;
+  const float* bias;   // kEpiPre: b1 by column
+  float* dh;           // kEpiDh: [m, ldo]
+  float* db1_part;     // kEpiDh: [4 ceil(m / 128)][n], one row a warp's 32 rows
+  int first;           // kEpiAcc, kEpiDh: store, where later chunks add
+  int approximate;
+};
+
+// `live` (0-4) consecutive floats at p: one float4 where VEC and all four
+// are live, else one by one (zeros past live).
+template <bool VEC>
+__device__ __forceinline__ void load4(const float* p, int live, float (&v)[4]) {
+  if (VEC && live == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[c] = c < live ? p[c] : 0.f;
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void store4(float* p, int live, const float (&v)[4]) {
+  if (VEC && live == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < live) p[c] = v[c];
+  }
+}
+
+// Two consecutive floats at p, `live` of them (0-2) written.
+template <bool VEC>
+__device__ __forceinline__ void store2(float* p, int live, float v0, float v1) {
+  if (VEC && live >= 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    if (live > 0) p[0] = v0;
+    if (live > 1) p[1] = v1;
+  }
+}
+
+// One C tile of one product and its epilogue (the bf16 path's, with T =
+// float). blockIdx.z picks the product: with kslice 0, p0 / e0 or (z = 1)
+// p1 / e1, two products of one shape in one grid (the two dW, whose tiles
+// fill the card's waves together); with kslice > 0, K slice z of p0 (k from
+// z kslice, at most kslice of it) into slice z of e0.out, [gridDim.z][m][ldo].
+// A thread's outputs are 4-column pieces (sgemm_tile.cuh tile_col): for
+// kEpiAcc a row's two pieces of the running dW are read before either is
+// written. Rows at or past m and columns at or past n are never written.
+template <int L, bool VEC, int E>
+__global__ void __launch_bounds__(sg::kThreads, 2)
+mlp_sgemm_kernel(const sg::Operands p0, const EpiArgs32 e0, const sg::Operands p1,
+                 const EpiArgs32 e1, int kslice) {
+  // field by field, so that nothing is copied to local memory
+  const bool z1 = kslice == 0 && blockIdx.z != 0;
+  sg::Operands p{z1 ? p1.a : p0.a,     z1 ? p1.b : p0.b, z1 ? p1.lda : p0.lda,
+                 z1 ? p1.ldb : p0.ldb, z1 ? p1.m : p0.m, z1 ? p1.n : p0.n,
+                 z1 ? p1.k : p0.k};
+  EpiArgs32 e{z1 ? e1.out : e0.out,           z1 ? e1.ldo : e0.ldo,
+              z1 ? e1.bias : e0.bias,         z1 ? e1.dh : e0.dh,
+              z1 ? e1.db1_part : e0.db1_part, z1 ? e1.first : e0.first,
+              z1 ? e1.approximate : e0.approximate};
+  if (kslice > 0) {
+    const int k0 = int(blockIdx.z) * kslice;
+    p.a += L == sg::kTN ? size_t(k0) * p.lda : size_t(k0);
+    p.b += L == sg::kNT ? size_t(k0) : size_t(k0) * p.ldb;
+    p.k = min(kslice, p.k - k0);
+    e.out += size_t(blockIdx.z) * p.m * e.ldo;
+  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.y * sg::kBM, n0 = blockIdx.x * sg::kBN;
+  float acc[sg::kThreadRows][sg::kThreadCols];
+  sg::mainloop<L, VEC>(acc, reinterpret_cast<float*>(smem_raw), p, m0, n0);
+
+  // sums: kEpiDh, this thread's column sums of dh
+  float bias[sg::kThreadCols], sums[sg::kThreadCols];
+#pragma unroll
+  for (int j = 0; j < sg::kThreadCols; ++j) {
+    const int col = n0 + sg::tile_col(j);
+    sums[j] = 0.f;
+    bias[j] = E == kEpiPre && col < p.n ? e.bias[col] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < sg::kThreadRows; ++i) {
+    const int row = m0 + sg::tile_row(i);
+    if (row >= p.m) continue;
+    float* orow = e.out + size_t(row) * e.ldo;
+    float old[2][4];
+    int live[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = n0 + sg::tile_col(4 * q);
+      live[q] = col < p.n ? min(4, p.n - col) : 0;
+      if (E == kEpiAcc && !e.first) load4<VEC>(orow + col, live[q], old[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (live[q] == 0) continue;
+      const int col = n0 + sg::tile_col(4 * q);
+      const float v[4] = {acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                          acc[i][4 * q + 3]};
+      if constexpr (E == kEpiDh) {
+        // h a piece at a time, a and dh stored a pair at a time: few values
+        // live across the GELU calls, under the 128 registers of two
+        // blocks an SM
+        load4<VEC>(orow + col, live[q], old[q]);
+        float* dh_row = e.dh + size_t(row) * e.ldo + col;
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const float4 g = gelu_grad_pair(old[q][2 * p], old[q][2 * p + 1], e.approximate);
+          // the product rounded alone: the sums add the dh that is stored
+          const float d0 = __fmul_rn(g.z, v[2 * p]), d1 = __fmul_rn(g.w, v[2 * p + 1]);
+          const int pair_live = min(2, max(0, live[q] - 2 * p));
+          if (pair_live > 0) sums[4 * q + 2 * p] += d0;
+          if (pair_live > 1) sums[4 * q + 2 * p + 1] += d1;
+          store2<VEC>(orow + col + 2 * p, pair_live, g.x, g.y);
+          store2<VEC>(dh_row + 2 * p, pair_live, d0, d1);
+        }
+        continue;
+      }
+      float res[4];
+      if constexpr (E == kEpiPre) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) res[c] = v[c] + bias[4 * q + c];
+      } else if constexpr (E == kEpiAcc) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) res[c] = e.first ? v[c] : old[q][c] + v[c];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) res[c] = v[c];
+      }
+      store4<VEC>(orow + col, live[q], res);
+    }
+  }
+  if constexpr (E == kEpiDh) {
+    // the warp's 32 rows of each column: the four lanes of one column (same
+    // lane % 8) add theirs, and lane (lane % 8) adds the sum into its row
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < sg::kThreadCols; ++j) {
+      sums[j] += __shfl_xor_sync(0xffffffffu, sums[j], 8);
+      sums[j] += __shfl_xor_sync(0xffffffffu, sums[j], 16);
+    }
+    if (lane < 8) {
+      float* part = e.db1_part + size_t(blockIdx.y * sg::kWarpsM + warp / sg::kWarpsN) * p.n;
+#pragma unroll
+      for (int j = 0; j < sg::kThreadCols; ++j) {
+        const int col = n0 + sg::tile_col(j);
+        if (col < p.n) part[col] = (e.first ? 0.f : part[col]) + sums[j];
+      }
+    }
+  }
+}
+
+// One product, two of one shape (`count` 2: p1, e1 the second), or K slices
+// of one (`count` slices of kslice).
+template <int L, bool VEC, int E>
+cudaError_t launch_sgemm(const sg::Operands& p, const EpiArgs32& e, cudaStream_t stream,
+                         int count = 1, const sg::Operands* p1 = nullptr,
+                         const EpiArgs32* e1 = nullptr, int kslice = 0) {
+  // above 48 KB a block: set once per kernel (a failure is returned on every call)
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(mlp_sgemm_kernel<L, VEC, E>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(sg::kBytes));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((p.n + sg::kBN - 1) / sg::kBN, (p.m + sg::kBM - 1) / sg::kBM, count);
+  mlp_sgemm_kernel<L, VEC, E><<<grid, sg::kThreads, sg::kBytes, stream>>>(
+      p, e, p1 ? *p1 : p, e1 ? *e1 : e, kslice);
+  return cudaGetLastError();
+}
+
+// K slices of a chunk's dh W1 (rc rows): the wrapper's `splits` for a chunk
+// of cap rows (the scratch holds splits slices of cap rows); a shorter
+// chunk (the last) takes more, as many as fill two blocks an SM, within the
+// scratch, one k-step a slice and kRedGroups slices at most (reduce_partials
+// adds them in slice order), none empty. The wrapper's fp32_chunk_splits is
+// the same rule.
+int chunk_splits(int rc, int cap, int d, int h, int splits, int sms) {
+  if (splits <= 1) return 1;
+  const int tiles = ((rc + sg::kBM - 1) / sg::kBM) * ((d + sg::kBN - 1) / sg::kBN);
+  const int steps = (h + sg::kBK - 1) / sg::kBK;
+  int want = splits;
+  if (tiles * splits < 2 * sms)
+    want = std::max(splits, std::min({(2 * sms + tiles - 1) / tiles,
+                                      int((long long)splits * cap / rc), steps, kRedGroups}));
+  const int per = (steps + want - 1) / want;
+  return (steps + per - 1) / per;
+}
+
+// ws: 2 [cap, h] fp32 (h, then a; dh), cap = min(rows, chunk); o.scratch:
+// 4 ceil(cap / 128) * h (db1 sums, one row a warp's 32 rows) + colsum_blocks
+// * d (db2 partials) + (splits > 1: splits * cap * d, dx's K slices) fp32.
+template <bool VEC>
+cudaError_t fp32_bwd(const Args& a, const BwdOut& o, float* ws, int chunk) {
+  const float* x = static_cast<const float*>(a.x);
+  const float* w1 = static_cast<const float*>(a.w1);
+  const float* b1 = static_cast<const float*>(a.b1);
+  const float* w2 = static_cast<const float*>(a.w2);
+  const float* dy = static_cast<const float*>(o.dy);
+  float* dx = static_cast<float*>(o.dx);
+  const int cap = std::min(chunk, a.rows);
+  float* hid = ws;                          // h, then a
+  float* dh = ws + size_t(cap) * a.h;
+  const int part_rows = sg::kWarpsM * ((cap + sg::kBM - 1) / sg::kBM);
+  float* db1_part = o.scratch;
+  float* db2_part = db1_part + size_t(part_rows) * a.h;
+  float* dx_part = db2_part + size_t(o.colsum_blocks) * a.d;
+  const int sms = multiprocessors();
+
+  COLXLIP_TRY(column_sums(dy, db2_part, o.db2, a.rows, a.d, o.colsum_blocks, a.stream));
+  for (int r0 = 0; r0 < a.rows; r0 += chunk) {
+    const int rc = std::min(chunk, a.rows - r0), first = r0 == 0;
+    const float* xc = x + size_t(r0) * a.d;
+    const float* dyc = dy + size_t(r0) * a.d;
+    const sg::Operands up{xc, w1, a.d, a.d, rc, a.h, a.d};
+    const EpiArgs32 e_pre{hid, a.h, b1, nullptr, nullptr, 0, a.approximate};
+    COLXLIP_TRY((launch_sgemm<sg::kNT, VEC, kEpiPre>(up, e_pre, a.stream)));
+    const sg::Operands da{dyc, w2, a.d, a.d, rc, a.h, a.d};
+    const EpiArgs32 e_dh{hid, a.h, nullptr, dh, db1_part, first, a.approximate};
+    COLXLIP_TRY((launch_sgemm<sg::kNT, VEC, kEpiDh>(da, e_dh, a.stream)));
+    // dW2 += a^T dy and dW1 += dh^T x: K is the chunk's rows
+    const sg::Operands gw2{hid, dyc, a.h, a.d, a.h, a.d, rc};
+    const EpiArgs32 e_w2{o.dw2, a.d, nullptr, nullptr, nullptr, first, a.approximate};
+    const sg::Operands gw1{dh, xc, a.h, a.d, a.h, a.d, rc};
+    const EpiArgs32 e_w1{o.dw1, a.d, nullptr, nullptr, nullptr, first, a.approximate};
+    COLXLIP_TRY((launch_sgemm<sg::kTN, VEC, kEpiAcc>(gw2, e_w2, a.stream, 2, &gw1, &e_w1)));
+    const sg::Operands gx{dh, w1, a.h, a.d, rc, a.d, a.h};
+    const int splits = chunk_splits(rc, cap, a.d, a.h, o.splits, sms);
+    if (splits > 1) {
+      // dh W1 in K slices of whole k-steps, none empty
+      const int steps = (a.h + sg::kBK - 1) / sg::kBK;
+      const int kslice = (steps + splits - 1) / splits * sg::kBK;
+      const EpiArgs32 e_dx{dx_part, a.d, nullptr, nullptr, nullptr, 0, a.approximate};
+      COLXLIP_TRY((launch_sgemm<sg::kNN, VEC, kEpiRound>(gx, e_dx, a.stream, splits, nullptr,
+                                                         nullptr, kslice)));
+      COLXLIP_TRY(reduce_partials(dx_part, dx + size_t(r0) * a.d, splits, rc * a.d, a.stream));
+    } else {
+      const EpiArgs32 e_dx{dx + size_t(r0) * a.d, a.d, nullptr, nullptr, nullptr, 0,
+                           a.approximate};
+      COLXLIP_TRY((launch_sgemm<sg::kNN, VEC, kEpiRound>(gx, e_dx, a.stream)));
+    }
+  }
+  // the first chunk wrote every warp's row of sums that a later chunk adds to
+  return reduce_partials(db1_part, o.db1, part_rows, a.h, a.stream);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// 16-byte copies and stores where every row of every operand allows them.
+cudaError_t dispatch_fp32_bwd(const Args& a, const BwdOut& o, float* ws, int chunk) {
+  const bool vec = a.d % 4 == 0 && a.h % 4 == 0 && aligned16(a.x) && aligned16(a.w1) &&
+                   aligned16(a.w2) && aligned16(o.dy) && aligned16(o.dx) && aligned16(o.dw1) &&
+                   aligned16(o.dw2) && aligned16(ws) && aligned16(o.scratch);
+  return vec ? fp32_bwd<true>(a, o, ws, chunk) : fp32_bwd<false>(a, o, ws, chunk);
+}
+
+bool bad_shape(int rows, int d, int h, int dtype, const void* ws, int chunk, bool backward) {
   if (rows < 1 || d < 1 || h < 1) return true;
-  if (dtype == 0) return false;
+  if (dtype == 0) return backward && (ws == nullptr || chunk < sg::kBM || chunk % sg::kBM);
   return dtype != 1 || d % 8 || h % 8 || ws == nullptr || chunk < gemm::kBM ||
          chunk % gemm::kBM;
 }
@@ -753,23 +858,26 @@ extern "C" int colxlip_fused_mlp_fwd(const void* x, const void* w1, const void* 
                                      const void* w2, const void* b2, void* out, void* workspace,
                                      int rows, int d, int h, int approximate, int chunk_rows,
                                      int dtype, void* stream) {
-  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows)) return cudaErrorInvalidValue;
+  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows, false)) return cudaErrorInvalidValue;
   const Args a{x, w1, b1, w2, rows, d, h, approximate, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_fwd<float>(a, b2, out);
   return bf16_fwd(a, b2, out, static_cast<bf16*>(workspace), chunk_rows);
 }
 
 // As the forward, plus dy, dx [rows, d] in the same dtype; out dw1, dw2 [h, d],
-// db1 [h], db2 [d] float32. float32: scratch splits * h * d + splits * h +
-// colsum_blocks * d float32. bf16: scratch chunk_rows / 64 * h + colsum_blocks
-// * d float32, workspace 2 [min(rows, chunk_rows), h] bf16, splits unused.
+// db1 [h], db2 [d] float32; chunk_rows a multiple of 128, workspace 2
+// [min(rows, chunk_rows), h] in the dtype. float32: scratch 4 ceil(cap / 128)
+// * h + colsum_blocks * d (+ splits * cap * d where splits > 1: dx's K
+// slices) float32, cap = min(rows, chunk_rows). bf16: scratch chunk_rows / 64
+// * h + colsum_blocks * d float32, splits unused.
 extern "C" int colxlip_fused_mlp_bwd(const void* x, const void* w1, const void* b1,
                                      const void* w2, const void* dy, void* dx, void* dw1,
                                      void* db1, void* dw2, void* db2, void* scratch,
                                      void* workspace, int rows, int d, int h, int approximate,
                                      int splits, int colsum_blocks, int chunk_rows, int dtype,
                                      void* stream) {
-  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows) || splits < 1 || colsum_blocks < 1)
+  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows, true) || splits < 1 ||
+      colsum_blocks < 1)
     return cudaErrorInvalidValue;
   const Args a{x, w1, b1, w2, rows, d, h, approximate, static_cast<cudaStream_t>(stream)};
   const BwdOut o{dy,
@@ -781,6 +889,6 @@ extern "C" int colxlip_fused_mlp_bwd(const void* x, const void* w1, const void* 
                  static_cast<float*>(scratch),
                  splits,
                  colsum_blocks};
-  if (dtype == 0) return dispatch_bwd<float>(a, o);
+  if (dtype == 0) return dispatch_fp32_bwd(a, o, static_cast<float*>(workspace), chunk_rows);
   return bf16_bwd(a, o, static_cast<bf16*>(workspace), chunk_rows);
 }

@@ -33,16 +33,23 @@ design's whole memory cost (24.0 MiB forward, 25.0 backward at the vision
 shape). The tile sums K in its own order, so its bf16 forward is held to the
 exact function by a per-element bar derived from the roundings
 (``ops/fused_mlp_check.py``), not to the plain version's sgemm order.
-float32 keeps the first port's CUDA-core kernels, any D (past 768 the owned
-features are cut into slices of 512, each recomputing its hidden slice:
-``fp32_feature_slices``). CPU tensors take the plain versions; CUDA
-tensors launch the kernels or raise. There is no fallback.
+float32 runs on the CUDA cores, any D. Its forward holds a row block's
+[32, D] output in registers (past D = 768 the owned features are cut into
+slices of 512, each recomputing its hidden slice: ``fp32_feature_slices``).
+Its backward is the
+bf16 schedule on an fp32 GEMM tile (``csrc/sgemm_tile.cuh``) over chunks of
+``fp32_chunk_rows(H)`` rows, whose two fp32 [chunk, H] tiles stay in L2,
+with dh W1 cut into K slices where its tiles would leave the card half idle
+(``fp32_dx_splits``; more in a short last chunk: ``fp32_chunk_splits``).
+CPU tensors take the plain versions; CUDA tensors launch the kernels or
+raise. There is no fallback.
 
 ``COLXLIP_MLP_IMPL`` (``fused`` or ``xla``, default ``xla``) chooses the path
 in ``models.layers.MLP`` through ``resolve_mlp_impl``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -53,16 +60,22 @@ from .fused_ln import resolve_impl
 # kernel launches (plain-version calls do not count), one count per kernel
 FWD_LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
-FP32_SLICE_FEATURES = 512        # float32 past D = 768: owned features a block holds
+FP32_SLICE_FEATURES = 512        # float32 forward past D = 768: owned features a block holds
 PLAIN_CHUNK = 4096
-_ROWS_PER_TILE = 64              # csrc/stream_tile.cuh kStream
-_MAX_SPLITS = 8                  # float32: row ranges of the dW passes
 _COLSUM_BLOCKS = 264             # partial rows of db2: two blocks a multiprocessor
 GEMM_ROWS = 128                  # csrc/mlp_gemm.cuh kBM: rows of a C tile
 DB1_ROWS = 64                    # rows a warp sums into one row of db1 partials
 # bfloat16: a call's [chunk, H] bf16 tiles (two backward, one forward) fit in this much of the
 # H100's 50 MB L2, beside the weights and their fp32 gradients
 L2_WORKSPACE_BYTES = 24 * 2**20
+# float32 backward (csrc/sgemm_tile.cuh): its two [chunk, H] fp32 tiles fit in this much of L2
+FP32_L2_WORKSPACE_BYTES = 32 * 2**20
+SGEMM_ROWS = 128                 # kBM = kBN: rows and columns of a C tile
+SGEMM_K_STEP = 16                # kBK: k a stage
+FP32_DB1_ROWS = 32               # rows a warp sums into one row of db1 partials (kWM)
+FP32_MAX_DX_SPLITS = 4           # K slices of dh W1 at most
+_BLOCKS_PER_SM = 2               # the tile's __launch_bounds__
+_MAX_CHUNK_SPLITS = 32           # stream_tile.cuh kRedGroups: slices reduce_partials adds in order
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _SQRT1_2 = 0.7071067811865476
@@ -177,6 +190,57 @@ def chunk_rows(h: int, backward: bool = True) -> int:
     return max(GEMM_ROWS, L2_WORKSPACE_BYTES // (tiles * 2 * h) // GEMM_ROWS * GEMM_ROWS)
 
 
+def fp32_chunk_rows(h: int) -> int:
+    """Rows of one float32 backward chunk: a multiple of 128 such that its
+    two fp32 [chunk, H] tiles (h then a, and dh) fit in
+    FP32_L2_WORKSPACE_BYTES (1024 at H = 4096, 1280 at 3072, 2048 at 2048)."""
+    return max(SGEMM_ROWS, FP32_L2_WORKSPACE_BYTES // (2 * 4 * h) // SGEMM_ROWS * SGEMM_ROWS)
+
+
+def fp32_dx_splits(rows: int, d: int, h: int, sms: int) -> int:
+    """K slices of the float32 backward's dh W1 product (K = H): enough that
+    a chunk's [chunk, D] tiles times the slices fill two blocks a
+    multiprocessor, at most FP32_MAX_DX_SPLITS, each slice whole k-steps of
+    16 and none empty (the kernel cuts K into ceil(steps / splits) steps a
+    slice). ``rows`` is the call's row count: its chunk is the smaller of it
+    and ``fp32_chunk_rows(h)``."""
+    cap = min(rows, fp32_chunk_rows(h))
+    tiles = -(-cap // SGEMM_ROWS) * -(-d // SGEMM_ROWS)
+    want = max(1, min(FP32_MAX_DX_SPLITS, _BLOCKS_PER_SM * sms // tiles))
+    steps = -(-h // SGEMM_K_STEP)
+    return -(-steps // -(-steps // want))
+
+
+def fp32_chunk_splits(rc: int, cap: int, d: int, h: int, splits: int, sms: int) -> int:
+    """K slices of one chunk's dh W1 (``rc`` rows), as ``csrc/fused_mlp.cu``
+    ``chunk_splits`` takes them: ``splits`` (``fp32_dx_splits``, sized for
+    a chunk of ``cap`` rows) unless the chunk is short, whose dx tiles then
+    take more slices, as many as fill two blocks a multiprocessor, within
+    the scratch (``splits`` slices of ``cap`` rows), one k-step a slice and
+    32 slices at most, none empty."""
+    if splits <= 1:
+        return 1
+    tiles = -(-rc // SGEMM_ROWS) * -(-d // SGEMM_ROWS)
+    steps = -(-h // SGEMM_K_STEP)
+    want = splits
+    if tiles * splits < _BLOCKS_PER_SM * sms:
+        want = max(splits, min(-(-(_BLOCKS_PER_SM * sms) // tiles), splits * cap // rc, steps,
+                               _MAX_CHUNK_SPLITS))
+    return -(-steps // -(-steps // want))
+
+
+def _fp32_workspace(rows: int, d: int, h: int, sms: int) -> Tuple[int, int]:
+    """(tile, sum) fp32 elements a float32 backward allocates beside its
+    outputs: the two [min(rows, chunk), H] tiles; the db1 sums (one row a
+    warp's 32 rows of a chunk), db2's partial rows and, where dh W1 is cut
+    into K slices, each slice's [min(rows, chunk), D]."""
+    cap = min(rows, fp32_chunk_rows(h))
+    splits = fp32_dx_splits(rows, d, h, sms)
+    sums = (-(-cap // SGEMM_ROWS) * (SGEMM_ROWS // FP32_DB1_ROWS) * h
+            + min(rows, _COLSUM_BLOCKS) * d + (splits * cap * d if splits > 1 else 0))
+    return 2 * cap * h, sums
+
+
 def _bf16_workspace(rows: int, d: int, h: int, backward: bool) -> Tuple[int, int]:
     """(bf16, fp32) elements a bfloat16 call allocates beside its outputs: the
     [min(rows, chunk), H] hidden tiles (one forward, two backward) and,
@@ -189,17 +253,26 @@ def _bf16_workspace(rows: int, d: int, h: int, backward: bool) -> Tuple[int, int
             chunk // DB1_ROWS * h + min(rows, _COLSUM_BLOCKS) * d)
 
 
-def workspace_bytes(rows: int, d: int, h: int, backward: bool) -> int:
-    """Device memory a bfloat16 call allocates beside its outputs."""
+def workspace_bytes(rows: int, d: int, h: int, backward: bool,
+                    dtype: torch.dtype = torch.bfloat16, sms: int = 132) -> int:
+    """Device memory a call allocates beside its outputs (a float32
+    forward: none)."""
+    if dtype == torch.float32:
+        return 4 * sum(_fp32_workspace(rows, d, h, sms)) if backward else 0
     tiles, sums = _bf16_workspace(rows, d, h, backward)
     return 2 * tiles + 4 * sums
 
 
 def fp32_feature_slices(d: int) -> int:
-    """float32: the slices of owned features a row block is cut into (the
-    forward's and dx's grid.y, the dW passes' grid.z): one up to D = 768,
-    whose [32, D] fp32 tile fits in registers, else slices of 512."""
+    """float32 forward: the slices of owned features a row block is cut into
+    (its grid.y): one up to D = 768, whose [32, D] fp32 tile fits in
+    registers, else slices of 512."""
     return 1 if d <= 768 else -(-d // FP32_SLICE_FEATURES)
+
+
+@functools.lru_cache(maxsize=None)
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cuda(name: str, x, w1, b1, w2, b2=None, dy=None) -> Tuple[int, int, int]:
@@ -239,14 +312,6 @@ def _launch_fwd(x, w1, b1, w2, b2, approximate: bool) -> torch.Tensor:
     return out
 
 
-def bwd_splits(rows: int) -> int:
-    """float32: row ranges of the dW passes: 8, or one a 64-row tile where
-    there are fewer tiles. A fixed count: (H / 32) x 8 blocks, one a multiprocessor,
-    are several waves of the card at either tower's width; fitting the count
-    to the card is left to the work on speed."""
-    return max(1, min(_MAX_SPLITS, -(-rows // _ROWS_PER_TILE)))
-
-
 def _launch_bwd(x, w1, b1, w2, dy, approximate: bool):
     """The backward kernels on CUDA tensors: (dx, dw1, db1, dw2, db2), the
     last four fp32."""
@@ -262,22 +327,22 @@ def _launch_bwd(x, w1, b1, w2, dy, approximate: bool):
     dw2 = torch.empty_like(dw1)
     db1 = torch.empty(h, dtype=torch.float32, device=dev)
     db2 = torch.empty(d, dtype=torch.float32, device=dev)
-    splits, chunk = bwd_splits(rows), chunk_rows(h)
     colsum_blocks = min(rows, _COLSUM_BLOCKS)
-    ws = None
     if x.dtype == torch.bfloat16:
+        splits, chunk = 1, chunk_rows(h)
         tiles, sums = _bf16_workspace(rows, d, h, True)
-        ws = torch.empty(tiles, dtype=x.dtype, device=dev)
-        scratch = torch.empty(sums, dtype=torch.float32, device=dev)
     else:
-        scratch = torch.empty(splits * h * d + splits * h + colsum_blocks * d,
-                              dtype=torch.float32, device=dev)
+        sms = _multiprocessors(dev.index)
+        splits, chunk = fp32_dx_splits(rows, d, h, sms), fp32_chunk_rows(h)
+        tiles, sums = _fp32_workspace(rows, d, h, sms)
+    ws = torch.empty(tiles, dtype=x.dtype, device=dev)
+    scratch = torch.empty(sums, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels.colxlip_fused_mlp_bwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
         dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-        scratch.data_ptr(), None if ws is None else ws.data_ptr(), rows, d, h,
-        int(approximate), splits, colsum_blocks, chunk, _DTYPE_CODES[x.dtype], stream)
+        scratch.data_ptr(), ws.data_ptr(), rows, d, h, int(approximate), splits,
+        colsum_blocks, chunk, _DTYPE_CODES[x.dtype], stream)
     kernels.check(err, "colxlip_fused_mlp_bwd")
     BWD_LAUNCHES.add()
     return dx, dw1, db1, dw2, db2

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Check and time the port's fused MLP kernels in bf16 on one NVIDIA GPU.
+"""Check and time the port's fused MLP kernels on one NVIDIA GPU.
 
     python3 scripts/torch_mlp_bench.py [--iters 20] [--cases vision,text,vit-l]
                                        [--dtype float32]
@@ -20,11 +20,15 @@ forward + backward less forward). Beside them: the bound (the larger of the
 bytes over 3.35 TB/s and the operations over 989 TFLOP/s, as chip_smoke.py
 computes it), and the device time of each product (torch.profiler: the GEMM
 tile kernel by layout and epilogue, the column sums and the reduce). Inputs are at a
-tower's scales at init (unit rows, lecun-normal weights). Prints one line a
-case, the card's name and power limit, and one JSON object. With ``--dtype
-float32`` the same runs in fp32 (CUDA cores, D <= 768: vision, text and
-ragged; bars 1e-5 forward of max(1, max |out|), 1e-4 backward; the bound at
-67 TFLOP/s).
+tower's scales at init (unit rows, lecun-normal weights). Prints the
+registers and spills of ``fused_mlp.cu``'s kernels (``nvcc -Xptxas -v``),
+one line a case with a SHA-256 of each output (two trees on the same card
+and seed can be compared line by line), the card's name and power limit,
+and one JSON object. With ``--dtype float32`` the same runs in fp32 on the
+CUDA cores (any D: ``--cases vit-l,vision`` are the fp32 ViT-L-14 step's
+MLP and the vision tower's; the backward's products are the fp32 GEMM tile
+``mlp_sgemm_kernel`` by layout and epilogue; bars 1e-5 forward of max(1,
+max |out|), 1e-4 backward; the bound at 67 TFLOP/s).
 
     python3 scripts/torch_mlp_bench.py --cases none --draws 32
 
@@ -36,6 +40,7 @@ is 1 if any is).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -47,7 +52,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from colxlip_tpu_torch.ops import fused_mlp, fused_mlp_check  # noqa: E402
+from colxlip_tpu_torch.ops import build, fused_mlp, fused_mlp_check  # noqa: E402
 
 CASES = [
     # name, B, N, D, H, GELU branches
@@ -62,6 +67,13 @@ PEAK_BYTES_PER_S, PEAK_FLOPS, PEAK_FP32_FLOPS = 3.35e12, 989e12, 67e12
 # mlp_gemm_kernel<layout, BN, epilogue>: what each epilogue's product is
 PRODUCTS = {0: "x W1^T + gelu", 1: "x W1^T (h)", 2: "dy W2^T (dh)", 3: "a W2 + b2",
             4: "dh W1 (dx)", 5: "a^T dy + dh^T x (dW)"}
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -92,7 +104,9 @@ def product_ms(fn, calls: int = 3) -> dict:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         found = re.search(r"mlp_gemm_kernel<(\d+), (\d+), (\d+)>", e.key)
+        fp32 = re.search(r"mlp_sgemm_kernel<(\d+), (\w+), (\d+)>", e.key)
         name = (f"{PRODUCTS[int(found.group(3))]} [{found.group(2)} cols]" if found
+                else f"{PRODUCTS[int(fp32.group(3))]} [fp32 tile]" if fp32
                 else "colsum" if "colsum" in e.key else "reduce" if "reduce" in e.key
                 else e.key[:40])
         out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
@@ -135,15 +149,19 @@ def main() -> int:
     dev = torch.device("cuda:0")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    kernels = build.load_kernels()
+    usage = build.resource_usage(["fused_mlp"])
+    print(f"build {kernels.build_seconds:.1f} s; fused_mlp.cu registers / stack / spill stores / "
+          "spill loads: " + "; ".join(f"{k} {v}" for k, v in sorted(usage.items())), flush=True)
     dtype, fp32 = getattr(torch, args.dtype), args.dtype == "float32"
     bwd_tol = FP32_TOL[1] if fp32 else BWD_TOL
     wanted = args.cases.split(",")
-    results, ok = {}, True
+    results, ok = {"registers": usage}, True
     for name, b, n, d, h, branches in CASES:
         if name not in wanted:
             continue
         x, w1, b1, w2, b2, dy = inputs(b, n, d, h, dev, dtype=dtype)
-        errs, same, fwd_ok, bar = [], True, True, {}
+        errs, same, fwd_ok, bar, digests = [], True, True, {}, {}
         for approximate in branches:
             out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
             got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
@@ -163,6 +181,7 @@ def main() -> int:
                          (out != want_out).float().mean().item(),
                          (got[0] != want[0]).float().mean().item()))
             same &= all(torch.equal(p, q) for p, q in zip(got, again))
+            digests["tanh" if approximate else "erf"] = {"out": digest(out), "grads": digest(*got)}
             del out, got, again, want_out, want
         fwd_err, bwd_err, out_off, dx_off = (max(e[i] for e in errs) for i in range(4))
 
@@ -204,7 +223,8 @@ def main() -> int:
                                         "bwd": fused_mlp.chunk_rows(h)},
                          "workspace_bytes": {k: fused_mlp.workspace_bytes(rows, d, h, k == "bwd")
                                              for k in ("fwd", "bwd")},
-                         "fwd_bar_ok": fwd_ok, "fwd_bar": bar, "fwd_err": fwd_err,
+                         "digest": digests, "fwd_bar_ok": fwd_ok, "fwd_bar": bar,
+                         "fwd_err": fwd_err,
                          "bwd_err": bwd_err, "bit_equal": same,
                          "out_not_equal_to_plain": out_off, "dx_not_equal_to_plain": dx_off,
                          "ms": ms, "products_ms": products}
@@ -218,6 +238,8 @@ def main() -> int:
                           f"{v['bound'] / v['kernel']:.1%} of it)" for k, v in ms.items())
               + "; products " + ", ".join(f"{k} {v:.4f}" for k, v in
                                          {**products["fwd"], **products["bwd"]}.items())
+              + "; sha256 " + ", ".join(f"{g}: out {v['out']} grads {v['grads']}"
+                                        for g, v in digests.items())
               + ("" if good else "  FAILED"), flush=True)
         del x, w1, b1, w2, b2, dy, leaves, w2_out_in
         torch.cuda.empty_cache()

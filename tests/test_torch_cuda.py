@@ -735,6 +735,32 @@ def test_layernorm_backward_unaligned_rows_take_the_same_arithmetic(dev, dtype):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lead,d", [((256, 197), 768), ((16, 257), 1024), ((197 * 3,), 512),
+                                    ((7, 11), 36), ((3, 5), 1023)])
+def test_layernorm_forward_vectors_scalar_and_unaligned_rows(dev, lead, d, dtype):
+    """The forward at the vision and ViT-L-14 shapes (16-byte vectors; ViT-L's
+    4,112 rows in one wave), ragged rows, and widths the vectors do not
+    divide (the scalar walk): against the plain version, the same bits twice,
+    and x whose base is not on 16 bytes (scalar loads) gives the aligned
+    call's bits: one lane layout, one order."""
+    x, scale, bias, _ = _ln_inputs(lead, d, dev, dtype, seed=7)
+    before = fused_ln.FWD_LAUNCHES.value
+    y = fused_ln._launch_fwd(x, scale, bias, 1e-5)
+    again = fused_ln._launch_fwd(x, scale, bias, 1e-5)
+    shifted = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    shifted[1:] = x.reshape(-1)
+    off = shifted[1:].view(x.shape)
+    assert off.data_ptr() % 16 != 0
+    y_off = fused_ln._launch_fwd(off, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_ln.FWD_LAUNCHES.value == before + 3
+    want = fused_ln.layernorm_plain(x, scale, bias, 1e-5)
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), want.float(), rtol=0, atol=_fwd_tol(want.float(), dtype))
+    assert torch.equal(y, again) and torch.equal(y, y_off)
+
+
 def test_layernorm_autograd_launches_both_kernels(dev):
     x, scale, bias, dy = _ln_inputs((3, 77), 512, dev, torch.bfloat16)
     x.requires_grad_(), scale.requires_grad_(), bias.requires_grad_()
@@ -783,9 +809,11 @@ MLP_SHAPES = [
     (2, 17, 128, 512),      # the tiny config
     (1, 70, 40, 100),       # D and H that no tile divides (float32 only: bf16 needs 8 | H)
     (1, 70, 40, 104),       # D and H that no tile divides, multiples of 8 as bf16 needs
-    (1, 300, 64, 96),       # several row ranges in the dW passes
-    (16, 257, 1024, 4096),  # ViT-L/14: float32 cuts the owned features into two slices
+    (1, 300, 64, 96),       # several bf16 chunks' worth of db1 sums in one; fp32 dx slices
+    (16, 257, 1024, 4096),  # ViT-L/14: float32 forward in two feature slices, backward in
+                            # chunks of 1024 rows, dx in four K slices
     (1, 70, 1000, 4000),    # float32 past 768 at a D and H that no tile or slice divides
+    (1, 30, 38, 90),        # float32: D and H not multiples of 4, 4-byte copies and stores
 ]
 
 
@@ -828,6 +856,27 @@ def test_mlp_kernels_match_plain(dev, b, n, d, h, dtype, approximate):
         assert g.dtype == dt and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_grad_tol(w.float(), dtype))
     for first, second in zip(got, again):     # no atomics: the same bits twice
+        assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("b,n,d,h", [(256, 197, 768, 3072), (16, 257, 1024, 4096),
+                                     (1, 70, 1000, 4000)])
+def test_mlp_fp32_backward_chunks_match_plain_and_repeat(dev, b, n, d, h):
+    """#10 in fp32 at the vision tower's full batch (50,432 rows: 40 chunks of
+    1280, the last ragged), ViT-L-14's step shape and a D and H no tile
+    divides: within FUSED_BWD_TOL fp32 of the plain version, the same bits
+    twice (no atomics; chunks in order), one launch a call."""
+    x, w1, b1, w2, _, dy = _mlp_inputs(b, n, d, h, dev, torch.float32, seed=3)
+    before = fused_mlp.BWD_LAUNCHES.value
+    got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, False)
+    again = fused_mlp._launch_bwd(x, w1, b1, w2, dy, False)
+    torch.cuda.synchronize()
+    assert fused_mlp.BWD_LAUNCHES.value == before + 2
+    want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=_grad_tol(w, torch.float32))
+    for first, second in zip(got, again):
         assert torch.equal(first, second)
 
 

@@ -206,12 +206,22 @@ def test_mlp_saves_x_w1_b1_w2_and_no_hidden_tensor():
     assert sorted(tuple(t.shape) for t in saved) == [(2, 9, 32), (64,), (64, 32), (64, 32)]
 
 
-def test_bwd_splits_are_fixed_and_never_outnumber_the_row_tiles():
-    """The dW passes' row ranges: 8, or one a 64-row tile of a short input."""
-    assert fused_mlp.bwd_splits(256 * 197) == 8 and fused_mlp.bwd_splits(256 * 77) == 8
-    assert fused_mlp.bwd_splits(40) == 1 and fused_mlp.bwd_splits(64) == 1
-    assert fused_mlp.bwd_splits(65) == 2 and fused_mlp.bwd_splits(200) == 4
-    assert fused_mlp.bwd_splits(231) == 4 and fused_mlp.bwd_splits(300) == 5
+def test_fp32_dx_splits_fill_the_card_and_leave_no_slice_empty():
+    """The float32 backward's K slices of dh W1: four at the towers' shapes on
+    132 multiprocessors, one where a chunk's dx tiles already fill two blocks
+    an SM or H is one k-step; with the kernel's cut (ceil(steps / splits)
+    k-steps a slice) every slice holds K and together they cover H."""
+    assert fused_mlp.fp32_dx_splits(4112, 1024, 4096, 132) == 4        # ViT-L-14
+    assert fused_mlp.fp32_dx_splits(256 * 197, 768, 3072, 132) == 4    # the vision tower
+    assert fused_mlp.fp32_dx_splits(256 * 77, 512, 2048, 132) == 4     # the text tower
+    assert fused_mlp.fp32_dx_splits(8192, 4096, 4096, 132) == 1        # 256 dx tiles a chunk
+    assert fused_mlp.fp32_dx_splits(70, 40, 16, 132) == 1              # one k-step
+    for rows, d, h in ((70, 1000, 4000), (70, 40, 100), (300, 64, 96), (5, 8, 80), (9, 3, 33)):
+        splits = fused_mlp.fp32_dx_splits(rows, d, h, 132)
+        steps = -(-h // fused_mlp.SGEMM_K_STEP)
+        per = -(-steps // splits) * fused_mlp.SGEMM_K_STEP
+        assert 1 <= splits <= fused_mlp.FP32_MAX_DX_SPLITS
+        assert (splits - 1) * per < h <= splits * per, (rows, d, h, splits)
 
 
 def test_mlp_refuses_a_wrong_layout_or_dtype():

@@ -1,4 +1,5 @@
-"""The tile algorithm of the bf16 MLP kernels, emulated on the CPU.
+"""The tile algorithms of the MLP kernels, emulated on the CPU: the bf16
+products on the tensor-core tile, and the fp32 backward on the CUDA-core tile.
 
 In bfloat16 ``csrc/fused_mlp.cu`` runs the MLP's products one at a time
 through the GEMM tile of ``csrc/mlp_gemm.cuh`` (``mma.sync`` on
@@ -26,6 +27,17 @@ must fail it, holds the backward against the unchanged plain version
 ``fused_mlp_bwd_plain`` under ``chip_smoke.py``'s bf16 tolerance (2^-7 of
 the largest |grad|), and both against the JAX package's Pallas kernels in
 interpret mode under ``tests/test_torch_fused.py``'s bf16 bars (2e-2).
+
+In float32 the backward runs the same schedule on ``csrc/sgemm_tile.cuh``
+(128 x 128 C tiles of fp32 fmaf chains, K in ascending order) over chunks of
+``ops.fused_mlp.fp32_chunk_rows(H)``, dh W1 cut into ``fp32_dx_splits`` K
+slices added in slice order, db1 from each warp's 32-row column sums
+(a thread's 8 rows in order, then the xor butterfly over its 4 row lanes).
+``tiled_fp32_backward`` writes that walk with every fmaf (a float64 product
+and sum rounded once to fp32) and is held to ``fused_mlp_bwd_plain`` and the
+JAX ``_bwd_call`` in interpret mode at ``FUSED_BWD_TOL`` fp32 (1e-4 of the
+largest |grad|); tests pin the header's and the wrapper's constants and the
+staging's bank and coalescing claims.
 """
 from __future__ import annotations
 
@@ -60,6 +72,17 @@ SHAPES = [
     (200, 256, 1024, 256),     # one chunk, ragged inside its second row tile
     (130, 1024, 4096, 128),    # ViT-L's width: a chunk of 2 rows at the end
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The emulations are many small tensor operations: one intra-op thread,
+    so that the suite's parallel workers do not oversubscribe the cores (six
+    workers of eight threads each made this module several times slower)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _inputs(rows, d, h, seed=0):
@@ -531,9 +554,11 @@ def fp32_walk_forward(x, w1, b1, w2, b2, approximate, slices):
 
 
 def test_fp32_feature_slices_are_the_kernels_own():
+    """The fp32 forward's feature slices (the backward has no owned tile to
+    slice since it runs on the GEMM tile)."""
     src = (CSRC / "fused_mlp.cu").read_text()
     assert "if (a.d <= 512 || a.d > 768) return launch_fwd<T, 16>(a, b2, out);" in src
-    assert "if (a.d <= 512 || a.d > 768) return launch_bwd<T, 16>(a, o);" in src
+    assert "launch_bwd<" not in src and "mlp_bwd_dw_kernel" not in src
     assert "return (d + 32 * DPT - 1) / (32 * DPT);" in src
     assert fused_mlp.FP32_SLICE_FEATURES == 32 * 16
     assert [fused_mlp.fp32_feature_slices(d) for d in (40, 768, 769, 1000, 1024, 1025, 4096)] \
@@ -560,3 +585,267 @@ def test_fp32_slices_cover_every_feature_and_keep_each_sum(d):
     assert torch.equal(cut, whole)
     want = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False)
     assert _rel(cut, want, 1.0) <= FP32_FWD_TOL
+
+
+# ---------------------------------------------------------------------------
+# float32 backward: the bf16 schedule on the CUDA-core GEMM tile
+# ---------------------------------------------------------------------------
+
+SG_BM, SG_BK, SG_STAGES, SG_PAD = 128, 16, 3, 4      # sgemm_tile.cuh kBM (= kBN), kBK, ...
+SG_WARPS_M, SG_WARPS_N = 4, 2
+FP32_BWD_TOL = 1e-4                                  # chip_smoke.py FUSED_BWD_TOL["float32"]
+FP32_SHAPES = [
+    # rows, D, H, chunk rows
+    (200, 64, 200, 128),     # ragged rows in two chunks, H not a multiple of the tile
+    (300, 40, 100, 128),     # three chunks, the last 44 rows in 7 dx slices
+]
+
+
+def sgemm(a_mk: torch.Tensor, b_kn: torch.Tensor) -> torch.Tensor:
+    """C = A . B as the tile sums it, fp32: every element one fmaf chain
+    over K in ascending order from zero (the product exact in float64, the
+    sum rounded to fp32 once a step), in place: K steps of three operations
+    with no allocation."""
+    at, b = a_mk.double().T.contiguous(), b_kn.double()
+    acc = torch.zeros(at.shape[1], b.shape[1])
+    step = torch.empty(acc.shape, dtype=torch.float64)
+    for k in range(at.shape[0]):
+        torch.outer(at[k], b[k], out=step)
+        step.add_(acc)
+        acc.copy_(step)
+    return acc
+
+
+def warp_column_sums(dh: torch.Tensor, rows: int) -> torch.Tensor:
+    """The kEpiDh column sums of dh [rows, H]: [4 ceil(rows / 128), H], one
+    row a warp's 32 rows, every warp of the chunk's grid (rows past ``rows``
+    add nothing: a warp with none writes zeros). A thread of row lane t
+    (0-3) sums its rows 4 t + 0..3, then 16 + 4 t + 0..3 in order; the
+    butterfly adds lanes t ^ 1, then t ^ 2."""
+    groups = SG_WARPS_M * -(-rows // SG_BM)
+    out = torch.zeros(groups, dh.shape[1])
+    for g in range(groups):
+        lanes = []
+        for t in range(4):
+            s = torch.zeros(dh.shape[1])
+            for r in (*range(4 * t, 4 * t + 4), *range(16 + 4 * t, 20 + 4 * t)):
+                if 32 * g + r < rows:
+                    s = s + dh[32 * g + r]
+            lanes.append(s)
+        out[g] = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+    return out
+
+
+def tiled_fp32_backward(x, w1, b1, w2, dy, approximate, chunk, splits):
+    """fused_mlp.cu fp32_bwd on fp32 x, dy [rows, D], w1, w2 [H, D]: (dx,
+    dw1, db1, dw2, db2), with the workspace rows past a chunk's end NaN."""
+    rows, d = x.shape
+    h = w1.shape[0]
+    cap = min(rows, chunk)
+    hid = torch.full((cap, h), float("nan"))
+    dh = torch.full((cap, h), float("nan"))
+    parts = torch.full((4 * -(-cap // SG_BM), h), float("nan"))
+    dx = torch.full((rows, d), float("nan"))
+    dw1 = torch.full((h, d), float("nan"))
+    dw2 = torch.full((h, d), float("nan"))
+    steps = -(-h // SG_BK)
+    db2 = dy.sum(0)
+    for r0 in range(0, rows, chunk):
+        rc, first = min(chunk, rows - r0), r0 == 0
+        xc, dyc = x[r0:r0 + rc], dy[r0:r0 + rc]
+        hid[:rc] = sgemm(xc, w1.T) + b1                                  # kEpiPre
+        da = sgemm(dyc, w2.T)                                            # kEpiDh
+        value, grad = fused_mlp.kernel_gelu_and_grad(hid[:rc], approximate)
+        dh[:rc] = grad * da
+        hid[:rc] = value
+        sums = warp_column_sums(dh[:rc], rc)
+        parts[:len(sums)] = sums if first else parts[:len(sums)] + sums
+        for dw, a_ws, b_in in ((dw2, hid, dyc), (dw1, dh, xc)):         # kTN, K = rc
+            acc = sgemm(a_ws[:rc].T, b_in)
+            dw[:] = acc if first else dw + acc
+        slices = fused_mlp.fp32_chunk_splits(rc, cap, d, h, splits, 132)
+        if slices == 1:                                                  # kNN, kEpiRound
+            dx[r0:r0 + rc] = sgemm(dh[:rc], w1)
+        else:
+            kslice = -(-steps // slices) * SG_BK
+            total = torch.zeros(rc, d)
+            for k0 in range(0, h, kslice):                               # reduce_partials
+                total = total + sgemm(dh[:rc, k0:k0 + kslice], w1[k0:k0 + kslice])
+            dx[r0:r0 + rc] = total
+    db1 = torch.zeros(h)
+    for p in range(len(parts)):
+        db1 = db1 + parts[p]
+    return dx, dw1, db1, dw2, db2
+
+
+def _fp32_inputs(rows, d, h, seed=0):
+    return [t.float() if t.dtype == torch.float32 else t
+            for t in (torch.from_numpy(a) for a in _fp32_arrays(rows, d, h, seed))]
+
+
+def _fp32_arrays(rows, d, h, seed):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * std).astype(np.float32)
+            for shape, std in (((rows, d), 1.0), ((h, d), d ** -0.5), ((h,), 0.1),
+                               ((h, d), h ** -0.5), ((d,), 0.1), ((rows, d), 1.0))]
+
+
+def test_fp32_tile_constants_are_the_kernels_own():
+    """The emulation's tile, chunk and slice constants are the header's and
+    the wrapper's; two blocks an SM fit; the kernel is launched at two blocks
+    an SM; the tolerance is chip_smoke.py's."""
+    tile = (CSRC / "sgemm_tile.cuh").read_text()
+    src = (CSRC / "fused_mlp.cu").read_text()
+    for name, value in (("kBM", SG_BM), ("kBN", SG_BM), ("kBK", SG_BK), ("kStages", SG_STAGES),
+                        ("kPad", SG_PAD), ("kWarps", WARPS)):
+        assert re.search(rf"constexpr int {name} = {value};", tile), name
+    assert f"constexpr int kWarpsM = {SG_WARPS_M}, kWarpsN = {SG_WARPS_N};" in tile
+    assert "acc[i][j] = fmaf(a[i], b[j], acc[i][j]);" in tile
+    assert "mma_16816" not in tile and "tf32" not in tile.lower().replace("no tf32", "")
+    assert fused_mlp.SGEMM_ROWS == SG_BM and fused_mlp.SGEMM_K_STEP == SG_BK
+    assert fused_mlp.FP32_DB1_ROWS == SG_BM // SG_WARPS_M
+    assert "__launch_bounds__(sg::kThreads, 2)\nmlp_sgemm_kernel" in src
+    assert fused_mlp._BLOCKS_PER_SM == 2
+    smem = SG_STAGES * 2 * SG_BK * (SG_BM + SG_PAD) * 4
+    assert 2 * smem <= 232448 and smem > 48 * 1024     # dynamic, after the attribute
+    assert "const int kslice = (steps + splits - 1) / splits * sg::kBK;" in src
+    assert "int((long long)splits * cap / rc), steps, kRedGroups}));" in src
+    assert "const int splits = chunk_splits(rc, cap, a.d, a.h, o.splits, sms);" in src
+    assert fused_mlp._MAX_CHUNK_SPLITS == 32
+    assert "sg::kWarpsM * ((cap + sg::kBM - 1) / sg::kBM)" in src
+    assert "return dispatch_fp32_bwd(a, o, static_cast<float*>(workspace), chunk_rows);" in src
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    assert smoke.FUSED_BWD_TOL["float32"] == FP32_BWD_TOL
+
+
+def test_fp32_chunks_stay_in_l2_and_under_one_hidden_tensor():
+    assert [fused_mlp.fp32_chunk_rows(h) for h in (2048, 3072, 4096)] == [2048, 1280, 1024]
+    for h in (512, 2048, 3072, 4096, 5120):
+        c = fused_mlp.fp32_chunk_rows(h)
+        assert c % SG_BM == 0 and 2 * c * h * 4 <= fused_mlp.FP32_L2_WORKSPACE_BYTES
+    for rows, d, h in ((16 * 257, 1024, 4096), (256 * 197, 768, 3072)):
+        hidden = rows * h * 4                          # one [B, N, H] fp32 tensor
+        got = fused_mlp.workspace_bytes(rows, d, h, True, torch.float32)
+        assert got < hidden, (rows, got, hidden)
+        assert fused_mlp.workspace_bytes(rows, d, h, False, torch.float32) == 0
+    # the ViT-L tiles and dx's four K slices: 32 + 16 MiB and the sums
+    cap = 1024
+    assert fused_mlp.workspace_bytes(16 * 257, 1024, 4096, True, torch.float32) == 4 * (
+        2 * cap * 4096 + 4 * 8 * 4096 + 264 * 1024 + 4 * cap * 1024)
+
+
+def test_fp32_staging_is_conflict_free_and_coalesced():
+    """stage_transposed: the 32 stores of a warp fall in 32 banks and its
+    loads read 32 contiguous bytes of each of four rows; the products' float4
+    reads of one k are 4 distinct addresses of A and 8 of B, contiguous."""
+    rs = SG_BM + SG_PAD
+    for warp in range(WARPS):
+        for i in range(8):
+            lanes = [32 * warp + lane for lane in range(32)]
+            rows = [(t >> 3) + 32 * (i & 3) for t in lanes]
+            ks = [(t & 7) + 8 * (i >> 2) for t in lanes]
+            assert len({(k * rs + r) % 32 for k, r in zip(ks, rows)}) == 32
+            by_row = {}
+            for k, r in zip(ks, rows):
+                by_row.setdefault(r, []).append(k)
+            assert len(by_row) == 4 and all(sorted(v) == list(range(min(v), min(v) + 8))
+                                            for v in by_row.values())
+        wm, wn = warp // SG_WARPS_N, warp % SG_WARPS_N
+        a_addr = {wm * 32 + (lane >> 3) * 4 for lane in range(32)}
+        b_addr = {wn * 64 + (lane & 7) * 4 for lane in range(32)}
+        assert len(a_addr) == 4 and max(a_addr) - min(a_addr) == 12
+        assert len(b_addr) == 8 and max(b_addr) - min(b_addr) == 28
+    assert (rs * 4) % 16 == 0                     # every staged row starts on 16 bytes
+
+
+def test_fp32_thread_tiles_cover_the_block_once():
+    """tile_row x tile_col over the 256 threads cover the 128 x 128 block,
+    each element once."""
+    seen = torch.zeros(SG_BM, SG_BM, dtype=torch.int32)
+    for t in range(WARPS * 32):
+        warp, lane = divmod(t, 32)
+        for i in range(8):
+            for j in range(8):
+                r = (warp // SG_WARPS_N) * 32 + (lane >> 3) * 4 + (i & 3) + 16 * (i >> 2)
+                c = (warp % SG_WARPS_N) * 64 + (lane & 7) * 4 + (j & 3) + 32 * (j >> 2)
+                seen[r, c] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("rows,d,h,chunk", FP32_SHAPES)
+def test_tiled_fp32_backward_matches_plain(rows, d, h, chunk, approximate):
+    x, w1, b1, w2, _, dy = _fp32_inputs(rows, d, h, seed=8)
+    splits = fused_mlp.fp32_dx_splits(rows, d, h, 132)
+    got = tiled_fp32_backward(x, w1, b1, w2, dy, approximate, chunk, splits)
+    want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, approximate)
+    for g, w, name in zip(got, want, ("dx", "dw1", "db1", "dw2", "db2")):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, w) <= FP32_BWD_TOL, name
+
+
+@pytest.mark.parametrize("rows,d,h", [(72, 64, 256), (70, 1000, 160)])
+def test_tiled_fp32_backward_matches_jax_pallas(rows, d, h):
+    """Against the JAX package's Pallas backward (``_bwd_call``, interpret
+    mode) at fp32, W1 in the JAX layout [D, H]; at D = 1000 (no tile divides
+    it, one short chunk) against the plain version too."""
+    x, w1, b1, w2, _, dy = _fp32_inputs(rows, d, h, seed=9)
+    b, n = 2, rows // 2
+    want = jax_mlp._bwd_call(jnp.asarray(x.numpy().reshape(b, n, d)), jnp.asarray(w1.T.numpy()),
+                             jnp.asarray(b1.numpy()), jnp.asarray(w2.numpy()),
+                             jnp.asarray(dy.numpy().reshape(b, n, d)), False, 0, True)
+    want = [np.array(t, np.float32) for t in want]
+    want[0], want[1] = want[0].reshape(rows, d), want[1].T
+    got = tiled_fp32_backward(x, w1, b1, w2, dy, False, fused_mlp.fp32_chunk_rows(h),
+                              fused_mlp.fp32_dx_splits(rows, d, h, 132))
+    plain = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False)
+    for g, w, p, name in zip(got, want, plain, ("dx", "dw1", "db1", "dw2", "db2")):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=FP32_BWD_TOL * np.abs(w).max(), err_msg=name)
+        assert _rel(g, p) <= FP32_BWD_TOL, name
+
+
+def test_fp32_one_chunk_or_many_give_the_same_function():
+    """The chunk moves only the order of the dW and db1 sums, and of the dx
+    rows of a short last chunk (more K slices): the other dx rows (the same
+    slices) are bit-equal, the rest within fp32's reordering."""
+    x, w1, b1, w2, _, dy = _fp32_inputs(300, 64, 96, seed=10)
+    many = tiled_fp32_backward(x, w1, b1, w2, dy, False, 128, 3)
+    one = tiled_fp32_backward(x, w1, b1, w2, dy, False, 384, 3)
+    assert fused_mlp.fp32_chunk_splits(44, 128, 64, 96, 3, 132) > 3
+    assert torch.equal(many[0][:256], one[0][:256]) and torch.equal(many[4], one[4])
+    for a, b in zip((many[0][256:], *many[1:4]), (one[0][256:], *one[1:4])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_fp32_dx_slices_are_one_function():
+    """dh W1 in one, two or four K slices: the same function within fp32's
+    reordering (each slice from zero, the slices added in order)."""
+    x, w1, b1, w2, _, dy = _fp32_inputs(130, 48, 200, seed=11)
+    outs = [tiled_fp32_backward(x, w1, b1, w2, dy, False, 128, s)[0] for s in (1, 2, 4)]
+    for o in outs[1:]:
+        assert _rel(o, outs[0]) <= 1e-6
+    assert not torch.equal(outs[0], outs[2])      # a different order, not the same sums
+
+
+def test_fp32_short_chunks_take_more_dx_slices_within_the_scratch():
+    """A short last chunk (ViT-L's 16 rows; the vision tower's 512) cuts its
+    dx into more K slices, filling the card, within the scratch's slices of
+    a full chunk; full chunks keep the call's count; none is empty."""
+    assert fused_mlp.fp32_chunk_splits(1024, 1024, 1024, 4096, 4, 132) == 4
+    assert fused_mlp.fp32_chunk_splits(16, 1024, 1024, 4096, 4, 132) == 32
+    assert fused_mlp.fp32_chunk_splits(512, 1280, 768, 3072, 4, 132) == 10
+    assert fused_mlp.fp32_chunk_splits(44, 128, 40, 100, 4, 132) == 7
+    assert fused_mlp.fp32_chunk_splits(16, 1024, 1024, 4096, 1, 132) == 1
+    for rc, cap, d, h, splits in ((16, 1024, 1024, 4096, 4), (44, 128, 40, 100, 4),
+                                  (512, 1280, 768, 3072, 4), (3, 128, 1000, 4000, 4),
+                                  (100, 128, 8, 33, 2)):
+        got = fused_mlp.fp32_chunk_splits(rc, cap, d, h, splits, 132)
+        steps = -(-h // SG_BK)
+        per = -(-steps // got)
+        assert splits <= got <= 32 and got * rc <= splits * cap, (rc, got)
+        assert (got - 1) * per < steps <= got * per
