@@ -41,9 +41,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      257 rows), as phase 8b runs them; the bf16 MLP forward per element against
      the exact function (ops/fused_mlp_check.py), and at the vision shape two
      controls that must fail that bar; two runs of each
-     backward must agree bit for bit, and at the vision shape neither
-     direction of the MLP may hold as much as one [B, N, H] tensor above its
-     inputs, nor may the fp32 backward at MLP_FP32_WIDE beside its own
+     LayerNorm backward and of each MLP kernel must agree bit for bit, and at
+     the vision shape neither direction of the MLP may hold as much as one
+     [B, N, H] tensor above its inputs, nor may the fp32 forward at
+     MLP_FP32_WIDE beside its output or the fp32 backward beside its own
      gradients.
      The stochastic-rounding int8 quantizer (3e) at every Dense shape of the
      model, one ragged shape, one with an all-zero column and a column
@@ -127,8 +128,8 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      VIT_L_BATCH (the LayerNorm backward at D = 1024): both encoders against
      the default path on the same weights, VIT_L_STEPS train steps with exact
      launch counts, and the peak below phase 6b's; then three fp32 steps of
-     it through both kernels at learning rate 0 (the MLP forward past D = 768
-     in its feature slices, the backward on the CUDA-core GEMM tile): 79
+     it through both kernels at learning rate 0 (the MLP forward and backward
+     past D = 768 on the CUDA-core GEMM tile): 79
      LayerNorm, 36 MLP and 36 attention launches each way a step, its ms (the
      median of steps 2-3) and peak, and the step against the plain versions
      under phase 6's fp32 bars.
@@ -413,7 +414,7 @@ MLP_CASES = [
     ("ragged", 3, 77, 512, 2048, (False, True), ("float32", "bfloat16")),
     ("vit-l", 16, 257, 1024, 4096, (False,), ("bfloat16",)),
 ]
-# float32 past D = 768 (the feature slices of csrc/fused_mlp.cu): ViT-L/14's
+# float32 past D = 768 (both directions on csrc/sgemm_tile.cuh): ViT-L/14's
 # MLP, as phase 8b's fp32 step runs it; a generator of its own (seed 1024),
 # so that no other check's draw moves
 MLP_FP32_WIDE = ("vit-l", 16, 257, 1024, 4096, 1024)
@@ -967,8 +968,8 @@ def check_fused_kernels(dev, gen):
             raise RuntimeError(f"{label} {name}: forward {fwd_err} > {f_tol} or backward "
                                f"{bwd_err} > {b_tol}")
         if not all(torch.equal(x, y) for x, y in zip(got, again)):
-            raise RuntimeError(f"{label} {name}: two runs of the backward kernel differ "
-                               "(it uses no atomics)")
+            raise RuntimeError(f"{label} {name}: two runs of the kernels differ "
+                               "(they use no atomics)")
         errs[f"{kind}_fwd"] = max(errs[f"{kind}_fwd"], fwd_err)
         errs[f"{kind}_bwd"] = max(errs[f"{kind}_bwd"], bwd_err)
 
@@ -1000,6 +1001,7 @@ def check_fused_kernels(dev, gen):
             x, w1, b1, w2, b2, dy = mlp_inputs(b, n, d, h, dtype, dev, gen)
             for approximate in branches:
                 out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
+                out_again = fused_mlp._launch_fwd(x, w1, b1, w2, b2, approximate)
                 got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
                 again = fused_mlp._launch_bwd(x, w1, b1, w2, dy, approximate)
                 want_out = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate)
@@ -1013,9 +1015,9 @@ def check_fused_kernels(dev, gen):
                 # bf16: the forward's aggregate against the plain version is printed,
                 # not held (the per-element bar above holds it)
                 hold("fused_mlp", label, name, max_rel_err(out, want_out, 1.0),
-                     max(max_rel_err(g, w) for g, w in zip(got, want)), got, again,
-                     math.inf if dtype == torch.bfloat16 else None)
-                del out, got, again, want_out, want
+                     max(max_rel_err(g, w) for g, w in zip(got, want)), (out, *got),
+                     (out_again, *again), math.inf if dtype == torch.bfloat16 else None)
+                del out, out_again, got, again, want_out, want
             if dtype == torch.bfloat16:
                 inputs[f"mlp/{case}"] = (x, w1, b1, w2, b2, dy)
             elif case == "vision":          # timed in fp32 too (phase 5)
@@ -1025,17 +1027,18 @@ def check_fused_kernels(dev, gen):
     args = mlp_inputs(b, n, d, h, "float32", dev, torch.Generator().manual_seed(seed))
     x, w1, b1, w2, b2, dy = args
     out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, False)
+    out_again = fused_mlp._launch_fwd(x, w1, b1, w2, b2, False)
     got = fused_mlp._launch_bwd(x, w1, b1, w2, dy, False)
     again = fused_mlp._launch_bwd(x, w1, b1, w2, dy, False)
     want_out = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False)
     want = fused_mlp.fused_mlp_bwd_plain(x, w1, b1, w2, dy, False)
     torch.cuda.synchronize()
     hold("fused_mlp", f"mlp {case} B={b} N={n} D={d} H={h} gelu=erf polynomial "
-         f"({fused_mlp.fp32_feature_slices(d)} feature slices)", "float32",
+         f"({mlp_fp32_plan(x, w1)})", "float32",
          max_rel_err(out, want_out, 1.0), max(max_rel_err(g, w) for g, w in zip(got, want)),
-         got, again)
+         (out, *got), (out_again, *again))
     inputs[f"mlp32/{case}"] = args
-    del out, got, again, want_out, want
+    del out, out_again, got, again, want_out, want
 
     # no [B, N, H] tensor on the kernel path, either direction, under autograd
     x, w1, b1, w2, b2, dy = inputs["mlp/vision"]
@@ -1055,20 +1058,37 @@ def check_fused_kernels(dev, gen):
         peaks.append((torch.cuda.max_memory_allocated(dev) - base) / 2**20)
     log(f"[3 kernels] mlp vision bf16 under autograd: peak device memory above what was held "
         f"before, forward {peaks[0]:.1f} MiB, backward {peaks[1]:.1f} MiB; one [B, N, H] "
-        f"tensor would be {hidden:.1f} MiB; two backward runs bit-equal at every shape")
+        f"tensor would be {hidden:.1f} MiB; two runs of each kernel bit-equal at every shape")
     if not (max(peaks) < hidden and all(torch.isfinite(t.grad).all() for t in leaves)):
         raise RuntimeError(f"fused MLP: peaks {peaks} MiB reach one hidden tensor ({hidden} "
                            "MiB), or a gradient is not finite")
     del leaves, out
 
-    # the fp32 backward at ViT-L's shape (chunks of fp32_chunk_rows): what it
-    # allocates beside its own gradients (two [chunk, H] tiles, dx's K slices,
-    # the partial sums) stays under one [B, N, H] fp32 tensor
+    # the fp32 forward and backward at ViT-L's shape: what the forward
+    # allocates beside its output (the [chunk, H] tile of a, a W2's K
+    # slices) and the backward beside its own gradients (two [chunk, H]
+    # tiles, dx's K slices, the partial sums) stays under one [B, N, H] fp32
+    # tensor
     x, w1, b1, w2, b2, dy = inputs[f"mlp32/{MLP_FP32_WIDE[0]}"]
     leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
     hidden32 = x.numel() // x.shape[-1] * w1.shape[0] * 4 / 2**20
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     out = fused_mlp.fused_mlp(*leaves)
     torch.cuda.synchronize()
+    fwd_above = (torch.cuda.max_memory_allocated(dev) - base) / 2**20 - (
+        out.numel() * out.element_size() / 2**20)
+    fwd_ws = fused_mlp.workspace_bytes(x.numel() // x.shape[-1], x.shape[-1], w1.shape[0], False,
+                                       torch.float32,
+                                       fused_mlp.multiprocessors(x.device.index)) / 2**20
+    log(f"[3 kernels] mlp {MLP_FP32_WIDE[0]} fp32 forward under autograd: peak device memory "
+        f"above what was held before and its output {fwd_above:.1f} MiB (workspace "
+        f"{fwd_ws:.1f} MiB, {mlp_fp32_plan(x, w1)}); one [B, N, H] fp32 tensor would be "
+        f"{hidden32:.1f} MiB")
+    if not (fwd_above < hidden32 and torch.isfinite(out).all()):
+        raise RuntimeError(f"fused MLP fp32 forward: {fwd_above} MiB beside its output reach one "
+                           f"hidden tensor ({hidden32} MiB), or an output is not finite")
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     out.backward(dy)
@@ -1077,7 +1097,7 @@ def check_fused_kernels(dev, gen):
     above = (torch.cuda.max_memory_allocated(dev) - base) / 2**20 - grads
     rows, d, h = x.numel() // x.shape[-1], x.shape[-1], w1.shape[0]
     ws = fused_mlp.workspace_bytes(rows, d, h, True, torch.float32,
-                                   fused_mlp._multiprocessors(x.device.index)) / 2**20
+                                   fused_mlp.multiprocessors(x.device.index)) / 2**20
     log(f"[3 kernels] mlp {MLP_FP32_WIDE[0]} fp32 backward under autograd: peak device memory "
         f"above what was held before and its own gradients ({grads:.1f} MiB) {above:.1f} MiB "
         f"(workspace {ws:.1f} MiB, chunks of {fused_mlp.fp32_chunk_rows(h)} rows); one "
@@ -1184,11 +1204,22 @@ def three_call_mlp_ms(x, w1, b1, w2, b2, dy, iters: int, warmup: int):
     return fwd, both - fwd
 
 
+def mlp_fp32_plan(x, w1) -> str:
+    """How the fp32 forward cuts a call (ops.fused_mlp.fp32_fwd_plan and
+    fp32_k_splits), for the log."""
+    from colxlip_tpu_torch.ops import fused_mlp
+
+    rows, d, h = x.numel() // x.shape[-1], x.shape[-1], w1.shape[0]
+    chunks, cap = fused_mlp.fp32_fwd_plan(rows, h)
+    splits = fused_mlp.fp32_k_splits(cap, d, h, fused_mlp.multiprocessors(x.device.index))
+    return f"forward in {chunks} chunks of at most {cap} rows, a W2 in {splits} K slices"
+
+
 def time_mlp_fp32(inputs, card: str) -> dict:
     """Phase 5: kernels #9 and #10 in fp32 at the vision shape and at
-    MLP_FP32_WIDE (the forward's feature slices past D = 768; the backward's
-    chunks on the CUDA-core GEMM tile), their plain versions, the three
-    library calls in fp32 (TF32 off) and the bound."""
+    MLP_FP32_WIDE (both on the CUDA-core GEMM tile: the forward in near-equal
+    chunks, the backward in chunks of fp32_chunk_rows), their plain versions,
+    the three library calls in fp32 (TF32 off) and the bound."""
     from colxlip_tpu_torch.ops import fused_mlp
 
     out = {}
@@ -1207,8 +1238,8 @@ def time_mlp_fp32(inputs, card: str) -> dict:
         for key in ("fused_mlp_fwd", "fused_mlp_bwd"):
             ker = out[f"{key}/{case}-fp32"][0]
             splits = fused_mlp.fp32_dx_splits(rows, d, h,
-                                              fused_mlp._multiprocessors(x.device.index))
-            how = (f"{fused_mlp.fp32_feature_slices(d)} feature slices" if key.endswith("fwd")
+                                              fused_mlp.multiprocessors(x.device.index))
+            how = (mlp_fp32_plan(x, w1) if key.endswith("fwd")
                    else f"chunks of {fused_mlp.fp32_chunk_rows(h)} rows, dx in {splits} K slices")
             log(f"[5 timing] {key}/{case}-fp32 R={rows} D={d} H={h} fp32 ({how}): kernel "
                 f"{ker:.4f} ms against its bound {bounds[key][0]:.5f} ms ({bounds[key][1]}) = "
@@ -1980,8 +2011,8 @@ def vit_l_fused_phase(dev, card: str, vit_l):
 def vit_l_fused_fp32_step(dev, card: str, step_cfg, images, texts, want_launches) -> dict:
     """Phase 8b, fp32: VIT_L_FP32_STEPS ViT-L-14-colxlip steps at batch
     VIT_L_BATCH and learning rate 0 with both variables 'fused' and fp32
-    compute (the MLP forward past D = 768 in its feature slices, the
-    backward on the CUDA-core GEMM tile): exact launches a step (79
+    compute (the MLP forward and backward past D = 768 on the CUDA-core
+    GEMM tile): exact launches a step (79
     LayerNorm, 36 MLP and 36 attention each way, 1 MaxSim), the step's ms
     as the median of steps 2 onward, and the peak; then the step against the
     plain versions on the same weights under phase 6's fp32 bars."""
@@ -3392,6 +3423,7 @@ def check_dist_kernels(dev, gen, card: str) -> dict:
         labels = (torch.arange(m, dtype=torch.int32) + offset).to(dev)
         loss, lse = fused_ce._launch_fwd(a, b, labels, s)
         da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+        da_again, ds_again = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
         db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
         want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
         want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
@@ -3402,13 +3434,18 @@ def check_dist_kernels(dev, gen, card: str) -> dict:
         da_err = max(max_rel_err(da, want_da), max_rel_err(ds, want_ds))
         db_err = max_rel_err(db, want_db)
         name = str(dtype).split(".")[-1]
+        slices = (fused_ce.fp32_da_slices(m, n, 512, fused_ce.multiprocessors(dev.index or 0))
+                  if dtype == torch.float32 else 1)
+        rerun = torch.equal(da, da_again) and torch.equal(ds, ds_again)
         log(f"[12 dist] fused CE M={m} N={n} D=512 labels {offset}..{offset + m - 1} {name}: fwd "
             f"|err| / (1 + |loss|) {fwd_err:.3g} (tol {CE_FWD_TOL}); max_abs_err / max|grad| "
-            f"dA+dscale {da_err:.3g}, dB {db_err:.3g} (tol {CE_BWD_TOL}); loss mean "
-            f"{loss.mean().item():.5f}")
+            f"dA+dscale {da_err:.3g} (dA in {slices} slices of b; reruns "
+            f"{'bit-equal' if rerun else 'DIFFER'}), dB {db_err:.3g} (tol {CE_BWD_TOL}); loss "
+            f"mean {loss.mean().item():.5f}")
         if not (fwd_err <= CE_FWD_TOL and da_err <= CE_BWD_TOL and db_err <= CE_BWD_TOL
-                and torch.isfinite(loss).all()):
-            raise RuntimeError(f"phase 12 fused CE {m} x {n} {name}: {fwd_err} {da_err} {db_err}")
+                and torch.isfinite(loss).all() and rerun):
+            raise RuntimeError(f"phase 12 fused CE {m} x {n} {name}: {fwd_err} {da_err} {db_err}, "
+                               f"reruns bit-equal: {rerun}")
         bounds = ce_bounds(a, b)
         timed = {
             "fused_ce_fwd": (lambda: fused_ce._launch_fwd(a, b, labels, s),
@@ -3424,8 +3461,10 @@ def check_dist_kernels(dev, gen, card: str) -> dict:
             bound, by = bounds[key]
             out[f"{key}/{m}x{n}/{name}"] = {"ms": ker, "plain_ms": plain, "bound_ms": bound,
                                             "bound_by": by, "max_abs_err": err}
-            log(f"[12 dist] {key} M={m} N={n} D=512 {name}: kernel {ker:.4f} ms, plain "
+            split = f" (in {slices} slices of b)" if key == "fused_ce_bwd_da" else ""
+            log(f"[12 dist] {key} M={m} N={n} D=512 {name}{split}: kernel {ker:.4f} ms, plain "
                 f"{plain:.4f} ms, bound {bound:.5f} ms ({by}) ({card})")
+        out[f"fused_ce_bwd_da/{m}x{n}/{name}"]["slices"] = slices
     return out
 
 

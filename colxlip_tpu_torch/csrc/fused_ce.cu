@@ -98,11 +98,21 @@
 // fp32 (all three kernels): fp32 FMAs on the CUDA cores, as first ported: a
 // 16 x 16 thread block holds the [rows, cols] tile of raw dots in
 // registers, fed from shared-memory chunks of 32 features stored
-// feature-major (csrc/stream_tile.cuh, shared with csrc/fused_mlp.cu); the
-// backward puts dz for the tile in shared memory and each warp adds dz times
-// the streamed rows (read through L1/L2) into its 4 owned rows. fp32 runs
-// only under --precision fp32, and a tensor-core fp32 product would need
-// three split products: it stays here.
+// feature-major (csrc/stream_tile.cuh); the backward puts dz for the tile in
+// shared memory and each warp adds dz times the streamed rows (read through
+// L1/L2) into its 4 owned rows. fp32 runs only under --precision fp32, and a
+// tensor-core fp32 product would need three split products: it stays here.
+// dA (#12) also splits the streamed columns: a block owns 32 rows of a, so
+// at a local-loss step's M = 256 the row blocks alone are 8 for 132 SMs,
+// each walking every tile of b in series. The grid is (row blocks) x (S
+// slices of b's whole 64-row tiles), S chosen by the wrapper
+// (fp32_da_slices: two blocks an SM, 16 at 256 x 1024); block (i, s) stores
+// its slice's unscaled partial dA and dscale rows to scratch, and
+// reduce_partials adds the S partials in slice order and multiplies dA by
+// scale once at the end. Each raw_ij is summed over D as before (the bits
+// that #11 and #13 compute); the split moves only the order in which dz B
+// and dscale add up across slices. S = 1 (wherever the row blocks fill the
+// card) is the unsplit walk, bit for bit.
 //
 // Next steps for a later PR: wgmma with TMA, a warpgroup reading the stream
 // tile once where each of today's warps re-reads its fragments from shared
@@ -187,14 +197,18 @@ ce_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __res
 // float32 backward (CUDA cores)
 // ---------------------------------------------------------------------------
 
-// dA and per-row dscale: one block per tile of 32 rows of a, looping over
-// tiles of 64 rows of b.
+// dA and per-row dscale: one block per tile of 32 rows of a (blockIdx.x) and
+// per slice of b's rows (blockIdx.y): slice s is the `per` whole tiles of 64
+// rows from tile s per, walked in order. With one slice the block stores
+// scale * dA and dscale; with more it stores its unscaled partials into
+// slice s of da [S][m][d] and dscale [S][m] (scratch), for launch_da's
+// second pass.
 template <typename T, int DPT>
 __global__ void __launch_bounds__(kThreads)
 ce_bwd_da_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __restrict__ labels,
                  const float* __restrict__ scale_ptr, const float* __restrict__ lse,
                  const float* __restrict__ g, float* __restrict__ da,
-                 float* __restrict__ dscale, int m, int n, int d) {
+                 float* __restrict__ dscale, int m, int n, int d, int per) {
   constexpr int RPT = kOwn / kTY, CPT = kStream / kTX;
   __shared__ Stage<RPT, CPT> st;
   __shared__ float dz[kOwn][kStream + 1];
@@ -216,7 +230,8 @@ ce_bwd_da_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
   float out[kOwnPerWarp][DPT];
   zero_owned<DPT>(out);
 
-  for (int j0 = 0; j0 < n; j0 += kStream) {
+  const int j_end = min(n, int(blockIdx.y + 1) * per * kStream);
+  for (int j0 = int(blockIdx.y) * per * kStream; j0 < j_end; j0 += kStream) {
     float acc[RPT][CPT];
     raw_tile<T, RPT, CPT>(a, b, i0, j0, m, n, d, st, acc);
 #pragma unroll
@@ -239,12 +254,13 @@ ce_bwd_da_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
     __syncthreads();
   }
 
-  store_owned<DPT>(out, da, i0, m, d, scale);
+  const bool whole = gridDim.y == 1;
+  store_owned<DPT>(out, da + size_t(blockIdx.y) * m * d, i0, m, d, whole ? scale : 1.f);
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int row = i0 + ty + kTY * r;
     const float total = row_sum(ds[r]);
-    if (tx == 0 && row < m) dscale[row] = total;
+    if (tx == 0 && row < m) dscale[size_t(blockIdx.y) * m + row] = total;
   }
 }
 
@@ -777,12 +793,26 @@ cudaError_t dispatch_fwd(const Args& x, float* loss, float* lse) {
 // float32 backward launchers
 // ---------------------------------------------------------------------------
 
+// `slices` slices of b's 64-row tiles (the wrapper's fp32_da_slices), cut
+// so that none is empty. Past one, the blocks' partials go to scratch (dA
+// [S][m][d], then dscale [S][m]) and reduce_partials adds them in slice
+// order, dA times scale once after the whole sum.
 template <int DPT>
-cudaError_t launch_da(const Args& x, float* da, float* dscale) {
-  ce_bwd_da_kernel<float, DPT><<<(x.m + kOwn - 1) / kOwn, kThreads, 0, x.stream>>>(
+cudaError_t launch_da(const Args& x, float* da, float* dscale, float* scratch, int slices) {
+  const int tiles = (x.n + kStream - 1) / kStream;
+  const int per = (tiles + slices - 1) / slices;
+  slices = (tiles + per - 1) / per;
+  float* part_da = slices > 1 ? scratch : da;
+  float* part_ds = slices > 1 ? scratch + size_t(slices) * x.m * x.d : dscale;
+  ce_bwd_da_kernel<float, DPT><<<dim3((x.m + kOwn - 1) / kOwn, slices), kThreads, 0, x.stream>>>(
       static_cast<const float*>(x.a), static_cast<const float*>(x.b), x.labels, x.scale, x.lse,
-      x.g, da, dscale, x.m, x.n, x.d);
-  return cudaGetLastError();
+      x.g, part_da, part_ds, x.m, x.n, x.d, per);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return err;
+  const cudaError_t err_da =
+      reduce_partials(part_da, da, slices, x.m * x.d, x.stream, Finish{x.scale, nullptr, 1});
+  if (err_da != cudaSuccess) return err_da;
+  return reduce_partials(part_ds, dscale, slices, x.m, x.stream);
 }
 
 template <int DPT>
@@ -795,11 +825,11 @@ cudaError_t launch_db(const Args& x, float* db) {
 
 // float32: the per-thread feature count is a template argument (the
 // accumulators live in registers): 32 * DPT >= D.
-cudaError_t dispatch_da(const Args& x, float* da, float* dscale) {
-  if (x.d <= 64) return launch_da<2>(x, da, dscale);
-  if (x.d <= 256) return launch_da<8>(x, da, dscale);
-  if (x.d <= 512) return launch_da<16>(x, da, dscale);
-  return launch_da<24>(x, da, dscale);
+cudaError_t dispatch_da(const Args& x, float* da, float* dscale, float* scratch, int slices) {
+  if (x.d <= 64) return launch_da<2>(x, da, dscale, scratch, slices);
+  if (x.d <= 256) return launch_da<8>(x, da, dscale, scratch, slices);
+  if (x.d <= 512) return launch_da<16>(x, da, dscale, scratch, slices);
+  return launch_da<24>(x, da, dscale, scratch, slices);
 }
 
 cudaError_t dispatch_db(const Args& x, float* db) {
@@ -839,18 +869,23 @@ extern "C" int colxlip_fused_ce_fwd(const void* a, const void* b, const void* la
 // As the forward, plus lse [M] and g [M] float32 (the cotangent of the loss
 // rows); out da [M, D] and dscale [M] float32. bfloat16 takes the
 // tensor-core kernel, whose rows must be a multiple of 8 features on 16-byte
-// aligned bases (cudaErrorInvalidValue otherwise); float32 the CUDA cores.
+// aligned bases (cudaErrorInvalidValue otherwise), slices 1; float32 the
+// CUDA cores in `slices` slices of b's rows, with scratch slices * M * (D +
+// 1) float32 where slices > 1.
 extern "C" int colxlip_fused_ce_bwd_da(const void* a, const void* b, const void* labels,
                                        const void* scale, const void* lse, const void* g,
-                                       void* da, void* dscale, int m, int n, int d, int dtype,
-                                       void* stream) {
-  if (bad_shape(m, n, d, dtype)) return cudaErrorInvalidValue;
+                                       void* da, void* dscale, void* scratch, int m, int n, int d,
+                                       int slices, int dtype, void* stream) {
+  if (bad_shape(m, n, d, dtype) || slices < 1 || (dtype == 1 && slices != 1) ||
+      (slices > 1 && scratch == nullptr))
+    return cudaErrorInvalidValue;
   const Args x{a, b, static_cast<const int*>(labels), static_cast<const float*>(scale),
                static_cast<const float*>(lse), static_cast<const float*>(g), m, n, d,
                static_cast<cudaStream_t>(stream)};
   float* out = static_cast<float*>(da);
   float* ds = static_cast<float*>(dscale);
-  return dtype == 0 ? dispatch_da(x, out, ds) : ce_mma::dispatch<true>(x, out, ds);
+  return dtype == 0 ? dispatch_da(x, out, ds, static_cast<float*>(scratch), slices)
+                    : ce_mma::dispatch<true>(x, out, ds);
 }
 
 // As colxlip_fused_ce_bwd_da; out db [N, D] float32.

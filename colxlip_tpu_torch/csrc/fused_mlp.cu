@@ -1,7 +1,7 @@
 // Transformer MLP c_fc -> GELU -> c_proj with a recompute backward, for
 // Hopper (sm_90a): no [rows, H] tensor reaches device memory, forward or
-// backward. Only an L2-sized [R_c, H] chunk of it does (the bf16 paths, and
-// the fp32 backward).
+// backward. Only an L2-sized [R_c, H] chunk of it does, in both dtypes and
+// both directions.
 //
 // Replaces: colxlip_tpu/ops/fused_mlp.py `_fwd_call` (:244, body
 // `_fwd_kernel` :182) and `_bwd_call` (:278, body `_bwd_kernel` :198). Same
@@ -67,47 +67,41 @@
 // backward's outputs round once (dx, dh) or not at all (dW, db), and are held
 // to 2^-7 of the largest gradient.
 //
-// fp32: the CUDA cores, any D.
+// fp32: the CUDA cores, any D. Both directions run the bf16 path's schedule
+// on an fp32 GEMM tile of the CUDA cores (sgemm_tile.cuh: 128 x 128
+// register-blocked tiles, 8 x 8 outputs a thread, K in steps of 16 through 3
+// cp.async stages), one kernel for every product (mlp_sgemm_kernel), with
+// the same epilogues where the function is the same (T = float rounds
+// nothing):
 //
-//   forward   a block owns 32 rows of x and walks the hidden dimension in
-//             slices of 64: the slice of h comes from a register tile
-//             (stream_tile.cuh raw_tile), becomes a in shared memory, and
-//             its product with the slice's 64 rows of W2 is added into the
-//             block's [32, D] output, held in registers (accumulate). Past
-//             D = 768 (ViT-L's 1024) the owned [32, D] tile would not fit in
-//             registers, so the owned features are cut into S slices of 512
-//             (blockIdx.y), each block recomputing the hidden slice it reads:
-//             2 (S + 1) R D H (S = 2 at D = 1024). Each output element is
-//             summed in the same order as without the cut.
-//   backward  the bf16 path's schedule on an fp32 GEMM tile of the CUDA
-//             cores (sgemm_tile.cuh: 128 x 128 register-blocked tiles, 8 x 8
-//             outputs a thread, K in steps of 16 through 3 cp.async stages),
-//             with the same epilogues where the function is the same (T =
-//             float rounds nothing):
-//
-//     db2 = column sums of dy (colsum + reduce, once); per chunk of R_c rows
+//   forward, per chunk of R_c rows
+//     x W1^T   kNT  -> ws [R_c, H]         a = gelu(acc + b1)
+//     a W2     kNN  -> out rows            acc + b2, or K slices (below)
+//   backward: db2 = column sums of dy (colsum + reduce, once); per chunk
 //     x W1^T   kNT  -> ws [R_c, H]         h = acc + b1
 //     dy W2^T  kNT  -> dh [R_c, H]         acc is da: reads h, writes
 //                                          dh = gelu'(h) da, a over h, and
 //                                          each warp's column sums of dh
 //     a^T dy   kTN  -> dW2                 the first chunk stores, later add
 //     dh^T x   kTN  -> dW1                 the same (one launch with dW2)
-//     dh W1    kNN  -> dx rows             cut into `splits` K slices where
-//                                          the chunk's [R_c, D] tiles would
-//                                          leave the card half idle, each
-//                                          slice's partial [R_c, D] to
-//                                          scratch, added in slice order
+//     dh W1    kNN  -> dx rows             K slices (below)
 //   then db1 = the warps' column sums added in a fixed order.
 //
-//             That is the function's own 10 R D H: h and da once a chunk.
-//             The wrapper picks R_c so that the two fp32 [R_c, H] tiles stay
-//             in L2 (1024 rows at H = 4096) and `splits` so that the dx
-//             tiles fill the card's two blocks an SM; a short last chunk
-//             takes more (chunk_splits: 32 at ViT-L's 16-row tail, where four
-//             would leave 224 of 264 slots idle). Every output is summed in
-//             one fixed order (K in order inside a tile, chunks in order on
-//             one stream, partial sums in index order), with no atomics: two
-//             runs agree bit for bit.
+// That is the function's own 4 and 10 R D H: h once a chunk forward, h and
+// da once a chunk backward. The two kNN products (a W2, dh W1; K = H) are
+// one function, kn_product: where a chunk's [R_c, D] tiles would leave the
+// card half idle it cuts K into `splits` slices of whole k-steps, each
+// slice's partial [R_c, D] to scratch, added in slice order by
+// reduce_partials, which adds b2 once after the whole sum (as the plain
+// version's matmul(a, w2) + b2); a short chunk takes more slices
+// (chunk_splits). The wrapper picks R_c so that the chunk's fp32 [R_c, H]
+// tiles stay in L2 (backward two, 1024 rows at H = 4096; forward one, twice
+// the rows) and `splits` so that the kNN tiles fill the card's two blocks
+// an SM. The forward's chunks are near-equal runs of whole 128-row tiles
+// (ViT-L's 4,112 rows: 3 chunks of 11 tiles), so no short last chunk takes
+// a wave of its own. Every output is summed in one fixed order (K in order
+// inside a tile, chunks in order on one stream, partial sums in index
+// order), with no atomics: two runs agree bit for bit.
 
 #include <algorithm>
 
@@ -117,10 +111,8 @@
 
 namespace {
 
-using colxlip::from_f;
 using colxlip::round_to;
 using colxlip::to_f;
-using colxlip::warp_sum;
 using namespace colxlip::stream_tile;
 
 constexpr float kSqrtHalf = 0.7071067811865476f;
@@ -166,58 +158,6 @@ __device__ __forceinline__ float pre_activation(float dot, float bias) {
   return round_to<T>(round_to<T>(dot) + bias);
 }
 
-// ---------------------------------------------------------------------------
-// fp32 forward: one block per tile of 32 rows and per slice of 32 DPT output
-// features (blockIdx.y), looping over slices of 64 hidden units
-// ---------------------------------------------------------------------------
-
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
-mlp_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-               const T* __restrict__ w2, const T* __restrict__ b2, T* __restrict__ out, int rows,
-               int d, int h, int approximate) {
-  constexpr int RPT = kOwn / kTY, CPT = kStream / kTX;
-  __shared__ Stage<RPT, CPT> st;
-  __shared__ float act[kOwn][kStream + 1];
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const int i0 = blockIdx.x * kOwn;
-  const int c0 = blockIdx.y * 32 * DPT, dc = min(32 * DPT, d - c0);
-  float acc_out[kOwnPerWarp][DPT];
-  zero_owned<DPT>(acc_out);
-
-  for (int h0 = 0; h0 < h; h0 += kStream) {
-    float acc[RPT][CPT];
-    raw_tile<T, RPT, CPT>(x, w1, i0, h0, rows, h, d, st, acc);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int col = h0 + tx + kTX * c;
-      const float bias = col < h ? to_f(b1[col]) : 0.f;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        float a = 0.f;
-        if (col < h) a = round_to<T>(gelu_value(pre_activation<T>(acc[r][c], bias), approximate));
-        act[ty + kTY * r][tx + kTX * c] = a;
-      }
-    }
-    __syncthreads();
-    accumulate<T, DPT>(act, w2 + size_t(h0) * d + c0, min(kStream, h - h0), dc, d, acc_out);
-    __syncthreads();
-  }
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < kOwnPerWarp; ++r) {
-    const int row = i0 + kOwnPerWarp * warp + r;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      const int col = c0 + lane + 32 * c;
-      if (col < d)
-        out[size_t(row) * d + col] = from_f<T>(round_to<T>(acc_out[r][c]) + to_f(b2[col]));
-    }
-  }
-}
-
 // partials[blockIdx.x][col] = sum of dy[r, col] over rows r = blockIdx.x,
 // blockIdx.x + gridDim.x, ... in fp32.
 template <typename T>
@@ -243,23 +183,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Feature slices of 32 DPT columns: one where D <= 768, more past it, each
-// recomputing the hidden slice it needs.
-template <int DPT>
-int feature_slices(int d) {
-  return (d + 32 * DPT - 1) / (32 * DPT);
-}
-
-template <typename T, int DPT>
-cudaError_t launch_fwd(const Args& a, const void* b2, void* out) {
-  const dim3 grid((a.rows + kOwn - 1) / kOwn, feature_slices<DPT>(a.d));
-  mlp_fwd_kernel<T, DPT><<<grid, kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w1), static_cast<const T*>(a.b1),
-      static_cast<const T*>(a.w2), static_cast<const T*>(b2), static_cast<T*>(out), a.rows, a.d,
-      a.h, a.approximate);
-  return cudaGetLastError();
-}
-
 struct BwdOut {
   const void* dy;
   void* dx;
@@ -270,17 +193,6 @@ struct BwdOut {
   float* scratch;   // fp32 sums: db1 and db2 partial rows, fp32 dx's K slices
   int splits, colsum_blocks;
 };
-
-// The per-thread feature count is a template argument (the accumulators live
-// in registers): 32 * DPT >= D up to 768; past it slices of 512 features
-// (DPT 16), as many as D needs, so any D runs without a larger register tile
-// (a [32, 1024] fp32 tile alone would take 128 registers a thread).
-template <typename T>
-cudaError_t dispatch_fwd(const Args& a, const void* b2, void* out) {
-  if (a.d <= 256) return launch_fwd<T, 8>(a, b2, out);
-  if (a.d <= 512 || a.d > 768) return launch_fwd<T, 16>(a, b2, out);
-  return launch_fwd<T, 24>(a, b2, out);
-}
 
 // db2 = the column sums of dy, both dtypes: partial row b sums rows b,
 // b + blocks, ... in order, then the partial rows add up in order. One
@@ -574,8 +486,8 @@ cudaError_t bf16_bwd(const Args& a, const BwdOut& o, bf16* ws, int chunk) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32 backward: the products on the CUDA cores (sgemm_tile.cuh), the bf16
-// path's schedule and epilogues
+// fp32: the products on the CUDA cores (sgemm_tile.cuh), the bf16 path's
+// schedule and epilogues
 // ---------------------------------------------------------------------------
 
 namespace sg = colxlip::sgemm;
@@ -583,7 +495,7 @@ namespace sg = colxlip::sgemm;
 struct EpiArgs32 {
   float* out;          // [m, ldo]
   int ldo;
-  const float* bias;   // kEpiPre: b1 by column
+  const float* bias;   // by column: b1 (kEpiGelu, kEpiPre), b2 (kEpiBias)
   float* dh;           // kEpiDh: [m, ldo]
   float* db1_part;     // kEpiDh: [4 ceil(m / 128)][n], one row a warp's 32 rows
   int first;           // kEpiAcc, kEpiDh: store, where later chunks add
@@ -659,12 +571,13 @@ mlp_sgemm_kernel(const sg::Operands p0, const EpiArgs32 e0, const sg::Operands p
   sg::mainloop<L, VEC>(acc, reinterpret_cast<float*>(smem_raw), p, m0, n0);
 
   // sums: kEpiDh, this thread's column sums of dh
+  constexpr bool kBias = E == kEpiGelu || E == kEpiPre || E == kEpiBias;
   float bias[sg::kThreadCols], sums[sg::kThreadCols];
 #pragma unroll
   for (int j = 0; j < sg::kThreadCols; ++j) {
     const int col = n0 + sg::tile_col(j);
     sums[j] = 0.f;
-    bias[j] = E == kEpiPre && col < p.n ? e.bias[col] : 0.f;
+    bias[j] = kBias && col < p.n ? e.bias[col] : 0.f;
   }
 #pragma unroll
   for (int i = 0; i < sg::kThreadRows; ++i) {
@@ -705,7 +618,10 @@ mlp_sgemm_kernel(const sg::Operands p0, const EpiArgs32 e0, const sg::Operands p
         continue;
       }
       float res[4];
-      if constexpr (E == kEpiPre) {
+      if constexpr (E == kEpiGelu) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) res[c] = gelu_value(v[c] + bias[4 * q + c], e.approximate);
+      } else if constexpr (E == kEpiPre || E == kEpiBias) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) res[c] = v[c] + bias[4 * q + c];
       } else if constexpr (E == kEpiAcc) {
@@ -755,9 +671,9 @@ cudaError_t launch_sgemm(const sg::Operands& p, const EpiArgs32& e, cudaStream_t
   return cudaGetLastError();
 }
 
-// K slices of a chunk's dh W1 (rc rows): the wrapper's `splits` for a chunk
-// of cap rows (the scratch holds splits slices of cap rows); a shorter
-// chunk (the last) takes more, as many as fill two blocks an SM, within the
+// K slices of a chunk's kNN product (rc rows): the wrapper's `splits` for a
+// chunk of cap rows (the scratch holds splits slices of cap rows); a
+// shorter chunk takes more, as many as fill two blocks an SM, within the
 // scratch, one k-step a slice and kRedGroups slices at most (reduce_partials
 // adds them in slice order), none empty. The wrapper's fp32_chunk_splits is
 // the same rule.
@@ -771,6 +687,59 @@ int chunk_splits(int rc, int cap, int d, int h, int splits, int sms) {
                                       int((long long)splits * cap / rc), steps, kRedGroups}));
   const int per = (steps + want - 1) / want;
   return (steps + per - 1) / per;
+}
+
+// out [rc, d] (rows d apart) = A [rc, h] . B [h, d], K = h, plus `bias` by
+// column where one is given: the forward's a W2 + b2 and the backward's
+// dh W1, one function. One launch, or (chunk_splits > 1) K slices of whole
+// k-steps, none empty, each slice's partial [rc, d] into scratch; then
+// reduce_partials adds the slices in slice order and the bias once, after
+// the whole sum.
+template <bool VEC>
+cudaError_t kn_product(const float* a, const float* b, const float* bias, float* out,
+                       float* scratch, int rc, int cap, int d, int h, int call_splits, int sms,
+                       cudaStream_t stream) {
+  const sg::Operands p{a, b, h, d, rc, d, h};
+  const int splits = chunk_splits(rc, cap, d, h, call_splits, sms);
+  if (splits > 1) {
+    const int steps = (h + sg::kBK - 1) / sg::kBK;
+    const int kslice = (steps + splits - 1) / splits * sg::kBK;
+    const EpiArgs32 e{scratch, d, nullptr, nullptr, nullptr, 0, 0};
+    COLXLIP_TRY((launch_sgemm<sg::kNN, VEC, kEpiRound>(p, e, stream, splits, nullptr, nullptr,
+                                                       kslice)));
+    return reduce_partials(scratch, out, splits, rc * d, stream, Finish{nullptr, bias, d});
+  }
+  const EpiArgs32 e{out, d, bias, nullptr, nullptr, 0, 0};
+  return bias != nullptr ? launch_sgemm<sg::kNN, VEC, kEpiBias>(p, e, stream)
+                         : launch_sgemm<sg::kNN, VEC, kEpiRound>(p, e, stream);
+}
+
+// ws: [cap, h] fp32 (a); scratch (splits > 1): splits * cap * d fp32 (a W2's
+// K slices). The rows go in near-equal chunks of whole 128-row tiles, the
+// fewest that keep each within `chunk` rows: chunk c is tiles [c T / n,
+// (c + 1) T / n) of the T tiles, and cap the longest. The wrapper's
+// fp32_fwd_plan is the same rule.
+template <bool VEC>
+cudaError_t fp32_fwd(const Args& a, const float* b2, float* out, float* ws, float* scratch,
+                     int chunk, int splits) {
+  const float* x = static_cast<const float*>(a.x);
+  const float* w1 = static_cast<const float*>(a.w1);
+  const float* b1 = static_cast<const float*>(a.b1);
+  const float* w2 = static_cast<const float*>(a.w2);
+  const int tiles = (a.rows + sg::kBM - 1) / sg::kBM, per = chunk / sg::kBM;
+  const int chunks = (tiles + per - 1) / per;
+  const int cap = std::min(a.rows, (tiles + chunks - 1) / chunks * sg::kBM);
+  const int sms = multiprocessors();
+  for (int c = 0; c < chunks; ++c) {
+    const int r0 = int((long long)tiles * c / chunks) * sg::kBM;
+    const int rc = std::min(a.rows, int((long long)tiles * (c + 1) / chunks) * sg::kBM) - r0;
+    const sg::Operands up{x + size_t(r0) * a.d, w1, a.d, a.d, rc, a.h, a.d};
+    const EpiArgs32 e_up{ws, a.h, b1, nullptr, nullptr, 0, a.approximate};
+    COLXLIP_TRY((launch_sgemm<sg::kNT, VEC, kEpiGelu>(up, e_up, a.stream)));
+    COLXLIP_TRY(kn_product<VEC>(ws, w2, b2, out + size_t(r0) * a.d, scratch, rc, cap, a.d, a.h,
+                                splits, sms, a.stream));
+  }
+  return cudaSuccess;
 }
 
 // ws: 2 [cap, h] fp32 (h, then a; dh), cap = min(rows, chunk); o.scratch:
@@ -810,21 +779,8 @@ cudaError_t fp32_bwd(const Args& a, const BwdOut& o, float* ws, int chunk) {
     const sg::Operands gw1{dh, xc, a.h, a.d, a.h, a.d, rc};
     const EpiArgs32 e_w1{o.dw1, a.d, nullptr, nullptr, nullptr, first, a.approximate};
     COLXLIP_TRY((launch_sgemm<sg::kTN, VEC, kEpiAcc>(gw2, e_w2, a.stream, 2, &gw1, &e_w1)));
-    const sg::Operands gx{dh, w1, a.h, a.d, rc, a.d, a.h};
-    const int splits = chunk_splits(rc, cap, a.d, a.h, o.splits, sms);
-    if (splits > 1) {
-      // dh W1 in K slices of whole k-steps, none empty
-      const int steps = (a.h + sg::kBK - 1) / sg::kBK;
-      const int kslice = (steps + splits - 1) / splits * sg::kBK;
-      const EpiArgs32 e_dx{dx_part, a.d, nullptr, nullptr, nullptr, 0, a.approximate};
-      COLXLIP_TRY((launch_sgemm<sg::kNN, VEC, kEpiRound>(gx, e_dx, a.stream, splits, nullptr,
-                                                         nullptr, kslice)));
-      COLXLIP_TRY(reduce_partials(dx_part, dx + size_t(r0) * a.d, splits, rc * a.d, a.stream));
-    } else {
-      const EpiArgs32 e_dx{dx + size_t(r0) * a.d, a.d, nullptr, nullptr, nullptr, 0,
-                           a.approximate};
-      COLXLIP_TRY((launch_sgemm<sg::kNN, VEC, kEpiRound>(gx, e_dx, a.stream)));
-    }
+    COLXLIP_TRY(kn_product<VEC>(dh, w1, nullptr, dx + size_t(r0) * a.d, dx_part, rc, cap, a.d,
+                                a.h, o.splits, sms, a.stream));
   }
   // the first chunk wrote every warp's row of sums that a later chunk adds to
   return reduce_partials(db1_part, o.db1, part_rows, a.h, a.stream);
@@ -833,6 +789,16 @@ cudaError_t fp32_bwd(const Args& a, const BwdOut& o, float* ws, int chunk) {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // 16-byte copies and stores where every row of every operand allows them.
+cudaError_t dispatch_fp32_fwd(const Args& a, const void* b2, void* out, float* ws,
+                              float* scratch, int chunk, int splits) {
+  const bool vec = a.d % 4 == 0 && a.h % 4 == 0 && aligned16(a.x) && aligned16(a.w1) &&
+                   aligned16(a.w2) && aligned16(out) && aligned16(ws) && aligned16(scratch);
+  const float* bias = static_cast<const float*>(b2);
+  float* o = static_cast<float*>(out);
+  return vec ? fp32_fwd<true>(a, bias, o, ws, scratch, chunk, splits)
+             : fp32_fwd<false>(a, bias, o, ws, scratch, chunk, splits);
+}
+
 cudaError_t dispatch_fp32_bwd(const Args& a, const BwdOut& o, float* ws, int chunk) {
   const bool vec = a.d % 4 == 0 && a.h % 4 == 0 && aligned16(a.x) && aligned16(a.w1) &&
                    aligned16(a.w2) && aligned16(o.dy) && aligned16(o.dx) && aligned16(o.dw1) &&
@@ -840,27 +806,33 @@ cudaError_t dispatch_fp32_bwd(const Args& a, const BwdOut& o, float* ws, int chu
   return vec ? fp32_bwd<true>(a, o, ws, chunk) : fp32_bwd<false>(a, o, ws, chunk);
 }
 
-bool bad_shape(int rows, int d, int h, int dtype, const void* ws, int chunk, bool backward) {
-  if (rows < 1 || d < 1 || h < 1) return true;
-  if (dtype == 0) return backward && (ws == nullptr || chunk < sg::kBM || chunk % sg::kBM);
-  return dtype != 1 || d % 8 || h % 8 || ws == nullptr || chunk < gemm::kBM ||
-         chunk % gemm::kBM;
+bool bad_shape(int rows, int d, int h, int dtype, const void* ws, int chunk) {
+  if (rows < 1 || d < 1 || h < 1 || ws == nullptr) return true;
+  if (dtype == 0) return chunk < sg::kBM || chunk % sg::kBM;
+  return dtype != 1 || d % 8 || h % 8 || chunk < gemm::kBM || chunk % gemm::kBM;
 }
 
 }  // namespace
 
 // x, out [rows, d]; w1, w2 [h, d]; b1 [h]; b2 [d], all of one dtype (0 =
-// float32, 1 = bfloat16). bf16: d and h multiples of 8, x, w1, w2 16-byte
-// aligned, chunk_rows a multiple of 128, workspace [min(rows, chunk_rows), h]
-// bf16; float32: any d, workspace and chunk_rows unused. Returns a
-// cudaError_t (0 = launched).
+// float32, 1 = bfloat16); chunk_rows a multiple of 128. bf16: d and h
+// multiples of 8, x, w1, w2 16-byte aligned, workspace [min(rows,
+// chunk_rows), h] bf16; splits 1, scratch unused. float32: any d, workspace
+// [cap, h] float32 and, where splits > 1, scratch splits * cap * d float32
+// (a W2's K slices), cap the longest of the near-equal chunks of at most
+// chunk_rows rows (the wrapper's fp32_fwd_plan). Returns a cudaError_t (0 =
+// launched).
 extern "C" int colxlip_fused_mlp_fwd(const void* x, const void* w1, const void* b1,
                                      const void* w2, const void* b2, void* out, void* workspace,
-                                     int rows, int d, int h, int approximate, int chunk_rows,
-                                     int dtype, void* stream) {
-  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows, false)) return cudaErrorInvalidValue;
+                                     void* scratch, int rows, int d, int h, int approximate,
+                                     int chunk_rows, int splits, int dtype, void* stream) {
+  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows) || splits < 1 ||
+      (dtype == 1 && splits != 1) || (splits > 1 && scratch == nullptr))
+    return cudaErrorInvalidValue;
   const Args a{x, w1, b1, w2, rows, d, h, approximate, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_fwd<float>(a, b2, out);
+  if (dtype == 0)
+    return dispatch_fp32_fwd(a, b2, out, static_cast<float*>(workspace),
+                             static_cast<float*>(scratch), chunk_rows, splits);
   return bf16_fwd(a, b2, out, static_cast<bf16*>(workspace), chunk_rows);
 }
 
@@ -876,8 +848,7 @@ extern "C" int colxlip_fused_mlp_bwd(const void* x, const void* w1, const void* 
                                      void* workspace, int rows, int d, int h, int approximate,
                                      int splits, int colsum_blocks, int chunk_rows, int dtype,
                                      void* stream) {
-  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows, true) || splits < 1 ||
-      colsum_blocks < 1)
+  if (bad_shape(rows, d, h, dtype, workspace, chunk_rows) || splits < 1 || colsum_blocks < 1)
     return cudaErrorInvalidValue;
   const Args a{x, w1, b1, w2, rows, d, h, approximate, static_cast<cudaStream_t>(stream)};
   const BwdOut o{dy,

@@ -1,7 +1,9 @@
-// Tile code shared by the kernels that stream one matrix past a block's own
-// rows (csrc/fused_ce.cu, csrc/fused_mlp.cu): a [rows, cols] tile of dot
-// products held in registers, and the second product that adds a tile in
-// shared memory times the streamed matrix's rows into the block's owned rows.
+// Tile code shared by the fp32 CE kernels (csrc/fused_ce.cu), which stream
+// one matrix past a block's own rows: a [rows, cols] tile of dot products
+// held in registers, and the second product that adds a tile in shared
+// memory times the streamed matrix's rows into the block's owned rows. Its
+// second pass of a reduction across blocks, reduce_partials, also serves
+// csrc/fused_ln.cu and csrc/fused_mlp.cu.
 //
 // Every product runs as fp32 FMAs on the CUDA cores. A 16 x 16 thread block
 // holds the tile of raw dots in registers, fed from shared-memory chunks of
@@ -89,18 +91,17 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // out[r][c] += sum over the tile's `count` streamed rows s of
 // z[4 warp + r][s] * rows[s, lane + 32 c]: each warp owns 4 output rows and
-// the first `d` features of them (rows `ld` apart; a column slice of wider
-// rows where ld > d), and reads z as a warp-wide broadcast.
+// all d features of them, and reads z as a warp-wide broadcast.
 template <typename T, int DPT>
 __device__ __forceinline__ void accumulate(const float (&z)[kOwn][kStream + 1],
-                                           const T* __restrict__ rows, int count, int d, int ld,
+                                           const T* __restrict__ rows, int count, int d,
                                            float (&out)[kOwnPerWarp][DPT]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int s = 0; s < count; ++s) {
     float zr[kOwnPerWarp];
 #pragma unroll
     for (int r = 0; r < kOwnPerWarp; ++r) zr[r] = z[kOwnPerWarp * warp + r][s];
-    const T* row = rows + size_t(s) * ld;
+    const T* row = rows + size_t(s) * d;
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int col = lane + 32 * c;
@@ -113,13 +114,6 @@ __device__ __forceinline__ void accumulate(const float (&z)[kOwn][kStream + 1],
   }
 }
 
-template <typename T, int DPT>
-__device__ __forceinline__ void accumulate(const float (&z)[kOwn][kStream + 1],
-                                           const T* __restrict__ rows, int count, int d,
-                                           float (&out)[kOwnPerWarp][DPT]) {
-  accumulate<T, DPT>(z, rows, count, d, d, out);
-}
-
 template <int DPT>
 __device__ __forceinline__ void zero_owned(float (&out)[kOwnPerWarp][DPT]) {
 #pragma unroll
@@ -128,12 +122,12 @@ __device__ __forceinline__ void zero_owned(float (&out)[kOwnPerWarp][DPT]) {
     for (int c = 0; c < DPT; ++c) out[r][c] = 0.f;
 }
 
-// scale * out -> dst[first + 4 warp + r, :d] (fp32, rows `ld` apart) for the
-// owned rows below `limit`.
+// scale * out -> dst[first + 4 warp + r, :d] (fp32) for the owned rows
+// below `limit`.
 template <int DPT>
 __device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT],
                                             float* __restrict__ dst, int first, int limit, int d,
-                                            int ld, float scale) {
+                                            float scale) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < kOwnPerWarp; ++r) {
@@ -142,16 +136,9 @@ __device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT]
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int col = lane + 32 * c;
-      if (col < d) dst[size_t(row) * ld + col] = scale * out[r][c];
+      if (col < d) dst[size_t(row) * d + col] = scale * out[r][c];
     }
   }
-}
-
-template <int DPT>
-__device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT],
-                                            float* __restrict__ dst, int first, int limit, int d,
-                                            float scale) {
-  store_owned<DPT>(out, dst, first, limit, d, d, scale);
 }
 
 // out[i] = sum over s < splits of partials[s * n + i] in a fixed order: the
@@ -164,23 +151,38 @@ __device__ __forceinline__ void store_owned(const float (&out)[kOwnPerWarp][DPT]
 // time and no bit: at 264 rows the sliced form takes the LN's and the MLP's
 // bias reduces from 0.009 to 0.002-0.005 ms, at the fp32 MLP's 8 rows of
 // H x D it is ten times slower than the serial one (0.61 against 0.065 ms;
-// H100, PERF.md).
+// H100, PERF.md). A `Finish` applies once to each total, after the whole
+// sum: times *scale (the CE dA's logit scale, read on the device), then
+// + bias[i % period] (the fp32 MLP forward's b2); without one the total is
+// stored as it is.
 constexpr int kRedGroups = 32;
+
+struct Finish {
+  const float* scale = nullptr;
+  const float* bias = nullptr;
+  int period = 1;
+};
+
+__device__ __forceinline__ float finish(float total, int i, const Finish& f) {
+  if (f.scale != nullptr) total = *f.scale * total;
+  if (f.bias != nullptr) total += f.bias[i % f.period];
+  return total;
+}
 
 template <int kUnused = 0>
 __global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       float* __restrict__ out, int splits, int n) {
+                                       float* __restrict__ out, int splits, int n, Finish f) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float total = 0.f;
   for (int s = 0; s < splits; ++s) total += partials[size_t(s) * n + i];
-  out[i] = total;
+  out[i] = finish(total, i, f);
 }
 
 template <int kUnused = 0>
 __global__ void __launch_bounds__(32 * kRedGroups)
 reduce_partials_sliced_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                              int splits, int n) {
+                              int splits, int n, Finish f) {
   __shared__ float acc[kRedGroups][32];
   const int lane = threadIdx.x & 31, group = threadIdx.x >> 5;
   const int col = blockIdx.x * 32 + lane;
@@ -195,17 +197,17 @@ reduce_partials_sliced_kernel(const float* __restrict__ partials, float* __restr
     float sum = acc[0][lane];
 #pragma unroll
     for (int r = 1; r < kRedGroups; ++r) sum += acc[r][lane];
-    out[col] = sum;
+    out[col] = finish(sum, col, f);
   }
 }
 
 inline cudaError_t reduce_partials(const float* partials, float* out, int splits, int n,
-                                   cudaStream_t stream) {
+                                   cudaStream_t stream, Finish f = Finish()) {
   if (splits <= kRedGroups)
-    reduce_partials_kernel<><<<(n + 255) / 256, 256, 0, stream>>>(partials, out, splits, n);
+    reduce_partials_kernel<><<<(n + 255) / 256, 256, 0, stream>>>(partials, out, splits, n, f);
   else
     reduce_partials_sliced_kernel<><<<(n + 31) / 32, 32 * kRedGroups, 0, stream>>>(
-        partials, out, splits, n);
+        partials, out, splits, n, f);
   return cudaGetLastError();
 }
 

@@ -53,16 +53,17 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I, _P],
     # a, b, labels, scale, loss, lse, M, N, D, dtype, stream
     "colxlip_fused_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # a, b, labels, scale, lse, g, da, dscale, M, N, D, dtype, stream
-    "colxlip_fused_ce_bwd_da": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, labels, scale, lse, g, da, dscale, scratch, M, N, D, slices, dtype, stream
+    "colxlip_fused_ce_bwd_da": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, b, labels, scale, lse, g, db, M, N, D, dtype, stream
     "colxlip_fused_ce_bwd_db": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, gamma, beta, y, rows, D, eps, dtype, stream
     "colxlip_fused_ln_fwd": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     # x, gamma, dy, dx, partials, dgb, rows, D, eps, blocks, dtype, stream
     "colxlip_fused_ln_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P],
-    # x, w1, b1, w2, b2, out, workspace, rows, D, H, approximate, chunk_rows, dtype, stream
-    "colxlip_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, out, workspace, scratch, rows, D, H, approximate, chunk_rows,
+    # splits, dtype, stream
+    "colxlip_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w1, b1, w2, dy, dx, dw1, db1, dw2, db2, scratch, workspace, rows, D, H,
     # approximate, splits, colsum_blocks, chunk_rows, dtype, stream
     "colxlip_fused_mlp_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -222,3 +223,12 @@ def load_kernels() -> Kernels:
     lock keeps it to one build."""
     with _LOAD_LOCK:
         return _load()
+
+
+@functools.lru_cache(maxsize=None)
+def multiprocessors(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once: the
+    wrappers size their grids and K slices by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -15,7 +15,10 @@ dB; in bf16 all three run on the tensor cores through one logit tile, the
 backward with dz split into two bf16 halves), each beside a plain PyTorch
 version that walks the columns in chunks with the same online max / sum
 recurrence and an explicit backward, so its memory is O((M + N) D + M chunk)
-and it runs at M = N = 32768 as the oracle.
+and it runs at M = N = 32768 as the oracle. In float32 the dA kernel also
+splits b's rows into ``fp32_da_slices`` slices where its 32-row blocks alone
+would leave the card idle (M = 256: 8 blocks, 16 slices), each slice's
+partial dA and dscale added in slice order by a second pass.
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. There is no fallback.
 
@@ -30,7 +33,7 @@ from typing import Tuple
 
 import torch
 
-from .build import LaunchCounter, load_kernels
+from .build import LaunchCounter, load_kernels, multiprocessors
 
 # kernel launches (plain-version calls do not count), one count per kernel
 FWD_LAUNCHES = LaunchCounter()
@@ -38,6 +41,11 @@ BWD_DA_LAUNCHES = LaunchCounter()
 BWD_DB_LAUNCHES = LaunchCounter()
 MAX_FEATURES = 768
 PLAIN_CHUNK = 1024
+FP32_OWN_ROWS = 32               # stream_tile.cuh kOwn: rows of a a float32 dA block owns
+FP32_STREAM_ROWS = 64            # kStream: rows of b a tile, the unit of a dA slice
+FP32_MAX_DA_SLICES = 32          # kRedGroups: slices reduce_partials adds in order
+FP32_DA_SCRATCH_BYTES = 32 * 2**20   # the split dA's partials (dA and dscale) at most
+_BLOCKS_PER_SM = 2
 _NEG = -1e30     # the running max starts here, not at -inf: exp(-inf - -inf) is NaN
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -118,6 +126,23 @@ def fused_ce_bwd_db_plain(a: torch.Tensor, b: torch.Tensor, labels: torch.Tensor
     return scale * db
 
 
+def fp32_da_slices(m: int, n: int, d: int, sms: int) -> int:
+    """Slices of b's rows a float32 dA call is cut into (its grid.y): as
+    many as bring its ceil(M / 32) row blocks to two blocks a multiprocessor,
+    at most one 64-row tile of b a slice and FP32_MAX_DA_SLICES, within
+    FP32_DA_SCRATCH_BYTES of partials (S M (D + 1) fp32), none empty (the
+    kernel gives each slice ceil(tiles / S) tiles). 1 wherever the row
+    blocks fill the card on their own (M > 32 x 132 on the H100): there the
+    kernel is the unsplit walk. 16 at M = 256, N = 1024, D 512 (8 MiB)."""
+    blocks = -(-m // FP32_OWN_ROWS)
+    tiles = -(-n // FP32_STREAM_ROWS)
+    want = min(_BLOCKS_PER_SM * sms // blocks, tiles, FP32_MAX_DA_SLICES,
+               FP32_DA_SCRATCH_BYTES // (4 * m * (d + 1)))
+    if want <= 1:
+        return 1
+    return -(-tiles // -(-tiles // want))
+
+
 def _check_cuda(a, b, labels, scale, *more) -> Tuple[int, int, int]:
     dev = a.device
     if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
@@ -176,7 +201,8 @@ def mma_operands(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.
 
 def _launch_bwd(entry, a, b, labels, scale, lse, g, rows: int, with_dscale: bool):
     """One backward kernel on CUDA tensors: fp32 [rows, D] (and dscale rows
-    fp32 [M] with the dA kernel)."""
+    fp32 [M] with the dA kernel, whose float32 call takes ``fp32_da_slices``
+    slices of b and scratch for their partials)."""
     m, n, d = _check_cuda(a, b, labels, scale, ("lse", lse), ("g", g))
     _check_bwd(a, lse, g)
     if a.dtype == torch.bfloat16:
@@ -184,12 +210,20 @@ def _launch_bwd(entry, a, b, labels, scale, lse, g, rows: int, with_dscale: bool
     width = a.shape[1]
     kernels = load_kernels()
     out = torch.empty((rows, width), dtype=torch.float32, device=a.device)
-    dscale = torch.empty(m, dtype=torch.float32, device=a.device) if with_dscale else None
+    extra, sizes = (), (m, n, width)
+    if with_dscale:
+        dscale = torch.empty(m, dtype=torch.float32, device=a.device)
+        slices = 1
+        if a.dtype == torch.float32:
+            slices = fp32_da_slices(m, n, width, multiprocessors(a.device.index))
+        scratch = (torch.empty(slices * m * (width + 1), dtype=torch.float32, device=a.device)
+                   if slices > 1 else None)
+        extra = (dscale.data_ptr(), None if scratch is None else scratch.data_ptr())
+        sizes = (m, n, width, slices)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    extra = (dscale.data_ptr(),) if with_dscale else ()
     err = getattr(kernels, entry)(
         a.data_ptr(), b.data_ptr(), labels.data_ptr(), scale.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), out.data_ptr(), *extra, m, n, width, _DTYPE_CODES[a.dtype], stream)
+        g.data_ptr(), out.data_ptr(), *extra, *sizes, _DTYPE_CODES[a.dtype], stream)
     kernels.check(err, entry)
     out = out if width == d else out[:, :d].contiguous()
     return (out, dscale) if with_dscale else out

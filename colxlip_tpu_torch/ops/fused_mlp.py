@@ -33,14 +33,15 @@ design's whole memory cost (24.0 MiB forward, 25.0 backward at the vision
 shape). The tile sums K in its own order, so its bf16 forward is held to the
 exact function by a per-element bar derived from the roundings
 (``ops/fused_mlp_check.py``), not to the plain version's sgemm order.
-float32 runs on the CUDA cores, any D. Its forward holds a row block's
-[32, D] output in registers (past D = 768 the owned features are cut into
-slices of 512, each recomputing its hidden slice: ``fp32_feature_slices``).
-Its backward is the
-bf16 schedule on an fp32 GEMM tile (``csrc/sgemm_tile.cuh``) over chunks of
-``fp32_chunk_rows(H)`` rows, whose two fp32 [chunk, H] tiles stay in L2,
-with dh W1 cut into K slices where its tiles would leave the card half idle
-(``fp32_dx_splits``; more in a short last chunk: ``fp32_chunk_splits``).
+float32 runs on the CUDA cores, any D: both directions are the bf16
+schedule on an fp32 GEMM tile (``csrc/sgemm_tile.cuh``), the function's own
+4 and 10 R D H. The forward goes over near-equal chunks of at most
+``fp32_fwd_chunk_rows(H)`` rows (``fp32_fwd_plan``), whose one fp32
+[chunk, H] tile stays in L2; the backward over chunks of
+``fp32_chunk_rows(H)`` rows, whose two tiles do. Their kNN products (a W2,
+dh W1) are cut into K slices where the chunk's tiles would leave the card
+half idle (``fp32_k_splits``; more in a short chunk: ``fp32_chunk_splits``),
+added in slice order with b2 after the whole sum.
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. There is no fallback.
 
@@ -49,18 +50,16 @@ in ``models.layers.MLP`` through ``resolve_mlp_impl``.
 """
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
 
-from .build import LaunchCounter, load_kernels
+from .build import LaunchCounter, load_kernels, multiprocessors
 from .fused_ln import resolve_impl
 
 # kernel launches (plain-version calls do not count), one count per kernel
 FWD_LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
-FP32_SLICE_FEATURES = 512        # float32 forward past D = 768: owned features a block holds
 PLAIN_CHUNK = 4096
 _COLSUM_BLOCKS = 264             # partial rows of db2: two blocks a multiprocessor
 GEMM_ROWS = 128                  # csrc/mlp_gemm.cuh kBM: rows of a C tile
@@ -68,12 +67,13 @@ DB1_ROWS = 64                    # rows a warp sums into one row of db1 partials
 # bfloat16: a call's [chunk, H] bf16 tiles (two backward, one forward) fit in this much of the
 # H100's 50 MB L2, beside the weights and their fp32 gradients
 L2_WORKSPACE_BYTES = 24 * 2**20
-# float32 backward (csrc/sgemm_tile.cuh): its two [chunk, H] fp32 tiles fit in this much of L2
+# float32 (csrc/sgemm_tile.cuh): a chunk's [chunk, H] fp32 tiles (two backward) fit in this much
+# of L2
 FP32_L2_WORKSPACE_BYTES = 32 * 2**20
 SGEMM_ROWS = 128                 # kBM = kBN: rows and columns of a C tile
 SGEMM_K_STEP = 16                # kBK: k a stage
 FP32_DB1_ROWS = 32               # rows a warp sums into one row of db1 partials (kWM)
-FP32_MAX_DX_SPLITS = 4           # K slices of dh W1 at most
+FP32_MAX_DX_SPLITS = 4           # K slices of a kNN product (a W2, dh W1) at most
 _BLOCKS_PER_SM = 2               # the tile's __launch_bounds__
 _MAX_CHUNK_SPLITS = 32           # stream_tile.cuh kRedGroups: slices reduce_partials adds in order
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -197,18 +197,43 @@ def fp32_chunk_rows(h: int) -> int:
     return max(SGEMM_ROWS, FP32_L2_WORKSPACE_BYTES // (2 * 4 * h) // SGEMM_ROWS * SGEMM_ROWS)
 
 
-def fp32_dx_splits(rows: int, d: int, h: int, sms: int) -> int:
-    """K slices of the float32 backward's dh W1 product (K = H): enough that
-    a chunk's [chunk, D] tiles times the slices fill two blocks a
-    multiprocessor, at most FP32_MAX_DX_SPLITS, each slice whole k-steps of
-    16 and none empty (the kernel cuts K into ceil(steps / splits) steps a
-    slice). ``rows`` is the call's row count: its chunk is the smaller of it
-    and ``fp32_chunk_rows(h)``."""
-    cap = min(rows, fp32_chunk_rows(h))
+def fp32_fwd_chunk_rows(h: int) -> int:
+    """Most rows of one float32 forward chunk: a multiple of 128 such that
+    its one fp32 [chunk, H] tile (a) fits in FP32_L2_WORKSPACE_BYTES, twice
+    the backward's rows (2048 at H = 4096, 2688 at 3072)."""
+    return max(SGEMM_ROWS, FP32_L2_WORKSPACE_BYTES // (4 * h) // SGEMM_ROWS * SGEMM_ROWS)
+
+
+def fp32_fwd_plan(rows: int, h: int, chunk: int = 0) -> Tuple[int, int]:
+    """(chunks, cap) of a float32 forward, as ``csrc/fused_mlp.cu``
+    ``fp32_fwd`` cuts the rows: the fewest chunks of whole 128-row tiles that
+    keep each within ``chunk`` rows (``fp32_fwd_chunk_rows(h)`` by default),
+    near-equal (chunk c is tiles [c T / n, (c + 1) T / n) of the T tiles);
+    ``cap`` is the longest, which sizes the workspace. ViT-L's 4,112 rows at
+    H = 4096: three chunks of 11 tiles (1408, 1408, 1296 rows)."""
+    tiles = -(-rows // SGEMM_ROWS)
+    per = (chunk or fp32_fwd_chunk_rows(h)) // SGEMM_ROWS
+    chunks = -(-tiles // per)
+    return chunks, min(rows, -(-tiles // chunks) * SGEMM_ROWS)
+
+
+def fp32_k_splits(cap: int, d: int, h: int, sms: int) -> int:
+    """K slices of a float32 kNN product (K = H: the forward's a W2, the
+    backward's dh W1) over a chunk of ``cap`` rows: enough that its
+    [cap, D] tiles times the slices fill two blocks a multiprocessor, at
+    most FP32_MAX_DX_SPLITS, each slice whole k-steps of 16 and none empty
+    (the kernel cuts K into ceil(steps / splits) steps a slice)."""
     tiles = -(-cap // SGEMM_ROWS) * -(-d // SGEMM_ROWS)
     want = max(1, min(FP32_MAX_DX_SPLITS, _BLOCKS_PER_SM * sms // tiles))
     steps = -(-h // SGEMM_K_STEP)
     return -(-steps // -(-steps // want))
+
+
+def fp32_dx_splits(rows: int, d: int, h: int, sms: int) -> int:
+    """``fp32_k_splits`` of the float32 backward's dh W1: ``rows`` is the
+    call's row count, its chunk the smaller of it and
+    ``fp32_chunk_rows(h)``."""
+    return fp32_k_splits(min(rows, fp32_chunk_rows(h)), d, h, sms)
 
 
 def fp32_chunk_splits(rc: int, cap: int, d: int, h: int, splits: int, sms: int) -> int:
@@ -227,6 +252,17 @@ def fp32_chunk_splits(rc: int, cap: int, d: int, h: int, splits: int, sms: int) 
         want = max(splits, min(-(-(_BLOCKS_PER_SM * sms) // tiles), splits * cap // rc, steps,
                                _MAX_CHUNK_SPLITS))
     return -(-steps // -(-steps // want))
+
+
+def _fp32_fwd_workspace(rows: int, d: int, h: int, sms: int, chunk: int = 0,
+                        splits: int = 0) -> Tuple[int, int, int]:
+    """(tile, partials, splits) elements of a float32 forward: the [cap, H]
+    tile of a, and where a W2 is cut into K slices each slice's [cap, D].
+    ``chunk`` and ``splits`` (0: the rules) stand in for ``fp32_fwd_plan``'s
+    chunk and ``fp32_k_splits``."""
+    cap = fp32_fwd_plan(rows, h, chunk)[1]
+    splits = splits or fp32_k_splits(cap, d, h, sms)
+    return cap * h, (splits * cap * d if splits > 1 else 0), splits
 
 
 def _fp32_workspace(rows: int, d: int, h: int, sms: int) -> Tuple[int, int]:
@@ -255,24 +291,13 @@ def _bf16_workspace(rows: int, d: int, h: int, backward: bool) -> Tuple[int, int
 
 def workspace_bytes(rows: int, d: int, h: int, backward: bool,
                     dtype: torch.dtype = torch.bfloat16, sms: int = 132) -> int:
-    """Device memory a call allocates beside its outputs (a float32
-    forward: none)."""
+    """Device memory a call allocates beside its outputs."""
     if dtype == torch.float32:
-        return 4 * sum(_fp32_workspace(rows, d, h, sms)) if backward else 0
+        if backward:
+            return 4 * sum(_fp32_workspace(rows, d, h, sms))
+        return 4 * sum(_fp32_fwd_workspace(rows, d, h, sms)[:2])
     tiles, sums = _bf16_workspace(rows, d, h, backward)
     return 2 * tiles + 4 * sums
-
-
-def fp32_feature_slices(d: int) -> int:
-    """float32 forward: the slices of owned features a row block is cut into
-    (its grid.y): one up to D = 768, whose [32, D] fp32 tile fits in
-    registers, else slices of 512."""
-    return 1 if d <= 768 else -(-d // FP32_SLICE_FEATURES)
-
-
-@functools.lru_cache(maxsize=None)
-def _multiprocessors(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_cuda(name: str, x, w1, b1, w2, b2=None, dy=None) -> Tuple[int, int, int]:
@@ -294,19 +319,30 @@ def _check_cuda(name: str, x, w1, b1, w2, b2=None, dy=None) -> Tuple[int, int, i
     return rows, d, h
 
 
-def _launch_fwd(x, w1, b1, w2, b2, approximate: bool) -> torch.Tensor:
-    """The forward kernel on CUDA tensors (checks, never falls back)."""
+def _launch_fwd(x, w1, b1, w2, b2, approximate: bool,
+                fp32_plan: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """The forward kernel on CUDA tensors (checks, never falls back).
+    ``fp32_plan``, (chunk rows, K slices), stands in for the float32 rules
+    where it is not 0 (``scripts/torch_mlp_bench.py --fp32-plans``)."""
     rows, d, h = _check_cuda("fused_mlp", x, w1, b1, w2, b2)
     kernels = load_kernels()
     out = torch.empty_like(x)
-    ws = None
+    scratch, splits = None, 1
     if x.dtype == torch.bfloat16:
+        chunk = chunk_rows(h, backward=False)
         ws = torch.empty(_bf16_workspace(rows, d, h, False)[0], dtype=x.dtype, device=x.device)
+    else:
+        chunk = fp32_plan[0] or fp32_fwd_chunk_rows(h)
+        tile, partials, splits = _fp32_fwd_workspace(
+            rows, d, h, multiprocessors(x.device.index), chunk, fp32_plan[1])
+        ws = torch.empty(tile, dtype=x.dtype, device=x.device)
+        if partials:
+            scratch = torch.empty(partials, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = kernels.colxlip_fused_mlp_fwd(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(), rows, d, h, int(approximate),
-        chunk_rows(h, backward=False), _DTYPE_CODES[x.dtype], stream)
+        out.data_ptr(), ws.data_ptr(), None if scratch is None else scratch.data_ptr(), rows, d,
+        h, int(approximate), chunk, splits, _DTYPE_CODES[x.dtype], stream)
     kernels.check(err, "colxlip_fused_mlp_fwd")
     FWD_LAUNCHES.add()
     return out
@@ -332,7 +368,7 @@ def _launch_bwd(x, w1, b1, w2, dy, approximate: bool):
         splits, chunk = 1, chunk_rows(h)
         tiles, sums = _bf16_workspace(rows, d, h, True)
     else:
-        sms = _multiprocessors(dev.index)
+        sms = multiprocessors(dev.index)
         splits, chunk = fp32_dx_splits(rows, d, h, sms), fp32_chunk_rows(h)
         tiles, sums = _fp32_workspace(rows, d, h, sms)
     ws = torch.empty(tiles, dtype=x.dtype, device=dev)

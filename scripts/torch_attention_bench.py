@@ -3,15 +3,20 @@
 F.scaled_dot_product_attention on the same packed QKV.
 
     python3 scripts/torch_attention_bench.py [--plain] [--iters 20]
+        [--dtype float32 --shapes vit-l-b16,vit-l-text-b16]
 
 For each shape (the two towers of ViT-B-16 at batch 64 and 256, ViT-L/14's
-vision tower at batch 64, a long causal sequence) it first holds the forward
-and the backward kernel against their plain versions at batch 2 (the
-tolerances of chip_smoke.py), then times kernel and library call with CUDA
-events after a warm-up, in turns (kernel, library, library, kernel), and
-prints one line a shape plus the card's name and power limit. ``--plain``
-also times the plain versions (slow: they hold [B, H, N, N] in fp32).
-The library call is a yardstick only: the port never calls it.
+vision tower at batch 64, a long causal sequence; or those named by
+``--shapes``, among them ViT-L-14's two towers at chip_smoke.py phase 8b's
+batch 16) it first holds the forward and the backward kernel against their
+plain versions at batch 2 (the tolerances of chip_smoke.py for the dtype),
+then times kernel and library call with CUDA events after a warm-up, in
+turns (kernel, library, library, kernel), beside each kernel's bound
+(chip_smoke.py ``attention_bounds``), and prints one line a shape plus the
+card's name and power limit. ``--dtype float32`` runs the CUDA-core kernels
+and the library call in fp32 (TF32 off), as the fp32 ViT-L step does.
+``--plain`` also times the plain versions (slow: they hold [B, H, N, N] in
+fp32). The library call is a yardstick only: the port never calls it.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke  # noqa: E402
 from colxlip_tpu_torch.ops import attention  # noqa: E402
 
 SHAPES = [
@@ -35,8 +41,11 @@ SHAPES = [
     ("text-b256", 256, 77, 8, 64, True),
     ("vit-l-b64", 64, 257, 16, 64, False),
     ("long-causal", 8, 1024, 12, 64, True),
+    # chip_smoke.py phase 8b's ViT-L-14-colxlip step at batch 16 (run by --shapes)
+    ("vit-l-b16", 16, 257, 16, 64, False),
+    ("vit-l-text-b16", 16, 77, 12, 64, True),
 ]
-ATTN_TOL, BWD_TOL = 4e-3, 2.0 ** -7
+DEFAULT_SHAPES = "vision-b64,vision-b256,text-b256,vit-l-b64,long-causal"
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -56,17 +65,24 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--shapes", default=DEFAULT_SHAPES)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    dtype = getattr(torch, args.dtype)
+    fwd_tol, bwd_tol = chip_smoke.ATTN_TOL[args.dtype], chip_smoke.BWD_TOL[args.dtype]
     gen = torch.Generator().manual_seed(0)
     for name, b, n, h, d, causal in SHAPES:
-        qkv = torch.randn(b, n, 3 * h * d, generator=gen).to(dev, torch.bfloat16)
-        dout = torch.randn(b, n, h * d, generator=gen).to(dev, torch.bfloat16)
+        if name not in args.shapes.split(","):
+            continue
+        qkv = torch.randn(b, n, 3 * h * d, generator=gen).to(dev, dtype)
+        dout = torch.randn(b, n, h * d, generator=gen).to(dev, dtype)
         with torch.no_grad():
             small, gsmall = qkv[:2].contiguous(), dout[:2].contiguous()
             err_f = (attention.fused_mha_packed(small, h, causal).float()
@@ -74,7 +90,7 @@ def main() -> int:
             want = attention.fused_mha_bwd_plain(small, gsmall, h, causal).float()
             err_b = ((attention._launch_bwd(small, gsmall, h, causal).float() - want).abs().max()
                      / want.abs().max()).item()
-        if not (err_f <= ATTN_TOL and err_b <= BWD_TOL):
+        if not (err_f <= fwd_tol and err_b <= bwd_tol):
             raise RuntimeError(f"{name}: forward error {err_f}, backward error {err_b}")
         q, k, v = (t.contiguous().requires_grad_()
                    for t in qkv.view(b, n, 3, h, d).permute(2, 0, 3, 1, 4))
@@ -95,8 +111,12 @@ def main() -> int:
         def lib_bwd():
             torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
 
+        bounds = chip_smoke.attention_bounds(qkv, qkv, causal)
         row = {"shape": name, "B": b, "N": n, "H": h, "D": d, "causal": causal,
-               "fwd_err": err_f, "bwd_err": err_b}
+               "dtype": args.dtype, "fwd_err": err_f, "bwd_err": err_b,
+               "fwd_bound_ms": bounds["fused_attention_fwd"][0],
+               "bwd_bound_ms": bounds["fused_attention_bwd"][0],
+               "bound_by": bounds["fused_attention_fwd"][1]}
         for key, ker, lib in (("fwd", fwd, lib_fwd), ("bwd", bwd, lib_bwd)):
             t = [cuda_ms(f, args.iters) for f in (ker, lib, lib, ker)]
             row[f"{key}_ms"], row[f"{key}_sdpa_ms"] = min(t[0], t[3]), min(t[1], t[2])

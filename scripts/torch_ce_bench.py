@@ -2,10 +2,15 @@
 """Check and time the port's streaming-CE kernels on one NVIDIA GPU.
 
     python3 scripts/torch_ce_bench.py [--sizes 256,4096,32768] [--iters 10]
+                                      [--dtype float32]
 
 Runs the three kernels of ``csrc/fused_ce.cu`` alone in bf16 (forward #11,
-dA with the per-row dscale #12, dB #13). For each size M = N (D = 512, the
-logit scales of ``chip_smoke.py``'s ``CE_CASES``) and for the extra shapes
+dA with the per-row dscale #12, dB #13), or with ``--dtype float32`` on the
+CUDA cores (``--sizes 4096,8192``: the fp32 dA splits b's rows at 4096 and
+not at 8192, ``ops.fused_ce.fp32_da_slices``). For each size M = N (D = 512,
+the logit scales of ``chip_smoke.py``'s ``CE_CASES``), for "local-loss" (M
+256 x N 1024, D 512, labels 768.., rank 3's rows of a 4-rank local-loss clip
+step, as ``chip_smoke.py`` phase 12c) and for the extra shapes
 below it holds each kernel against its plain version under
 ``chip_smoke.py``'s bars (loss rows and lse 1e-5 of 1 + |value|; dA, dB and
 dscale 1e-4 of the largest |grad|) and checks that two backward runs give
@@ -16,8 +21,10 @@ dense pair (fp32 ``torch.matmul`` + ``F.cross_entropy``, which holds the
 loss under autograd through the kernels (forward + dA + dB), beside each
 kernel's bound, and reads each kernel's device time with torch.profiler.
 It prints the registers and spills of ``fused_ce.cu``'s kernels
-(``nvcc -Xptxas -v``), one line a case, the card's name and power limit,
-and one JSON object; it exits 1 if a check fails.
+(``nvcc -Xptxas -v``), one line a case with a SHA-256 of the backward's
+outputs (two trees on the same card can be compared line by line), the
+card's name and power limit, and one JSON object; it exits 1 if a check
+fails.
 
 The case "tied-100" (b = a at logit scale 100) is held to the same bars:
 there each row's own column has a logit of about 100, so a few fp32 steps
@@ -28,6 +35,7 @@ between the forward's and the backward's sums of <a_i, a_i> would move p by
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -41,19 +49,29 @@ from colxlip_tpu_torch.ops import build, fused_ce  # noqa: E402
 
 SCALES = {256: 1 / 0.07}          # chip_smoke.CE_CASES: 100 at the larger sizes
 EXTRA = [
-    # name, M, N, D, logit scale, b = a
-    ("vit-l-768", 4096, 4096, 768, 100.0, False),
-    ("ragged-64", 33, 129, 64, 30.0, False),
-    ("d36", 130, 200, 36, 20.0, False),
-    ("tied", 1024, 1024, 512, 1 / 0.07, True),
-    ("tied-100", 1024, 1024, 512, 100.0, True),
+    # name, M, N, D, logit scale, b = a, label offset (None: random labels), timed, dtypes
+    ("local-loss", 256, 1024, 512, 1 / 0.07, False, 768, True, ("bfloat16", "float32")),
+    ("vit-l-768", 4096, 4096, 768, 100.0, False, None, False, ("bfloat16",)),
+    ("ragged-64", 33, 129, 64, 30.0, False, None, False, ("bfloat16", "float32")),
+    ("d36", 130, 200, 36, 20.0, False, None, False, ("bfloat16", "float32")),
+    ("tied", 1024, 1024, 512, 1 / 0.07, True, None, False, ("bfloat16", "float32")),
+    ("tied-100", 1024, 1024, 512, 100.0, True, None, False, ("bfloat16",)),
 ]
 
 
-def inputs(m, n, d, scale, tied, dev, seed=0):
+def inputs(m, n, d, scale, tied, dev, seed=0, dtype=torch.bfloat16, offset=None):
     gen = torch.Generator().manual_seed(seed)
-    a, b, labels, s, g = chip_smoke.ce_inputs(m, n, d, scale, torch.bfloat16, dev, gen)
+    a, b, labels, s, g = chip_smoke.ce_inputs(m, n, d, scale, dtype, dev, gen)
+    if offset is not None:
+        labels = (torch.arange(m, dtype=torch.int32) + offset).to(dev)
     return a, (a.clone() if tied else b), labels, s, g
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def check(a, b, labels, s, g):
@@ -78,7 +96,7 @@ def check(a, b, labels, s, g):
     same = all(torch.equal(x, y) for x, y in zip((da, ds, db), again))
     good = (err["fwd"] <= chip_smoke.CE_FWD_TOL and torch.isfinite(loss).all().item()
             and max(err["da"], err["dscale"], err["db"]) <= chip_smoke.CE_BWD_TOL and same)
-    return err, same, good, lse
+    return err, same, good, lse, {"da": digest(da, ds), "db": digest(db), "lse": digest(lse)}
 
 
 def time_size(m, a, b, labels, s, lse, g, iters):
@@ -122,7 +140,7 @@ def time_size(m, a, b, labels, s, lse, g, iters):
         lambda: (fused_ce._launch_fwd(a, b, labels, s),
                  fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
                  fused_ce._launch_bwd_db(a, b, labels, s, lse, g)),
-        2 if m > 4096 else 5, r"(ce_\w+_kernel(?:<[^>]*>)?)")
+        2 if m > 4096 else 5, r"(ce_\w+_kernel(?:<[^>]*>)?|reduce_partials\w*)")
     return row, dense_ms, autograd_ms, passes
 
 
@@ -130,6 +148,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", default="256,4096,32768")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_ce_bench: no CUDA device", file=sys.stderr)
@@ -141,20 +160,29 @@ def main() -> int:
     usage = build.resource_usage(["fused_ce"])
     print(f"build {kernels.build_seconds:.1f} s; fused_ce.cu registers / stack / spill stores / "
           "spill loads: " + "; ".join(f"{k} {v}" for k, v in sorted(usage.items())), flush=True)
-    results, ok = {"registers": usage}, True
-    cases = [(f"{m}", m, m, 512, SCALES.get(m, 100.0), False)
-             for m in (int(x) for x in args.sizes.split(","))] + EXTRA
-    for name, m, n, d, scale, tied in cases:
-        a, b, labels, s, g = inputs(m, n, d, scale, tied, dev)
-        err, same, good, lse = check(a, b, labels, s, g)
+    results, ok = {"registers": usage, "dtype": args.dtype}, True
+    dtype = getattr(torch, args.dtype)
+    cases = [(f"{m}", m, m, 512, SCALES.get(m, 100.0), False, None, True)
+             for m in (int(x) for x in args.sizes.split(","))]
+    cases += [case[:-1] for case in EXTRA if args.dtype in case[-1]]
+    for name, m, n, d, scale, tied, offset, timed in cases:
+        a, b, labels, s, g = inputs(m, n, d, scale, tied, dev, dtype=dtype, offset=offset)
+        err, same, good, lse, digests = check(a, b, labels, s, g)
         ok &= good
-        entry = {"m": m, "n": n, "d": d, "scale": scale, "tied": tied, "errors": err,
-                 "bit_equal": same, "ok": good}
-        line = (f"{name} M={m} N={n} D={d} scale={scale:.4g}{' b=a' if tied else ''}: errors "
+        slices = (fused_ce.fp32_da_slices(m, n, d, torch.cuda.get_device_properties(dev)
+                                          .multi_processor_count)
+                  if dtype == torch.float32 and hasattr(fused_ce, "fp32_da_slices") else 1)
+        entry = {"m": m, "n": n, "d": d, "scale": scale, "tied": tied, "label_offset": offset,
+                 "errors": err, "bit_equal": same, "ok": good, "da_slices": slices,
+                 "sha256": digests}
+        line = (f"{name} M={m} N={n} D={d} scale={scale:.4g}{' b=a' if tied else ''}"
+                + (f" labels {offset}.." if offset is not None else "")
+                + f" {args.dtype} (dA in {slices} slices of b): errors "
                 + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
-                + f"; reruns {'bit-equal' if same else 'DIFFER'}"
+                + f"; reruns {'bit-equal' if same else 'DIFFER'}; sha256 "
+                + ", ".join(f"{k} {v}" for k, v in digests.items())
                 + ("" if good else "  FAILED"))
-        if name.isdigit():
+        if timed:
             iters = max(2, args.iters // 5) if m > 4096 else args.iters
             row, dense_ms, autograd_ms, passes = time_size(m, a, b, labels, s, lse, g, iters)
             entry.update(timing=row, dense_ms=dense_ms, autograd_ms=autograd_ms,

@@ -26,9 +26,14 @@ one line a case with a SHA-256 of each output (two trees on the same card
 and seed can be compared line by line), the card's name and power limit,
 and one JSON object. With ``--dtype float32`` the same runs in fp32 on the
 CUDA cores (any D: ``--cases vit-l,vision`` are the fp32 ViT-L-14 step's
-MLP and the vision tower's; the backward's products are the fp32 GEMM tile
-``mlp_sgemm_kernel`` by layout and epilogue; bars 1e-5 forward of max(1,
-max |out|), 1e-4 backward; the bound at 67 TFLOP/s).
+MLP and the vision tower's; both directions' products are the fp32 GEMM
+tile ``mlp_sgemm_kernel`` by layout and epilogue; bars 1e-5 forward of
+max(1, max |out|), 1e-4 backward; the bound at 67 TFLOP/s).
+``--fp32-plans 1024x4,2048x0`` also times the fp32 forward under each
+(chunk rows x K slices of a W2; 0 slices: the wrapper's rule) in place of
+the wrapper's plan, each held to the same bar with reruns bit-equal: the
+measurement the wrapper's rule (``ops.fused_mlp.fp32_fwd_chunk_rows``,
+``fp32_k_splits``) was chosen by.
 
     python3 scripts/torch_mlp_bench.py --cases none --draws 32
 
@@ -141,6 +146,7 @@ def main() -> int:
     ap.add_argument("--cases", default=",".join(c[0] for c in CASES))
     ap.add_argument("--draws", type=int, default=0)
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--fp32-plans", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_mlp_bench: no CUDA device", file=sys.stderr)
@@ -216,18 +222,21 @@ def main() -> int:
         for key in ("fwd", "bwd"):
             ms[key]["bound"] = bound_ms(rows, d, h, key == "bwd", fp32)
         products = {"fwd": product_ms(fns["fwd"][0]), "bwd": product_ms(fns["bwd"][0])}
+        plans = time_fp32_plans(args.fp32_plans, (x, w1, b1, w2, b2), args.iters) if fp32 else {}
+        fwd_ok &= all(v["ok"] for v in plans.values())
         good = fwd_ok and bwd_err <= bwd_tol and same
         ok &= good
         results[name] = {"rows": rows, "d": d, "h": h,
                          "chunk_rows": {"fwd": fused_mlp.chunk_rows(h, False),
                                         "bwd": fused_mlp.chunk_rows(h)},
-                         "workspace_bytes": {k: fused_mlp.workspace_bytes(rows, d, h, k == "bwd")
+                         "workspace_bytes": {k: fused_mlp.workspace_bytes(rows, d, h, k == "bwd",
+                                                                          dtype)
                                              for k in ("fwd", "bwd")},
                          "digest": digests, "fwd_bar_ok": fwd_ok, "fwd_bar": bar,
                          "fwd_err": fwd_err,
                          "bwd_err": bwd_err, "bit_equal": same,
                          "out_not_equal_to_plain": out_off, "dx_not_equal_to_plain": dx_off,
-                         "ms": ms, "products_ms": products}
+                         "ms": ms, "products_ms": products, "fp32_plans": plans}
         print(f"{name} {rows} x {d} x {h} {args.dtype}: forward {'held' if fwd_ok else 'FAILED'} "
               f"(max_abs_err / max(1, max|out|) against plain {fwd_err:.3g}), "
               f"backward {bwd_err:.3g} "
@@ -249,6 +258,36 @@ def main() -> int:
     print(card)
     print(json.dumps({"card": card, "ok": ok, "cases": results}))
     return 0 if ok else 1
+
+
+def time_fp32_plans(spec: str, args, iters: int) -> dict:
+    """The fp32 forward under each plan of ``spec`` ("chunk x slices", comma
+    separated) and under the wrapper's own: ms (the faster of two reads),
+    max_abs_err / max(1, max |out|) against the plain version, reruns
+    bit-equal."""
+    plans = {}
+    if hasattr(fused_mlp, "fp32_fwd_plan"):
+        rows, d, h = args[0].numel() // args[0].shape[-1], args[0].shape[-1], args[1].shape[0]
+        chunks, cap = fused_mlp.fp32_fwd_plan(rows, h)
+        sms = torch.cuda.get_device_properties(args[0].device).multi_processor_count
+        print(f"fp32 forward plan of the wrapper: {chunks} chunks of at most {cap} rows, a W2 in "
+              f"{fused_mlp.fp32_k_splits(cap, d, h, sms)} K slices", flush=True)
+    want = fused_mlp.fused_mlp_plain(*args, False)
+    for item in (s for s in spec.split(",") if s):
+        chunk, splits = (int(v) for v in item.split("x"))
+
+        def run():
+            return fused_mlp._launch_fwd(*args, False, fp32_plan=(chunk, splits))
+
+        got, again = run(), run()
+        err = rel_err(got, want, 1.0)
+        plans[item] = {"ms": min(cuda_ms(run, iters), cuda_ms(run, iters)), "err": err,
+                       "bit_equal": torch.equal(got, again),
+                       "ok": err <= FP32_TOL[0] and torch.equal(got, again)}
+        print(f"  fp32 forward plan {item}: {plans[item]['ms']:.4f} ms, error {err:.3g}, reruns "
+              f"{'bit-equal' if plans[item]['bit_equal'] else 'DIFFER'}", flush=True)
+        del got, again
+    return plans
 
 
 def survey_draws(count: int, dev) -> dict:

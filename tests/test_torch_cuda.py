@@ -519,6 +519,29 @@ def test_fused_ce_kernels_match_plain(dev, m, n, d, scale, dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
 
 
+@pytest.mark.parametrize("m,n,d,offset", [(256, 1024, 512, 768), (70, 1000, 40, 700)])
+def test_fused_ce_fp32_da_split_matches_plain_and_repeats(dev, m, n, d, offset):
+    """#12 in fp32 split across b's rows (16 slices at both shapes: a
+    4-rank local-loss step's 256 x 1024 with rank 3's labels, and a ragged
+    one at D = 40): dA and dscale within CE_BWD_TOL of the plain version, the
+    same bits twice, one launch a call."""
+    a, b, _, s, g = _ce_inputs(m, n, d, 30.0, dev, torch.float32, seed=5)
+    labels = (torch.arange(m, dtype=torch.int32) + offset).to(dev)
+    assert fused_ce.fp32_da_slices(m, n, d, torch.cuda.get_device_properties(dev)
+                                   .multi_processor_count) > 1
+    _, lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    before = fused_ce.BWD_DA_LAUNCHES.value
+    da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+    da2, ds2 = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+    torch.cuda.synchronize()
+    assert fused_ce.BWD_DA_LAUNCHES.value == before + 2
+    want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, lse, g)
+    for got, want in ((da, want_da), (ds, want_ds)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+    assert torch.equal(da, da2) and torch.equal(ds, ds2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_kernels_match_plain_when_b_is_a(dev, dtype):
     """b = a: each row's own column is its largest logit (p near 1) beside a
@@ -878,6 +901,26 @@ def test_mlp_fp32_backward_chunks_match_plain_and_repeat(dev, b, n, d, h):
         torch.testing.assert_close(g, w, rtol=0, atol=_grad_tol(w, torch.float32))
     for first, second in zip(got, again):
         assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("b,n,d,h", [(1, 70, 1000, 4000), (16, 257, 1024, 4096),
+                                     (3, 77, 38, 90)])
+def test_mlp_fp32_forward_chunks_match_plain_and_repeat(dev, b, n, d, h):
+    """#9 in fp32 on the CUDA-core GEMM tile: ragged rows with a D and H no
+    tile divides, ViT-L-14's step shape (three near-equal chunks, a W2 in
+    three K slices), and D, H not multiples of 4 (4-byte copies): within
+    FUSED_FWD_TOL fp32 of the plain version, the same bits twice, one launch
+    a call."""
+    x, w1, b1, w2, b2, _ = _mlp_inputs(b, n, d, h, dev, torch.float32, seed=4)
+    before = fused_mlp.FWD_LAUNCHES.value
+    out = fused_mlp._launch_fwd(x, w1, b1, w2, b2, False)
+    again = fused_mlp._launch_fwd(x, w1, b1, w2, b2, False)
+    torch.cuda.synchronize()
+    assert fused_mlp.FWD_LAUNCHES.value == before + 2
+    want = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    torch.testing.assert_close(out, want, rtol=0, atol=_fwd_tol(want, torch.float32))
+    assert torch.equal(out, again)
 
 
 def _assert_inside_mlp_bar(out, bar):

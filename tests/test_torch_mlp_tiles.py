@@ -28,16 +28,21 @@ must fail it, holds the backward against the unchanged plain version
 the largest |grad|), and both against the JAX package's Pallas kernels in
 interpret mode under ``tests/test_torch_fused.py``'s bf16 bars (2e-2).
 
-In float32 the backward runs the same schedule on ``csrc/sgemm_tile.cuh``
-(128 x 128 C tiles of fp32 fmaf chains, K in ascending order) over chunks of
-``ops.fused_mlp.fp32_chunk_rows(H)``, dh W1 cut into ``fp32_dx_splits`` K
-slices added in slice order, db1 from each warp's 32-row column sums
-(a thread's 8 rows in order, then the xor butterfly over its 4 row lanes).
-``tiled_fp32_backward`` writes that walk with every fmaf (a float64 product
-and sum rounded once to fp32) and is held to ``fused_mlp_bwd_plain`` and the
-JAX ``_bwd_call`` in interpret mode at ``FUSED_BWD_TOL`` fp32 (1e-4 of the
-largest |grad|); tests pin the header's and the wrapper's constants and the
-staging's bank and coalescing claims.
+In float32 both directions run the same schedule on ``csrc/sgemm_tile.cuh``
+(128 x 128 C tiles of fp32 fmaf chains, K in ascending order). The backward
+goes over chunks of ``ops.fused_mlp.fp32_chunk_rows(H)``, dh W1 cut into
+``fp32_dx_splits`` K slices added in slice order, db1 from each warp's
+32-row column sums (a thread's 8 rows in order, then the xor butterfly over
+its 4 row lanes); the forward over near-equal chunks of whole 128-row tiles
+(``fp32_fwd_plan``), x W1^T with the GELU in its epilogue, then a W2 in
+``fp32_k_splits`` K slices, added in slice order with b2 once after the sum.
+``tiled_fp32_backward`` and ``tiled_fp32_forward`` write those walks with
+every fmaf (a float64 product and sum rounded once to fp32) and are held to
+``fused_mlp_bwd_plain`` / ``fused_mlp_plain`` and the JAX ``_bwd_call`` /
+``_fwd_call`` in interpret mode at ``FUSED_BWD_TOL`` fp32 (1e-4 of the
+largest |grad|) and ``FUSED_FWD_TOL`` fp32 (1e-5 of max(1, max|out|));
+tests pin the header's and the wrapper's constants, the chunk and slice
+rules, the workspace and the staging's bank and coalescing claims.
 """
 from __future__ import annotations
 
@@ -523,76 +528,12 @@ def test_tiled_mlp_matches_jax_pallas(approximate):
 
 
 # ---------------------------------------------------------------------------
-# float32: the CUDA-core walk, cut into feature slices past D = 768
-# ---------------------------------------------------------------------------
-
-OWN, STREAM = 32, 64          # stream_tile.cuh kOwn, kStream
-FP32_FWD_TOL = 1e-5           # chip_smoke.py FUSED_FWD_TOL["float32"]
-
-
-def fp32_walk_forward(x, w1, b1, w2, b2, approximate, slices):
-    """``mlp_fwd_kernel<float, DPT>`` over a grid of row blocks x ``slices``
-    feature slices of 32 DPT columns: each block takes 64 hidden units at a
-    time (h from the full-D dot, a = gelu(h)) and adds a's product with the
-    slice's columns of W2 unit by unit in order into its fp32 output, as
-    ``accumulate`` does; b2 is added after the rounding."""
-    rows, d = x.shape
-    width = -(-d // slices) if slices == 1 else fused_mlp.FP32_SLICE_FEATURES
-    out = torch.empty_like(x)
-    for r0 in range(0, rows, OWN):
-        xs = x[r0:r0 + OWN]
-        for c0 in range(0, d, width):
-            cols = slice(c0, min(d, c0 + width))
-            acc = torch.zeros(xs.shape[0], cols.stop - c0)
-            for h0 in range(0, w1.shape[0], STREAM):
-                h = torch.matmul(xs, w1[h0:h0 + STREAM].T) + b1[h0:h0 + STREAM]
-                a = fused_mlp.kernel_gelu(h, approximate)
-                for s in range(a.shape[1]):
-                    acc = acc + a[:, s:s + 1] * w2[h0 + s, cols]
-            out[r0:r0 + OWN, cols] = acc + b2[cols]
-    return out
-
-
-def test_fp32_feature_slices_are_the_kernels_own():
-    """The fp32 forward's feature slices (the backward has no owned tile to
-    slice since it runs on the GEMM tile)."""
-    src = (CSRC / "fused_mlp.cu").read_text()
-    assert "if (a.d <= 512 || a.d > 768) return launch_fwd<T, 16>(a, b2, out);" in src
-    assert "launch_bwd<" not in src and "mlp_bwd_dw_kernel" not in src
-    assert "return (d + 32 * DPT - 1) / (32 * DPT);" in src
-    assert fused_mlp.FP32_SLICE_FEATURES == 32 * 16
-    assert [fused_mlp.fp32_feature_slices(d) for d in (40, 768, 769, 1000, 1024, 1025, 4096)] \
-        == [1, 1, 2, 2, 2, 3, 8]
-    assert not hasattr(fused_mlp, "MAX_FEATURES")
-
-
-@pytest.mark.parametrize("d", [1000, 1100])
-def test_fp32_slices_cover_every_feature_and_keep_each_sum(d):
-    """The cut walk gives every output element the same sum, in the same
-    order, as one slice over all D would (bit for bit), and both match the
-    plain version within the fp32 forward bar."""
-    gen = torch.Generator().manual_seed(d)
-    rows, h = 70, 96
-    x = torch.randn(rows, d, generator=gen)
-    w1 = torch.randn(h, d, generator=gen) * d ** -0.5
-    b1 = torch.randn(h, generator=gen) * 0.1
-    w2 = torch.randn(h, d, generator=gen) * h ** -0.5
-    b2 = torch.randn(d, generator=gen) * 0.1
-    slices = fused_mlp.fp32_feature_slices(d)
-    assert (slices - 1) * fused_mlp.FP32_SLICE_FEATURES < d <= slices * fused_mlp.FP32_SLICE_FEATURES
-    cut = fp32_walk_forward(x, w1, b1, w2, b2, False, slices)
-    whole = fp32_walk_forward(x, w1, b1, w2, b2, False, 1)
-    assert torch.equal(cut, whole)
-    want = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, False)
-    assert _rel(cut, want, 1.0) <= FP32_FWD_TOL
-
-
-# ---------------------------------------------------------------------------
-# float32 backward: the bf16 schedule on the CUDA-core GEMM tile
+# float32: the bf16 schedule on the CUDA-core GEMM tile
 # ---------------------------------------------------------------------------
 
 SG_BM, SG_BK, SG_STAGES, SG_PAD = 128, 16, 3, 4      # sgemm_tile.cuh kBM (= kBN), kBK, ...
 SG_WARPS_M, SG_WARPS_N = 4, 2
+FP32_FWD_TOL = 1e-5                                  # chip_smoke.py FUSED_FWD_TOL["float32"]
 FP32_BWD_TOL = 1e-4                                  # chip_smoke.py FUSED_BWD_TOL["float32"]
 FP32_SHAPES = [
     # rows, D, H, chunk rows
@@ -710,7 +651,7 @@ def test_fp32_tile_constants_are_the_kernels_own():
     assert 2 * smem <= 232448 and smem > 48 * 1024     # dynamic, after the attribute
     assert "const int kslice = (steps + splits - 1) / splits * sg::kBK;" in src
     assert "int((long long)splits * cap / rc), steps, kRedGroups}));" in src
-    assert "const int splits = chunk_splits(rc, cap, a.d, a.h, o.splits, sms);" in src
+    assert "const int splits = chunk_splits(rc, cap, d, h, call_splits, sms);" in src
     assert fused_mlp._MAX_CHUNK_SPLITS == 32
     assert "sg::kWarpsM * ((cap + sg::kBM - 1) / sg::kBM)" in src
     assert "return dispatch_fp32_bwd(a, o, static_cast<float*>(workspace), chunk_rows);" in src
@@ -718,6 +659,7 @@ def test_fp32_tile_constants_are_the_kernels_own():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     assert smoke.FUSED_BWD_TOL["float32"] == FP32_BWD_TOL
+    assert smoke.FUSED_FWD_TOL["float32"] == FP32_FWD_TOL
 
 
 def test_fp32_chunks_stay_in_l2_and_under_one_hidden_tensor():
@@ -729,7 +671,8 @@ def test_fp32_chunks_stay_in_l2_and_under_one_hidden_tensor():
         hidden = rows * h * 4                          # one [B, N, H] fp32 tensor
         got = fused_mlp.workspace_bytes(rows, d, h, True, torch.float32)
         assert got < hidden, (rows, got, hidden)
-        assert fused_mlp.workspace_bytes(rows, d, h, False, torch.float32) == 0
+        fwd = fused_mlp.workspace_bytes(rows, d, h, False, torch.float32)
+        assert 0 < fwd < hidden, (rows, fwd, hidden)
     # the ViT-L tiles and dx's four K slices: 32 + 16 MiB and the sums
     cap = 1024
     assert fused_mlp.workspace_bytes(16 * 257, 1024, 4096, True, torch.float32) == 4 * (
@@ -849,3 +792,152 @@ def test_fp32_short_chunks_take_more_dx_slices_within_the_scratch():
         per = -(-steps // got)
         assert splits <= got <= 32 and got * rc <= splits * cap, (rc, got)
         assert (got - 1) * per < steps <= got * per
+
+
+# ---------------------------------------------------------------------------
+# float32 forward: x W1^T (+ gelu) and a W2 on the same tile, chunked
+# ---------------------------------------------------------------------------
+
+def tiled_fp32_forward(x, w1, b1, w2, b2, approximate, chunk, splits):
+    """fused_mlp.cu fp32_fwd on fp32 x [rows, D], w1, w2 [H, D]: near-equal
+    chunks of whole 128-row tiles within ``chunk`` rows (chunk c is tiles
+    [c T / n, (c + 1) T / n)); per chunk x W1^T (kNT, kEpiGelu: a =
+    gelu(acc + b1)) into a workspace whose rows past the chunk hold NaN, then
+    a W2 (kNN, K = H) in ``fp32_chunk_splits`` K slices of whole k-steps,
+    each an fmaf chain from zero, added in slice order from zero with b2
+    added once after the sum (reduce_partials' Finish), or in one launch
+    (kEpiBias: acc + b2)."""
+    rows, d = x.shape
+    h = w1.shape[0]
+    chunks, cap = fused_mlp.fp32_fwd_plan(rows, h, chunk)
+    tiles, steps = -(-rows // SG_BM), -(-h // SG_BK)
+    ws = torch.full((cap, h), float("nan"))
+    out = torch.full((rows, d), float("nan"))
+    for c in range(chunks):
+        r0 = tiles * c // chunks * SG_BM
+        rc = min(rows, tiles * (c + 1) // chunks * SG_BM) - r0
+        ws[:rc] = fused_mlp.kernel_gelu(sgemm(x[r0:r0 + rc], w1.T) + b1, approximate)
+        slices = fused_mlp.fp32_chunk_splits(rc, cap, d, h, splits, 132)
+        if slices == 1:
+            out[r0:r0 + rc] = sgemm(ws[:rc], w2) + b2
+            continue
+        kslice = -(-steps // slices) * SG_BK
+        total = torch.zeros(rc, d)
+        for k0 in range(0, h, kslice):
+            total = total + sgemm(ws[:rc, k0:k0 + kslice], w2[k0:k0 + kslice])
+        out[r0:r0 + rc] = total + b2
+    return out
+
+
+def _fp32_fwd_splits(rows, d, h, chunk):
+    return fused_mlp.fp32_k_splits(fused_mlp.fp32_fwd_plan(rows, h, chunk)[1], d, h, 132)
+
+
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("rows,d,h,chunk", FP32_SHAPES)
+def test_tiled_fp32_forward_matches_plain(rows, d, h, chunk, approximate):
+    """Within FUSED_FWD_TOL fp32 of max(1, max|out|) of the plain version:
+    ragged chunks, H no tile divides, the short chunk's a W2 in more K
+    slices."""
+    x, w1, b1, w2, b2, _ = _fp32_inputs(rows, d, h, seed=12)
+    got = tiled_fp32_forward(x, w1, b1, w2, b2, approximate, chunk,
+                             _fp32_fwd_splits(rows, d, h, chunk))
+    want = fused_mlp.fused_mlp_plain(x, w1, b1, w2, b2, approximate)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert _rel(got, want, 1.0) <= FP32_FWD_TOL
+
+
+@pytest.mark.parametrize("rows,d,h", [(72, 64, 256), (70, 1000, 160)])
+def test_tiled_fp32_forward_matches_jax_pallas(rows, d, h):
+    """Against the JAX package's Pallas forward (``_fwd_call``, interpret
+    mode) at fp32, W1 in the JAX layout [D, H]; D = 1000 is no multiple of
+    the tile's 128 columns or its 16-deep k-steps."""
+    x, w1, b1, w2, b2, _ = _fp32_inputs(rows, d, h, seed=13)
+    want = jax_mlp._fwd_call(jnp.asarray(x.numpy().reshape(2, rows // 2, d)),
+                             jnp.asarray(w1.T.numpy()), jnp.asarray(b1.numpy()),
+                             jnp.asarray(w2.numpy()), jnp.asarray(b2.numpy()), False, 0, True)
+    want = torch.from_numpy(np.array(want, np.float32).reshape(rows, d))
+    chunk = fused_mlp.fp32_fwd_chunk_rows(h)
+    got = tiled_fp32_forward(x, w1, b1, w2, b2, False, chunk, _fp32_fwd_splits(rows, d, h, chunk))
+    assert torch.isfinite(got).all()
+    assert _rel(got, want, 1.0) <= FP32_FWD_TOL
+
+
+def test_fp32_forward_one_chunk_or_many_give_the_same_function():
+    """The chunks move no sum of x W1^T, and the a W2 sums only where a
+    chunk takes another count of K slices (the 44-row last chunk takes 6,
+    the full ones 3, as one chunk of 300 does): those rows within fp32's
+    reordering, the rest bit for bit."""
+    x, w1, b1, w2, b2, _ = _fp32_inputs(300, 64, 96, seed=14)
+    assert fused_mlp.fp32_fwd_plan(300, 96, 128) == (3, 128)
+    assert fused_mlp.fp32_fwd_plan(300, 96, 384) == (1, 300)
+    assert _fp32_fwd_splits(300, 64, 96, 128) == _fp32_fwd_splits(300, 64, 96, 384) == 3
+    assert fused_mlp.fp32_chunk_splits(44, 128, 64, 96, 3, 132) == 6
+    many = tiled_fp32_forward(x, w1, b1, w2, b2, False, 128, 3)
+    one = tiled_fp32_forward(x, w1, b1, w2, b2, False, 384, 3)
+    assert torch.equal(many[:256], one[:256])
+    assert _rel(many[256:], one[256:], 1.0) <= 1e-6
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4])
+def test_fp32_forward_split_product_is_its_slices_added_in_order(splits):
+    """a W2 cut into K slices of whole k-steps (the kernel's kslice): each
+    slice's product from zero, the slices added in order from zero, b2 once
+    after the sum, bit for bit; the same function as one slice within
+    fp32's reordering."""
+    rows, d, h = 130, 48, 200
+    x, w1, b1, w2, b2, _ = _fp32_inputs(rows, d, h, seed=15)
+    assert fused_mlp.fp32_chunk_splits(rows, rows, d, h, splits, 132) == splits
+    got = tiled_fp32_forward(x, w1, b1, w2, b2, False, 256, splits)
+    a = fused_mlp.kernel_gelu(sgemm(x, w1.T) + b1, False)
+    steps = -(-h // SG_BK)
+    kslice = -(-steps // splits) * SG_BK
+    bounds = list(range(0, h, kslice)) + [h]
+    assert len(bounds) - 1 == splits and all(k % SG_BK == 0 for k in bounds[:-1])
+    total = torch.zeros(rows, d)
+    for k0, k1 in zip(bounds, bounds[1:]):
+        total = total + sgemm(a[:, k0:k1], w2[k0:k1])
+    assert torch.equal(got, total + b2)
+    whole = tiled_fp32_forward(x, w1, b1, w2, b2, False, 256, 1)
+    assert _rel(got, whole, 1.0) <= 1e-6
+
+
+def test_fp32_forward_plan_and_workspace_are_the_sources():
+    """The wrapper's near-equal chunks, K slices and workspace are the
+    kernel's (fused_mlp.cu fp32_fwd, kn_product), at phase 8b's ViT-L MLP and
+    the vision tower's; the fp32 forward is the GEMM tile's, with no
+    owned-feature walk left."""
+    src = (CSRC / "fused_mlp.cu").read_text()
+    for line in ("const int tiles = (a.rows + sg::kBM - 1) / sg::kBM, per = chunk / sg::kBM;",
+                 "const int chunks = (tiles + per - 1) / per;",
+                 "const int cap = std::min(a.rows, (tiles + chunks - 1) / chunks * sg::kBM);",
+                 "const int r0 = int((long long)tiles * c / chunks) * sg::kBM;",
+                 "launch_sgemm<sg::kNT, VEC, kEpiGelu>(up, e_up, a.stream)",
+                 "return reduce_partials(scratch, out, splits, rc * d, stream, "
+                 "Finish{nullptr, bias, d});"):
+        assert line in src, line
+    assert src.count("kn_product<VEC>(") == 2           # a W2 and dh W1: one function
+    for gone in ("mlp_fwd_kernel", "feature_slices", "launch_fwd"):
+        assert gone not in src, gone
+    assert not hasattr(fused_mlp, "fp32_feature_slices")
+    assert not hasattr(fused_mlp, "FP32_SLICE_FEATURES")
+    for h in (2048, 3072, 4096):
+        c = fused_mlp.fp32_fwd_chunk_rows(h)
+        assert c % SG_BM == 0 and c * h * 4 <= fused_mlp.FP32_L2_WORKSPACE_BYTES
+        assert c >= 2 * fused_mlp.fp32_chunk_rows(h)
+    assert fused_mlp.fp32_fwd_plan(16 * 257, 4096) == (3, 1408)
+    assert fused_mlp.fp32_fwd_plan(256 * 197, 3072) == (19, 2688)
+    for rows, h in ((16 * 257, 4096), (256 * 197, 3072), (300, 96), (127, 4096)):
+        chunks, cap = fused_mlp.fp32_fwd_plan(rows, h)
+        tiles = -(-rows // SG_BM)
+        sizes = [min(rows, tiles * (c + 1) // chunks * SG_BM) - tiles * c // chunks * SG_BM
+                 for c in range(chunks)]
+        assert sum(sizes) == rows and max(sizes) == cap
+        assert max(sizes) - min(sizes) <= SG_BM          # near-equal: a tile apart at most
+        assert cap <= fused_mlp.fp32_fwd_chunk_rows(h)
+    assert fused_mlp.fp32_k_splits(1408, 1024, 4096, 132) == 3
+    assert fused_mlp.fp32_k_splits(2688, 768, 3072, 132) == 2
+    assert fused_mlp.workspace_bytes(16 * 257, 1024, 4096, False, torch.float32) == 4 * (
+        1408 * 4096 + 3 * 1408 * 1024)
+    assert fused_mlp.workspace_bytes(256 * 197, 768, 3072, False, torch.float32) == 4 * (
+        2688 * 3072 + 2 * 2688 * 768)
