@@ -17,9 +17,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      against its plain PyTorch version at the serving shapes, and each
      backward kernel against its plain version at the training shapes (batch
      256) in fp32 and bf16, with the tolerances below; the attention kernels
-     also at ViT-L/14's 257 tokens (bf16 and fp32), at 1024 tokens under the
-     causal mask and at a ragged head_dim-32 shape, and two runs of the
-     attention backward at the vision shape must agree bit for bit; the
+     also at ViT-L/14's 257 tokens (bf16 and fp32), in fp32 at its 577
+     tokens at 336 px, at 1024 tokens under the causal mask and at a ragged
+     head_dim-32 shape (both types), and two runs of the attention backward
+     at the vision shape must agree bit for bit in each type; the
      MaxSim forward in fp32 at the serving shape (64 x 64) and in fp32 and
      bf16 at the training shape (256 x 256, the main path's) and at 100 text
      against 577 image tokens (ViT-L/14 at 336 px), the MaxSim backward at
@@ -63,7 +64,9 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      version (the MaxSim kernels also pass by pass, torch.profiler), and
      against the one PyTorch call that computes the same
      function where there is one (scaled_dot_product_attention, forward and
-     backward, at the vision shape and at ViT-L/14's; for the streaming CE the pair torch.matmul + F.cross_entropy
+     backward, at the vision shape and at ViT-L/14's, and in fp32 at phase
+     8b's two towers beside the attention kernels' fp32 path and its bound;
+     for the streaming CE the pair torch.matmul + F.cross_entropy
      over the dense logits is timed beside it; F.layer_norm forward and
      backward beside the LayerNorm kernels; the three calls F.linear,
      F.gelu, F.linear and their autograd backward beside the MLP kernels, at
@@ -446,9 +449,13 @@ VIT_L_FP32_STEPS = 3        # 8b's fp32 step: the median of steps 2-3
 ATTN_EXTRA_CASES = [
     ("vit-l", 8, 257, 16, 64, False, ("bfloat16",)),        # one live key in the fifth tile
     ("vit-l-fp32", 2, 257, 16, 64, False, ("float32",)),
-    ("long-causal", 2, 1024, 4, 64, True, ("bfloat16",)),   # 16 key tiles, most skipped
-    ("ragged-d32", 3, 65, 4, 32, True, ("bfloat16",)),
+    ("vit-l-336", 2, 577, 16, 64, False, ("float32",)),     # one live key in the tenth tile
+    ("long-causal", 2, 1024, 4, 64, True, ("bfloat16", "float32")),  # 16 key tiles, most skipped
+    ("ragged-d32", 3, 65, 4, 32, True, ("bfloat16", "float32")),
 ]
+# phase 5: #1 and #2 in fp32 at phase 8b's two towers (ViT-L-14-colxlip at
+# batch VIT_L_BATCH): name, N, H, causal; head_dim 64
+FP32_ATTN_SHAPES = [("vision", 257, 16, False), ("text", 77, 12, True)]
 # the bare tile product against torch.matmul: fp32 sums of exact bf16 products
 # in another order (values up to about 30); the second product reads the first
 # rounded to bf16, where the two may land one step apart (2^-8 relative a term)
@@ -1306,6 +1313,37 @@ def time_library_attention(qkv, dout, heads: int, causal: bool):
     return fwd, bwd
 
 
+def time_fp32_attention(dev, gen, card: str) -> dict:
+    """Phase 5: #1 and #2 in fp32 at phase 8b's two towers (FP32_ATTN_SHAPES
+    at batch VIT_L_BATCH): kernel, plain version, fp32 SDPA (TF32 off) and
+    the bound, each direction."""
+    import torch
+
+    from colxlip_tpu_torch.ops import attention
+
+    out = {}
+    for name, n, h, causal in FP32_ATTN_SHAPES:
+        qkv = torch.randn(VIT_L_BATCH, n, 3 * h * 64, generator=gen).to(dev)
+        dout = torch.randn(VIT_L_BATCH, n, h * 64, generator=gen).to(dev)
+        with torch.inference_mode():
+            fwd = (cuda_ms(lambda: attention.fused_mha_packed(qkv, h, causal), 20),
+                   cuda_ms(lambda: attention.fused_mha_plain(qkv, h, causal), 10))
+        bwd = (cuda_ms(lambda: attention._launch_bwd(qkv, dout, h, causal), 20),
+               cuda_ms(lambda: attention.fused_mha_bwd_plain(qkv, dout, h, causal), 10))
+        sdpa = time_library_attention(qkv, dout, h, causal)
+        bnd = attention_bounds(qkv, qkv, causal)
+        out[name] = {"batch": VIT_L_BATCH, "n": n, "heads": h, "causal": causal}
+        for key, (ker, plain), lib in (("fwd", fwd, sdpa[0]), ("bwd", bwd, sdpa[1])):
+            bound = bnd[f"fused_attention_{key}"]
+            out[name].update({f"{key}_ms": ker, f"{key}_plain_ms": plain,
+                              f"{key}_sdpa_ms": lib, f"{key}_bound_ms": bound[0]})
+            log(f"[5 timing] attention fp32 {key} at 8b's {name} tower B={VIT_L_BATCH} N={n} "
+                f"H={h} D=64 causal={causal}: kernel {ker:.4f} ms, plain {plain:.4f} ms, "
+                f"SDPA {lib:.4f} ms, bound {bound[0]:.5f} ms by {bound[1]} ({card})")
+        del qkv, dout
+    return out
+
+
 def check_backward_kernels(dev, gen):
     """Phase 3b: each backward kernel against its plain version at the
     training shapes, in fp32 and bf16. Returns (max errors, timing inputs)."""
@@ -1335,7 +1373,7 @@ def check_backward_kernels(dev, gen):
             errs["attention_bwd"] = max(errs["attention_bwd"], err)
             if dtype == torch.bfloat16 and name in ("vision", "text", "tiny-d32"):
                 inputs[f"attention_bwd/{name}"] = (q, g, h, causal)
-            if dtype == torch.bfloat16 and name == "vision":
+            if name == "vision":
                 # no atomics in either pass: a second run gives the same bits
                 same = torch.equal(got, attention._launch_bwd(q, g, h, causal))
                 log(f"[3 kernels] attention bwd {name} {dtype}: two runs "
@@ -4884,8 +4922,8 @@ def main() -> int:
         ("text", 64, 77, 8, 64, True, torch.bfloat16),
         ("tiny-d32", 8, 32, 4, 32, True, torch.bfloat16),
         ("vision-fp32", 64, 197, 12, 64, False, torch.float32),
-        *((name, b, n, h, d, causal, getattr(torch, dtypes[0]))
-          for name, b, n, h, d, causal, dtypes in ATTN_EXTRA_CASES),
+        *((name, b, n, h, d, causal, getattr(torch, dtype))
+          for name, b, n, h, d, causal, dtypes in ATTN_EXTRA_CASES for dtype in dtypes),
     ]
     attn_inputs, attn_err = {}, 0.0
     with torch.inference_mode():
@@ -5083,6 +5121,7 @@ def main() -> int:
             f"kernel {vit_l_bwd[0]:.4f} ms, plain {vit_l_bwd[1]:.4f} ms, SDPA {sdpa_l[1]:.4f} ms, "
             f"bound {vit_l_bounds['fused_attention_bwd'][0]:.5f} ms ({card})")
         del qkv_l, dout_l
+        attention_fp32 = time_fp32_attention(dev, gen, card)
         usage_thread.join(timeout=300)
         for name, (regs, stack, stores, loads) in sorted(usage.items()):
             log(f"[5 timing] ptxas {name}: {regs} registers, {stack} bytes stack, spills "
@@ -5280,6 +5319,7 @@ def main() -> int:
             "fwd_sdpa_ms": sdpa_l[0], "fwd_bound_ms": vit_l_bounds["fused_attention_fwd"][0],
             "bwd_ms": vit_l_bwd[0], "bwd_plain_ms": vit_l_bwd[1], "bwd_sdpa_ms": sdpa_l[1],
             "bwd_bound_ms": vit_l_bounds["fused_attention_bwd"][0]},
+        "attention_fp32_8b": attention_fp32,
         "attention_registers": {k: v[0] for k, v in usage.items()},
         "vit_l_train": {"model": VIT_L_MODEL, "batch": VIT_L_BATCH, "step_ms": vit_l["step_ms"],
                         "launches": vit_l["launches"], "losses": vit_l["losses"]},

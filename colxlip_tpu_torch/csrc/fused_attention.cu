@@ -53,25 +53,39 @@
 // 256, which fill 132 SMs with small blocks; a warpgroup-wide 64 x 256
 // instruction has nothing larger to chew on here.
 //
-// fp32 inputs (`attn_fwd_fp32_kernel`) keep the first version's CUDA-core
-// design, because bf16 or TF32 operands cannot meet a 1e-5 tolerance and no
-// main path runs fp32 attention: one block per (query tile of 64, head, batch
-// row) stages all of K_h and V_h in shared memory, one warp per query row,
-// lanes over keys for the scores and over output dimensions for PV. Its N is
-// bounded by the 232,448 bytes of shared memory a block can have (the
-// launcher refuses above). The entry point returns cudaGetLastError(),
-// because a refused launch never runs and a later synchronize would not
-// report it.
+// Design, fp32 inputs (`attn_fwd_fp32_kernel`): fp32 FMAs on the CUDA cores,
+// because bf16 or TF32 operands cannot meet the 1e-5 tolerance
+// (csrc/sgemm_tile.cuh says why). The grid is the bf16 kernel's: one block of
+// 128 threads per (query tile of 64, head, batch row); K and V walk past in
+// key tiles of 64, double-buffered by 16-byte cp.async copies (rows past N
+// zero-filled), so there is no limit on N. Every product is the register-
+// blocked tile of attention_tile.cuh `attn32`: a thread holds 8 query rows x
+// 4 keys of S = scale Q K^T and 8 rows x D/16 columns of O, fed by float4
+// reads of row-major tiles. One sweep with an online softmax: per key tile
+// m' = max(m, rowmax S), a = expf(m - m'), e = expf(S - m'), l = a l + the
+// thread's own sum of e, O = a O + e . V, and at the end l is the fixed
+// xor-butterfly sum of the 16 threads' partials and out = O / l. In fp32
+// there is no rounding point that needs the final max (the bf16 kernel sweeps
+// twice only to round e against it): the rescaled e differs from
+// exp(s - m) by a few ulp, and the function's own 2 N^2 D products suffice.
+// e goes through shared memory as P^T, in rows that only the writing
+// half-warp reads: a __syncwarp, not a barrier. A warp multiplies only the
+// groups of 16 keys that one of its rows can see, and a warp whose rows all
+// lie past N multiplies nothing. Shared memory is 104,448 bytes at D = 64
+// (Q, two K and two V tiles, P^T; rows padded to 16 bytes past a multiple of
+// 128), so two blocks of four warps share an SM; 168 registers, no spills.
+// What limits it as measured on the H100 (PERF.md section 6): at ViT-L's 257
+// tokens the kernel runs at 37% of the fp32 FMA peak, counting the ragged
+// tiles it multiplies. Not occupancy: one buffer of K and V (three blocks an
+// SM) measured the same there. Each 4 k of a product is 12 float4 shared
+// loads for 128 fmaf, and the softmax's expf sits between the two products.
+// The entry point returns cudaGetLastError(), because a refused launch never
+// runs and a later synchronize would not report it.
 
 #include "attention_tile.cuh"
 
 namespace {
 
-using colxlip::align16;
-using colxlip::from_f;
-using colxlip::to_f;
-using colxlip::warp_max;
-using colxlip::warp_sum;
 namespace mma = colxlip::mma;
 using mma::bf16;
 
@@ -209,128 +223,131 @@ cudaError_t launch_mma(const void* qkv, void* out, int b, int n, int heads, int 
   return cudaGetLastError();
 }
 
-// ---- fp32: CUDA cores, all of K_h and V_h in shared memory -----------------
+// ---- fp32: register-blocked CUDA-core tiles (attention_tile.cuh attn32) ------
 
-constexpr int kWarps = 8;
+namespace a32 = colxlip::attn32;
 
-// K row stride in elements: an odd number of 32-bit words, so the 32 lanes
-// reading 32 different keys hit 32 different banks.
-template <typename T, int D>
-__host__ __device__ constexpr int k_stride() { return colxlip::odd_word_stride<T, D>(); }
-
-template <typename T, int D>
-__host__ __device__ inline size_t kv_bytes(int n) {
-  return align16(size_t(n) * k_stride<T, D>() * sizeof(T) + size_t(n) * D * sizeof(T));
+// Q tile, two K tiles, two V tiles, the transposed probability tile
+template <int D>
+constexpr size_t smem_fp32() {
+  return (5 * size_t(a32::tile_floats<D>()) + a32::kTransposedFloats) * sizeof(float);
 }
 
-template <typename T, int D>
-size_t smem_bytes(int n) {
-  return kv_bytes<T, D>(n) + size_t(kWarps) * D * sizeof(float) + size_t(kWarps) * n * sizeof(float);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_fwd_fp32_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n, int heads,
+template <int D>
+__global__ void __launch_bounds__(a32::kThreads, 2)
+attn_fwd_fp32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int n, int heads,
                      int causal, float scale) {
-  constexpr int KS = k_stride<T, D>();
+  constexpr int TILE = a32::tile_floats<D>();
+  constexpr int CW = D / 16;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int row0 = blockIdx.x * a32::kRows;
   const int hd = heads * D;
   const size_t tok = 3 * size_t(hd);
-  const T* base = qkv + size_t(b) * n * tok;
+  const float* qg = qkv + size_t(b) * n * tok + h * D;
+  const float* kg = qg + hd;
+  const float* vg = qg + 2 * hd;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + size_t(n) * KS;
-  float* qs = reinterpret_cast<float*>(smem + kv_bytes<T, D>(n));
-  float* ps = qs + kWarps * D;
+  extern __shared__ __align__(16) float smem32[];
+  float* qs = smem32;
+  float* ks = qs + TILE;      // two buffers
+  float* vs = ks + 2 * TILE;  // two buffers
+  float* ps = vs + 2 * TILE;  // P^T: [key][query row]
 
-  const int nk = causal ? min(n, row0 + kRowsPerBlock) : n;
-  for (int idx = threadIdx.x; idx < nk * D; idx += blockDim.x) {
-    const int j = idx / D, d = idx - j * D;
-    const T* t = base + size_t(j) * tok + h * D + d;
-    ks[j * KS + d] = t[hd];
-    vs[j * D + d] = t[2 * hd];
+  const int tiles = causal ? blockIdx.x + 1 : (n + a32::kRows - 1) / a32::kRows;
+  a32::stage_rows<D>(qs, qg, tok, row0, n);
+  a32::stage_rows<D>(ks, kg, tok, 0, n);
+  a32::stage_rows<D>(vs, vg, tok, 0, n);
+  mma::cp_async_commit();
+
+  float m[8], l[8], o[8][CW];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) o[i][j] = 0.f;
   }
-  __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* q = qs + warp * D;
-  float* p = ps + warp * n;
-  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
-    const int i = row0 + r;
-    if (i >= n) break;
-    const T* qrow = base + size_t(i) * tok + h * D;
-    for (int d = lane; d < D; d += 32) q[d] = to_f(qrow[d]);
-    __syncwarp();
-
-    const int nkeys = causal ? i + 1 : n;
-    float mx = -INFINITY;
-    for (int j = lane; j < nkeys; j += 32) {
-      const T* krow = ks + j * KS;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(q[d], to_f(krow[d]), s);
-      s *= scale;
-      p[j] = s;
-      mx = fmaxf(mx, s);
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    // tile t has arrived, and every warp is done with the other buffers (it
+    // read them in the step before): one barrier serves both, then the next
+    // tile's copies run under this step's products
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < tiles) {
+      a32::stage_rows<D>(ks + (buf ^ 1) * TILE, kg, tok, (t + 1) * a32::kRows, n);
+      a32::stage_rows<D>(vs + (buf ^ 1) * TILE, vg, tok, (t + 1) * a32::kRows, n);
+      mma::cp_async_commit();
     }
-    mx = warp_max(mx);
+    const int key0 = t * a32::kRows;
+    const int live = a32::live_cols(key0, row0, n, causal);
+    if (live <= 0) continue;  // warp-uniform: the warp's rows all lie past n
 
-    float sum = 0.f;
-    for (int j = lane; j < nkeys; j += 32) {
-      const float e = expf(p[j] - mx);
-      sum += e;
-      p[j] = to_f(from_f<T>(e));  // the PV operand in the input dtype
+    float s[8][4];
+    a32::abt<D>(s, qs, ks + buf * TILE, (live + 15) >> 4);
+    a32::scale_scores(s, row0, key0, n, causal, scale);
+    // one sweep, online: the running max m, l and O rescaled by
+    // a = expf(m_old - m_new) whenever the max grows
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float mt = a32::row_max(fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])));
+      const float mn = fmaxf(m[i], mt);
+      const float ref = mn == -INFINITY ? 0.f : mn;  // a row with no live key yet
+      const float a = expf(m[i] - ref);
+      m[i] = mn;
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = expf(s[i][c] - ref);
+        rs += s[i][c];
+      }
+      l[i] = l[i] * a + rs;
+#pragma unroll
+      for (int j = 0; j < CW; ++j) o[i][j] *= a;
     }
-    sum = warp_sum(sum);
+    a32::store_transposed(ps, s);
     __syncwarp();
-
-    float acc[D / 32];
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[c] = 0.f;
-    for (int j = 0; j < nkeys; ++j) {
-      const float pj = p[j];
-      const T* vrow = vs + j * D + lane;
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) acc[c] = fmaf(pj, to_f(vrow[32 * c]), acc[c]);
-    }
-    T* orow = out + (size_t(b) * n + i) * hd + h * D + lane;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) orow[32 * c] = from_f<T>(acc[c] / sum);
-    __syncwarp();
+    a32::pb<D>(o, ps, vs + buf * TILE, 0, live);
+    __syncwarp();  // every lane has read P^T before the next step writes it
   }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float sum = a32::row_sum(l[i]);
+#pragma unroll
+    for (int j = 0; j < CW; ++j) o[i][j] /= sum;
+  }
+  a32::store_rows<D>(out + size_t(b) * n * hd + h * D, hd, row0, n, o);
 }
 
 template <int D>
 cudaError_t launch_fp32(const void* qkv, void* out, int b, int n, int heads, int causal,
                         float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<float, D>(n);
-  if (smem > colxlip::kMaxSharedBytes) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_fp32_kernel<float, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, b);
-  attn_fwd_fp32_kernel<float, D><<<grid, kWarps * 32, smem, stream>>>(
+  constexpr size_t smem = smem_fp32<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_fwd_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((n + a32::kRows - 1) / a32::kRows, heads, b);
+  attn_fwd_fp32_kernel<D><<<grid, a32::kThreads, smem, stream>>>(
       static_cast<const float*>(qkv), static_cast<float*>(out), n, heads, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv, out: device pointers; dtype 0 = float32, 1 = bfloat16 (16-byte aligned
-// pointers). Returns a cudaError_t (0 = launched).
+// qkv, out: 16-byte aligned device pointers; dtype 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
 extern "C" int colxlip_attention_fwd(const void* qkv, void* out, int b, int n, int heads,
                                      int head_dim, int causal, int dtype, float scale,
                                      void* stream) {
   if (b < 1 || b > 65535 || heads < 1 || heads > 65535 || n < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return cudaErrorMisalignedAddress;
   if (dtype == 0 && head_dim == 32) return launch_fp32<32>(qkv, out, b, n, heads, causal, scale, s);
   if (dtype == 0 && head_dim == 64) return launch_fp32<64>(qkv, out, b, n, heads, causal, scale, s);
-  if (dtype == 1 && (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out)) & 15)
-    return cudaErrorMisalignedAddress;
   if (dtype == 1 && head_dim == 32) return launch_mma<32>(qkv, out, b, n, heads, causal, scale, s);
   if (dtype == 1 && head_dim == 64) return launch_mma<64>(qkv, out, b, n, heads, causal, scale, s);
   return cudaErrorInvalidValue;

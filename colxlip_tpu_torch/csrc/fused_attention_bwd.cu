@@ -56,25 +56,42 @@
 // 300-400 bytes and measured 31% slower. wgmma and TMA are not used, for the
 // reason given in fused_attention.cu.
 //
-// fp32 inputs keep the first version's CUDA-core kernels (bf16 or TF32
-// operands cannot meet a 1e-5 tolerance, and no main path runs fp32
-// attention): the dQ pass stages all of K_h and V_h in shared memory with one
-// warp per query row, the dK/dV pass all of Q_h and dO_h with one warp per
-// key row, rebuilding p and dz from the stored max, sum and delta. Their N is
-// bounded by the 232,448 bytes of shared memory a block can have (the
-// launcher refuses above). Each entry point returns cudaGetLastError() so a
-// refused launch is reported.
+// Design, fp32 inputs: the bf16 path's two passes and scratch, on the
+// register-blocked CUDA-core tile of attention_tile.cuh `attn32` (8 x 4
+// elements of each 64 x 64 score tile a thread, float4 reads of row-major
+// tiles; fp32 FMAs only, for the reason given in fused_attention.cu). Both
+// stream 64-row tiles, so there is no limit on N; no atomics, so two runs
+// give the same bits.
+//   1. `attn_bwd_dq_fp32_kernel`, one block of 128 threads per (query tile of
+//      64, head, batch row); Q and dO staged once, K and V double-buffered,
+//      swept twice:
+//        sweep A: S and dP = dO . V^T -> the online max m, l and
+//                 u = sum e dp, both rescaled by expf(m_old - m_new) as in
+//                 the forward; at its end 1 / l and delta = u / l;
+//        sweep B: S and dP again -> p = expf(s - m) / l,
+//                 dz = p (dp - delta) scale, dQ += dz . K.
+//      Five N^2 D products. dz^T goes through the V tile the step has just
+//      read (one barrier more a step), which keeps two blocks an SM.
+//   2. `attn_bwd_dkv_fp32_kernel`, one block per (key tile of 64, head, batch
+//      row); K and V staged once, Q, dO and the statistics streamed one tile
+//      at a time (from the diagonal tile when causal): S^T = K . Q^T and
+//      dP^T = V . dO^T, p and dz rebuilt from the statistics (0 for dead
+//      pairs by selection), dV += p^T . dO and dK += dz^T . Q. Four products.
+// Nine N^2 D products against the function's five (the bf16 path runs ten).
+// Shared memory 104,448 and 105,216 bytes at D = 64, two blocks of four warps
+// an SM; 230 and 254 registers, no spills. What limits it as measured on the
+// H100 (PERF.md section 6): the passes run at 41% and 42% of the fp32 FMA peak
+// at ViT-L's 257 tokens, counting the ragged tiles they multiply, held back
+// as the forward is. One buffer of K and V in the dQ pass (three blocks an
+// SM, 168 registers) spilled 120 bytes and measured 3-6% slower. Partial dQ
+// tiles written by the dK/dV pass would take two products off, for scratch
+// of N / 64 copies of dQ: not built. Each entry point returns
+// cudaGetLastError() so a refused launch is reported.
 
 #include "attention_tile.cuh"
 
 namespace {
 
-using colxlip::align16;
-using colxlip::from_f;
-using colxlip::round_to;
-using colxlip::to_f;
-using colxlip::warp_max;
-using colxlip::warp_sum;
 namespace mma = colxlip::mma;
 using mma::bf16;
 
@@ -378,281 +395,300 @@ cudaError_t launch_mma(const void* qkv, const void* dout, void* dqkv, void* stat
   return cudaGetLastError();
 }
 
-// ---- fp32: CUDA cores, whole operands of a head in shared memory -------------
+// ---- fp32: register-blocked CUDA-core tiles (attention_tile.cuh attn32) ------
 
-constexpr int kWarps = 8;
+namespace a32 = colxlip::attn32;
 
-// Both passes stage two [rows, D] operands of the (batch row, head) in
-// shared memory, plus per-warp fp32 rows of D and of N values.
-template <typename T, int D>
-__host__ __device__ inline size_t pair_bytes(int rows) {
-  return align16(2 * size_t(rows) * colxlip::odd_word_stride<T, D>() * sizeof(T));
+// dQ pass: Q and dO tiles, two K and two V tiles. dz^T goes into the V tile
+// its step has read where a transposed tile fits there (D = 64: two blocks
+// an SM), else into a tile of its own.
+template <int D>
+__host__ __device__ constexpr bool z_in_v() {
+  return a32::tile_floats<D>() >= a32::kTransposedFloats;
 }
 
-template <typename T, int D>
-size_t smem_dq(int n) {
-  return pair_bytes<T, D>(n) + size_t(kWarps) * (2 * D + 2 * n) * sizeof(float);
+template <int D>
+constexpr size_t smem_dq_fp32() {
+  return (6 * size_t(a32::tile_floats<D>()) + (z_in_v<D>() ? 0 : a32::kTransposedFloats)) *
+         sizeof(float);
 }
 
-template <typename T, int D>
-size_t smem_dkv(int n) {
-  return pair_bytes<T, D>(n) + 3 * size_t(n) * sizeof(float) +
-         size_t(kWarps) * (2 * D + 2 * n) * sizeof(float);
+// dK/dV pass: K, V, Q and dO tiles, the transposed p and dz tiles, the three
+// statistics of 64 query rows.
+template <int D>
+constexpr size_t smem_dkv_fp32() {
+  return (4 * size_t(a32::tile_floats<D>()) + 2 * a32::kTransposedFloats + 3 * a32::kRows) *
+         sizeof(float);
 }
 
-// Pass 1: dQ and the per-row statistics (max, sum, delta).
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_bwd_dq_fp32_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                   T* __restrict__ dqkv, float* __restrict__ stats, int n, int heads,
-                   int causal, float scale) {
-  constexpr int KS = colxlip::odd_word_stride<T, D>();
+// Pass 1: the statistics (max, 1 / sum, delta) and dQ.
+template <int D>
+__global__ void __launch_bounds__(a32::kThreads, 2)
+attn_bwd_dq_fp32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                        float* __restrict__ dqkv, float* __restrict__ stats, int n, int heads,
+                        int causal, float scale) {
+  constexpr int TILE = a32::tile_floats<D>();
+  constexpr int CW = D / 16;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int row0 = blockIdx.x * a32::kRows;
   const int hd = heads * D;
   const size_t tok = 3 * size_t(hd);
-  const T* base = qkv + size_t(b) * n * tok;
-  const T* dbase = dout + size_t(b) * n * hd;
-  T* gbase = dqkv + size_t(b) * n * tok;
-  const size_t plane = size_t(gridDim.z) * heads * n;
-  float* row_max = stats + (size_t(b) * heads + h) * n;
-  float* row_sum = row_max + plane;
-  float* row_delta = row_max + 2 * plane;
+  const float* qg = qkv + size_t(b) * n * tok + h * D;
+  const float* kg = qg + hd;
+  const float* vg = qg + 2 * hd;
+  const float* dog = dout + size_t(b) * n * hd + h * D;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + size_t(n) * KS;
-  float* qs = reinterpret_cast<float*>(smem + pair_bytes<T, D>(n));
-  float* dos = qs + kWarps * D;
-  float* ps = dos + kWarps * D;
-  float* dps = ps + kWarps * n;
+  extern __shared__ __align__(16) float smem32[];
+  float* qs = smem32;
+  float* dos = qs + TILE;
+  float* ks = dos + TILE;     // two buffers
+  float* vs = ks + 2 * TILE;  // two buffers
+  float* zs = vs + 2 * TILE;  // dz^T [key][query row], unless it goes into V
 
-  const int nk = causal ? min(n, row0 + kRowsPerBlock) : n;
-  for (int idx = threadIdx.x; idx < nk * D; idx += blockDim.x) {
-    const int j = idx / D, d = idx - j * D;
-    const T* t = base + size_t(j) * tok + h * D + d;
-    ks[j * KS + d] = t[hd];
-    vs[j * KS + d] = t[2 * hd];
+  const int tiles = causal ? blockIdx.x + 1 : (n + a32::kRows - 1) / a32::kRows;
+  const int steps = 2 * tiles;
+  a32::stage_rows<D>(qs, qg, tok, row0, n);
+  a32::stage_rows<D>(dos, dog, hd, row0, n);
+  a32::stage_rows<D>(ks, kg, tok, 0, n);
+  a32::stage_rows<D>(vs, vg, tok, 0, n);
+  mma::cp_async_commit();
+
+  // sweep A: the running max m, l and u = sum e dp, both rescaled as the max
+  // grows; at its end l becomes 1 / l and u becomes delta = u / l
+  float m[8], l[8], u[8], dq[8][CW];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = u[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CW; ++j) dq[i][j] = 0.f;
   }
-  __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* q = qs + warp * D;
-  float* dov = dos + warp * D;
-  float* p = ps + warp * n;
-  float* dp = dps + warp * n;
-  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
-    const int i = row0 + r;
-    if (i >= n) break;
-    const T* qrow = base + size_t(i) * tok + h * D;
-    const T* dorow = dbase + size_t(i) * hd + h * D;
-    for (int d = lane; d < D; d += 32) {
-      q[d] = to_f(qrow[d]);
-      dov[d] = to_f(dorow[d]);
+  for (int s = 0; s < steps; ++s) {
+    const int buf = s & 1;
+    const bool second = s >= tiles;  // sweep B: dz and dQ
+    const int tile = second ? s - tiles : s;
+    // this step's tiles have arrived, and every warp is done with the other
+    // buffers (read in the step before): one barrier serves both
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < steps) {
+      const int next = (tile + 1) % tiles;
+      a32::stage_rows<D>(ks + (buf ^ 1) * TILE, kg, tok, next * a32::kRows, n);
+      a32::stage_rows<D>(vs + (buf ^ 1) * TILE, vg, tok, next * a32::kRows, n);
+      mma::cp_async_commit();
     }
-    __syncwarp();
-
-    const int nkeys = causal ? i + 1 : n;
-    float mx = -INFINITY;
-    for (int j = lane; j < nkeys; j += 32) {
-      const T* krow = ks + j * KS;
-      const T* vrow = vs + j * KS;
-      float s = 0.f, g = 0.f;
+    const int key0 = tile * a32::kRows;
+    const int live = a32::live_cols(key0, row0, n, causal);
+    float sc[8][4], dp[8][4];
+    if (live > 0) {
+      const int groups = (live + 15) >> 4;
+      a32::abt<D>(sc, qs, ks + buf * TILE, groups);
+      a32::scale_scores(sc, row0, key0, n, causal, scale);
+      a32::abt<D>(dp, dos, vs + buf * TILE, groups);
+      if (!second) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(q[d], to_f(krow[d]), s);
-        g = fmaf(dov[d], to_f(vrow[d]), g);
+        for (int i = 0; i < 8; ++i) {
+          const float mt =
+              a32::row_max(fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3])));
+          const float mn = fmaxf(m[i], mt);
+          const float ref = mn == -INFINITY ? 0.f : mn;
+          const float a = expf(m[i] - ref);
+          m[i] = mn;
+          float rs = 0.f, ru = 0.f;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float e = expf(sc[i][c] - ref);
+            rs += e;
+            ru = fmaf(e, dp[i][c], ru);
+          }
+          l[i] = l[i] * a + rs;
+          u[i] = u[i] * a + ru;
+        }
+      } else {
+        // dead pairs: s = -inf, so p = 0 and dz = 0
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float p = expf(sc[i][c] - m[i]) * l[i];
+            sc[i][c] = p * (dp[i][c] - u[i]) * scale;
+          }
       }
-      s *= scale;
-      p[j] = s;
-      dp[j] = g;
-      mx = fmaxf(mx, s);
     }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < nkeys; j += 32) {
-      const float e = expf(p[j] - mx);
-      p[j] = e;
-      sum += e;
+    if (second) {
+      float* zt = z_in_v<D>() ? vs + buf * TILE : zs;
+      if (z_in_v<D>()) __syncthreads();  // every warp is done reading V for dP
+      if (live > 0) {
+        a32::store_transposed(zt, sc);
+        __syncwarp();
+        a32::pb<D>(dq, zt, ks + buf * TILE, 0, live);
+      }
     }
-    sum = warp_sum(sum);
-    float delta = 0.f;
-    for (int j = lane; j < nkeys; j += 32) {
-      const float pj = p[j] / sum;
-      p[j] = pj;
-      delta = fmaf(pj, dp[j], delta);
+    if (s == tiles - 1) {  // end of sweep A, whether or not this warp saw the last tile
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        l[i] = 1.f / a32::row_sum(l[i]);
+        u[i] = a32::row_sum(u[i]) * l[i];
+      }
     }
-    delta = warp_sum(delta);
-    for (int j = lane; j < nkeys; j += 32) dp[j] = round_to<T>(p[j] * (dp[j] - delta) * scale);
-    __syncwarp();
+  }
 
-    float acc[D / 32];
+  a32::store_rows<D>(dqkv + size_t(b) * n * tok + h * D, tok, row0, n, dq);
+  if (a32::tx() == 0) {
+    const size_t plane = size_t(gridDim.z) * heads * n;
+    float* row_max = stats + (size_t(b) * heads + h) * n;
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc[c] = 0.f;
-    for (int j = 0; j < nkeys; ++j) {
-      const float dz = dp[j];
-      const T* krow = ks + j * KS + lane;
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) acc[c] = fmaf(dz, to_f(krow[32 * c]), acc[c]);
+    for (int i = 0; i < 8; ++i) {
+      const int r = row0 + a32::own_row(i);
+      if (r < n) {
+        row_max[r] = m[i];
+        row_max[plane + r] = l[i];
+        row_max[2 * plane + r] = u[i];
+      }
     }
-    T* dqrow = gbase + size_t(i) * tok + h * D + lane;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) dqrow[32 * c] = from_f<T>(acc[c]);
-    if (lane == 0) {
-      row_max[i] = mx;
-      row_sum[i] = sum;
-      row_delta[i] = delta;
-    }
-    __syncwarp();
   }
 }
 
-// Pass 2: dK and dV from p and dz rebuilt with pass 1's statistics.
-template <typename T, int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_bwd_dkv_fp32_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                    T* __restrict__ dqkv, const float* __restrict__ stats, int n, int heads,
-                    int causal, float scale) {
-  constexpr int QS = colxlip::odd_word_stride<T, D>();
+// Pass 2: dK and dV from p and dz rebuilt with pass 1's statistics. The
+// block's rows are its 64 keys, the columns the queries of a streamed tile.
+template <int D>
+__global__ void __launch_bounds__(a32::kThreads, 2)
+attn_bwd_dkv_fp32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                         float* __restrict__ dqkv, const float* __restrict__ stats, int n,
+                         int heads, int causal, float scale) {
+  constexpr int TILE = a32::tile_floats<D>();
+  constexpr int CW = D / 16;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int col0 = blockIdx.x * kRowsPerBlock;
+  const int col0 = blockIdx.x * a32::kRows;
   const int hd = heads * D;
   const size_t tok = 3 * size_t(hd);
-  const T* base = qkv + size_t(b) * n * tok;
-  const T* dbase = dout + size_t(b) * n * hd;
-  T* gbase = dqkv + size_t(b) * n * tok;
+  const float* qg = qkv + size_t(b) * n * tok + h * D;
+  const float* kg = qg + hd;
+  const float* vg = qg + 2 * hd;
+  const float* dog = dout + size_t(b) * n * hd + h * D;
   const size_t plane = size_t(gridDim.z) * heads * n;
-  const float* row_max = stats + (size_t(b) * heads + h) * n;
+  const float* row_stats = stats + (size_t(b) * heads + h) * n;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  // query rows i0..n-1: a key j only meets queries i >= j when causal
-  const int i0 = causal ? col0 : 0;
-  const int rows = n - i0;
-  T* qsm = reinterpret_cast<T*>(smem);
-  T* dosm = qsm + size_t(rows) * QS;
-  float* ms = reinterpret_cast<float*>(smem + pair_bytes<T, D>(rows));
-  float* ls = ms + rows;
-  float* deltas = ls + rows;
-  float* kf_all = deltas + rows;
-  float* vf_all = kf_all + kWarps * D;
-  float* pb_all = vf_all + kWarps * D;
-  float* zb_all = pb_all + kWarps * n;
+  extern __shared__ __align__(16) float smem32[];
+  float* ks = smem32;
+  float* vs = ks + TILE;
+  float* qs = vs + TILE;
+  float* dos = qs + TILE;
+  float* ps = dos + TILE;                    // p^T: [query][key]
+  float* zs = ps + a32::kTransposedFloats;   // dz^T
+  float* st = zs + a32::kTransposedFloats;   // [3][64]: max, 1 / sum, delta
 
-  for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-    const int r = idx / D, d = idx - r * D;
-    qsm[r * QS + d] = base[size_t(i0 + r) * tok + h * D + d];
-    dosm[r * QS + d] = dbase[size_t(i0 + r) * hd + h * D + d];
-  }
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    ms[r] = row_max[i0 + r];
-    ls[r] = row_max[plane + i0 + r];
-    deltas[r] = row_max[2 * plane + i0 + r];
-  }
-  __syncthreads();
+  const int tiles = (n + a32::kRows - 1) / a32::kRows;
+  const int first = causal ? blockIdx.x : 0;  // a key j only meets queries i >= j
+  a32::stage_rows<D>(ks, kg, tok, col0, n);
+  a32::stage_rows<D>(vs, vg, tok, col0, n);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* kf = kf_all + warp * D;
-  float* vf = vf_all + warp * D;
-  float* pb = pb_all + warp * n;
-  float* zb = zb_all + warp * n;
-  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
-    const int j = col0 + r;
-    if (j >= n) break;
-    const T* tj = base + size_t(j) * tok + h * D;
-    for (int d = lane; d < D; d += 32) {
-      kf[d] = to_f(tj[hd + d]);
-      vf[d] = to_f(tj[2 * hd + d]);
+  float dk[8][CW], dv[8][CW];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < CW; ++j) dk[i][j] = dv[i][j] = 0.f;
+  const int wkey = col0 + a32::warp_first_row();  // the warp's first key
+
+  for (int tile = first; tile < tiles; ++tile) {
+    const int q0 = tile * a32::kRows;
+    // one buffer: every warp is done with the last tile before the copies
+    if (tile > first) __syncthreads();
+    a32::stage_rows<D>(qs, qg, tok, q0, n);
+    a32::stage_rows<D>(dos, dog, hd, q0, n);
+    for (int idx = threadIdx.x; idx < 3 * a32::kRows; idx += a32::kThreads) {
+      const int which = idx / a32::kRows, q = q0 + idx - which * a32::kRows;
+      const bool live = q < n;
+      mma::cp_async_4(st + idx, row_stats + which * plane + (live ? q : 0), live);
     }
-    __syncwarp();
+    mma::cp_async_commit();
+    mma::cp_async_wait<0>();
+    __syncthreads();
 
-    // queries that see key j, as offsets into the staged rows
-    const int first = (causal ? j : 0) - i0;
-    for (int ri = first + lane; ri < rows; ri += 32) {
-      const T* qrow = qsm + ri * QS;
-      const T* dorow = dosm + ri * QS;
-      float s = 0.f, g = 0.f;
+    // queries of the tile that some key of the warp meets: none past n and,
+    // under the causal mask, none before the warp's first key
+    const int hi = wkey < n ? min(n - q0, a32::kRows) : 0;
+    const int lo = causal ? max(0, wkey - q0) : 0;
+    if (lo >= hi) continue;  // warp-uniform
+    float sc[8][4], dp[8][4];
+    const int groups = (hi + 15) >> 4;
+    a32::abt<D>(sc, ks, qs, groups);   // S^T = K . Q^T, unscaled
+    a32::abt<D>(dp, vs, dos, groups);  // dP^T = V . dO^T
+    // dead pairs exist only in a ragged tile and where a key comes after a query
+    const bool edge = q0 + a32::kRows > n || col0 + a32::kRows > n ||
+                      (causal && col0 + a32::kRows - 1 > q0);
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(to_f(qrow[d]), kf[d], s);
-        g = fmaf(to_f(dorow[d]), vf[d], g);
-      }
-      s *= scale;
-      const float pij = expf(s - ms[ri]) / ls[ri];
-      pb[ri] = round_to<T>(pij);
-      zb[ri] = round_to<T>(pij * (g - deltas[ri]) * scale);
-    }
-    __syncwarp();
-
-    float acc_k[D / 32], acc_v[D / 32];
+    for (int c = 0; c < 4; ++c) {
+      const int qc = a32::own_col(c);
+      const int q = q0 + qc;
+      const float qm = st[qc], qil = st[a32::kRows + qc], qdelta = st[2 * a32::kRows + qc];
 #pragma unroll
-    for (int c = 0; c < D / 32; ++c) acc_k[c] = acc_v[c] = 0.f;
-    for (int ri = first; ri < rows; ++ri) {
-      const float pij = pb[ri], zij = zb[ri];
-      const T* qrow = qsm + ri * QS + lane;
-      const T* dorow = dosm + ri * QS + lane;
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        acc_v[c] = fmaf(pij, to_f(dorow[32 * c]), acc_v[c]);
-        acc_k[c] = fmaf(zij, to_f(qrow[32 * c]), acc_k[c]);
+      for (int i = 0; i < 8; ++i) {
+        const int key = col0 + a32::own_row(i);
+        const bool dead = edge && (q >= n || key >= n || (causal && key > q));
+        const float p = dead ? 0.f : expf(sc[i][c] * scale - qm) * qil;
+        sc[i][c] = p;
+        dp[i][c] = dead ? 0.f : p * (dp[i][c] - qdelta) * scale;
       }
     }
-    T* gj = gbase + size_t(j) * tok + h * D + lane;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c) {
-      gj[hd + 32 * c] = from_f<T>(acc_k[c]);
-      gj[2 * hd + 32 * c] = from_f<T>(acc_v[c]);
-    }
+    a32::store_transposed(ps, sc);
+    a32::store_transposed(zs, dp);
     __syncwarp();
+    a32::pb<D>(dv, ps, dos, lo, hi);
+    a32::pb<D>(dk, zs, qs, lo, hi);
   }
+
+  float* krows = dqkv + size_t(b) * n * tok + h * D + hd;
+  a32::store_rows<D>(krows, tok, col0, n, dk);
+  a32::store_rows<D>(krows + hd, tok, col0, n, dv);
 }
 
 template <int D>
 cudaError_t launch_fp32(const void* qkv, const void* dout, void* dqkv, void* stats, int b, int n,
                         int heads, int causal, float scale, cudaStream_t stream) {
-  using T = float;
-  const size_t s1 = smem_dq<T, D>(n), s2 = smem_dkv<T, D>(n);
-  if (s1 > colxlip::kMaxSharedBytes || s2 > colxlip::kMaxSharedBytes)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_fp32_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(s1));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv_fp32_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(s2));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, b);
-  const T* q = static_cast<const T*>(qkv);
-  const T* g = static_cast<const T*>(dout);
-  T* out = static_cast<T*>(dqkv);
+  constexpr size_t s1 = smem_dq_fp32<D>(), s2 = smem_dkv_fp32<D>();
+  static const cudaError_t attr1 = cudaFuncSetAttribute(
+      attn_bwd_dq_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(s1));
+  static const cudaError_t attr2 = cudaFuncSetAttribute(
+      attn_bwd_dkv_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(s2));
+  if (attr1 != cudaSuccess) return attr1;
+  if (attr2 != cudaSuccess) return attr2;
+  const dim3 grid((n + a32::kRows - 1) / a32::kRows, heads, b);
+  const float* q = static_cast<const float*>(qkv);
+  const float* g = static_cast<const float*>(dout);
+  float* out = static_cast<float*>(dqkv);
   float* st = static_cast<float*>(stats);
-  attn_bwd_dq_fp32_kernel<T, D><<<grid, kWarps * 32, s1, stream>>>(q, g, out, st, n, heads,
-                                                                   causal, scale);
-  err = cudaGetLastError();
+  attn_bwd_dq_fp32_kernel<D><<<grid, a32::kThreads, s1, stream>>>(q, g, out, st, n, heads,
+                                                                  causal, scale);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_fp32_kernel<T, D><<<grid, kWarps * 32, s2, stream>>>(q, g, out, st, n, heads,
-                                                                    causal, scale);
+  attn_bwd_dkv_fp32_kernel<D><<<grid, a32::kThreads, s2, stream>>>(q, g, out, st, n, heads,
+                                                                   causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv [B, N, 3*H*D], dout [B, N, H*D], dqkv [B, N, 3*H*D] (all of one dtype:
-// 0 = float32, 1 = bfloat16 with 16-byte aligned pointers), stats: float32
+// 0 = float32, 1 = bfloat16; 16-byte aligned pointers), stats: float32
 // scratch of 3*B*H*N. Returns a cudaError_t (0 = launched).
 extern "C" int colxlip_attention_bwd(const void* qkv, const void* dout, void* dqkv, void* stats,
                                      int b, int n, int heads, int head_dim, int causal,
                                      int dtype, float scale, void* stream) {
   if (b < 1 || b > 65535 || heads < 1 || heads > 65535 || n < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dqkv)) & 15)
+    return cudaErrorMisalignedAddress;
   if (dtype == 0 && head_dim == 32)
     return launch_fp32<32>(qkv, dout, dqkv, stats, b, n, heads, causal, scale, s);
   if (dtype == 0 && head_dim == 64)
     return launch_fp32<64>(qkv, dout, dqkv, stats, b, n, heads, causal, scale, s);
-  if (dtype == 1 && (reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(dout) |
-                     reinterpret_cast<uintptr_t>(dqkv)) & 15)
-    return cudaErrorMisalignedAddress;
   if (dtype == 1 && head_dim == 32)
     return launch_mma<32>(qkv, dout, dqkv, stats, b, n, heads, causal, scale, s);
   if (dtype == 1 && head_dim == 64)

@@ -10,19 +10,19 @@ Forward and backward each dispatch on the tensor's device:
     functions in plain PyTorch.
   - CUDA tensor: the hand-written kernels ``csrc/fused_attention.cu`` and
     ``csrc/fused_attention_bwd.cu``, or an exception. There is no fallback
-    to the plain versions. bfloat16 runs on the tensor cores (``mma.sync``
-    tiles over key tiles of 64) at any sequence length; float32 keeps the
-    CUDA-core kernels, which hold a head's whole K and V in shared memory and
-    so take a sequence only up to ``fp32_max_seq``.
+    to the plain versions. Both dtypes stream key tiles of 64 past a block's
+    64 rows, so both take any sequence length: bfloat16 on the tensor cores
+    (``mma.sync`` tiles), float32 as register-blocked fp32 FMAs on the CUDA
+    cores (``csrc/attention_tile.cuh`` ``attn32``).
 
 The dispatch of ``colxlip_tpu/ops/attention.py`` sits beside the kernels:
 ``multi_head_attention`` on [B, N, H, D] tensors takes the path that
 ``resolve_impl`` names. 'fused' is the kernels above (self-attention
 repacked to [B, N, 3 H D]); 'xla' is ``F.scaled_dot_product_attention``
-(the library path, also the way round the float32 kernels' sequence limit);
-'xla_bf16' the hand-written softmax with probabilities stored in bfloat16;
-'xla_remat' SDPA recomputed in the backward; 'flash' SDPA pinned to its
-flash backend. An explicit additive mask always takes 'xla'.
+(the library path); 'xla_bf16' the hand-written softmax with probabilities
+stored in bfloat16; 'xla_remat' SDPA recomputed in the backward; 'flash'
+SDPA pinned to its flash backend. An explicit additive mask always takes
+'xla'.
 """
 from __future__ import annotations
 
@@ -42,36 +42,6 @@ LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
 HEAD_DIMS = (32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# shared memory a block may have on the H100 (227 KB; csrc/common.cuh
-# kMaxSharedBytes), which bounds the float32 kernels' sequence length
-MAX_SHARED_BYTES = 232448
-_FP32_WARPS = 8
-
-
-def _align16(x: int) -> int:
-    return (x + 15) & ~15
-
-
-def fp32_shared_bytes(n: int, d: int, backward: bool) -> int:
-    """Dynamic shared memory of the float32 kernels at sequence length ``n``,
-    as their launchers compute it (``smem_bytes`` in csrc/fused_attention.cu;
-    the larger of ``smem_dq`` and ``smem_dkv`` in csrc/fused_attention_bwd.cu):
-    a head's K and V (or Q and dO) in rows padded by one word, plus per-warp
-    rows of D and of N floats."""
-    if not backward:
-        return _align16(n * (d + 1) * 4 + n * d * 4) + _FP32_WARPS * (d + n) * 4
-    return (_align16(2 * n * (d + 1) * 4) + 3 * n * 4
-            + _FP32_WARPS * (2 * d + 2 * n) * 4)
-
-
-@functools.lru_cache(maxsize=None)
-def fp32_max_seq(d: int, backward: bool) -> int:
-    """The longest sequence the float32 kernels take at head_dim ``d``: 420
-    forward and 383 backward at 64, 792 and 677 at 32."""
-    n = MAX_SHARED_BYTES // (4 * (2 * d + 1))
-    while fp32_shared_bytes(n, d, backward) > MAX_SHARED_BYTES:
-        n -= 1
-    return n
 
 
 def _split_dims(qkv: torch.Tensor, heads: int):
@@ -141,12 +111,12 @@ def fused_mha_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
 
 
 def _check_aligned(t: torch.Tensor, name: str, what: str) -> None:
-    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+    if t.data_ptr() % 16:
         raise ValueError(f"{name}: {what} must start at a 16-byte aligned "
-                         "address (the bfloat16 kernels copy 16 bytes at a time)")
+                         "address (the kernels copy 16 bytes at a time)")
 
 
-def _check_cuda(qkv: torch.Tensor, heads: int, name: str, backward: bool = False):
+def _check_cuda(qkv: torch.Tensor, heads: int, name: str):
     b, n, hd, d = _split_dims(qkv, heads)
     if qkv.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: dtype {qkv.dtype} not supported "
@@ -156,12 +126,6 @@ def _check_cuda(qkv: torch.Tensor, heads: int, name: str, backward: bool = False
                          f"(head_dim in {HEAD_DIMS})")
     if n < 1 or b < 1:
         raise ValueError(f"{name}: empty qkv {tuple(qkv.shape)}")
-    if qkv.dtype == torch.float32 and n > fp32_max_seq(d, backward):
-        raise ValueError(
-            f"{name}: seq {n} too long for the float32 kernel at head_dim {d} "
-            f"(seq <= {fp32_max_seq(d, backward)}: a head's K and V must fit in "
-            f"{MAX_SHARED_BYTES} bytes of shared memory; bfloat16 has no limit; "
-            "COLXLIP_ATTN_IMPL=xla takes the library path)")
     if not qkv.is_contiguous():
         raise ValueError(f"{name}: qkv must be contiguous")
     _check_aligned(qkv, name, "qkv")
@@ -185,7 +149,7 @@ def _launch_fwd(qkv: torch.Tensor, heads: int, causal: bool) -> torch.Tensor:
 def _launch_bwd(qkv: torch.Tensor, dout: torch.Tensor, heads: int,
                 causal: bool) -> torch.Tensor:
     """The backward kernels on CUDA tensors (checks shapes, never falls back)."""
-    b, n, hd, d = _check_cuda(qkv, heads, "fused_mha_packed backward", backward=True)
+    b, n, hd, d = _check_cuda(qkv, heads, "fused_mha_packed backward")
     if dout.shape != (b, n, hd) or dout.dtype != qkv.dtype or dout.device != qkv.device:
         raise ValueError(f"fused_mha_packed backward: dout must be {qkv.dtype} "
                          f"{(b, n, hd)} on {qkv.device}; got {dout.dtype} "
@@ -244,8 +208,8 @@ def fused_mha_packed(qkv: torch.Tensor, heads: int,
     """[B, N, 3*H*D] packed QKV -> [B, N, H*D] attention output, differentiable.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (D in {32, 64}, contiguous; bfloat16 at any N from a 16-byte aligned
-    address, float32 at N <= ``fp32_max_seq``) or raise."""
+    (D in {32, 64}, contiguous, from a 16-byte aligned address; float32 and
+    bfloat16 at any N) or raise."""
     _split_dims(qkv, heads)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FusedMHA.apply(qkv, heads, causal)

@@ -3,24 +3,37 @@
 F.scaled_dot_product_attention on the same packed QKV.
 
     python3 scripts/torch_attention_bench.py [--plain] [--iters 20]
-        [--dtype float32 --shapes vit-l-b16,vit-l-text-b16]
+        [--dtype float32 --shapes vit-l-b16,vit-l-text-b16,vit-l-336-b16,long-causal]
 
 For each shape (the two towers of ViT-B-16 at batch 64 and 256, ViT-L/14's
 vision tower at batch 64, a long causal sequence; or those named by
 ``--shapes``, among them ViT-L-14's two towers at chip_smoke.py phase 8b's
-batch 16) it first holds the forward and the backward kernel against their
-plain versions at batch 2 (the tolerances of chip_smoke.py for the dtype),
-then times kernel and library call with CUDA events after a warm-up, in
-turns (kernel, library, library, kernel), beside each kernel's bound
-(chip_smoke.py ``attention_bounds``), and prints one line a shape plus the
-card's name and power limit. ``--dtype float32`` runs the CUDA-core kernels
-and the library call in fp32 (TF32 off), as the fp32 ViT-L step does.
-``--plain`` also times the plain versions (slow: they hold [B, H, N, N] in
-fp32). The library call is a yardstick only: the port never calls it.
+batch 16 and its vision tower at 336 px, 577 tokens) it first holds the
+forward and the backward kernel against their plain versions at batch 2
+(the tolerances of chip_smoke.py for the dtype), then times kernel and
+library call with CUDA events after a warm-up, in turns (kernel, library,
+library, kernel), beside each kernel's bound (chip_smoke.py
+``attention_bounds``), and prints one line a shape plus the card's name and
+power limit, and each kernel's device time a call (torch.profiler,
+chip_smoke.py ``device_ms_by_kernel``: the backward's two passes apart).
+Each line also carries a SHA-256 of the full-size forward
+output and backward gradient, and whether a second run of each gave the
+same bits. ``--dtype float32`` runs the CUDA-core kernels and the library
+call in fp32 (TF32 off), as the fp32 ViT-L step does; they take any N, as
+bf16 does. ``--plain`` also times the plain versions (slow: they hold
+[B, H, N, N] in fp32). The library call is a yardstick only: the port never
+calls it.
+
+Two builds are compared in one call by running this script from a copy of
+the other tree (``git archive`` into a git-ignored directory, this script
+copied in: each run rebuilds, the library is keyed on the sources) and from
+this tree in turns, parent, change, change, parent; the digests of the two
+trees' outputs then say whether they agree bit for bit.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -44,6 +57,8 @@ SHAPES = [
     # chip_smoke.py phase 8b's ViT-L-14-colxlip step at batch 16 (run by --shapes)
     ("vit-l-b16", 16, 257, 16, 64, False),
     ("vit-l-text-b16", 16, 77, 12, 64, True),
+    # ViT-L/14 at 336 px: 577 tokens, one live key in the tenth tile
+    ("vit-l-336-b16", 16, 577, 16, 64, False),
 ]
 DEFAULT_SHAPES = "vision-b64,vision-b256,text-b256,vit-l-b64,long-causal"
 
@@ -59,6 +74,10 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def sha256(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def main() -> int:
@@ -111,15 +130,24 @@ def main() -> int:
         def lib_bwd():
             torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
 
+        with torch.no_grad():
+            outs = [attention.fused_mha_packed(qkv, h, causal) for _ in range(2)]
+        grads = [attention._launch_bwd(qkv, dout, h, causal) for _ in range(2)]
+        digests = {"fwd_sha256": sha256(outs[0]), "bwd_sha256": sha256(grads[0]),
+                   "fwd_rerun_equal": torch.equal(*outs), "bwd_rerun_equal": torch.equal(*grads)}
+        del outs, grads
         bounds = chip_smoke.attention_bounds(qkv, qkv, causal)
         row = {"shape": name, "B": b, "N": n, "H": h, "D": d, "causal": causal,
                "dtype": args.dtype, "fwd_err": err_f, "bwd_err": err_b,
                "fwd_bound_ms": bounds["fused_attention_fwd"][0],
                "bwd_bound_ms": bounds["fused_attention_bwd"][0],
-               "bound_by": bounds["fused_attention_fwd"][1]}
+               "bound_by": bounds["fused_attention_fwd"][1], **digests}
         for key, ker, lib in (("fwd", fwd, lib_fwd), ("bwd", bwd, lib_bwd)):
             t = [cuda_ms(f, args.iters) for f in (ker, lib, lib, ker)]
             row[f"{key}_ms"], row[f"{key}_sdpa_ms"] = min(t[0], t[3]), min(t[1], t[2])
+        row["device_ms"] = {
+            **chip_smoke.device_ms_by_kernel(fwd, 5, r"(attn_fwd_\w+_kernel)"),
+            **chip_smoke.device_ms_by_kernel(bwd, 5, r"(attn_bwd_\w+_kernel)")}
         if args.plain:
             with torch.no_grad():
                 row["fwd_plain_ms"] = cuda_ms(

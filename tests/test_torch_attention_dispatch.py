@@ -186,13 +186,35 @@ def test_resolve_impl_and_unknown_names(monkeypatch):
         attention.multi_head_attention(q, k, v, impl="pallas")
 
 
-def test_fused_fp32_refusal_names_the_library_path():
-    """The float32 kernels' sequence limit raises (before any launch) and
-    says how to take the library path instead."""
-    n = attention.fp32_max_seq(64, False) + 1
-    with pytest.raises(ValueError, match="COLXLIP_ATTN_IMPL=xla"):
-        attention._check_cuda(torch.empty(1, n, 3 * 64), 1, "fused_mha_packed")
-    attention._check_cuda(torch.empty(1, n, 3 * 64, dtype=torch.bfloat16), 1, "ok")
+@pytest.mark.parametrize("n", [577, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_take_any_sequence_length(n, dtype):
+    """The wrapper's checks (made before any launch) admit both dtypes at
+    any N: both stream key tiles of 64, so no length is too long for the
+    shared memory of a block."""
+    assert attention._check_cuda(torch.empty(2, n, 3 * 128, dtype=dtype), 2,
+                                 "fused_mha_packed") == (2, n, 128, 64)
+
+
+@pytest.mark.parametrize("case", ["head_dim", "float16", "contiguous", "aligned"])
+def test_fused_kernels_refuse_what_they_do_not_take(case):
+    """What the kernels do not take still raises before any launch, in
+    float32 as in bfloat16: head_dim 48, float16, a non-contiguous qkv and
+    one that does not start on 16 bytes."""
+    qkv, heads = torch.empty(2, 577, 3 * 128), 2
+    if case == "head_dim":
+        qkv, match = torch.empty(2, 577, 3 * 96), "head_dim 48"
+    elif case == "float16":
+        qkv, match = qkv.half(), "dtype"
+    elif case == "contiguous":
+        qkv, match = torch.empty(577, 2, 3 * 128).transpose(0, 1), "contiguous"
+    else:
+        flat = torch.empty(2 * 577 * 3 * 128 + 4)
+        qkv = flat[1:1 + qkv.numel()].view(qkv.shape)
+        assert qkv.is_contiguous() and qkv.data_ptr() % 16
+        match = "16-byte aligned"
+    with pytest.raises(ValueError, match=match):
+        attention._check_cuda(qkv, heads, "fused_mha_packed")
 
 
 # ---------------------------------------------------------------------------

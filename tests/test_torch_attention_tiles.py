@@ -1,14 +1,23 @@
-"""The tile algorithm of the bfloat16 attention kernels, emulated on the CPU.
+"""The tile algorithms of the attention kernels, emulated on the CPU.
 
 ``csrc/fused_attention.cu`` and ``csrc/fused_attention_bwd.cu`` walk K and V
-(or Q and dO) in tiles of 64 rows and sweep them more than once instead of
-holding a head's N x N scores. A CUDA kernel cannot run here, so this file
-writes the same algorithm in plain PyTorch, tile by tile and sweep by sweep,
-with the kernels' rounding points (bf16 casts where they cast, fp32 sums
-everywhere else), their zero-filled ragged rows, their selection of dead pairs
-and their causal tile skipping, and holds it against the unchanged plain
-versions ``fused_mha_plain`` / ``fused_mha_bwd_plain`` at the shapes the card
-will see. The emulation is used by nothing in the package.
+(or Q and dO) in tiles of 64 rows instead of holding a head's N x N scores.
+A CUDA kernel cannot run here, so this file writes the same algorithms in
+plain PyTorch, tile by tile and sweep by sweep, and holds them against the
+unchanged plain versions ``fused_mha_plain`` / ``fused_mha_bwd_plain`` at the
+shapes the card will see:
+
+  - bfloat16 (``tiled_forward`` / ``tiled_backward``): the sweeps, the
+    kernels' rounding points (bf16 casts where they cast, fp32 sums
+    everywhere else), zero-filled ragged rows, the selection of dead pairs
+    and causal tile skipping; run in both dtypes.
+  - float32 (``tiled_forward_fp32`` / ``tiled_backward_fp32``, the
+    ``attention_tile.cuh`` ``attn32`` kernels): one forward sweep with the
+    online rescaling, per-thread partial sums over the key columns
+    tx + 16 c and their xor butterfly, the dQ pass's two sweeps (online m,
+    l and u, then dz) and the dK/dV pass on the transposed tiles.
+
+The emulations are used by nothing in the package.
 
 Tolerances are ``chip_smoke.py``'s, unchanged (a test here pins that):
 forward 1e-5 absolute in float32 (summation order only) and 4e-3 in bfloat16
@@ -39,8 +48,24 @@ SHAPES = [
     (65, 32, True),     # head_dim 32, one live row in the second tile
     (1024, 64, True),   # 16 tiles, most of them skipped under the mask
 ]
+# the float32 kernels take any N: lengths whose K and V would not fit in one
+# block's shared memory
+FP32_SHAPES = SHAPES + [
+    (577, 64, False),   # ViT-L/14 at 336 px: one live key in the tenth tile
+    (1024, 32, True),   # head_dim 32, 16 tiles under the mask
+]
 HEADS = 2
 BATCH = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """The emulations are many small tensor operations: one intra-op thread,
+    so that the suite's parallel workers do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _inputs(n, d, dtype, seed=0):
@@ -221,13 +246,164 @@ def test_stale_rows_would_poison_a_tile_that_is_only_masked():
     assert torch.isnan(torch.matmul(e, stale)).all()
 
 
-@pytest.mark.parametrize("d,backward,limit", [(64, False, 420), (64, True, 383),
-                                              (32, False, 792), (32, True, 677)])
-def test_fp32_sequence_limit_is_what_shared_memory_holds(d, backward, limit):
-    """The float32 kernels keep a head's operands in shared memory: the
-    wrapper's limit is the largest N whose bytes fit, and ViT-L/14's 257
-    tokens are inside it."""
-    assert attention.fp32_max_seq(d, backward) == limit
-    assert attention.fp32_shared_bytes(limit, d, backward) <= attention.MAX_SHARED_BYTES
-    assert attention.fp32_shared_bytes(limit + 1, d, backward) > attention.MAX_SHARED_BYTES
-    assert limit >= 257
+# ---------------------------------------------------------------------------
+# float32: attention_tile.cuh attn32 (one 64-row block, key columns tx + 16 c)
+# ---------------------------------------------------------------------------
+
+def _row_sum16(partial: torch.Tensor) -> torch.Tensor:
+    """attn32 row_sum over the 16 threads of a row, the last axis of
+    ``partial`` (thread tx's partial sum): the xor butterfly 1, 2, 4, 8;
+    every thread ends with the same value, tx 0's is returned."""
+    lanes = torch.arange(16)
+    for o in (1, 2, 4, 8):
+        partial = partial + partial[..., lanes ^ o]
+    return partial[..., 0]
+
+
+def _by_thread(x: torch.Tensor) -> torch.Tensor:
+    """[..., 64 columns] -> [..., 16 tx, 4 c]: column tx + 16 c of a tile is
+    thread tx's c-th."""
+    return x.reshape(*x.shape[:-1], 4, 16).transpose(-1, -2)
+
+
+def _online_step(m, parts, s, extra=None):
+    """One key tile of the online softmax, per row: m' = max(m, rowmax s),
+    a = exp(m - m'), each thread's partial sums rescaled by a plus its own
+    four columns (of e, or of e * extra). Returns (m', a, e, parts)."""
+    mn = torch.maximum(m, s.amax(-1))
+    ref = torch.where(mn == float("-inf"), torch.zeros(()), mn)
+    a = torch.exp(m - ref)
+    e = torch.exp(s - ref[..., None])
+    news = [e] if extra is None else [e, e * extra]
+    parts = [p * a[..., None] + _by_thread(t).sum(-1) for p, t in zip(parts, news)]
+    return mn, a, e, parts
+
+
+def tiled_forward_fp32(qkv, causal):
+    """What ``attn_fwd_fp32_kernel`` computes, in its order: per query tile
+    one sweep over the key tiles (up to the diagonal when causal) with the
+    running max m, the threads' partial row sums l rescaled by
+    a = exp(m_old - m_new) and O = a O + e . V; at the end l is the
+    butterfly sum of the partials and out = O / l."""
+    n = qkv.shape[1]
+    d = qkv.shape[2] // (3 * HEADS)
+    scale = 1.0 / math.sqrt(d)
+    tiles = -(-n // TILE)
+    q, k, v = _padded_heads(qkv, 3, tiles)
+    out = torch.zeros_like(q)
+    for qt in range(tiles):
+        qq = _tile(q, qt)
+        m = torch.full(qq.shape[:-1], float("-inf"))
+        parts = [torch.zeros(*qq.shape[:-1], 16)]
+        o = torch.zeros_like(qq)
+        for kt in range(qt + 1 if causal else tiles):
+            s = _score_tile(qq, _tile(k, kt), qt, kt, n, causal, scale)
+            m, a, e, parts = _online_step(m, parts, s)
+            o = o * a[..., None] + torch.matmul(e, _tile(v, kt))
+        _tile(out, qt).copy_(o / _row_sum16(parts[0])[..., None])
+    return _unpad(out[None], n, 1)
+
+
+def tiled_backward_fp32(qkv, dout, causal):
+    """What the two float32 backward kernels compute, in their order.
+
+    dQ pass, per query tile, two sweeps over the key tiles: sweep A runs the
+    online max m with the partial sums l and u = sum e dp, both rescaled as
+    the max grows; their butterfly sums give 1 / l and delta = u / l; sweep B
+    computes p = exp(s - m) / l, dz = p (dp - delta) scale and dQ += dz . K.
+    dK/dV pass, per key tile, over the query tiles from the diagonal on: the
+    transposed tiles S^T = (K . Q^T) scale and dP^T = V . dO^T, p and dz
+    rebuilt from the stored statistics (0 for dead pairs by selection),
+    dV += p^T . dO and dK += dz^T . Q."""
+    n = qkv.shape[1]
+    d = qkv.shape[2] // (3 * HEADS)
+    scale = 1.0 / math.sqrt(d)
+    tiles = -(-n // TILE)
+    q, k, v = _padded_heads(qkv, 3, tiles)
+    do = _padded_heads(dout, 1, tiles)[0]
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(q)
+    row_m = torch.zeros(q.shape[:-1])
+    row_il = torch.zeros_like(row_m)
+    row_delta = torch.zeros_like(row_m)
+
+    for qt in range(tiles):
+        met = qt + 1 if causal else tiles
+        qq, dd = _tile(q, qt), _tile(do, qt)
+        m = torch.full(qq.shape[:-1], float("-inf"))
+        parts = [torch.zeros(*qq.shape[:-1], 16), torch.zeros(*qq.shape[:-1], 16)]
+        for kt in range(met):
+            s = _score_tile(qq, _tile(k, kt), qt, kt, n, causal, scale)
+            dp = torch.matmul(dd, _tile(v, kt).transpose(-1, -2))
+            m, _, _, parts = _online_step(m, parts, s, dp)
+        il = 1.0 / _row_sum16(parts[0])
+        delta = _row_sum16(parts[1]) * il
+        acc = torch.zeros_like(qq)
+        for kt in range(met):
+            s = _score_tile(qq, _tile(k, kt), qt, kt, n, causal, scale)
+            dp = torch.matmul(dd, _tile(v, kt).transpose(-1, -2))
+            p = torch.exp(s - m[..., None]) * il[..., None]
+            acc += torch.matmul(p * (dp - delta[..., None]) * scale, _tile(k, kt))
+        _tile(dq, qt).copy_(acc)
+        sl = slice(qt * TILE, (qt + 1) * TILE)
+        row_m[..., sl], row_il[..., sl], row_delta[..., sl] = m, il, delta
+
+    for kt in range(tiles):
+        kk, vv = _tile(k, kt), _tile(v, kt)
+        acc_k, acc_v = torch.zeros_like(kk), torch.zeros_like(kk)
+        for qt in range(kt if causal else 0, tiles):
+            sl = slice(qt * TILE, (qt + 1) * TILE)
+            qq, dd = _tile(q, qt), _tile(do, qt)
+            st = torch.matmul(kk, qq.transpose(-1, -2)) * scale       # [keys, queries]
+            dpt = torch.matmul(vv, dd.transpose(-1, -2))
+            dead = _dead(qt * TILE, kt * TILE, n, causal).T
+            dead = dead | (qt * TILE + torch.arange(TILE)[None, :] >= n)  # query past N
+            p = torch.where(dead, torch.zeros(()),
+                            torch.exp(st - row_m[..., None, sl]) * row_il[..., None, sl])
+            dz = torch.where(dead, torch.zeros(()), p * (dpt - row_delta[..., None, sl]) * scale)
+            acc_v += torch.matmul(p, dd)
+            acc_k += torch.matmul(dz, qq)
+        _tile(dk, kt).copy_(acc_k)
+        _tile(dv, kt).copy_(acc_v)
+    return _unpad(torch.stack([dq, dk, dv]), n, 3)
+
+
+@pytest.mark.parametrize("n,d,causal", FP32_SHAPES)
+def test_fp32_tiled_forward_matches_plain(n, d, causal):
+    """One sweep with online rescaling stays inside the float32 bar: the
+    rescaled e differs from exp(s - m) by a few ulp, where the bf16 kernel
+    needs two sweeps only to round e against the final max."""
+    qkv, _ = _inputs(n, d, torch.float32)
+    got = tiled_forward_fp32(qkv, causal)
+    want = attention.fused_mha_plain(qkv, HEADS, causal)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=ATTN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("n,d,causal", FP32_SHAPES)
+def test_fp32_tiled_backward_matches_plain(n, d, causal):
+    qkv, dout = _inputs(n, d, torch.float32, seed=1)
+    got = tiled_backward_fp32(qkv, dout, causal)
+    want = attention.fused_mha_bwd_plain(qkv, dout, HEADS, causal)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    tol = BWD_TOL[torch.float32] * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def test_fp32_online_rescaling_equals_the_final_max():
+    """The online sweep's l and O, rescaled as the max grows, equal the sums
+    taken against the final max to a few fp32 ulp (relative 1e-6), on a row
+    whose max arrives in the last key tile, where every earlier term has
+    been rescaled."""
+    rng = np.random.default_rng(7)
+    s = torch.from_numpy(rng.standard_normal((1, 1, TILE, 4 * TILE)).astype(np.float32))
+    s[..., -1] += 20.0                           # each row's max in the fourth tile
+    v = torch.from_numpy(rng.standard_normal((1, 1, 4 * TILE, 64)).astype(np.float32))
+    m = torch.full(s.shape[:-1], float("-inf"))
+    parts, o = [torch.zeros(*s.shape[:-1], 16)], torch.zeros(1, 1, TILE, 64)
+    for kt in range(4):
+        sl = slice(kt * TILE, (kt + 1) * TILE)
+        m, a, e, parts = _online_step(m, parts, s[..., sl])
+        o = o * a[..., None] + torch.matmul(e, v[..., sl, :])
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    torch.testing.assert_close(_row_sum16(parts[0]), e.sum(-1), rtol=1e-6, atol=0)
+    torch.testing.assert_close(o, torch.matmul(e, v), rtol=0, atol=1e-6)

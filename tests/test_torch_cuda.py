@@ -50,8 +50,6 @@ ATTN_SHAPES = [
     (2, 1024, 2, 128, True),    # long causal: 16 key tiles, tile skipping
     (3, 65, 4, 128, True),      # ragged, head_dim 32
 ]
-# float32 holds a head's K and V in shared memory: 1024 keys do not fit
-FP32_TOO_LONG = 1024
 MAXSIM_SHAPES = [
     # (m, k, lt, li, d)
     (6, 130, 77, 196, 512),     # training widths, K not a multiple of anything
@@ -84,10 +82,6 @@ def _l2(x):
                                         (torch.bfloat16, 4e-3)])
 @pytest.mark.parametrize("b,n,heads,hd,causal", ATTN_SHAPES)
 def test_attention_kernel_matches_plain(dev, b, n, heads, hd, causal, dtype, atol):
-    if dtype == torch.float32 and n >= FP32_TOO_LONG:
-        with pytest.raises(ValueError, match="float32 kernel"):
-            attention.fused_mha_packed(torch.zeros(b, n, 3 * hd, device=dev), heads, causal)
-        return
     qkv = torch.from_numpy(_qkv(b, n, hd)).to(dev, dtype)
     before = attention.LAUNCHES.value
     with torch.inference_mode():
@@ -124,32 +118,31 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
     good = flat[:2 * 8 * 192].view(2, 8, 192)
     with pytest.raises(ValueError, match="dout must start at a 16-byte"):
         attention._launch_bwd(good, flat[1:1 + 2 * 8 * 64].view(2, 8, 64), 1, False)
-    # float32 past what its shared memory holds, forward and backward
-    for backward in (False, True):
-        limit = attention.fp32_max_seq(64, backward)
-        long = torch.zeros(1, limit + 1, 192, device=dev)
-        with pytest.raises(ValueError, match=f"seq <= {limit}"):
-            if backward:
-                attention._launch_bwd(long, long[..., :64].contiguous(), 1, False)
-            else:
-                attention.fused_mha_packed(long, 1)
+    # float32 copies 16 bytes at a time too
+    flat32 = torch.zeros(2 * 8 * 192 + 4, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention.fused_mha_packed(flat32[1:1 + 2 * 8 * 192].view(2, 8, 192), 1)
 
 
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("d", [32, 64])
-def test_attention_fp32_kernel_runs_at_its_limit(dev, d, backward):
-    """The longest float32 sequence the wrapper admits launches and agrees."""
-    n = attention.fp32_max_seq(d, backward)
+@pytest.mark.parametrize("n,causal", [(577, False), (1024, True)])
+def test_attention_fp32_kernel_takes_any_length(dev, n, causal, d, backward):
+    """float32 at lengths whose K and V would not fit in one block's shared
+    memory: ViT-L/14 at 336 px (one live key in the tenth tile) and 1024
+    tokens under the causal mask launch and agree with the plain versions."""
     qkv = torch.from_numpy(_qkv(1, n, 2 * d, seed=3)).to(dev)
     if backward:
         dout = torch.from_numpy(_qkv(1, n, 2 * d, seed=4)[..., :2 * d].copy()).to(dev)
-        got = attention._launch_bwd(qkv, dout, 2, True)
-        want = attention.fused_mha_bwd_plain(qkv, dout, 2, True)
+        got = attention._launch_bwd(qkv, dout, 2, causal)
+        want = attention.fused_mha_bwd_plain(qkv, dout, 2, causal)
+        tol = 1e-5 * want.abs().max().item()
     else:
-        got = attention.fused_mha_packed(qkv, 2, True)
-        want = attention.fused_mha_plain(qkv, 2, True)
+        got = attention.fused_mha_packed(qkv, 2, causal)
+        want = attention.fused_mha_plain(qkv, 2, causal)
+        tol = 1e-5
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("rows", [64, 5, 1])
@@ -251,11 +244,6 @@ def _bf16_tol(want: torch.Tensor, dtype) -> float:
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,heads,hd,causal", ATTN_SHAPES)
 def test_attention_bwd_kernel_matches_plain(dev, b, n, heads, hd, causal, dtype):
-    if dtype == torch.float32 and n >= FP32_TOO_LONG:
-        with pytest.raises(ValueError, match="float32 kernel"):
-            attention._launch_bwd(torch.zeros(b, n, 3 * hd, device=dev),
-                                  torch.zeros(b, n, hd, device=dev), heads, causal)
-        return
     qkv = torch.from_numpy(_qkv(b, n, hd)).to(dev, dtype)
     dout = torch.from_numpy(np.random.default_rng(1).standard_normal((b, n, hd))
                             .astype(np.float32)).to(dev, dtype)
@@ -269,10 +257,11 @@ def test_attention_bwd_kernel_matches_plain(dev, b, n, heads, hd, causal, dtype)
                                atol=_bf16_tol(want.float(), dtype))
 
 
-def test_attention_bwd_kernel_is_deterministic(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_bwd_kernel_is_deterministic(dev, dtype):
     """No atomics: two runs of the backward give the same bits."""
-    qkv = torch.from_numpy(_qkv(4, 197, 768)).to(dev, torch.bfloat16)
-    dout = torch.from_numpy(_qkv(4, 197, 256, seed=2)).to(dev, torch.bfloat16)
+    qkv = torch.from_numpy(_qkv(4, 197, 768)).to(dev, dtype)
+    dout = torch.from_numpy(_qkv(4, 197, 256, seed=2)).to(dev, dtype)
     first = attention._launch_bwd(qkv, dout, 12, False)
     second = attention._launch_bwd(qkv, dout, 12, False)
     assert torch.equal(first, second)
@@ -1238,25 +1227,22 @@ def test_attention_dispatch_paths_on_the_card(dev, impl, causal):
             attention.multi_head_attention(q.float(), k.float(), v.float(), impl="flash")
 
 
-def test_fp32_past_the_kernel_limit_takes_the_library_path(dev):
-    """float32 at one token past the forward kernel's limit: 'fused' refuses
-    and names COLXLIP_ATTN_IMPL=xla; the module built with 'xla' runs it and
-    agrees with the plain version to 1e-5."""
+def test_fused_module_runs_fp32_at_577_tokens(dev):
+    """float32 at ViT-L/14's 577 tokens (336 px) through the module: built
+    with 'fused' it launches the kernel and agrees with the plain version to
+    1e-5."""
     from colxlip_tpu_torch.models.layers import MultiHeadAttention
 
-    n = attention.fp32_max_seq(64, False) + 1
-    x = torch.from_numpy(_qkv(1, n, 64)[..., :128]).to(dev)
+    x = torch.from_numpy(_qkv(1, 577, 64)[..., :128]).to(dev)
     fused = MultiHeadAttention(128, 2, dtype=torch.float32, attn_impl="fused").to(dev)
     for p in fused.parameters():
         torch.nn.init.normal_(p, std=0.1)
-    with pytest.raises(ValueError, match="COLXLIP_ATTN_IMPL=xla"), torch.no_grad():
-        fused(x)
-    lib = MultiHeadAttention(128, 2, dtype=torch.float32, attn_impl="xla").to(dev)
-    lib.load_state_dict(fused.state_dict())
+    before = attention.LAUNCHES.value
     with torch.no_grad():
-        got = lib(x)
+        got = fused(x)
         qkv = torch.nn.functional.linear(x, fused.in_proj_weight, fused.in_proj_bias)
         want = fused.out_proj(attention.fused_mha_plain(qkv, 2))
+    assert attention.LAUNCHES.value == before + 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 

@@ -27,6 +27,7 @@ ATTN_SHAPES = [
     (2, 77, 8, 512, True),      # text tower, causal
     (3, 16, 4, 128, True),      # odd batch, head_dim 32
     (1, 257, 2, 128, False),    # ViT-L/14's 257 tokens, heads of 64
+    (1, 577, 2, 128, False),    # ViT-L/14 at 336 px: past the first fp32 kernels' limit
 ]
 ATTN_ATOL = 2e-5                # fp32; the same bar as tests/test_fused_attention.py
 MAXSIM_TOL = dict(rtol=1e-5, atol=1e-5)
