@@ -382,7 +382,12 @@ CE_CASES = [
     # holds because the bf16 forward and backward take raw from one logit tile
     (1024, 1024, 512, 100.0, ("bfloat16",), True, 100),
     (32768, 32768, 512, 100.0, ("bfloat16",), False, None),     # dense logits: 4 GiB
+    # float32 past bf16's D <= 768: dA and dB in two feature slices of 512
+    (1024, 1024, 1024, 100.0, ("float32",), False, 1024),
 ]
+# phase 5: the float32 CE kernels (split across the streamed rows) timed at a
+# 4-rank local-loss step's rows (labels offset by rank 3's 768) and at 4096
+CE_FP32_TIMED = [(256, 1024, 768), (4096, 4096, None)]   # M, N, label offset
 CE_PEAK_LIMIT_GIB = 1.0     # kernel path at 32768, above its inputs
 # LayerNorm and MLP kernels vs their plain versions:
 #   forward, of max(1, largest |out|): fp32 1e-5 (the sums run in another
@@ -903,6 +908,58 @@ def time_ce_kernels(inputs, card: str):
         timing[f"ce_bounds/{m}"] = bounds
         del a_, b_, s_
         torch.cuda.empty_cache()
+    timing.update(time_ce_fp32(next(iter(inputs.values()))[0].device, card))
+    return timing
+
+
+def ce_slices(m: int, n: int, d: int, dtype, dev) -> dict:
+    """Slices of the streamed rows each CE kernel takes (float32 only)."""
+    import torch
+
+    from colxlip_tpu_torch.ops import fused_ce
+
+    if dtype != torch.float32:
+        return {"fwd": 1, "bwd_da": 1, "bwd_db": 1}
+    sms = fused_ce.multiprocessors(dev.index or 0)
+    return {"fwd": fused_ce.fp32_fwd_slices(m, n, sms),
+            "bwd_da": fused_ce.fp32_da_slices(m, n, d, sms),
+            "bwd_db": fused_ce.fp32_db_slices(m, n, d, sms)}
+
+
+def time_ce_fp32(dev, card: str) -> dict:
+    """Phase 5: the float32 CE kernels (#11-13 on the CUDA cores, split
+    across the streamed rows) at CE_FP32_TIMED's shapes, D = 512, each beside
+    its plain version and bound, with the slices each takes. Inputs from a
+    generator of their own."""
+    import torch
+
+    from colxlip_tpu_torch.ops import fused_ce
+
+    timing, gen = {}, torch.Generator().manual_seed(512)
+    for m, n, offset in CE_FP32_TIMED:
+        a, b, labels, s, g = ce_inputs(m, n, 512, 1 / 0.07 if m <= 256 else 100.0,
+                                       torch.float32, dev, gen)
+        if offset is not None:
+            labels = (torch.arange(m, dtype=torch.int32) + offset).to(dev)
+        _, lse = fused_ce._launch_fwd(a, b, labels, s)
+        iters, warm = (50, 3) if m <= 256 else (10, 2)
+        slices, bounds = ce_slices(m, n, 512, torch.float32, dev), ce_bounds(a, b)
+        calls = {
+            "fwd": (lambda: fused_ce._launch_fwd(a, b, labels, s),
+                    lambda: fused_ce.fused_ce_fwd_plain(a, b, labels, s)),
+            "bwd_da": (lambda: fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+                       lambda: fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, lse, g)),
+            "bwd_db": (lambda: fused_ce._launch_bwd_db(a, b, labels, s, lse, g),
+                       lambda: fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, lse, g))}
+        for key, (ker_fn, plain_fn) in calls.items():
+            ker, plain = cuda_ms(ker_fn, iters, warm), cuda_ms(plain_fn, iters, warm)
+            bound, by = bounds[f"fused_ce_{key}"]
+            timing[f"fused_ce_{key}/fp32/{m}x{n}"] = (ker, plain)
+            log(f"[5 timing] fused_ce_{key} M={m} N={n} D=512 fp32"
+                + (f" labels {offset}.." if offset is not None else "")
+                + f" (in {slices[key]} slices): kernel {ker:.4f} ms, plain {plain:.4f} ms, "
+                f"bound {bound:.5f} ms ({by}) ({card})")
+        del a, b, labels, s, g, lse
     return timing
 
 
@@ -3472,14 +3529,16 @@ def check_dist_kernels(dev, gen, card: str) -> dict:
         da_err = max(max_rel_err(da, want_da), max_rel_err(ds, want_ds))
         db_err = max_rel_err(db, want_db)
         name = str(dtype).split(".")[-1]
-        slices = (fused_ce.fp32_da_slices(m, n, 512, fused_ce.multiprocessors(dev.index or 0))
-                  if dtype == torch.float32 else 1)
-        rerun = torch.equal(da, da_again) and torch.equal(ds, ds_again)
+        slices = ce_slices(m, n, 512, dtype, dev)
+        again = (*fused_ce._launch_fwd(a, b, labels, s), fused_ce._launch_bwd_db(
+            a, b, labels, s, lse, g))
+        rerun = (torch.equal(da, da_again) and torch.equal(ds, ds_again)
+                 and all(torch.equal(x, y) for x, y in zip((loss, lse, db), again)))
         log(f"[12 dist] fused CE M={m} N={n} D=512 labels {offset}..{offset + m - 1} {name}: fwd "
             f"|err| / (1 + |loss|) {fwd_err:.3g} (tol {CE_FWD_TOL}); max_abs_err / max|grad| "
-            f"dA+dscale {da_err:.3g} (dA in {slices} slices of b; reruns "
-            f"{'bit-equal' if rerun else 'DIFFER'}), dB {db_err:.3g} (tol {CE_BWD_TOL}); loss "
-            f"mean {loss.mean().item():.5f}")
+            f"dA+dscale {da_err:.3g}, dB {db_err:.3g} (tol {CE_BWD_TOL}); slices of the "
+            f"streamed rows: fwd {slices['fwd']}, dA {slices['bwd_da']}, dB {slices['bwd_db']}; "
+            f"reruns {'bit-equal' if rerun else 'DIFFER'}; loss mean {loss.mean().item():.5f}")
         if not (fwd_err <= CE_FWD_TOL and da_err <= CE_BWD_TOL and db_err <= CE_BWD_TOL
                 and torch.isfinite(loss).all() and rerun):
             raise RuntimeError(f"phase 12 fused CE {m} x {n} {name}: {fwd_err} {da_err} {db_err}, "
@@ -3499,10 +3558,10 @@ def check_dist_kernels(dev, gen, card: str) -> dict:
             bound, by = bounds[key]
             out[f"{key}/{m}x{n}/{name}"] = {"ms": ker, "plain_ms": plain, "bound_ms": bound,
                                             "bound_by": by, "max_abs_err": err}
-            split = f" (in {slices} slices of b)" if key == "fused_ce_bwd_da" else ""
-            log(f"[12 dist] {key} M={m} N={n} D=512 {name}{split}: kernel {ker:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {bound:.5f} ms ({by}) ({card})")
-        out[f"fused_ce_bwd_da/{m}x{n}/{name}"]["slices"] = slices
+            split = slices[key[len("fused_ce_"):]]
+            out[f"{key}/{m}x{n}/{name}"]["slices"] = split
+            log(f"[12 dist] {key} M={m} N={n} D=512 {name} (in {split} slices): kernel "
+                f"{ker:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by}) ({card})")
     return out
 
 

@@ -20,14 +20,15 @@
 // dA, dB, loss, lse and dscale leave the kernels in fp32; the wrapper casts
 // and sums the per-row dscale. The TPU grid's padding to (8, 128) multiples
 // and its n_valid argument are gone: every kernel masks the ragged edge of M
-// and N itself, and D is a runtime argument (D <= 768).
+// and N itself, and D is a runtime argument (bf16 D <= 768, float32 any D).
 //
 // Hopper has no sequential grid to carry a running sum across, so the loop
 // over the streamed dimension sits inside the block: in the forward and in
 // dA one block owns rows of a and walks tiles of rows of b; in dB one block
 // owns rows of b and walks tiles of rows of a (the transposed grid of
-// fused_ce.py:206-220). Nothing is summed across blocks, so there are no
-// atomics and two runs agree bit for bit.
+// fused_ce.py:206-220). Where the fp32 kernels split the streamed rows
+// across blocks, a second pass adds the slices in a fixed order: there are
+// no atomics and two runs agree bit for bit.
 //
 // What bounds them on the H100: operations. The forward is 2 M N D flops,
 // each backward kernel 4 M N D (the logit tile again, then dz times the
@@ -95,24 +96,34 @@
 // n-tiles of the output past D are skipped. No atomics: the forward's pairs
 // and dscale's per-thread sums meet in shared memory in a fixed order.
 //
-// fp32 (all three kernels): fp32 FMAs on the CUDA cores, as first ported: a
-// 16 x 16 thread block holds the [rows, cols] tile of raw dots in
-// registers, fed from shared-memory chunks of 32 features stored
-// feature-major (csrc/stream_tile.cuh); the backward puts dz for the tile in
-// shared memory and each warp adds dz times the streamed rows (read through
-// L1/L2) into its 4 owned rows. fp32 runs only under --precision fp32, and a
-// tensor-core fp32 product would need three split products: it stays here.
-// dA (#12) also splits the streamed columns: a block owns 32 rows of a, so
-// at a local-loss step's M = 256 the row blocks alone are 8 for 132 SMs,
-// each walking every tile of b in series. The grid is (row blocks) x (S
-// slices of b's whole 64-row tiles), S chosen by the wrapper
-// (fp32_da_slices: two blocks an SM, 16 at 256 x 1024); block (i, s) stores
-// its slice's unscaled partial dA and dscale rows to scratch, and
-// reduce_partials adds the S partials in slice order and multiplies dA by
-// scale once at the end. Each raw_ij is summed over D as before (the bits
-// that #11 and #13 compute); the split moves only the order in which dz B
-// and dscale add up across slices. S = 1 (wherever the row blocks fill the
-// card) is the unsplit walk, bit for bit.
+// fp32 (all three kernels): fp32 FMAs on the CUDA cores. fp32 runs only
+// under --precision fp32, and a tensor-core fp32 product would need three
+// split products: it stays here. Both products run on the tiles of
+// csrc/stream_tile.cuh, which all three kernels share: raw_tile, a 16 x 16
+// thread block over a [rows, 64] tile of raw dots fed by float4 reads from
+// row-major chunks of 32 features, two stages filled by cp.async so that
+// the next chunk is in flight; and (backward) accumulate, which adds dz for
+// the tile (in shared memory) times the streamed rows (staged by cp.async
+// too) into 8 output rows x DPT features a thread. Each raw_ij is one fmaf
+// chain over the features in order from zero and each output element one
+// fmaf chain over the streamed rows in order, so the forward's lse and the
+// backward's p meet on the same bits of raw, as on the tensor cores. dA and
+// dB hold at most 768 features of a row (DPT = 12); wider rows take feature
+// slices along the grid's z axis, each recomputing raw.
+// A block owns 64 rows of a (forward), 32 of a (dA) or 32 of b (dB), so at
+// a local-loss step's M = 256, N = 1024 the row blocks alone would be 4, 8
+// and 32 for 132 SMs, each walking every tile of the other matrix in
+// series. So each kernel also splits the streamed rows: the grid is (row
+// blocks) x (S slices of the streamed matrix's whole 64-row tiles), S chosen
+// by the wrapper (fp32_fwd_slices, fp32_da_slices, fp32_db_slices: two
+// blocks an SM; 16, 16 and 4 at 256 x 1024). Block (i, s) stores its slice's
+// partials to scratch: the forward its running (max, sum) and label logit of
+// each row, merged by ce_fwd_merge_kernel in slice order (merge_lse) into
+// lse = max + log(sum) and loss = lse - z_label; dA and dB their unscaled
+// partial rows (and dA's dscale), which reduce_partials adds in slice order
+// and multiplies by scale once at the end. The split moves only the order in
+// which the partials add up across slices; S = 1 (wherever the row blocks
+// fill the card) is the unsplit walk, bit for bit.
 //
 // Next steps for a later PR: wgmma with TMA, a warpgroup reading the stream
 // tile once where each of today's warps re-reads its fragments from shared
@@ -125,26 +136,40 @@
 
 namespace {
 
-using colxlip::to_f;
 using namespace colxlip::stream_tile;
 
 constexpr float kNeg = -1e30f;
+constexpr int kMaxBf16D = 768;   // the bf16 tiles' feature capacity (Cfg<768>)
+
+// (m, s) <- the logsumexp pair of (m, s) and (m2, s2): max, then each sum
+// rescaled to it. The same bits in either order (fp32 + and * commute).
+__device__ __forceinline__ void merge_lse(float& m, float& s, float m2, float s2) {
+  const float mm = fmaxf(m, m2);
+  s = s * expf(m - mm) + s2 * expf(m2 - mm);
+  m = mm;
+}
+
+constexpr int kFwdRows = kTY * 4;   // rows of a a float32 forward block owns
 
 // ---------------------------------------------------------------------------
-// float32 forward (CUDA cores): one block per tile of 64 rows of a, looping
-// over tiles of 64 rows of b
+// float32 forward (CUDA cores): one block per tile of 64 rows of a
+// (blockIdx.x) and per slice of b's rows (blockIdx.y): slice s is the `per`
+// whole tiles of 64 rows from tile s per, walked in order from max = -1e30.
+// With one slice the block stores lse and loss; with more it stores its
+// running max, running sum and label logit of each row into slice s of
+// part [3][S][m] (scratch), for launch_fwd32's merge.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ce_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __restrict__ labels,
-              const float* __restrict__ scale_ptr, float* __restrict__ loss,
-              float* __restrict__ lse, int m, int n, int d) {
+__global__ void __launch_bounds__(kThreads, 2)
+ce_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
+              const int* __restrict__ labels, const float* __restrict__ scale_ptr,
+              float* __restrict__ loss, float* __restrict__ lse, float* __restrict__ part, int m,
+              int n, int d, int per, bool vec) {
   constexpr int RPT = 4, CPT = 4;
-  constexpr int BM = kTY * RPT, BN = kTX * CPT;
-  __shared__ Stage<RPT, CPT> st;
+  constexpr int BN = kTX * CPT;
+  __shared__ __align__(16) RawStages<RPT, CPT> st;
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const int i0 = blockIdx.x * BM;
+  const int i0 = blockIdx.x * kFwdRows;
   const float scale = *scale_ptr;
 
   float mx[RPT], sum[RPT], zt[RPT];
@@ -158,9 +183,13 @@ ce_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __res
     lab[r] = row < m ? labels[row] : -1;
   }
 
-  for (int j0 = 0; j0 < n; j0 += BN) {
+  const int j_first = int(blockIdx.y) * per * BN;
+  const int j_end = min(n, int(blockIdx.y + 1) * per * BN);
+  raw_prefetch<RPT, CPT>(st, a, b, i0, j_first, m, n, d, vec);
+  for (int j0 = j_first; j0 < j_end; j0 += BN) {
     float acc[RPT][CPT];
-    raw_tile<T, RPT, CPT>(a, b, i0, j0, m, n, d, st, acc);
+    raw_tile<RPT, CPT>(a, b, i0, j0, m, n, d, vec, st, acc);
+    if (j0 + BN < j_end) raw_prefetch<RPT, CPT>(st, a, b, i0, j0 + BN, m, n, d, vec);
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       float tmax = kNeg;
@@ -173,45 +202,73 @@ ce_fwd_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __res
         if (col == lab[r]) zt[r] += z;
       }
       const float mnew = fmaxf(mx[r], row_max(tmax));
-      float part = 0.f;
+      float part_sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) part += expf(acc[r][c] - mnew);  // masked: exp(-1e30) = 0
-      sum[r] = sum[r] * expf(mx[r] - mnew) + row_sum(part);
+      for (int c = 0; c < CPT; ++c) part_sum += expf(acc[r][c] - mnew);  // masked: exp(-1e30) = 0
+      sum[r] = sum[r] * expf(mx[r] - mnew) + row_sum(part_sum);
       mx[r] = mnew;
     }
   }
 
+  const int slices = gridDim.y;
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int row = i0 + ty + kTY * r;
     const float label_logit = row_sum(zt[r]);
     if (tx == 0 && row < m) {
-      const float l = mx[r] + logf(sum[r]);
-      lse[row] = l;
-      loss[row] = l - label_logit;
+      if (slices == 1) {
+        const float l = mx[r] + logf(sum[r]);
+        lse[row] = l;
+        loss[row] = l - label_logit;
+      } else {
+        const size_t at = size_t(blockIdx.y) * m + row;
+        part[at] = mx[r];
+        part[size_t(slices) * m + at] = sum[r];
+        part[2 * size_t(slices) * m + at] = label_logit;
+      }
     }
   }
+}
+
+// The split forward's second pass: a row's S (max, sum) pairs merged in
+// slice order from slice 0's, its label logits added in slice order (one
+// slice holds the label column, the others give 0), lse = max + log(sum),
+// loss = lse - the label logit.
+__global__ void ce_fwd_merge_kernel(const float* __restrict__ part, float* __restrict__ loss,
+                                    float* __restrict__ lse, int m, int slices) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const size_t plane = size_t(slices) * m;
+  float mm = part[i], ss = part[plane + i], zz = part[2 * plane + i];
+  for (int s = 1; s < slices; ++s) {
+    merge_lse(mm, ss, part[size_t(s) * m + i], part[plane + size_t(s) * m + i]);
+    zz += part[2 * plane + size_t(s) * m + i];
+  }
+  const float l = mm + logf(ss);
+  lse[i] = l;
+  loss[i] = l - zz;
 }
 
 // ---------------------------------------------------------------------------
 // float32 backward (CUDA cores)
 // ---------------------------------------------------------------------------
 
-// dA and per-row dscale: one block per tile of 32 rows of a (blockIdx.x) and
-// per slice of b's rows (blockIdx.y): slice s is the `per` whole tiles of 64
-// rows from tile s per, walked in order. With one slice the block stores
-// scale * dA and dscale; with more it stores its unscaled partials into
-// slice s of da [S][m][d] and dscale [S][m] (scratch), for launch_da's
-// second pass.
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
-ce_bwd_da_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __restrict__ labels,
-                 const float* __restrict__ scale_ptr, const float* __restrict__ lse,
-                 const float* __restrict__ g, float* __restrict__ da,
-                 float* __restrict__ dscale, int m, int n, int d, int per) {
+// dA and per-row dscale: one block per tile of 32 rows of a (blockIdx.x),
+// per slice of b's rows (blockIdx.y: slice s is the `per` whole tiles of 64
+// rows from tile s per, walked in order) and per feature slice of dA
+// (blockIdx.z, feature_slice; one up to 768 features). With one slice of b
+// the block stores scale * dA and dscale; with more it stores its unscaled
+// partials into slice s of da [S][m][d] and dscale [S][m] (scratch), for
+// launch_da's second pass. Feature slice 0 stores dscale.
+template <int DPT>
+__global__ void __launch_bounds__(kThreads, DPT <= 8 ? 2 : 1)
+ce_bwd_da_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 const int* __restrict__ labels, const float* __restrict__ scale_ptr,
+                 const float* __restrict__ lse, const float* __restrict__ g,
+                 float* __restrict__ da, float* __restrict__ dscale, int m, int n, int d, int per,
+                 bool vec) {
   constexpr int RPT = kOwn / kTY, CPT = kStream / kTX;
-  __shared__ Stage<RPT, CPT> st;
-  __shared__ float dz[kOwn][kStream + 1];
+  __shared__ __align__(16) BwdShared<RPT, CPT, DPT> sh;
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int i0 = blockIdx.x * kOwn;
   const float scale = *scale_ptr;
@@ -227,13 +284,16 @@ ce_bwd_da_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
     lab[r] = in ? labels[row] : -1;
     ds[r] = 0.f;
   }
-  float out[kOwnPerWarp][DPT];
+  float out[kAccRows][DPT];
   zero_owned<DPT>(out);
 
   const int j_end = min(n, int(blockIdx.y + 1) * per * kStream);
+  raw_prefetch<RPT, CPT>(sh.u.raw, a, b, i0, int(blockIdx.y) * per * kStream, m, n, d, vec);
   for (int j0 = int(blockIdx.y) * per * kStream; j0 < j_end; j0 += kStream) {
     float acc[RPT][CPT];
-    raw_tile<T, RPT, CPT>(a, b, i0, j0, m, n, d, st, acc);
+    raw_tile<RPT, CPT>(a, b, i0, j0, m, n, d, vec, sh.u.raw, acc);
+    const int count = min(kStream, n - j0);
+    acc_prefetch<DPT>(sh.u.rows, b + size_t(j0) * d, count, d, vec);
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const bool row_in = i0 + ty + kTY * r < m;
@@ -246,12 +306,12 @@ ce_bwd_da_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
           v = (p - (col == lab[r] ? 1.f : 0.f)) * g_r[r];
         }
         ds[r] = fmaf(v, acc[r][c], ds[r]);
-        dz[ty + kTY * r][tx + kTX * c] = v;
+        sh.zt[tx + kTX * c][ty + kTY * r] = v;
       }
     }
-    __syncthreads();
-    accumulate<T, DPT>(dz, b + size_t(j0) * d, min(kStream, n - j0), d, out);
-    __syncthreads();
+    accumulate<DPT>(sh.zt, b + size_t(j0) * d, count, d, vec, sh.u.rows, out);
+    if (j0 + kStream < j_end)
+      raw_prefetch<RPT, CPT>(sh.u.raw, a, b, i0, j0 + kStream, m, n, d, vec);
   }
 
   const bool whole = gridDim.y == 1;
@@ -260,29 +320,37 @@ ce_bwd_da_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
   for (int r = 0; r < RPT; ++r) {
     const int row = i0 + ty + kTY * r;
     const float total = row_sum(ds[r]);
-    if (tx == 0 && row < m) dscale[size_t(blockIdx.y) * m + row] = total;
+    if (tx == 0 && row < m && blockIdx.z == 0) dscale[size_t(blockIdx.y) * m + row] = total;
   }
 }
 
-// dB: one block per tile of 32 rows of b, looping over tiles of 64 rows of a.
-template <typename T, int DPT>
-__global__ void __launch_bounds__(kThreads)
-ce_bwd_db_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __restrict__ labels,
-                 const float* __restrict__ scale_ptr, const float* __restrict__ lse,
-                 const float* __restrict__ g, float* __restrict__ db, int m, int n, int d) {
+// dB: one block per tile of 32 rows of b (blockIdx.x), per slice of a's rows
+// (blockIdx.y: the `per` whole tiles of 64 rows from tile s per, in order)
+// and per feature slice (blockIdx.z). With one slice of a the block stores
+// scale * dB; with more its unscaled partial into slice s of db [S][n][d]
+// (scratch), for launch_db's second pass.
+template <int DPT>
+__global__ void __launch_bounds__(kThreads, DPT <= 8 ? 2 : 1)
+ce_bwd_db_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 const int* __restrict__ labels, const float* __restrict__ scale_ptr,
+                 const float* __restrict__ lse, const float* __restrict__ g,
+                 float* __restrict__ db, int m, int n, int d, int per, bool vec) {
   constexpr int RPT = kStream / kTY, CPT = kOwn / kTX;
-  __shared__ Stage<RPT, CPT> st;
-  __shared__ float dz[kOwn][kStream + 1];  // [column of the tile][row of the tile]
+  __shared__ __align__(16) BwdShared<RPT, CPT, DPT> sh;
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
   const int j0 = blockIdx.x * kOwn;
   const float scale = *scale_ptr;
 
-  float out[kOwnPerWarp][DPT];
+  float out[kAccRows][DPT];
   zero_owned<DPT>(out);
 
-  for (int i0 = 0; i0 < m; i0 += kStream) {
+  const int i_end = min(m, int(blockIdx.y + 1) * per * kStream);
+  raw_prefetch<RPT, CPT>(sh.u.raw, a, b, int(blockIdx.y) * per * kStream, j0, m, n, d, vec);
+  for (int i0 = int(blockIdx.y) * per * kStream; i0 < i_end; i0 += kStream) {
     float acc[RPT][CPT];
-    raw_tile<T, RPT, CPT>(a, b, i0, j0, m, n, d, st, acc);
+    raw_tile<RPT, CPT>(a, b, i0, j0, m, n, d, vec, sh.u.raw, acc);
+    const int count = min(kStream, m - i0);
+    acc_prefetch<DPT>(sh.u.rows, a + size_t(i0) * d, count, d, vec);
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int row = i0 + ty + kTY * r;
@@ -298,15 +366,15 @@ ce_bwd_db_kernel(const T* __restrict__ a, const T* __restrict__ b, const int* __
           const float p = expf(scale * acc[r][c] - lse_r);
           v = (p - (col == lab ? 1.f : 0.f)) * g_r;
         }
-        dz[tx + kTX * c][ty + kTY * r] = v;
+        sh.zt[ty + kTY * r][tx + kTX * c] = v;
       }
     }
-    __syncthreads();
-    accumulate<T, DPT>(dz, a + size_t(i0) * d, min(kStream, m - i0), d, out);
-    __syncthreads();
+    accumulate<DPT>(sh.zt, a + size_t(i0) * d, count, d, vec, sh.u.rows, out);
+    if (i0 + kStream < i_end)
+      raw_prefetch<RPT, CPT>(sh.u.raw, a, b, i0 + kStream, j0, m, n, d, vec);
   }
 
-  store_owned<DPT>(out, db, j0, n, d, scale);
+  store_owned<DPT>(out, db + size_t(blockIdx.y) * n * d, j0, n, d, gridDim.y == 1 ? scale : 1.f);
 }
 
 // The backward kernels' arguments, as the C entry points receive them.
@@ -415,14 +483,6 @@ __device__ __forceinline__ void logit_tile(float (&raw)[NT][4], const bf16* pa, 
       mma::mma_16816_rn(raw[2 * np + 1], af, bfr[2], bfr[3]);
     }
   }
-}
-
-// (m, s) <- the logsumexp pair of (m, s) and (m2, s2): max, then each sum
-// rescaled to it. The same bits in either order (fp32 + and * commute).
-__device__ __forceinline__ void merge_lse(float& m, float& s, float m2, float s2) {
-  const float mm = fmaxf(m, m2);
-  s = s * expf(m - mm) + s2 * expf(m2 - mm);
-  m = mm;
 }
 
 // The forward (#11): own = a [M] (labels per own row), stream = b [N]; out
@@ -790,8 +850,35 @@ cudaError_t dispatch_fwd(const Args& x, float* loss, float* lse) {
 }  // namespace ce_mma
 
 // ---------------------------------------------------------------------------
-// float32 backward launchers
+// float32 launchers
 // ---------------------------------------------------------------------------
+
+// float32 rows take 16-byte copies where they are a multiple of 4 features on
+// 16-byte aligned bases, 4-byte copies otherwise.
+bool vec_rows(const Args& x) {
+  return x.d % 4 == 0 && (reinterpret_cast<uintptr_t>(x.a) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(x.b) & 15) == 0;
+}
+
+// Feature slices of dA and dB: one up to kSliceD features, then as few as
+// keep each within it.
+int feature_slices(int d) { return (d + kSliceD - 1) / kSliceD; }
+
+// `slices` slices of b's 64-row tiles (the wrapper's fp32_fwd_slices), cut
+// so that none is empty. Past one, the blocks' (max, sum, label logit) go to
+// scratch [3][S][m] and ce_fwd_merge_kernel merges them in slice order.
+cudaError_t launch_fwd32(const Args& x, float* loss, float* lse, float* scratch, int slices) {
+  const int tiles = (x.n + kStream - 1) / kStream;
+  const int per = (tiles + slices - 1) / slices;
+  slices = (tiles + per - 1) / per;
+  ce_fwd_kernel<<<dim3((x.m + kFwdRows - 1) / kFwdRows, slices), kThreads, 0, x.stream>>>(
+      static_cast<const float*>(x.a), static_cast<const float*>(x.b), x.labels, x.scale, loss,
+      lse, scratch, x.m, x.n, x.d, per, vec_rows(x));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return err;
+  ce_fwd_merge_kernel<<<(x.m + 255) / 256, 256, 0, x.stream>>>(scratch, loss, lse, x.m, slices);
+  return cudaGetLastError();
+}
 
 // `slices` slices of b's 64-row tiles (the wrapper's fp32_da_slices), cut
 // so that none is empty. Past one, the blocks' partials go to scratch (dA
@@ -804,9 +891,10 @@ cudaError_t launch_da(const Args& x, float* da, float* dscale, float* scratch, i
   slices = (tiles + per - 1) / per;
   float* part_da = slices > 1 ? scratch : da;
   float* part_ds = slices > 1 ? scratch + size_t(slices) * x.m * x.d : dscale;
-  ce_bwd_da_kernel<float, DPT><<<dim3((x.m + kOwn - 1) / kOwn, slices), kThreads, 0, x.stream>>>(
+  const dim3 grid((x.m + kOwn - 1) / kOwn, slices, feature_slices(x.d));
+  ce_bwd_da_kernel<DPT><<<grid, kThreads, 0, x.stream>>>(
       static_cast<const float*>(x.a), static_cast<const float*>(x.b), x.labels, x.scale, x.lse,
-      x.g, part_da, part_ds, x.m, x.n, x.d, per);
+      x.g, part_da, part_ds, x.m, x.n, x.d, per, vec_rows(x));
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || slices == 1) return err;
   const cudaError_t err_da =
@@ -815,32 +903,55 @@ cudaError_t launch_da(const Args& x, float* da, float* dscale, float* scratch, i
   return reduce_partials(part_ds, dscale, slices, x.m, x.stream);
 }
 
+// `slices` slices of a's 64-row tiles (the wrapper's fp32_db_slices), cut so
+// that none is empty. Past one, the blocks' partials go to scratch (dB
+// [S][n][d]) and reduce_partials adds them in slice order, times scale once
+// after the whole sum.
 template <int DPT>
-cudaError_t launch_db(const Args& x, float* db) {
-  ce_bwd_db_kernel<float, DPT><<<(x.n + kOwn - 1) / kOwn, kThreads, 0, x.stream>>>(
+cudaError_t launch_db(const Args& x, float* db, float* scratch, int slices) {
+  const int tiles = (x.m + kStream - 1) / kStream;
+  const int per = (tiles + slices - 1) / slices;
+  slices = (tiles + per - 1) / per;
+  float* part_db = slices > 1 ? scratch : db;
+  const dim3 grid((x.n + kOwn - 1) / kOwn, slices, feature_slices(x.d));
+  ce_bwd_db_kernel<DPT><<<grid, kThreads, 0, x.stream>>>(
       static_cast<const float*>(x.a), static_cast<const float*>(x.b), x.labels, x.scale, x.lse,
-      x.g, db, x.m, x.n, x.d);
-  return cudaGetLastError();
+      x.g, part_db, x.m, x.n, x.d, per, vec_rows(x));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || slices == 1) return err;
+  return reduce_partials(part_db, db, slices, x.n * x.d, x.stream, Finish{x.scale, nullptr, 1});
 }
 
-// float32: the per-thread feature count is a template argument (the
-// accumulators live in registers): 32 * DPT >= D.
+// float32: the features a thread holds of each of its 8 output rows are a
+// template argument (the accumulators live in registers): 64 DPT covers the
+// widest feature slice, slice_width(d, feature_slices(d)) <= 768.
+int features_per_thread(int d) {
+  const int w = slice_width(d, feature_slices(d));
+  return w <= 256 ? 4 : w <= 512 ? 8 : 12;
+}
+
 cudaError_t dispatch_da(const Args& x, float* da, float* dscale, float* scratch, int slices) {
-  if (x.d <= 64) return launch_da<2>(x, da, dscale, scratch, slices);
-  if (x.d <= 256) return launch_da<8>(x, da, dscale, scratch, slices);
-  if (x.d <= 512) return launch_da<16>(x, da, dscale, scratch, slices);
-  return launch_da<24>(x, da, dscale, scratch, slices);
+  switch (features_per_thread(x.d)) {
+    case 4: return launch_da<4>(x, da, dscale, scratch, slices);
+    case 8: return launch_da<8>(x, da, dscale, scratch, slices);
+    default: return launch_da<12>(x, da, dscale, scratch, slices);
+  }
 }
 
-cudaError_t dispatch_db(const Args& x, float* db) {
-  if (x.d <= 64) return launch_db<2>(x, db);
-  if (x.d <= 256) return launch_db<8>(x, db);
-  if (x.d <= 512) return launch_db<16>(x, db);
-  return launch_db<24>(x, db);
+cudaError_t dispatch_db(const Args& x, float* db, float* scratch, int slices) {
+  switch (features_per_thread(x.d)) {
+    case 4: return launch_db<4>(x, db, scratch, slices);
+    case 8: return launch_db<8>(x, db, scratch, slices);
+    default: return launch_db<12>(x, db, scratch, slices);
+  }
 }
 
-bool bad_shape(int m, int n, int d, int dtype) {
-  return m < 1 || n < 1 || d < 1 || d > kMaxD || (dtype != 0 && dtype != 1);
+// bf16 takes D <= kMaxBf16D (its tiles sit whole in shared memory); float32
+// any D. Every split needs its scratch, and bf16 takes no split.
+bool bad_shape(int m, int n, int d, int dtype, int slices, const void* scratch) {
+  return m < 1 || n < 1 || d < 1 || (dtype != 0 && dtype != 1) ||
+         (dtype == 1 && (d > kMaxBf16D || slices != 1)) || slices < 1 ||
+         (slices > 1 && scratch == nullptr);
 }
 
 }  // namespace
@@ -849,36 +960,32 @@ bool bad_shape(int m, int n, int d, int dtype) {
 // scale: one float32 on the device; out loss [M], lse [M] float32. Returns a
 // cudaError_t (0 = launched). bfloat16 takes the tensor-core kernel, whose rows
 // must be a multiple of 8 features on 16-byte aligned bases
-// (cudaErrorInvalidValue otherwise); float32 the CUDA cores.
+// (cudaErrorInvalidValue otherwise), D <= 768, slices 1; float32 the CUDA
+// cores in `slices` slices of b's rows, with scratch 3 * slices * M float32
+// where slices > 1.
 extern "C" int colxlip_fused_ce_fwd(const void* a, const void* b, const void* labels,
-                                    const void* scale, void* loss, void* lse, int m, int n, int d,
-                                    int dtype, void* stream) {
-  if (bad_shape(m, n, d, dtype)) return cudaErrorInvalidValue;
+                                    const void* scale, void* loss, void* lse, void* scratch, int m,
+                                    int n, int d, int slices, int dtype, void* stream) {
+  if (bad_shape(m, n, d, dtype, slices, scratch)) return cudaErrorInvalidValue;
   const Args x{a, b, static_cast<const int*>(labels), static_cast<const float*>(scale),
                nullptr, nullptr, m, n, d, static_cast<cudaStream_t>(stream)};
   float* lo = static_cast<float*>(loss);
   float* ls = static_cast<float*>(lse);
   if (dtype == 1) return ce_mma::dispatch_fwd(x, lo, ls);
-  constexpr int BM = kTY * 4;
-  ce_fwd_kernel<float><<<(m + BM - 1) / BM, kThreads, 0, x.stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), x.labels, x.scale, lo, ls, m,
-      n, d);
-  return cudaGetLastError();
+  return launch_fwd32(x, lo, ls, static_cast<float*>(scratch), slices);
 }
 
 // As the forward, plus lse [M] and g [M] float32 (the cotangent of the loss
 // rows); out da [M, D] and dscale [M] float32. bfloat16 takes the
 // tensor-core kernel, whose rows must be a multiple of 8 features on 16-byte
-// aligned bases (cudaErrorInvalidValue otherwise), slices 1; float32 the
-// CUDA cores in `slices` slices of b's rows, with scratch slices * M * (D +
-// 1) float32 where slices > 1.
+// aligned bases (cudaErrorInvalidValue otherwise), D <= 768, slices 1;
+// float32 the CUDA cores in `slices` slices of b's rows, with scratch
+// slices * M * (D + 1) float32 where slices > 1.
 extern "C" int colxlip_fused_ce_bwd_da(const void* a, const void* b, const void* labels,
                                        const void* scale, const void* lse, const void* g,
                                        void* da, void* dscale, void* scratch, int m, int n, int d,
                                        int slices, int dtype, void* stream) {
-  if (bad_shape(m, n, d, dtype) || slices < 1 || (dtype == 1 && slices != 1) ||
-      (slices > 1 && scratch == nullptr))
-    return cudaErrorInvalidValue;
+  if (bad_shape(m, n, d, dtype, slices, scratch)) return cudaErrorInvalidValue;
   const Args x{a, b, static_cast<const int*>(labels), static_cast<const float*>(scale),
                static_cast<const float*>(lse), static_cast<const float*>(g), m, n, d,
                static_cast<cudaStream_t>(stream)};
@@ -888,14 +995,17 @@ extern "C" int colxlip_fused_ce_bwd_da(const void* a, const void* b, const void*
                     : ce_mma::dispatch<true>(x, out, ds);
 }
 
-// As colxlip_fused_ce_bwd_da; out db [N, D] float32.
+// As colxlip_fused_ce_bwd_da; out db [N, D] float32, float32 in `slices`
+// slices of a's rows with scratch slices * N * D float32 where slices > 1.
 extern "C" int colxlip_fused_ce_bwd_db(const void* a, const void* b, const void* labels,
                                        const void* scale, const void* lse, const void* g,
-                                       void* db, int m, int n, int d, int dtype, void* stream) {
-  if (bad_shape(m, n, d, dtype)) return cudaErrorInvalidValue;
+                                       void* db, void* scratch, int m, int n, int d, int slices,
+                                       int dtype, void* stream) {
+  if (bad_shape(m, n, d, dtype, slices, scratch)) return cudaErrorInvalidValue;
   const Args x{a, b, static_cast<const int*>(labels), static_cast<const float*>(scale),
                static_cast<const float*>(lse), static_cast<const float*>(g), m, n, d,
                static_cast<cudaStream_t>(stream)};
   float* out = static_cast<float*>(db);
-  return dtype == 0 ? dispatch_db(x, out) : ce_mma::dispatch<false>(x, out, nullptr);
+  return dtype == 0 ? dispatch_db(x, out, static_cast<float*>(scratch), slices)
+                    : ce_mma::dispatch<false>(x, out, nullptr);
 }

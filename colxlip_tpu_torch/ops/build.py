@@ -51,12 +51,12 @@ _SIGNATURES = {
     # Li, D, mask_mode, dtype, stream
     "colxlip_maxsim_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _P],
-    # a, b, labels, scale, loss, lse, M, N, D, dtype, stream
-    "colxlip_fused_ce_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, labels, scale, loss, lse, scratch, M, N, D, slices, dtype, stream
+    "colxlip_fused_ce_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a, b, labels, scale, lse, g, da, dscale, scratch, M, N, D, slices, dtype, stream
     "colxlip_fused_ce_bwd_da": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # a, b, labels, scale, lse, g, db, M, N, D, dtype, stream
-    "colxlip_fused_ce_bwd_db": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a, b, labels, scale, lse, g, db, scratch, M, N, D, slices, dtype, stream
+    "colxlip_fused_ce_bwd_db": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, gamma, beta, y, rows, D, eps, dtype, stream
     "colxlip_fused_ln_fwd": [_P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     # x, gamma, dy, dx, partials, dgb, rows, D, eps, blocks, dtype, stream

@@ -15,10 +15,14 @@ dB; in bf16 all three run on the tensor cores through one logit tile, the
 backward with dz split into two bf16 halves), each beside a plain PyTorch
 version that walks the columns in chunks with the same online max / sum
 recurrence and an explicit backward, so its memory is O((M + N) D + M chunk)
-and it runs at M = N = 32768 as the oracle. In float32 the dA kernel also
-splits b's rows into ``fp32_da_slices`` slices where its 32-row blocks alone
-would leave the card idle (M = 256: 8 blocks, 16 slices), each slice's
-partial dA and dscale added in slice order by a second pass.
+and it runs at M = N = 32768 as the oracle. In float32 each kernel also
+splits the streamed rows where its row blocks alone would leave the card
+idle: the forward b's rows into ``fp32_fwd_slices`` slices (M = 256,
+N = 1024: 4 blocks, 16 slices), each slice's (max, sum, label logit) merged
+in slice order by a second pass; dA b's rows into ``fp32_da_slices`` (8
+blocks, 16 slices) and dB a's rows into ``fp32_db_slices`` (32 blocks, 4
+slices), each slice's partial rows added in slice order by a second pass.
+bfloat16 takes D <= 768, float32 any D.
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. There is no fallback.
 
@@ -29,7 +33,7 @@ outside [0, N) matches no column, and its row's loss is its logsumexp.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,12 +43,13 @@ from .build import LaunchCounter, load_kernels, multiprocessors
 FWD_LAUNCHES = LaunchCounter()
 BWD_DA_LAUNCHES = LaunchCounter()
 BWD_DB_LAUNCHES = LaunchCounter()
-MAX_FEATURES = 768
+MAX_FEATURES = {torch.bfloat16: 768}   # float32 takes any D
 PLAIN_CHUNK = 1024
-FP32_OWN_ROWS = 32               # stream_tile.cuh kOwn: rows of a a float32 dA block owns
-FP32_STREAM_ROWS = 64            # kStream: rows of b a tile, the unit of a dA slice
+FP32_OWN_ROWS = 32               # stream_tile.cuh kOwn: rows a float32 dA or dB block owns
+FP32_FWD_ROWS = 64               # fused_ce.cu kFwdRows: rows of a a float32 forward block owns
+FP32_STREAM_ROWS = 64            # kStream: rows of the streamed matrix a tile, a slice's unit
 FP32_MAX_DA_SLICES = 32          # kRedGroups: slices reduce_partials adds in order
-FP32_DA_SCRATCH_BYTES = 32 * 2**20   # the split dA's partials (dA and dscale) at most
+FP32_DA_SCRATCH_BYTES = 32 * 2**20   # a split's partials at most (each of the three kernels)
 _BLOCKS_PER_SM = 2
 _NEG = -1e30     # the running max starts here, not at -inf: exp(-inf - -inf) is NaN
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,8 +141,35 @@ def fp32_da_slices(m: int, n: int, d: int, sms: int) -> int:
     kernel is the unsplit walk. 16 at M = 256, N = 1024, D 512 (8 MiB)."""
     blocks = -(-m // FP32_OWN_ROWS)
     tiles = -(-n // FP32_STREAM_ROWS)
+    return _slices(blocks, tiles, sms, 4 * m * (d + 1))
+
+
+def fp32_fwd_slices(m: int, n: int, sms: int) -> int:
+    """Slices of b's rows a float32 forward call is cut into (its grid.y),
+    by fp32_da_slices' rule from its ceil(M / 64) row blocks, within
+    FP32_DA_SCRATCH_BYTES of partials (3 S M fp32: max, sum, label logit).
+    1 wherever the row blocks fill the card (M > 64 x 132 on the H100).
+    16 at M = 256, N = 1024; 4 at 4096 x 4096."""
+    return _slices(-(-m // FP32_FWD_ROWS), -(-n // FP32_STREAM_ROWS), sms, 12 * m)
+
+
+def fp32_db_slices(m: int, n: int, d: int, sms: int) -> int:
+    """Slices of a's rows a float32 dB call is cut into (its grid.y), by
+    fp32_da_slices' rule from its ceil(N / 32) row blocks of b, within
+    FP32_DA_SCRATCH_BYTES of partials (S N D fp32). 1 wherever the row
+    blocks fill the card (N > 32 x 132 on the H100). 4 at M = 256,
+    N = 1024; 2 at 4096 x 4096, D 512."""
+    return _slices(-(-n // FP32_OWN_ROWS), -(-m // FP32_STREAM_ROWS), sms, 4 * n * d)
+
+
+def _slices(blocks: int, tiles: int, sms: int, slice_bytes: int) -> int:
+    """Slices of `tiles` streamed tiles that bring `blocks` row blocks to
+    two blocks a multiprocessor: at most one tile a slice and
+    FP32_MAX_DA_SLICES, their partials (slice_bytes each) within
+    FP32_DA_SCRATCH_BYTES, none empty (the kernels give each slice
+    ceil(tiles / S) tiles)."""
     want = min(_BLOCKS_PER_SM * sms // blocks, tiles, FP32_MAX_DA_SLICES,
-               FP32_DA_SCRATCH_BYTES // (4 * m * (d + 1)))
+               FP32_DA_SCRATCH_BYTES // slice_bytes)
     if want <= 1:
         return 1
     return -(-tiles // -(-tiles // want))
@@ -149,9 +181,10 @@ def _check_cuda(a, b, labels, scale, *more) -> Tuple[int, int, int]:
         raise ValueError(f"fused_contrastive_ce: dtypes {a.dtype}/{b.dtype} not supported "
                          "(both float32 or both bfloat16)")
     d = a.shape[1]
-    if d > MAX_FEATURES:
+    limit = MAX_FEATURES.get(a.dtype)
+    if limit is not None and d > limit:
         raise ValueError(f"fused_contrastive_ce: D={d} outside the kernels' range "
-                         f"(D <= {MAX_FEATURES})")
+                         f"(D <= {limit})")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("fused_contrastive_ce: a and b must be contiguous")
     if labels.dtype != torch.int32 or not labels.is_contiguous():
@@ -165,18 +198,33 @@ def _check_cuda(a, b, labels, scale, *more) -> Tuple[int, int, int]:
     return a.shape[0], b.shape[0], d
 
 
+def _scratch(slices: int, elems: int, device) -> Tuple[Optional[torch.Tensor], Optional[int]]:
+    """A split's scratch for its partials and the pointer to pass (both None
+    without a split)."""
+    if slices == 1:
+        return None, None
+    scratch = torch.empty(slices * elems, dtype=torch.float32, device=device)
+    return scratch, scratch.data_ptr()
+
+
 def _launch_fwd(a, b, labels, scale) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel on CUDA tensors (checks, never falls back)."""
+    """The forward kernel on CUDA tensors (checks, never falls back); the
+    float32 call takes ``fp32_fwd_slices`` slices of b and scratch for their
+    partials."""
     m, n, _ = _check_cuda(a, b, labels, scale)
+    slices = 1
     if a.dtype == torch.bfloat16:
         a, b = mma_operands(a, b)
+    else:
+        slices = fp32_fwd_slices(m, n, multiprocessors(a.device.index))
     kernels = load_kernels()
     loss = torch.empty(m, dtype=torch.float32, device=a.device)
     lse = torch.empty_like(loss)
+    scratch, scratch_ptr = _scratch(slices, 3 * m, a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = kernels.colxlip_fused_ce_fwd(
         a.data_ptr(), b.data_ptr(), labels.data_ptr(), scale.data_ptr(), loss.data_ptr(),
-        lse.data_ptr(), m, n, a.shape[1], _DTYPE_CODES[a.dtype], stream)
+        lse.data_ptr(), scratch_ptr, m, n, a.shape[1], slices, _DTYPE_CODES[a.dtype], stream)
     kernels.check(err, "colxlip_fused_ce_fwd")
     FWD_LAUNCHES.add()
     return loss, lse
@@ -201,29 +249,30 @@ def mma_operands(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.
 
 def _launch_bwd(entry, a, b, labels, scale, lse, g, rows: int, with_dscale: bool):
     """One backward kernel on CUDA tensors: fp32 [rows, D] (and dscale rows
-    fp32 [M] with the dA kernel, whose float32 call takes ``fp32_da_slices``
-    slices of b and scratch for their partials)."""
+    fp32 [M] with the dA kernel). The float32 call takes ``fp32_da_slices``
+    slices of b (dA) or ``fp32_db_slices`` slices of a (dB) and scratch for
+    their partials."""
     m, n, d = _check_cuda(a, b, labels, scale, ("lse", lse), ("g", g))
     _check_bwd(a, lse, g)
+    slices = 1
     if a.dtype == torch.bfloat16:
         a, b = mma_operands(a, b)
+    else:
+        sms = multiprocessors(a.device.index)
+        slices = fp32_da_slices(m, n, d, sms) if with_dscale else fp32_db_slices(m, n, d, sms)
     width = a.shape[1]
     kernels = load_kernels()
     out = torch.empty((rows, width), dtype=torch.float32, device=a.device)
-    extra, sizes = (), (m, n, width)
+    outs = (out.data_ptr(),)
     if with_dscale:
         dscale = torch.empty(m, dtype=torch.float32, device=a.device)
-        slices = 1
-        if a.dtype == torch.float32:
-            slices = fp32_da_slices(m, n, width, multiprocessors(a.device.index))
-        scratch = (torch.empty(slices * m * (width + 1), dtype=torch.float32, device=a.device)
-                   if slices > 1 else None)
-        extra = (dscale.data_ptr(), None if scratch is None else scratch.data_ptr())
-        sizes = (m, n, width, slices)
+        outs += (dscale.data_ptr(),)
+    scratch, scratch_ptr = _scratch(slices, m * (width + 1) if with_dscale else n * width,
+                                    a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = getattr(kernels, entry)(
         a.data_ptr(), b.data_ptr(), labels.data_ptr(), scale.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), out.data_ptr(), *extra, *sizes, _DTYPE_CODES[a.dtype], stream)
+        g.data_ptr(), *outs, scratch_ptr, m, n, width, slices, _DTYPE_CODES[a.dtype], stream)
     kernels.check(err, entry)
     out = out if width == d else out[:, :d].contiguous()
     return (out, dscale) if with_dscale else out
@@ -293,7 +342,7 @@ def fused_contrastive_ce(a: torch.Tensor, b: torch.Tensor, labels: torch.Tensor,
     differentiable in a, b and logit_scale (a tensor or a number).
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (float32 or bfloat16, contiguous, D <= 768) or raise."""
+    (float32 at any D, or bfloat16 at D <= 768; contiguous) or raise."""
     _check_args(a, b, labels)
     scale = torch.as_tensor(logit_scale, device=a.device)
     scale = scale.to(torch.float32) if scale.dtype != torch.float32 else scale

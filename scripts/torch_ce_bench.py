@@ -6,8 +6,11 @@
 
 Runs the three kernels of ``csrc/fused_ce.cu`` alone in bf16 (forward #11,
 dA with the per-row dscale #12, dB #13), or with ``--dtype float32`` on the
-CUDA cores (``--sizes 4096,8192``: the fp32 dA splits b's rows at 4096 and
-not at 8192, ``ops.fused_ce.fp32_da_slices``). For each size M = N (D = 512,
+CUDA cores, each split across the streamed rows where its row blocks alone
+would not fill the card (``ops.fused_ce.fp32_fwd_slices``,
+``fp32_da_slices``, ``fp32_db_slices``: at 4096 the forward takes 4 slices,
+dA and dB 2; at 8192 the forward 2, dA and dB 1; ``--sizes
+4096,8192,32768``), also at D = 1000 and 1024. For each size M = N (D = 512,
 the logit scales of ``chip_smoke.py``'s ``CE_CASES``), for "local-loss" (M
 256 x N 1024, D 512, labels 768.., rank 3's rows of a 4-rank local-loss clip
 step, as ``chip_smoke.py`` phase 12c) and for the extra shapes
@@ -19,12 +22,17 @@ the same bits. At each size it then times, with CUDA events in turns
 dense pair (fp32 ``torch.matmul`` + ``F.cross_entropy``, which holds the
 [M, N] logits: forward, and forward plus backward) and one direction of the
 loss under autograd through the kernels (forward + dA + dB), beside each
-kernel's bound, and reads each kernel's device time with torch.profiler.
-It prints the registers and spills of ``fused_ce.cu``'s kernels
-(``nvcc -Xptxas -v``), one line a case with a SHA-256 of the backward's
-outputs (two trees on the same card can be compared line by line), the
-card's name and power limit, and one JSON object; it exits 1 if a check
-fails.
+kernel's bound and the slices it takes, and reads the device time of each
+kernel and of its second pass apart (the forward's merge, dA's and dB's
+reduce) with torch.profiler. It prints the registers and spills of
+``fused_ce.cu``'s kernels (``nvcc -Xptxas -v``), one line a case with a
+SHA-256 of each output (loss, lse, dA, dscale, dB: two trees on the same
+card can be compared line by line), the card's name and power limit, and
+one JSON object; it exits 1 if a check fails. A case the kernels refuse
+(an earlier tree's D limit) prints "refused" and fails nothing. With
+``--unsplit`` every float32 kernel takes one slice (the wrapper's slice
+rules held to 1), so the digests compare with an earlier tree's unsplit
+kernels bit for bit.
 
 The case "tied-100" (b = a at logit scale 100) is held to the same bars:
 there each row's own column has a logit of about 100, so a few fp32 steps
@@ -51,11 +59,13 @@ SCALES = {256: 1 / 0.07}          # chip_smoke.CE_CASES: 100 at the larger sizes
 EXTRA = [
     # name, M, N, D, logit scale, b = a, label offset (None: random labels), timed, dtypes
     ("local-loss", 256, 1024, 512, 1 / 0.07, False, 768, True, ("bfloat16", "float32")),
-    ("vit-l-768", 4096, 4096, 768, 100.0, False, None, False, ("bfloat16",)),
+    ("vit-l-768", 4096, 4096, 768, 100.0, False, None, True, ("bfloat16", "float32")),
     ("ragged-64", 33, 129, 64, 30.0, False, None, False, ("bfloat16", "float32")),
     ("d36", 130, 200, 36, 20.0, False, None, False, ("bfloat16", "float32")),
     ("tied", 1024, 1024, 512, 1 / 0.07, True, None, False, ("bfloat16", "float32")),
     ("tied-100", 1024, 1024, 512, 100.0, True, None, False, ("bfloat16",)),
+    ("wide-1000", 300, 1000, 1000, 30.0, False, None, False, ("float32",)),
+    ("wide-1024", 4096, 4096, 1024, 100.0, False, None, True, ("float32",)),
 ]
 
 
@@ -76,11 +86,12 @@ def digest(*tensors) -> str:
 
 def check(a, b, labels, s, g):
     """Errors of the three kernels against their plain versions, and whether
-    two backward runs agree bit for bit."""
+    two runs of each agree bit for bit."""
     loss, lse = fused_ce._launch_fwd(a, b, labels, s)
     da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
     db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
-    again = (*fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+    again = (*fused_ce._launch_fwd(a, b, labels, s),
+             *fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
              fused_ce._launch_bwd_db(a, b, labels, s, lse, g))
     want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
     want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
@@ -93,10 +104,26 @@ def check(a, b, labels, s, g):
     err = {"fwd": max(unit(loss, want_loss), unit(lse, want_lse)),
            "da": chip_smoke.max_rel_err(da, want_da), "dscale": chip_smoke.max_rel_err(ds, want_ds),
            "db": chip_smoke.max_rel_err(db, want_db)}
-    same = all(torch.equal(x, y) for x, y in zip((da, ds, db), again))
+    same = all(torch.equal(x, y) for x, y in zip((loss, lse, da, ds, db), again))
     good = (err["fwd"] <= chip_smoke.CE_FWD_TOL and torch.isfinite(loss).all().item()
             and max(err["da"], err["dscale"], err["db"]) <= chip_smoke.CE_BWD_TOL and same)
-    return err, same, good, lse, {"da": digest(da, ds), "db": digest(db), "lse": digest(lse)}
+    digests = {"loss": digest(loss), "lse": digest(lse), "da": digest(da), "dscale": digest(ds),
+               "db": digest(db)}
+    return err, same, good, lse, digests
+
+
+def slices_of(m, n, d, dtype, dev) -> dict:
+    """Slices of the streamed rows each kernel takes (1 where a tree has no
+    split for it)."""
+    if dtype != torch.float32:
+        return {"fwd": 1, "bwd_da": 1, "bwd_db": 1}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rule(name, *args):
+        return getattr(fused_ce, name)(*args, sms) if hasattr(fused_ce, name) else 1
+
+    return {"fwd": rule("fp32_fwd_slices", m, n), "bwd_da": rule("fp32_da_slices", m, n, d),
+            "bwd_db": rule("fp32_db_slices", m, n, d)}
 
 
 def time_size(m, a, b, labels, s, lse, g, iters):
@@ -136,11 +163,9 @@ def time_size(m, a, b, labels, s, lse, g, iters):
     bounds = chip_smoke.ce_bounds(a, b)
     for key in row:
         row[key]["bound_ms"], row[key]["bound_by"] = bounds[f"fused_ce_{key}"]
-    passes = chip_smoke.device_ms_by_kernel(
-        lambda: (fused_ce._launch_fwd(a, b, labels, s),
-                 fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
-                 fused_ce._launch_bwd_db(a, b, labels, s, lse, g)),
-        2 if m > 4096 else 5, r"(ce_\w+_kernel(?:<[^>]*>)?|reduce_partials\w*)")
+    passes = {key: chip_smoke.device_ms_by_kernel(
+        kernel, 2 if m > 4096 else 5, r"(ce_\w+_kernel(?:<[^>]*>)?|reduce_partials\w*)")
+        for key, (kernel, _) in calls.items()}
     return row, dense_ms, autograd_ms, passes
 
 
@@ -149,7 +174,13 @@ def main() -> int:
     ap.add_argument("--sizes", default="256,4096,32768")
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--dtype", default="bfloat16", choices=("bfloat16", "float32"))
+    ap.add_argument("--unsplit", action="store_true",
+                    help="hold every float32 kernel to one slice of the streamed rows")
     args = ap.parse_args()
+    if args.unsplit:
+        for rule in ("fp32_fwd_slices", "fp32_da_slices", "fp32_db_slices"):
+            if hasattr(fused_ce, rule):
+                setattr(fused_ce, rule, lambda *_: 1)
     if not torch.cuda.is_available():
         print("torch_ce_bench: no CUDA device", file=sys.stderr)
         return 2
@@ -160,24 +191,28 @@ def main() -> int:
     usage = build.resource_usage(["fused_ce"])
     print(f"build {kernels.build_seconds:.1f} s; fused_ce.cu registers / stack / spill stores / "
           "spill loads: " + "; ".join(f"{k} {v}" for k, v in sorted(usage.items())), flush=True)
-    results, ok = {"registers": usage, "dtype": args.dtype}, True
+    results, ok = {"registers": usage, "dtype": args.dtype, "unsplit": args.unsplit}, True
     dtype = getattr(torch, args.dtype)
     cases = [(f"{m}", m, m, 512, SCALES.get(m, 100.0), False, None, True)
              for m in (int(x) for x in args.sizes.split(","))]
     cases += [case[:-1] for case in EXTRA if args.dtype in case[-1]]
     for name, m, n, d, scale, tied, offset, timed in cases:
         a, b, labels, s, g = inputs(m, n, d, scale, tied, dev, dtype=dtype, offset=offset)
-        err, same, good, lse, digests = check(a, b, labels, s, g)
+        try:
+            err, same, good, lse, digests = check(a, b, labels, s, g)
+        except ValueError as refused:
+            print(f"{name} M={m} N={n} D={d} {args.dtype}: refused ({refused})", flush=True)
+            results[name] = {"m": m, "n": n, "d": d, "refused": str(refused)}
+            continue
         ok &= good
-        slices = (fused_ce.fp32_da_slices(m, n, d, torch.cuda.get_device_properties(dev)
-                                          .multi_processor_count)
-                  if dtype == torch.float32 and hasattr(fused_ce, "fp32_da_slices") else 1)
+        slices = slices_of(m, n, d, dtype, dev)
         entry = {"m": m, "n": n, "d": d, "scale": scale, "tied": tied, "label_offset": offset,
-                 "errors": err, "bit_equal": same, "ok": good, "da_slices": slices,
+                 "errors": err, "bit_equal": same, "ok": good, "slices": slices,
                  "sha256": digests}
         line = (f"{name} M={m} N={n} D={d} scale={scale:.4g}{' b=a' if tied else ''}"
                 + (f" labels {offset}.." if offset is not None else "")
-                + f" {args.dtype} (dA in {slices} slices of b): errors "
+                + f" {args.dtype} (slices of the streamed rows: fwd {slices['fwd']}, dA "
+                f"{slices['bwd_da']}, dB {slices['bwd_db']}): errors "
                 + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
                 + f"; reruns {'bit-equal' if same else 'DIFFER'}; sha256 "
                 + ", ".join(f"{k} {v}" for k, v in digests.items())
@@ -193,8 +228,9 @@ def main() -> int:
                 f"({v['bound_by']})" for key, v in row.items())
             line += (f"\n  dense pair forward {dense_ms['fwd']:.4f} ms, forward + backward "
                      f"{dense_ms['fwd_bwd']:.4f} ms; one direction through the kernels under "
-                     f"autograd {autograd_ms:.4f} ms; device ms a call "
-                     + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+                     f"autograd {autograd_ms:.4f} ms; device ms a call: "
+                     + "; ".join(f"{key} " + ", ".join(f"{k} {v:.4f}" for k, v in p.items())
+                                 for key, p in passes.items()))
         results[name] = entry
         print(line, flush=True)
         del a, b, labels, s, g, lse

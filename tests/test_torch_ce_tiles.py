@@ -270,7 +270,10 @@ def test_constants_are_the_kernels_own():
     assert [int(c) for c in re.findall(r"return launch<(\d+), DA>", src)] == list(CAPACITIES)
     assert [int(c) for c in re.findall(r"if \(x\.d <= (\d+)\) return launch<", src)] == \
         list(CAPACITIES[:-1])
-    assert fused_ce.MAX_FEATURES == CAPACITIES[-1]
+    # the bf16 limit is the widest capacity; float32 takes any D
+    assert fused_ce.MAX_FEATURES[torch.bfloat16] == CAPACITIES[-1]
+    assert torch.float32 not in fused_ce.MAX_FEATURES
+    assert f"constexpr int kMaxBf16D = {CAPACITIES[-1]};" in src
     assert "mma::mma_16816_rn(raw[2 * np]" in src        # k-steps from zero, added in fp32
     # the forward: the same capacities and geometry, its own shared memory,
     # and step 1 through the one function the backward calls

@@ -531,6 +531,96 @@ def test_fused_ce_fp32_da_split_matches_plain_and_repeats(dev, m, n, d, offset):
     assert torch.equal(da, da2) and torch.equal(ds, ds2)
 
 
+@pytest.mark.parametrize("m,n,d,offset", [(256, 1024, 512, 768), (4096, 4096, 512, None),
+                                          (70, 1000, 40, 700)])
+def test_fused_ce_fp32_fwd_and_db_split_match_plain_and_repeat(dev, m, n, d, offset):
+    """#11 and #13 in fp32 split across the streamed rows (the forward 16, 4
+    and 16 slices of b, dB 4, 2 and 2 slices of a: a 4-rank local-loss
+    step's 256 x 1024 with rank 3's labels, 4096 x 4096, and a ragged shape
+    at D = 40): loss and lse within 1e-5, dB within CE_BWD_TOL of the plain
+    versions, the same bits twice, one launch a call."""
+    a, b, labels, s, g = _ce_inputs(m, n, d, 30.0, dev, torch.float32, seed=6)
+    if offset is not None:
+        labels = (torch.arange(m, dtype=torch.int32) + offset).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert fused_ce.fp32_fwd_slices(m, n, sms) > 1 and fused_ce.fp32_db_slices(m, n, d, sms) > 1
+    before = (fused_ce.FWD_LAUNCHES.value, fused_ce.BWD_DB_LAUNCHES.value)
+    first, second = fused_ce._launch_fwd(a, b, labels, s), fused_ce._launch_fwd(a, b, labels, s)
+    want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    db = fused_ce._launch_bwd_db(a, b, labels, s, want_lse, g)
+    db2 = fused_ce._launch_bwd_db(a, b, labels, s, want_lse, g)
+    torch.cuda.synchronize()
+    assert (fused_ce.FWD_LAUNCHES.value, fused_ce.BWD_DB_LAUNCHES.value) == \
+        (before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(first[0], want_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(first[1], want_lse, rtol=1e-5, atol=1e-5)
+    want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
+    torch.testing.assert_close(db, want_db, rtol=0, atol=1e-4 * want_db.abs().max().item())
+    assert all(torch.equal(x, y) for x, y in zip(first, second)) and torch.equal(db, db2)
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+# SHA-256 (first 16 hex digits) of the fp32 kernels' outputs at the 4-rank
+# local-loss shape with every kernel held to one slice, as the scalar-staged
+# tiles of commit ffe3248 give them (feature-major chunks read one float at a
+# time, the streamed rows read through L1/L2): scripts/torch_ce_bench.py
+# --dtype float32 --unsplit, case "local-loss", on an NVIDIA H100 80GB HBM3.
+# The float4 tiles keep every fmaf chain in its order, so the bits stay.
+UNSPLIT_DIGESTS = {"loss": "cc1f4af49b87f52b", "lse": "5747286cc7f2b28f", "da": "96ddf45c8b51330e",
+                   "dscale": "0d18311ce0cbacd6", "db": "2348de29f79df870"}
+
+
+def test_fused_ce_fp32_unsplit_bits_are_the_recorded_ones(dev, monkeypatch):
+    """One slice of the streamed rows a kernel: loss, lse, dA, dscale and dB
+    SHA-256-equal to the unsplit kernels' recorded run (the benchmark's
+    inputs: a torch generator seeded 0, as chip_smoke.ce_inputs draws them)."""
+    for rule in ("fp32_fwd_slices", "fp32_da_slices", "fp32_db_slices"):
+        monkeypatch.setattr(fused_ce, rule, lambda *_: 1)
+    m, n, d = 256, 1024, 512
+    gen = torch.Generator().manual_seed(0)
+    a, b = (torch.nn.functional.normalize(torch.randn(rows, d, generator=gen), dim=-1).to(dev)
+            for rows in (m, n))
+    torch.randint(0, n, (m,), generator=gen, dtype=torch.int32)   # the draw the bench replaces
+    g = (torch.rand(m, generator=gen) / m).to(dev)
+    labels = (torch.arange(m, dtype=torch.int32) + 768).to(dev)
+    s = torch.tensor(1 / 0.07, device=dev)
+    loss, lse = fused_ce._launch_fwd(a, b, labels, s)
+    da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
+    db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
+    got = {"loss": _digest(loss), "lse": _digest(lse), "da": _digest(da), "dscale": _digest(ds),
+           "db": _digest(db)}
+    assert got == UNSPLIT_DIGESTS
+
+
+@pytest.mark.parametrize("d", [1024, 1000])
+def test_fused_ce_fp32_takes_any_width_and_bf16_refuses(dev, d):
+    """fp32 past 768 features: dA and dB in two feature slices, the forward
+    streaming D, all three within the tolerances of the plain versions and
+    the same bits twice; bf16 at the same D raises."""
+    a, b, labels, s, g = _ce_inputs(300, 700, d, 30.0, dev, torch.float32, seed=7)
+    loss, lse = fused_ce._launch_fwd(a, b, labels, s)
+    want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    da, ds = fused_ce._launch_bwd_da(a, b, labels, s, want_lse, g)
+    db = fused_ce._launch_bwd_db(a, b, labels, s, want_lse, g)
+    again = (*fused_ce._launch_bwd_da(a, b, labels, s, want_lse, g),
+             fused_ce._launch_bwd_db(a, b, labels, s, want_lse, g))
+    want_da, want_ds = fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)
+    want_db = fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)
+    for got, want in ((da, want_da), (db, want_db), (ds, want_ds)):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item())
+    assert all(torch.equal(x, y) for x, y in zip((da, ds, db), again))
+    with pytest.raises(ValueError, match=f"D={d}"):
+        fused_ce.fused_contrastive_ce(a.bfloat16(), b.bfloat16(), labels, s)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ce_kernels_match_plain_when_b_is_a(dev, dtype):
     """b = a: each row's own column is its largest logit (p near 1) beside a
@@ -645,9 +735,10 @@ def test_fused_ce_at_32768_holds_no_logit_matrix(dev):
 
 def test_fused_ce_refuses_what_it_does_not_take(dev):
     a, b, labels, s, g = _ce_inputs(8, 9, 16, 10.0, dev, torch.float32)
-    with pytest.raises(ValueError, match="D=776"):
-        fused_ce.fused_contrastive_ce(torch.zeros(4, 776, device=dev),
-                                      torch.zeros(5, 776, device=dev), labels[:4], s)
+    with pytest.raises(ValueError, match="D=776"):       # bf16 only: float32 takes any D
+        fused_ce.fused_contrastive_ce(torch.zeros(4, 776, device=dev, dtype=torch.bfloat16),
+                                      torch.zeros(5, 776, device=dev, dtype=torch.bfloat16),
+                                      labels[:4], s)
     with pytest.raises(ValueError, match="dtypes"):
         fused_ce.fused_contrastive_ce(a, b.bfloat16(), labels, s)
     with pytest.raises(ValueError, match="contiguous"):
