@@ -45,9 +45,12 @@
 //      its bar of 2^-7, from near-ties routed to other tokens (PERF.md). A
 //      handful of rows.
 //   3. coef, one warp per (m, k): the masked-mean weights from the max.
-//   4. dT, one block per (m, n): 8 warps split the K images, each adds the
-//      tied image rows times the coefficient into its own fp32 row in shared
-//      memory; the 8 rows are summed in a fixed order at the end.
+//   4. dT, one block per (m, n) and slice of at most kMaxD features: 8
+//      warps split the K images, each adds the tied image rows' slice times
+//      the coefficient into its own fp32 row in shared memory; the 8 rows are
+//      summed in a fixed order at the end. Each element's sum runs over k in
+//      the same order whatever the slicing, so D <= kMaxD (one slice) and
+//      wider D give each element the same bits as one slice would.
 //   5. dI, one block per (image k, slice of 128 features, range of image
 //      tokens): dI[k] sums over all M * Lt text tokens. The block keeps its
 //      [tokens, 128] fp32 slice in shared memory. Its 16 warps are 4 owner
@@ -80,7 +83,7 @@ using namespace colxlip::maxsim_tile;
 
 constexpr int kCoefWarps = 8;
 constexpr int kDtWarps = 8;
-constexpr int kMaxD = 4096;        // dT's shared rows: kDtWarps * D fp32 <= 128 KB
+constexpr int kMaxD = 4096;        // dT's slice: kDtWarps * kMaxD fp32 = 128 KB of rows
 constexpr int kDiWarps = 16;
 constexpr int kDiSlice = 128;      // features of dI per block
 constexpr int kDiGroups = kDiSlice / 32;        // warps across the slice's features
@@ -293,29 +296,38 @@ template <typename T>
 __global__ void __launch_bounds__(kDtWarps * 32)
 maxsim_bwd_dt_kernel(const T* __restrict__ image, const float* __restrict__ coef,
                      const unsigned* __restrict__ ties, const int* __restrict__ route_q,
-                     T* __restrict__ dtext, int num_k, int lt, int li, int d, int words) {
-  extern __shared__ float dt_acc[];  // [kDtWarps, d]
+                     T* __restrict__ dtext, int num_k, int lt, int li, int d, int words,
+                     int slice) {
+  extern __shared__ float dt_acc[];  // [kDtWarps, slice]
   const int m = blockIdx.x / lt;
   const int n = blockIdx.x - m * lt;
+  const int d0 = blockIdx.y * slice;  // the block's features d0 .. d0 + width - 1
+  const int width = min(slice, d - d0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* acc = dt_acc + size_t(warp) * d;
-  for (int e = lane; e < d; e += 32) acc[e] = 0.f;
+  float* acc = dt_acc + size_t(warp) * width;
+  for (int e = lane; e < width; e += 32) acc[e] = 0.f;
   for (int k = warp; k < num_k; k += kDtWarps) {
     const size_t r = (size_t(m) * num_k + k) * lt + n;
     const float c = coef[r];
     if (c == 0.f) continue;  // warp-uniform: a zero coefficient adds nothing
     for_each_tie(ties, route_q, r, words, lane, [&](int q) {
-      const T* irow = image + (size_t(k) * li + q) * d;
-      for (int e = lane; e < d; e += 32) acc[e] = fmaf(c, to_f(irow[e]), acc[e]);
+      const T* irow = image + (size_t(k) * li + q) * d + d0;
+      for (int e = lane; e < width; e += 32) acc[e] = fmaf(c, to_f(irow[e]), acc[e]);
     });
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < d; e += blockDim.x) {
+  for (int e = threadIdx.x; e < width; e += blockDim.x) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kDtWarps; ++w) s += dt_acc[size_t(w) * d + e];
-    dtext[(size_t(m) * lt + n) * d + e] = from_f<T>(s);
+    for (int w = 0; w < kDtWarps; ++w) s += dt_acc[size_t(w) * width + e];
+    dtext[(size_t(m) * lt + n) * d + d0 + e] = from_f<T>(s);
   }
+}
+
+// dT's feature slices: as few as keep each within kMaxD, near-equal in width.
+__host__ __device__ constexpr int dt_slices(int d) { return (d + kMaxD - 1) / kMaxD; }
+__host__ __device__ constexpr int dt_slice_width(int d) {
+  return (d + dt_slices(d) - 1) / dt_slices(d);
 }
 
 // Text rows of the slice a dI stage holds: 34 KB of shared memory either way.
@@ -508,13 +520,15 @@ cudaError_t launch(const void* text, const void* image, const void* mask, const 
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t dt_smem = size_t(kDtWarps) * d * sizeof(float);
+  const int slice = dt_slice_width(d);
+  const size_t dt_smem = size_t(kDtWarps) * slice * sizeof(float);
   err = cudaFuncSetAttribute(maxsim_bwd_dt_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(dt_smem));
   if (err != cudaSuccess) return err;
-  maxsim_bwd_dt_kernel<T><<<unsigned(m) * unsigned(lt), kDtWarps * 32, dt_smem, stream>>>(
+  const dim3 dt_grid(unsigned(m) * unsigned(lt), dt_slices(d));
+  maxsim_bwd_dt_kernel<T><<<dt_grid, kDtWarps * 32, dt_smem, stream>>>(
       static_cast<const T*>(image), coef, ties, route_q, static_cast<T*>(dtext), k, lt, li, d,
-      words);
+      words, slice);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -537,13 +551,13 @@ cudaError_t launch(const void* text, const void* image, const void* mask, const 
 // [M, Lt] float32 or null (mask_mode 2 only), g [M, K] float32 (the
 // cotangent of the scores); scratch max_sim and coef float32 [M, K, Lt], ties
 // uint32 [M, K, Lt, ceil(Li / 32)] and route_q int32 [M, K, Lt]; out dtext
-// [M, Lt, D] and dimage [K, Li, D] in the input dtype. Any Lt and Li, D <=
-// 4096. Returns a cudaError_t (0 = launched).
+// [M, Lt, D] and dimage [K, Li, D] in the input dtype. Any Lt, Li and D.
+// Returns a cudaError_t (0 = launched).
 extern "C" int colxlip_maxsim_bwd(const void* text, const void* image, const void* mask,
                                   const void* g, void* max_sim, void* coef, void* ties,
                                   void* route_q, void* dtext, void* dimage, int m, int k, int lt,
                                   int li, int d, int mask_mode, int dtype, void* stream) {
-  if (m < 1 || k < 1 || lt < 1 || li < 1 || d < 1 || d > kMaxD || mask_mode < 0 ||
+  if (m < 1 || k < 1 || lt < 1 || li < 1 || d < 1 || mask_mode < 0 ||
       mask_mode > 2 || (mask_mode == 2 && mask == nullptr) || (long long)m * k > 0x7fffffffLL ||
       (long long)m * lt > 0x7fffffffLL - kBlockRows)
     return cudaErrorInvalidValue;

@@ -47,7 +47,6 @@ LAUNCHES = LaunchCounter()
 BWD_LAUNCHES = LaunchCounter()
 _EPS = 1e-8
 MASK_MODES = {"nonzero": 0, "plain": 1, "valid": 2}
-MAX_FEATURES = 4096              # the backward's dT rows: 8 x D fp32 in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the JAX package's implementations; all but 'streaming_int8' compute the same
 # scores, and the port's one default implementation routes gradients at ties
@@ -210,9 +209,6 @@ def _launch_bwd(token_text, token_image, g, mask_mode, text_mask):
     if g.shape != (m, k) or g.device != dev:
         raise ValueError(f"maxsim backward: g must be [{m}, {k}] on {dev}; got "
                          f"{tuple(g.shape)} on {g.device}")
-    if d > MAX_FEATURES:
-        raise ValueError(f"maxsim backward: D={d} outside the kernel's range "
-                         f"(D <= {MAX_FEATURES})")
     g = g.float().contiguous()
     kernels = load_kernels()
     # scratch between the passes: the route pass's max, tie words and single
@@ -304,8 +300,8 @@ def maxsim(token_text: torch.Tensor, token_image: torch.Tensor, *,
     ``impl``: a name of ``MAXSIM_IMPLS``. 'streaming_int8' takes the int8
     forward with the default backward (straight-through); every other name
     the default forward. CPU tensors take the plain versions; CUDA tensors
-    launch the kernels (any Lt and Li, float32 or bfloat16, contiguous;
-    D <= 4096 for the backward) or raise."""
+    launch the kernels (any Lt, Li and D, float32 or bfloat16, contiguous)
+    or raise."""
     if impl not in MAXSIM_IMPLS:
         raise ValueError(f"unknown impl: {impl!r} (one of {MAXSIM_IMPLS})")
     _check_args(token_text, token_image, mask_mode, text_mask)

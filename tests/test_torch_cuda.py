@@ -597,16 +597,21 @@ def test_fused_ce_fp32_unsplit_bits_are_the_recorded_ones(dev, monkeypatch):
     assert got == UNSPLIT_DIGESTS
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [1024, 1000])
-def test_fused_ce_fp32_takes_any_width_and_bf16_refuses(dev, d):
-    """fp32 past 768 features: dA and dB in two feature slices, the forward
-    streaming D, all three within the tolerances of the plain versions and
-    the same bits twice; bf16 at the same D raises."""
-    a, b, labels, s, g = _ce_inputs(300, 700, d, 30.0, dev, torch.float32, seed=7)
+def test_fused_ce_fp32_takes_any_width_and_bf16_refuses(dev, d, dtype):
+    """Past 768 features, in both dtypes (bf16 used to raise here): fp32 dA
+    and dB in two feature slices, the forward streaming D; bf16 streams the
+    features through the logit tile in chunks and writes dA and dB in
+    feature slices. All three within the tolerances of the plain versions
+    (phase 3's 1e-5 of 1 + |loss|, 1e-4 of max|grad|) and the same bits
+    twice."""
+    a, b, labels, s, g = _ce_inputs(300, 700, d, 30.0, dev, dtype, seed=7)
     loss, lse = fused_ce._launch_fwd(a, b, labels, s)
     want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
     torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(x, y) for x, y in zip((loss, lse), fused_ce._launch_fwd(a, b, labels, s)))
     da, ds = fused_ce._launch_bwd_da(a, b, labels, s, want_lse, g)
     db = fused_ce._launch_bwd_db(a, b, labels, s, want_lse, g)
     again = (*fused_ce._launch_bwd_da(a, b, labels, s, want_lse, g),

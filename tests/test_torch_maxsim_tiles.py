@@ -49,6 +49,8 @@ MAX_PAIRS = 16        # kMaxPairs: a column group is at most 256 columns
 PAIR_STEPS = (4, 8, 13, 16)
 DI_WARPS = 16         # kDiWarps
 DI_MAX_TOKENS = 256   # kDiMaxTokens
+DT_WARPS = 8          # kDtWarps
+DT_SLICE = 4096       # kMaxD: features of a dT block's slice at most
 MAXSIM_TOL = 1e-5
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 SHAPES = [
@@ -276,6 +278,47 @@ def tiled_backward(text, image, g, mask_mode, text_mask):
     return dt.to(text.dtype), di.to(image.dtype)
 
 
+def dt_slices(d):
+    """maxsim_bwd.cu `dt_slices` / `dt_slice_width`: as few slices as keep
+    each within 4096 features, near-equal: (slices, width)."""
+    slices = -(-d // DT_SLICE)
+    return slices, -(-d // slices)
+
+
+def sliced_dt(text, image, g, mask_mode, text_mask, slices=None):
+    """The dT kernel's walk: one block per (m, n) and feature slice; warp w
+    adds, for the images k = w, w + 8, ..., each tied token's slice times the
+    coefficient into its own fp32 row, in k order and ascending q; the 8 rows
+    are added in warp order. ``slices`` overrides the kernel's rule."""
+    m, lt, d = text.shape
+    k = image.shape[0]
+    max_sim, ties, route_q = tiled_route(text, image)
+    if mask_mode == "plain":
+        coef = g[:, :, None].expand(m, k, lt) / lt
+    else:
+        w = (max_sim != 0).float() if mask_mode == "nonzero" else \
+            text_mask[:, None, :].expand(m, k, lt)
+        coef = g[:, :, None] * w / (w.sum(-1, keepdim=True) + 1e-8)
+    imf = image.float()
+    slices, width = dt_slices(d) if slices is None else (slices, -(-d // slices))
+    dt = torch.zeros(m, lt, d)
+    for f0 in range(0, slices * width, width):
+        rows = torch.zeros(DT_WARPS, m, lt, min(width, d - f0))
+        for warp in range(DT_WARPS):
+            for kk in range(warp, k, DT_WARPS):
+                for mm in range(m):
+                    for n in range(lt):
+                        c = coef[mm, kk, n]
+                        if c != 0:
+                            for q in _tied(ties[mm, kk, n], route_q[mm, kk, n]):
+                                rows[warp, mm, n] += c * imf[kk, q, f0:f0 + width]
+        total = torch.zeros(m, lt, rows.shape[-1])
+        for warp in range(DT_WARPS):
+            total = total + rows[warp]
+        dt[..., f0:f0 + width] = total
+    return dt.to(text.dtype)
+
+
 def _jax_vjp(fn, args, cot):
     _, vjp = jax.vjp(fn, *[jnp.asarray(a) for a in args])
     return [np.asarray(x) for x in vjp(jnp.asarray(cot))]
@@ -291,7 +334,8 @@ def test_constants_are_the_kernels_own():
     assert "kBlockRows = kWarps * 16;" in tile and BLOCK_ROWS == 8 * 16
     assert ("pairs <= 4 ? 4 : pairs <= 8 ? 8 : pairs <= 13 ? 13 : 16" in tile
             and PAIR_STEPS == (4, 8, 13, 16))
-    for name, value in (("kDiWarps", DI_WARPS), ("kDiMaxTokens", DI_MAX_TOKENS)):
+    for name, value in (("kDiWarps", DI_WARPS), ("kDiMaxTokens", DI_MAX_TOKENS),
+                        ("kDtWarps", DT_WARPS), ("kMaxD", DT_SLICE)):
         assert re.search(rf"constexpr int {name} = {value};", bwd), name
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -430,3 +474,36 @@ def test_fp32_inputs_need_fp32_products():
     assert fp32 < 3e-8 < 1e-7 < split < 1e-6
     at_risk = (gaps < split).sum().item() * 16       # 256 texts: 16 slices like this one
     assert at_risk >= 10 and (gaps < fp32).sum().item() * 16 < at_risk / 5
+
+
+def test_dt_slices_rule():
+    """One slice up to 4096 features (the kernel the parent ran), then as few
+    near-equal slices as keep each within 4096; the source's rule."""
+    bwd = (CSRC / "maxsim_bwd.cu").read_text()
+    assert "return (d + kMaxD - 1) / kMaxD;" in bwd
+    assert "return (d + dt_slices(d) - 1) / dt_slices(d);" in bwd
+    assert "const dim3 dt_grid(unsigned(m) * unsigned(lt), dt_slices(d));" in bwd
+    assert not hasattr(maxsim, "MAX_FEATURES")
+    assert [dt_slices(d) for d in (1, 512, 4096, 4097, 4104, 8192, 8193)] == [
+        (1, 1), (1, 512), (1, 4096), (2, 2049), (2, 2052), (2, 4096), (3, 2731)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sliced_dt_past_4096_features_matches_plain_and_jax(dtype):
+    """D = 4104 (the width the backward used to refuse): dT in two feature
+    slices of 2052 gives one slice's bits, element by element, and meets the
+    plain backward's bar (fp32 1e-5, bf16 2^-7 of max|grad|) and, in fp32,
+    the JAX streaming VJP's."""
+    lt, li, d = 5, 20, 4104
+    t, i, mask, g = _inputs(lt, li, d, seed=4)
+    tt, ii, tmask, gg = _torch(t, i, mask, g, dtype)
+    got = sliced_dt(tt, ii, gg, "nonzero", None)
+    assert torch.equal(got, sliced_dt(tt, ii, gg, "nonzero", None, slices=1))
+    want, _ = maxsim.maxsim_bwd_plain(tt, ii, gg)
+    tol = BWD_TOL[dtype] * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    if dtype == torch.float32:
+        fn = lambda a, b: jax_maxsim(a, b, impl="streaming", m_chunk=M)  # noqa: E731
+        want_t, _ = _jax_vjp(fn, [t, i], g)
+        np.testing.assert_allclose(got.numpy(), want_t, rtol=0,
+                                   atol=BWD_TOL[torch.float32] * np.abs(want_t).max())
