@@ -20,7 +20,7 @@
 // dA, dB, loss, lse and dscale leave the kernels in fp32; the wrapper casts
 // and sums the per-row dscale. The TPU grid's padding to (8, 128) multiples
 // and its n_valid argument are gone: every kernel masks the ragged edge of M
-// and N itself, and D is a runtime argument (bf16 D <= 768, float32 any D).
+// and N itself, and D is a runtime argument (any D in either dtype).
 //
 // Hopper has no sequential grid to carry a running sum across, so the loop
 // over the streamed dimension sits inside the block: in the forward and in
@@ -81,6 +81,20 @@
 //      features of the fp32 output in registers (128 a thread at D = 512,
 //      96 at D = 768); the tile's 8 mma per n-tile go into a zero
 //      accumulator that is then added to the output rounding to nearest.
+// bf16 past kMaxBf16D = 768 features (the chunked walk): the tiles no longer
+// fit whole, so all three kernels take Cfg<768>'s geometry (32 own rows, 4
+// column groups) and stream the features through the logit tile in chunks
+// of kChunk = 256: own rows and stream rows of one chunk in a stage, two
+// stages by cp.async so that the next chunk (or the next tile's first) is in
+// flight, raw accumulated in registers across the chunks by
+// logit_tile_add. The k-steps run in the same order as over a whole row, so
+// raw has the bits one whole tile would give it, in every kernel. The
+// backward's grid gains a y axis of output feature slices (as few as keep
+// each within 768 features, near-equal, a multiple of 16): each block
+// recomputes raw over all of D, then adds dz times the stream tile's slice,
+// staged once a tile beside the chunks. Each output element so sums the same
+// terms in the same order as a whole tile would. D <= 768 keeps the whole
+// tiles and their bits.
 // What bounds the bf16 forward: operations, 2 M N D flops (1.11174 ms at
 // M = N = 32768, D = 512); it also takes one expf an element (1.07e9 there)
 // on the special-function units. The split makes the backward's tensor
@@ -139,7 +153,7 @@ namespace {
 using namespace colxlip::stream_tile;
 
 constexpr float kNeg = -1e30f;
-constexpr int kMaxBf16D = 768;   // the bf16 tiles' feature capacity (Cfg<768>)
+constexpr int kMaxBf16D = 768;   // the bf16 whole tiles' capacity (Cfg<768>); past it, chunks
 
 // (m, s) <- the logsumexp pair of (m, s) and (m2, s2): max, then each sum
 // rescaled to it. The same bits in either order (fp32 + and * commute).
@@ -439,6 +453,26 @@ struct FwdCfg : Cfg<DC> {
   static constexpr size_t kBytes = bytes(kStages);
 };
 
+constexpr int kChunk = 256;               // features a chunk of the chunked walk
+constexpr int kChunkRS = kChunk + kPad;   // row stride of a staged chunk
+
+// The chunked walk's shared memory (D > kMaxBf16D, Cfg<kMaxBf16D>'s
+// geometry): two stages of (own rows, stream rows) of one chunk each; the
+// backward adds the stream tile's output slice (a Cfg<768> stream tile), its
+// lse / g / label rows, the dz halves and dscale's partials, the forward its
+// (max, sum, label logit) partials.
+struct ChunkCfg {
+  using C = Cfg<kMaxBf16D>;
+  static constexpr size_t kOwnChunk = size_t(C::kOwn) * kChunkRS * 2;
+  static constexpr size_t kStage = kOwnChunk + size_t(kStreamRows) * kChunkRS * 2;
+  static constexpr size_t kSliceAt = 2 * kStage;
+  static constexpr size_t kStatAt = kSliceAt + C::kStreamBytes;
+  static constexpr size_t kDzAt = kStatAt + C::kStatBytes;
+  static constexpr size_t kBytes = kDzAt + C::kDzBytes + C::kPartBytes;
+  static constexpr size_t kFwdBytes = kSliceAt + FwdCfg<kMaxBf16D>::kPartBytes;
+};
+static_assert(ChunkCfg::kBytes <= colxlip::kMaxSharedBytes, "chunked tiles overflow");
+
 // Rows row0 .. row0 + ROWS - 1 of a [n, d] bf16 matrix (d a multiple of 8,
 // 16-byte aligned rows) into a tile of row stride DC + kPad; rows past n and
 // features past d are zeros. The caller commits.
@@ -454,6 +488,19 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
   }
 }
 
+// Rows row0 .. row0 + ROWS - 1, features f0 .. f0 + 8 pieces - 1 of a [n, d]
+// bf16 matrix into a tile of row stride RS; rows past n and features past d
+// are zeros. The caller commits.
+template <int RS, int ROWS>
+__device__ __forceinline__ void stage_cols(bf16* dst, const bf16* __restrict__ src, int row0,
+                                           int n, int d, int f0, int pieces) {
+  for (int idx = threadIdx.x; idx < ROWS * pieces; idx += kThreads) {
+    const int r = idx / pieces, c = (idx - r * pieces) * 8;
+    const bool live = row0 + r < n && f0 + c < d;
+    mma::cp_async_16(dst + r * RS + c, live ? src + size_t(row0 + r) * d + f0 + c : src, live);
+  }
+}
+
 // Step 1 of all three bf16 kernels: raw[nt] = the warp's 16 own rows times NT
 // n-tiles of 8 stream rows, X_own . X_stream^T, in C-fragment layout. `pa` is
 // the lane's ldmatrix address in the own tile (row 16 wr + lane % 16, feature
@@ -463,13 +510,18 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
 // on the 16 values of a_i and of b_j in its k-step, so every kernel that
 // calls this with the same padded d gets the same bits of raw_ij, whatever
 // its warp layout: the forward's lse and the backward's p agree.
-template <int NT, int RS>
-__device__ __forceinline__ void logit_tile(float (&raw)[NT][4], const bf16* pa, const bf16* cols,
-                                           int ksteps, int lane) {
+template <int NT>
+__device__ __forceinline__ void zero_tile(float (&raw)[NT][4]) {
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) raw[nt][i] = 0.f;
+}
+
+// logit_tile's k-steps added to raw as it stands (the chunked walk's chunks).
+template <int NT, int RS>
+__device__ __forceinline__ void logit_tile_add(float (&raw)[NT][4], const bf16* pa,
+                                               const bf16* cols, int ksteps, int lane) {
   const bf16* pb = cols + ((lane & 7) + ((lane >> 4) << 3)) * RS + ((lane >> 3) & 1) * 8;
 #pragma unroll 4
   for (int kk = 0; kk < ksteps; ++kk) {
@@ -485,6 +537,38 @@ __device__ __forceinline__ void logit_tile(float (&raw)[NT][4], const bf16* pa, 
   }
 }
 
+template <int NT, int RS>
+__device__ __forceinline__ void logit_tile(float (&raw)[NT][4], const bf16* pa, const bf16* cols,
+                                           int ksteps, int lane) {
+  zero_tile<NT>(raw);
+  logit_tile_add<NT, RS>(raw, pa, cols, ksteps, lane);
+}
+
+// Step 1 of the chunked walk: raw of stream tile `tile` over `chunks` chunks
+// of kChunk features. Step s = tile * chunks + c sits in stage s & 1 of
+// ChunkCfg; stage(s) stages step s and commits, and step s + 1 flies while
+// step s multiplies. `pa_off` is the lane's ldmatrix offset in an own chunk,
+// `col_off` the warp's first column in a stream chunk.
+template <int NT, typename Stage>
+__device__ __forceinline__ void chunked_logit_tile(float (&raw)[NT][4], unsigned char* smem,
+                                                   int tile, int chunks, int steps, int ksteps,
+                                                   int pa_off, int col_off, int lane,
+                                                   Stage&& stage) {
+  zero_tile<NT>(raw);
+  for (int c = 0; c < chunks; ++c) {
+    const int s = tile * chunks + c;
+    // step s has arrived, and every warp is done with the stage step s + 1 takes
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < steps) stage(s + 1);
+    const bf16* own = reinterpret_cast<const bf16*>(smem + (s & 1) * ChunkCfg::kStage);
+    const bf16* cols = reinterpret_cast<const bf16*>(smem + (s & 1) * ChunkCfg::kStage +
+                                                     ChunkCfg::kOwnChunk);
+    logit_tile_add<NT, kChunkRS>(raw, own + pa_off, cols + col_off,
+                                 min(kChunk / 16, ksteps - c * (kChunk / 16)), lane);
+  }
+}
+
 // The forward (#11): own = a [M] (labels per own row), stream = b [N]; out
 // loss and lse [M]. Per tile, raw by logit_tile, then in registers z = scale
 // raw (-1e30 past N) and the thread's running (max, sum) for its two rows over
@@ -492,7 +576,8 @@ __device__ __forceinline__ void logit_tile(float (&raw)[NT][4], const bf16* pa, 
 // in column order; the thread whose column is the row's label keeps z. At
 // the end the pairs merge in a fixed order: the quad's four lanes by
 // shuffles, then the kWC column groups in order through shared memory.
-template <int DC>
+// CHUNKED (DC = kMaxBf16D, D past it): raw by chunked_logit_tile.
+template <int DC, bool CHUNKED = false>
 __global__ void __launch_bounds__(kThreads, 2)
 ce_fwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
                   const int* __restrict__ labels, const float* __restrict__ scale_ptr,
@@ -500,10 +585,12 @@ ce_fwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   using C = FwdCfg<DC>;
   constexpr int RS = C::kRS;
   constexpr int TILE = kStreamRows * RS;
+  constexpr size_t kPartAt =
+      CHUNKED ? ChunkCfg::kSliceAt : C::kOwnBytes + C::kStages * C::kStreamBytes;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* own_s = reinterpret_cast<bf16*>(smem);
   bf16* stream_s = reinterpret_cast<bf16*>(smem + C::kOwnBytes);
-  float* part = reinterpret_cast<float*>(smem + C::kOwnBytes + C::kStages * C::kStreamBytes);
+  float* part = reinterpret_cast<float*>(smem + kPartAt);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -511,10 +598,25 @@ ce_fwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   const int own0 = blockIdx.x * C::kOwn;
   const int tiles = (n + kStreamRows - 1) / kStreamRows;
   const float scale = *scale_ptr;
+  const int chunks = (d + kChunk - 1) / kChunk;
+  // the chunked walk's step s: chunk s % chunks of the own rows and of
+  // stream tile s / chunks into stage s & 1
+  auto stage_step = [&](int s) {
+    unsigned char* at = smem + (s & 1) * ChunkCfg::kStage;
+    const int f0 = (s % chunks) * kChunk;
+    stage_cols<kChunkRS, C::kOwn>(reinterpret_cast<bf16*>(at), a, own0, m, d, f0, kChunk / 8);
+    stage_cols<kChunkRS, kStreamRows>(reinterpret_cast<bf16*>(at + ChunkCfg::kOwnChunk), b,
+                                      (s / chunks) * kStreamRows, n, d, f0, kChunk / 8);
+    mma::cp_async_commit();
+  };
 
-  stage_rows<DC, C::kOwn>(own_s, a, own0, m, d);
-  stage_rows<DC, kStreamRows>(stream_s, b, 0, n, d);
-  mma::cp_async_commit();
+  if constexpr (CHUNKED) {
+    stage_step(0);
+  } else {
+    stage_rows<DC, C::kOwn>(own_s, a, own0, m, d);
+    stage_rows<DC, kStreamRows>(stream_s, b, 0, n, d);
+    mma::cp_async_commit();
+  }
 
   // this thread's two rows (fragment rows g and g + 8 of the warp's 16)
   const int lr0 = wr * 16 + g;
@@ -525,18 +627,24 @@ ce_fwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   const int ksteps = (d + 15) >> 4;
   const int raw_col0 = wc * (kStreamRows / C::kWC);
   const bf16* pa = own_s + (wr * 16 + (lane & 15)) * RS + (lane >> 4) * 8;
+  const int pa_chunk = (wr * 16 + (lane & 15)) * kChunkRS + (lane >> 4) * 8;
 
   for (int tile = 0; tile < tiles; ++tile) {
-    const int buf = C::kStages == 2 ? (tile & 1) : 0;
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    if (C::kStages == 2 && tile + 1 < tiles) {
-      stage_rows<DC, kStreamRows>(stream_s + (buf ^ 1) * TILE, b, (tile + 1) * kStreamRows, n,
-                                  d);
-      mma::cp_async_commit();
-    }
     float raw[C::kRawNT][4];
-    logit_tile<C::kRawNT, RS>(raw, pa, stream_s + buf * TILE + raw_col0 * RS, ksteps, lane);
+    if constexpr (CHUNKED) {
+      chunked_logit_tile<C::kRawNT>(raw, smem, tile, chunks, tiles * chunks, ksteps, pa_chunk,
+                                    raw_col0 * kChunkRS, lane, stage_step);
+    } else {
+      const int buf = C::kStages == 2 ? (tile & 1) : 0;
+      mma::cp_async_wait<0>();
+      __syncthreads();
+      if (C::kStages == 2 && tile + 1 < tiles) {
+        stage_rows<DC, kStreamRows>(stream_s + (buf ^ 1) * TILE, b, (tile + 1) * kStreamRows, n,
+                                    d);
+        mma::cp_async_commit();
+      }
+      logit_tile<C::kRawNT, RS>(raw, pa, stream_s + buf * TILE + raw_col0 * RS, ksteps, lane);
+    }
 
     const int c0 = tile * kStreamRows + raw_col0 + 2 * t;   // the thread's first column
 #pragma unroll
@@ -561,7 +669,7 @@ ce_fwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
       sum[h] = sum[h] * expf(mx[h] - mnew) + p;
       mx[h] = mnew;
     }
-    if (C::kStages == 1 && tile + 1 < tiles) {
+    if (!CHUNKED && C::kStages == 1 && tile + 1 < tiles) {
       __syncthreads();   // every warp is done with the one stage
       stage_rows<DC, kStreamRows>(stream_s, b, (tile + 1) * kStreamRows, n, d);
       mma::cp_async_commit();
@@ -607,23 +715,29 @@ ce_fwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
 
 // DA: own = a [M], stream = b [N]; out = dA [M, d], dscale [M].
 // !DA: own = b [N], stream = a [M]; out = dB [N, d]. lse, g and labels are
-// indexed by rows of a either way.
-template <int DC, bool DA>
+// indexed by rows of a either way. The block writes output features d0 ..
+// d0 + width - 1, d0 = blockIdx.y slice (the whole row where slice = d).
+// CHUNKED (DC = kMaxBf16D, D past it): raw by chunked_logit_tile, and step 3
+// on the stream tile's slice, staged once a tile.
+template <int DC, bool DA, bool CHUNKED = false>
 __global__ void __launch_bounds__(kThreads, 1)
 ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ stream_g,
                   const int* __restrict__ labels, const float* __restrict__ scale_ptr,
                   const float* __restrict__ lse, const float* __restrict__ g_rows,
                   float* __restrict__ out, float* __restrict__ dscale, int own_n,
-                  int stream_n, int d) {
+                  int stream_n, int d, int slice) {
   using C = Cfg<DC>;
   constexpr int RS = C::kRS;
   constexpr int TILE = kStreamRows * RS;
+  constexpr size_t kStatAt =
+      CHUNKED ? ChunkCfg::kStatAt : C::kOwnBytes + C::kStages * C::kStreamBytes;
+  constexpr size_t kDzAt =
+      CHUNKED ? ChunkCfg::kDzAt : C::kOwnBytes + C::kStages * (C::kStreamBytes + C::kStatBytes);
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* own_s = reinterpret_cast<bf16*>(smem);
-  bf16* stream_s = reinterpret_cast<bf16*>(smem + C::kOwnBytes);
-  float* stat_s = reinterpret_cast<float*>(smem + C::kOwnBytes + C::kStages * C::kStreamBytes);
-  bf16* dzh = reinterpret_cast<bf16*>(smem + C::kOwnBytes +
-                                      C::kStages * (C::kStreamBytes + C::kStatBytes));
+  bf16* stream_s = reinterpret_cast<bf16*>(smem + (CHUNKED ? ChunkCfg::kSliceAt : C::kOwnBytes));
+  float* stat_s = reinterpret_cast<float*>(smem + kStatAt);
+  bf16* dzh = reinterpret_cast<bf16*>(smem + kDzAt);
   bf16* dzl = dzh + C::kOwn * C::kDzRS;
   float* part = reinterpret_cast<float*>(dzl + C::kOwn * C::kDzRS);
 
@@ -633,12 +747,19 @@ ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ strea
   const int own0 = blockIdx.x * C::kOwn;
   const int tiles = (stream_n + kStreamRows - 1) / kStreamRows;
   const float scale = *scale_ptr;
+  const int d0 = blockIdx.y * slice;
+  const int width = min(slice, d - d0);
+  const int chunks = (d + kChunk - 1) / kChunk;
 
-  // stream tile `tile` into stage `buf`, with (dB) the lse, g and label of
-  // its rows; dead rows get zeros, which the masks below never use
+  // stream tile `tile` into stage `buf` (the chunked walk: its output slice
+  // into the one slice tile), with (dB) the lse, g and label of its rows;
+  // dead rows get zeros, which the masks below never use
   auto stage_stream = [&](int tile, int buf) {
     const int s0 = tile * kStreamRows;
-    stage_rows<DC, kStreamRows>(stream_s + buf * TILE, stream_g, s0, stream_n, d);
+    if constexpr (CHUNKED)
+      stage_cols<RS, kStreamRows>(stream_s, stream_g, s0, stream_n, d, d0, (width + 15) / 16 * 2);
+    else
+      stage_rows<DC, kStreamRows>(stream_s + buf * TILE, stream_g, s0, stream_n, d);
     if constexpr (!DA) {
       for (int idx = threadIdx.x; idx < 3 * kStreamRows; idx += kThreads) {
         const int which = idx / kStreamRows, c = idx - which * kStreamRows;
@@ -649,8 +770,24 @@ ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ strea
       }
     }
   };
+  // the chunked walk's step s: chunk s % chunks of the own rows and of
+  // stream tile s / chunks into stage s & 1
+  auto stage_step = [&](int s) {
+    unsigned char* at = smem + (s & 1) * ChunkCfg::kStage;
+    const int f0 = (s % chunks) * kChunk;
+    stage_cols<kChunkRS, C::kOwn>(reinterpret_cast<bf16*>(at), own_g, own0, own_n, d, f0,
+                                  kChunk / 8);
+    stage_cols<kChunkRS, kStreamRows>(reinterpret_cast<bf16*>(at + ChunkCfg::kOwnChunk),
+                                      stream_g, (s / chunks) * kStreamRows, stream_n, d, f0,
+                                      kChunk / 8);
+    mma::cp_async_commit();
+  };
 
-  stage_rows<DC, C::kOwn>(own_s, own_g, own0, own_n, d);
+  if constexpr (CHUNKED) {
+    stage_step(0);
+  } else {
+    stage_rows<DC, C::kOwn>(own_s, own_g, own0, own_n, d);
+  }
   stage_stream(0, 0);
   mma::cp_async_commit();
 
@@ -674,23 +811,31 @@ ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ strea
   const int raw_col0 = wc * (kStreamRows / C::kWC);   // the warp's first tile column
   const int out_col0 = wc * C::kOutCols;              // the warp's first output feature
   const bf16* pa = own_s + (wr * 16 + (lane & 15)) * RS + (lane >> 4) * 8;
+  const int pa_chunk = (wr * 16 + (lane & 15)) * kChunkRS + (lane >> 4) * 8;
 
   for (int tile = 0; tile < tiles; ++tile) {
-    const int buf = C::kStages == 2 ? (tile & 1) : 0;
-    // tile `tile` has arrived, and every warp is done with the stage and the
-    // dz halves of the tile before
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    if (C::kStages == 2 && tile + 1 < tiles) {
-      stage_stream(tile + 1, buf ^ 1);
-      mma::cp_async_commit();
-    }
+    const int buf = !CHUNKED && C::kStages == 2 ? (tile & 1) : 0;
     const int s0 = tile * kStreamRows;
     const bf16* st = stream_s + buf * TILE;
 
     // 1. raw = X_own . X_stream^T, the forward's logit tile
     float raw[C::kRawNT][4];
-    logit_tile<C::kRawNT, RS>(raw, pa, st + raw_col0 * RS, ksteps, lane);
+    if constexpr (CHUNKED) {
+      // the tile's chunks; their waits also land the slice and stat rows
+      // staged after the tile before
+      chunked_logit_tile<C::kRawNT>(raw, smem, tile, chunks, tiles * chunks, ksteps, pa_chunk,
+                                    raw_col0 * kChunkRS, lane, stage_step);
+    } else {
+      // tile `tile` has arrived, and every warp is done with the stage and
+      // the dz halves of the tile before
+      mma::cp_async_wait<0>();
+      __syncthreads();
+      if (C::kStages == 2 && tile + 1 < tiles) {
+        stage_stream(tile + 1, buf ^ 1);
+        mma::cp_async_commit();
+      }
+      logit_tile<C::kRawNT, RS>(raw, pa, st + raw_col0 * RS, ksteps, lane);
+    }
 
     // 2. dz in registers, masked; dscale (dA); the two bf16 halves to shared
     const float* sst = stat_s + buf * 3 * kStreamRows;
@@ -739,7 +884,7 @@ ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ strea
     const bf16* qb = st + (lane & 15) * RS + (lane >> 4) * 8 + out_col0;
 #pragma unroll
     for (int np = 0; np < C::kOutNT / 2; ++np) {
-      if (out_col0 + np * 16 >= d) continue;   // the same in every lane
+      if (out_col0 + np * 16 >= width) continue;   // the same in every lane
       float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -756,23 +901,23 @@ ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ strea
         acc[2 * np + 1][i] += d1[i];
       }
     }
-    if (C::kStages == 1 && tile + 1 < tiles) {
-      __syncthreads();   // every warp is done with the one stage
+    if ((CHUNKED || C::kStages == 1) && tile + 1 < tiles) {
+      __syncthreads();   // every warp is done with the one stage (the slice tile)
       stage_stream(tile + 1, 0);
       mma::cp_async_commit();
     }
   }
 
-  // scale * out, rows g and g + 8, features out_col0 + 8 nt + 2t (+1)
+  // scale * out, rows g and g + 8, features d0 + out_col0 + 8 nt + 2t (+1)
 #pragma unroll
   for (int nt = 0; nt < C::kOutNT; ++nt) {
     const int col = out_col0 + nt * 8 + 2 * t;
-    if (col >= d) continue;
+    if (col >= width) continue;
     if (r0 < own_n)
-      *reinterpret_cast<float2*>(out + size_t(r0) * d + col) =
+      *reinterpret_cast<float2*>(out + size_t(r0) * d + d0 + col) =
           make_float2(scale * acc[nt][0], scale * acc[nt][1]);
     if (r1 < own_n)
-      *reinterpret_cast<float2*>(out + size_t(r1) * d + col) =
+      *reinterpret_cast<float2*>(out + size_t(r1) * d + d0 + col) =
           make_float2(scale * acc[nt][2], scale * acc[nt][3]);
   }
   if constexpr (DA) {
@@ -784,7 +929,7 @@ ce_bwd_mma_kernel(const bf16* __restrict__ own_g, const bf16* __restrict__ strea
     }
     __syncthreads();
     for (int r = threadIdx.x; r < C::kOwn; r += kThreads) {
-      if (own0 + r >= own_n) continue;
+      if (own0 + r >= own_n || blockIdx.y != 0) continue;   // one slice writes dscale
       float total = 0.f;
 #pragma unroll
       for (int w = 0; w < C::kWC; ++w) total += part[w * C::kOwn + r];
@@ -804,7 +949,26 @@ cudaError_t launch(const Args& x, float* out, float* dscale) {
   const bf16* own = static_cast<const bf16*>(DA ? x.a : x.b);
   const bf16* streamed = static_cast<const bf16*>(DA ? x.b : x.a);
   ce_bwd_mma_kernel<DC, DA><<<(own_n + C::kOwn - 1) / C::kOwn, kThreads, C::kBytes, x.stream>>>(
-      own, streamed, x.labels, x.scale, x.lse, x.g, out, dscale, own_n, stream_n, x.d);
+      own, streamed, x.labels, x.scale, x.lse, x.g, out, dscale, own_n, stream_n, x.d, x.d);
+  return cudaGetLastError();
+}
+
+// D > kMaxBf16D: the chunked walk, the output in near-equal feature slices
+// of at most kMaxBf16D (a multiple of 16) along the grid's y axis.
+template <bool DA>
+cudaError_t launch_chunked(const Args& x, float* out, float* dscale) {
+  using C = Cfg<kMaxBf16D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ce_bwd_mma_kernel<kMaxBf16D, DA, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(ChunkCfg::kBytes));
+  if (attr != cudaSuccess) return attr;
+  const int own_n = DA ? x.m : x.n, stream_n = DA ? x.n : x.m;
+  const int slices = (x.d + kMaxBf16D - 1) / kMaxBf16D;
+  const int slice = ((x.d + slices - 1) / slices + 15) / 16 * 16;
+  const dim3 grid((own_n + C::kOwn - 1) / C::kOwn, slices);
+  ce_bwd_mma_kernel<kMaxBf16D, DA, true><<<grid, kThreads, ChunkCfg::kBytes, x.stream>>>(
+      static_cast<const bf16*>(DA ? x.a : x.b), static_cast<const bf16*>(DA ? x.b : x.a),
+      x.labels, x.scale, x.lse, x.g, out, dscale, own_n, stream_n, x.d, slice);
   return cudaGetLastError();
 }
 
@@ -822,17 +986,19 @@ cudaError_t dispatch(const Args& x, float* out, float* dscale) {
   if (x.d <= 128) return launch<128, DA>(x, out, dscale);
   if (x.d <= 256) return launch<256, DA>(x, out, dscale);
   if (x.d <= 512) return launch<512, DA>(x, out, dscale);
-  return launch<768, DA>(x, out, dscale);
+  if (x.d <= kMaxBf16D) return launch<768, DA>(x, out, dscale);
+  return launch_chunked<DA>(x, out, dscale);
 }
 
-template <int DC>
+template <int DC, bool CHUNKED = false>
 cudaError_t launch_fwd(const Args& x, float* loss, float* lse) {
   using C = FwdCfg<DC>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(ce_fwd_mma_kernel<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(C::kBytes));
+  constexpr size_t bytes = CHUNKED ? ChunkCfg::kFwdBytes : C::kBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      ce_fwd_mma_kernel<DC, CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
   if (attr != cudaSuccess) return attr;
-  ce_fwd_mma_kernel<DC><<<(x.m + C::kOwn - 1) / C::kOwn, kThreads, C::kBytes, x.stream>>>(
+  ce_fwd_mma_kernel<DC, CHUNKED><<<(x.m + C::kOwn - 1) / C::kOwn, kThreads, bytes, x.stream>>>(
       static_cast<const bf16*>(x.a), static_cast<const bf16*>(x.b), x.labels, x.scale, loss, lse,
       x.m, x.n, x.d);
   return cudaGetLastError();
@@ -844,7 +1010,8 @@ cudaError_t dispatch_fwd(const Args& x, float* loss, float* lse) {
   if (x.d <= 128) return launch_fwd<128>(x, loss, lse);
   if (x.d <= 256) return launch_fwd<256>(x, loss, lse);
   if (x.d <= 512) return launch_fwd<512>(x, loss, lse);
-  return launch_fwd<768>(x, loss, lse);
+  if (x.d <= kMaxBf16D) return launch_fwd<768>(x, loss, lse);
+  return launch_fwd<kMaxBf16D, true>(x, loss, lse);
 }
 
 }  // namespace ce_mma
@@ -946,11 +1113,11 @@ cudaError_t dispatch_db(const Args& x, float* db, float* scratch, int slices) {
   }
 }
 
-// bf16 takes D <= kMaxBf16D (its tiles sit whole in shared memory); float32
-// any D. Every split needs its scratch, and bf16 takes no split.
+// Any D in either dtype. Every split needs its scratch, and bf16 takes no
+// split of the streamed rows.
 bool bad_shape(int m, int n, int d, int dtype, int slices, const void* scratch) {
   return m < 1 || n < 1 || d < 1 || (dtype != 0 && dtype != 1) ||
-         (dtype == 1 && (d > kMaxBf16D || slices != 1)) || slices < 1 ||
+         (dtype == 1 && slices != 1) || slices < 1 ||
          (slices > 1 && scratch == nullptr);
 }
 
@@ -960,7 +1127,7 @@ bool bad_shape(int m, int n, int d, int dtype, int slices, const void* scratch) 
 // scale: one float32 on the device; out loss [M], lse [M] float32. Returns a
 // cudaError_t (0 = launched). bfloat16 takes the tensor-core kernel, whose rows
 // must be a multiple of 8 features on 16-byte aligned bases
-// (cudaErrorInvalidValue otherwise), D <= 768, slices 1; float32 the CUDA
+// (cudaErrorInvalidValue otherwise), slices 1; float32 the CUDA
 // cores in `slices` slices of b's rows, with scratch 3 * slices * M float32
 // where slices > 1.
 extern "C" int colxlip_fused_ce_fwd(const void* a, const void* b, const void* labels,
@@ -978,7 +1145,7 @@ extern "C" int colxlip_fused_ce_fwd(const void* a, const void* b, const void* la
 // As the forward, plus lse [M] and g [M] float32 (the cotangent of the loss
 // rows); out da [M, D] and dscale [M] float32. bfloat16 takes the
 // tensor-core kernel, whose rows must be a multiple of 8 features on 16-byte
-// aligned bases (cudaErrorInvalidValue otherwise), D <= 768, slices 1;
+// aligned bases (cudaErrorInvalidValue otherwise), slices 1;
 // float32 the CUDA cores in `slices` slices of b's rows, with scratch
 // slices * M * (D + 1) float32 where slices > 1.
 extern "C" int colxlip_fused_ce_bwd_da(const void* a, const void* b, const void* labels,

@@ -22,7 +22,9 @@ N = 1024: 4 blocks, 16 slices), each slice's (max, sum, label logit) merged
 in slice order by a second pass; dA b's rows into ``fp32_da_slices`` (8
 blocks, 16 slices) and dB a's rows into ``fp32_db_slices`` (32 blocks, 4
 slices), each slice's partial rows added in slice order by a second pass.
-bfloat16 takes D <= 768, float32 any D.
+Both dtypes take any D: past 768 features the bf16 kernels stream the
+features through the logit tile in chunks of 256 and write dA and dB in
+feature slices of at most 768, each slice recomputing the logits.
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. There is no fallback.
 
@@ -43,7 +45,6 @@ from .build import LaunchCounter, load_kernels, multiprocessors
 FWD_LAUNCHES = LaunchCounter()
 BWD_DA_LAUNCHES = LaunchCounter()
 BWD_DB_LAUNCHES = LaunchCounter()
-MAX_FEATURES = {torch.bfloat16: 768}   # float32 takes any D
 PLAIN_CHUNK = 1024
 FP32_OWN_ROWS = 32               # stream_tile.cuh kOwn: rows a float32 dA or dB block owns
 FP32_FWD_ROWS = 64               # fused_ce.cu kFwdRows: rows of a a float32 forward block owns
@@ -181,10 +182,6 @@ def _check_cuda(a, b, labels, scale, *more) -> Tuple[int, int, int]:
         raise ValueError(f"fused_contrastive_ce: dtypes {a.dtype}/{b.dtype} not supported "
                          "(both float32 or both bfloat16)")
     d = a.shape[1]
-    limit = MAX_FEATURES.get(a.dtype)
-    if limit is not None and d > limit:
-        raise ValueError(f"fused_contrastive_ce: D={d} outside the kernels' range "
-                         f"(D <= {limit})")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("fused_contrastive_ce: a and b must be contiguous")
     if labels.dtype != torch.int32 or not labels.is_contiguous():
@@ -342,7 +339,7 @@ def fused_contrastive_ce(a: torch.Tensor, b: torch.Tensor, labels: torch.Tensor,
     differentiable in a, b and logit_scale (a tensor or a number).
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (float32 at any D, or bfloat16 at D <= 768; contiguous) or raise."""
+    (float32 or bfloat16 at any D; contiguous) or raise."""
     _check_args(a, b, labels)
     scale = torch.as_tensor(logit_scale, device=a.device)
     scale = scale.to(torch.float32) if scale.dtype != torch.float32 else scale

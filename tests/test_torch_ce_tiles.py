@@ -27,7 +27,13 @@ against the JAX package's Pallas kernels in interpret mode through
 backward's bit for bit, and b = a at scale 100 ("tied-100") meets the bar
 when the backward is fed the tiled forward's lse. A control rounds dz to
 bf16 once instead of splitting it and fails the same bar where every label
-logit dominates. The emulation is used by nothing in the package.
+logit dominates. Past 768 features the kernels take the chunked walk
+(768's geometry, the logit tile over chunks of 256 features, raw added
+across them; the backward's output in feature slices of at most 768, each
+recomputing raw): emulated here at D = 1000 and 1024 against the plain
+versions and the Pallas kernels, and forced at D <= 768, where it must give
+today's whole-tile walk's bits. The emulation is used by nothing in the
+package.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ STREAM_ROWS = 64                        # kStreamRows: rows of the streamed matr
 PAD = 8                                 # kPad: elements of padding a staged row
 KSTEP = 16                              # features an mma k-step
 CAPACITIES = (64, 128, 256, 512, 768)   # the feature capacities DC the dispatch takes
+CHUNK = 256                             # kChunk: features a chunk of the chunked walk
 MAX_SHARED = 232448                     # common.cuh kMaxSharedBytes
 CE_FWD_TOL = 1e-5
 CE_BWD_TOL = 1e-4
@@ -71,8 +78,27 @@ def own_rows(capacity: int) -> int:
 
 
 def capacity(d: int) -> int:
-    """The feature capacity the dispatch picks for rows of d features."""
-    return next(c for c in CAPACITIES if d <= c)
+    """The feature capacity (the geometry) the dispatch picks for rows of d
+    features: past the widest, the chunked walk in the widest's geometry."""
+    return next((c for c in CAPACITIES if d <= c), CAPACITIES[-1])
+
+
+def chunked_slices(dp: int):
+    """launch_chunked's output slices: as few as keep each within 768
+    features, near-equal, a multiple of 16: (slices, width)."""
+    slices = -(-dp // CAPACITIES[-1])
+    return slices, -(-(-(-dp // slices)) // 16) * 16
+
+
+def chunked_bytes() -> tuple:
+    """ChunkCfg: (the backward's shared bytes, the forward's)."""
+    own, rs = own_rows(CAPACITIES[-1]), CHUNK + PAD
+    stages = 2 * (own * rs * 2 + STREAM_ROWS * rs * 2)
+    wide = CAPACITIES[-1] + PAD
+    wc = WARPS // (own // 16)
+    bwd = (stages + STREAM_ROWS * wide * 2 + 3 * STREAM_ROWS * 4
+           + 2 * own * (STREAM_ROWS + PAD) * 2 + wc * own * 4)
+    return bwd, stages + 3 * wc * own * 4
 
 
 def shared_bytes(dc: int, stages: int) -> int:
@@ -120,16 +146,40 @@ def _staged(x: torch.Tensor, row0: int, rows: int, width: int) -> torch.Tensor:
     return out
 
 
-def logit_tile(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def logit_tile(x: torch.Tensor, y: torch.Tensor, raw=None) -> torch.Tensor:
     """The kernels' shared step 1: raw = x . y^T for an own tile x [rows, kp]
     and a stream tile y [64, kp], one k-step of 16 features at a time from
-    zero, added in fp32. A k-step sums the 16 exact products of (i, j) from a
-    [rows, 64, 16] tensor, so raw_ij has the same bits whichever matrix owns
-    the rows."""
-    raw = torch.zeros(x.shape[0], y.shape[0])
+    zero, added in fp32 (to ``raw`` as it stands: logit_tile_add). A k-step
+    sums the 16 exact products of (i, j) from a [rows, 64, 16] tensor, so
+    raw_ij has the same bits whichever matrix owns the rows."""
+    raw = torch.zeros(x.shape[0], y.shape[0]) if raw is None else raw
     for k0 in range(0, x.shape[1], KSTEP):
         raw = raw + (x[:, None, k0:k0 + KSTEP] * y[None, :, k0:k0 + KSTEP]).sum(dim=-1)
     return raw
+
+
+def chunked_logit_tile(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The chunked walk's step 1: the own and stream rows staged one chunk of
+    256 features at a time (zeros past D), each chunk's k-steps added to raw
+    in order; a chunk takes only the k-steps that reach D."""
+    raw = torch.zeros(x.shape[0], y.shape[0])
+    for f0 in range(0, x.shape[1], CHUNK):
+        raw = logit_tile(x[:, f0:f0 + CHUNK], y[:, f0:f0 + CHUNK], raw)
+    return raw
+
+
+def tile_product(dz: torch.Tensor, y: torch.Tensor, split: bool = True) -> torch.Tensor:
+    """Step 3's tile sum: dz_hi . y (+ dz_lo . y) from zero, the stream rows in
+    order, each bf16 x bf16 product exact in fp32. A column's sum reads only
+    that column of y (an mma n-tile), so the columns of a slice of y get the
+    bits the whole y gives them."""
+    hi = dz.bfloat16().float()
+    halves = (hi, (dz - hi).bfloat16().float()) if split else (hi,)
+    part = torch.zeros(dz.shape[0], y.shape[1])
+    for h in halves:
+        for k in range(y.shape[0]):
+            part = part + h[:, k:k + 1] * y[k]
+    return part
 
 
 def _merge(m1, s1, m2, s2):
@@ -138,13 +188,16 @@ def _merge(m1, s1, m2, s2):
     return mm, s1 * torch.exp(m1 - mm) + s2 * torch.exp(m2 - mm)
 
 
-def tiled_forward(a, b, labels, scale, raws=None):
+def tiled_forward(a, b, labels, scale, raws=None, chunked=None):
     """The forward kernel's algorithm: (loss [M], lse [M]) fp32. ``raws``, if
-    a list, collects each (own block, stream tile)'s raw."""
+    a list, collects each (own block, stream tile)'s raw. ``chunked`` (by
+    default past 768 features) takes the chunked walk's step 1."""
     m, d = a.shape
     n = b.shape[0]
     dp = -(-d // 8) * 8
     kp = -(-dp // KSTEP) * KSTEP
+    chunked = dp > CAPACITIES[-1] if chunked is None else chunked
+    step1 = chunked_logit_tile if chunked else logit_tile
     rows = own_rows(capacity(dp))
     wc = WARPS // (rows // 16)                   # column groups of warps
     nt = STREAM_ROWS // wc // 8                  # n-tiles a warp holds
@@ -160,7 +213,7 @@ def tiled_forward(a, b, labels, scale, raws=None):
         sm = torch.zeros(rows, wc, 4)
         zl = torch.zeros(rows, wc, 4)
         for s0 in range(0, n, STREAM_ROWS):
-            raw = logit_tile(x, _staged(b, s0, STREAM_ROWS, kp))
+            raw = step1(x, _staged(b, s0, STREAM_ROWS, kp))
             if raws is not None:
                 raws.append(((o0, s0), raw))
             col = torch.arange(s0, s0 + STREAM_ROWS)
@@ -195,13 +248,26 @@ def tiled_forward(a, b, labels, scale, raws=None):
     return loss, lse
 
 
-def tiled_backward(a, b, labels, scale, lse, g, da: bool, split: bool = True, raws=None):
+def tiled_backward(a, b, labels, scale, lse, g, da: bool, split: bool = True, raws=None,
+                   chunked=None, slices=None):
     """The kernel's algorithm: dA [M, D] and dscale rows [M] (da), or dB
-    [N, D]; ``split=False`` is the control that rounds dz to bf16 once."""
+    [N, D]; ``split=False`` is the control that rounds dz to bf16 once.
+    ``chunked`` (by default past 768 features) takes the chunked walk: raw by
+    chunks, the output in ``slices`` feature slices (launch_chunked's by
+    default), each walking every stream tile and recomputing raw; slice 0
+    writes dscale."""
     m, d = a.shape
     n = b.shape[0]
     dp = -(-d // 8) * 8                   # the wrapper's padding
     kp = -(-dp // KSTEP) * KSTEP          # the k-steps the logit tile takes
+    chunked = dp > CAPACITIES[-1] if chunked is None else chunked
+    step1 = chunked_logit_tile if chunked else logit_tile
+    if not chunked:
+        slices, width = 1, kp
+    elif slices is None:
+        slices, width = chunked_slices(dp)
+    else:
+        width = -(-(-(-dp // slices)) // 16) * 16
     rows = own_rows(capacity(dp))
     own, stream = (a, b) if da else (b, a)
     own_n, stream_n = (m, n) if da else (n, m)
@@ -209,18 +275,18 @@ def tiled_backward(a, b, labels, scale, lse, g, da: bool, split: bool = True, ra
     labels = labels.long()
     out = torch.zeros(own_n, dp)
     dscale = torch.zeros(m)
-    for o0 in range(0, own_n, rows):
+    for o0, f0 in ((o0, sl * width) for o0 in range(0, own_n, rows) for sl in range(slices)):
         x = _staged(own, o0, rows, kp)
         own_idx = torch.arange(o0, o0 + rows)
         own_live = own_idx < own_n
-        acc = torch.zeros(rows, kp)
+        acc = torch.zeros(rows, min(width, kp - f0))
         ds = torch.zeros(rows)
         for s0 in range(0, stream_n, STREAM_ROWS):
             y = _staged(stream, s0, STREAM_ROWS, kp)
             col_idx = torch.arange(s0, s0 + STREAM_ROWS)
             col_live = col_idx < stream_n
-            raw = logit_tile(x, y)
-            if raws is not None:
+            raw = step1(x, y)
+            if raws is not None and f0 == 0:
                 raws.append(((o0, s0), raw))
             if da:
                 at = own_idx.clamp(max=m - 1)
@@ -235,14 +301,10 @@ def tiled_backward(a, b, labels, scale, lse, g, da: bool, split: bool = True, ra
                              (p - onehot.float()) * g_t, torch.zeros(()))
             if da:
                 ds = ds + (dz * raw).sum(dim=1)
-            hi = dz.bfloat16().float()
-            part = hi @ y
-            if split:
-                part = part + (dz - hi).bfloat16().float() @ y
-            acc = acc + part
+            acc = acc + tile_product(dz, y[:, f0:f0 + acc.shape[1]], split)
         live = min(rows, own_n - o0)
-        out[o0:o0 + live] = scale * acc[:live, :dp]
-        if da:
+        out[o0:o0 + live, f0:f0 + acc.shape[1]] = scale * acc[:live, :dp - f0]
+        if da and f0 == 0:
             dscale[o0:o0 + live] = ds[:live]
     out = out[:, :d]
     return (out, dscale) if da else out
@@ -270,10 +332,14 @@ def test_constants_are_the_kernels_own():
     assert [int(c) for c in re.findall(r"return launch<(\d+), DA>", src)] == list(CAPACITIES)
     assert [int(c) for c in re.findall(r"if \(x\.d <= (\d+)\) return launch<", src)] == \
         list(CAPACITIES[:-1])
-    # the bf16 limit is the widest capacity; float32 takes any D
-    assert fused_ce.MAX_FEATURES[torch.bfloat16] == CAPACITIES[-1]
-    assert torch.float32 not in fused_ce.MAX_FEATURES
+    # past the widest capacity the chunked walk: both dtypes take any D
+    assert not hasattr(fused_ce, "MAX_FEATURES")
     assert f"constexpr int kMaxBf16D = {CAPACITIES[-1]};" in src
+    assert f"constexpr int kChunk = {CHUNK};" in src
+    assert "if (x.d <= kMaxBf16D) return launch<768, DA>(x, out, dscale);" in src
+    assert "return launch_chunked<DA>(x, out, dscale);" in src
+    assert "return launch_fwd<kMaxBf16D, true>(x, loss, lse);" in src
+    assert "const int slice = ((x.d + slices - 1) / slices + 15) / 16 * 16;" in src
     assert "mma::mma_16816_rn(raw[2 * np]" in src        # k-steps from zero, added in fp32
     # the forward: the same capacities and geometry, its own shared memory,
     # and step 1 through the one function the backward calls
@@ -349,7 +415,7 @@ def test_tiled_forward_matches_jax_pallas():
     assert abs(loss.mean().item() - want) <= CE_FWD_TOL * (1 + abs(want))
 
 
-@pytest.mark.parametrize("m,n,d", [(130, 200, 36), (70, 65, 768)])
+@pytest.mark.parametrize("m,n,d", [(130, 200, 36), (70, 65, 768), (40, 70, 1000)])
 def test_forward_and_backward_take_the_same_raw(m, n, d):
     """raw of every (own block, stream tile) in the forward is the dA
     kernel's bit for bit, and the dB kernel's (own and stream swapped) is its
@@ -368,6 +434,72 @@ def test_forward_and_backward_take_the_same_raw(m, n, d):
     for (o0, s0), raw in bwd_b:
         want = full[s0:s0 + STREAM_ROWS, o0:o0 + rows].T
         assert torch.equal(raw[:want.shape[0], :want.shape[1]], want)
+
+
+def test_chunked_tiles_fit_and_slice_the_output():
+    """The chunked walk's two stages of 256-feature chunks, the slice tile
+    and the rest fit in shared memory, the forward's twice an SM; the
+    output slices are near-equal multiples of 16 within 768 features."""
+    bwd, fwd = chunked_bytes()
+    assert bwd <= MAX_SHARED and 2 * (fwd + 1024) <= 233472
+    assert len({(r * (CHUNK + PAD) * 2 // 16) % 8 for r in range(8)}) == 8
+    assert chunked_slices(776) == (2, 400) and chunked_slices(1000) == (2, 512)
+    assert chunked_slices(1024) == (2, 512) and chunked_slices(4096) == (6, 688)
+    for dp in range(776, 4200, 8):
+        slices, width = chunked_slices(dp)
+        assert width <= CAPACITIES[-1] and width % 16 == 0
+        assert (slices - 1) * width < dp <= slices * width
+
+
+@pytest.mark.parametrize("m,n,d,scale", [(70, 130, 1000, 30.0), (33, 100, 1024, 50.0)])
+def test_chunked_walk_matches_plain(m, n, d, scale):
+    """Past 768 features (the widths bf16 used to refuse): the forward within
+    1e-5 of 1 + |loss|, dA, dscale and dB within 1e-4 of max|grad| of the
+    plain versions; ragged M and N."""
+    a, b, labels, s, want_lse, g = _inputs(m, n, d, scale, seed=13)
+    want_loss, _ = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    loss, lse = tiled_forward(a, b, labels, s)
+    for got, want in ((loss, want_loss), (lse, want_lse)):
+        assert ((got - want).abs() / (1 + want.abs())).max().item() <= CE_FWD_TOL
+    errs = _errors(a, b, labels, s, want_lse, g)
+    assert max(errs) <= CE_BWD_TOL, errs
+
+
+def test_chunked_walk_matches_jax_pallas():
+    """The chunked walk at D = 1000 against the Pallas kernels (interpret
+    mode): the mean loss, and dA, dB, dscale through jax.vjp."""
+    m, n, d, scale = 40, 90, 1000, 30.0
+    a, b, labels, s, lse, _ = _inputs(m, n, d, scale, seed=17)
+    g = torch.full((m,), 1.0 / m)
+
+    def loss(a_, b_, s_):
+        return jax_fused_ce(a_, b_, jnp.asarray(labels.numpy()), s_, block_m=8, block_n=128,
+                            interpret=True)
+
+    want, vjp = jax.vjp(loss, jnp.asarray(a.float().numpy()), jnp.asarray(b.float().numpy()),
+                        jnp.float32(scale))
+    got, _ = tiled_forward(a, b, labels, s)
+    assert abs(got.mean().item() - float(want)) <= CE_FWD_TOL * (1 + abs(float(want)))
+    want_da, want_db, want_ds = (torch.from_numpy(np.array(x)) for x in vjp(jnp.float32(1.0)))
+    da, ds = tiled_backward(a, b, labels, s, lse, g, True)
+    db = tiled_backward(a, b, labels, s, lse, g, False)
+    assert _rel(da, want_da) <= CE_BWD_TOL and _rel(db, want_db) <= CE_BWD_TOL
+    np.testing.assert_allclose(ds.sum().item(), float(want_ds), rtol=CE_BWD_TOL)
+
+
+@pytest.mark.parametrize("m,n,d,slices", [(70, 65, 768, 2), (40, 90, 600, 3)])
+def test_chunked_walk_gives_the_whole_tiles_bits(m, n, d, slices):
+    """Forced at D <= 768 (768's geometry), the chunked walk with the output
+    in feature slices gives today's whole-tile walk's bits: loss, lse, dA,
+    dscale and dB."""
+    a, b, labels, s, lse, g = _inputs(m, n, d, 40.0, seed=19)
+    for chunked in (False, True):
+        got = (*tiled_forward(a, b, labels, s, chunked=chunked),
+               *tiled_backward(a, b, labels, s, lse, g, True, chunked=chunked, slices=slices),
+               tiled_backward(a, b, labels, s, lse, g, False, chunked=chunked, slices=slices))
+        if chunked:
+            assert all(torch.equal(x, y) for x, y in zip(got, whole))
+        whole = got
 
 
 def test_tied_100_meets_the_bar_with_the_tiled_forward():
