@@ -18,6 +18,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from ..ops.maxsim import maxsim
 from .configs import CLIPCfg
 from .layers import GELU, LayerNorm, Linear, gelu, gelu_tanh, quick_gelu
 from .text import add_text_tower, encode_text_tower
@@ -125,6 +126,27 @@ class ColXLIP(CLIP):
         if normalize:
             pooled, tokens = l2_normalize(pooled), l2_normalize(tokens)
         return pooled, tokens
+
+    def get_logits(self, image: torch.Tensor, text: torch.Tensor,
+                   alpha: Optional[float] = None):
+        """(logits_per_image, logits_per_text): logit_scale * (alpha * global
+        + (1 - alpha) * plain-mean MaxSim), the late-interaction combination
+        of the JAX ``ColXLIP.get_logits``."""
+        alpha = self.cfg.alpha if alpha is None else alpha
+        image_features, token_image = self.encode_image(image, normalize=True)
+        text_features, token_text = self.encode_text(text, normalize=True)
+        global_sim = image_features.float() @ text_features.float().T
+        token_sim = maxsim(token_text, token_image, mask_mode="plain").T
+        logits = self.logit_scale.exp() * (alpha * global_sim + (1 - alpha) * token_sim)
+        return logits, logits.T
+
+    def get_logits_as_clip(self, image: torch.Tensor, text: torch.Tensor):
+        """Plain CLIP scoring, the token features left out (the JAX
+        ``ColXLIP.get_logits_as_clip``)."""
+        image_features, _ = self.encode_image(image, normalize=True)
+        text_features, _ = self.encode_text(text, normalize=True)
+        logits = self.logit_scale.exp() * (image_features.float() @ text_features.float().T)
+        return logits, logits.T
 
     def forward(self, image: Optional[torch.Tensor] = None,
                 text: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:

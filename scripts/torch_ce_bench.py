@@ -17,7 +17,8 @@ step, as ``chip_smoke.py`` phase 12c) and for the extra shapes
 below it holds each kernel against its plain version under
 ``chip_smoke.py``'s bars (loss rows and lse 1e-5 of 1 + |value|; dA, dB and
 dscale 1e-4 of the largest |grad|) and checks that two backward runs give
-the same bits. At each size it then times, with CUDA events in turns
+the same bits (bf16 at D = 1000 and 1024 takes the chunked walk, past the
+whole tiles' 768 features). At each size it then times, with CUDA events in turns
 (kernel, plain, plain, kernel), each kernel and its plain version, the
 dense pair (fp32 ``torch.matmul`` + ``F.cross_entropy``, which holds the
 [M, N] logits: forward, and forward plus backward) and one direction of the
@@ -64,8 +65,9 @@ EXTRA = [
     ("d36", 130, 200, 36, 20.0, False, None, False, ("bfloat16", "float32")),
     ("tied", 1024, 1024, 512, 1 / 0.07, True, None, False, ("bfloat16", "float32")),
     ("tied-100", 1024, 1024, 512, 100.0, True, None, False, ("bfloat16",)),
-    ("wide-1000", 300, 1000, 1000, 30.0, False, None, False, ("float32",)),
-    ("wide-1024", 4096, 4096, 1024, 100.0, False, None, True, ("float32",)),
+    ("wide-1000", 300, 1000, 1000, 30.0, False, None, False, ("bfloat16", "float32")),
+    ("wide-1024", 4096, 4096, 1024, 100.0, False, None, True, ("bfloat16", "float32")),
+    ("wide-1000-4096", 4096, 4096, 1000, 100.0, False, None, True, ("bfloat16",)),
 ]
 
 

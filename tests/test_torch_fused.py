@@ -396,7 +396,7 @@ def test_model_configs_are_byte_for_byte_copies():
 
 
 _OPEN_PROBE = r"""
-import importlib, os, pathlib, pkgutil, sys, tempfile
+import importlib, importlib.util, os, pathlib, pkgutil, sys, tempfile
 jax_pkg = pathlib.Path(sys.argv[1]).resolve()
 seen = []
 
@@ -427,6 +427,11 @@ if native.libjpeg_present():
     native.load("dataloader")
 SimpleTokenizer(context_length=16)(["a photo of a dog"])
 factory.create_model("ViT-S-16-test-colxlip", "cpu")
+repo = jax_pkg.parent
+for script in [*sorted((repo / "scripts").glob("torch_*.py")),
+               *sorted((repo / "examples").glob("torch_*.py"))]:
+    spec = importlib.util.spec_from_file_location(script.stem, script)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 print("loaded:", sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "colxlip_tpu")))
 print("seen:", seen)
 """
@@ -434,12 +439,14 @@ print("seen:", seen)
 
 def test_port_reads_nothing_of_the_jax_package():
     """No import of jax or colxlip_tpu, and no path into colxlip_tpu/, in the
-    port's sources (the C++ and CUDA sources included) or in chip_smoke.py
-    (mentions in comments and docstrings name the counterpart a file was
-    ported from); and a process that imports every port module, builds the
-    native core from scratch, tokenizes and builds a model opens no file
-    under colxlip_tpu/, passes none to a compiler and loads no module of jax
-    or colxlip_tpu."""
+    port's sources (the C++ and CUDA sources included), in chip_smoke.py or
+    in the port's scripts and example (``scripts/torch_*.py``,
+    ``examples/torch_*.py``; the launchers ``scripts/torch_*.sh`` run the
+    port's main only; mentions in comments and docstrings name the
+    counterpart a file was ported from); and a process that imports every
+    port module and every such script, builds the native core from scratch,
+    tokenizes and builds a model opens no file under colxlip_tpu/, passes
+    none to a compiler and loads no module of jax or colxlip_tpu."""
     import subprocess
     import sys
 
@@ -457,8 +464,16 @@ def test_port_reads_nothing_of_the_jax_package():
     importing = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax|optax|colxlip_tpu)(\.|\s|$)",
                            re.M)
     path_into = re.compile(r"""/\s*["']colxlip_tpu["']|["'/]colxlip_tpu/""")
-    sources = [*(REPO / "colxlip_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    twins = [*(REPO / "scripts").glob("torch_*.py"), *(REPO / "examples").glob("torch_*.py")]
+    assert len(twins) >= 18
+    sources = [*(REPO / "colxlip_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py", *twins]
     assert len(sources) > 30
+    launchers = sorted((REPO / "scripts").glob("torch_*.sh"))
+    assert len(launchers) == 3
+    for sh in launchers:
+        text = sh.read_text()
+        assert "-m colxlip_tpu_torch.main" in text and "colxlip_tpu." not in text.replace(
+            "colxlip_tpu_torch.", ""), sh
     for src in sources:
         text = src.read_text()
         assert not importing.search(text), src
