@@ -165,6 +165,14 @@ __device__ __forceinline__ void merge_lse(float& m, float& s, float m2, float s2
 
 constexpr int kFwdRows = kTY * 4;   // rows of a a float32 forward block owns
 
+// The forward's label of row `row` of a: -1 past M and for a label outside
+// [0, N), which matches no column (the columns of the last tile past N hold
+// -1e30; a label there would pick that up as its logit).
+__device__ __forceinline__ int label_of(const int* __restrict__ labels, int row, int m, int n) {
+  const int l = row < m ? labels[row] : -1;
+  return l < n ? l : -1;
+}
+
 // ---------------------------------------------------------------------------
 // float32 forward (CUDA cores): one block per tile of 64 rows of a
 // (blockIdx.x) and per slice of b's rows (blockIdx.y): slice s is the `per`
@@ -194,7 +202,7 @@ ce_fwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
     mx[r] = kNeg;
     sum[r] = 0.f;
     zt[r] = 0.f;
-    lab[r] = row < m ? labels[row] : -1;
+    lab[r] = label_of(labels, row, m, n);
   }
 
   const int j_first = int(blockIdx.y) * per * BN;
@@ -621,7 +629,7 @@ ce_fwd_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
   // this thread's two rows (fragment rows g and g + 8 of the warp's 16)
   const int lr0 = wr * 16 + g;
   const int r0 = own0 + lr0, r1 = r0 + 8;
-  const int lab[2] = {r0 < m ? labels[r0] : -1, r1 < m ? labels[r1] : -1};
+  const int lab[2] = {label_of(labels, r0, m, n), label_of(labels, r1, m, n)};
   float mx[2] = {kNeg, kNeg}, sum[2] = {0.f, 0.f}, zl[2] = {0.f, 0.f};
 
   const int ksteps = (d + 15) >> 4;

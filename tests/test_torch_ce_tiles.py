@@ -208,6 +208,7 @@ def tiled_forward(a, b, labels, scale, raws=None, chunked=None):
         x = _staged(a, o0, rows, kp)
         lab = torch.full((rows,), -1, dtype=torch.long)
         lab[:min(rows, m - o0)] = labels[o0:o0 + rows]
+        lab = torch.where(lab < n, lab, -1)          # label_of: past N, no column
         # a thread's state: [row, column group, lane t of the quad]
         mx = torch.full((rows, wc, 4), NEG)
         sm = torch.zeros(rows, wc, 4)
@@ -399,6 +400,19 @@ def test_tiled_forward_matches_plain(m, n, d, scale):
     a, b, labels, s, want_lse, _ = _inputs(m, n, d, scale)
     want_loss, _ = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
     loss, lse = tiled_forward(a, b, labels, s)
+    for got, want in ((loss, want_loss), (lse, want_lse)):
+        assert ((got - want).abs() / (1 + want.abs())).max().item() <= CE_FWD_TOL
+
+
+def test_labels_past_n_match_no_column():
+    """A label in [N, the last tile's end) matches no column, as in the
+    plain version (its row's loss is its logsumexp), where the tile's
+    columns past N hold -1e30; labels at and past the tile's end too."""
+    a, b, _, s, _, _ = _inputs(40, 70, 64, 30.0, seed=23)
+    labels = torch.arange(40, dtype=torch.int32) * 3          # 72..117: inside tile 1, past N
+    want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+    loss, lse = tiled_forward(a, b, labels, s)
+    assert torch.equal(want_loss[labels >= 70], want_lse[labels >= 70])
     for got, want in ((loss, want_loss), (lse, want_lse)):
         assert ((got - want).abs() / (1 + want.abs())).max().item() <= CE_FWD_TOL
 
