@@ -55,6 +55,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      scales equal to the plain version's bit for bit, one seed twice equal,
      two seeds different, scales equal to round-to-nearest's and values
      within one step of it, and unbiased over 64 seeds.
+     (3f) the widths the kernels used to refuse: the bf16 CE (#11-13) at
+     4096 rows and D = 1000 and 1024 (the chunked walk) and the MaxSim
+     backward at D = 4104 and 8192 (dT in feature slices; fp32 and bf16),
+     each against its plain version under the bars above, two runs bit for
+     bit, each timed beside its plain version and its bound.
   4. serving slice: ColXLIPService (ViT-B-16-colxlip, full width, random
      init from seed 0, bf16 compute) behind make_server on an ephemeral
      port, driven over HTTP; checks finite unit-norm embeddings, that both
@@ -226,7 +231,8 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      image once, then 75 decode steps of the decoder); the bf16 tokens beside
      the plain versions' (rows that agree, printed), the first step's logits
      within phase 4's encode bars of theirs; in fp32 the tokens equal the
-     plain versions'; request ms at batch 8 and 64 and ms a decode step.
+     plain versions'; request ms at batch 8 and 64 (the median of 2 at 8, one
+     at 64) and ms a decode step.
   14. the pod recipes' per-device step (colxlip_tpu_torch/parallel/pod_shape.py:
      one device's share of --local-loss --token-dist ring --token-neighborhood 8
      --gather-with-grad across M = 64 devices, the transport left out, the
@@ -245,11 +251,11 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      window's T 256 x I 2048 and T 2048 x I 256 against their plain versions,
      timed beside them and their bounds.
   15. saves and precision through main: (a) ViT-B-16 with --async-checkpoint
-     --save-frequency 1 --save-most-recent --delete-previous-checkpoint, 3
+     --save-frequency 1 --save-most-recent --delete-previous-checkpoint, 2
      epochs of 2 steps at batch 256; before each async save the same state is
      saved synchronously into a side directory (timed), and each async
      epoch_N and epoch_latest must load bit-equal to it; rc 0, the rotation's
-     directories, then --epochs 4 --resume latest goes on at step 7; the
+     directories, then --epochs 3 --resume latest goes on at step 5; the
      resumed run's state on the card saved synchronously, async with the host
      snapshot and async with the device snapshot: the blocking snapshot, the
      background write and the synchronous save in seconds, apart, the three
@@ -267,7 +273,7 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      alpha 0.5, mask 'nonzero', bf16, batch 256, gather with gradient, from
      phase 6's weights. (a) shard_state + make_train_step_gspmd(fsdp=True) on
      a ('data',) mesh of one: FSDP2's all-gathers and reduce-scatters at
-     size one; 4 steps, the first against the one-device step (losses to
+     size one; 3 steps, the first against the one-device step (losses to
      1e-5, the gradients to phase 6's bf16 bars; bit-equality printed), the
      rest timed at learning rate 0; 24 / 24 attention and 1 / 1 MaxSim
      launches; ms, img/s, peak and idle beside phase 6's. (b) the same on a
@@ -284,16 +290,35 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      any model work, with the JAX entry point's words. (e) the TP plan of (b)
      under COLXLIP_MLP_INT8=fwd against the one-device int8 step (c_proj
      takes the model group's scales and sums its int32 products), launches
-     as (a). (f) coca_ViT-B-32 (coca loss, batch 256) under the TP plan and
-     under FSDP against the one-device CoCa step: 24 / 24 attention
-     launches, losses to 1e-5, gradients to phase 6's bf16 bars (a gradient
-     under 1e-4 of the largest held by its difference); ms, peak, idle.
+     as (a). CoCa under the TP plan and under FSDP is held at 4 and 2 gloo
+     ranks on the CPU (tests/test_torch_gspmd_coca.py).
   17. the serving bundle (colxlip_tpu_torch/serving/aot.py on torch.export):
      ViT-B-16-colxlip's towers exported on the card with a symbolic batch,
      saved and loaded back; batches of 1, 8 and 64 against the live model
      within phase 4's encode bars; img/s and txt/s at 64 beside the live
      model's; the export seconds and bytes; kernel #1 launches 0 times inside
      the bundle (SDPA under export, as the JAX dispatch) and is printed.
+  18. the user-facing scripts of the port, each imported and driven through
+     its main(argv) in this process (the launcher through bash), on the
+     card: (a) scripts/torch_build_index.py build over 1,024 seeded JPEGs
+     (ViT-B-16-colxlip, random init saved as a .pt, batch 256; 12 attention
+     launches an encode batch), its index files byte-equal to
+     build_image_index's in this process on the same images, then search
+     with 3 queries at shortlist 100 and 1,024 (12 attention and 1 MaxSim
+     launch a query), the items and scores a score_similarity recomputation's
+     on the stage-1 shortlist within 2e-2 x logit_scale; build img/s and
+     search ms. (b) scripts/torch_export_pt.py on phase 7's last checkpoint
+     and phase 16's sharded one: the .pt loads strictly and encodes bit for
+     bit as the checkpoint in fp32. (c) scripts/torch_generate_captions.py
+     on phase 13 (d)'s weights and JPEGs, greedy: /v1/caption's tokens, 912
+     attention launches. (d) examples/torch_minimal_example.py at
+     ViT-B-32-colxlip: each row of probabilities sums to 1 within 1e-5. (e)
+     scripts/torch_verify_drive.py: both steps pass, launches exact. (f)
+     scripts/torch_int8_drift.py --steps 20 at batch 64 (2 pooled batches)
+     by default, under COLXLIP_MLP_INT8=fwd and with --maxsim-impl
+     streaming_int8: finite losses, each first loss within 5e-2 of the
+     default's, launches exact. (g) scripts/torch_test_smoke.sh
+     --train-num-samples 256: rc 0.
   Phases 4, 6, 7, 10, 11, 12, 13, 14, 15 and 16's default runs use the
   default path and must launch none of the LayerNorm and MLP kernels.
 
@@ -308,6 +333,7 @@ TFLOP/s fp32; NVIDIA's H100 SXM data sheet).
 """
 from __future__ import annotations
 
+import atexit
 import base64
 import contextlib
 import copy
@@ -325,6 +351,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from typing import Optional
 
 MODEL = "ViT-B-16-colxlip"
 MAX_BATCH = 64
@@ -382,7 +409,7 @@ CE_CASES = [
     # holds because the bf16 forward and backward take raw from one logit tile
     (1024, 1024, 512, 100.0, ("bfloat16",), True, 100),
     (32768, 32768, 512, 100.0, ("bfloat16",), False, None),     # dense logits: 4 GiB
-    # float32 past bf16's D <= 768: dA and dB in two feature slices of 512
+    # float32 past 768 features: dA and dB in two feature slices of 512
     (1024, 1024, 1024, 100.0, ("float32",), False, 1024),
 ]
 # phase 5: the float32 CE kernels (split across the streamed rows) timed at a
@@ -515,7 +542,7 @@ TAR_MODEL = "ViT-B-16-colxlip"
 TAR_SHARDS = 8
 TAR_PER_SHARD = 384
 TAR_STEPS_PER_EPOCH = 6
-TAR_HOST_BATCHES = 6
+TAR_HOST_BATCHES = 3
 YUV_TOL = 2e-4            # the JAX bar (tests/test_yuv420.py)
 NATIVE_RMS_MAX = 12.0     # pixel units, the JAX bar (tests/test_native.py)
 # phase 12: the data-parallel step under a process group of one
@@ -539,12 +566,32 @@ POD_COMPARE = (8, 4)        # M, K of the batch-64 step held against the plain v
 POD_LOSS_TOL = 1e-5         # 'scan' against 'fused' in fp32
 POD_MAXSIM_SHAPES = [(256, 2048), (2048, 256)]   # the fused window at b 256, K 8
 # phase 15: --async-checkpoint and --precision pure_bf16 through main
-SAVE_EPOCHS = 3
+SAVE_EPOCHS = 2
 SAVE_STEPS_PER_EPOCH = 2
 # phase 16: sharded state under a process group of one
-GSPMD_STEPS = 4             # the first compared, the rest timed (learning rate 0)
+GSPMD_STEPS = 3             # the first compared, the rest timed (learning rate 0)
 # phase 17: the serving bundle's batches (a symbolic batch dim)
 AOT_BATCHES = (1, 8, 64)
+T_START = 0.0               # main's start on the host clock: each phase logs its start
+# phase 3f: the widths the kernels used to refuse (seeded apart from phase 3's
+# one generator): the bf16 CE at 4096 rows past the whole tiles' 768
+# features, the MaxSim backward past one dT slice of 4096 features
+WIDE_CE_CASES = [(4096, 4096, 1000, 100.0), (4096, 4096, 1024, 100.0)]
+WIDE_MAXSIM_CASES = [(8, 16, 40, 4104), (8, 16, 40, 8192)]     # M = K, Lt, Li, D
+WIDE_SEED = 24
+# phase 18: the user-facing scripts of the port, in process
+SCRIPT_IMAGES = 1024
+SCRIPT_BATCH = 256
+SCRIPT_QUERIES = ["a dog catching a frisbee in a park", "two people riding bicycles on a street",
+                  "a bowl of fresh fruit on a wooden table"]
+SCRIPT_SHORTLISTS = (100, SCRIPT_IMAGES)
+SCRIPT_K = 10
+DRIFT_STEPS = 20
+DRIFT_BATCH = 64
+DRIFT_POOL = 2              # distinct batches the drift cycles (the script's --pool-batches)
+DRIFT_LOSS_TOL = 5e-2       # phase 9's bar for the int8 MaxSim step
+EXAMPLE_MODEL = "ViT-B-32-colxlip"
+SMOKE_SAMPLES = 256
 REPO = os.path.dirname(os.path.abspath(__file__))
 FLICKR_ANNOTATIONS = os.path.join(REPO, "datasets", "flickr30k-images", "flickr30k_val.json")
 EVAL_MODEL = "ViT-B-16-colxlip"
@@ -2155,9 +2202,11 @@ def vit_l_fused_fp32_step(dev, card: str, step_cfg, images, texts, want_launches
             "loss": metrics["total_loss"]}
 
 
-def main_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int):
+def main_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int,
+               keep: Optional[str] = None):
     """Phase 7: train ViT-B-16 through the port's training entry point, with
-    the Flickr30k suite evaluated at the end of every epoch."""
+    the Flickr30k suite evaluated at the end of every epoch. With ``keep``,
+    its last checkpoint directory (epoch_3) moves there for phase 18."""
     import torch
 
     from colxlip_tpu_torch import main as entry
@@ -2257,6 +2306,9 @@ def main_phase(dev, card: str, flickr_root: str, n_texts: int, n_images: int):
             log(f"[7 main] --epochs 3 --resume latest: went on from epoch_2 at step "
                 f"{steps + 1}, wrote epoch_3; loss {recs[-1]['total_loss']:.5f}; {idle[-1]} "
                 f"({card})")
+            if keep is not None:
+                shutil.move(os.path.join(base, "checkpoints", "epoch_3"),
+                            os.path.join(keep, "phase7_epoch_3"))
         finally:
             setup_logging(None)   # drop the handler on the log file that is going away
     torch.cuda.empty_cache()
@@ -3773,7 +3825,10 @@ def unit_rows_agreement(got, want):
 
 
 def caption_phase(dev, card: str):
-    """Phase 13 (d): /v1/caption on a seeded COCA_MODEL over HTTP."""
+    """Phase 13 (d): /v1/caption on a seeded COCA_MODEL over HTTP. The result
+    carries, under "_reference", the request's JPEGs (base64) and the greedy
+    tokens behind its captions, which phase 18 (c) holds the captioning
+    script to."""
     import numpy as np
     import torch
 
@@ -3842,7 +3897,7 @@ def caption_phase(dev, card: str):
         del model32
 
         lat = {n: [http(port, "/v1/caption", {"images_b64": jpegs[:n]})[1] * 1e3
-                   for _ in range(3 if n == CAPTION_IMAGES else 2)]
+                   for _ in range(2 if n == CAPTION_IMAGES else 1)]
                for n in (CAPTION_IMAGES, MAX_BATCH)}
         x64 = torch.from_numpy(svc.decode_images(jpegs)).to(dev)
         with torch.inference_mode():
@@ -3857,7 +3912,8 @@ def caption_phase(dev, card: str):
                "decode_step_ms_b64": step_ms, "embed_images_ms_b64": embed_ms,
                "launches": launches, "bf16_rows_equal_plain": agree,
                "first_logits_err": err, "first_logits_1_minus_cos": off,
-               "fp32_tokens_equal_plain": equal32}
+               "fp32_tokens_equal_plain": equal32,
+               "_reference": (jpegs[:CAPTION_IMAGES], tokens)}
         log(f"[13 caption] request ms: batch {CAPTION_IMAGES} median "
             f"{out['request_ms'][CAPTION_IMAGES]:.1f}, batch {MAX_BATCH} median "
             f"{out['request_ms'][MAX_BATCH]:.1f}; at batch {MAX_BATCH} one decode step "
@@ -4579,10 +4635,11 @@ def gspmd_compare(tag: str, got: dict, want: dict, dtype: str, loss_tol: float,
             f"({loss_tol}, {cos_tol}, {norm_tol})"]
 
 
-def gspmd_saves(dev, card: str, kept, mesh, saves) -> dict:
+def gspmd_saves(dev, card: str, kept, mesh, saves, keep: Optional[str] = None) -> dict:
     """Phase 16 (c): (a)'s sharded state saved synchronously and in the
     background into $TMPDIR, restored into a fresh sharded state (bit-equal)
-    and read whole (equal to the state)."""
+    and read whole (equal to the state). With ``keep``, the synchronous save
+    moves there for phase 18."""
     import torch
 
     from colxlip_tpu_torch.factory import create_model
@@ -4650,6 +4707,8 @@ def gspmd_saves(dev, card: str, kept, mesh, saves) -> dict:
         if not same:
             failures.append("load_native_checkpoint of the sharded save differs from the state")
         del whole, osd
+        if keep is not None:
+            shutil.move(sync_path, os.path.join(keep, "phase16_sharded"))
     split = saves["split"]
     log(f"[16 gspmd] (c) {MODEL} sharded state ({res['state_gib']:.2f} GiB: weights and the "
         f"two AdamW moments; {res['checkpoint_gib']:.2f} GiB on disk): synchronous "
@@ -4695,51 +4754,7 @@ def gspmd_refusal(dev) -> dict:
     return {"rc": rc}
 
 
-def gspmd_coca(dev, card: str, meshes) -> tuple:
-    """Phase 16 (f): coca_ViT-B-32 (coca loss, bf16, FAMILY_BATCH, gather
-    with gradient) under the TP plan on the 1 x 1 mesh and under FSDP on the
-    mesh of one, each against the one-device step: the decoder's
-    cross-attention (packed in_proj regrouped) and both attentional poolers
-    (separate q / k / v) split over 'model'. Returns (the runs, the
-    failures)."""
-    import torch
-
-    from colxlip_tpu_torch.factory import create_model
-    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
-
-    model, _ = create_model(COCA_MODEL, dev, torch.bfloat16, seed=0)
-    ref_state = copy.deepcopy(model.state_dict())
-    del model
-    images, texts = family_batch(COCA_MODEL, dev)
-    cfg = TrainStepConfig(loss_type="coca", gather_with_grad=True)
-    attn = {"fused_attention_fwd": 2 * COCA_LAYERS, "fused_attention_bwd": 2 * COCA_LAYERS,
-            "maxsim_fwd": 0, "maxsim_bwd": 0, "fused_ln_fwd": 0, "fused_ln_bwd": 0,
-            "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
-    tag = "[16 gspmd coca]"
-    one = gspmd_run(dev, card, ref_state, cfg, images, texts, None, GSPMD_STEPS, tag,
-                    model_name=COCA_MODEL)
-    log(f"{tag} one device: step {one['ms']:.2f} ms ({FAMILY_BATCH / one['ms'] * 1e3:.1f} img/s), "
-        f"peak {one['peak_gib']:.2f} GiB, idle {one['idle']:.1%} ({card})")
-    runs, failures = {"one": one}, []
-    for name, label in (("tp", "the TP plan + FSDP, ('data', 'model') mesh of 1 x 1"),
-                        ("fsdp", "FSDP, ('data',) mesh of one")):
-        tag = f"[16 gspmd coca {name}]"
-        run = gspmd_run(dev, card, ref_state, cfg, images, texts, meshes[name], GSPMD_STEPS,
-                        tag, model_name=COCA_MODEL)
-        failures += gspmd_compare(tag, run, one, "bfloat16", DIST_LOSS_TOL, vanishing=True)
-        if run["launches"] != attn:
-            failures.append(f"{tag}: launches {run['launches']}, expected {attn}")
-        log(f"{tag} (f) {COCA_MODEL} under {label}: launches a step {run['launches']}; step "
-            f"{run['ms']:.2f} ms at batch {FAMILY_BATCH} ({FAMILY_BATCH / run['ms'] * 1e3:.1f} "
-            f"img/s; one device {one['ms']:.2f} ms), peak {run['peak_gib']:.2f} GiB, idle "
-            f"{run['idle']:.1%} ({card})")
-        runs[name] = run
-    del ref_state, images, texts
-    torch.cuda.empty_cache()
-    return runs, failures
-
-
-def gspmd_phase(dev, card: str, train, saves) -> dict:
+def gspmd_phase(dev, card: str, train, saves, keep: Optional[str] = None) -> dict:
     """Phase 16: sharded state under a NCCL process group of one (the
     module docstring's (a)-(d)). Every run is read before the phase fails."""
     import torch
@@ -4818,18 +4833,14 @@ def gspmd_phase(dev, card: str, train, saves) -> dict:
             f"{run['idle']:.1%} ({card})")
         res["tp_int8"] = run
         del one_int8, ref_state, images, texts
-        coca, coca_failures = gspmd_coca(dev, card, meshes)
-        res["coca"] = coca
-        failures += coca_failures
         kept = res["fsdp"].pop("kept")
-        res["saves"] = gspmd_saves(dev, card, kept, meshes["fsdp"], saves)
+        res["saves"] = gspmd_saves(dev, card, kept, meshes["fsdp"], saves, keep)
         del kept
         torch.cuda.empty_cache()
         res["refusal"] = gspmd_refusal(dev)
     finally:
         dist.destroy_process_group()
-    for run in (res.get("fsdp"), res.get("tp"), res.get("tp_fused"), res.get("tp_int8"),
-                *res.get("coca", {}).values()):
+    for run in (res.get("fsdp"), res.get("tp"), res.get("tp_fused"), res.get("tp_int8")):
         if run is not None:
             run.pop("grads", None)
     log(f"[16 gspmd] phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -4922,7 +4933,519 @@ def aot_phase(dev, card: str) -> dict:
     return res
 
 
+def check_wide_repairs(dev, card: str) -> dict:
+    """Phase 3f: the widths the kernels used to refuse, each against its
+    plain version under phase 3's bars, two runs bit-equal, timed beside the
+    plain version and the bound: the bf16 CE (#11-13) at WIDE_CE_CASES (the
+    chunked walk), the MaxSim backward (#6) at WIDE_MAXSIM_CASES in fp32
+    and bf16 (dT in feature slices)."""
+    import torch
+
+    from colxlip_tpu_torch.ops import fused_ce, maxsim
+
+    gen = torch.Generator(device="cpu").manual_seed(WIDE_SEED)
+    out = {}
+
+    def unit_err(got, want):
+        return ((got - want).abs() / (1 + want.abs())).max().item()
+
+    for m, n, d, scale in WIDE_CE_CASES:
+        a, b, labels, s, g = ce_inputs(m, n, d, scale, torch.bfloat16, dev, gen)
+        _, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
+        calls = {
+            "fwd": (lambda: fused_ce._launch_fwd(a, b, labels, s),
+                    lambda: fused_ce.fused_ce_fwd_plain(a, b, labels, s)),
+            "bwd_da": (lambda: fused_ce._launch_bwd_da(a, b, labels, s, want_lse, g),
+                       lambda: fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)),
+            "bwd_db": (lambda: fused_ce._launch_bwd_db(a, b, labels, s, want_lse, g),
+                       lambda: fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)),
+        }
+        row, failed = {}, []
+        bounds = ce_bounds(a, b)
+        for key, (kernel, plain) in calls.items():
+            got, again, want = kernel(), kernel(), plain()
+            got, again, want = (x if isinstance(x, tuple) else (x,) for x in (got, again, want))
+            torch.cuda.synchronize()
+            err = max(unit_err(x, w) if key == "fwd" else max_rel_err(x, w)
+                      for x, w in zip(got, want))
+            tol = CE_FWD_TOL if key == "fwd" else CE_BWD_TOL
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            ms, plain_ms = cuda_ms(kernel, 5, 2), cuda_ms(plain, 3, 1)
+            bound = bounds[f"fused_ce_{key}"]
+            row[key] = {"err": err, "bit_equal": same, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1]}
+            if not (err <= tol and same):
+                failed.append(key)
+        log(f"[3f wide] bf16 CE M={m} N={n} D={d} scale {scale:g} (the chunked walk; phase 3's "
+            f"bars {CE_FWD_TOL} of 1 + |loss|, {CE_BWD_TOL} of max|grad|): " + "; ".join(
+                f"{k} err {v['err']:.3g}, reruns {'bit-equal' if v['bit_equal'] else 'DIFFER'}, "
+                f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound {v['bound_ms']:.5f} "
+                f"{v['bound_by']})" for k, v in row.items()) + f" ({card})")
+        if failed:
+            raise RuntimeError(f"bf16 CE at D={d}: {failed} off its plain version or reruns "
+                               "differ")
+        out[f"ce_bf16_{m}x{n}_d{d}"] = row
+        del a, b, labels, s, g, want_lse
+
+    for mk, lt, li, d in WIDE_MAXSIM_CASES:
+        t = torch.nn.functional.normalize(torch.randn(mk, lt, d, generator=gen), dim=-1)
+        t[0, lt // 2:] = 0
+        img = torch.nn.functional.normalize(torch.randn(mk, li, d, generator=gen), dim=-1)
+        gs = torch.randn(mk, mk, generator=gen) / mk
+        for dtype in (torch.float32, torch.bfloat16):
+            tt, ii, g = t.to(dev, dtype), img.to(dev, dtype), gs.to(dev)
+            got = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
+            again = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
+            want = maxsim.maxsim_bwd_plain(tt, ii, g)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[-1]
+            err, tol = max(max_rel_err(x, w) for x, w in zip(got, want)), BWD_TOL[name]
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            ms = cuda_ms(lambda: maxsim._launch_bwd(tt, ii, g, "nonzero", None), 5, 2)
+            plain_ms = cuda_ms(lambda: maxsim.maxsim_bwd_plain(tt, ii, g), 3, 1)
+            bound = maxsim_bound(tt, ii, True)
+            log(f"[3f wide] maxsim bwd M=K={mk} Lt={lt} Li={li} D={d} {name} (dT in "
+                f"{-(-d // 4096)} feature slices): max_abs_err / max|grad| {err:.3g} (tol {tol}) "
+                f"(dT, dI); reruns {'bit-equal' if same else 'DIFFER'}; {ms:.4f} ms (plain "
+                f"{plain_ms:.4f}, bound {bound[0]:.5f} {bound[1]}) ({card})")
+            if not (err <= tol and same):
+                raise RuntimeError(f"maxsim bwd at D={d} {name}: {err} > {tol} or reruns differ")
+            out[f"maxsim_bwd_{name}_d{d}"] = {"err": err, "bit_equal": same, "ms": ms,
+                                              "plain_ms": plain_ms, "bound_ms": bound[0],
+                                              "bound_by": bound[1]}
+            del got, again, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def load_twin(rel: str):
+    """A script of the repository as a module (its main not run)."""
+    import importlib.util
+
+    path = os.path.join(REPO, rel)
+    spec = importlib.util.spec_from_file_location(os.path.splitext(os.path.basename(path))[0],
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_twin(module, argv, tag: str) -> str:
+    """``module.main(argv)`` in this process: its stdout, echoed under
+    ``tag``; a return code other than 0 raises."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"{tag} | {line}")
+    if rc != 0:
+        raise RuntimeError(f"{tag} {module.__name__} returned {rc}")
+    return text
+
+
+def twin_counters():
+    from colxlip_tpu_torch.ops import attention, maxsim
+
+    return {"fused_attention_fwd": attention.LAUNCHES,
+            "fused_attention_bwd": attention.BWD_LAUNCHES,
+            "maxsim_fwd": maxsim.LAUNCHES, "maxsim_bwd": maxsim.BWD_LAUNCHES}
+
+
+def counted(fn):
+    """(fn(), the launches of twin_counters during it), counters set to 0
+    just before."""
+    import torch
+
+    counters = twin_counters()
+    for c in counters.values():
+        c.reset()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, {k: c.value for k, c in counters.items()}
+
+
+def ranked(text: str) -> list:
+    """[[(id, score)] a query] of the search script's output."""
+    out = []
+    for line in text.splitlines():
+        parts = line.split()
+        if line.startswith("query: "):
+            out.append([])
+        elif len(parts) == 3 and parts[0].isdigit():
+            if not out or (parts[0] == "1" and out[-1]):
+                out.append([])
+            out[-1].append((parts[2], float(parts[1])))
+    return out
+
+
+def scripts_index(dev, card: str, work: str) -> dict:
+    """Phase 18 (a): scripts/torch_build_index.py build over SCRIPT_IMAGES
+    seeded JPEGs, then search at each of SCRIPT_SHORTLISTS."""
+    import numpy as np
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.serving import index as index_mod
+    from colxlip_tpu_torch.training.checkpoint import save_pt_checkpoint
+    from colxlip_tpu_torch.training.evaluate import score_similarity
+
+    tag = "[18 scripts index]"
+    model, cfg = create_model(MODEL, dev, torch.bfloat16, seed=0)
+    pt = save_pt_checkpoint(os.path.join(work, "vit_b16.pt"), model)
+    corpus = os.path.join(work, "corpus")
+    rng = np.random.default_rng(18)
+    for i in range(SCRIPT_IMAGES):
+        sub = os.path.join(corpus, f"part{i % 4}")
+        os.makedirs(sub, exist_ok=True)
+        seeded_jpeg(rng, os.path.join(sub, f"{i:04d}.jpg"))
+    twin = load_twin("scripts/torch_build_index.py")
+    out_dir = os.path.join(work, "index")
+    handed, real_build = {}, index_mod.build_image_index
+
+    def recorded(model_, images, out, **kwargs):    # the arrays the script hands the index
+        handed.update(images=images, ids=kwargs["ids"])
+        return real_build(model_, images, out, **kwargs)
+
+    index_mod.build_image_index = recorded
+    t0 = time.perf_counter()
+    try:
+        _, launches = counted(lambda: run_twin(twin, [
+            "build", "--model", MODEL, "--checkpoint", pt, "--images", corpus, "--out",
+            out_dir, "--batch-size", str(SCRIPT_BATCH), "--device", str(dev)], tag))
+    finally:
+        index_mod.build_image_index = real_build
+    build_s = time.perf_counter() - t0
+    batches = -(-SCRIPT_IMAGES // SCRIPT_BATCH)
+    want = {"fused_attention_fwd": TOWER_LAYERS * batches, "fused_attention_bwd": 0,
+            "maxsim_fwd": 0, "maxsim_bwd": 0}
+    if launches != want:
+        raise RuntimeError(f"{tag} build launches {launches}, expected {want}")
+
+    # the same images (the arrays the script decoded, in its order) through
+    # build_image_index in this process, on the model the .pt came from
+    paths = sorted(os.path.relpath(os.path.join(r, f), corpus)
+                   for r, _, fs in os.walk(corpus) for f in fs)
+    if handed["ids"] != paths or len(handed["images"]) != SCRIPT_IMAGES:
+        raise RuntimeError(f"{tag} the script indexed {len(handed['images'])} images")
+    ref_dir = os.path.join(work, "index_ref")
+    index_mod.build_image_index(model.eval(), handed["images"], ref_dir, device=dev,
+                                ids=paths, batch_size=SCRIPT_BATCH, model_name=MODEL)
+    handed.clear()
+    for name in ("meta.json", "pooled.npy", "tokens.npy"):
+        with open(os.path.join(out_dir, name), "rb") as f, \
+                open(os.path.join(ref_dir, name), "rb") as g:
+            if f.read() != g.read():
+                raise RuntimeError(f"{tag} {name} differs from build_image_index's")
+    log(f"{tag} build: {SCRIPT_IMAGES} JPEGs of {EVAL_IMAGE_SIDES[0]}-{EVAL_IMAGE_SIDES[1]} px "
+        f"in {build_s:.2f} s = {SCRIPT_IMAGES / build_s:.1f} img/s (the whole command: the "
+        f"model's build and .pt load, decode and transform on the host, {batches} encode "
+        f"batches of {SCRIPT_BATCH}); launches {launches}; meta.json, pooled.npy and "
+        f"tokens.npy byte-equal to build_image_index's in this process ({card})")
+
+    # search: the script's items and scores against a score_similarity
+    # recomputation on the same stage-1 shortlist
+    search_ms = []
+    real_search = index_mod.RetrievalIndex.search
+
+    def timed_search(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_search(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        search_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    index = index_mod.RetrievalIndex(out_dir, device=dev)
+    from colxlip_tpu_torch.data.tokenizer import get_tokenizer_cached
+
+    tokens = torch.from_numpy(get_tokenizer_cached(cfg.text_cfg.context_length)(
+        SCRIPT_QUERIES)).long().to(dev)
+    with torch.inference_mode():
+        q_pooled, q_tokens = model.encode_text(tokens, normalize=True)
+        all_pooled = torch.from_numpy(np.asarray(index.pooled, np.float32)).to(dev)
+        all_tokens = torch.from_numpy(np.asarray(index.tokens, np.float32)).to(dev)
+        stage1 = index.logit_scale * (q_pooled.float() @ all_pooled.T)
+    res = {"build_s": build_s, "img_per_s": SCRIPT_IMAGES / build_s, "build_launches": launches}
+    err = 0.0
+    for shortlist in SCRIPT_SHORTLISTS:
+        search_ms.clear()
+        index_mod.RetrievalIndex.search = timed_search
+        try:
+            text, launches = counted(lambda: run_twin(twin, [
+                "search", "--model", MODEL, "--checkpoint", pt, "--index", out_dir, "--query",
+                *SCRIPT_QUERIES, "-k", str(SCRIPT_K), "--shortlist", str(shortlist),
+                "--device", str(dev)], tag))
+        finally:
+            index_mod.RetrievalIndex.search = real_search
+        want = {"fused_attention_fwd": TOWER_LAYERS * len(SCRIPT_QUERIES),
+                "fused_attention_bwd": 0, "maxsim_fwd": len(SCRIPT_QUERIES), "maxsim_bwd": 0}
+        if launches != want:
+            raise RuntimeError(f"{tag} search launches {launches}, expected {want}")
+        answers = ranked(text)
+        if len(answers) != len(SCRIPT_QUERIES) or any(len(a) != SCRIPT_K for a in answers):
+            raise RuntimeError(f"{tag} search printed {answers}")
+        with torch.inference_mode():
+            for m, answer in enumerate(answers):
+                short = stage1[m].topk(shortlist).indices
+                sim = score_similarity(all_pooled[short], q_pooled[m:m + 1].float(),
+                                       all_tokens[short], q_tokens[m:m + 1].float(),
+                                       index.logit_scale, scoring="maxsim")[:, 0]
+                top = sim.topk(SCRIPT_K)
+                want_ids = [index.ids[int(i)] for i in short[top.indices].cpu()]
+                got_ids = [name for name, _ in answer]
+                e = float(np.abs(np.array([v for _, v in answer])
+                                 - top.values.cpu().numpy()).max())
+                err = max(err, e)
+                if not (set(got_ids) == set(want_ids) or e <= 1e-3):
+                    raise RuntimeError(f"{tag} shortlist {shortlist} query {m}: {got_ids} != "
+                                       f"{want_ids}")
+        res[f"search_ms_shortlist_{shortlist}"] = search_ms[:]
+        log(f"{tag} search, {len(SCRIPT_QUERIES)} queries, k {SCRIPT_K}, shortlist {shortlist}"
+            f"{' (brute force)' if shortlist == SCRIPT_IMAGES else ''}: the items of "
+            f"score_similarity on the stage-1 shortlist, scores max_abs_err so far {err:.3g} "
+            f"(tol {SCORE_TOL_PER_UNIT_SCALE * index.logit_scale:.3g}; printed to 3 decimals); "
+            f"launches {launches}; RetrievalIndex.search ms a query "
+            f"{', '.join(f'{v:.1f}' for v in search_ms)} ({card})")
+    if not err <= SCORE_TOL_PER_UNIT_SCALE * index.logit_scale:
+        raise RuntimeError(f"{tag} search scores off the recomputation by {err}")
+    res["search_err"] = err
+    del model, all_pooled, all_tokens, index
+    torch.cuda.empty_cache()
+    return res
+
+
+def scripts_export(dev, card: str, work: str, keep: str) -> dict:
+    """Phase 18 (b): scripts/torch_export_pt.py on phase 7's checkpoint
+    directory and on phase 16's sharded one: the .pt loads strictly and its
+    fp32 encode is bit-equal to the checkpoint's own."""
+    import numpy as np
+    import torch
+
+    from colxlip_tpu_torch.convert import load_pt_state_dict
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.training.checkpoint import load_native_checkpoint
+
+    tag = "[18 scripts export]"
+    twin = load_twin("scripts/torch_export_pt.py")
+    res = {}
+    for label, model_name, ckpt in (("phase 7", MAIN_MODEL, "phase7_epoch_3"),
+                                    ("phase 16 sharded", MODEL, "phase16_sharded")):
+        src = os.path.join(keep, ckpt)
+        out = os.path.join(work, f"{ckpt}.pt")
+        t0 = time.perf_counter()
+        run_twin(twin, ["--model", model_name, "--checkpoint", src, "--out", out, "--device",
+                        str(dev)], tag)
+        secs = time.perf_counter() - t0
+        source, cfg = create_model(model_name, dev, torch.float32)
+        source.load_state_dict(load_native_checkpoint(src)["state"]["state_dict"], strict=True)
+        exported, _ = create_model(model_name, dev, torch.float32, seed=1)
+        exported.load_state_dict(load_pt_state_dict(out), strict=True)
+        rng = np.random.default_rng(181)
+        size = cfg.vision_cfg.image_size
+        images = torch.from_numpy(rng.standard_normal((8, size, size, 3)).astype(np.float32))
+        texts = torch.from_numpy(rng.integers(1, 49000, (8, cfg.text_cfg.context_length)))
+        texts[:, 0], texts[:, 20] = 49406, 49407
+        texts[:, 21:] = 0
+        with torch.inference_mode():
+            got = [exported.encode_image(images.to(dev)), exported.encode_text(texts.to(dev))]
+            want = [source.encode_image(images.to(dev)), source.encode_text(texts.to(dev))]
+        flat = [(g, w) for gs, ws in zip(got, want)
+                for g, w in (zip(gs, ws) if isinstance(gs, tuple) else [(gs, ws)])]
+        equal = all(torch.equal(g, w) for g, w in flat)
+        size_mb = os.path.getsize(out) / 2**20
+        log(f"{tag} {label} ({model_name}, {src}): .pt of {size_mb:.0f} MiB in {secs:.2f} s; "
+            f"loads strictly into the factory's model; fp32 encode of 8 images and 8 texts "
+            f"bit-equal to the checkpoint's: {equal} ({card})")
+        if not equal:
+            raise RuntimeError(f"{tag} {label}: the exported .pt encodes otherwise")
+        res[ckpt] = {"seconds": secs, "mib": size_mb, "bit_equal": equal}
+        os.remove(out)
+        del source, exported
+        torch.cuda.empty_cache()
+    return res
+
+
+def scripts_captions(dev, card: str, work: str, reference) -> dict:
+    """Phase 18 (c): scripts/torch_generate_captions.py on phase 13 (d)'s
+    JPEGs and weights (COCA_MODEL, seed 0, bf16), greedy: the tokens of
+    /v1/caption's captions, 912 launches of #1."""
+    import numpy as np
+    import torch
+
+    from colxlip_tpu_torch.serving import generate
+
+    tag = "[18 scripts captions]"
+    jpegs, want = reference
+    paths = []
+    for i, b64 in enumerate(jpegs):
+        paths.append(os.path.join(work, f"caption{i}.jpg"))
+        with open(paths[-1], "wb") as f:
+            f.write(base64.b64decode(b64))
+    seen, real = {}, generate.generate_captions
+
+    def recorded(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seen["tokens"] = real(*args, **kwargs)
+        seen["seconds"] = time.perf_counter() - t
+        return seen["tokens"]
+
+    generate.generate_captions = recorded
+    try:
+        text, launches = counted(lambda: run_twin(load_twin(
+            "scripts/torch_generate_captions.py"), ["--model", COCA_MODEL, "--images", *paths,
+                                                    "--device", str(dev)], tag))
+    finally:
+        generate.generate_captions = real
+    from colxlip_tpu_torch.factory import model_config
+
+    ctx = model_config(COCA_MODEL).text_cfg.context_length
+    want_launches = {"fused_attention_fwd": COCA_LAYERS * ctx, "fused_attention_bwd": 0,
+                     "maxsim_fwd": 0, "maxsim_bwd": 0}
+    equal = np.array_equal(seen["tokens"], want)
+    log(f"{tag} {COCA_MODEL} greedy, {len(paths)} JPEGs: {len(text.splitlines())} lines; tokens "
+        f"equal /v1/caption's (phase 13 (d), the same weights and images): {equal}; launches "
+        f"{launches} (expected {want_launches}); generate_captions {seen['seconds']:.2f} s "
+        f"({card})")
+    if not equal or launches != want_launches or len(text.splitlines()) != len(paths):
+        raise RuntimeError(f"{tag} tokens, launches or lines off")
+    return {"tokens_equal": equal, "launches": launches, "seconds": seen["seconds"]}
+
+
+def scripts_example(dev, card: str) -> dict:
+    """Phase 18 (d): examples/torch_minimal_example.py at EXAMPLE_MODEL: each
+    row of probabilities sums to 1 within 1e-5."""
+    import numpy as np
+
+    tag = "[18 scripts example]"
+    example = load_twin("examples/torch_minimal_example.py")
+    seen, real = {}, example.run
+
+    def recorded(*args, **kwargs):
+        seen["probs"] = real(*args, **kwargs)
+        return seen["probs"]
+
+    example.run = recorded
+    _, launches = counted(lambda: run_twin(example, ["--device", str(dev)], tag))
+    sums = [float(np.sum(p)) for p in seen["probs"]]
+    ok = all(abs(x - 1) <= 1e-5 and np.isfinite(p).all() for x, p in zip(sums, seen["probs"]))
+    log(f"{tag} {EXAMPLE_MODEL}: row sums {', '.join(f'{x:.7f}' for x in sums)} (tol 1e-5); "
+        f"launches {launches} ({card})")
+    if example.MODEL != EXAMPLE_MODEL or not ok or launches["maxsim_fwd"] != 1:
+        raise RuntimeError(f"{tag} probabilities {seen['probs']} or launches {launches}")
+    return {"row_sums": sums, "launches": launches}
+
+
+def scripts_verify(dev, card: str) -> dict:
+    """Phase 18 (e): scripts/torch_verify_drive.py: both steps pass; the
+    drive's launches of #1-2 and #5-6 exact."""
+    from colxlip_tpu_torch.factory import model_config
+
+    tag = "[18 scripts verify]"
+    drive = load_twin("scripts/torch_verify_drive.py")
+    t0 = time.perf_counter()
+    text, launches = counted(lambda: run_twin(drive, ["--device", str(dev)], tag))
+    secs = time.perf_counter() - t0
+    cfg = model_config(drive.MODEL)
+    blocks = cfg.vision_cfg.layers + cfg.text_cfg.layers
+    steps = 150
+    # the check's one call each way; each step's forward and backward; the
+    # last forward; one MaxSim a step each way and the last scoring forward
+    want = {"fused_attention_fwd": 1 + blocks * (steps + 1), "fused_attention_bwd": 1 + blocks * steps,
+            "maxsim_fwd": steps + 1, "maxsim_bwd": steps}
+    log(f"{tag} {'VERIFY DRIVE OK' in text} in {secs:.1f} s; launches {launches} (expected "
+        f"{want}) ({card})")
+    if "VERIFY DRIVE OK" not in text or launches != want:
+        raise RuntimeError(f"{tag} did not pass, or launches {launches} != {want}")
+    return {"seconds": secs, "launches": launches}
+
+
+def scripts_drift(dev, card: str) -> dict:
+    """Phase 18 (f): scripts/torch_int8_drift.py --steps DRIFT_STEPS at
+    batch DRIFT_BATCH three ways: default, COLXLIP_MLP_INT8=fwd and
+    --maxsim-impl streaming_int8; finite losses, each first loss within
+    DRIFT_LOSS_TOL of the default's."""
+    from colxlip_tpu_torch.factory import model_config
+
+    tag = "[18 scripts drift]"
+    twin = load_twin("scripts/torch_int8_drift.py")
+    argv = ["--model", MODEL, "--image-size", str(model_config(MODEL).vision_cfg.image_size),
+            "--steps", str(DRIFT_STEPS), "--batch-size", str(DRIFT_BATCH), "--pool-batches",
+            str(DRIFT_POOL), "--device", str(dev)]
+    runs = {}
+    step = {"fused_attention_fwd": 2 * TOWER_LAYERS * DRIFT_STEPS,
+            "fused_attention_bwd": 2 * TOWER_LAYERS * DRIFT_STEPS,
+            "maxsim_fwd": DRIFT_STEPS, "maxsim_bwd": DRIFT_STEPS}
+    for name, extra, env in (("default", [], None), ("mlp_int8", [], "fwd"),
+                             ("maxsim_int8", ["--maxsim-impl", "streaming_int8"], None)):
+        with fused_towers(("COLXLIP_MLP_INT8",), env) if env else contextlib.nullcontext():
+            text, launches = counted(lambda: run_twin(twin, [*argv, *extra], f"{tag} {name}"))
+        line = json.loads(text.strip().splitlines()[-1])
+        losses = [v for _, v in line["trajectory"]]
+        runs[name] = {"losses": losses, "wall_s": line["wall_s"], "launches": launches}
+        # the int8 MaxSim forward is a library product: no launch of #5
+        want = {**step, "maxsim_fwd": 0} if name == "maxsim_int8" else step
+        if not all(math.isfinite(v) for v in losses) or launches != want:
+            raise RuntimeError(f"{tag} {name}: losses {losses}, launches {launches} (expected "
+                               f"{want})")
+    first = runs["default"]["losses"][0]
+    for name, run in runs.items():
+        diff = abs(run["losses"][0] - first)
+        log(f"{tag} {name}: first loss {run['losses'][0]:.4f} (default's {first:.4f}, |diff| "
+            f"{diff:.3g}, tol {DRIFT_LOSS_TOL}), last {run['losses'][-1]:.4f}, {run['wall_s']} s "
+            f"for {DRIFT_STEPS} steps; launches {run['launches']} ({card})")
+        if diff > DRIFT_LOSS_TOL:
+            raise RuntimeError(f"{tag} {name}: first loss off the default's by {diff}")
+    return runs
+
+
+def scripts_launcher(dev, card: str, work: str) -> dict:
+    """Phase 18 (g): scripts/torch_test_smoke.sh through bash with
+    --train-num-samples SMOKE_SAMPLES (ViT-B-32-colxlip, batch 32, bf16, on
+    cuda:0): rc 0 and its checkpoint."""
+    tag = "[18 scripts launcher]"
+    logs = os.path.join(work, "smoke_logs")
+    t0 = time.perf_counter()
+    # `python` in the launcher is this interpreter
+    env = {**os.environ, "PATH": os.path.dirname(sys.executable) + os.pathsep
+           + os.environ.get("PATH", "")}
+    done = subprocess.run(["bash", os.path.join(REPO, "scripts", "torch_test_smoke.sh"),
+                           "--train-num-samples", str(SMOKE_SAMPLES), "--logs", logs,
+                           "--device", str(dev)],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    ckpt = os.path.join(logs, "smoke", "checkpoints", "epoch_1")
+    log(f"{tag} scripts/torch_test_smoke.sh --train-num-samples {SMOKE_SAMPLES}: rc "
+        f"{done.returncode} in {secs:.1f} s; epoch_1 written: {os.path.isdir(ckpt)} ({card})")
+    if done.returncode != 0 or not os.path.isdir(ckpt):
+        raise RuntimeError(f"{tag} rc {done.returncode}: {done.stderr[-3000:]}")
+    return {"rc": done.returncode, "seconds": secs}
+
+
+def scripts_phase(dev, card: str, keep: str, caption_reference) -> dict:
+    """Phase 18: the port's user-facing scripts in this process, through
+    their main(argv), on the card (the module docstring's (a)-(g))."""
+    import torch
+
+    t_phase = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory() as work:
+        res["build_index"] = scripts_index(dev, card, work)
+        res["export_pt"] = scripts_export(dev, card, work, keep)
+        res["generate_captions"] = scripts_captions(dev, card, work, caption_reference)
+        res["minimal_example"] = scripts_example(dev, card)
+        res["verify_drive"] = scripts_verify(dev, card)
+        res["int8_drift"] = scripts_drift(dev, card)
+        res["test_smoke_sh"] = scripts_launcher(dev, card, work)
+    torch.cuda.empty_cache()
+    log(f"[18 scripts] phase 18 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return res
+
+
 def main() -> int:
+    global T_START
+    T_START = time.perf_counter()
     import torch
 
     # ---- phase 1: device -------------------------------------------------
@@ -4944,6 +5467,7 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     # ---- phase 2: build --------------------------------------------------
+    log(f"[clock] phase 2 starts at {time.perf_counter() - T_START:.1f} s")
     usage = {}
     usage_thread = threading.Thread(
         target=lambda: usage.update(build.resource_usage(
@@ -4956,6 +5480,7 @@ def main() -> int:
         f" -> {kernels.path.relative_to(build.PKG_DIR.parent)}")
 
     # ---- phase 3: each kernel against its plain version -------------------
+    log(f"[clock] phase 3 starts at {time.perf_counter() - T_START:.1f} s")
     gen = torch.Generator(device="cpu").manual_seed(0)
     for rows in (64, 5):
         a, b = (torch.randn(64, 64, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
@@ -5018,8 +5543,10 @@ def main() -> int:
     ce_err, ce_inputs_by_m = check_ce_kernels(dev, gen)
     fused_err_by_kernel, fused_inputs = check_fused_kernels(dev, gen)
     quant_err, quant_inputs = check_quantizer(dev, gen)
+    wide = check_wide_repairs(dev, card)
 
     # ---- phase 4: the serving slice over HTTP ------------------------------
+    log(f"[clock] phase 4 starts at {time.perf_counter() - T_START:.1f} s")
     t0 = time.perf_counter()
     svc = ColXLIPService(MODEL, device=dev, max_batch=MAX_BATCH, seed=0)
     httpd = make_server(svc, host="127.0.0.1", port=0)
@@ -5110,6 +5637,7 @@ def main() -> int:
                 raise RuntimeError(f"/v1/score {body['scoring']}: {err} > {tol}")
 
         # ---- phase 5: timings --------------------------------------------
+        log(f"[clock] phase 5 starts at {time.perf_counter() - T_START:.1f} s")
         timing = {}
         with torch.inference_mode():
             for name, (qkv, h, causal) in attn_inputs.items():
@@ -5246,7 +5774,12 @@ def main() -> int:
     del svc, bwd_inputs, ce_inputs_by_m, fused_inputs
     torch.cuda.empty_cache()
 
+    # checkpoints phase 18 exports (phase 7's, phase 16's sharded one)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    atexit.register(shutil.rmtree, keep, True)
+
     # ---- phase 6: the train slice -----------------------------------------
+    log(f"[clock] phase 6 starts at {time.perf_counter() - T_START:.1f} s")
     train = train_phase(dev, card)
     vit_l = vit_l_phase(dev, card)
     ln_only = ln_only_phase(dev, card, train)
@@ -5258,39 +5791,56 @@ def main() -> int:
             f"annotations ({flickr[1]} captions) in {time.perf_counter() - t0:.1f} s")
 
         # ---- phase 7: the training entry point ------------------------------
-        trainer = main_phase(dev, card, *flickr)
+        log(f"[clock] phase 7 starts at {time.perf_counter() - T_START:.1f} s")
+        trainer = main_phase(dev, card, *flickr, keep=keep)
 
         # ---- phase 8: the towers through the LayerNorm and MLP kernels ------
+        log(f"[clock] phase 8 starts at {time.perf_counter() - T_START:.1f} s")
         fused = fused_phase(dev, card, train)
         vit_l_fused = vit_l_fused_phase(dev, card, vit_l)
 
         # ---- phase 9: the int8 slice and /v1/search --------------------------
+        log(f"[clock] phase 9 starts at {time.perf_counter() - T_START:.1f} s")
         int8 = int8_phase(dev, card, train, encode_ms)
 
         # ---- phase 10: retrieval and zero-shot eval ---------------------------
+        log(f"[clock] phase 10 starts at {time.perf_counter() - T_START:.1f} s")
         evaluation = eval_phase(dev, card, *flickr, eval_dir)
 
     # ---- phase 11: the tar path through main ------------------------------
+    log(f"[clock] phase 11 starts at {time.perf_counter() - T_START:.1f} s")
     tar = tar_phase(dev, card, train["losses"][0])
 
     # ---- phase 12: data parallelism under a process group of one ----------
+    log(f"[clock] phase 12 starts at {time.perf_counter() - T_START:.1f} s")
     data_parallel = dist_phase(dev, card, train)
 
     # ---- phase 13: SigLIP, distillation, CoCa training and captioning -----
+    log(f"[clock] phase 13 starts at {time.perf_counter() - T_START:.1f} s")
     families = families_phase(dev, card)
+    caption_reference = families["caption"].pop("_reference")
 
     # ---- phase 14: one device's share of the pod recipes --------------------
+    log(f"[clock] phase 14 starts at {time.perf_counter() - T_START:.1f} s")
     pod = pod_phase(dev, card, train)
 
     # ---- phase 15: --async-checkpoint and --precision pure_bf16 through main -
+    log(f"[clock] phase 15 starts at {time.perf_counter() - T_START:.1f} s")
     saves = saves_phase(dev, card, train)
 
     # ---- phase 16: sharded state under a process group of one ---------------
-    sharded = gspmd_phase(dev, card, train, saves)
+    log(f"[clock] phase 16 starts at {time.perf_counter() - T_START:.1f} s")
+    sharded = gspmd_phase(dev, card, train, saves, keep=keep)
 
     # ---- phase 17: the serving bundle on torch.export -----------------------
+    log(f"[clock] phase 17 starts at {time.perf_counter() - T_START:.1f} s")
     bundle = aot_phase(dev, card)
 
+    # ---- phase 18: the user-facing scripts, in process ----------------------
+    log(f"[clock] phase 18 starts at {time.perf_counter() - T_START:.1f} s")
+    scripts = scripts_phase(dev, card, keep, caption_reference)
+
+    log(f"[clock] phases 1-18 took {time.perf_counter() - T_START:.1f} s ({card})")
     tl, ml, fl = train["launches"], trainer["launches"], fused["launches"]
     ce_ms = {k: timing[f"fused_ce_{k}/{TRAIN_BATCH}"] for k in ("fwd", "bwd_da", "bwd_db")}
     attn_fwd = (tl["fused_attention_fwd"], attn_err, timing["attention/vision"],
@@ -5427,7 +5977,8 @@ def main() -> int:
         "eval": evaluation,
         "launches_tar": {name: run["launches"] for name, run in tar["runs"].items()},
         "tar": tar, "dist": data_parallel, "families": families, "pod": pod,
-        "saves": saves, "gspmd": sharded, "aot": bundle}), flush=True)
+        "saves": saves, "gspmd": sharded, "aot": bundle, "wide": wide,
+        "scripts": scripts}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -169,17 +169,25 @@ def chunked_logit_tile(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def tile_product(dz: torch.Tensor, y: torch.Tensor, split: bool = True) -> torch.Tensor:
-    """Step 3's tile sum: dz_hi . y (+ dz_lo . y) from zero, the stream rows in
-    order, each bf16 x bf16 product exact in fp32. A column's sum reads only
-    that column of y (an mma n-tile), so the columns of a slice of y get the
-    bits the whole y gives them."""
+    """Step 3's tile sum, dz_hi . y (+ dz_lo . y), rounded to fp32: each
+    bf16 x bf16 product exact, added in float64 in stream-row order (one
+    cumulative sum; the kernel's mma sums differ from it within the bar). A
+    column's sum reads only that column of y (an mma n-tile), so the columns
+    of a slice of y get the bits the whole y gives them."""
     hi = dz.bfloat16().float()
     halves = (hi, (dz - hi).bfloat16().float()) if split else (hi,)
-    part = torch.zeros(dz.shape[0], y.shape[1])
-    for h in halves:
-        for k in range(y.shape[0]):
-            part = part + h[:, k:k + 1] * y[k]
-    return part
+    terms = torch.cat([h.double()[:, :, None] * y.double()[None] for h in halves], dim=1)
+    return terms.cumsum(dim=1)[:, -1].float()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_intra_op_thread():
+    """Many small tensor operations: one intra-op thread, so that the
+    suite's parallel workers do not oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _merge(m1, s1, m2, s2):

@@ -348,25 +348,20 @@ def test_generate_captions_equals_the_jax_scripts(coca, images, monkeypatch):
 
 
 @pytest.mark.parametrize("script,argv", [
-    ("torch_build_index", ["search", "--index", "x", "--query", "q"]),
-    ("torch_export_pt", ["--model", TINY, "--checkpoint", "x.pt", "--out", "y.pt"]),
-    ("torch_generate_captions", ["--images", "x.jpg"]),
-    ("torch_verify_drive", []),
-    ("torch_int8_drift", []),
+    ("scripts/torch_build_index.py", ["search", "--index", "x", "--query", "q"]),
+    ("scripts/torch_export_pt.py", ["--model", TINY, "--checkpoint", "x.pt", "--out", "y.pt"]),
+    ("scripts/torch_generate_captions.py", ["--images", "x.jpg"]),
+    ("scripts/torch_verify_drive.py", []),
+    ("scripts/torch_int8_drift.py", []),
+    ("examples/torch_minimal_example.py", []),
 ])
 def test_twins_run_on_the_card_unless_told_cpu(script, argv, monkeypatch):
     """With no --device a twin takes cuda:0, and on a machine without a card
     it raises before it does any work (the CPU only when asked)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="--device cuda:0: no CUDA device is available"):
-        load_script(script).main(argv)
-
-
-def test_example_runs_on_the_card_unless_told_cpu(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    spec = importlib.util.spec_from_file_location(
-        "torch_minimal_example", os.path.join(REPO, "examples", "torch_minimal_example.py"))
+    spec = importlib.util.spec_from_file_location(os.path.basename(script)[:-3],
+                                                  os.path.join(REPO, script))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     with pytest.raises(RuntimeError, match="--device cuda:0: no CUDA device is available"):
-        module.main([])
+        module.main(argv)
