@@ -8,9 +8,10 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
   1. device: requires torch.cuda.is_available(); prints the card's name and
      power limit (nvidia-smi).
   2. build: compiles colxlip_tpu_torch/csrc/*.cu with nvcc for sm_90a (one
-     nvcc per source, all at once); meanwhile a second nvcc -Xptxas -v of the
-     attention, MaxSim, MLP, CE and LayerNorm sources reads each kernel's
-     registers and spills (printed in phase 5).
+     nvcc per source, all at once); then, beside phases 3-5, a second nvcc
+     -Xptxas -v of the attention, MaxSim, MLP, CE and LayerNorm sources (one
+     a source, all at once) reads each kernel's registers and spills (printed
+     in phase 5).
   3. kernels: first a bare 64 x 64 x 64 product through the tensor-core tile
      code (csrc/mma_tile.cuh) against torch.matmul, A . B^T, its rounded
      result times B, and A^T . B from k-major tiles; then each forward kernel
@@ -24,15 +25,18 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      MaxSim forward in fp32 at the serving shape (64 x 64) and in fp32 and
      bf16 at the training shape (256 x 256, the main path's) and at 100 text
      against 577 image tokens (ViT-L/14 at 336 px), the MaxSim backward at
-     both shapes, two of its runs bit for bit; the
+     both shapes and at D = 4104 and 8192 (MAXSIM_WIDE: dT in feature
+     slices; timed in phase 5 beside its plain version and its bound), two
+     of its runs bit for bit; the
      three streaming-CE kernels (forward, dA + dscale, dB) in
      fp32 and bf16 at M = N = 256 and 4096 (D = 512), M = 33, N = 129
      (D = 64) and M = N = 1024 with b = a, in bf16 at M = N = 1024 with
      b = a at logit scale 100 ("tied-100", held: the bf16 forward and
      backward take their logits from one tensor-core tile), at M = N = 4096
-     with D = 768 and at M = N = 32768, where the dense fp32 logits
+     with D = 768, 1000 and 1024 (past 768: the chunked walk; timed in phase
+     5) and at M = N = 32768, where the dense fp32 logits
      would be 4 GiB: the kernel path's peak memory there is printed and
-     bounded, and two runs of the backward must agree bit for bit. The
+     bounded, and two runs of each kernel must agree bit for bit. The
      LayerNorm and MLP kernels (forward and backward each) in fp32 and bf16
      at the training shapes (batch 256, vision and text), the token-head
      LayerNorm shape and one ragged shape each, and the LayerNorm (both
@@ -55,11 +59,6 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      scales equal to the plain version's bit for bit, one seed twice equal,
      two seeds different, scales equal to round-to-nearest's and values
      within one step of it, and unbiased over 64 seeds.
-     (3f) the widths the kernels used to refuse: the bf16 CE (#11-13) at
-     4096 rows and D = 1000 and 1024 (the chunked walk) and the MaxSim
-     backward at D = 4104 and 8192 (dT in feature slices; fp32 and bf16),
-     each against its plain version under the bars above, two runs bit for
-     bit, each timed beside its plain version and its bound.
   4. serving slice: ColXLIPService (ViT-B-16-colxlip, full width, random
      init from seed 0, bf16 compute) behind make_server on an ephemeral
      port, driven over HTTP; checks finite unit-norm embeddings, that both
@@ -178,12 +177,12 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      min(8, cpu count) in three feeds: (a) PIL decode and the float32 feed,
      2 epochs cut at 6 steps; (b) --normalize-on-device --packed-feed, with
      --native-decode where a probe finds jpeglib.h and -ljpeg (the printed
-     line says which), 2 x 6 steps; (c) --ship-format yuv420 --packed-feed,
+     line says which), 6 steps; (c) --ship-format yuv420 --packed-feed,
      6 steps. Each: rc 0, finite losses, the first within 0.5 of phase 6's,
      launches exact (24 attention each way and one MaxSim each way a step;
      no LayerNorm, MLP or CE launch), the median step and data_time of
      steps 3 onward, the idle share of the profiled steps, host-to-device
-     bytes a step, peak memory, and the pipeline alone (no model) over 6
+     bytes a step, peak memory, and the pipeline alone (no model) over 3
      batches. A batch of (b) packed, copied and unpacked on the card equals
      the host batch bit for bit; (c)'s decode on the card is within 2e-4 of
      the numpy reference; with the native decoder, 16 samples are within an
@@ -290,8 +289,13 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      any model work, with the JAX entry point's words. (e) the TP plan of (b)
      under COLXLIP_MLP_INT8=fwd against the one-device int8 step (c_proj
      takes the model group's scales and sums its int32 products), launches
-     as (a). CoCa under the TP plan and under FSDP is held at 4 and 2 gloo
-     ranks on the CPU (tests/test_torch_gspmd_coca.py).
+     as (a). (f) coca_ViT-B-32 (coca loss, batch 256) under the TP plan (2
+     steps: the first compared, the second timed) and under FSDP (one
+     compared step) against the one-device CoCa step: 24 / 24 attention
+     launches, losses to 1e-5, gradients to phase 6's bf16 bars (a gradient
+     under 1e-4 of the largest held by its difference); the TP step's ms,
+     idle, and each run's peak. Both are held at 4 and 2 gloo ranks on the
+     CPU too (tests/test_torch_gspmd_coca.py).
   17. the serving bundle (colxlip_tpu_torch/serving/aot.py on torch.export):
      ViT-B-16-colxlip's towers exported on the card with a symbolic batch,
      saved and loaded back; batches of 1, 8 and 64 against the live model
@@ -312,7 +316,8 @@ Phases, each printed on its own lines; any failure raises (non-zero exit):
      bit as the checkpoint in fp32. (c) scripts/torch_generate_captions.py
      on phase 13 (d)'s weights and JPEGs, greedy: /v1/caption's tokens, 912
      attention launches. (d) examples/torch_minimal_example.py at
-     ViT-B-32-colxlip: each row of probabilities sums to 1 within 1e-5. (e)
+     ViT-B-32-colxlip: each row of probabilities sums to 1 within 1e-5 and
+     is within 1e-5 of the same run on the plain versions. (e)
      scripts/torch_verify_drive.py: both steps pass, launches exact. (f)
      scripts/torch_int8_drift.py --steps 20 at batch 64 (2 pooled batches)
      by default, under COLXLIP_MLP_INT8=fwd and with --maxsim-impl
@@ -367,6 +372,10 @@ MAXSIM_TOL = 1e-5
 # MaxSim token counts the first kernels refused: ViT-L/14 at 336 px with its
 # CLS token (577 image tokens), 100 text tokens, ViT-L's width; M = K = 16
 MAXSIM_LONG = (16, 100, 577, 768)
+# the MaxSim backward past one dT slice of 4096 features (dT in feature
+# slices), M = K, Lt, Li, D; seeded apart from phase 3's one generator
+MAXSIM_WIDE = [(8, 16, 40, 4104), (8, 16, 40, 8192)]
+MAXSIM_WIDE_SEED = 24
 # /v1/score (kernels) vs a plain-path recomputation: both run the model in
 # bf16, so the kernels' and the plain versions' roundings differ at 2^-8
 # relative per step through 12 layers; bound the cosine-level drift at 2e-2
@@ -411,6 +420,10 @@ CE_CASES = [
     (32768, 32768, 512, 100.0, ("bfloat16",), False, None),     # dense logits: 4 GiB
     # float32 past 768 features: dA and dB in two feature slices of 512
     (1024, 1024, 1024, 100.0, ("float32",), False, 1024),
+    # bf16 past the whole tiles' 768 features: the chunked walk, dA and dB in
+    # feature slices of at most 768 (timed in phase 5 beside the rows above)
+    (4096, 4096, 1000, 100.0, ("bfloat16",), False, 24),
+    (4096, 4096, 1024, 100.0, ("bfloat16",), False, 25),
 ]
 # phase 5: the float32 CE kernels (split across the streamed rows) timed at a
 # 4-rank local-loss step's rows (labels offset by rank 3's 768) and at 4096
@@ -570,15 +583,10 @@ SAVE_EPOCHS = 2
 SAVE_STEPS_PER_EPOCH = 2
 # phase 16: sharded state under a process group of one
 GSPMD_STEPS = 3             # the first compared, the rest timed (learning rate 0)
+COCA_GSPMD_STEPS = 2        # (f): the TP plan's CoCa step compared, then one timed
 # phase 17: the serving bundle's batches (a symbolic batch dim)
 AOT_BATCHES = (1, 8, 64)
 T_START = 0.0               # main's start on the host clock: each phase logs its start
-# phase 3f: the widths the kernels used to refuse (seeded apart from phase 3's
-# one generator): the bf16 CE at 4096 rows past the whole tiles' 768
-# features, the MaxSim backward past one dT slice of 4096 features
-WIDE_CE_CASES = [(4096, 4096, 1000, 100.0), (4096, 4096, 1024, 100.0)]
-WIDE_MAXSIM_CASES = [(8, 16, 40, 4104), (8, 16, 40, 8192)]     # M = K, Lt, Li, D
-WIDE_SEED = 24
 # phase 18: the user-facing scripts of the port, in process
 SCRIPT_IMAGES = 1024
 SCRIPT_BATCH = 256
@@ -838,8 +846,9 @@ def ce_inputs(m, n, d, scale, dtype, dev, gen):
 
 
 def check_ce_kernels(dev, gen):
-    """Phase 3c: the three streaming-CE kernels against their plain versions.
-    Returns (max errors per kernel, bf16 inputs by M for the timings)."""
+    """Phase 3c: the three streaming-CE kernels against their plain versions,
+    two runs of each bit for bit. Returns (max errors per kernel, the bf16
+    inputs for the timings by "M" at D = 512 and "M/D<d>" past 768)."""
     import torch
 
     from colxlip_tpu_torch.ops import fused_ce
@@ -858,7 +867,8 @@ def check_ce_kernels(dev, gen):
             loss, lse = fused_ce._launch_fwd(a, b, labels, s)
             da, ds = fused_ce._launch_bwd_da(a, b, labels, s, lse, g)
             db = fused_ce._launch_bwd_db(a, b, labels, s, lse, g)
-            again = (*fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
+            again = (*fused_ce._launch_fwd(a, b, labels, s),
+                     *fused_ce._launch_bwd_da(a, b, labels, s, lse, g),
                      fused_ce._launch_bwd_db(a, b, labels, s, lse, g))
             want_loss, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
             # the plain backward starts from the plain lse: only the kernels differ
@@ -878,16 +888,16 @@ def check_ce_kernels(dev, gen):
                     and err["fused_ce_bwd_da"] <= CE_BWD_TOL
                     and err["fused_ce_bwd_db"] <= CE_BWD_TOL):
                 raise RuntimeError(f"fused CE M={m} N={n} {name}: {err}")
-            if not all(torch.equal(x, y) for x, y in zip((da, ds, db), again)):
-                raise RuntimeError(f"fused CE M={m} N={n} {name}: two runs of the backward "
+            if not all(torch.equal(x, y) for x, y in zip((loss, lse, da, ds, db), again)):
+                raise RuntimeError(f"fused CE M={m} N={n} D={d} {name}: two runs of the "
                                    "kernels differ (they use no atomics)")
             errs = {k: max(v, err[k]) for k, v in errs.items()}
-            if name == "bfloat16" and d == 512 and not tied and m == n:
-                inputs[m] = (a, b, labels, s, lse, g)
+            if name == "bfloat16" and (d == 512 or d > 768) and not tied and m == n:
+                inputs[str(m) if d == 512 else f"{m}/D{d}"] = (a, b, labels, s, lse, g)
             del loss, da, ds, db, again, want_loss, want_lse, want_da, want_ds, want_db
 
     # no [M, N] tensor on the kernel path: forward and backward under autograd
-    a, b, labels, s, _, _ = inputs[32768]
+    a, b, labels, s, _, _ = inputs["32768"]
     a_, b_, s_ = a.clone().requires_grad_(), b.clone().requires_grad_(), \
         s.clone().requires_grad_()
     torch.cuda.synchronize()
@@ -899,7 +909,8 @@ def check_ce_kernels(dev, gen):
     dense = a.shape[0] * b.shape[0] * 4 / 2**30
     log(f"[3 kernels] fused CE M=N=32768 bf16 forward + backward under autograd: peak device "
         f"memory {peak:.3f} GiB above the inputs (limit {CE_PEAK_LIMIT_GIB}; dense fp32 "
-        f"logits alone would be {dense:.0f} GiB); two backward runs bit-equal at every shape")
+        f"logits alone would be {dense:.0f} GiB); two runs of each kernel bit-equal at every "
+        "shape")
     if not (peak <= CE_PEAK_LIMIT_GIB and torch.isfinite(a_.grad).all()
             and torch.isfinite(b_.grad).all() and torch.isfinite(s_.grad)):
         raise RuntimeError(f"fused CE at 32768: peak {peak} GiB or non-finite gradients")
@@ -915,7 +926,8 @@ def time_ce_kernels(inputs, card: str):
     from colxlip_tpu_torch.ops import fused_ce
 
     timing = {}
-    for m, (a, b, labels, s, lse, g) in inputs.items():
+    for tag, (a, b, labels, s, lse, g) in inputs.items():
+        m = a.shape[0]
         iters, warm = (50, 3) if m <= 256 else (10, 2) if m <= 4096 else (2, 1)
         row = {
             "fwd": (cuda_ms(lambda: fused_ce._launch_fwd(a, b, labels, s), iters, warm),
@@ -944,15 +956,16 @@ def time_ce_kernels(inputs, card: str):
                     cuda_ms(lambda: torch.autograd.grad(dense(), (a_, b_, s_)), iters, warm))
         bounds = ce_bounds(a, b)
         for key, (ker, plain) in row.items():
-            timing[f"fused_ce_{key}/{m}"] = (ker, plain)
+            timing[f"fused_ce_{key}/{tag}"] = (ker, plain)
             bound, by = bounds[f"fused_ce_{key}"]
             log(f"[5 timing] fused_ce_{key} M=N={m} D={a.shape[1]} bf16: kernel {ker:.4f} ms, "
                 f"plain {plain:.4f} ms, bound {bound:.5f} ms ({by}) ({card})")
-        log(f"[5 timing] dense pair M=N={m} (fp32 torch.matmul + F.cross_entropy, holds "
+        log(f"[5 timing] dense pair M=N={m} D={a.shape[1]} (fp32 torch.matmul + "
+            f"F.cross_entropy, holds "
             f"[M, N]): forward {dense_ms[0]:.4f} ms, forward + backward {dense_ms[1]:.4f} ms; "
             f"the three kernels together {sum(k for k, _ in row.values()):.4f} ms ({card})")
-        timing[f"dense_ce/{m}"] = dense_ms
-        timing[f"ce_bounds/{m}"] = bounds
+        timing[f"dense_ce/{tag}"] = dense_ms
+        timing[f"ce_bounds/{tag}"] = bounds
         del a_, b_, s_
         torch.cuda.empty_cache()
     timing.update(time_ce_fp32(next(iter(inputs.values()))[0].device, card))
@@ -1525,27 +1538,40 @@ def check_backward_kernels(dev, gen):
         if dtype == torch.bfloat16:
             inputs["maxsim_bwd"] = (tt, ii, g, text_mask)
 
-    # token counts the first kernels refused: three column groups, 19 tie words
-    mk, lt, li, d = MAXSIM_LONG
-    t = torch.nn.functional.normalize(torch.randn(mk, lt, d, generator=gen), dim=-1)
-    t[:, lt // 2:] = 0
-    img = torch.nn.functional.normalize(torch.randn(mk, li, d, generator=gen), dim=-1)
-    gs = torch.randn(mk, mk, generator=gen) / mk
-    for dtype in (torch.float32, torch.bfloat16):
-        tt, ii, g = t.to(dev, dtype), img.to(dev, dtype), gs.to(dev)
-        errs["maxsim_fwd"] = max(errs["maxsim_fwd"],
-                                 check_maxsim_forward(tt, ii, "nonzero", None, "long"))
-        got = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
-        want = maxsim.maxsim_bwd_plain(tt, ii, g)
-        torch.cuda.synchronize()
-        err = max(max_rel_err(a, w) for a, w in zip(got, want))
-        tol = BWD_TOL[str(dtype).split(".")[-1]]
-        log(f"[3 kernels] maxsim bwd long M=K={mk} Lt={lt} Li={li} D={d} {dtype}: "
-            f"max_abs_err / max|grad| {err:.3g} (tol {tol}) (dT, dI)")
-        if not err <= tol:
-            raise RuntimeError(f"maxsim bwd Lt={lt} Li={li} {dtype}: {err} > {tol}")
-        errs["maxsim_bwd"] = max(errs["maxsim_bwd"], err)
-        del got, want
+    # token counts the first kernels refused (three column groups, 19 tie
+    # words; the forward too), then the widths past one dT slice (timed in
+    # phase 5); two runs of the backward bit for bit at each
+    wide_gen = torch.Generator().manual_seed(MAXSIM_WIDE_SEED)
+    for (mk, lt, li, d), shape_gen in ((MAXSIM_LONG, gen),
+                                       *((shape, wide_gen) for shape in MAXSIM_WIDE)):
+        label = "long" if d == MAXSIM_LONG[3] else f"wide (dT in {-(-d // 4096)} slices)"
+        t = torch.nn.functional.normalize(torch.randn(mk, lt, d, generator=shape_gen), dim=-1)
+        t[:, lt // 2:] = 0
+        img = torch.nn.functional.normalize(torch.randn(mk, li, d, generator=shape_gen), dim=-1)
+        gs = torch.randn(mk, mk, generator=shape_gen) / mk
+        for dtype in (torch.float32, torch.bfloat16):
+            tt, ii, g = t.to(dev, dtype), img.to(dev, dtype), gs.to(dev)
+            if label == "long":
+                errs["maxsim_fwd"] = max(errs["maxsim_fwd"],
+                                         check_maxsim_forward(tt, ii, "nonzero", None, "long"))
+            got = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
+            again = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
+            want = maxsim.maxsim_bwd_plain(tt, ii, g)
+            torch.cuda.synchronize()
+            err = max(max_rel_err(a, w) for a, w in zip(got, want))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            name = str(dtype).split(".")[-1]
+            tol = BWD_TOL[name]
+            log(f"[3 kernels] maxsim bwd {label} M=K={mk} Lt={lt} Li={li} D={d} {dtype}: "
+                f"max_abs_err / max|grad| {err:.3g} (tol {tol}) (dT, dI); two runs "
+                f"{'equal bit for bit' if same else 'DIFFER'}")
+            if not (err <= tol and same):
+                raise RuntimeError(f"maxsim bwd Lt={lt} Li={li} D={d} {dtype}: {err} > {tol} "
+                                   "or two runs differ")
+            errs["maxsim_bwd"] = max(errs["maxsim_bwd"], err)
+            if label != "long":
+                inputs[f"maxsim_bwd/D{d}/{name}"] = (tt, ii, g)
+            del got, again, want
     return errs, inputs
 
 
@@ -3214,7 +3240,7 @@ def tar_phase(dev, card: str, phase6_first_loss: float):
         f"(b) {'with' if has_jpeg else 'WITHOUT'} --native-decode")
     runs = [("a", [], 2),
             ("b", [*(["--native-decode"] if has_jpeg else []), "--normalize-on-device",
-                   "--packed-feed"], 2),
+                   "--packed-feed"], 1),
             ("c", ["--ship-format", "yuv420", "--packed-feed"], 1)]
     counters = {"fused_attention_fwd": attention.LAUNCHES,
                 "fused_attention_bwd": attention.BWD_LAUNCHES,
@@ -4580,7 +4606,7 @@ def gspmd_run(dev, card: str, ref_state, cfg, images, texts, mesh, steps: int,
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-    out["ms"] = statistics.median(secs) * 1e3 if secs else float("nan")
+    out["ms"] = statistics.median(secs) * 1e3 if secs else None
     out["steps_ms"] = [t * 1e3 for t in secs]
     if steps > 1:
         events, wall_ms = profiled(lambda: step(images, texts))
@@ -4754,9 +4780,53 @@ def gspmd_refusal(dev) -> dict:
     return {"rc": rc}
 
 
+def gspmd_coca(dev, card: str, meshes) -> tuple:
+    """Phase 16 (f): coca_ViT-B-32 (coca loss, bf16, FAMILY_BATCH, gather
+    with gradient) under the TP plan on the 1 x 1 mesh (COCA_GSPMD_STEPS:
+    compared, then timed) and under FSDP on the mesh of one (one compared
+    step), each against the one-device step: the decoder's cross-attention
+    (packed in_proj regrouped) and both attentional poolers (separate q / k
+    / v) split over 'model'. Returns (the runs, the failures)."""
+    import torch
+
+    from colxlip_tpu_torch.factory import create_model
+    from colxlip_tpu_torch.parallel.train_step import TrainStepConfig
+
+    model, _ = create_model(COCA_MODEL, dev, torch.bfloat16, seed=0)
+    ref_state = copy.deepcopy(model.state_dict())
+    del model
+    images, texts = family_batch(COCA_MODEL, dev)
+    cfg = TrainStepConfig(loss_type="coca", gather_with_grad=True)
+    attn = {"fused_attention_fwd": 2 * COCA_LAYERS, "fused_attention_bwd": 2 * COCA_LAYERS,
+            "maxsim_fwd": 0, "maxsim_bwd": 0, "fused_ln_fwd": 0, "fused_ln_bwd": 0,
+            "fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
+    one = gspmd_run(dev, card, ref_state, cfg, images, texts, None, 1, "[16 gspmd coca]",
+                    model_name=COCA_MODEL)
+    runs, failures = {"one": one}, []
+    for name, label, steps in (
+            ("tp", "the TP plan + FSDP, ('data', 'model') mesh of 1 x 1", COCA_GSPMD_STEPS),
+            ("fsdp", "FSDP, ('data',) mesh of one", 1)):
+        tag = f"[16 gspmd coca {name}]"
+        run = gspmd_run(dev, card, ref_state, cfg, images, texts, meshes[name], steps, tag,
+                        model_name=COCA_MODEL)
+        failures += gspmd_compare(tag, run, one, "bfloat16", DIST_LOSS_TOL, vanishing=True)
+        if run["launches"] != attn or one["launches"] != attn:
+            failures.append(f"{tag}: launches {run['launches']}, one device "
+                            f"{one['launches']}, expected {attn}")
+        timed = (f"step {run['ms']:.2f} ms at batch {FAMILY_BATCH} "
+                 f"({FAMILY_BATCH / run['ms'] * 1e3:.1f} img/s), idle {run['idle']:.1%}, "
+                 if steps > 1 else "one step, not timed; ")
+        log(f"{tag} (f) {COCA_MODEL} under {label}: launches a step {run['launches']}; "
+            f"{timed}peak {run['peak_gib']:.2f} GiB ({card})")
+        runs[name] = run
+    del ref_state, images, texts
+    torch.cuda.empty_cache()
+    return runs, failures
+
+
 def gspmd_phase(dev, card: str, train, saves, keep: Optional[str] = None) -> dict:
     """Phase 16: sharded state under a NCCL process group of one (the
-    module docstring's (a)-(d)). Every run is read before the phase fails."""
+    module docstring's (a)-(f)). Every run is read before the phase fails."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -4833,6 +4903,9 @@ def gspmd_phase(dev, card: str, train, saves, keep: Optional[str] = None) -> dic
             f"{run['idle']:.1%} ({card})")
         res["tp_int8"] = run
         del one_int8, ref_state, images, texts
+        coca, coca_failures = gspmd_coca(dev, card, meshes)
+        res["coca"] = coca
+        failures += coca_failures
         kept = res["fsdp"].pop("kept")
         res["saves"] = gspmd_saves(dev, card, kept, meshes["fsdp"], saves, keep)
         del kept
@@ -4840,7 +4913,8 @@ def gspmd_phase(dev, card: str, train, saves, keep: Optional[str] = None) -> dic
         res["refusal"] = gspmd_refusal(dev)
     finally:
         dist.destroy_process_group()
-    for run in (res.get("fsdp"), res.get("tp"), res.get("tp_fused"), res.get("tp_int8")):
+    for run in (res.get("fsdp"), res.get("tp"), res.get("tp_fused"), res.get("tp_int8"),
+                *res.get("coca", {}).values()):
         if run is not None:
             run.pop("grads", None)
     log(f"[16 gspmd] phase 16 took {time.perf_counter() - t_phase:.1f} s ({card})")
@@ -4931,91 +5005,6 @@ def aot_phase(dev, card: str) -> dict:
     if failures:
         raise RuntimeError("phase 17: " + "; ".join(failures))
     return res
-
-
-def check_wide_repairs(dev, card: str) -> dict:
-    """Phase 3f: the widths the kernels used to refuse, each against its
-    plain version under phase 3's bars, two runs bit-equal, timed beside the
-    plain version and the bound: the bf16 CE (#11-13) at WIDE_CE_CASES (the
-    chunked walk), the MaxSim backward (#6) at WIDE_MAXSIM_CASES in fp32
-    and bf16 (dT in feature slices)."""
-    import torch
-
-    from colxlip_tpu_torch.ops import fused_ce, maxsim
-
-    gen = torch.Generator(device="cpu").manual_seed(WIDE_SEED)
-    out = {}
-
-    def unit_err(got, want):
-        return ((got - want).abs() / (1 + want.abs())).max().item()
-
-    for m, n, d, scale in WIDE_CE_CASES:
-        a, b, labels, s, g = ce_inputs(m, n, d, scale, torch.bfloat16, dev, gen)
-        _, want_lse = fused_ce.fused_ce_fwd_plain(a, b, labels, s)
-        calls = {
-            "fwd": (lambda: fused_ce._launch_fwd(a, b, labels, s),
-                    lambda: fused_ce.fused_ce_fwd_plain(a, b, labels, s)),
-            "bwd_da": (lambda: fused_ce._launch_bwd_da(a, b, labels, s, want_lse, g),
-                       lambda: fused_ce.fused_ce_bwd_da_plain(a, b, labels, s, want_lse, g)),
-            "bwd_db": (lambda: fused_ce._launch_bwd_db(a, b, labels, s, want_lse, g),
-                       lambda: fused_ce.fused_ce_bwd_db_plain(a, b, labels, s, want_lse, g)),
-        }
-        row, failed = {}, []
-        bounds = ce_bounds(a, b)
-        for key, (kernel, plain) in calls.items():
-            got, again, want = kernel(), kernel(), plain()
-            got, again, want = (x if isinstance(x, tuple) else (x,) for x in (got, again, want))
-            torch.cuda.synchronize()
-            err = max(unit_err(x, w) if key == "fwd" else max_rel_err(x, w)
-                      for x, w in zip(got, want))
-            tol = CE_FWD_TOL if key == "fwd" else CE_BWD_TOL
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
-            ms, plain_ms = cuda_ms(kernel, 5, 2), cuda_ms(plain, 3, 1)
-            bound = bounds[f"fused_ce_{key}"]
-            row[key] = {"err": err, "bit_equal": same, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound[0], "bound_by": bound[1]}
-            if not (err <= tol and same):
-                failed.append(key)
-        log(f"[3f wide] bf16 CE M={m} N={n} D={d} scale {scale:g} (the chunked walk; phase 3's "
-            f"bars {CE_FWD_TOL} of 1 + |loss|, {CE_BWD_TOL} of max|grad|): " + "; ".join(
-                f"{k} err {v['err']:.3g}, reruns {'bit-equal' if v['bit_equal'] else 'DIFFER'}, "
-                f"{v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound {v['bound_ms']:.5f} "
-                f"{v['bound_by']})" for k, v in row.items()) + f" ({card})")
-        if failed:
-            raise RuntimeError(f"bf16 CE at D={d}: {failed} off its plain version or reruns "
-                               "differ")
-        out[f"ce_bf16_{m}x{n}_d{d}"] = row
-        del a, b, labels, s, g, want_lse
-
-    for mk, lt, li, d in WIDE_MAXSIM_CASES:
-        t = torch.nn.functional.normalize(torch.randn(mk, lt, d, generator=gen), dim=-1)
-        t[0, lt // 2:] = 0
-        img = torch.nn.functional.normalize(torch.randn(mk, li, d, generator=gen), dim=-1)
-        gs = torch.randn(mk, mk, generator=gen) / mk
-        for dtype in (torch.float32, torch.bfloat16):
-            tt, ii, g = t.to(dev, dtype), img.to(dev, dtype), gs.to(dev)
-            got = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
-            again = maxsim._launch_bwd(tt, ii, g, "nonzero", None)
-            want = maxsim.maxsim_bwd_plain(tt, ii, g)
-            torch.cuda.synchronize()
-            name = str(dtype).split(".")[-1]
-            err, tol = max(max_rel_err(x, w) for x, w in zip(got, want)), BWD_TOL[name]
-            same = all(torch.equal(x, y) for x, y in zip(got, again))
-            ms = cuda_ms(lambda: maxsim._launch_bwd(tt, ii, g, "nonzero", None), 5, 2)
-            plain_ms = cuda_ms(lambda: maxsim.maxsim_bwd_plain(tt, ii, g), 3, 1)
-            bound = maxsim_bound(tt, ii, True)
-            log(f"[3f wide] maxsim bwd M=K={mk} Lt={lt} Li={li} D={d} {name} (dT in "
-                f"{-(-d // 4096)} feature slices): max_abs_err / max|grad| {err:.3g} (tol {tol}) "
-                f"(dT, dI); reruns {'bit-equal' if same else 'DIFFER'}; {ms:.4f} ms (plain "
-                f"{plain_ms:.4f}, bound {bound[0]:.5f} {bound[1]}) ({card})")
-            if not (err <= tol and same):
-                raise RuntimeError(f"maxsim bwd at D={d} {name}: {err} > {tol} or reruns differ")
-            out[f"maxsim_bwd_{name}_d{d}"] = {"err": err, "bit_equal": same, "ms": ms,
-                                              "plain_ms": plain_ms, "bound_ms": bound[0],
-                                              "bound_by": bound[1]}
-            del got, again, want
-    torch.cuda.empty_cache()
-    return out
 
 
 def load_twin(rel: str):
@@ -5315,7 +5304,9 @@ def scripts_captions(dev, card: str, work: str, reference) -> dict:
 
 def scripts_example(dev, card: str) -> dict:
     """Phase 18 (d): examples/torch_minimal_example.py at EXAMPLE_MODEL: each
-    row of probabilities sums to 1 within 1e-5."""
+    row of probabilities sums to 1 within 1e-5, and both rows are within
+    1e-5 of the same run on the kernels' plain versions (the same weights,
+    image and captions on the card)."""
     import numpy as np
 
     tag = "[18 scripts example]"
@@ -5328,13 +5319,19 @@ def scripts_example(dev, card: str) -> dict:
 
     example.run = recorded
     _, launches = counted(lambda: run_twin(example, ["--device", str(dev)], tag))
+    with plain_versions():
+        plain = real(EXAMPLE_MODEL, None, str(dev))
     sums = [float(np.sum(p)) for p in seen["probs"]]
+    err = max(float(np.abs(p - q).max()) for p, q in zip(seen["probs"], plain))
     ok = all(abs(x - 1) <= 1e-5 and np.isfinite(p).all() for x, p in zip(sums, seen["probs"]))
     log(f"{tag} {EXAMPLE_MODEL}: row sums {', '.join(f'{x:.7f}' for x in sums)} (tol 1e-5); "
-        f"launches {launches} ({card})")
-    if example.MODEL != EXAMPLE_MODEL or not ok or launches["maxsim_fwd"] != 1:
-        raise RuntimeError(f"{tag} probabilities {seen['probs']} or launches {launches}")
-    return {"row_sums": sums, "launches": launches}
+        f"late-interaction and plain-CLIP probabilities against the plain versions' "
+        f"max_abs_err {err:.3g} (tol 1e-5); launches {launches} ({card})")
+    if example.MODEL != EXAMPLE_MODEL or not ok or not err <= 1e-5 or \
+            launches["maxsim_fwd"] != 1:
+        raise RuntimeError(f"{tag} probabilities {seen['probs']} (plain versions {plain}) or "
+                           f"launches {launches}")
+    return {"row_sums": sums, "plain_max_abs_err": err, "launches": launches}
 
 
 def scripts_verify(dev, card: str) -> dict:
@@ -5468,6 +5465,10 @@ def main() -> int:
 
     # ---- phase 2: build --------------------------------------------------
     log(f"[clock] phase 2 starts at {time.perf_counter() - T_START:.1f} s")
+    kernels = build.load_kernels()
+    log(f"[2 build] {kernels.build_seconds:.1f} s nvcc {' '.join(build.NVCC_FLAGS)}"
+        f" -> {kernels.path.relative_to(build.PKG_DIR.parent)}")
+    # after the build, so that the two do not share the cores
     usage = {}
     usage_thread = threading.Thread(
         target=lambda: usage.update(build.resource_usage(
@@ -5475,9 +5476,6 @@ def main() -> int:
              "fused_ce", "fused_ln"])),
         daemon=True)
     usage_thread.start()
-    kernels = build.load_kernels()
-    log(f"[2 build] {kernels.build_seconds:.1f} s nvcc {' '.join(build.NVCC_FLAGS)}"
-        f" -> {kernels.path.relative_to(build.PKG_DIR.parent)}")
 
     # ---- phase 3: each kernel against its plain version -------------------
     log(f"[clock] phase 3 starts at {time.perf_counter() - T_START:.1f} s")
@@ -5543,7 +5541,6 @@ def main() -> int:
     ce_err, ce_inputs_by_m = check_ce_kernels(dev, gen)
     fused_err_by_kernel, fused_inputs = check_fused_kernels(dev, gen)
     quant_err, quant_inputs = check_quantizer(dev, gen)
-    wide = check_wide_repairs(dev, card)
 
     # ---- phase 4: the serving slice over HTTP ------------------------------
     log(f"[clock] phase 4 starts at {time.perf_counter() - T_START:.1f} s")
@@ -5669,8 +5666,19 @@ def main() -> int:
         timing["maxsim_bwd/nonzero"] = (
             cuda_ms(lambda: maxsim._launch_bwd(tt, ii, g, "nonzero", None), 5),
             cuda_ms(lambda: maxsim.maxsim_bwd_plain(tt, ii, g), 5))
+        maxsim_wide = {}
+        for key in [k for k in bwd_inputs if k.startswith("maxsim_bwd/D")]:
+            wt, wi, wg = bwd_inputs[key]
+            timing[key] = (cuda_ms(lambda: maxsim._launch_bwd(wt, wi, wg, "nonzero", None), 5),
+                           cuda_ms(lambda: maxsim.maxsim_bwd_plain(wt, wi, wg), 5))
+            maxsim_wide[key] = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                                        (*timing[key], *maxsim_bound(wt, wi, True))))
         for key, (ker, plain) in timing.items():
             log(f"[5 timing] {key}: kernel {ker:.4f} ms, plain {plain:.4f} ms "
+                f"({card})")
+        for key, row in maxsim_wide.items():
+            log(f"[5 timing] {key} M=K={MAXSIM_WIDE[0][0]} Lt={MAXSIM_WIDE[0][1]} "
+                f"Li={MAXSIM_WIDE[0][2]}: bound {row['bound_ms']:.5f} ms ({row['bound_by']}) "
                 f"({card})")
         maxsim_passes = maxsim_pass_ms(tt, ii, g)
         log(f"[5 timing] maxsim passes, bf16 {TRAIN_BATCH} x {TRAIN_BATCH} (device ms a call, "
@@ -5709,7 +5717,10 @@ def main() -> int:
             f"bound {vit_l_bounds['fused_attention_bwd'][0]:.5f} ms ({card})")
         del qkv_l, dout_l
         attention_fp32 = time_fp32_attention(dev, gen, card)
+        t_join = time.perf_counter()
         usage_thread.join(timeout=300)
+        log(f"[5 timing] waited {time.perf_counter() - t_join:.1f} s for the nvcc -Xptxas -v "
+            f"reports")
         for name, (regs, stack, stores, loads) in sorted(usage.items()):
             log(f"[5 timing] ptxas {name}: {regs} registers, {stack} bytes stack, spills "
                 f"{stores} bytes stored / {loads} loaded")
@@ -5718,7 +5729,7 @@ def main() -> int:
 
         bounds = kernel_bounds(attn_inputs["vision"][0], bwd_inputs["attention_bwd/vision"][0],
                                attn_inputs["vision"][1], (tt, ii), (tt, ii),
-                               ce_inputs_by_m[TRAIN_BATCH][:2], fused_inputs["ln/vision"][0],
+                               ce_inputs_by_m[str(TRAIN_BATCH)][:2], fused_inputs["ln/vision"][0],
                                *fused_inputs["mlp/vision"][:2])
         bounds["maxsim_fwd/serving"] = maxsim_bound(t, img, False)
         text_qkv = bwd_inputs["attention_bwd/text"][0]
@@ -5953,7 +5964,15 @@ def main() -> int:
                              "plain_ms": timing[f"fused_ce_fwd/{m}"][1],
                              "dense_fwd_ms": timing[f"dense_ce/{m}"][0],
                              "bound_ms": timing[f"ce_bounds/{m}"]["fused_ce_fwd"][0]}
-                         for m in sorted(ce_sizes)},
+                         for m in ce_sizes if "/" not in m},
+        # the widths the kernels used to refuse: bf16 CE past 768 features,
+        # the MaxSim backward past 4096
+        "ce_wide": {m: {f"fused_ce_{key}": {
+            "ms": timing[f"fused_ce_{key}/{m}"][0], "plain_ms": timing[f"fused_ce_{key}/{m}"][1],
+            "bound_ms": timing[f"ce_bounds/{m}"][f"fused_ce_{key}"][0],
+            "bound_by": timing[f"ce_bounds/{m}"][f"fused_ce_{key}"][1]}
+            for key in ("fwd", "bwd_da", "bwd_db")} for m in ce_sizes if "/" in m},
+        "maxsim_bwd_wide": maxsim_wide,
         "ln_only_train_step": {"batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
                                "ms": ln_only["step_ms"], "peak_gib": ln_only["peak_gib"],
                                "over_default": ln_only["over_default"],
@@ -5977,7 +5996,7 @@ def main() -> int:
         "eval": evaluation,
         "launches_tar": {name: run["launches"] for name, run in tar["runs"].items()},
         "tar": tar, "dist": data_parallel, "families": families, "pod": pod,
-        "saves": saves, "gspmd": sharded, "aot": bundle, "wide": wide,
+        "saves": saves, "gspmd": sharded, "aot": bundle,
         "scripts": scripts}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -155,15 +155,18 @@ def resource_usage(stems) -> dict:
     """Registers and spills of every kernel in ``csrc/<stem>.cu``, as ``nvcc
     -Xptxas -v`` reports them: {kernel<template arguments>: (registers, stack
     bytes, spill-store bytes, spill-load bytes)}, the name without its
-    namespaces. Compiles into a temporary directory and keeps nothing; for
-    reports only, no path needs it."""
+    namespaces. One nvcc per source, all started together, into a temporary
+    directory that keeps nothing; for reports only, no path needs it."""
     nvcc = find_nvcc()
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for stem in stems:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC_DIR / f"{stem}.cu"),
-                 "-o", os.path.join(tmp, f"{stem}.o")], capture_output=True, text=True)
+    stems = list(stems)
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(max(1, len(stems))) as pool:
+        procs = [pool.submit(subprocess.run, [
+            nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC_DIR / f"{stem}.cu"),
+            "-o", os.path.join(tmp, f"{stem}.o")], capture_output=True, text=True)
+            for stem in stems]
+        for fut in procs:
+            proc = fut.result()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
             text = proc.stderr

@@ -18,7 +18,8 @@ to the fp32 output, and the output is scaled at the end. The wrapper pads
 rows to a multiple of 8 features with zeros. A CUDA kernel cannot run here,
 so this file writes the same algorithm in plain PyTorch (a bf16 x bf16
 product is exact in fp32; each k-step sums its 16 products per (i, j) from a
-[own, stream, 16] tensor, so the sum does not depend on which matrix is own)
+[own, stream, 16] tensor, so the sum does not depend on which matrix is own;
+step 3 likewise, k-step by k-step in fp32, dz_hi then dz_lo)
 and holds it against the unchanged plain versions ``fused_ce_fwd_plain``
 (``chip_smoke.py``'s 1e-5 of 1 + |loss|) and ``fused_ce_bwd_da_plain`` /
 ``fused_ce_bwd_db_plain`` (1e-4 of the largest |grad|, dscale included), and
@@ -169,15 +170,20 @@ def chunked_logit_tile(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def tile_product(dz: torch.Tensor, y: torch.Tensor, split: bool = True) -> torch.Tensor:
-    """Step 3's tile sum, dz_hi . y (+ dz_lo . y), rounded to fp32: each
-    bf16 x bf16 product exact, added in float64 in stream-row order (one
-    cumulative sum; the kernel's mma sums differ from it within the bar). A
-    column's sum reads only that column of y (an mma n-tile), so the columns
-    of a slice of y get the bits the whole y gives them."""
+    """Step 3's tile sum from zero, in the kernel's order: for each of the
+    tile's k-steps of 16 stream rows, the 16 exact bf16 x bf16 products of
+    dz_hi (then of dz_lo) with a column of y summed in fp32 and added to the
+    tile's fp32 sum (one mma each), which the caller adds to acc. A column's
+    sum reads only that column of y (an mma n-tile), so the columns of a
+    slice of y get the bits the whole y gives them."""
     hi = dz.bfloat16().float()
     halves = (hi, (dz - hi).bfloat16().float()) if split else (hi,)
-    terms = torch.cat([h.double()[:, :, None] * y.double()[None] for h in halves], dim=1)
-    return terms.cumsum(dim=1)[:, -1].float()
+    yt = y.T.contiguous()
+    tile = torch.zeros(dz.shape[0], y.shape[1])
+    for k0 in range(0, dz.shape[1], KSTEP):
+        for half in halves:
+            tile = tile + (half[:, None, k0:k0 + KSTEP] * yt[None, :, k0:k0 + KSTEP]).sum(-1)
+    return tile
 
 
 @pytest.fixture(scope="module", autouse=True)
