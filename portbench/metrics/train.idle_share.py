@@ -1,0 +1,7 @@
+"""train.idle_share (%): the share of the traced window in which no device
+operation runs (the union of kernel, copy and fill intervals)."""
+from portbench import readers
+
+
+def read(view, window, cell):
+    return readers.idle_share(view)
